@@ -1,0 +1,63 @@
+"""Core data types for MinUsageTime Dynamic Vector Bin Packing (DVBP).
+
+An instance is a set of items r with d-dimensional size vectors s(r) in
+(0, 1]^d and active intervals I(r) = [arrival, departure); bins have unit
+capacity.  Instances are struct-of-arrays (numpy): the replay moves them to
+the device once per batch.  Counterpart of ``repro.core.types``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+# Feasibility tolerance of the f64 host-side checks (instance validation,
+# the Eq.(1) bound); the fp32 replay uses ``kernels.fitscore.F32_EPS``.
+EPS = 1e-9
+
+
+@dataclasses.dataclass(frozen=True)
+class Instance:
+    """A MinUsageTime DVBP instance (struct of arrays, sorted by arrival)."""
+
+    sizes: np.ndarray       # (n, d) float64, each component in (0, 1]
+    arrivals: np.ndarray    # (n,) float64
+    departures: np.ndarray  # (n,) float64, departures > arrivals
+    name: str = "instance"
+
+    def __post_init__(self):
+        n, d = self.sizes.shape
+        if self.arrivals.shape != (n,) or self.departures.shape != (n,):
+            raise ValueError(f"{self.name}: arrivals/departures must be ({n},)")
+        if n:
+            if not np.all(self.departures > self.arrivals):
+                raise ValueError(f"{self.name}: empty intervals")
+            if not np.all(self.sizes > 0):
+                raise ValueError(f"{self.name}: item sizes must be positive")
+            if not np.all(self.sizes <= 1 + EPS):
+                raise ValueError(f"{self.name}: item sizes must be <= capacity")
+            if not np.all(np.diff(self.arrivals) >= 0):
+                raise ValueError(f"{self.name}: must be sorted by arrival")
+
+    @property
+    def n_items(self) -> int:
+        return self.sizes.shape[0]
+
+    @property
+    def d(self) -> int:
+        return self.sizes.shape[1]
+
+    @property
+    def durations(self) -> np.ndarray:
+        return self.departures - self.arrivals
+
+    def sorted_by_arrival(self) -> "Instance":
+        order = np.argsort(self.arrivals, kind="stable")
+        return Instance(self.sizes[order], self.arrivals[order],
+                        self.departures[order], self.name)
+
+    def subset(self, mask: np.ndarray,
+               name: Optional[str] = None) -> "Instance":
+        return Instance(self.sizes[mask], self.arrivals[mask],
+                        self.departures[mask], name or self.name)

@@ -1,0 +1,87 @@
+"""Build the port's CUDA kernels from the sources in ``csrc/`` at first use.
+
+``nvcc`` compiles ``csrc/select.cu`` for Hopper (``sm_90a``) into a shared
+library with a plain C interface, which ``ctypes`` loads.  The library is
+named by a hash of its sources and flags and written to ``_build/`` beside
+this file (listed in ``.gitignore``), so an edited source rebuilds and an
+unchanged one is reused.  Nothing is built when the module is imported.
+
+Flags: ``-O3 --fmad=false``.  Contraction is off so that the score and
+capacity arithmetic round once per operation, as the JAX package's select
+does; the l2 norm's FMA chain is written out with ``fmaf`` in the source.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+SOURCES = ("select.cu",)
+HEADERS = ("fitscore_common.cuh",)
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
+              "-fPIC")
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
+                       "with the CUDA toolkit (set CUDA_HOME)")
+
+
+def library_path() -> str:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libfitscore_{h.hexdigest()[:16]}.so")
+
+
+def build() -> tuple:
+    """Compile the library unless it exists; returns (path, build seconds,
+    the compiler's report: ptxas registers, spills, shared memory), with 0.0
+    seconds and an empty report when it was already built."""
+    path = library_path()
+    if os.path.exists(path):
+        return path, 0.0, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+               *(os.path.join(CSRC, s) for s in SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)   # atomic: a concurrent builder sees all or none
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path, time.perf_counter() - t0, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed)."""
+    path = build()[0]
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fitscore_select_launch.argtypes = [p] * 12 + [i, i, i, i, p]
+    lib.fitscore_select_launch.restype = i
+    lib.fitscore_error_string.argtypes = [i]
+    lib.fitscore_error_string.restype = ctypes.c_char_p
+    return lib

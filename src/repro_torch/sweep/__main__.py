@@ -1,0 +1,87 @@
+"""``python -m repro_torch sweep``: evaluate a DVBP experiment grid on the
+card (the reference's ``python -m repro sweep`` for the 8 score policies).
+
+    PYTHONPATH=src python -m repro_torch sweep --suites azure \
+        --n-instances 28 --n-items 5000 --preds clairvoyant lognormal:1.0 \
+        --seeds 0,1
+    # the same command again: every group prints "skip ... (cached)"
+    PYTHONPATH=src python -m repro_torch sweep --device cpu --n-items 200
+"""
+from __future__ import annotations
+
+import argparse
+
+from ..core.torchsim import POLICIES
+from .grid import PredModel, SuiteSpec, SweepSpec, run_sweep, summarize_sweep
+from .store import SweepStore
+
+SUITE_DEFAULT_SEED = {"azure": 2026, "huawei": 77, "azure_trace": 0}
+
+
+def _pred(token: str) -> PredModel:
+    kind, _, param = token.partition(":")
+    if kind in ("lognormal", "uniform") and not param:
+        unit = "SIGMA" if kind == "lognormal" else "EPS"
+        raise SystemExit(f"--preds {kind} needs a parameter: {kind}:{unit}")
+    return PredModel(kind, float(param) if param else 0.0)
+
+
+def main(argv=None, prog: str = "python -m repro_torch sweep") -> None:
+    ap = argparse.ArgumentParser(
+        prog=prog,
+        description="Evaluate a DVBP experiment grid in batched replays on "
+                    "the card.")
+    ap.add_argument("--suites", nargs="+", default=["azure"],
+                    choices=["azure", "huawei", "azure_trace"])
+    ap.add_argument("--n-instances", type=int, default=6)
+    ap.add_argument("--n-items", type=int, default=500)
+    ap.add_argument("--suite-seed", type=int, default=None,
+                    help="instance-generator seed (default: family-specific)")
+    ap.add_argument("--policies", default="all",
+                    help=f"comma list from {','.join(POLICIES)} or 'all' "
+                         "(the category policies are not ported yet)")
+    ap.add_argument("--preds", nargs="+", default=["clairvoyant"],
+                    help="prediction models: none | clairvoyant | "
+                         "lognormal:SIGMA | uniform:EPS")
+    ap.add_argument("--seeds", default="0",
+                    help="comma list of seeds for noisy prediction models")
+    ap.add_argument("--max-bins", type=int, default=64)
+    ap.add_argument("--max-bins-cap", type=int, default=8192)
+    ap.add_argument("--store", default="experiments/sweeps",
+                    help="result-store directory")
+    ap.add_argument("--no-store", action="store_true")
+    ap.add_argument("--force", action="store_true",
+                    help="recompute even if the store has results")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the replay (default cuda; cpu runs "
+                         "the plain PyTorch select)")
+    args = ap.parse_args(argv)
+
+    policies = POLICIES if args.policies == "all" else \
+        tuple(args.policies.split(","))
+    suites = tuple(
+        SuiteSpec(fam, args.n_instances, args.n_items,
+                  args.suite_seed if args.suite_seed is not None
+                  else SUITE_DEFAULT_SEED[fam])
+        for fam in args.suites)
+    spec = SweepSpec(
+        suites=suites, policies=policies,
+        predictions=tuple(_pred(t) for t in args.preds),
+        seeds=tuple(int(s) for s in args.seeds.split(",")),
+        max_bins=args.max_bins, max_bins_cap=args.max_bins_cap)
+    store = None if args.no_store else SweepStore(args.store)
+    print(f"# sweep {spec.spec_hash()} -> "
+          f"{store.path(spec) if store else '(not stored)'}")
+    records = run_sweep(spec, store=store, force=args.force,
+                        progress=lambda m: print(f"# {m}", flush=True),
+                        device=args.device)
+
+    print(f"{'policy':<18} {'pred':<14} {'n':>4} {'mean':>8} {'median':>8} "
+          f"{'q1':>8} {'q3':>8}")
+    for (policy, pred), st in summarize_sweep(records).items():
+        print(f"{policy:<18} {pred:<14} {st.n:>4} {st.mean:>8.4f} "
+              f"{st.median:>8.4f} {st.q1:>8.4f} {st.q3:>8.4f}")
+
+
+if __name__ == "__main__":
+    main(prog="python -m repro_torch.sweep")

@@ -1,0 +1,100 @@
+"""Batched DVBP replay: one lane-batched replay per (grid, policy);
+counterpart of ``repro.sweep.runner`` on a single device.
+
+``run_batch`` flattens the (B, S) grid of instances x prediction-seed rows
+to L = B*S lanes (lane = b*S + s, b-major: the store's records depend on
+this order) and replays them in one ``torchsim._replay_batch`` call.
+
+Overflow handling mirrors ``torchsim.simulate(auto_grow=True)`` lane-wise:
+any instance whose slot pool overflowed (in any seed row) is re-run with
+``max_bins`` doubled, rung after rung, up to ``max_bins_cap``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+
+from ..core.torchsim import (MAX_BINS_CAP, _replay_batch, grow_max_bins,
+                             known_policy, require_score_policy)
+from ..kernels.ops import resolve_device
+from .batching import InstanceBatch, instances_pdeps
+
+
+def _flatten_lanes(sizes, times, kinds, items, pdeps, dmask, arrivals,
+                   rdeps, n_items):
+    """Flatten the (B, S) grid to L = B*S lanes, lane = b*S + s: per-lane
+    arrays repeat b-major to match ``pdeps.reshape``'s row order."""
+    B, S, n_max = pdeps.shape
+    rep = (lambda a: np.repeat(a, S, axis=0)) if S > 1 else (lambda a: a)
+    return (rep(sizes), rep(times), rep(kinds), rep(items),
+            pdeps.reshape(B * S, n_max), rep(dmask), rep(arrivals),
+            rep(rdeps), rep(n_items))
+
+
+@dataclasses.dataclass
+class BatchRunResult:
+    usage_time: np.ndarray     # (B, S) float
+    n_bins_opened: np.ndarray  # (B, S) int
+    overflowed: np.ndarray     # (B, S) bool (True only if the cap was hit)
+    max_bins: np.ndarray       # (B,) slot-pool size that produced each lane
+
+    @property
+    def S(self) -> int:
+        return self.usage_time.shape[1]
+
+
+def run_batch(batch: InstanceBatch, policy: str,
+              pdeps: Optional[np.ndarray] = None, max_bins: int = 64,
+              max_bins_cap: int = MAX_BINS_CAP, auto_grow: bool = True,
+              device="cuda") -> BatchRunResult:
+    """Replay every lane of ``batch`` under a score ``policy``.
+
+    ``pdeps``: (B, S, n_max) predicted departure times (see
+    ``batching.pad_predictions``); defaults to the real departures.
+    ``device``: where the replay runs ("cuda" unless the caller asks for
+    "cpu")."""
+    if not known_policy(policy):
+        raise KeyError(f"{policy!r} is not a scan policy")
+    require_score_policy(policy)
+    dev = resolve_device(device)
+    if pdeps is None:
+        pdeps = instances_pdeps(batch)
+    B, S, _ = pdeps.shape
+    if B != batch.B:
+        raise ValueError(f"pdeps has {B} lanes, the batch {batch.B}")
+
+    usage = np.zeros((B, S))
+    opened = np.zeros((B, S), np.int64)
+    over = np.ones((B, S), bool)
+    mb_used = np.full(B, max_bins, np.int64)
+    arrays = (batch.sizes, batch.times, batch.kinds, batch.items, pdeps,
+              batch.dmask, batch.arrivals, batch.pdeps, batch.n_items)
+    lanes = np.arange(B)
+    mb = max_bins
+    while True:
+        sub = _flatten_lanes(*(a[lanes] for a in arrays))
+        u, o, _placements, ov = _replay_batch(
+            *sub, policy=policy, max_bins=mb, device=dev)
+        n = lanes.size
+        usage[lanes] = u.cpu().numpy().reshape(n, S)
+        opened[lanes] = o.cpu().numpy().reshape(n, S)
+        ov = ov.cpu().numpy().reshape(n, S)
+        over[lanes] = ov
+        mb_used[lanes] = mb
+        lanes = lanes[ov.any(axis=1)]
+        if lanes.size == 0 or not auto_grow or mb >= max_bins_cap:
+            break
+        mb = grow_max_bins(mb, max_bins_cap)
+    return BatchRunResult(usage, opened, over, mb_used)
+
+
+def run_grid(batch: InstanceBatch, policies: Sequence[str],
+             pdeps: Optional[np.ndarray] = None, max_bins: int = 64,
+             max_bins_cap: int = MAX_BINS_CAP,
+             device="cuda") -> Dict[str, BatchRunResult]:
+    """One batched run per policy over the same instance batch."""
+    return {p: run_batch(batch, p, pdeps, max_bins, max_bins_cap,
+                         device=device)
+            for p in policies}
