@@ -4,34 +4,58 @@
 
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. Device and build: the card's name and power limit, then the select
-   kernel built from ``src/repro_torch/kernels/csrc`` (build time printed).
-2. Kernel vs plain: the CUDA select against ``select_ref`` on the card, on
+1. Device and build: the card's name and power limit, then the port's two
+   kernels built from ``src/repro_torch/kernels/csrc`` (one nvcc per
+   source, started together; build time printed).
+2. Select vs plain: the CUDA select against ``select_ref`` on the card, on
    random, tied and full pools for every score policy, with and without a
    category mask - (slot, found, no_free) must be identical.  Then the
    kernel's and the plain version's time at the main path's shapes (L=28
    and 56 lanes at Np=64 slots, L=28 at Np=128; d=5) beside the card's
    bound for the same work.
-3. Headline grid: the 28 x 250, seed-11 Azure-like grid of four policies
-   (first_fit, best_fit_l2, greedy, nrt_prioritized; max_bins=64) through
-   ``run_batch``; total usage must equal ``REF_USAGE_28x4``.
-4. Main path at full size: ``run_sweep`` over the 28-instance Azure-like
-   suite at the generator's default size (28 x 5000 nominal, 138221 VMs),
-   all 8 score policies x {clairvoyant, lognormal:1.0} x seeds {0, 1} into a
-   temporary store.  Every replay step must have launched the kernel once;
+3. Megakernel vs plain: the CUDA replay megakernel against
+   ``replay_block_ref`` on the card for all 21 policy names (every kernel
+   family), L in {8, 56}, Np in {64, 128, 300}, d in {2, 4, 5}, T in {1,
+   64, 256} with a PAD tail, from a mid-replay carry: every carry array
+   must be equal.  Then its device time per launch over a whole scan of the
+   main path (L=56 and 28, Np=64 and 128, T=256) beside its bound (the
+   bytes and operations each block's data needs) and the serial chain of
+   events per lane; the same scan replayed again must end in the same
+   carry, and its mid-scan block, replayed by ``replay_block_ref`` from the
+   kernel's carry, must give every carry array equal.
+4. Headline grids: the 28 x 250, seed-11 Azure-like grid of four score
+   policies (first_fit, best_fit_l2, greedy, nrt_prioritized; max_bins=64)
+   through ``run_batch``, total usage ``REF_USAGE_28x4``; and the category
+   grid of benchmarks/perf.py::sweep_categories (cbd, reduced_hybrid,
+   ppe_modified, la_binary x lognormal:1.0 x seeds 0-5), per event (the
+   select with its category mask) and blocked, each totalling
+   ``REF_USAGE_CAT_28x4``.
+5. Main path per event: ``run_sweep`` over the 28-instance Azure-like suite
+   at the generator's default size (28 x 5000 nominal, 138221 VMs), the 8
+   score policies x {clairvoyant, lognormal:1.0} x seeds {0, 1} into a
+   temporary store.  Every replay step must have launched the select once;
    best_fit_l2 x clairvoyant is replayed again with the plain select bound
    in place of the kernel's wrapper and must agree; a second run over the
    store must find every group cached.
+6. Main path blocked: the same sweep with all 21 policies and
+   ``block_events=BLOCK_EVENTS``: the megakernel must have launched once
+   per block of every scan and the select never, the score policies'
+   records must equal phase 5's, and every record is finite, overflow-free
+   and at least the Eq.(1) bound; the wall time is split into the scans'
+   CPU set-up, their copies to the card, their launches and the rest.
+   Then ppe_modified x lognormal:1.0 x seed 0 per event at full size must
+   equal its blocked records.
 
-Then, as a measurement and not a check, 400 replay steps of the main
-path's first rung (L=28, Np=64) under torch.profiler: device busy time
-against wall time per step.
+Then, as a measurement and not a check, torch.profiler over 400 per-event
+replay steps of the main path's first rung (L=28, Np=64) and over one
+blocked scan: device busy time against wall time.
 
 Prints the card's name and power limit and a JSON line of kernel numbers
 before the last line, which is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -48,6 +72,19 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # reference on the CPU.
 REF_USAGE_28x4 = 179426678
 HEADLINE_POLICIES = ("first_fit", "best_fit_l2", "greedy", "nrt_prioritized")
+# The category headline: benchmarks/perf.py::sweep_categories (the same 28 x
+# 250 seed-11 suite, four category policies x lognormal:1.0 x seeds 0-5) on
+# the JAX package's jnp path; tests/test_torch_categories.py ties it to the
+# reference on the CPU.
+REF_USAGE_CAT_28x4 = 1467354455
+CAT_HEADLINE_POLICIES = ("cbd", "reduced_hybrid", "ppe_modified", "la_binary")
+CAT_HEADLINE_SEEDS = (0, 1, 2, 3, 4, 5)
+
+# Events per megakernel launch on the blocked main path: the events of a
+# lane are a serial chain either way; 256 puts ~55 launches in a 13.9k-event
+# scan, so the launch and its host-side wrapper cost ~1/256 of an event
+# each, and the tested T in {1, 64, 256} of phase 3 includes it.
+BLOCK_EVENTS = 256
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM memory rate
 F32_OPS_PER_S = 67e12        # H100 SXM fp32 rate outside the tensor cores
@@ -242,6 +279,272 @@ def time_select(dev, L, Np, d, policy):
             "bound_by": bound_by}
 
 
+def synthetic_lanes(rng, L, d, n_max=300):
+    """``L`` lanes of random instances in ``d`` dims of n_max/2..n_max items
+    each (so the shorter lanes end in PAD events), long-lived enough to keep
+    tens of bins open, and the three prediction settings in turn:
+    clairvoyant, pdep == arrival, lognormal noise.  Flattened lane arrays
+    as ``torchsim._replay_batch`` takes them."""
+    import numpy as np
+    from repro_torch.core.types import Instance
+    from repro_torch.sweep import pack_instances, pad_predictions
+    from repro_torch.sweep.runner import _flatten_lanes
+    insts, preds = [], []
+    for lane in range(L):
+        n = int(rng.integers(n_max // 2, n_max + 1))
+        arr = np.sort(rng.uniform(0.0, 20000.0, n))
+        dur = rng.lognormal(8.5, 1.0, n)
+        insts.append(Instance(rng.uniform(0.01, 0.45, (n, d)), arr,
+                              arr + dur, f"s{lane}").sorted_by_arrival())
+        real = insts[-1].durations
+        preds.append([real, np.zeros(n),
+                      real * rng.lognormal(0.0, 1.0, n)][lane % 3][None])
+    batch = pack_instances(insts)
+    return _flatten_lanes(batch.sizes, batch.times, batch.kinds, batch.items,
+                          pad_predictions(batch, preds), batch.dmask,
+                          batch.arrivals, batch.pdeps, batch.n_items)
+
+
+def padded_streams(policy, flat, extra, dev):
+    """The replay's event streams of ``flat`` for ``policy``, padded with
+    ``extra`` PAD events, on ``dev``."""
+    import torch
+    from repro_torch.core import torchsim
+    from repro_torch.kernels.fitscore import PAD_KIND
+    ev_i, ev_f, ev_size, dmask, fam, d = torchsim._event_streams(
+        policy, *flat, None)
+    L = ev_size.shape[0]
+    fill_i = torch.zeros((ev_i.shape[0], L, extra), dtype=torch.int32)
+    fill_i[0] = PAD_KIND
+    ev_i = torch.cat([ev_i, fill_i], dim=2)
+    ev_f = torch.cat([ev_f, ev_f.new_zeros(ev_f.shape[:2] + (extra,))], 2)
+    ev_size = torch.cat([ev_size, ev_size.new_zeros((L, extra, 8))], 1)
+    return [a.to(dev) for a in (ev_i, ev_f, ev_size, dmask)], fam, d
+
+
+def phase_megakernel_vs_plain(dev):
+    """Every policy name, T in {1, 64, 256}, with (L, Np, d) cycling
+    through {8, 56} x {64, 128, 300} x {2, 4, 5}: one launch against one
+    ``replay_block_ref`` block from the same mid-replay carry (replayed by
+    the kernel up to the block); T = 64 and 256 straddle the end of the
+    longest lane, so the block ends in PAD events."""
+    import itertools
+    import numpy as np
+    import torch
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fitscore import replay_block_ref
+    rng = np.random.default_rng(12)
+    combos = list(itertools.product((8, 56), (64, 128, 300), (2, 4, 5)))
+    data = {}
+    n_cases = max_err = 0
+    for pi, policy in enumerate(torchsim.SCAN_POLICIES):
+        for ti, T in enumerate((1, 64, 256)):
+            L, Np, d = combos[(3 * pi + ti) % len(combos)]
+            if (L, d) not in data:
+                data[(L, d)] = synthetic_lanes(rng, L, d)
+            flat = data[(L, d)]
+            E = flat[1].shape[1]
+            (ev_i, ev_f, ev_size, dmask), fam, _ = padded_streams(
+                policy, flat, T, dev)
+            kw = torchsim.replay_block_kwargs(policy, Np, d)
+            start = E // 2 if T == 1 else E - T // 2
+            carry = torchsim.packed_init_carry(fam, L, flat[0].shape[1], Np,
+                                               dev)
+            ops.fitscore_replay_block(carry, ev_i[:, :, :start],
+                                      ev_f[:, :, :start],
+                                      ev_size[:, :start], dmask, **kw)
+            plain = {k: v.clone() for k, v in carry.items()}
+            blk = slice(start, start + T)
+            ops.fitscore_replay_block(carry, ev_i[:, :, blk],
+                                      ev_f[:, :, blk], ev_size[:, blk],
+                                      dmask, **kw)
+            replay_block_ref(plain, ev_i[:, :, blk], ev_f[:, :, blk],
+                             ev_size[:, blk], dmask, **kw)
+            torch.cuda.synchronize()
+            for k in carry:
+                err = float((carry[k].double() - plain[k].double())
+                            .abs().max())
+                max_err = max(max_err, err)
+                if not torch.equal(carry[k], plain[k]):
+                    fail(f"megakernel != plain: {policy} L={L} Np={Np} "
+                         f"d={d} T={T}: {k} differs (max |diff| {err})")
+            n_cases += 1
+    say(f"# megakernel == plain on {n_cases} blocks (21 policies x T in "
+        "{1, 64, 256}; every carry array equal)")
+    return max_err
+
+
+def block_bytes(before, after, blk, fam, d):
+    """The bytes one megakernel launch must move, counted from this block's
+    data: each input read once, each output written once, and only the
+    columns the family uses.  Reads: the event streams of the block (the
+    kind of a PAD event, every plane and the ``d`` real size columns of a
+    real one), the dim mask, every slot row (the select considers each),
+    and the item, hybrid-key, RCP-category and RCP-base rows the block's
+    events name; writes: the rows whose value the block changed (a changed
+    row not among the reads is read once too).  Returned as a device
+    scalar, with the select's operations: per arrival, an add and a
+    compare per real dim and one argmin compare for every slot alive at
+    the block's start (the policy's score not counted)."""
+    import torch
+    from repro_torch.kernels.fitscore import (ARRIVAL_KIND, DEPARTURE_KIND,
+                                              KCAT, RAGG_BASE, SLOTI_ALIVE)
+    ev_i, ev_f, _ = blk
+    L, T = ev_i.shape[1:]
+    arr = ev_i[0] == ARRIVAL_KIND
+    real = arr | (ev_i[0] == DEPARTURE_KIND)
+    n_real = real.sum()
+    nbytes = n_real * ((ev_i.shape[0] + ev_f.shape[0] + d) * 4) + \
+        (L * T - n_real) * 4 + L * d * 4
+    tagged = fam in ("cbd", "hybrid", "rcp")
+    row_bytes = {"loads": 4 * d, "slotf": 8, "sloti": 20 if tagged else 16,
+                 "itemi": 8 if fam in ("hybrid", "rcp") else 4,
+                 "sf": 8 if fam in ("rcp", "adaptive") else 4,
+                 "si": 16 if fam == "rcp" else 12, "hagg": 4 * d,
+                 "ragg": 4 * d, "ron": 4}
+    lane, ev = real.nonzero(as_tuple=True)
+
+    def named(rows, planes):
+        need = torch.zeros((L, rows), dtype=torch.bool, device=real.device)
+        for p, off in planes:
+            need[lane, ev_i[p][lane, ev].long() + off] = True
+        return need
+
+    for k, x in before.items():
+        y = after[k]
+        if x.dim() == 2:                 # sf, si: one row per lane
+            changed = (x != y).any(-1, keepdim=True)
+            need = torch.ones_like(changed)
+        else:
+            changed = (x != y).any(-1)
+            if k in ("loads", "slotf", "sloti"):
+                need = torch.ones_like(changed)
+            elif k == "itemi":
+                need = named(x.shape[1], [(1, 0)])
+            elif k in ("hagg", "ron"):
+                need = named(x.shape[1], [(2, 0)])
+            else:                        # ragg: gen and cat rows, the base
+                need = named(x.shape[1], [(2, 0), (2, KCAT)])
+                need[:, RAGG_BASE] = True
+        nbytes = nbytes + ((need | changed).sum() + changed.sum()) * \
+            row_bytes[k]
+    alive = before["sloti"][:, :, SLOTI_ALIVE].sum(1)
+    nops = (arr.sum(1) * alive).sum() * (2 * d + 1)
+    return nbytes, nops
+
+
+def time_megakernel(dev, n_items: int = 5000):
+    """Device time per launch of the megakernel over a whole scan of the
+    main path (a spin kernel holds the stream while the launches queue).
+    Then the same scan again, launch by launch, for the checks and the
+    bound: the mid-scan block (NB // 2) is replayed by ``replay_block_ref``
+    from the kernel's carry and every carry array must be equal, the final
+    carry must equal the timed run's, and each block's bytes and operations
+    are counted from its data (``block_bytes``).  The line of kernel
+    numbers takes the medians over the 21 policies at the lognormal
+    groups' first rung (L=56, Np=64)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fitscore import PAD_KIND, replay_block_ref
+    from repro_torch.sweep import PredModel, SuiteSpec, pad_predictions
+    from repro_torch.sweep.batching import instances_pdeps
+    from repro_torch.sweep.grid import _built_suite
+    from repro_torch.sweep.runner import _flatten_lanes
+    T = BLOCK_EVENTS
+    insts, _, b = _built_suite(SuiteSpec("azure", 28, n_items))
+    lanes = {28: _flatten_lanes(
+        b.sizes, b.times, b.kinds, b.items, instances_pdeps(b), b.dmask,
+        b.arrivals, b.pdeps, b.n_items)}
+    logn = pad_predictions(b, [PredModel("lognormal", 1.0).durations(
+        i, (0, 1)) for i in insts])
+    lanes[56] = _flatten_lanes(b.sizes, b.times, b.kinds, b.items, logn,
+                               b.dmask, b.arrivals, b.pdeps, b.n_items)
+    E = b.times.shape[1]
+    NB = -(-E // T)
+    mid = NB // 2
+    say(f"# megakernel timing: one scan of {E} events = {NB} launches of "
+        f"T={T}; block {mid} checked against the plain version")
+    one_per_family = ("first_fit", "cbd", "hybrid", "ppe_modified",
+                      "la_binary", "adaptive")
+    rows = {}
+    for L, Np, policies in ((56, 64, torchsim.SCAN_POLICIES),
+                            (28, 64, one_per_family),
+                            (28, 128, one_per_family)):
+        flat = lanes[L]
+        for policy in policies:
+            (ev_i, ev_f, ev_size, dmask), fam, d = padded_streams(
+                policy, flat, NB * T - E, dev)
+            kw = torchsim.replay_block_kwargs(policy, Np, d)
+            blocks = [(ev_i[:, :, k:k + T], ev_f[:, :, k:k + T],
+                       ev_size[:, k:k + T]) for k in range(0, NB * T, T)]
+
+            def fresh():
+                return torchsim.packed_init_carry(fam, L, b.n_max, Np, dev)
+            warm = fresh()
+            ops.fitscore_replay_block(warm, *blocks[0], dmask, **kw)
+            timed = fresh()
+            torch.cuda.synchronize()
+            t0, t1 = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(400_000_000)      # ~0.2 s of spinning
+            t0.record()
+            for blk in blocks:
+                ops.fitscore_replay_block(timed, *blk, dmask, **kw)
+            t1.record()
+            torch.cuda.synchronize()
+            ms = t0.elapsed_time(t1) / NB
+
+            carry, counts = fresh(), []
+            for k, blk in enumerate(blocks):
+                before = {n: v.clone() for n, v in carry.items()}
+                ops.fitscore_replay_block(carry, *blk, dmask, **kw)
+                counts.append(block_bytes(before, carry, blk, fam, d))
+                if k != mid:
+                    continue
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                replay_block_ref(before, *blk, dmask, **kw)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t2) * 1e3
+                for n in carry:
+                    if not torch.equal(carry[n], before[n]):
+                        fail(f"megakernel != plain on main-path block {k}: "
+                             f"{policy} L={L} Np={Np}: {n} differs")
+            for n in carry:
+                if not torch.equal(carry[n], timed[n]):
+                    fail(f"megakernel: two replays of one scan differ "
+                         f"({policy} L={L} Np={Np}: {n})")
+            nbytes, nops = (torch.stack(c).double().cpu().numpy()
+                            for c in zip(*counts))
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = nops / F32_OPS_PER_S * 1e3
+            bound_ms = float(np.maximum(t_bytes, t_ops).mean())
+            bound_by = "bytes" if t_bytes.sum() >= t_ops.sum() else \
+                "operations"
+            real = ((ev_i[0] != PAD_KIND).view(L, NB, T).sum(2)
+                    .max(0).values.double().mean())
+            rows[(L, Np, policy)] = (ms, bound_ms, bound_by, plain_ms)
+            say(f"#   megakernel L={L} Np={Np} T={T} {policy:<26} "
+                f"{ms:.6f} ms/launch (device), bound {bound_ms:.3e} ms by "
+                f"{bound_by} ({nbytes.mean():.0f} B, {nops.mean():.0f} "
+                f"fp32 ops a launch); serial chain {float(real):.1f} events "
+                f"a launch, {ms / float(real) * 1e3:.3f} us each; plain "
+                f"{plain_ms:.1f} ms on block {mid} (wall), equal")
+    main = [rows[(56, 64, p)] for p in torchsim.SCAN_POLICIES]
+    med = {"ms": float(np.median([r[0] for r in main])),
+           "bound_ms": float(np.median([r[1] for r in main])),
+           "bound_by": main[0][2],
+           "plain_ms": float(np.median([r[3] for r in main]))}
+    say(f"# megakernel == plain on block {mid} of {len(rows)} main-path "
+        f"scans; medians over 21 policies at L=56 Np=64 T={T}: "
+        f"{med['ms']:.6f} ms/launch, bound {med['bound_ms']:.3e} ms, "
+        f"plain {med['plain_ms']:.1f} ms/block")
+    return med
+
+
 def phase_headline(dev):
     from repro_torch.data import make_azure_like_suite
     from repro_torch.sweep import pack_instances, run_batch
@@ -254,6 +557,37 @@ def phase_headline(dev):
     if f"{total:.0f}" != str(REF_USAGE_28x4):
         fail(f"headline usage {total:.0f} != REF_USAGE_28x4 "
              f"{REF_USAGE_28x4}")
+
+
+def phase_category_headline(dev):
+    """The category grid per event (the select with the category mask) and
+    blocked (the megakernel): each must total REF_USAGE_CAT_28x4."""
+    from repro_torch.core import lognormal_predictions_batch
+    from repro_torch.data import make_azure_like_suite
+    from repro_torch.kernels import ops
+    from repro_torch.sweep import pack_instances, pad_predictions, run_batch
+    insts = make_azure_like_suite(28, 250, seed=11)
+    batch = pack_instances(insts)
+    pdeps = pad_predictions(batch, [lognormal_predictions_batch(
+        i, 1.0, CAT_HEADLINE_SEEDS) for i in insts])
+    for T, kernel in ((0, "fitscore_select"),
+                      (BLOCK_EVENTS, "fitscore_replay_block")):
+        ops.launches.clear()
+        t0 = time.perf_counter()
+        total = sum(float(run_batch(batch, p, pdeps, max_bins=64, device=dev,
+                                    block_events=T).usage_time.sum())
+                    for p in CAT_HEADLINE_POLICIES)
+        say(f"# category headline 28x250 seed 11 "
+            f"{','.join(CAT_HEADLINE_POLICIES)} x lognormal:1.0 x 6 seeds, "
+            f"block_events={T}: total usage {total:.2f} in "
+            f"{time.perf_counter() - t0:.1f} s ({ops.launches[kernel]} "
+            f"{kernel} launches)")
+        if not ops.launches[kernel] or len(ops.launches) != 1:
+            fail(f"category headline (block_events={T}) launches "
+                 f"{dict(ops.launches)}")
+        if f"{total:.0f}" != str(REF_USAGE_CAT_28x4):
+            fail(f"category headline (block_events={T}) usage {total:.0f} "
+                 f"!= REF_USAGE_CAT_28x4 {REF_USAGE_CAT_28x4}")
 
 
 def phase_main_path(dev, n_items: int = 5000):
@@ -333,49 +667,181 @@ def phase_main_path(dev, n_items: int = 5000):
                 not all(m.startswith("skip") for m in msgs):
             fail("a second run over the store recomputed groups")
         say(f"# rerun over the store: all {len(msgs)} groups cached")
+    return launches, records, replays * n_events / wall
+
+
+def phase_blocked_main_path(dev, per_event_records, per_event_eps,
+                            n_items: int = 5000):
+    """The main path through the megakernel: all 21 policies, the same
+    suite and prediction settings as phase 5, ``block_events=BLOCK_EVENTS``;
+    then one category group per event at full size against it."""
+    import numpy as np
+    import torch
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import ops
+    from repro_torch.sweep import (PredModel, SuiteSpec, SweepSpec,
+                                   pad_predictions, run_batch, run_sweep,
+                                   summarize_sweep)
+    from repro_torch.sweep.grid import _built_suite, result_key
+    T = BLOCK_EVENTS
+    suite = SuiteSpec("azure", 28, n_items)
+    preds = (PredModel("clairvoyant"), PredModel("lognormal", 1.0))
+    spec = SweepSpec(suites=(suite,), policies=torchsim.SCAN_POLICIES,
+                     predictions=preds, seeds=(0, 1))
+    insts, _, batch = _built_suite(suite)
+    n_events = 2 * int(batch.n_items.sum())
+    NB = -(-batch.times.shape[1] // T)
+    # the wall time split per scan: the category set-up and event streams
+    # on the CPU (torchsim._event_streams), then the tail padding, the
+    # fresh carry and the host-to-device copies, then the launches up to
+    # the device's end of the scan (a synchronize after each scan, where
+    # the runner reads the results back anyway); the rest is the runner's
+    split, mark = collections.Counter(), [0.0]
+    streams, chunk = torchsim._event_streams, torchsim.replay_chunk
+
+    def timed_streams(*a, **k):
+        t = time.perf_counter()
+        out = streams(*a, **k)
+        mark[0] = time.perf_counter()
+        split["set-up"] += mark[0] - t
+        return out
+
+    def timed_chunk(*a, **k):
+        t = time.perf_counter()
+        split["copy"] += t - mark[0]
+        chunk(*a, **k)
+        torch.cuda.synchronize()
+        split["blocks"] += time.perf_counter() - t
+
+    ops.launches.clear()
+    torchsim.counters.clear()
+    torch.cuda.synchronize()
+    torchsim._event_streams, torchsim.replay_chunk = timed_streams, \
+        timed_chunk
+    try:
+        t0 = time.perf_counter()
+        records = run_sweep(spec, device=dev, block_events=T,
+                            progress=lambda m: say(f"#   {m}"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torchsim._event_streams, torchsim.replay_chunk = streams, chunk
+    launches = ops.launches["fitscore_replay_block"]
+    blocks = torchsim.counters["replay_blocks"]
+    replays = len(spec.policies) * (1 + len(spec.seeds))
+    eps = replays * n_events / wall
+    say(f"# blocked main path (block_events={T}): {len(records)} records "
+        f"in {wall:.1f} s, {eps:.0f} events/s ({replays} replays of "
+        f"{n_events} events; per event, phase 5: {per_event_eps:.0f} "
+        f"events/s), {launches} megakernel launches = {blocks // NB} scans "
+        f"x {NB} blocks, {ops.launches['fitscore_select']} select launches")
+    scans = blocks // NB
+    say(f"# blocked main path split over {scans} scans: category set-up "
+        f"and streams (CPU) {split['set-up']:.3f} s, padding, carry and "
+        f"host-to-device copy {split['copy']:.3f} s, launches to the "
+        f"device's end {split['blocks']:.3f} s, the runner's other host "
+        f"work {wall - sum(split.values()):.3f} s")
+    if launches != blocks or blocks % NB or not launches or \
+            ops.launches["fitscore_select"]:
+        fail(f"megakernel launches {launches}, blocks {blocks} (a scan is "
+             f"{NB}), select launches {ops.launches['fitscore_select']}")
+    for (pol, pred), st in summarize_sweep(records).items():
+        say(f"#   ratio {pol:<26} {pred:<12} mean {st.mean:.6f}")
+    bad = [k for k, r in records.items()
+           if r["overflowed"] or not np.isfinite(r["ratio"])
+           or r["ratio"] < 1.0 - 1e-5]
+    if len(records) != len(insts) * replays or bad:
+        fail(f"{len(records)} blocked records, bad: {bad[:3]}")
+    differ = [k for k, r in per_event_records.items() if records[k] != r]
+    if differ:
+        fail(f"blocked records differ from the per-event ones: {differ[:3]}")
+    say(f"# blocked == per-event records for the {len(per_event_records)} "
+        "score-policy records")
+
+    # one category group per event at full size: RCP on data that is not
+    # fp32-exact, where the threshold's rsqrt table decides
+    pdeps = pad_predictions(batch, [preds[1].durations(i, (0,))
+                                    for i in insts])
+    ops.launches.clear()
+    torchsim.counters.clear()
+    t0 = time.perf_counter()
+    res = run_batch(batch, "ppe_modified", pdeps, spec.max_bins,
+                    spec.max_bins_cap, device=dev)
+    steps = torchsim.counters["scan_steps"]
+    say(f"# ppe_modified x lognormal:1.0 x seed 0 per event: "
+        f"{time.perf_counter() - t0:.1f} s, {ops.launches['fitscore_select']}"
+        f" select launches over {steps} scan steps")
+    if ops.launches["fitscore_select"] != steps or not steps:
+        fail("per-event category group: select launches != scan steps")
+    for bi, inst in enumerate(insts):
+        r = records[result_key(suite, inst.name, "ppe_modified", preds[1],
+                               0)]
+        if (r["usage_time"], r["n_bins_opened"]) != \
+                (float(res.usage_time[bi, 0]),
+                 int(res.n_bins_opened[bi, 0])):
+            fail(f"ppe_modified per event != blocked on {inst.name}")
+    say("# ppe_modified per event == blocked on all 28 instances")
     return launches
 
 
-def phase_profile(dev, n_items: int = 5000, steps: int = 400):
-    """Where the time goes on the main path: ``steps`` replay steps of one
-    group's first rung (best_fit_l2, clairvoyant, max_bins 64) under
-    torch.profiler - device kernel time against wall time.  A measurement,
-    not a check: if the profiler reports no device activity it says so."""
+def profile_run(dev, label, fn, units: int, unit: str) -> None:
+    """Device busy time against wall time of ``fn`` under torch.profiler.
+    A measurement, not a check: if the profiler reports no device activity
+    it says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.torchsim import _replay_batch
-    from repro_torch.sweep import SuiteSpec
-    from repro_torch.sweep.grid import _built_suite
-    _, _, b = _built_suite(SuiteSpec("azure", 28, n_items))
-    ev = slice(0, steps)
-    args = (b.sizes, b.times[:, ev], b.kinds[:, ev], b.items[:, ev],
-            b.pdeps, b.dmask)
-    _replay_batch(*args, policy="best_fit_l2", max_bins=64, device=dev)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _replay_batch(*args, policy="best_fit_l2", max_bins=64, device=dev)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     n_k = sum(e.count for e in kernels)
-    sel = sum(e.self_device_time_total for e in kernels
-              if "select_kernel" in e.key)
     if not n_k:
-        say("# profile: the profiler saw no device kernels (not measured)")
+        say(f"# profile {label}: the profiler saw no device kernels (not "
+            "measured)")
         return
-    say(f"# profile {steps} steps (L=28, Np=64, best_fit_l2, under the "
-        f"profiler): wall {wall_us / steps:.1f} us/step, device busy "
-        f"{busy_us / steps:.1f} us/step ({100 * busy_us / wall_us:.1f} %), "
-        f"{n_k / steps:.1f} kernels/step, select kernel "
-        f"{sel / steps:.2f} us/step")
+    say(f"# profile {label} (under the profiler): wall "
+        f"{wall_us / units:.1f} us/{unit}, device busy "
+        f"{busy_us / units:.1f} us/{unit} "
+        f"({100 * busy_us / wall_us:.1f} %), {n_k / units:.1f} "
+        f"kernels/{unit}")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     for e in top:
-        say(f"#   {e.self_device_time_total / steps:8.2f} us/step "
-            f"x{e.count / steps:.1f}  {e.key[:90]}")
+        say(f"#   {e.self_device_time_total / units:10.2f} us/{unit} "
+            f"x{e.count / units:.1f}  {e.key[:90]}")
+
+
+def phase_profile(dev, n_items: int = 5000, steps: int = 400):
+    """Where the time goes on the main path's first rung (L=28
+    clairvoyant lanes, max_bins 64): ``steps`` per-event replay steps of
+    best_fit_l2, and one whole blocked scan of best_fit_l2 and of
+    ppe_modified."""
+    from repro_torch.core.torchsim import _replay_batch
+    from repro_torch.sweep import SuiteSpec
+    from repro_torch.sweep.grid import _built_suite
+    _, _, b = _built_suite(SuiteSpec("azure", 28, n_items))
+    ev = slice(0, steps)
+    head = (b.sizes, b.times[:, ev], b.kinds[:, ev], b.items[:, ev],
+            b.pdeps, b.dmask)
+    profile_run(dev, f"per event, {steps} steps, L=28 Np=64 best_fit_l2",
+                lambda: _replay_batch(*head, policy="best_fit_l2",
+                                      max_bins=64, device=dev), steps, "step")
+    full = (b.sizes, b.times, b.kinds, b.items, b.pdeps, b.dmask,
+            b.arrivals, b.pdeps, b.n_items)
+    NB = -(-b.times.shape[1] // BLOCK_EVENTS)
+    for policy in ("best_fit_l2", "ppe_modified"):
+        profile_run(dev, f"blocked, one scan of {NB} blocks, L=28 Np=64 "
+                    f"T={BLOCK_EVENTS} {policy}",
+                    lambda: _replay_batch(*full, policy=policy, max_bins=64,
+                                          device=dev,
+                                          block_events=BLOCK_EVENTS),
+                    NB, "block")
 
 
 def main() -> None:
@@ -393,20 +859,26 @@ def main() -> None:
     t_start = time.perf_counter()
     card = phase_build()
     say(f"# torch {torch.__version__} cuda {torch.version.cuda} on {card}")
-    kern = phase_kernel_vs_plain(dev)
+    sel = phase_kernel_vs_plain(dev)
+    mk_err = phase_megakernel_vs_plain(dev)
+    mk = time_megakernel(dev)
     phase_headline(dev)
-    launches = phase_main_path(dev)
-    try:
-        phase_profile(dev)
-    except Exception as e:   # a measurement, not a check: report, go on
-        say(f"# profile: not measured ({type(e).__name__}: {e})")
+    phase_category_headline(dev)
+    sel_launches, records, eps = phase_main_path(dev)
+    mk_launches = phase_blocked_main_path(dev, records, eps)
+    phase_profile(dev)
     say(f"# total {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [dict(
-        name="fitscore_select", route="cuda",
-        source="src/repro_torch/kernels/csrc/select.cu",
-        replaces="src/repro/kernels/fitscore.py:330",
-        launches=launches, library_ms=None, **kern)]}))
+    print(json.dumps({"kernels": [
+        dict(name="fitscore_select", route="cuda",
+             source="src/repro_torch/kernels/csrc/select.cu",
+             replaces="src/repro/kernels/fitscore.py:330",
+             launches=sel_launches, library_ms=None, **sel),
+        dict(name="fitscore_replay_block", route="cuda",
+             source="src/repro_torch/kernels/csrc/replay_block.cu",
+             replaces="src/repro/kernels/fitscore.py:865",
+             launches=mk_launches, max_abs_err=mk_err, library_ms=None,
+             **mk)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

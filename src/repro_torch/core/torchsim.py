@@ -3,23 +3,36 @@
 
 The replay walks the precomputed event sequence (2n events per lane,
 departures before arrivals at equal times) with a fixed pool of bin slots
-per lane.  ``_replay_batch`` replays ``L`` lanes in lockstep: a Python loop
-over the event axis whose step processes every lane at once, with the
-placement decision made by one call of ``kernels.ops.fitscore_select`` per
-step - the hand-written CUDA select on the card, its plain version
-``kernels.fitscore.select_ref`` on the CPU.  On the card the whole state
-stays on the device and the host reads it once, at the end.
+per lane, for every policy of ``SCAN_POLICIES``: the 8 score policies and
+the 13 category-structured ones (CBD/CBDT, the Hybrids, RCP/PPE, Lifetime
+Alignment, adaptive).  ``_replay_batch`` replays ``L`` lanes in lockstep,
+on one of two paths with the same decisions:
 
-This slice replays the 8 score policies (``POLICIES``).  The 13
-category-structured policies parse (``policy_spec``) but raise
-``NotImplementedError`` in the replay; they are the next slice of the port.
+* per event (the default): a Python loop over the event axis whose step
+  (``kernels.fitscore.replay_stepper``) processes every lane at once, with
+  the placement decision made by ``kernels.ops.fitscore_select`` - the
+  hand-written CUDA select on the card, ``select_ref`` on the CPU; the
+  category families pass their compatibility mask as ``cmask``;
+* event-blocked (``block_events=T > 1``): a host loop over blocks of T
+  events, each replayed by one launch of the CUDA megakernel
+  ``kernels.ops.fitscore_replay_block`` (its plain version on the CPU)
+  with the packed carry on the device.
 
-Scoring and tie-break live in ``kernels.fitscore`` (``score_ref`` and
-``select_ref`` are the counterparts of jaxsim's ``_score`` and
-``_select_slot``).  The carry is jaxsim's 12-tuple in the same order (see
-``_core_state0``), with the load vectors zero-padded to ``DPAD = 8``;
-``carry_from_reference`` / ``carry_to_reference`` convert a jaxsim carry so
-a replay can start in one package and finish in the other.
+On the card the whole state stays on the device and the host reads it
+once, at the end.  Per-item category constants (classes, thresholds,
+errors, hybrid key ids) and RCP's running distinct-category count are pure
+functions of the (predicted) durations: ``_category_setup`` computes them
+once per replay, on the CPU, with the float32 classifiers of
+``core.algorithms``.
+
+The per-event carry is jaxsim's 12-tuple in the same order (see
+``_core_state0``), with the load vectors zero-padded to ``DPAD = 8``,
+followed by the category dict for families that carry category state;
+the blocked path's carry is the packed dict of ``kernels.fitscore``.
+``carry_from_reference`` / ``carry_to_reference`` and
+``packed_carry_from_reference`` / ``packed_carry_to_reference`` convert
+the reference's carries, so a replay can start in one package and finish
+in the other.
 
 Rounding: times, predicted departures and sizes are cast once to float32,
 where jaxsim casts them (``jnp.asarray`` with x64 off), and every update is
@@ -36,18 +49,24 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..kernels.fitscore import (ARRIVAL_KIND, DEPARTURE_KIND, DPAD,
+from ..kernels import fitscore as fk
+from ..kernels.fitscore import (ARRIVAL_KIND, DEPARTURE_KIND, DPAD, KCAT,
+                                PAD_KIND, REPLAY_EV_F, REPLAY_EV_I,
                                 SCORE_BIG, SCORE_NEG, SELECT_POLICIES,
-                                select_pad_geometry)
-from ..kernels.ops import fitscore_select, resolve_device
+                                TAG_VIRGIN, select_pad_geometry)
+from ..kernels.ops import fitscore_select, replay_chunk, resolve_device
+from .algorithms import (LA_BINARY_SPLIT, to_i32, departure_window_jnp,
+                         dur_exponent_jnp, duration_class_jnp,
+                         geo_class_jnp, hybrid_threshold_jnp, la_class_jnp,
+                         prediction_error_jnp, pow2_ceiling_jnp)
 from .types import Instance
 
 POLICIES = SELECT_POLICIES
 NEG = SCORE_NEG
 BIG = SCORE_BIG
 
-# Category-structured policies of the reference: they parse here, and the
-# replay raises NotImplementedError for them until their slice is ported.
+# Category-structured policies of the reference (parametric variants parse
+# too: "cbd_beta4", "cbdt_rho3600", "adaptive_2_16").
 CATEGORY_POLICIES = ("cbd", "cbdt", "hybrid", "reduced_hybrid",
                      "hybrid_direct_sum", "reduced_hybrid_direct_sum",
                      "rcp", "ppe", "rcp_modified", "ppe_modified",
@@ -60,8 +79,9 @@ CBDT_DEFAULT_RHO = 0.25 * 86400.0
 # Ceiling of the slot-pool escalation ladder (simulate and sweep.runner).
 MAX_BINS_CAP = int(os.environ.get("REPRO_MAX_BINS_CAP", "65536"))
 
-# "scan_steps": replay steps run since the caller last cleared it (one
-# select per step; the card's select launches must equal it).
+# Since the caller last cleared it: "scan_steps", per-event replay steps
+# run (one select per step for the score family); "replay_blocks", blocks
+# of the event-blocked replay (one megakernel launch each).
 counters: collections.Counter = collections.Counter()
 
 
@@ -174,15 +194,6 @@ def known_policy(policy: str) -> bool:
         return False
 
 
-def require_score_policy(policy: str) -> None:
-    """Raise NotImplementedError for a policy this port cannot replay yet."""
-    if policy_spec(policy).family != "score":
-        raise NotImplementedError(
-            f"{policy!r} is a category-structured policy; its replay is not "
-            "ported yet (ROADMAP.md, Queue 1: category families and the "
-            "classifier twins).  Score policies: " + ", ".join(POLICIES))
-
-
 @dataclasses.dataclass
 class TorchSimResult:
     usage_time: float
@@ -190,6 +201,167 @@ class TorchSimResult:
     placements: np.ndarray
     overflowed: bool
     max_bins: int = 0   # slot-pool size that produced this result
+
+
+# ======================================================================
+# Category set-up: per-item constants and per-event extra streams
+# ======================================================================
+
+# policy_spec family -> kernel family (cbd and cbdt share the class-
+# restricted First Fit; only the per-item class constant differs)
+_KERNEL_FAMILY = {"score": "score", "cbd": "cbd", "cbdt": "cbd",
+                  "hybrid": "hybrid", "rcp": "rcp", "la": "la",
+                  "adaptive": "adaptive"}
+
+
+def _dense_key_ids(i, cls, win):
+    """Dense hybrid key ids per lane: key[l, j] = the smallest item index
+    whose (i, cls, win) triple equals item j's (a valid row of an item-
+    sized aggregate table).  A lexicographic sort plus a segment minimum,
+    O(n log n) per lane; all (L, n) int tensors."""
+    L, n = i.shape
+    order = torch.arange(n).expand(L, n)
+    for key in (win, cls, i):       # stable sorts, least significant first
+        k = key.gather(1, order)
+        order = order.gather(1, torch.sort(k, dim=1, stable=True).indices)
+    si, sc, sw = (a.gather(1, order) for a in (i, cls, win))
+    new = torch.ones((L, n), dtype=torch.bool)
+    new[:, 1:] = (si[:, 1:] != si[:, :-1]) | (sc[:, 1:] != sc[:, :-1]) | \
+        (sw[:, 1:] != sw[:, :-1])
+    grp = torch.cumsum(new.to(torch.int64), dim=1) - 1
+    first = torch.full((L, n), n, dtype=torch.int64).scatter_reduce(
+        1, grp, order, "amin")
+    return torch.empty((L, n), dtype=torch.int32).scatter_(
+        1, order, first.gather(1, grp).to(torch.int32))
+
+
+def _category_setup(spec, sizes, pdeps, arrivals, rdeps, n_items, kinds,
+                    items):
+    """Per-item category constants (L, n_max) and per-event extra streams
+    (L, E) of one policy family, on the CPU: pure functions of the
+    (predicted) durations, computed once before the replay, in float32 as
+    the reference computes them (``repro.core.jaxsim._category_setup``).
+    Returns ``(consts, xs_extra)``; RCP's ``xs_extra`` is its running
+    distinct-category count over the arrival events."""
+    L, n_max, d = sizes.shape
+    i32 = torch.int32
+    if spec.family == "score":
+        return {}, ()
+    if arrivals is None or rdeps is None or n_items is None:
+        raise ValueError(f"{spec.family} lanes need arrivals, rdeps and "
+                         "n_items")
+    pdur = pdeps - arrivals
+    if spec.family == "cbd":
+        return {"cat": duration_class_jnp(pdur, spec.beta)}, ()
+    if spec.family == "cbdt":
+        return {"cat": departure_window_jnp(pdeps, spec.rho)}, ()
+    if spec.family == "hybrid":
+        rdur = rdeps - arrivals
+        real = torch.arange(n_max)[None, :] < n_items[:, None]
+        min_dur = torch.where(real, rdur, torch.inf).amin(dim=1)
+        z = dur_exponent_jnp(min_dur)
+        jexp = dur_exponent_jnp(pdur)
+        i = torch.clamp_min(jexp - z[:, None] + 1, 1)   # scaled index >= 1
+        thr = hybrid_threshold_jnp(i)
+        cls = torch.argmax(sizes, dim=2).to(i32) if spec.direct_sum \
+            else torch.zeros((L, n_max), dtype=i32)
+        win = torch.zeros((L, n_max), dtype=i32) if spec.reduced else \
+            to_i32(torch.floor(arrivals / torch.ldexp(
+                torch.ones_like(arrivals), jexp)))
+        return {"key": _dense_key_ids(i, cls, win), "thr": thr,
+                "cls": cls}, ()
+    if spec.family == "rcp":
+        rdur = rdeps - arrivals
+        cat = torch.clamp(geo_class_jnp(torch.clamp_min(pdur, 0.0)), 0,
+                          KCAT - 1)
+        large = sizes.amax(dim=2) > 0.5
+        p2err = pow2_ceiling_jnp(prediction_error_jnp(rdur, pdur))
+        # x of the 1/sqrt(x) threshold: the running count of distinct
+        # categories over the arrival events, a cumsum of first-arrival
+        # flags over the whole event axis
+        E = kinds.shape[1]
+        is_arr = kinds == ARRIVAL_KIND
+        ev_cat = cat.gather(1, items).long()
+        eidx = torch.arange(E).expand(L, E)
+        first = torch.full((L, KCAT), E, dtype=torch.int64).scatter_reduce(
+            1, ev_cat, torch.where(is_arr, eidx, E), "amin")
+        newflag = is_arr & (eidx == first.gather(1, ev_cat))
+        xcount = torch.cumsum(newflag.to(torch.int64), dim=1).to(i32)
+        return {"cat": cat, "large": large, "p2err": p2err}, (xcount,)
+    if spec.family == "la":
+        return {"cat": la_class_jnp(torch.clamp_min(pdur, 0.0),
+                                    spec.la_mode)}, ()
+    rdur = rdeps - arrivals
+    return {"errmax": prediction_error_jnp(rdur, pdur)}, ()
+
+
+def _cpu_inputs(sizes, times, kinds, items, pdeps, dmask, arrivals, rdeps,
+                n_items):
+    """The replay's inputs as CPU tensors: floats cast once to float32 (as
+    the reference casts them), event kinds and items int32/int64."""
+    def tens(a, dt):
+        if a is None:
+            return None
+        if not torch.is_tensor(a):   # read-only arrays (e.g. from JAX) copy
+            a = torch.from_numpy(np.require(np.asarray(a),
+                                            requirements="W"))
+        return a.to(device="cpu", dtype=dt)
+
+    f32 = torch.float32
+    return (tens(sizes, f32), tens(times, f32), tens(kinds, torch.int32),
+            tens(items, torch.int64), tens(pdeps, f32), tens(dmask, f32),
+            tens(arrivals, f32), tens(rdeps, f32),
+            tens(n_items, torch.int64))
+
+
+def replay_event_extras(policy, sizes, pdeps, dmask, arrivals, rdeps,
+                        n_items, times, kinds, items):
+    """The per-event extra inputs of one policy over the *full* event axis
+    (a tuple of (L, E) int32 tensors, empty but for RCP/PPE's running
+    distinct-category count), for a replay cut into segments: pass them as
+    ``ev_extra`` to every segment, since the count must not restart."""
+    spec = policy_spec(policy)
+    sizes, times, kinds, items, pdeps, dmask, arrivals, rdeps, n_items = \
+        _cpu_inputs(sizes, times, kinds, items, pdeps, dmask, arrivals,
+                    rdeps, n_items)
+    return _category_setup(spec, sizes, pdeps, arrivals, rdeps, n_items,
+                           kinds, items)[1]
+
+
+def _event_streams(policy, sizes, times, kinds, items, pdeps, dmask,
+                   arrivals, rdeps, n_items, ev_extra):
+    """The replay's per-event streams, on the CPU: ``ev_i`` (2 + ni, L, E)
+    int32 and ``ev_f`` (2 + nf, L, E) f32 in the order of
+    ``("kind", "item") + REPLAY_EV_I[fam]`` / ``("t", "pdep") +
+    REPLAY_EV_F[fam]``, the items' sizes (L, E, DPAD), the dim mask
+    (L, DPAD), the kernel family and the real dimension count."""
+    spec = policy_spec(policy)
+    fam = _KERNEL_FAMILY[spec.family]
+    sizes, times, kinds, items, pdeps, dmask, arrivals, rdeps, n_items = \
+        _cpu_inputs(sizes, times, kinds, items, pdeps, dmask, arrivals,
+                    rdeps, n_items)
+    L, n_max, d = sizes.shape
+    select_pad_geometry(1, d)            # refuses d > DPAD
+    consts, xs_extra = _category_setup(spec, sizes, pdeps, arrivals, rdeps,
+                                       n_items, kinds, items)
+    if ev_extra is not None:
+        xs_extra = tuple(torch.as_tensor(np.asarray(x)) for x in ev_extra)
+
+    def g(a):
+        return a.gather(1, items)
+
+    ev_i = [kinds, items]
+    for nm in REPLAY_EV_I[fam]:
+        ev_i.append(xs_extra[0] if nm == "x" else g(consts[nm]))
+    ev_f = [times, g(pdeps)] + [g(consts[nm]) for nm in REPLAY_EV_F[fam]]
+    sizes_p = torch.zeros((L, n_max, DPAD), dtype=torch.float32)
+    sizes_p[:, :, :d] = sizes
+    dmask_p = torch.zeros((L, DPAD), dtype=torch.float32)
+    dmask_p[:, :d] = 1.0 if dmask is None else dmask
+    ev_size = sizes_p.gather(1, items[:, :, None].expand(-1, -1, DPAD))
+    return (torch.stack([a.to(torch.int32) for a in ev_i]),
+            torch.stack([a.to(torch.float32) for a in ev_f]), ev_size,
+            dmask_p, fam, d)
 
 
 # ======================================================================
@@ -214,156 +386,330 @@ def _core_state0(L: int, Np: int, item_rows: int, device):
             full((L,), False, torch.bool)]
 
 
+def _category_state0(spec, L: int, item_rows: int, Np: int, device):
+    """The fresh category state of one policy family: the reference's dict
+    (``jaxsim._category_state0``) with the aggregates' d padded to DPAD."""
+    f32, i32 = torch.float32, torch.int32
+
+    def full(shape, v, dt):
+        return torch.full(shape, v, dtype=dt, device=device)
+
+    if spec.family in ("score", "la"):
+        return {}
+    tag = full((L, Np), TAG_VIRGIN, i32)
+    if spec.family in ("cbd", "cbdt"):
+        return {"tag": tag}
+    if spec.family == "hybrid":
+        return {"tag": tag, "agg": full((L, item_rows, DPAD), 0.0, f32),
+                "ingen": full((L, item_rows), False, torch.bool)}
+    if spec.family == "rcp":
+        return {"tag": tag,
+                "agg_gen": full((L, KCAT, DPAD), 0.0, f32),
+                "agg_cat": full((L, KCAT, DPAD), 0.0, f32),
+                "agg_bcat": full((L, KCAT, DPAD), 0.0, f32),
+                "agg_base": full((L, DPAD), 0.0, f32),
+                "on": full((L, KCAT), False, torch.bool),
+                "base": full((L,), -1, i32), "alpha": full((L,), 1.0, f32),
+                "loc": full((L, item_rows), 0, i32)}
+    return {"err": full((L,), 1.0, f32)}
+
+
 _CARRY_DTYPES = (np.float32, np.int32, bool, np.int32, np.int32, np.float32,
                  np.float32, np.int32, np.float32, np.int32, np.int32, bool)
+# category arrays whose last axis is the resource dimension
+_CAT_DIM_KEYS = ("agg", "agg_gen", "agg_cat", "agg_bcat", "agg_base")
 
 
-def carry_from_reference(core, device="cuda"):
-    """jaxsim's core carry (the 12-tuple of ``_replay_batch(...,
-    return_carry=True)`` on the jnp backend: loads (L, max_bins, d)) ->
-    this package's carry on ``device``."""
+def _pad_dims(a: np.ndarray) -> np.ndarray:
+    out = np.zeros(a.shape[:-1] + (DPAD,), np.float32)
+    out[..., :a.shape[-1]] = a
+    return out
+
+
+def carry_from_reference(core, device="cuda", cat=None):
+    """jaxsim's per-event carry -> this package's, on ``device``.
+
+    ``core`` is the 12-tuple of ``_replay_batch(..., return_carry=True)``
+    on the jnp backend (loads (L, max_bins, d)), ``cat`` its category dict.
+    Returns the 12 core tensors as a list, with the category dict (the
+    aggregates padded to DPAD) appended as a 13th entry when ``cat`` holds
+    any state - the carry ``_replay_batch`` takes as ``carry0``."""
     device = resolve_device(device)
     out = []
     for k, (a, dt) in enumerate(zip(core, _CARRY_DTYPES)):
         a = np.asarray(a).astype(dt)
         if k == 0:
-            L, Np, d = a.shape
-            pad = np.zeros((L, Np, DPAD), np.float32)
-            pad[:, :, :d] = a
-            a = pad
+            a = _pad_dims(a)
         out.append(torch.from_numpy(np.ascontiguousarray(a)).to(device))
+    if cat:
+        out.append({k: torch.from_numpy(
+            _pad_dims(np.asarray(v)) if k in _CAT_DIM_KEYS
+            else np.array(v)).to(device) for k, v in cat.items()})
     return out
 
 
 def carry_to_reference(carry, d: int):
-    """This package's carry -> jaxsim's core 12-tuple of numpy arrays
-    (loads cut back to its ``d`` real columns)."""
-    out = [a.cpu().numpy() for a in carry]
-    out[0] = np.ascontiguousarray(out[0][:, :, :d])
-    return tuple(out)
+    """This package's per-event carry -> jaxsim's: the core 12-tuple of
+    numpy arrays (loads cut back to ``d`` columns) for a carry of 12
+    entries, ``(core, cat)`` - the form jaxsim's ``carry0`` takes - for
+    one that carries category state."""
+    core = [a.cpu().numpy() for a in carry[:12]]
+    core[0] = np.ascontiguousarray(core[0][:, :, :d])
+    if len(carry) == 12:
+        return tuple(core)
+    cat = {k: np.ascontiguousarray(v.cpu().numpy()[..., :d])
+           if k in _CAT_DIM_KEYS else v.cpu().numpy()
+           for k, v in carry[12].items()}
+    return tuple(core), cat
+
+
+def packed_init_carry(fam: str, L: int, item_rows: int, max_bins: int,
+                      device="cuda"):
+    """A fresh packed carry of the event-blocked replay (the layout in
+    ``kernels.fitscore``): slot closes at ``SCORE_NEG`` (virgin), tags
+    ``TAG_VIRGIN``, placements -1, PPE alpha / adaptive err at 1.0, RCP
+    base slot -1."""
+    dev = resolve_device(device)
+    f32, i32 = torch.float32, torch.int32
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    carry = {"loads": zeros((L, max_bins, DPAD), f32),
+             "slotf": zeros((L, max_bins, fk.SLOTF_COLS), f32),
+             "sloti": zeros((L, max_bins, fk.SLOTI_COLS), i32),
+             "itemi": zeros((L, item_rows, fk.ITEMI_COLS), i32),
+             "sf": zeros((L, fk.SF_COLS), f32),
+             "si": zeros((L, fk.SI_COLS), i32)}
+    carry["slotf"][:, :, fk.SLOTF_CLOSES] = NEG
+    carry["sloti"][:, :, fk.SLOTI_TAG] = TAG_VIRGIN
+    carry["itemi"][:, :, fk.ITEMI_PLACE] = -1
+    carry["sf"][:, fk.SF_ALPHA] = 1.0
+    carry["sf"][:, fk.SF_ERR] = 1.0
+    carry["si"][:, fk.SI_BASE] = -1
+    if fam == "hybrid":
+        carry["hagg"] = zeros((L, item_rows, DPAD), f32)
+    elif fam == "rcp":
+        carry["ragg"] = zeros((L, fk.RAGG_ROWS, DPAD), f32)
+        carry["ron"] = zeros((L, KCAT, fk.RON_COLS), i32)
+    return carry
+
+
+def replay_init_carry(policy: str, max_bins: int, d: int, item_rows: int,
+                      *, L: int = 1, block_events: int = 0, device="cuda"):
+    """The fresh carry ``_replay_batch`` starts from for this
+    ``block_events``: the packed dict when it is > 1, else the per-event
+    list (12 core tensors, plus the category dict for families that carry
+    category state).  ``d`` is checked against DPAD."""
+    spec = policy_spec(policy)
+    select_pad_geometry(max_bins, d)
+    if block_events and block_events > 1:
+        return packed_init_carry(_KERNEL_FAMILY[spec.family], L, item_rows,
+                                 max_bins, device)
+    dev = resolve_device(device)
+    carry = _core_state0(L, max_bins, item_rows, dev)
+    cat = _category_state0(spec, L, item_rows, max_bins, dev)
+    return carry + [cat] if cat else carry
+
+
+# the reference's packed layout: d padded to 128 lanes, slots to a multiple
+# of its 256-slot tile (repro/kernels/fitscore.py::select_pad_geometry)
+def _reference_pad_geometry(n: int, d: int):
+    dpad = max(128, -(-d // 128) * 128)
+    bn = min(256, max(n, 8))
+    return -(-n // bn) * bn, dpad
+
+
+def packed_carry_from_reference(carry, d: int, max_bins: int,
+                                device="cuda"):
+    """The reference's packed carry (numpy or JAX arrays; loads (L, Np_ref,
+    128) with rows >= ``max_bins`` layout padding) -> this package's
+    (loads (L, max_bins, DPAD)) on ``device``.  ``d`` is the real
+    dimension count; the columns past it are zero in both layouts."""
+    dev = resolve_device(device)
+    out = {}
+    for k, v in carry.items():
+        a = np.asarray(v)
+        if k in ("loads", "slotf", "sloti"):
+            a = a[:, :max_bins]
+        if k in ("loads", "hagg", "ragg"):
+            if np.any(a[..., d:]):
+                raise ValueError(f"{k}: nonzero columns past d={d}")
+            a = a[..., :DPAD]
+        out[k] = torch.from_numpy(np.array(a)).to(dev)
+    return out
+
+
+def packed_carry_to_reference(carry, d: int):
+    """This package's packed carry -> the reference's (numpy): d padded to
+    128 lanes, slots to the reference's tiling with virgin rows (zero
+    loads, ``SCORE_NEG`` closes, ``TAG_VIRGIN`` tags)."""
+    Np = carry["loads"].shape[1]
+    Np_ref, dpad = _reference_pad_geometry(Np, d)
+    out = {}
+    for k, v in carry.items():
+        a = v.cpu().numpy()
+        if k in ("loads", "hagg", "ragg"):
+            w = np.zeros(a.shape[:-1] + (dpad,), a.dtype)
+            w[..., :DPAD] = a
+            a = w
+        if k in ("loads", "slotf", "sloti") and Np_ref > Np:
+            tail = np.zeros((a.shape[0], Np_ref - Np) + a.shape[2:], a.dtype)
+            if k == "slotf":
+                tail[:, :, fk.SLOTF_CLOSES] = NEG
+            elif k == "sloti":
+                tail[:, :, fk.SLOTI_TAG] = TAG_VIRGIN
+            a = np.concatenate([a, tail], axis=1)
+        out[k] = np.ascontiguousarray(a)
+    return out
 
 
 # ======================================================================
 # The replay
 # ======================================================================
 
+def _resume(carry0, dev):
+    """A private copy of a carry (the replay updates its carry in place)."""
+    def own(a):
+        return torch.as_tensor(a, device=dev).clone(
+            memory_format=torch.contiguous_format)
+
+    if isinstance(carry0, dict):
+        return {k: own(v) for k, v in carry0.items()}
+    out = [own(a) for a in carry0[:12]]
+    if len(carry0) > 12:
+        out.append({k: own(v) for k, v in carry0[12].items()})
+    return out
+
+
 def _replay_batch(sizes, times, kinds, items, pdeps, dmask, arrivals=None,
                   rdeps=None, n_items=None, *, policy: str, max_bins: int,
-                  device="cuda", carry0=None, return_carry: bool = False):
-    """``L`` lanes' event replays in lockstep.
+                  device="cuda", block_events: int = 0, carry0=None,
+                  return_carry: bool = False, ev_extra=None):
+    """``L`` lanes' event replays in lockstep, any ``SCAN_POLICIES`` name.
 
     sizes (L, n_max, d); times / kinds / items (L, E); pdeps (L, n_max)
-    predicted departures; ``dmask`` (L, d) real-dimension mask or None.
-    Numpy arrays or tensors; float64 inputs are cast once to float32.
-    ``arrivals`` / ``rdeps`` / ``n_items`` are read only by the category
-    families (not ported yet) and are accepted for the reference's call
-    shape.  Events with ``kind == PAD_KIND`` leave the carry untouched.
+    predicted departures; ``dmask`` (L, d) real-dimension mask or None;
+    the category policies also read ``arrivals`` / ``rdeps`` (real
+    departures) (L, n_max) and ``n_items`` (L,).  Numpy arrays or tensors;
+    float64 inputs are cast once to float32.  Events with ``kind ==
+    PAD_KIND`` leave the carry untouched.
+
+    ``block_events=T > 1`` replays through the event-blocked megakernel
+    (``_replay_batch_blocked``); otherwise a Python loop over the events
+    whose step (``kernels.fitscore.replay_stepper``) selects with one or
+    more calls of ``fitscore_select`` (the CUDA select on the card).
 
     Returns (usage (L,) f32, opened (L,) i32, placements (L, n_max) i32,
     overflow (L,) bool) as tensors on ``device``; with ``return_carry`` the
     final carry is appended.  ``carry0`` resumes from a carry (this
-    package's layout, e.g. from ``carry_from_reference``)."""
-    require_score_policy(policy)
+    package's layout for the path taken: see ``replay_init_carry``), and
+    ``ev_extra`` gives the full event axis' extra streams
+    (``replay_event_extras``) to a replay of a segment of it."""
+    if block_events and block_events > 1:
+        return _replay_batch_blocked(
+            sizes, times, kinds, items, pdeps, dmask, arrivals, rdeps,
+            n_items, policy=policy, max_bins=max_bins, device=device,
+            block_events=block_events, carry0=carry0,
+            return_carry=return_carry, ev_extra=ev_extra)
+    spec = policy_spec(policy)
     dev = resolve_device(device)
-    f32, i32 = torch.float32, torch.int32
-
-    def tens(a, dt):
-        if not torch.is_tensor(a):   # read-only arrays (e.g. from JAX) copy
-            a = torch.from_numpy(np.require(a, requirements="W"))
-        return a.to(device=dev, dtype=dt)
-
-    sizes_t = tens(sizes, f32)
-    L, n_max, d = sizes_t.shape
-    Np, dpad = select_pad_geometry(max_bins, d)
-    sizes_p = torch.zeros((L, n_max, dpad), dtype=f32, device=dev)
-    sizes_p[:, :, :d] = sizes_t
-    dmask_p = torch.zeros((L, dpad), dtype=f32, device=dev)
-    dmask_p[:, :d] = 1.0 if dmask is None else tens(dmask, f32)
-    pdeps_t = tens(pdeps, f32)
-    # event-major streams, each step reads one row; the item's size and
-    # predicted departure are gathered for every event up front
-    items_t = tens(items, torch.int64)
-    ev_t = tens(times, f32).T.contiguous()
-    ev_kind = tens(kinds, i32).T
+    ev_i, ev_f, ev_size, dmask_p, fam, d = _event_streams(
+        policy, sizes, times, kinds, items, pdeps, dmask, arrivals, rdeps,
+        n_items, ev_extra)
+    L, n_max = sizes.shape[0], sizes.shape[1]
+    # event-major streams on the device: each step reads one row of each
+    ev_kind = ev_i[0].T.to(dev)
     ev_arr = (ev_kind == ARRIVAL_KIND).contiguous()
     ev_dep = (ev_kind == DEPARTURE_KIND).contiguous()
-    ev_item = items_t.T.contiguous()
-    ev_size = torch.gather(
-        sizes_p, 1, items_t[:, :, None].expand(-1, -1, dpad)
-    ).transpose(0, 1).contiguous()                       # (E, L, dpad)
-    ev_pdep = torch.gather(pdeps_t, 1, items_t).T.contiguous()   # (E, L)
+    ev_item = ev_i[1].T.to(device=dev, dtype=torch.int64).contiguous()
+    ev_t = ev_f[0].T.contiguous().to(dev)
+    ev_pdep = ev_f[1].T.contiguous().to(dev)
+    ev_sz = ev_size.transpose(0, 1).contiguous().to(dev)     # (E, L, DPAD)
+    ev_ex = {nm: v.T.contiguous().to(dev)
+             for nm, v in fk.event_extras(fam, ev_i, ev_f).items()}
+    dmask_p = dmask_p.to(dev)
 
-    carry = _core_state0(L, Np, n_max, dev) if carry0 is None else \
-        [torch.as_tensor(a, device=dev).clone(
-            memory_format=torch.contiguous_format) for a in carry0]
-    (loads, counts, alive, open_seq, access_seq, closes, open_time,
-     placements, usage, seq, opened, overflow) = carry
-    # flat views of the per-slot state: each step reads and writes one
-    # slot row per lane through index_select / index_copy_ (lanes are
-    # distinct, so the rows written are distinct)
-    loads_f = loads.view(L * Np, dpad)
-    slot_f = [a.view(-1) for a in (counts, alive, open_seq, access_seq,
-                                   closes, open_time)]
-    place_f = placements.view(-1)
-    lanes = torch.arange(L, device=dev)
-    slot_base, item_base = lanes * Np, lanes * placements.shape[1]
-    neg = torch.tensor(NEG, dtype=f32, device=dev)
-    zero = torch.tensor(0.0, dtype=f32, device=dev)
-
+    if carry0 is None:
+        carry = _core_state0(L, max_bins, n_max, dev)
+        cat = _category_state0(spec, L, n_max, max_bins, dev)
+    else:
+        carry = _resume(carry0, dev)
+        cat = carry.pop() if len(carry) > 12 else {}
+    S = dict(zip(fk.CORE_NAMES, carry), **cat)
+    step = fk.replay_stepper(
+        fam, policy if fam == "score" else "first_fit", L=L, Np=max_bins,
+        R=n_max, d=d, dmask=dmask_p, select=fitscore_select,
+        large_bins=spec.large_bins, adaptive_alpha=spec.adaptive_alpha,
+        direct_sum=spec.direct_sum, la_mode=spec.la_mode, low=spec.low,
+        high=spec.high)
     E = ev_t.shape[0]
     for e in range(E):
-        t, j, size, pdep_j = ev_t[e], ev_item[e], ev_size[e], ev_pdep[e]
-        is_arr, is_dep = ev_arr[e], ev_dep[e]
-        slot, found, no_free = fitscore_select(
-            loads, counts, alive, open_seq, access_seq, closes, size,
-            pdep_j, t, dmask_p, policy=policy)
-        # each lane touches one slot row: the chosen slot of an arrival,
-        # the item's slot of a departure (for a pad event the row is read
-        # and written back unchanged)
-        pj = item_base + j
-        b32 = torch.where(is_arr, slot, place_f.index_select(0, pj))
-        r = slot_base + b32
-        row = loads_f.index_select(0, r)
-        cnt, alv, osq, asq, cls, otm = (a.index_select(0, r)
-                                        for a in slot_f)
-
-        # departure: the item leaves; the bin closes when it empties
-        cnt_d = cnt - 1
-        closing = cnt_d == 0
-        row_d = torch.where(closing[:, None], zero, row - size)
-        # arrival: into the chosen bin, which opens unless it was found
-        row_a = row + size
-        cls_a = torch.maximum(torch.where(found, cls, neg),
-                              torch.maximum(pdep_j, t))
-
-        opening = is_arr & ~found
-        arr_c, dep_c = is_arr[:, None], is_dep[:, None]
-        loads_f.index_copy_(0, r, torch.where(
-            arr_c, row_a, torch.where(dep_c, row_d, row)))
-        for a, new in zip(slot_f, (
-                torch.where(is_arr, cnt + 1, torch.where(is_dep, cnt_d, cnt)),
-                torch.where(is_dep, alv & ~closing, alv | is_arr),
-                torch.where(opening, seq, osq),
-                torch.where(is_arr, seq, asq),
-                torch.where(
-                    is_arr, cls_a, torch.where(is_dep & closing, neg, cls)),
-                torch.where(opening, t, otm))):
-            a.index_copy_(0, r, new)
-        place_f.index_copy_(0, pj, b32)
-        usage = torch.where(is_dep,
-                            usage + torch.where(closing, t - otm, zero),
-                            usage)
-        overflow = overflow | (opening & no_free)
-        opened = opened + opening.to(i32)
-        seq = seq + is_arr.to(i32)
+        step(S, ev_t[e], ev_arr[e], ev_dep[e], ev_item[e], ev_sz[e],
+             ev_pdep[e], {nm: v[e] for nm, v in ev_ex.items()})
     counters["scan_steps"] += E
 
-    out = (usage, opened, placements, overflow)
+    out = (S["usage"], S["opened"], S["placements"], S["overflow"])
     if return_carry:
-        return out + ([loads, counts, alive, open_seq, access_seq, closes,
-                       open_time, placements, usage, seq, opened,
-                       overflow],)
+        carry = [S[nm] for nm in fk.CORE_NAMES]
+        if cat:
+            carry.append({k: S[k] for k in cat})
+        return out + (carry,)
     return out
+
+
+def replay_block_kwargs(policy: str, max_bins: int, d: int) -> dict:
+    """The keyword arguments of ``kernels.ops.fitscore_replay_block`` (and
+    ``replay_block_ref``) for one policy on a ``max_bins``-slot, ``d``-dim
+    pool."""
+    spec = policy_spec(policy)
+    fam = _KERNEL_FAMILY[spec.family]
+    return dict(family=fam, policy=policy if fam == "score" else "first_fit",
+                n=max_bins, d=d, large_bins=spec.large_bins,
+                adaptive_alpha=spec.adaptive_alpha,
+                direct_sum=spec.direct_sum, la_mode=spec.la_mode,
+                la_split=LA_BINARY_SPLIT, low=spec.low, high=spec.high)
+
+
+def _replay_batch_blocked(sizes, times, kinds, items, pdeps, dmask,
+                          arrivals, rdeps, n_items, *, policy: str,
+                          max_bins: int, device, block_events: int,
+                          carry0=None, return_carry: bool = False,
+                          ev_extra=None):
+    """Event-blocked replay: a host loop over blocks of ``T`` events, each
+    block replayed by one launch of the megakernel
+    (``kernels.ops.fitscore_replay_block``; its plain version on the CPU)
+    with the packed carry on the device.  The tail block is padded with
+    PAD events.  Decision for decision the per-event replay's."""
+    spec = policy_spec(policy)
+    dev = resolve_device(device)
+    ev_i, ev_f, ev_size, dmask_p, fam, d = _event_streams(
+        policy, sizes, times, kinds, items, pdeps, dmask, arrivals, rdeps,
+        n_items, ev_extra)
+    L, n_max = sizes.shape[0], sizes.shape[1]
+    T = int(block_events)
+    E = ev_size.shape[1]
+    NB = -(-E // T)
+    pad = NB * T - E
+    if pad:
+        fill_i = torch.zeros((ev_i.shape[0], L, pad), dtype=torch.int32)
+        fill_i[0] = PAD_KIND
+        ev_i = torch.cat([ev_i, fill_i], dim=2)
+        ev_f = torch.cat([ev_f, ev_f.new_zeros(ev_f.shape[:2] + (pad,))],
+                         dim=2)
+        ev_size = torch.cat([ev_size, ev_size.new_zeros((L, pad, DPAD))],
+                            dim=1)
+    carry = packed_init_carry(fam, L, n_max, max_bins, dev) \
+        if carry0 is None else _resume(carry0, dev)
+    replay_chunk(carry, ev_i.to(dev), ev_f.to(dev), ev_size.to(dev),
+                 dmask_p.to(dev), block_events=T,
+                 **replay_block_kwargs(policy, max_bins, d))
+    counters["replay_blocks"] += NB
+    out = (carry["sf"][:, fk.SF_USAGE].clone(),
+           carry["si"][:, fk.SI_OPENED].clone(),
+           carry["itemi"][:, :, fk.ITEMI_PLACE].clone(),
+           carry["si"][:, fk.SI_OVERFLOW] > 0)
+    return out + (carry,) if return_carry else out
 
 
 def event_sequence(inst: Instance):
@@ -382,23 +728,25 @@ def event_sequence(inst: Instance):
 def simulate(inst: Instance, policy: str = "first_fit",
              predicted_durations: Optional[np.ndarray] = None,
              max_bins: int = 256, auto_grow: bool = True,
-             max_bins_cap: int = MAX_BINS_CAP,
-             device="cuda") -> TorchSimResult:
-    """Replay one instance under a score policy.  If the slot pool
-    overflows and ``auto_grow`` is set, retry with a doubled ``max_bins``
-    (up to ``max_bins_cap``, then ``CapacityError``)."""
+             max_bins_cap: int = MAX_BINS_CAP, device="cuda",
+             block_events: int = 0) -> TorchSimResult:
+    """Replay one instance (any ``SCAN_POLICIES`` policy).  If the slot
+    pool overflows and ``auto_grow`` is set, retry with a doubled
+    ``max_bins`` (up to ``max_bins_cap``, then ``CapacityError``).
+    ``block_events > 1`` replays through the event-blocked megakernel; it
+    never changes the result."""
     if not known_policy(policy):
         raise KeyError(f"{policy!r} is not a scan policy; known: "
                        f"{SCAN_POLICIES}")
-    require_score_policy(policy)
     pdeps = inst.departures if predicted_durations is None \
         else inst.arrivals + predicted_durations
     times, kinds, items = event_sequence(inst)
     while True:
         usage, opened, placements, overflow = _replay_batch(
             inst.sizes[None], times[None], kinds[None], items[None],
-            pdeps[None], None, policy=policy, max_bins=max_bins,
-            device=device)
+            pdeps[None], None, inst.arrivals[None], inst.departures[None],
+            np.array([inst.n_items]), policy=policy, max_bins=max_bins,
+            device=device, block_events=block_events)
         if not bool(overflow[0]) or not auto_grow:
             break
         if max_bins >= max_bins_cap:

@@ -1,10 +1,13 @@
 """Build the port's CUDA kernels from the sources in ``csrc/`` at first use.
 
-``nvcc`` compiles ``csrc/select.cu`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface, which ``ctypes`` loads.  The library is
-named by a hash of its sources and flags and written to ``_build/`` beside
-this file (listed in ``.gitignore``), so an edited source rebuilds and an
-unchanged one is reused.  Nothing is built when the module is imported.
+``nvcc`` compiles each source of ``csrc/`` (the select, ``select.cu``, and
+the event-blocked replay megakernel, ``replay_block.cu``) for Hopper
+(``sm_90a``), one compiler process per source, all started together, and
+links the objects into one shared library with a plain C interface, which
+``ctypes`` loads.  The library is named by a hash of its sources and flags
+and written to ``_build/`` beside this file (listed in ``.gitignore``), so
+an edited source rebuilds and an unchanged one is reused.  Nothing is built
+when the module is imported.
 
 Flags: ``-O3 --fmad=false``.  Contraction is off so that the score and
 capacity arithmetic round once per operation, as the JAX package's select
@@ -23,11 +26,10 @@ import time
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-SOURCES = ("select.cu",)
+SOURCES = ("select.cu", "replay_block.cu")
 HEADERS = ("fitscore_common.cuh",)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
-              "-fPIC")
+              "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -57,21 +59,37 @@ def build() -> tuple:
     if os.path.exists(path):
         return path, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-               *(os.path.join(CSRC, s) for s in SOURCES)]
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        t0 = time.perf_counter()
+        objs, procs = [], []
+        for src in SOURCES:
+            obj = os.path.join(tmpdir, src + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj,
+                   os.path.join(CSRC, src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        report = []
+        for cmd, proc in procs:
+            out = proc.communicate()[0]
+            report.append(out)
+            if proc.returncode != 0:
+                for _, other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        tmp = os.path.join(tmpdir, "lib.so")
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
         os.replace(tmp, path)   # atomic: a concurrent builder sees all or none
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path, time.perf_counter() - t0, proc.stdout + proc.stderr
+    return path, time.perf_counter() - t0, "".join(report)
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,6 +100,10 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fitscore_select_launch.argtypes = [p] * 12 + [i, i, i, i, p]
     lib.fitscore_select_launch.restype = i
+    ll, f = ctypes.c_longlong, ctypes.c_float
+    lib.fitscore_replay_block_launch.argtypes = \
+        [p] * 14 + [ll] * 3 + [i] * 11 + [f] * 3 + [i, p]
+    lib.fitscore_replay_block_launch.restype = i
     lib.fitscore_error_string.argtypes = [i]
     lib.fitscore_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,478 @@
+// The event-blocked replay megakernel of the DVBP replay, for Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/fitscore.py::fitscore_replay_block
+// (fitscore.py:865, kernel body _replay_block_kernel).  One launch replays a
+// block of T consecutive events of every lane: the departure (with PPE's
+// alpha and the adaptive switch's error learning), the family's category
+// update, the category-masked select and the commit, for the six kernel
+// families score, cbd, hybrid, rcp, la and adaptive (REPLAY_FAMILIES in
+// repro_torch/kernels/fitscore.py, whose replay_block_ref is the plain
+// version: the same fp32 op sequence, held equal to this kernel on the
+// card).  The MIGRATE branch of the reference (consolidation) is not here.
+//
+// What bounds it: the events of a lane form a serial chain - each event's
+// select reads the state the previous commit wrote - so a block costs T
+// dependent steps per lane, each a pass over the lane's Np slots plus a
+// block-wide reduction and two __syncthreads.  The bytes are small: the
+// carry a block must read and write once (slot state Np x 3 rows of 32 B,
+// the item and aggregate rows the events touch) plus the event streams
+// (~12 B + 32 B of size per event) - a few microseconds of memory traffic
+// at the main path's shapes (L = 28..56 lanes, Np = 64..128, T = 256),
+// far below T serial steps of latency.
+//
+// Design (simple and right first): one CTA per lane, 256 threads looping
+// over the block's events.  The carry stays in global memory (at Np <= 128
+// a lane's slot state is <= 12 KB and lives in L1/L2; global memory is
+// also right up to MAX_BINS_CAP = 65536 slots, where shared memory could
+// not hold it).  Per event every thread reads the event's scalars; a
+// departure is applied by thread 0 alone (one slot row, one item row, the
+// family's aggregate rows); an arrival's family inputs are computed by
+// every thread from the same state, the select is a block-wide reduction
+// over the Np slots with the family's mask applied per slot, and thread 0
+// commits.  __syncthreads separates the phases.  The family is a template
+// parameter; the policy code and the family flags are runtime ints.  Built
+// with --fmad=false, so the capacity, time and aggregate arithmetic rounds
+// once per operation as in the JAX package; the l2 norm is the explicit
+// fmaf chain of fitscore_common.cuh.
+//
+// Launched through a plain C interface (ctypes), on the caller's stream; it
+// allocates nothing and does not synchronise.
+#include "fitscore_common.cuh"
+
+namespace fitscore {
+
+constexpr int kBlockThreads = 256;
+constexpr int kBlockWarps = kBlockThreads / 32;
+
+// Kernel families, in the order of REPLAY_FAMILIES.
+enum Family : int { SCORE = 0, CBD = 1, HYBRID = 2, RCP = 3, LA = 4,
+                    ADAPTIVE = 5 };
+
+// Packed-carry columns (repro_torch/kernels/fitscore.py; a CPU test,
+// tests/test_torch_replay_block.py, holds these constants to that module's).
+constexpr int COLS = 8;
+constexpr int SLOTF_CLOSES = 0, SLOTF_OPEN_TIME = 1;
+constexpr int SLOTI_COUNTS = 0, SLOTI_ALIVE = 1, SLOTI_OSEQ = 2,
+              SLOTI_ASEQ = 3, SLOTI_TAG = 4;
+constexpr int ITEMI_PLACE = 0, ITEMI_AUX = 1;
+constexpr int SF_USAGE = 0, SF_ALPHA = 1, SF_ERR = 2;
+constexpr int SI_SEQ = 0, SI_OPENED = 1, SI_OVERFLOW = 2, SI_BASE = 3;
+constexpr int KCAT = 64;
+constexpr int RAGG_BASE = 3 * KCAT;
+constexpr int RAGG_ROWS = RAGG_BASE + 8;
+constexpr int ARRIVAL = 1, DEPARTURE = 0;
+constexpr int TAG_GENERAL = -2, TAG_BASE = -3, TAG_LARGE = -4,
+              TAG_NONE = -99;
+constexpr int LOC_G = 0, LOC_B = 1, LOC_C = 2, LOC_L = 3;
+
+struct ReplayArgs {
+  float* loads;      // (L, Np, 8)
+  float* slotf;      // (L, Np, 8)
+  int* sloti;        // (L, Np, 8)
+  int* itemi;        // (L, R, 8)
+  float* sf;         // (L, 8)
+  int* si;           // (L, 8)
+  float* hagg;       // (L, R, 8)          hybrid
+  float* ragg;       // (L, RAGG_ROWS, 8) rcp
+  int* ron;          // (L, KCAT, 8)       rcp
+  const int* evi;    // streams (kind, item, extras...) x lanes x T
+  const float* evf;  // streams (t, pdep, extras...) x lanes x T
+  const float* size; // lanes x T x 8
+  const float* dmask;      // (L, 8)
+  const float* rcp_rsqrt;  // (KCAT,) the reference's rsqrt(x), x = 1..64
+  long long ev_plane, ev_lane, size_lane;   // strides in elements
+  int Np, R, T, d, policy;
+  int large_bins, adaptive_alpha, direct_sum, la_geometric;
+  float la_split, low, high;
+};
+
+__device__ __forceinline__ float row_max(const float* row,
+                                         const float (&add)[DPAD]) {
+  float m = row[0] + add[0];
+#pragma unroll
+  for (int k = 1; k < DPAD; ++k) m = fmaxf(m, row[k] + add[k]);
+  return m;
+}
+
+template <int FAM>
+__global__ void __launch_bounds__(kBlockThreads)
+replay_block_kernel(const ReplayArgs a) {
+  const int lane = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int Np = a.Np;
+  float* loads = a.loads + static_cast<long long>(lane) * Np * DPAD;
+  float* slotf = a.slotf + static_cast<long long>(lane) * Np * COLS;
+  int* sloti = a.sloti + static_cast<long long>(lane) * Np * COLS;
+  int* itemi = a.itemi + static_cast<long long>(lane) * a.R * COLS;
+  float* sf = a.sf + lane * COLS;
+  int* si = a.si + lane * COLS;
+  float* hagg = FAM == HYBRID
+      ? a.hagg + static_cast<long long>(lane) * a.R * DPAD : nullptr;
+  float* ragg = FAM == RCP
+      ? a.ragg + static_cast<long long>(lane) * RAGG_ROWS * DPAD
+      : nullptr;
+  int* ron = FAM == RCP ? a.ron + lane * KCAT * COLS : nullptr;
+  const int* evi = a.evi + lane * a.ev_lane;
+  const float* evf = a.evf + lane * a.ev_lane;
+  const float* evsize = a.size + lane * a.size_lane;
+  const long long P = a.ev_plane;
+
+  float dm[DPAD];
+#pragma unroll
+  for (int k = 0; k < DPAD; ++k) dm[k] = a.dmask[lane * DPAD + k];
+
+  __shared__ SelectScratch<kBlockWarps> sh;
+  __shared__ int sh_conv;   // rcp: this arrival converted the base bin
+
+  for (int e = 0; e < a.T; ++e) {
+    const int kind = evi[e];
+    if (kind != ARRIVAL && kind != DEPARTURE) continue;   // PAD: a no-op
+    const int j = evi[P + e];
+    const float t = evf[e];
+    const float pd = evf[P + e];
+    float sz[DPAD];
+#pragma unroll
+    for (int k = 0; k < DPAD; ++k) sz[k] = evsize[e * DPAD + k];
+    int* irow = itemi + static_cast<long long>(j) * COLS;
+
+    // ------------------------------------------------------ departure
+    if (kind == DEPARTURE) {
+      if (tid == 0) {
+        const int b = irow[ITEMI_PLACE];
+        int* srow = sloti + b * COLS;
+        float* frow = slotf + b * COLS;
+        float* lrow = loads + b * DPAD;
+        const int cnt = srow[SLOTI_COUNTS] - 1;
+        const bool closing = cnt == 0;
+        if (closing) sf[SF_USAGE] = sf[SF_USAGE] + (t - frow[SLOTF_OPEN_TIME]);
+#pragma unroll
+        for (int k = 0; k < DPAD; ++k)
+          lrow[k] = closing ? 0.0f : lrow[k] - sz[k];
+        srow[SLOTI_COUNTS] = cnt;
+        if (closing) {
+          srow[SLOTI_ALIVE] = 0;
+          frow[SLOTF_CLOSES] = SCORE_NEG;
+        }
+        if (FAM == HYBRID) {
+          const bool wasg = irow[ITEMI_AUX] > 0;
+          float* hrow = hagg + static_cast<long long>(evi[2 * P + e]) * DPAD;
+#pragma unroll
+          for (int k = 0; k < DPAD; ++k)
+            hrow[k] = fmaxf(hrow[k] - (wasg ? sz[k] : 0.0f), 0.0f);
+        } else if (FAM == RCP) {
+          const int catj = evi[2 * P + e];
+          const int locd = irow[ITEMI_AUX];
+          const int base = si[SI_BASE];
+          float* gen = ragg + catj * DPAD;
+          float* cat = ragg + (KCAT + catj) * DPAD;
+          float* brow = ragg + RAGG_BASE * DPAD;
+          float* bcat = ragg + 2 * KCAT * DPAD;
+          float cmax = 0.0f;
+#pragma unroll
+          for (int k = 0; k < DPAD; ++k) {
+            gen[k] = fmaxf(gen[k] - (locd == LOC_G ? sz[k] : 0.0f), 0.0f);
+            cat[k] = fmaxf(cat[k] - (locd == LOC_C ? sz[k] : 0.0f), 0.0f);
+            cmax = k == 0 ? cat[k] : fmaxf(cmax, cat[k]);
+          }
+          if (locd == LOC_C && ron[catj * COLS] != 0 && cmax < 0.5f)
+            ron[catj * COLS] = 0;
+          const bool base_closed = closing && base >= 0 && b == base;
+#pragma unroll
+          for (int k = 0; k < DPAD; ++k) {
+            const float szb = locd == LOC_B ? sz[k] : 0.0f;
+            brow[k] = base_closed ? 0.0f : fmaxf(brow[k] - szb, 0.0f);
+            bcat[catj * DPAD + k] = fmaxf(bcat[catj * DPAD + k] - szb, 0.0f);
+          }
+          if (base_closed) {
+            for (int i = 0; i < KCAT * DPAD; ++i) bcat[i] = 0.0f;
+            si[SI_BASE] = -1;
+          }
+          if (a.adaptive_alpha)
+            sf[SF_ALPHA] = fmaxf(sf[SF_ALPHA], evf[2 * P + e]);
+        } else if (FAM == ADAPTIVE) {
+          sf[SF_ERR] = fmaxf(sf[SF_ERR], evf[2 * P + e]);
+        }
+      }
+      __syncthreads();
+      continue;
+    }
+
+    // -------------------------------------------------------- arrival
+    // The family's inputs to the select, computed by every thread from the
+    // same (unchanged until the commit) state.
+    int policy = a.policy;
+    int want = 0;              // cbd / hybrid / rcp: the tag a slot needs
+    bool is_gen = false;       // hybrid
+    int catj = 0;              // cbd / rcp / la: the item's class
+    bool d_large = false, d_gen = false, d_cat = false, d_base = false,
+         d_catf = false, has_base = false;   // rcp
+    int base = -1;
+    if (FAM == CBD) {
+      catj = evi[2 * P + e];
+      want = catj;
+      policy = FIRST_FIT;
+    } else if (FAM == HYBRID) {
+      const int keyj = evi[2 * P + e];
+      const int clsj = evi[3 * P + e];
+      const float* hrow = hagg + static_cast<long long>(keyj) * DPAD;
+      float norm;
+      if (a.direct_sum) {
+        norm = 0.0f;
+#pragma unroll
+        for (int k = 0; k < DPAD; ++k)
+          if (k == clsj) norm = hrow[k] + sz[k];
+      } else {
+        norm = row_max(hrow, sz);
+      }
+      is_gen = norm <= evf[2 * P + e] + F32_EPS;
+      want = is_gen ? clsj : a.d + keyj;
+      policy = FIRST_FIT;
+    } else if (FAM == RCP) {
+      catj = evi[2 * P + e];
+      const int x = min(max(evi[4 * P + e], 1), KCAT);
+      float thr = a.rcp_rsqrt[x - 1];
+      if (a.adaptive_alpha) thr = sf[SF_ALPHA] * thr;
+      const bool fits_gen = row_max(ragg + catj * DPAD, sz) <= thr + F32_EPS;
+      base = si[SI_BASE];
+      has_base = base >= 0;
+      bool base_fits = true;
+      if (has_base) {
+        float bl[DPAD];
+#pragma unroll
+        for (int k = 0; k < DPAD; ++k) bl[k] = loads[base * DPAD + k];
+        base_fits = fits(bl, sz);
+      }
+      const bool is_on = ron[catj * COLS] != 0;
+      d_large = a.large_bins && evi[3 * P + e] != 0;
+      const bool fall = !d_large && !fits_gen;
+      d_gen = !d_large && fits_gen;
+      d_cat = fall && is_on;
+      d_base = fall && !is_on && base_fits;
+      d_catf = fall && !is_on && !base_fits;
+      want = d_gen ? TAG_GENERAL
+                   : d_cat ? catj : (d_base && has_base) ? TAG_BASE : TAG_NONE;
+      policy = FIRST_FIT;
+    } else if (FAM == LA) {
+      catj = evi[2 * P + e];
+      policy = BEST_FIT_LINF;
+    } else if (FAM == ADAPTIVE) {
+      const float err = sf[SF_ERR];
+      policy = err < a.low ? NRT_PRIORITIZED
+                           : err < a.high ? GREEDY : FIRST_FIT;
+    }
+
+    // the select: every thread scans its slots
+    Cand ca = no_cand(), cb = no_cand();
+    int free_row = IBIG;
+    for (int r = tid; r < Np; r += kBlockThreads) {
+      const int* srow = sloti + r * COLS;
+      if (srow[SLOTI_COUNTS] == 0) free_row = min(free_row, r);
+      if (!srow[SLOTI_ALIVE]) continue;
+      const float* frow = slotf + r * COLS;
+      bool in_b = false;   // la: the slot is a fallback (foreign-class) bin
+      if (FAM == CBD || FAM == HYBRID || FAM == RCP) {
+        if (srow[SLOTI_TAG] != want) continue;
+      } else if (FAM == LA) {
+        const float remt = fmaxf(frow[SLOTF_CLOSES], t) - t;
+        int bincat;
+        if (a.la_geometric) {
+          bincat = remt < 1.0f
+              ? 0 : ((__float_as_int(remt) >> 23) & 0xFF) - 126;
+        } else {
+          bincat = remt >= a.la_split ? 1 : 0;
+        }
+        const bool same = bincat == catj;
+        const bool shrt = catj == 0;
+        in_b = !shrt && !same;
+      }
+      float l[DPAD];
+#pragma unroll
+      for (int k = 0; k < DPAD; ++k) l[k] = loads[r * DPAD + k];
+      if (!fits(l, sz)) continue;
+      bool case_b;
+      const Cand c{policy_score(policy, l, sz, dm, srow[SLOTI_OSEQ],
+                                [&] { return srow[SLOTI_ASEQ]; },
+                                [&] { return frow[SLOTF_CLOSES]; }, t, pd,
+                                case_b),
+                   srow[SLOTI_OSEQ], r};
+      Cand& best = (case_b || in_b) ? cb : ca;
+      if (lex_less(c, best)) best = c;
+    }
+    int b;
+    bool found, no_free;
+    block_select(sh, ca, cb, free_row, b, found, no_free);
+
+    // thread 0: the shared commit, then the family's post-placement update
+    if (tid == 0) {
+      int* srow = sloti + b * COLS;
+      float* frow = slotf + b * COLS;
+      float* lrow = loads + b * DPAD;
+      const int seq = si[SI_SEQ];
+#pragma unroll
+      for (int k = 0; k < DPAD; ++k) lrow[k] = lrow[k] + sz[k];
+      srow[SLOTI_COUNTS] += 1;
+      srow[SLOTI_ALIVE] = 1;
+      if (!found) {
+        srow[SLOTI_OSEQ] = seq;
+        frow[SLOTF_OPEN_TIME] = t;
+      }
+      srow[SLOTI_ASEQ] = seq;
+      frow[SLOTF_CLOSES] = fmaxf(found ? frow[SLOTF_CLOSES] : SCORE_NEG,
+                                 fmaxf(pd, t));
+      irow[ITEMI_PLACE] = b;
+      si[SI_OPENED] += found ? 0 : 1;
+      si[SI_OVERFLOW] |= (!found && no_free) ? 1 : 0;
+      si[SI_SEQ] = seq + 1;
+
+      if (FAM == CBD) {
+        if (!found) srow[SLOTI_TAG] = want;
+      } else if (FAM == HYBRID) {
+        if (!found) srow[SLOTI_TAG] = want;
+        float* hrow = hagg + static_cast<long long>(evi[2 * P + e]) * DPAD;
+#pragma unroll
+        for (int k = 0; k < DPAD; ++k)
+          hrow[k] = hrow[k] + (is_gen ? sz[k] : 0.0f);
+        irow[ITEMI_AUX] = is_gen ? 1 : 0;
+      } else if (FAM == RCP) {
+        // the reference's order (fitscore.py:754-784): the catj row of the
+        // category block is read before the whole-block add and written
+        // last
+        float* gen = ragg + catj * DPAD;
+        float* catblk = ragg + KCAT * DPAD;
+        float* bcat = ragg + 2 * KCAT * DPAD;
+        float* brow = ragg + RAGG_BASE * DPAD;
+        const int open_tag = d_large ? TAG_LARGE
+            : d_gen ? TAG_GENERAL : d_base ? TAG_BASE : catj;
+        int tag1 = found ? srow[SLOTI_TAG] : open_tag;
+        const bool new_base = d_base && !has_base;
+        const int base_a = new_base ? b : base;
+        if (new_base)
+          for (int i = 0; i < KCAT * DPAD; ++i) bcat[i] = 0.0f;
+        float cat_row[DPAD];
+        float bmax = 0.0f;
+#pragma unroll
+        for (int k = 0; k < DPAD; ++k) {
+          gen[k] = gen[k] + (d_gen ? sz[k] : 0.0f);
+          cat_row[k] = catblk[catj * DPAD + k] +
+                       ((d_cat || d_catf) ? sz[k] : 0.0f);
+          bcat[catj * DPAD + k] = bcat[catj * DPAD + k] +
+                                  (d_base ? sz[k] : 0.0f);
+          brow[k] = (new_base ? 0.0f : brow[k]) + (d_base ? sz[k] : 0.0f);
+          bmax = k == 0 ? brow[k] : fmaxf(bmax, brow[k]);
+        }
+        if (d_catf) ron[catj * COLS] = 1;
+        irow[ITEMI_AUX] = d_gen ? LOC_G : d_base ? LOC_B
+                                 : d_large ? LOC_L : LOC_C;
+        const bool conv = d_base && bmax > 0.5f;
+        if (conv) {
+          // dom: the first category whose bcat row holds the maximum
+          int dom = 0;
+          float mmax = 0.0f;
+          for (int r = 0; r < KCAT; ++r) {
+            float m = bcat[r * DPAD];
+#pragma unroll
+            for (int k = 1; k < DPAD; ++k) m = fmaxf(m, bcat[r * DPAD + k]);
+            if (r == 0 || m > mmax) {
+              mmax = m;
+              dom = r;
+            }
+          }
+          tag1 = dom;
+          ron[dom * COLS] = 1;
+#pragma unroll
+          for (int k = 0; k < DPAD; ++k)
+            cat_row[k] = cat_row[k] + bcat[catj * DPAD + k];
+          for (int i = 0; i < KCAT * DPAD; ++i) {
+            catblk[i] = catblk[i] + bcat[i];
+            bcat[i] = 0.0f;
+          }
+#pragma unroll
+          for (int k = 0; k < DPAD; ++k) brow[k] = 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < DPAD; ++k) catblk[catj * DPAD + k] = cat_row[k];
+        srow[SLOTI_TAG] = tag1;
+        si[SI_BASE] = conv ? -1 : base_a;
+        sh_conv = conv ? 1 : 0;
+      }
+    }
+    __syncthreads();
+    if (FAM == RCP && sh_conv) {
+      // the converted base bin's items become category items
+      for (int i = tid; i < a.R; i += kBlockThreads)
+        if (itemi[i * COLS + ITEMI_AUX] == LOC_B)
+          itemi[i * COLS + ITEMI_AUX] = LOC_C;
+      __syncthreads();
+    }
+  }
+}
+
+template <int FAM>
+cudaError_t launch(const ReplayArgs& a, int L, cudaStream_t stream) {
+  replay_block_kernel<FAM><<<L, kBlockThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace fitscore
+
+extern "C" {
+
+// Launches one block of T events for L lanes on `stream` of card `device`;
+// returns the cudaError_t of the launch (0 on success).
+int fitscore_replay_block_launch(
+    void* loads, void* slotf, void* sloti, void* itemi, void* sf, void* si,
+    void* hagg, void* ragg, void* ron, const void* evi, const void* evf,
+    const void* size, const void* dmask, const void* rcp_rsqrt,
+    long long ev_plane, long long ev_lane, long long size_lane, int L,
+    int Np, int R, int T, int d, int family, int policy, int large_bins,
+    int adaptive_alpha, int direct_sum, int la_geometric, float la_split,
+    float low, float high, int device, void* stream) {
+  using namespace fitscore;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  ReplayArgs a;
+  a.loads = static_cast<float*>(loads);
+  a.slotf = static_cast<float*>(slotf);
+  a.sloti = static_cast<int*>(sloti);
+  a.itemi = static_cast<int*>(itemi);
+  a.sf = static_cast<float*>(sf);
+  a.si = static_cast<int*>(si);
+  a.hagg = static_cast<float*>(hagg);
+  a.ragg = static_cast<float*>(ragg);
+  a.ron = static_cast<int*>(ron);
+  a.evi = static_cast<const int*>(evi);
+  a.evf = static_cast<const float*>(evf);
+  a.size = static_cast<const float*>(size);
+  a.dmask = static_cast<const float*>(dmask);
+  a.rcp_rsqrt = static_cast<const float*>(rcp_rsqrt);
+  a.ev_plane = ev_plane;
+  a.ev_lane = ev_lane;
+  a.size_lane = size_lane;
+  a.Np = Np;
+  a.R = R;
+  a.T = T;
+  a.d = d;
+  a.policy = policy;
+  a.large_bins = large_bins;
+  a.adaptive_alpha = adaptive_alpha;
+  a.direct_sum = direct_sum;
+  a.la_geometric = la_geometric;
+  a.la_split = la_split;
+  a.low = low;
+  a.high = high;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (family) {
+    case SCORE: err = launch<SCORE>(a, L, s); break;
+    case CBD: err = launch<CBD>(a, L, s); break;
+    case HYBRID: err = launch<HYBRID>(a, L, s); break;
+    case RCP: err = launch<RCP>(a, L, s); break;
+    case LA: err = launch<LA>(a, L, s); break;
+    case ADAPTIVE: err = launch<ADAPTIVE>(a, L, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+}  // extern "C"

@@ -74,63 +74,21 @@ select_kernel(const float4* __restrict__ loads,     // (L, Np, 8)
     const float4 hi = loads[2 * i + 1];
     const float l[DPAD] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
     if (!fits(l, sz)) continue;
-    const int os = open_seq[i];
-    float s;
-    switch (policy) {
-      case FIRST_FIT:
-        s = static_cast<float>(os);
-        break;
-      case MRU:
-        s = -static_cast<float>(access_seq[i]);
-        break;
-      case GREEDY:
-        s = -fmaxf(closes[i], t);
-        break;
-      case NRT_STANDARD:
-        s = fabsf(fmaxf(closes[i], t) - pd);
-        break;
-      case NRT_PRIORITIZED: {
-        const float gap = fmaxf(closes[i], t) - pd;
-        if (gap >= 0.0f) {
-          const Cand c{gap, os, r};
-          if (lex_less(c, ca)) ca = c;
-        } else {
-          const Cand c{-gap, os, r};
-          if (lex_less(c, cb)) cb = c;
-        }
-        continue;
-      }
-      default:
-        s = best_fit_score(policy, l, sz, dm);
-    }
-    const Cand c{s, os, r};
-    if (lex_less(c, ca)) ca = c;
+    bool case_b;
+    const Cand c{policy_score(policy, l, sz, dm, open_seq[i],
+                              [&] { return access_seq[i]; },
+                              [&] { return closes[i]; }, t, pd, case_b),
+                 open_seq[i], r};
+    Cand& best = case_b ? cb : ca;
+    if (lex_less(c, best)) best = c;
   }
 
-  ca = warp_lex_min(ca);
-  cb = warp_lex_min(cb);
-  free_row = warp_min(free_row);
-
-  __shared__ Cand sh_a[kWarps], sh_b[kWarps];
-  __shared__ int sh_free[kWarps];
-  const int warp = tid / 32;
-  if ((tid & 31) == 0) {
-    sh_a[warp] = ca;
-    sh_b[warp] = cb;
-    sh_free[warp] = free_row;
-  }
-  __syncthreads();
+  __shared__ SelectScratch<kWarps> sh;
+  int slot;
+  bool found, no_free;
+  block_select(sh, ca, cb, free_row, slot, found, no_free);
   if (tid != 0) return;
-  for (int w = 1; w < kWarps; ++w) {
-    if (lex_less(sh_a[w], ca)) ca = sh_a[w];
-    if (lex_less(sh_b[w], cb)) cb = sh_b[w];
-    free_row = min(free_row, sh_free[w]);
-  }
-  const bool found_a = ca.score < SCORE_BIG;
-  const bool found = found_a || cb.score < SCORE_BIG;
-  const bool no_free = free_row >= IBIG;
-  out[lane * 3 + 0] = found ? (found_a ? ca.row : cb.row)
-                            : (no_free ? 0 : free_row);
+  out[lane * 3 + 0] = slot;
   out[lane * 3 + 1] = found ? 1 : 0;
   out[lane * 3 + 2] = no_free ? 1 : 0;
 }

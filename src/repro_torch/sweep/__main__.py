@@ -1,9 +1,9 @@
 """``python -m repro_torch sweep``: evaluate a DVBP experiment grid on the
-card (the reference's ``python -m repro sweep`` for the 8 score policies).
+card (the reference's ``python -m repro sweep``, all 21 scan policies).
 
     PYTHONPATH=src python -m repro_torch sweep --suites azure \
         --n-instances 28 --n-items 5000 --preds clairvoyant lognormal:1.0 \
-        --seeds 0,1
+        --seeds 0,1 --block-events 256
     # the same command again: every group prints "skip ... (cached)"
     PYTHONPATH=src python -m repro_torch sweep --device cpu --n-items 200
 """
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import argparse
 
-from ..core.torchsim import POLICIES
+from ..core.torchsim import SCAN_POLICIES
 from .grid import PredModel, SuiteSpec, SweepSpec, run_sweep, summarize_sweep
 from .store import SweepStore
 
@@ -38,8 +38,9 @@ def main(argv=None, prog: str = "python -m repro_torch sweep") -> None:
     ap.add_argument("--suite-seed", type=int, default=None,
                     help="instance-generator seed (default: family-specific)")
     ap.add_argument("--policies", default="all",
-                    help=f"comma list from {','.join(POLICIES)} or 'all' "
-                         "(the category policies are not ported yet)")
+                    help=f"comma list from {','.join(SCAN_POLICIES)} "
+                         "or 'all' (parametric names like cbd_beta4 / "
+                         "cbdt_rho3600 parse too)")
     ap.add_argument("--preds", nargs="+", default=["clairvoyant"],
                     help="prediction models: none | clairvoyant | "
                          "lognormal:SIGMA | uniform:EPS")
@@ -52,12 +53,16 @@ def main(argv=None, prog: str = "python -m repro_torch sweep") -> None:
     ap.add_argument("--no-store", action="store_true")
     ap.add_argument("--force", action="store_true",
                     help="recompute even if the store has results")
+    ap.add_argument("--block-events", type=int, default=0,
+                    help="events per megakernel launch (0/1 = per-event "
+                         "replay); execution knob only, never changes "
+                         "results")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the replay (default cuda; cpu runs "
                          "the plain PyTorch select)")
     args = ap.parse_args(argv)
 
-    policies = POLICIES if args.policies == "all" else \
+    policies = SCAN_POLICIES if args.policies == "all" else \
         tuple(args.policies.split(","))
     suites = tuple(
         SuiteSpec(fam, args.n_instances, args.n_items,
@@ -74,7 +79,7 @@ def main(argv=None, prog: str = "python -m repro_torch sweep") -> None:
           f"{store.path(spec) if store else '(not stored)'}")
     records = run_sweep(spec, store=store, force=args.force,
                         progress=lambda m: print(f"# {m}", flush=True),
-                        device=args.device)
+                        device=args.device, block_events=args.block_events)
 
     print(f"{'policy':<18} {'pred':<14} {'n':>4} {'mean':>8} {'median':>8} "
           f"{'q1':>8} {'q3':>8}")

@@ -21,8 +21,7 @@ import numpy as np
 
 from ..core import (BoxStats, lognormal_predictions_batch, lower_bound,
                     uniform_predictions_batch)
-from ..core.torchsim import (MAX_BINS_CAP, POLICIES, known_policy,
-                             require_score_policy)
+from ..core.torchsim import MAX_BINS_CAP, POLICIES, known_policy
 from ..core.types import Instance
 from ..data import (load_azure_csv, make_azure_like_suite,
                     make_huawei_like_suite)
@@ -119,7 +118,6 @@ class SweepSpec:
         for p in self.policies:
             if not known_policy(p):
                 raise KeyError(f"{p!r} is not a scan policy")
-            require_score_policy(p)
         if self.max_bins_cap > MAX_BINS_CAP:
             raise ValueError(f"max_bins_cap {self.max_bins_cap} above "
                              f"MAX_BINS_CAP {MAX_BINS_CAP}")
@@ -181,8 +179,12 @@ def _built_suite(suite: SuiteSpec):
 
 
 def run_sweep(spec: SweepSpec, store=None, force: bool = False,
-              progress=None, device="cuda") -> Dict[str, Dict]:
+              progress=None, device="cuda",
+              block_events: int = 0) -> Dict[str, Dict]:
     """Expand and run the grid on ``device``; returns {result_key: record}.
+    ``block_events`` > 1 replays through the event-blocked megakernel: an
+    execution argument, so records and store files are the same for any
+    value.
 
     record: usage_time, lower_bound, ratio, n_bins_opened, overflowed,
     max_bins, suite, instance, policy, pred, seed - the reference's schema.
@@ -214,7 +216,8 @@ def run_sweep(spec: SweepSpec, store=None, force: bool = False,
                 say(f"run  {suite.label()}/{policy}/{pred.label()} "
                     f"B={batch.B} S={len(seeds)}")
                 res = run_batch(batch, policy, pdeps, spec.max_bins,
-                                spec.max_bins_cap, device=device)
+                                spec.max_bins_cap, device=device,
+                                block_events=block_events)
                 group_recs = {}
                 for bi, inst in enumerate(insts):
                     for si, seed in enumerate(seeds):

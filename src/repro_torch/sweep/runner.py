@@ -3,7 +3,10 @@ counterpart of ``repro.sweep.runner`` on a single device.
 
 ``run_batch`` flattens the (B, S) grid of instances x prediction-seed rows
 to L = B*S lanes (lane = b*S + s, b-major: the store's records depend on
-this order) and replays them in one ``torchsim._replay_batch`` call.
+this order) and replays them in one ``torchsim._replay_batch`` call, for
+any ``SCAN_POLICIES`` policy.  ``block_events=T > 1`` replays through the
+event-blocked megakernel, T events per launch; it never changes a result.
+A build or launch failure raises: there is no fallback path.
 
 Overflow handling mirrors ``torchsim.simulate(auto_grow=True)`` lane-wise:
 any instance whose slot pool overflowed (in any seed row) is re-run with
@@ -17,7 +20,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 from ..core.torchsim import (MAX_BINS_CAP, _replay_batch, grow_max_bins,
-                             known_policy, require_score_policy)
+                             known_policy)
 from ..kernels.ops import resolve_device
 from .batching import InstanceBatch, instances_pdeps
 
@@ -48,16 +51,18 @@ class BatchRunResult:
 def run_batch(batch: InstanceBatch, policy: str,
               pdeps: Optional[np.ndarray] = None, max_bins: int = 64,
               max_bins_cap: int = MAX_BINS_CAP, auto_grow: bool = True,
-              device="cuda") -> BatchRunResult:
-    """Replay every lane of ``batch`` under a score ``policy``.
+              device="cuda", block_events: int = 0) -> BatchRunResult:
+    """Replay every lane of ``batch`` under ``policy`` (any
+    ``SCAN_POLICIES`` name).
 
     ``pdeps``: (B, S, n_max) predicted departure times (see
     ``batching.pad_predictions``); defaults to the real departures.
     ``device``: where the replay runs ("cuda" unless the caller asks for
-    "cpu")."""
+    "cpu").  ``block_events`` > 1 replays whole blocks of that many events
+    per megakernel launch; the rungs of the overflow ladder rerun the
+    overflowing lanes from a fresh carry either way."""
     if not known_policy(policy):
         raise KeyError(f"{policy!r} is not a scan policy")
-    require_score_policy(policy)
     dev = resolve_device(device)
     if pdeps is None:
         pdeps = instances_pdeps(batch)
@@ -76,7 +81,8 @@ def run_batch(batch: InstanceBatch, policy: str,
     while True:
         sub = _flatten_lanes(*(a[lanes] for a in arrays))
         u, o, _placements, ov = _replay_batch(
-            *sub, policy=policy, max_bins=mb, device=dev)
+            *sub, policy=policy, max_bins=mb, device=dev,
+            block_events=block_events)
         n = lanes.size
         usage[lanes] = u.cpu().numpy().reshape(n, S)
         opened[lanes] = o.cpu().numpy().reshape(n, S)
@@ -92,9 +98,9 @@ def run_batch(batch: InstanceBatch, policy: str,
 
 def run_grid(batch: InstanceBatch, policies: Sequence[str],
              pdeps: Optional[np.ndarray] = None, max_bins: int = 64,
-             max_bins_cap: int = MAX_BINS_CAP,
-             device="cuda") -> Dict[str, BatchRunResult]:
+             max_bins_cap: int = MAX_BINS_CAP, device="cuda",
+             block_events: int = 0) -> Dict[str, BatchRunResult]:
     """One batched run per policy over the same instance batch."""
     return {p: run_batch(batch, p, pdeps, max_bins, max_bins_cap,
-                         device=device)
+                         device=device, block_events=block_events)
             for p in policies}

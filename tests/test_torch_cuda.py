@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA select against its plain version, and the
-replay on the card against the replay on the CPU, bit for bit.
+"""The port on the card: the CUDA select and the CUDA replay megakernel
+against their plain versions, and the replays on the card (per event and
+blocked) against the replays on the CPU, bit for bit.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips with a
 reason where ``torch.cuda.is_available()`` is false: the CUDA kernel has
@@ -18,6 +19,7 @@ import torch
 from repro_torch.core import torchsim
 from repro_torch.core.types import Instance
 from repro_torch.kernels import ops
+from repro_torch.kernels import fitscore as fk
 from repro_torch.kernels.fitscore import SELECT_POLICIES, select_ref
 from repro_torch.sweep import pack_instances, pad_predictions, run_batch
 from repro_torch.sweep.runner import _flatten_lanes
@@ -31,7 +33,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the CUDA select has no CPU mode")
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU "
+                    "mode")
     return torch.device("cuda")
 
 
@@ -114,3 +117,75 @@ def test_overflow_ladder_on_card_equals_cpu(lanes, cuda):
     b = run_batch(batch, "best_fit_l2", pdeps, max_bins=1, device="cpu")
     for f in ("usage_time", "n_bins_opened", "overflowed", "max_bins"):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+def _block_case(policy, flat, max_bins, device):
+    """Streams, kernel arguments and a mid-replay packed carry (the first
+    48 events replayed) of one policy on ``device``."""
+    ev_i, ev_f, ev_size, dmask, fam, d = torchsim._event_streams(
+        policy, *flat, None)
+    kw = torchsim.replay_block_kwargs(policy, max_bins, d)
+    ev = [a.to(device) for a in (ev_i, ev_f, ev_size, dmask)]
+    carry = torchsim.packed_init_carry(fam, flat[0].shape[0],
+                                       flat[0].shape[1], max_bins, device)
+    ops.replay_chunk(carry, ev[0][:, :, :48], ev[1][:, :, :48],
+                     ev[2][:, :48], ev[3], block_events=48, **kw)
+    return carry, ev, kw
+
+
+@pytest.mark.parametrize("policy", torchsim.SCAN_POLICIES)
+def test_megakernel_equals_replay_block_ref(policy, lanes, cuda):
+    """One launch (and one plain block) from the same mid-replay carry,
+    T = 1 and T = 64 past the end of two of the three lanes (PAD): every
+    carry array equal."""
+    *_, flat = lanes
+    for T in (1, 64):
+        carry, (ev_i, ev_f, ev_size, dmask), kw = _block_case(
+            policy, flat, 16, cuda)
+        plain = {k: v.clone() for k, v in carry.items()}
+        blk = slice(136, 136 + T)
+        n0 = ops.launches["fitscore_replay_block"]
+        ops.fitscore_replay_block(carry, ev_i[:, :, blk], ev_f[:, :, blk],
+                                  ev_size[:, blk], dmask, **kw)
+        assert ops.launches["fitscore_replay_block"] == n0 + 1
+        fk.replay_block_ref(plain, ev_i[:, :, blk], ev_f[:, :, blk],
+                            ev_size[:, blk], dmask, **kw)
+        for k in carry:
+            assert torch.equal(carry[k], plain[k]), (T, k)
+
+
+@pytest.mark.parametrize("policy", ["best_fit_l2", "cbdt", "hybrid",
+                                    "ppe_modified", "la_binary",
+                                    "adaptive"])
+def test_blocked_replay_on_card_equals_cpu(policy, lanes, cuda):
+    *_, flat = lanes
+    ops.launches.clear()
+    torchsim.counters.clear()
+    got = torchsim._replay_batch(*flat, policy=policy, max_bins=16,
+                                 device=cuda, block_events=32)
+    E = flat[1].shape[1]
+    assert ops.launches["fitscore_replay_block"] == \
+        torchsim.counters["replay_blocks"] == -(-E // 32)
+    assert ops.launches["fitscore_select"] == 0
+    ref = torchsim._replay_batch(*flat, policy=policy, max_bins=16,
+                                 device="cpu")
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_megakernel_wrapper_rejects_what_the_kernel_does_not_take(lanes,
+                                                                  cuda):
+    *_, flat = lanes
+    carry, (ev_i, ev_f, ev_size, dmask), kw = _block_case(
+        "rcp", flat, 16, cuda)
+    ev = (ev_i[:, :, :8], ev_f[:, :, :8], ev_size[:, :8], dmask)
+    bad = dict(carry, sloti=carry["sloti"].float())
+    with pytest.raises(ValueError, match="sloti"):
+        ops.fitscore_replay_block(bad, *ev, **kw)
+    with pytest.raises(ValueError, match="carry arrays"):
+        ops.fitscore_replay_block({k: v for k, v in carry.items()
+                                   if k != "ron"}, *ev, **kw)
+    with pytest.raises(ValueError, match="ev_i"):
+        ops.fitscore_replay_block(carry, ev[0].cpu(), *ev[1:], **kw)
+    with pytest.raises(ValueError, match="slots"):
+        ops.fitscore_replay_block(carry, *ev, **dict(kw, n=17))

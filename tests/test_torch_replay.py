@@ -6,8 +6,9 @@ tests/test_fitscore_select.py (copied, not imported): three fp32-exact
 instances of 60/100/40 items in d = 2/4/3, each with a clairvoyant and a
 noisy prediction row - pad events, the dmask path and the lane flattening
 all in play.  Usage, opened bins, placements and overflow must be
-bit-identical for all 8 score policies, through the overflow ladder, and
-across a carry handed from one package to the other mid-replay."""
+bit-identical for all 8 score policies (and a few category ones), through
+the overflow ladder, and across a carry handed from one package to the
+other mid-replay."""
 import numpy as np
 import pytest
 import torch
@@ -174,10 +175,16 @@ def test_carry_to_reference_resumes(policy, mixed):
 @pytest.mark.parametrize("policy", ["cbd", "hybrid", "rcp", "la_binary",
                                     "adaptive", "cbd_beta4"])
 def test_category_policy_not_ported_raises(policy, mixed):
+    """The category policies replay, bit-identical to the jnp reference on
+    this fixture (the full matrix is tests/test_torch_categories.py).  The
+    name dates from when the port refused them; it is kept so that this
+    test's history stays one test."""
     *_, lanes = mixed
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torchsim._replay_batch(*lanes, policy=policy, max_bins=16,
-                               device="cpu")
+    ref = jaxsim._replay_batch(*lanes, policy=policy, max_bins=16,
+                               backend="jnp")
+    got = torchsim._replay_batch(*lanes, policy=policy, max_bins=16,
+                                 device="cpu")
+    assert_same(ref, got)
 
 
 def test_plain_select_and_kernel_wrapper_agree(mixed, monkeypatch):

@@ -171,8 +171,14 @@ def test_headline_grid_total_equals_chip_constant():
 
 
 def test_sweep_spec_rejects_category_policies():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_sweep.SweepSpec(policies=("first_fit", "rcp"))
+    """SweepSpec takes all 21 scan policies (hashing as the reference's
+    spec does) and rejects a name that is no policy.  The name dates from
+    when the port refused the category policies; it is kept so that this
+    test's history stays one test."""
+    from repro_torch.core.torchsim import SCAN_POLICIES
+    names = SCAN_POLICIES + ("cbd_beta4", "adaptive_2_16")
+    spec = port_sweep.SweepSpec(policies=names)
+    assert spec.spec_hash() == ref_sweep.SweepSpec(policies=names).spec_hash()
     with pytest.raises(KeyError):
         port_sweep.SweepSpec(policies=("no_such_policy",))
 
