@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. Device and build: the card's name and power limit, then the port's two
+1. Device and build: the card's name and power limit, then the port's four
    kernels built from ``src/repro_torch/kernels/csrc`` (one nvcc per
    source, started together; build time printed).
 2. Select vs plain: the CUDA select against ``select_ref`` on the card, on
@@ -31,20 +31,48 @@ Phases (any failure exits non-zero, and no result line is printed):
    select with its category mask) and blocked, each totalling
    ``REF_USAGE_CAT_28x4``.
 5. Main path per event: ``run_sweep`` over the 28-instance Azure-like suite
-   at the generator's default size (28 x 5000 nominal, 138221 VMs), the 8
-   score policies x {clairvoyant, lognormal:1.0} x seeds {0, 1} into a
-   temporary store.  Every replay step must have launched the select once;
-   best_fit_l2 x clairvoyant is replayed again with the plain select bound
-   in place of the kernel's wrapper and must agree; a second run over the
-   store must find every group cached.
+   at the generator's default size (28 x 5000 nominal, 138221 VMs), two of
+   the 8 score policies (``PER_EVENT_POLICIES``: first_fit, best_fit_l2) x
+   {clairvoyant, lognormal:1.0} x seeds {0, 1} into a temporary store.
+   Every replay step must have launched the select once; best_fit_l2 x
+   clairvoyant is replayed again with the plain select bound in place of
+   the kernel's wrapper and must agree; a second run over the store must
+   find every group cached.
 6. Main path blocked: the same sweep with all 21 policies and
    ``block_events=BLOCK_EVENTS``: the megakernel must have launched once
    per block of every scan and the select never, the score policies'
-   records must equal phase 5's, and every record is finite, overflow-free
-   and at least the Eq.(1) bound; the wall time is split into the scans'
-   CPU set-up, their copies to the card, their launches and the rest.
+   records must equal phase 5's on its keys, and every record is finite,
+   overflow-free and at least the Eq.(1) bound; the wall time is split into
+   the scans' CPU set-up, their copies to the card, their launches and the
+   rest.
    Then ppe_modified x lognormal:1.0 x seed 0 per event at full size must
    equal its blocked records.
+7. Attention kernels vs plain: the CUDA flash and decode attention kernels
+   against ``flash_attention_ref`` / ``decode_attention_ref`` on the card,
+   fp32 and bf16, on the JAX package's kernel-test shapes (every causal /
+   window case) and on the serving path's shapes (H=40, KV=8, hd=128;
+   prefill Sq = Skv in {16, 511, 2048}; decode B in {4, 32} x S in {1024,
+   4096} with random kv_len and one row at S), within the JAX tests'
+   tolerances (2e-5 fp32, 2e-2 bf16, atol and rtol), and in bf16 also
+   within ``BF16_REL`` of the output's largest magnitude.  Then each kernel's
+   device time at the path's shapes in bf16 beside its bound, the plain
+   version's time and ``scaled_dot_product_attention``'s (a yardstick,
+   never on the path).
+8. Serving at full width: qwen2.5-14b (48 layers, d 5120, bf16, random
+   weights from seed 0 made on the card), 12 requests as
+   ``repro_torch.launch.serve --real`` draws them (prompts 32-511 tokens,
+   decodes capped at 64) through ``serve_real(..., "greedy", slots=4,
+   max_len=1024)``: the DVBP scheduler places them on replicas, real
+   ``ReplicaEngine``s prefill and decode them.  Flash attention must have
+   launched 48 times per prefill and decode attention 48 times per engine
+   decode step; the placement stats must equal ``REF_SERVE_STATS``.  One
+   request is teacher-forced (prefill and 8 decode steps) with every
+   attention call running both the kernel and the plain version on the
+   same q, k, v, cache and kv_len, held to each other at every layer within
+   the bf16 tolerance of phase 7; its logits must then equal those of a run
+   with the plain versions bound in place of the kernels within
+   ``SERVE_LOGIT_TOL`` of max |logit|.  Then
+   torch.profiler over engine decode steps and one prefill at full width.
 
 Then, as a measurement and not a check, torch.profiler over 400 per-event
 replay steps of the main path's first rung (L=28, Np=64) and over one
@@ -86,8 +114,34 @@ CAT_HEADLINE_SEEDS = (0, 1, 2, 3, 4, 5)
 # each, and the tested T in {1, 64, 256} of phase 3 includes it.
 BLOCK_EVENTS = 256
 
+# The per-event main path (phase 5) runs two of the 8 score policies: the
+# first and the l2 best fit, whose select the plain-select swap checks.
+# Phase 6 replays all 21 blocked and is held to phase 5 on these keys.
+PER_EVENT_POLICIES = ("first_fit", "best_fit_l2")
+
+# Placement stats of phase 8's serve_real (replica_seconds, replicas_opened,
+# peak_replicas).  They do not depend on the model (eos_id = -1, no
+# sequence reaches max_len); tests/test_torch_serving.py ties them to the
+# JAX package's serve_real on the reduced configuration.
+REF_SERVE_STATS = (187.0, 3, 3)
+SERVE_REQUESTS, SERVE_DECODE_CAP, SERVE_SLOTS, SERVE_MAX_LEN = 12, 64, 4, 1024
+# Kernel vs plain logits of the teacher-forced request, relative to max
+# |logit|.  Each layer's attention output is held to the plain version's on
+# the same inputs (phase 8's per-call check); the logits compare two runs
+# whose bf16 activations part once any layer's output rounds one ulp apart,
+# and that drift passes through the rest of the 48 layers: 2.265e-02 in a
+# measured run on the H100.  The per-call check is the tight one.
+SERVE_LOGIT_TOL = 5e-2
+
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM memory rate
 F32_OPS_PER_S = 67e12        # H100 SXM fp32 rate outside the tensor cores
+BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 rate (tensor cores)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
+# Both attention versions compute in fp32 and round the result to bf16
+# once, so an element may round one bf16 ulp apart (at most 2^-7 of its
+# magnitude); a bf16 output may differ from the plain one by two such ulps
+# of the output's largest magnitude, on top of the atol / rtol check.
+BF16_REL = 2.0 ** -6
 
 
 def fail(msg: str) -> None:
@@ -594,7 +648,6 @@ def phase_main_path(dev, n_items: int = 5000):
     import numpy as np
     import torch
     from repro_torch.core import torchsim
-    from repro_torch.core.torchsim import POLICIES
     from repro_torch.kernels import ops
     from repro_torch.kernels.fitscore import select_ref
     from repro_torch.sweep import (PredModel, SuiteSpec, SweepSpec,
@@ -603,8 +656,8 @@ def phase_main_path(dev, n_items: int = 5000):
     from repro_torch.sweep.grid import _built_suite, result_key
     suite = SuiteSpec("azure", 28, n_items)
     preds = (PredModel("clairvoyant"), PredModel("lognormal", 1.0))
-    spec = SweepSpec(suites=(suite,), policies=POLICIES, predictions=preds,
-                     seeds=(0, 1))
+    spec = SweepSpec(suites=(suite,), policies=PER_EVENT_POLICIES,
+                     predictions=preds, seeds=(0, 1))
     insts, _, batch = _built_suite(suite)
     n_events = 2 * int(batch.n_items.sum())
     say(f"# main path: {len(insts)} instances, {n_events // 2} VMs, "
@@ -622,8 +675,8 @@ def phase_main_path(dev, n_items: int = 5000):
         wall = time.perf_counter() - t0
         launches = ops.launches["fitscore_select"]
         steps = torchsim.counters["scan_steps"]
-        replays = sum(len(POLICIES) * (len(spec.seeds) if p.noisy else 1)
-                      for p in preds)
+        replays = sum(len(spec.policies) * (len(spec.seeds) if p.noisy
+                                            else 1) for p in preds)
         say(f"# main path: {len(records)} records in {wall:.1f} s, "
             f"{replays * n_events / wall:.0f} events/s "
             f"({replays} replays of {n_events} events), "
@@ -756,7 +809,7 @@ def phase_blocked_main_path(dev, per_event_records, per_event_eps,
     if differ:
         fail(f"blocked records differ from the per-event ones: {differ[:3]}")
     say(f"# blocked == per-event records for the {len(per_event_records)} "
-        "score-policy records")
+        f"records of {', '.join(PER_EVENT_POLICIES)}")
 
     # one category group per event at full size: RCP on data that is not
     # fp32-exact, where the threshold's rsqrt table decides
@@ -781,6 +834,340 @@ def phase_blocked_main_path(dev, per_event_records, per_event_eps,
                  int(res.n_bins_opened[bi, 0])):
             fail(f"ppe_modified per event != blocked on {inst.name}")
     say("# ppe_modified per event == blocked on all 28 instances")
+    return launches
+
+
+def _attention_inputs(gen, dev, dtype, q_shape, kv_shape):
+    import torch
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in (q_shape, kv_shape, kv_shape)]
+
+
+def _allclose_err(got, want, tol, what):
+    """max |got - want| in fp32; fails unless |got - want| <= tol + tol *
+    |want| everywhere and, for bf16, max |got - want| <= BF16_REL *
+    max |want|."""
+    import torch
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if not bool(torch.isfinite(g).all()) or \
+            bool((diff > tol + tol * w.abs()).any()):
+        fail(f"{what}: kernel != plain (max |diff| {err}, tolerance {tol})")
+    if got.dtype == torch.bfloat16 and diff.numel() and \
+            err > BF16_REL * float(w.abs().max()):
+        fail(f"{what}: kernel != plain (max |diff| {err} > {BF16_REL} x "
+             f"max |plain| {float(w.abs().max())})")
+    return err
+
+
+def attention_bound(kind, shapes, nbytes_el, valid_pairs):
+    """The least time of one attention call: bytes (q, k, v rows the call
+    needs, read once; out written once) over the memory rate, against the
+    operations of its two products (2 * hd multiply-adds per valid (query
+    head, key) pair) at the card's peak for the operands' type: bf16 on the
+    tensor cores, fp32 outside them, whatever units the kernel uses."""
+    B, H, KV, hd, q_rows, kv_rows = shapes
+    nbytes = nbytes_el * (2 * q_rows * H * hd + 2 * kv_rows * KV * hd)
+    if kind == "decode":
+        nbytes += 4 * B                          # kv_len
+    nops = 4 * valid_pairs * H * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    peak = BF16_OPS_PER_S if nbytes_el == 2 else F32_OPS_PER_S
+    t_ops = nops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_attention_vs_plain(dev):
+    """The two attention kernels against their plain versions on the card
+    (fp32 and bf16, the JAX kernel tests' shapes and the serving path's),
+    then their times at the path's shapes in bf16."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.attention import (decode_attention_ref,
+                                               flash_attention_ref)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    flash_shapes = [(2, 128, 128, 4, 2, 64), (1, 256, 256, 4, 4, 64),
+                    (2, 100, 100, 2, 1, 32), (1, 64, 192, 4, 2, 128),
+                    (1, 96, 96, 8, 8, 16)] + \
+        [(1, s, s, 40, 8, 128) for s in (16, 511, 2048)]
+    decode_shapes = [(2, 8, 2, 64, 512), (1, 4, 4, 128, 300),
+                     (3, 5, 1, 32, 64), (2, 16, 8, 64, 1024)] + \
+        [(b, 40, 8, 128, s) for b in (4, 32) for s in (1024, 4096)]
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    n_cases = 0
+    for dtype_name, tol in ATTN_TOL.items():
+        dtype = getattr(torch, dtype_name)
+        for B, Sq, Skv, H, KV, hd in flash_shapes:
+            q, k, v = _attention_inputs(gen, dev, dtype, (B, Sq, H, hd),
+                                        (B, Skv, KV, hd))
+            for causal, window in ((True, 0), (True, 32), (False, 0)):
+                got = ops.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+                want = flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)
+                err = _allclose_err(got, want, tol, f"flash {dtype} "
+                                    f"{(B, Sq, Skv, H, KV, hd)} causal="
+                                    f"{causal} window={window}")
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+                n_cases += 1
+        for B, H, KV, hd, S in decode_shapes:
+            q, k, v = _attention_inputs(gen, dev, dtype, (B, H, hd),
+                                        (B, S, KV, hd))
+            kv_len = torch.randint(1, S + 1, (B,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+            kv_len[0] = S
+            if B >= 3:
+                kv_len[-1] = 0      # the Pallas kernel's zeros
+            got = ops.decode_attention(q, k, v, kv_len)
+            want = decode_attention_ref(q, k, v, kv_len)
+            err = _allclose_err(got, want, tol, f"decode {dtype} "
+                                f"{(B, H, KV, hd, S)}")
+            errs["decode_attention"] = max(errs["decode_attention"], err)
+            n_cases += 1
+    torch.cuda.synchronize()
+    say(f"# attention kernels == plain on {n_cases} cases (fp32 within 2e-5, "
+        f"bf16 within 2e-2 and {BF16_REL} of max |plain|): max |diff| flash "
+        f"{errs['flash_attention']:.3e}, decode "
+        f"{errs['decode_attention']:.3e}")
+
+    # times at the serving path's shapes, bf16 as the path runs them; the
+    # line of kernel numbers takes the largest prompt (Sq = Skv = 511) and
+    # the engine's decode (4 slots x 1024 positions)
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    rows = {}
+    for Sq in (16, 511, 2048):
+        q, k, v = _attention_inputs(gen, dev, bf, (1, Sq, 40, 128),
+                                    (1, Sq, 8, 128))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ms = device_ms(lambda: ops.flash_attention(q, k, v), 50)
+        plain_ms = device_ms(lambda: flash_attention_ref(q, k, v), 5)
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 50)
+        bound_ms, bound_by = attention_bound(
+            "flash", (1, 40, 8, 128, Sq, Sq), 2, Sq * (Sq + 1) // 2)
+        rows[("flash", Sq)] = dict(ms=ms, plain_ms=plain_ms,
+                                   library_ms=lib_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by)
+        say(f"# flash_attention bf16 B=1 Sq=Skv={Sq} H=40 KV=8 hd=128 "
+            f"causal: device time {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+            f"sdpa {lib_ms:.6f} ms; bound {bound_ms:.6f} ms by {bound_by}")
+    for B, S in ((4, 1024), (32, 1024), (4, 4096), (32, 4096)):
+        q, k, v = _attention_inputs(gen, dev, bf, (B, 40, 128),
+                                    (B, S, 8, 128))
+        kv_len = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        kv_len[0] = S
+        mask = (torch.arange(S, device=dev)[None, :] <
+                kv_len[:, None])[:, None, None, :]
+        qt, kt, vt = q[:, :, None], k.transpose(1, 2).contiguous(), \
+            v.transpose(1, 2).contiguous()
+        ms = device_ms(lambda: ops.decode_attention(q, k, v, kv_len), 200)
+        plain_ms = device_ms(lambda: decode_attention_ref(q, k, v, kv_len),
+                             10)
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), 200)
+        n_valid = int(kv_len.sum())
+        bound_ms, bound_by = attention_bound(
+            "decode", (B, 40, 8, 128, B, n_valid), 2, n_valid)
+        rows[("decode", B, S)] = dict(ms=ms, plain_ms=plain_ms,
+                                      library_ms=lib_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by)
+        say(f"# decode_attention bf16 B={B} S={S} H=40 KV=8 hd=128 "
+            f"({n_valid} valid rows): device time {ms:.6f} ms, plain "
+            f"{plain_ms:.6f} ms, sdpa {lib_ms:.6f} ms; bound "
+            f"{bound_ms:.6f} ms by {bound_by}")
+    flash = dict(rows[("flash", 511)], max_abs_err=errs["flash_attention"])
+    decode = dict(rows[("decode", 4, 1024)],
+                  max_abs_err=errs["decode_attention"])
+    return flash, decode
+
+
+def serving_requests():
+    """Phase 8's requests: ``launch.serve --real``'s draw (synth_requests,
+    then predictions at sigma 0), the first ``SERVE_REQUESTS``, prompts as
+    drawn and decodes capped at ``SERVE_DECODE_CAP``."""
+    from repro_torch.serving.fleet import attach_predictions, synth_requests
+    from repro_torch.serving.scheduler import Request
+    reqs = attach_predictions(synth_requests(SERVE_REQUESTS), 0.0)
+    return [Request(r.rid, r.arrival, r.prompt_len,
+                    min(r.decode_len, SERVE_DECODE_CAP),
+                    r.predicted_decode_len) for r in reqs]
+
+
+def teacher_forced_logits(cfg, params, prompt, forced, dev):
+    """Logits of one request's prefill and of one decode step per forced
+    token, through the engine's two forward calls."""
+    import torch
+    from repro_torch.models.transformer import Runtime, forward, init_cache
+    cache = init_cache(cfg, 1, SERVE_MAX_LEN, device=dev)
+    toks = torch.tensor([prompt], dtype=torch.int64, device=dev)
+    out, _, _ = forward(params, cfg, Runtime(), toks, mode="prefill",
+                        cache=cache, cache_pos=0)
+    logits = [out[:, -1]]
+    for i, tok in enumerate(forced):
+        pos = torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev)
+        out, _, _ = forward(params, cfg, Runtime(),
+                            torch.tensor([[tok]], device=dev), mode="decode",
+                            cache=cache, cache_pos=pos)
+        logits.append(out[:, 0])
+    return torch.cat(logits).float()
+
+
+def phase_serving(dev):
+    """serve_real at qwen2.5-14b's full width on the card (see the module
+    docstring, phase 8).  Returns the two attention kernels' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.attention import (decode_attention_ref,
+                                               flash_attention_ref)
+    from repro_torch.launch.serve import serve_real
+    from repro_torch.models import attention
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.models.transformer import Runtime, forward, init_cache
+    from repro_torch.serving.engine import ReplicaEngine
+    cfg = get_config("qwen2.5-14b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    weight_bytes = n_params * params["embed"].element_size()
+    say(f"# serving: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
+        f"H={cfg.n_heads} KV={cfg.n_kv_heads} hd={cfg.head_dim} "
+        f"vocab={cfg.vocab} {cfg.dtype}: {n_params} parameters ("
+        f"{cfg.param_count()} in dense matrices and embeddings; "
+        f"{weight_bytes / 1e9:.2f} GB) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    reqs = serving_requests()
+    times = {"prefill": [], "decode": []}
+    prefill, decode = ReplicaEngine._prefill, ReplicaEngine._decode
+
+    def timed(kind, fn):
+        def call(self, *a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(self, *a)
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    ops.launches.clear()
+    ReplicaEngine._prefill = timed("prefill", prefill)
+    ReplicaEngine._decode = timed("decode", decode)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = serve_real(cfg, params, reqs, "greedy", slots=SERVE_SLOTS,
+                           max_len=SERVE_MAX_LEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ReplicaEngine._prefill, ReplicaEngine._decode = prefill, decode
+    launches = {k: ops.launches[k] for k in ("flash_attention",
+                                             "decode_attention")}
+    n_pre, n_dec = len(times["prefill"]), len(times["decode"])
+    got = (stats.replica_seconds, stats.replicas_opened, stats.peak_replicas)
+    new_tokens = sum(r.decode_len for r in reqs)
+    prompt_tokens = sum(r.prompt_len for r in reqs)
+    pre = np.array(times["prefill"])
+    dec = np.array(times["decode"])
+    say(f"# serving: {len(reqs)} requests (prompts {prompt_tokens} tokens, "
+        f"{new_tokens} new tokens) in {wall:.1f} s, "
+        f"{new_tokens / wall:.1f} new tokens/s; {n_pre} prefills, median "
+        f"{np.median(pre):.1f} ms ({pre.min():.1f}-{pre.max():.1f}), "
+        f"{n_dec} engine decode steps, median {np.median(dec):.2f} ms "
+        f"({dec.min():.2f}-{dec.max():.2f}); stats {got}")
+    say(f"# serving: decode step bound by weight bytes "
+        f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms "
+        f"({weight_bytes / 1e9:.2f} GB at 3.35 TB/s); device memory in use "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    say(f"# serving: launches {launches}: flash = {cfg.n_layers} x "
+        f"{n_pre} prefills, decode = {cfg.n_layers} x {n_dec} steps")
+    if launches["flash_attention"] != cfg.n_layers * n_pre or not n_pre:
+        fail(f"flash_attention launches {launches['flash_attention']} != "
+             f"{cfg.n_layers} x {n_pre} prefills")
+    if launches["decode_attention"] != cfg.n_layers * n_dec or not n_dec:
+        fail(f"decode_attention launches {launches['decode_attention']} != "
+             f"{cfg.n_layers} x {n_dec} decode steps")
+    if got != REF_SERVE_STATS:
+        fail(f"placement stats {got} != REF_SERVE_STATS {REF_SERVE_STATS}")
+
+    # one request teacher-forced twice: every attention call running the
+    # kernel and the plain version on the same inputs (the kernel's output
+    # goes on), then the plain versions alone bound in the kernels' place
+    r = reqs[0]
+    prompt = list(np.random.default_rng(r.rid).integers(2, cfg.vocab,
+                                                        r.prompt_len))
+    forced = list(np.random.default_rng(99).integers(2, cfg.vocab, 8))
+    tol = ATTN_TOL["bfloat16"]
+    calls = {"flash_attention": [], "decode_attention": []}
+
+    def both(kernel, plain, name):
+        def call(*a, **kw):
+            got = kernel(*a, **kw)
+            calls[name].append(_allclose_err(
+                got, plain(*a, **kw), tol, f"{name} call "
+                f"{len(calls[name])} of the teacher-forced request"))
+            return got
+        return call
+
+    runs = {}
+    for name, flash, decode_ in (
+            ("kernel", both(ops.flash_attention, flash_attention_ref,
+                            "flash_attention"),
+             both(ops.decode_attention, decode_attention_ref,
+                  "decode_attention")),
+            ("plain", flash_attention_ref, decode_attention_ref)):
+        attention.flash_attention, attention.decode_attention = flash, decode_
+        try:
+            runs[name] = teacher_forced_logits(cfg, params, prompt, forced,
+                                               dev)
+        finally:
+            attention.flash_attention = ops.flash_attention
+            attention.decode_attention = ops.decode_attention
+    if len(calls["flash_attention"]) != cfg.n_layers or \
+            len(calls["decode_attention"]) != cfg.n_layers * len(forced):
+        fail(f"teacher-forced request: {len(calls['flash_attention'])} flash "
+             f"and {len(calls['decode_attention'])} decode calls checked")
+    say(f"# serving: teacher-forced request {r.rid} (prompt {r.prompt_len}, "
+        f"{len(forced)} decode steps): every attention call kernel == plain "
+        f"on its own inputs ({len(calls['flash_attention'])} flash, "
+        f"{len(calls['decode_attention'])} decode; bf16 within {tol} and "
+        f"{BF16_REL} of max |plain|): max |diff| flash "
+        f"{max(calls['flash_attention']):.3e}, decode "
+        f"{max(calls['decode_attention']):.3e}")
+    scale = float(runs["plain"].abs().max())
+    rel = float((runs["kernel"] - runs["plain"]).abs().max()) / scale
+    say(f"# serving: teacher-forced logits, kernel run vs plain run: max "
+        f"|diff| / max |logit| ({scale:.3f}) {rel:.3e} (tolerance "
+        f"{SERVE_LOGIT_TOL})")
+    if not np.isfinite(rel) or rel > SERVE_LOGIT_TOL:
+        fail(f"teacher-forced logits differ: {rel} > {SERVE_LOGIT_TOL}")
+
+    # where an engine step's time goes: a fresh engine, four slots busy
+    eng = ReplicaEngine(cfg, params, slots=SERVE_SLOTS,
+                        max_len=SERVE_MAX_LEN, eos_id=-1)
+    for i in range(SERVE_SLOTS):
+        eng.admit(1000 + i, prompt[:128 + 64 * i], SERVE_MAX_LEN)
+    profile_run(dev, f"engine decode, {SERVE_SLOTS} slots busy, 8 steps",
+                lambda: [eng.step() for _ in range(8)], 8, "step")
+    del eng
+    sub = init_cache(cfg, 1, SERVE_MAX_LEN, device=dev)
+    toks = torch.tensor([prompt], dtype=torch.int64, device=dev)
+    profile_run(dev, f"prefill of {len(prompt)} tokens",
+                lambda: forward(params, cfg, Runtime(), toks, mode="prefill",
+                                cache=sub, cache_pos=0), 1, "prefill")
+    del params
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -866,6 +1253,8 @@ def main() -> None:
     phase_category_headline(dev)
     sel_launches, records, eps = phase_main_path(dev)
     mk_launches = phase_blocked_main_path(dev, records, eps)
+    flash, decode = phase_attention_vs_plain(dev)
+    attn_launches = phase_serving(dev)
     phase_profile(dev)
     say(f"# total {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -878,7 +1267,15 @@ def main() -> None:
              source="src/repro_torch/kernels/csrc/replay_block.cu",
              replaces="src/repro/kernels/fitscore.py:865",
              launches=mk_launches, max_abs_err=mk_err, library_ms=None,
-             **mk)]}))
+             **mk),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:68",
+             launches=attn_launches["flash_attention"], **flash),
+        dict(name="decode_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention.py:55",
+             launches=attn_launches["decode_attention"], **decode)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

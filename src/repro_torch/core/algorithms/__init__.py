@@ -1,6 +1,10 @@
-"""Item classifiers of the category-structured policies, in float32 torch;
-the port's copy of the jnp twins in ``repro.core.algorithms``
-(``duration``, ``learned``, ``adaptive``, ``departure``).
+"""The DVBP algorithm zoo of the port: the item classifiers of the
+category-structured policies in float32 torch (the replay's), and the host
+(numpy) policies that the serving scheduler binds.
+
+The classifiers are the port's copy of the jnp twins in
+``repro.core.algorithms`` (``duration``, ``learned``, ``adaptive``,
+``departure``).
 
 Each function is the same fp32 op sequence as its jnp twin, so the replay
 puts every item in the same category as the JAX package's scan.  Power-of-
@@ -9,12 +13,21 @@ come from ``jnp.frexp``.  Two of XLA's rewrites are reproduced: its
 float-to-int32 casts saturate (``to_i32``), and it compiles a division by
 a constant into a product with the constant's float32 reciprocal
 (``_div_const``), which rounds differently from the division.
+
+The host policies (``base``, ``anyfit``, ``departure``) are the reference's
+numpy classes: First Fit, MRU, Best Fit, Next Fit, Round-Robin Next Fit,
+CBDT, the two NRT policies and Greedy.  The reference's other host classes
+(CBD, the hybrids, RCP/PPE, Lifetime Alignment, the adaptive policy) are
+not ported yet.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from .base import REGISTRY, Algorithm, get_algorithm, register  # noqa: F401
+from . import anyfit, departure  # noqa: F401  (populate the registry)
 
 LA_BINARY_SPLIT = 7200.0   # 120 min, as deployed at Azure
 

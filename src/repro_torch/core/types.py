@@ -61,3 +61,22 @@ class Instance:
                name: Optional[str] = None) -> "Instance":
         return Instance(self.sizes[mask], self.arrivals[mask],
                         self.departures[mask], name or self.name)
+
+
+@dataclasses.dataclass(frozen=True)
+class Arrival:
+    """The information revealed to an online algorithm when an item arrives.
+
+    ``pdep`` is the *predicted* departure time (clairvoyant setting: equal to
+    the real departure; learning-augmented: arrival + predicted duration;
+    non-clairvoyant: None and algorithms must not read it).
+    """
+
+    idx: int
+    size: np.ndarray      # (d,)
+    now: float            # == arrival time
+    pdep: Optional[float]  # predicted departure time, or None
+
+    @property
+    def pdur(self) -> Optional[float]:
+        return None if self.pdep is None else self.pdep - self.now

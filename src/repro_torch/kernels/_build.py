@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels from the sources in ``csrc/`` at first use.
 
-``nvcc`` compiles each source of ``csrc/`` (the select, ``select.cu``, and
-the event-blocked replay megakernel, ``replay_block.cu``) for Hopper
+``nvcc`` compiles each source of ``csrc/`` (the select, ``select.cu``, the
+event-blocked replay megakernel, ``replay_block.cu``, and the two attention
+kernels, ``flash_attention.cu`` and ``decode_attention.cu``) for Hopper
 (``sm_90a``), one compiler process per source, all started together, and
 links the objects into one shared library with a plain C interface, which
 ``ctypes`` loads.  The library is named by a hash of its sources and flags
@@ -9,9 +10,11 @@ and written to ``_build/`` beside this file (listed in ``.gitignore``), so
 an edited source rebuilds and an unchanged one is reused.  Nothing is built
 when the module is imported.
 
-Flags: ``-O3 --fmad=false``.  Contraction is off so that the score and
-capacity arithmetic round once per operation, as the JAX package's select
-does; the l2 norm's FMA chain is written out with ``fmaf`` in the source.
+Flags: ``-O3``, and ``--fmad=false`` for the two placement sources:
+contraction is off there so that the score and capacity arithmetic round
+once per operation, as the JAX package's select does; the l2 norm's FMA
+chain is written out with ``fmaf`` in the source.  The attention kernels
+are held to a tolerance, not bit for bit, and keep contraction on.
 """
 from __future__ import annotations
 
@@ -26,10 +29,13 @@ import time
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-SOURCES = ("select.cu", "replay_block.cu")
+# source -> the flags it takes beside NVCC_FLAGS
+SOURCES = {"select.cu": ("--fmad=false",),
+           "replay_block.cu": ("--fmad=false",),
+           "flash_attention.cu": (), "decode_attention.cu": ()}
 HEADERS = ("fitscore_common.cuh",)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
+              "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -44,8 +50,8 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    h = hashlib.sha256(repr((NVCC_FLAGS, SOURCES)).encode())
+    for name in (*SOURCES, *HEADERS):
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
     return os.path.join(BUILD_DIR, f"libfitscore_{h.hexdigest()[:16]}.so")
@@ -63,9 +69,9 @@ def build() -> tuple:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         t0 = time.perf_counter()
         objs, procs = [], []
-        for src in SOURCES:
+        for src, flags in SOURCES.items():
             obj = os.path.join(tmpdir, src + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj,
+            cmd = [nvcc, *NVCC_FLAGS, *flags, "-I", CSRC, "-c", "-o", obj,
                    os.path.join(CSRC, src)]
             objs.append(obj)
             procs.append((cmd, subprocess.Popen(
@@ -104,6 +110,12 @@ def library() -> ctypes.CDLL:
     lib.fitscore_replay_block_launch.argtypes = \
         [p] * 14 + [ll] * 3 + [i] * 11 + [f] * 3 + [i, p]
     lib.fitscore_replay_block_launch.restype = i
+    lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 6 + [f] + \
+        [i] * 4 + [p]
+    lib.flash_attention_launch.restype = i
+    lib.decode_attention_launch.argtypes = [p] * 5 + [i] * 5 + [f] + \
+        [i] * 2 + [p]
+    lib.decode_attention_launch.restype = i
     lib.fitscore_error_string.argtypes = [i]
     lib.fitscore_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,7 +1,10 @@
 """Wrappers that launch the port's hand-written kernels: the select
-(``fitscore_select``, ``csrc/select.cu``) and the event-blocked replay
+(``fitscore_select``, ``csrc/select.cu``), the event-blocked replay
 megakernel (``fitscore_replay_block``, ``csrc/replay_block.cu``, with
-``replay_chunk``, the host loop over a chunk's blocks).
+``replay_chunk``, the host loop over a chunk's blocks), and the two
+attention kernels of the model stack (``flash_attention``,
+``csrc/flash_attention.cu``; ``decode_attention``,
+``csrc/decode_attention.cu``).
 
 A wrapper takes its kernel's plain PyTorch version only because the tensors
 it was given lie on the CPU.  For CUDA tensors it checks them, launches the
@@ -17,6 +20,7 @@ import functools
 import torch
 
 from . import fitscore as fk
+from .attention import decode_attention_ref, flash_attention_ref
 from .fitscore import (DPAD, KCAT, REPLAY_EV_F, REPLAY_EV_I, policy_code,
                        replay_block_ref, replay_carry_names, select_ref)
 
@@ -206,3 +210,97 @@ def replay_chunk(carry, ev_i, ev_f, ev_size, dmask, *, block_events: int,
                               ev_f[:, :, b:b + T], ev_size[:, b:b + T],
                               dmask, **block_kwargs)
     return carry
+
+
+_ATTN_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_attention(kernel, q, k, v, q_dims):
+    """The shared checks of the two attention wrappers: one card, one
+    dtype (fp32 or bf16), contiguous, GQA head counts, hd <= 256."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for {dev}")
+    if q.dtype not in _ATTN_DTYPES:
+        raise ValueError(f"{kernel}: q must be float32 or bfloat16, got "
+                         f"{q.dtype}")
+    if q.dim() != q_dims or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{kernel}: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev or t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError(
+                f"{kernel}: {name} must be a contiguous {q.dtype} tensor on "
+                f"{dev}; got {t.dtype} on {t.device} (contiguous="
+                f"{t.is_contiguous()})")
+    H, hd = q.shape[-2], q.shape[-1]
+    KV = k.shape[2]
+    if k.shape[0] != q.shape[0] or k.shape[3] != hd or not 1 <= hd <= 256 \
+            or KV < 1 or H % KV:
+        raise ValueError(f"{kernel}: q {tuple(q.shape)} against k "
+                         f"{tuple(k.shape)}: needs the same batch and head "
+                         "dim, hd <= 256 and H a multiple of KV")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Blockwise GQA attention forward: q (B, Sq, H, hd), k/v (B, Skv, KV,
+    hd) -> (B, Sq, H, hd) in q's type (see ``flash_attention_ref``).  The
+    CUDA kernel ``csrc/flash_attention.cu`` for CUDA tensors (fp32 or bf16,
+    contiguous, hd <= 256); the plain version for CPU ones."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    name = "flash_attention"
+    _check_attention(name, q, k, v, 4)
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if Sq == 0 or B == 0:
+        return out
+    from ._build import library
+    lib = library()
+    dev = q.device
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+        Skv, H, KV, hd, hd ** -0.5, int(causal), int(window),
+        int(q.dtype == torch.bfloat16), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError("flash_attention launch failed: "
+                           f"{lib.fitscore_error_string(err).decode()}")
+    launches[name] += 1
+    return out
+
+
+def decode_attention(q, k, v, kv_len):
+    """Single-token GQA decode over a KV cache: q (B, H, hd), k/v (B, S,
+    KV, hd), kv_len (B,) int32 -> (B, H, hd) in q's type (see
+    ``decode_attention_ref``).  The CUDA kernel
+    ``csrc/decode_attention.cu`` for CUDA tensors (fp32 or bf16,
+    contiguous, hd <= 256, at most 8 query heads per kv head); the plain
+    version for CPU ones."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, kv_len)
+    name = "decode_attention"
+    _check_attention(name, q, k, v, 3)
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    if H // KV > 8:
+        raise ValueError(f"{name}: {H // KV} query heads per kv head; the "
+                         "kernel takes at most 8")
+    _check("kv_len", kv_len, (B,), torch.int32, q.device, name)
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    from ._build import library
+    lib = library()
+    dev = q.device
+    err = lib.decode_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+        out.data_ptr(), B, S, H, KV, hd, hd ** -0.5,
+        int(q.dtype == torch.bfloat16), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError("decode_attention launch failed: "
+                           f"{lib.fitscore_error_string(err).decode()}")
+    launches[name] += 1
+    return out

@@ -1,6 +1,9 @@
 """The port on the card: the CUDA select and the CUDA replay megakernel
 against their plain versions, and the replays on the card (per event and
-blocked) against the replays on the CPU, bit for bit.
+blocked) against the replays on the CPU, bit for bit; the two attention
+kernels against their plain versions within the JAX kernel tests'
+tolerances, and the model and engine through them against the plain
+attention.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips with a
 reason where ``torch.cuda.is_available()`` is false: the CUDA kernel has
@@ -189,3 +192,121 @@ def test_megakernel_wrapper_rejects_what_the_kernel_does_not_take(lanes,
         ops.fitscore_replay_block(carry, ev[0].cpu(), *ev[1:], **kw)
     with pytest.raises(ValueError, match="slots"):
         ops.fitscore_replay_block(carry, *ev, **dict(kw, n=17))
+
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _attn_inputs(seed, dev, dtype, *shapes):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).to(dtype)
+            for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd", [
+    (2, 128, 128, 4, 2, 64), (2, 100, 100, 2, 1, 32),
+    (1, 64, 192, 4, 2, 128), (1, 96, 96, 8, 8, 16),
+    (2, 77, 77, 40, 8, 128), (1, 40, 50, 6, 2, 256), (1, 33, 33, 3, 1, 200)])
+def test_flash_kernel_equals_plain(B, Sq, Skv, H, KV, hd, dtype, cuda):
+    from repro_torch.kernels.attention import flash_attention_ref
+    q, k, v = _attn_inputs(Sq + H, cuda, dtype, (B, Sq, H, hd),
+                           (B, Skv, KV, hd), (B, Skv, KV, hd))
+    tol = ATTN_TOL[dtype]
+    for causal, window in ((True, 0), (True, 32), (False, 0), (False, 16)):
+        n0 = ops.launches["flash_attention"]
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        assert ops.launches["flash_attention"] == n0 + 1
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,hd,S", [
+    (2, 8, 2, 64, 512), (3, 5, 1, 32, 64), (4, 40, 8, 128, 1024),
+    (3, 16, 2, 256, 100), (2, 6, 2, 100, 77)])
+def test_decode_kernel_equals_plain(B, H, KV, hd, S, dtype, cuda):
+    from repro_torch.kernels.attention import decode_attention_ref
+    q, k, v = _attn_inputs(S + H, cuda, dtype, (B, H, hd), (B, S, KV, hd),
+                           (B, S, KV, hd))
+    kv_len = torch.tensor([S, 0, 1, 13][:B], dtype=torch.int32,
+                          device=cuda)
+    k[1:, S // 2:] = float("nan")      # past kv_len of rows 1..: unread
+    v[1:, S // 2:] = float("nan")
+    n0 = ops.launches["decode_attention"]
+    got = ops.decode_attention(q, k, v, kv_len)
+    assert ops.launches["decode_attention"] == n0 + 1
+    want = decode_attention_ref(q, k, v, kv_len)
+    assert float(got[1].abs().max()) == 0.0
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+
+
+def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q, k, v = _attn_inputs(0, cuda, torch.float32, (1, 8, 4, 16),
+                           (1, 8, 2, 16), (1, 8, 2, 16))
+    kv_len = torch.full((1,), 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                            v)
+    with pytest.raises(ValueError, match="k must be"):
+        ops.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="k must be"):
+        ops.flash_attention(q, k.to(torch.bfloat16), v.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="multiple of KV"):
+        ops.flash_attention(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="hd <= 256"):
+        big = torch.zeros((1, 4, 2, 300), device=cuda)
+        ops.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="kv_len"):
+        ops.decode_attention(q[:, 0], k, v, kv_len.long())
+    with pytest.raises(ValueError, match="at most 8"):
+        qq = torch.zeros((1, 18, 16), device=cuda)
+        ops.decode_attention(qq, k, v, kv_len)
+
+
+def test_engine_on_card_equals_plain_attention(cuda):
+    """The reduced model in fp32 on the card: an engine's tokens and
+    logits through the kernels equal those through the plain attention
+    bound in their place, within 1e-4 of max |logit|."""
+    import dataclasses
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels.attention import (decode_attention_ref,
+                                               flash_attention_ref)
+    from repro_torch.models import attention
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import ReplicaEngine
+    cfg = dataclasses.replace(get_reduced_config("qwen2.5-14b"),
+                              dtype="float32")
+    params = init_params(cfg, seed=0, device=cuda)
+
+    def run():
+        eng = ReplicaEngine(cfg, params, slots=4, max_len=64, eos_id=-1)
+        out = []
+        eng._decode = (lambda f: lambda *a: (out.append(f(*a)), out[-1])[1])(
+            eng._decode)
+        eng.admit(1, [5, 6, 7, 8, 9], 6)
+        eng.step()
+        eng.admit(2, list(range(10, 40)), 5)
+        while eng.n_active:
+            eng.step()
+        return torch.stack(out)
+
+    ops.launches.clear()
+    kern = run()
+    assert ops.launches["flash_attention"] == 2 * cfg.n_layers
+    assert ops.launches["decode_attention"] == kern.shape[0] * cfg.n_layers
+    attention.flash_attention = flash_attention_ref
+    attention.decode_attention = decode_attention_ref
+    try:
+        plain = run()
+    finally:
+        attention.flash_attention = ops.flash_attention
+        attention.decode_attention = ops.decode_attention
+    rel = float((kern - plain).abs().max() / plain.abs().max())
+    assert rel < 1e-4

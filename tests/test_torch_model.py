@@ -1,0 +1,253 @@
+"""The port's dense decoder (``repro_torch.models``) against the JAX
+package's, on the reduced qwen2.5-14b configuration in fp32: the same
+parameters (the JAX package's own init, QKV biases drawn nonzero by the
+test, carried across by ``params_from_reference``) and the same tokens
+give the same logits in train, prefill and decode modes, within 1e-4 of
+max |logit| (fp32; the attention sums run in another order)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.configs import get_reduced_config as ref_reduced
+from repro.models import params as ref_params
+from repro.models.transformer import Runtime as RefRuntime
+from repro.models.transformer import forward as ref_forward
+from repro.models.transformer import init_cache as ref_init_cache
+from repro_torch.configs import ARCHS, get_config, get_reduced_config
+from repro_torch.models import params as P_
+from repro_torch.models.attention import attention_block
+from repro_torch.models.transformer import Runtime, forward, init_cache
+
+ARCH = "qwen2.5-14b"
+REL_TOL = 1e-4
+
+
+def _cfgs():
+    ref = dataclasses.replace(ref_reduced(ARCH), dtype="float32",
+                              remat=False)
+    port = dataclasses.replace(get_reduced_config(ARCH), dtype="float32")
+    return ref, port
+
+
+@pytest.fixture(scope="module")
+def models():
+    """The JAX package's parameters with nonzero QKV biases, and the
+    port's copy of them."""
+    ref_cfg, cfg = _cfgs()
+    tree = ref_params.init_params(jax.random.PRNGKey(0), ref_cfg,
+                                  dtype=jnp.float32)
+    tree = jax.tree.map(np.asarray, tree)
+    rng = np.random.default_rng(1)
+    for b in ("bq", "bk", "bv"):
+        tree["layers"][b] = (0.5 * rng.standard_normal(
+            tree["layers"][b].shape)).astype(np.float32)
+    params = P_.params_from_reference(tree, cfg, device="cpu")
+    return ref_cfg, cfg, tree, params
+
+
+def _rel(port, ref):
+    ref = np.asarray(ref, np.float32)
+    return float(np.abs(port.float().numpy() - ref).max()) / \
+        float(np.abs(ref).max())
+
+
+def test_params_from_reference_carries_every_leaf(models):
+    _, cfg, tree, params = models
+    assert set(params) == set(tree)
+    assert set(params["layers"]) == set(tree["layers"])
+    for k in ("embed", "final_norm", "lm_head"):
+        assert np.array_equal(params[k].numpy(), tree[k])
+    for k, arr in tree["layers"].items():
+        assert params["layers"][k].dtype == torch.float32
+        assert np.array_equal(params["layers"][k].numpy(), arr)
+    assert np.abs(tree["layers"]["bq"]).max() > 0.1   # the bias path is live
+
+
+def test_params_from_reference_refuses_a_wrong_tree(models):
+    _, cfg, tree, _ = models
+    bad = dict(tree, layers={k: v for k, v in tree["layers"].items()
+                             if k != "bq"})
+    with pytest.raises(ValueError, match="reference keys"):
+        P_.params_from_reference(bad, cfg, device="cpu")
+    bad = dict(tree, embed=tree["embed"][:, :-1])
+    with pytest.raises(ValueError, match="shape"):
+        P_.params_from_reference(bad, cfg, device="cpu")
+
+
+def test_init_params_follows_the_reference_template():
+    """Same tree, shapes and initialisers as the JAX package's
+    ``init_params``: ones for norms, zeros for the QKV biases, normal
+    weights of std ``1 / sqrt(fan_in)`` (embeddings: 1), in the requested
+    dtype (default ``cfg.dtype``), made on the requested device."""
+    cfg = get_reduced_config(ARCH)
+    ref = ref_params.init_params(jax.random.PRNGKey(0), ref_reduced(ARCH))
+    p = P_.init_params(cfg, seed=3, device="cpu")
+    assert jax.tree.map(lambda a: tuple(a.shape), ref) == \
+        {k: ({kk: tuple(vv.shape) for kk, vv in v.items()}
+             if isinstance(v, dict) else tuple(v.shape))
+         for k, v in p.items()}
+    assert p["embed"].dtype == torch.bfloat16 and p["embed"].device.type == \
+        "cpu"
+    lay = p["layers"]
+    assert torch.all(lay["bq"] == 0) and torch.all(lay["ln1"] == 1)
+    assert torch.all(p["final_norm"] == 1)
+    w = lay["w_out"].float()
+    assert abs(float(w.std()) * np.sqrt(cfg.d_ff) - 1.0) < 0.05
+    assert abs(float(p["embed"].float().std()) - 1.0) < 0.05
+    again = P_.init_params(cfg, seed=3, device="cpu", dtype=torch.float32)
+    assert torch.equal(again["layers"]["wq"].to(torch.bfloat16), lay["wq"])
+    other = P_.init_params(cfg, seed=4, device="cpu")
+    assert not torch.equal(other["layers"]["wq"], lay["wq"])
+
+
+def test_param_count_of_the_full_config_equals_the_reference():
+    cfg, ref = get_config(ARCH), ref_get_config(ARCH)
+    assert cfg.param_count() == ref.param_count()
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.vocab) == (48, 5120, 40, 8, 128, 152064)
+    # the template's elements: the dense count plus norms and QKV biases
+    n = sum(int(np.prod(((m[1],) if m[1] else ()) + m[0].shape))
+            for sub in P_._finalize(cfg, lambda m, n: (m, n)).values()
+            for m in (sub.values() if isinstance(sub, dict) else [sub]))
+    extra = cfg.n_layers * (2 * cfg.d_model + cfg.q_dim + 2 * cfg.kv_dim) + \
+        cfg.d_model
+    assert n == cfg.param_count() + extra
+    assert 14.7e9 < n < 14.8e9
+    assert ARCHS == ["qwen2.5-14b"]
+    with pytest.raises(KeyError):
+        get_config("gemma3-12b")
+
+
+def test_forward_train_equals_reference(models):
+    ref_cfg, cfg, tree, params = models
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (2, 24))
+    want, _, _ = ref_forward(tree, ref_cfg, RefRuntime(), jnp.asarray(toks),
+                             mode="train")
+    got, cache, aux = forward(params, cfg, Runtime(), torch.from_numpy(toks),
+                              mode="train")
+    assert cache is None and float(aux) == 0.0
+    assert tuple(got.shape) == (2, 24, cfg.vocab)
+    assert _rel(got, want) < REL_TOL
+
+
+@pytest.mark.parametrize("vector_pos", [False, True])
+def test_prefill_then_decode_equals_reference(models, vector_pos):
+    """Prefill 20 tokens from position 0, then three decode steps: at one
+    scalar position for both rows, or at per-row depths (a (B,) cache_pos:
+    row 1 rewinds by three positions, as a reused engine slot does)."""
+    ref_cfg, cfg, tree, params = models
+    rng = np.random.default_rng(3)
+    B, S, Smax = 2, 20, 32
+    toks = rng.integers(0, cfg.vocab, (B, S))
+    rcache = ref_init_cache(ref_cfg, B, Smax, dtype=jnp.float32)
+    cache = init_cache(cfg, B, Smax, device="cpu")
+    want, rcache, _ = ref_forward(tree, ref_cfg, RefRuntime(),
+                                  jnp.asarray(toks), mode="prefill",
+                                  cache=rcache, cache_pos=0)
+    got, cache, _ = forward(params, cfg, Runtime(), torch.from_numpy(toks),
+                            mode="prefill", cache=cache, cache_pos=0)
+    assert tuple(got.shape) == (B, 1, cfg.vocab)
+    assert _rel(got, want) < REL_TOL
+    np.testing.assert_allclose(cache["k"].numpy(), np.asarray(rcache["k"]),
+                               atol=1e-5, rtol=1e-5)
+    pos = np.array([S, S - 3], np.int32) if vector_pos else S
+    for step in range(3):
+        tok = rng.integers(0, cfg.vocab, (B, 1))
+        rpos = jnp.asarray(pos) if vector_pos else pos
+        tpos = torch.from_numpy(pos) if vector_pos else pos
+        want, rcache, _ = ref_forward(tree, ref_cfg, RefRuntime(),
+                                      jnp.asarray(tok), mode="decode",
+                                      cache=rcache, cache_pos=rpos)
+        got, cache, _ = forward(params, cfg, Runtime(),
+                                torch.from_numpy(tok), mode="decode",
+                                cache=cache, cache_pos=tpos)
+        assert _rel(got, want) < REL_TOL, step
+        pos = pos + 1
+
+
+def test_decode_equals_train_forward(models):
+    """The port's own check: a prefill of S - 1 tokens and one decode step
+    give the train-mode logits of the last position."""
+    _, cfg, _, params = models
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab,
+                                                              (2, 24)))
+    full, _, _ = forward(params, cfg, Runtime(), toks, mode="train")
+    cache = init_cache(cfg, 2, 24, device="cpu")
+    forward(params, cfg, Runtime(), toks[:, :-1], mode="prefill",
+            cache=cache, cache_pos=0)
+    last, _, _ = forward(params, cfg, Runtime(), toks[:, -1:], mode="decode",
+                         cache=cache, cache_pos=23)
+    err = float((last[:, 0] - full[:, -1]).abs().max()) / \
+        float(full.abs().max())
+    assert err < REL_TOL
+
+
+def test_attention_runs_through_the_kernel_wrappers(models, monkeypatch):
+    """No cache and the prefill go to ``flash_attention``, a decode step to
+    ``decode_attention``, once per layer each."""
+    from repro_torch.models import attention
+    _, cfg, _, params = models
+    calls = []
+    for name in ("flash_attention", "decode_attention"):
+        fn = getattr(attention, name)
+        monkeypatch.setattr(attention, name,
+                            lambda *a, _n=name, _f=fn, **k:
+                            (calls.append(_n), _f(*a, **k))[1])
+    toks = torch.zeros((1, 5), dtype=torch.int64)
+    forward(params, cfg, Runtime(), toks, mode="train")
+    cache = init_cache(cfg, 1, 8, device="cpu")
+    forward(params, cfg, Runtime(), toks, mode="prefill", cache=cache,
+            cache_pos=0)
+    forward(params, cfg, Runtime(), toks[:, :1], mode="decode", cache=cache,
+            cache_pos=torch.tensor([5], dtype=torch.int32))
+    L = cfg.n_layers
+    assert calls == ["flash_attention"] * (2 * L) + ["decode_attention"] * L
+
+
+def _layer(params, cfg):
+    return {k: w[0] for k, w in params["layers"].items()}
+
+
+@pytest.mark.parametrize("case", ["cross", "mla", "softcap", "int8",
+                                  "window_decode", "chunked_prefill"])
+def test_out_of_scope_attention_raises(models, case):
+    """What the port's attention does not take raises on the CPU too,
+    naming its ROADMAP item."""
+    _, cfg, _, params = models
+    blk = _layer(params, cfg)
+    x = torch.zeros((1, 3, cfg.d_model))
+    pos = torch.arange(3)[None]
+    cache = {"k": torch.zeros((1, 8, cfg.n_kv_heads, cfg.head_dim)),
+             "v": torch.zeros((1, 8, cfg.n_kv_heads, cfg.head_dim))}
+    kw = dict(positions=pos, window=0)
+    if case == "cross":
+        kw["cross_states"] = x
+    elif case == "mla":
+        cfg = dataclasses.replace(cfg, mla=True)
+    elif case == "softcap":
+        cfg = dataclasses.replace(cfg, logit_softcap=30.0)
+    elif case == "int8":
+        kw.update(cache={"k_q": cache["k"], "v_q": cache["v"]}, cache_pos=0)
+    elif case == "window_decode":
+        x, kw = x[:, :1], dict(positions=pos[:, :1], window=4, cache=cache,
+                               cache_pos=5)
+    else:
+        kw.update(cache=cache, cache_pos=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        attention_block(blk, x, cfg, **kw)
+
+
+def test_other_architectures_raise():
+    cfg = dataclasses.replace(get_reduced_config(ARCH), n_experts=4, top_k=2,
+                              d_expert=16)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        P_.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        init_cache(dataclasses.replace(get_reduced_config(ARCH),
+                                       kv_cache_int8=True), 1, 4,
+                   device="cpu")
