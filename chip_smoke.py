@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. Device and build: the card's name and power limit, then the port's four
+1. Device and build: the card's name and power limit, then the port's five
    kernels built from ``src/repro_torch/kernels/csrc`` (one nvcc per
    source, started together; build time printed).
 2. Select vs plain: the CUDA select against ``select_ref`` on the card, on
@@ -73,6 +73,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    with the plain versions bound in place of the kernels within
    ``SERVE_LOGIT_TOL`` of max |logit|.  Then
    torch.profiler over engine decode steps and one prefill at full width.
+9. RWKV6 serving path.  (a) The CUDA ``rwkv6_chunked`` kernel against
+   ``rwkv6_chunked_ref`` on the card, fp32 and bf16 r, k, v, on
+   ``RWKV_SHAPES`` (the JAX kernel test's shapes, lengths that are not a
+   multiple of the chunk, chunk 8, and the path's B 1 / H 32 / K = V = 64
+   at S in {16, 511, 2048}): y and the final state within ``RWKV_TOL``
+   atol and rtol; then its device time at the path's shapes in bf16 beside
+   its bound and the plain version's (no PyTorch call computes it).
+   (b) rwkv6-1.6b at full width (24 layers, d 2048, 32 heads of 64, d_ff
+   7168, vocab 65 536, bf16, random weights from seed 0 made on the card)
+   serving phase 8's 12 requests through ``serve_real``: the kernel must
+   have launched 24 times per prefill (288) and the attention kernels never,
+   the stats must equal ``REF_SERVE_STATS``; the same requests served again
+   with every one of the 288 kernel calls also running the plain version on
+   its own inputs, within ``RWKV_TOL`` of max |plain|; one request
+   teacher-forced (prefill and 8 decode steps) with the kernel and with the
+   plain version bound in its place, logits within ``SERVE_LOGIT_TOL``;
+   a prompt prefilled into a slot another request held gives a fresh
+   engine's logits bit for bit.  Then torch.profiler over engine decode
+   steps and one prefill.
 
 Then, as a measurement and not a check, torch.profiler over 400 per-event
 replay steps of the main path's first rung (L=28, Np=64) and over one
@@ -119,10 +138,10 @@ BLOCK_EVENTS = 256
 # Phase 6 replays all 21 blocked and is held to phase 5 on these keys.
 PER_EVENT_POLICIES = ("first_fit", "best_fit_l2")
 
-# Placement stats of phase 8's serve_real (replica_seconds, replicas_opened,
-# peak_replicas).  They do not depend on the model (eos_id = -1, no
-# sequence reaches max_len); tests/test_torch_serving.py ties them to the
-# JAX package's serve_real on the reduced configuration.
+# Placement stats of phases 8 and 9's serve_real (replica_seconds,
+# replicas_opened, peak_replicas).  They do not depend on the model (eos_id
+# = -1, no sequence reaches max_len); tests/test_torch_serving.py ties them
+# to the JAX package's serve_real on both reduced configurations.
 REF_SERVE_STATS = (187.0, 3, 3)
 SERVE_REQUESTS, SERVE_DECODE_CAP, SERVE_SLOTS, SERVE_MAX_LEN = 12, 64, 4, 1024
 # Kernel vs plain logits of the teacher-forced request, relative to max
@@ -137,6 +156,18 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM memory rate
 F32_OPS_PER_S = 67e12        # H100 SXM fp32 rate outside the tensor cores
 BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 rate (tensor cores)
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
+# RWKV6's chunked kernel against its plain version (y and the final state,
+# both fp32 for fp32 and bf16 inputs alike): tests/test_kernels.py's 1e-4,
+# atol and rtol; the serving path's calls are held within RWKV_TOL of max
+# |plain| on their own inputs.
+RWKV_TOL = 1e-4
+# (B, S, H, K, V, chunk): the JAX kernel test's shapes, two lengths that are
+# not a multiple of the chunk, the reduced configuration's chunk of 8, and
+# the serving path's B 1 / H 32 / K = V = 64 (prompts padded inside).
+RWKV_SHAPES = [(2, 64, 2, 16, 16, 16), (1, 48, 4, 32, 64, 16),
+               (2, 16, 1, 8, 8, 16), (1, 128, 2, 64, 64, 16),
+               (2, 50, 2, 64, 64, 16), (2, 40, 4, 16, 16, 8)] + \
+    [(1, s, 32, 64, 64, 16) for s in (16, 511, 2048)]
 # Both attention versions compute in fp32 and round the result to bf16
 # once, so an element may round one bf16 ulp apart (at most 2^-7 of its
 # magnitude); a bf16 output may differ from the plain one by two such ulps
@@ -1016,6 +1047,45 @@ def teacher_forced_logits(cfg, params, prompt, forced, dev):
     return torch.cat(logits).float()
 
 
+def timed_serve_real(cfg, params, reqs):
+    """``serve_real(cfg, params, reqs, "greedy")`` on the card, every
+    engine prefill and decode step timed on the host clock between
+    synchronizations.  The launch counts are set to 0 just before and read
+    just after.  Returns (stats, wall seconds, {"prefill": [ms],
+    "decode": [ms]}, the launch counts)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_real
+    from repro_torch.serving.engine import ReplicaEngine
+    times = {"prefill": [], "decode": []}
+    prefill, decode = ReplicaEngine._prefill, ReplicaEngine._decode
+
+    def timed(kind, fn):
+        def call(self, *a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(self, *a)
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    ReplicaEngine._prefill = timed("prefill", prefill)
+    ReplicaEngine._decode = timed("decode", decode)
+    try:
+        torch.cuda.synchronize()
+        ops.launches.clear()
+        t0 = time.perf_counter()
+        stats = serve_real(cfg, params, reqs, "greedy", slots=SERVE_SLOTS,
+                           max_len=SERVE_MAX_LEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = collections.Counter(ops.launches)
+    finally:
+        ReplicaEngine._prefill, ReplicaEngine._decode = prefill, decode
+    return stats, wall, times, counts
+
+
 def phase_serving(dev):
     """serve_real at qwen2.5-14b's full width on the card (see the module
     docstring, phase 8).  Returns the two attention kernels' launches."""
@@ -1025,7 +1095,6 @@ def phase_serving(dev):
     from repro_torch.kernels import ops
     from repro_torch.kernels.attention import (decode_attention_ref,
                                                flash_attention_ref)
-    from repro_torch.launch.serve import serve_real
     from repro_torch.models import attention
     from repro_torch.models.params import init_params, param_count
     from repro_torch.models.transformer import Runtime, forward, init_cache
@@ -1046,33 +1115,9 @@ def phase_serving(dev):
         f"{time.perf_counter() - t0:.1f} s")
 
     reqs = serving_requests()
-    times = {"prefill": [], "decode": []}
-    prefill, decode = ReplicaEngine._prefill, ReplicaEngine._decode
-
-    def timed(kind, fn):
-        def call(self, *a):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(self, *a)
-            torch.cuda.synchronize()
-            times[kind].append((time.perf_counter() - t) * 1e3)
-            return out
-        return call
-
-    ops.launches.clear()
-    ReplicaEngine._prefill = timed("prefill", prefill)
-    ReplicaEngine._decode = timed("decode", decode)
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stats = serve_real(cfg, params, reqs, "greedy", slots=SERVE_SLOTS,
-                           max_len=SERVE_MAX_LEN)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        ReplicaEngine._prefill, ReplicaEngine._decode = prefill, decode
-    launches = {k: ops.launches[k] for k in ("flash_attention",
-                                             "decode_attention")}
+    stats, wall, times, counts = timed_serve_real(cfg, params, reqs)
+    launches = {k: counts[k] for k in ("flash_attention",
+                                       "decode_attention")}
     n_pre, n_dec = len(times["prefill"]), len(times["decode"])
     got = (stats.replica_seconds, stats.replicas_opened, stats.peak_replicas)
     new_tokens = sum(r.decode_len for r in reqs)
@@ -1171,6 +1216,244 @@ def phase_serving(dev):
     return launches
 
 
+def _rwkv_inputs(gen, dev, dtype, B, S, H, K, V):
+    """The JAX kernel test's distributions: r, v normal, k half as wide,
+    log-decay -exp(normal), u 0.1 normal; r, k, v in ``dtype``, logw and u
+    fp32 (as the model hands them over)."""
+    import torch
+    r = torch.randn((B, S, H, K), generator=gen, device=dev)
+    k = 0.5 * torch.randn((B, S, H, K), generator=gen, device=dev)
+    v = torch.randn((B, S, H, V), generator=gen, device=dev)
+    lw = -torch.exp(torch.randn((B, S, H, K), generator=gen, device=dev))
+    u = 0.1 * torch.randn((H, K), generator=gen, device=dev)
+    return r.to(dtype), k.to(dtype), v.to(dtype), lw, u
+
+
+def rwkv_bound(B, S, H, K, V, L, nbytes_el):
+    """The least time of one ``rwkv6_chunked`` call: bytes (r, k, v in
+    their type, logw and u fp32, read once; y and the state written once)
+    over the memory rate, against the fp32 operations its S rows need (the
+    pair terms of each row with the earlier rows of its chunk, the u-bonus,
+    the product with the carried state, the state update) at the fp32 peak:
+    the function computes in fp32 whatever its inputs' type."""
+    nbytes = nbytes_el * B * S * H * (2 * K + V) + \
+        4 * (B * S * H * (K + V) + H * K + B * H * K * V)
+    n_chunks = -(-S // L)
+    rows = [min(L, S - c * L) for c in range(n_chunks)]
+    pairs = sum(m * (m - 1) // 2 for m in rows)
+    nops = B * H * (2 * pairs * (K + V) + S * (3 * K + 2 * V) +
+                    4 * S * K * V + n_chunks * K * V)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _rwkv_err(got, want, what):
+    """max |got - want| of y or the state; fails unless |got - want| <=
+    RWKV_TOL + RWKV_TOL * |want| everywhere."""
+    import torch
+    diff = (got - want).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if not bool(torch.isfinite(got).all()) or \
+            bool((diff > RWKV_TOL + RWKV_TOL * want.abs()).any()):
+        fail(f"{what}: kernel != plain (max |diff| {err}, tolerance "
+             f"{RWKV_TOL})")
+    return err
+
+
+def phase_rwkv_vs_plain(dev):
+    """Phase 9a: the RWKV6 chunked kernel against ``rwkv6_chunked_ref`` on
+    the card (``RWKV_SHAPES``, fp32 and bf16 r, k, v), then its time at the
+    serving path's shapes in bf16 beside its bound and the plain
+    version's.  No PyTorch call computes chunked RWKV6: no library time."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    err = 0.0
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, H, K, V, L in RWKV_SHAPES:
+            args = _rwkv_inputs(gen, dev, dtype, B, S, H, K, V)
+            y, st = ops.rwkv6_chunked(*args, chunk=L)
+            want_y, want_st = rwkv6_chunked_ref(*args, chunk=L)
+            what = f"rwkv6_chunked {dtype} {(B, S, H, K, V)} chunk {L}"
+            err = max(err, _rwkv_err(y, want_y, what + " y"),
+                      _rwkv_err(st, want_st, what + " state"))
+            n_cases += 1
+    torch.cuda.synchronize()
+    say(f"# rwkv6_chunked == plain on {n_cases} cases (y and final state "
+        f"within {RWKV_TOL} atol and rtol): max |diff| {err:.3e}")
+    rows = {}
+    for S in (16, 511, 2048):
+        args = _rwkv_inputs(gen, dev, torch.bfloat16, 1, S, 32, 64, 64)
+        n_chunks = -(-S // 16)
+        ms = device_ms(lambda: ops.rwkv6_chunked(*args), 100)
+        plain_ms = device_ms(lambda: rwkv6_chunked_ref(*args),
+                             max(1, 400 // (3 * n_chunks + 20)))
+        bound_ms, bound_by = rwkv_bound(1, S, 32, 64, 64, 16, 2)
+        rows[S] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=None)
+        say(f"# rwkv6_chunked bf16 B=1 S={S} H=32 K=V=64 chunk 16: device "
+            f"time {ms:.6f} ms ({ms * 1e3 / n_chunks:.3f} us a chunk), "
+            f"plain {plain_ms:.6f} ms; bound {bound_ms:.6f} ms by "
+            f"{bound_by}; library call: none")
+    return dict(rows[511], max_abs_err=err)
+
+
+def phase_rwkv_serving(dev):
+    """Phase 9b: serve_real at rwkv6-1.6b's full width on the card (see
+    the module docstring).  Returns the kernel's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
+    from repro_torch.models import linear_scan
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.models.transformer import Runtime, forward, init_cache
+    from repro_torch.serving.engine import ReplicaEngine
+    cfg = get_config("rwkv6-1.6b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    weight_bytes = n_params * params["embed"].element_size()
+    say(f"# rwkv serving: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
+        f"H={cfg.n_heads} hd={cfg.head_dim} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab} chunk {cfg.scan_chunk} {cfg.dtype}: {n_params} "
+        f"parameters ({weight_bytes / 1e9:.2f} GB) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = serving_requests()
+    stats, wall, times, counts = timed_serve_real(cfg, params, reqs)
+    launches = counts["rwkv6_chunked"]
+    attn = counts["flash_attention"] + counts["decode_attention"]
+    n_pre, n_dec = len(times["prefill"]), len(times["decode"])
+    got = (stats.replica_seconds, stats.replicas_opened, stats.peak_replicas)
+    new_tokens = sum(r.decode_len for r in reqs)
+    pre, dec = np.array(times["prefill"]), np.array(times["decode"])
+    say(f"# rwkv serving: {len(reqs)} requests (prompts "
+        f"{sum(r.prompt_len for r in reqs)} tokens, {new_tokens} new "
+        f"tokens) in {wall:.1f} s, {new_tokens / wall:.1f} new tokens/s; "
+        f"{n_pre} prefills, median {np.median(pre):.2f} ms "
+        f"({pre.min():.2f}-{pre.max():.2f}), {n_dec} engine decode steps, "
+        f"median {np.median(dec):.2f} ms ({dec.min():.2f}-{dec.max():.2f}); "
+        f"stats {got}")
+    say(f"# rwkv serving: decode step bound by weight bytes "
+        f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
+        f"({weight_bytes / 1e9:.2f} GB at 3.35 TB/s); device memory in use "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    say(f"# rwkv serving: launches rwkv6_chunked {launches} = "
+        f"{cfg.n_layers} x {n_pre} prefills, attention kernels {attn}")
+    if launches != cfg.n_layers * len(reqs) or n_pre != len(reqs):
+        fail(f"rwkv6_chunked launches {launches} != {cfg.n_layers} x "
+             f"{len(reqs)} prefills ({n_pre} prefills timed)")
+    if attn:
+        fail(f"the attention kernels launched {attn} times on rwkv6")
+    if got != REF_SERVE_STATS:
+        fail(f"rwkv placement stats {got} != REF_SERVE_STATS "
+             f"{REF_SERVE_STATS}")
+
+    # the same requests again, every kernel call also running the plain
+    # version on its own inputs (the kernel's output goes on)
+    errs = []
+
+    def checked(*a, **kw):
+        y, st = ops.rwkv6_chunked(*a, **kw)
+        want_y, want_st = rwkv6_chunked_ref(*a, **kw)
+        scale = max(float(want_y.abs().max()), float(want_st.abs().max()))
+        err = max(float((y - want_y).abs().max()),
+                  float((st - want_st).abs().max()))
+        if not (err <= RWKV_TOL * scale):
+            fail(f"rwkv6_chunked call {len(errs)} of the serving run: max "
+                 f"|diff| {err} > {RWKV_TOL} x max |plain| {scale}")
+        errs.append(err / scale)
+        return y, st
+
+    linear_scan.rwkv6_chunked = checked
+    try:
+        again = timed_serve_real(cfg, params, reqs)[0]
+    finally:
+        linear_scan.rwkv6_chunked = ops.rwkv6_chunked
+    again = (again.replica_seconds, again.replicas_opened,
+             again.peak_replicas)
+    if len(errs) != launches or again != got:
+        fail(f"checked serving run: {len(errs)} calls checked, stats "
+             f"{again}")
+    say(f"# rwkv serving: every one of the {len(errs)} rwkv6_chunked calls "
+        f"kernel == plain on its own inputs: max |diff| / max |plain| "
+        f"{max(errs):.3e} (tolerance {RWKV_TOL}); stats again {again}")
+
+    # one request teacher-forced, with the kernel and with the plain version
+    # bound in its place
+    r = reqs[0]
+    prompt = list(np.random.default_rng(r.rid).integers(2, cfg.vocab,
+                                                        r.prompt_len))
+    forced = list(np.random.default_rng(99).integers(2, cfg.vocab, 8))
+    runs = {}
+    for name, fn in (("kernel", ops.rwkv6_chunked),
+                     ("plain", rwkv6_chunked_ref)):
+        linear_scan.rwkv6_chunked = fn
+        try:
+            runs[name] = teacher_forced_logits(cfg, params, prompt, forced,
+                                               dev)
+        finally:
+            linear_scan.rwkv6_chunked = ops.rwkv6_chunked
+    scale = float(runs["plain"].abs().max())
+    gaps = (runs["kernel"] - runs["plain"]).abs().amax(dim=-1) / scale
+    rel = float(gaps.max())
+    say(f"# rwkv serving: teacher-forced request {r.rid} (prompt "
+        f"{r.prompt_len}, {len(forced)} decode steps), kernel run vs plain "
+        f"run: max |diff| / max |logit| ({scale:.3f}) {rel:.3e} (tolerance "
+        f"{SERVE_LOGIT_TOL}); by position, prefill first: "
+        f"{' '.join(f'{g:.2e}' for g in gaps.tolist())}")
+    if not np.isfinite(rel) or rel > SERVE_LOGIT_TOL:
+        fail(f"rwkv teacher-forced logits differ: {rel} > "
+             f"{SERVE_LOGIT_TOL}")
+
+    # a reused slot starts afresh: request B prefilled where request A ran
+    # gives the logits of a fresh engine
+    prompt_b = list(np.random.default_rng(7).integers(2, cfg.vocab, 300))
+    toks = torch.tensor([prompt_b], dtype=torch.int64, device=dev)
+    logits = []
+    for warm in (True, False):
+        eng = ReplicaEngine(cfg, params, slots=SERVE_SLOTS,
+                            max_len=SERVE_MAX_LEN, eos_id=-1)
+        if warm:
+            eng.admit(1, prompt, 8)
+            slot = eng.slot_of[1]
+            while eng.n_active:
+                eng.step()
+        logits.append(eng._prefill(toks, slot))
+        del eng
+    if not torch.equal(logits[0], logits[1]):
+        fail(f"rwkv reused slot != fresh slot: max |diff| "
+             f"{float((logits[0] - logits[1]).abs().max())}")
+    say(f"# rwkv serving: a {len(prompt_b)}-token prompt prefilled into the "
+        f"slot request {r.rid} held (prompt {r.prompt_len}, 8 decodes) gives "
+        f"the logits of a fresh engine, bit for bit")
+
+    eng = ReplicaEngine(cfg, params, slots=SERVE_SLOTS,
+                        max_len=SERVE_MAX_LEN, eos_id=-1)
+    for i in range(SERVE_SLOTS):
+        eng.admit(1000 + i, prompt[:128 + 64 * i], SERVE_MAX_LEN)
+    profile_run(dev, f"rwkv engine decode, {SERVE_SLOTS} slots busy, 8 "
+                "steps", lambda: [eng.step() for _ in range(8)], 8, "step")
+    del eng
+    sub = init_cache(cfg, 1, SERVE_MAX_LEN, device=dev)
+    toks = torch.tensor([prompt], dtype=torch.int64, device=dev)
+    profile_run(dev, f"rwkv prefill of {len(prompt)} tokens",
+                lambda: forward(params, cfg, Runtime(), toks, mode="prefill",
+                                cache=sub, cache_pos=0), 1, "prefill")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_run(dev, label, fn, units: int, unit: str) -> None:
     """Device busy time against wall time of ``fn`` under torch.profiler.
     A measurement, not a check: if the profiler reports no device activity
@@ -1255,6 +1538,8 @@ def main() -> None:
     mk_launches = phase_blocked_main_path(dev, records, eps)
     flash, decode = phase_attention_vs_plain(dev)
     attn_launches = phase_serving(dev)
+    rwkv = phase_rwkv_vs_plain(dev)
+    rwkv_launches = phase_rwkv_serving(dev)
     phase_profile(dev)
     say(f"# total {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -1275,7 +1560,11 @@ def main() -> None:
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:55",
-             launches=attn_launches["decode_attention"], **decode)]}))
+             launches=attn_launches["decode_attention"], **decode),
+        dict(name="rwkv6_chunked", route="cuda",
+             source="src/repro_torch/kernels/csrc/rwkv6_chunked.cu",
+             replaces="src/repro/kernels/rwkv6_scan.py:69",
+             launches=rwkv_launches, **rwkv)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,7 @@
 Each module defines ``CONFIG`` (the full-scale configuration, as in the JAX
 package's ``repro.configs``) and ``reduced()`` (a tiny configuration of the
 same family for CPU tests).  ``ARCHS`` lists only what the port supports:
-the dense GQA decoder.
+the dense GQA decoder (qwen2.5-14b) and RWKV6 (rwkv6-1.6b).
 """
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ import importlib
 
 from ..models.config import ModelConfig
 
-ARCHS = ["qwen2.5-14b"]
+ARCHS = ["qwen2.5-14b", "rwkv6-1.6b"]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels from the sources in ``csrc/`` at first use.
 
 ``nvcc`` compiles each source of ``csrc/`` (the select, ``select.cu``, the
-event-blocked replay megakernel, ``replay_block.cu``, and the two attention
-kernels, ``flash_attention.cu`` and ``decode_attention.cu``) for Hopper
+event-blocked replay megakernel, ``replay_block.cu``, the two attention
+kernels, ``flash_attention.cu`` and ``decode_attention.cu``, and RWKV6's
+chunked linear attention, ``rwkv6_chunked.cu``) for Hopper
 (``sm_90a``), one compiler process per source, all started together, and
 links the objects into one shared library with a plain C interface, which
 ``ctypes`` loads.  The library is named by a hash of its sources and flags
@@ -13,8 +14,8 @@ when the module is imported.
 Flags: ``-O3``, and ``--fmad=false`` for the two placement sources:
 contraction is off there so that the score and capacity arithmetic round
 once per operation, as the JAX package's select does; the l2 norm's FMA
-chain is written out with ``fmaf`` in the source.  The attention kernels
-are held to a tolerance, not bit for bit, and keep contraction on.
+chain is written out with ``fmaf`` in the source.  The attention and RWKV6
+kernels are held to a tolerance, not bit for bit, and keep contraction on.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 # source -> the flags it takes beside NVCC_FLAGS
 SOURCES = {"select.cu": ("--fmad=false",),
            "replay_block.cu": ("--fmad=false",),
-           "flash_attention.cu": (), "decode_attention.cu": ()}
+           "flash_attention.cu": (), "decode_attention.cu": (),
+           "rwkv6_chunked.cu": ()}
 HEADERS = ("fitscore_common.cuh",)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-Xcompiler", "-fPIC")
@@ -116,6 +118,8 @@ def library() -> ctypes.CDLL:
     lib.decode_attention_launch.argtypes = [p] * 5 + [i] * 5 + [f] + \
         [i] * 2 + [p]
     lib.decode_attention_launch.restype = i
+    lib.rwkv6_chunked_launch.argtypes = [p] * 7 + [i] * 8 + [p]
+    lib.rwkv6_chunked_launch.restype = i
     lib.fitscore_error_string.argtypes = [i]
     lib.fitscore_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,10 +1,11 @@
 """Wrappers that launch the port's hand-written kernels: the select
 (``fitscore_select``, ``csrc/select.cu``), the event-blocked replay
 megakernel (``fitscore_replay_block``, ``csrc/replay_block.cu``, with
-``replay_chunk``, the host loop over a chunk's blocks), and the two
-attention kernels of the model stack (``flash_attention``,
+``replay_chunk``, the host loop over a chunk's blocks), the two attention
+kernels of the model stack (``flash_attention``,
 ``csrc/flash_attention.cu``; ``decode_attention``,
-``csrc/decode_attention.cu``).
+``csrc/decode_attention.cu``) and RWKV6's chunked linear attention
+(``rwkv6_chunked``, ``csrc/rwkv6_chunked.cu``).
 
 A wrapper takes its kernel's plain PyTorch version only because the tensors
 it was given lie on the CPU.  For CUDA tensors it checks them, launches the
@@ -23,6 +24,7 @@ from . import fitscore as fk
 from .attention import decode_attention_ref, flash_attention_ref
 from .fitscore import (DPAD, KCAT, REPLAY_EV_F, REPLAY_EV_I, policy_code,
                        replay_block_ref, replay_carry_names, select_ref)
+from .rwkv6 import rwkv6_chunked_ref
 
 # kernel name -> launches since the caller last cleared it
 launches: collections.Counter = collections.Counter()
@@ -212,7 +214,7 @@ def replay_chunk(carry, ev_i, ev_f, ev_size, dmask, *, block_events: int,
     return carry
 
 
-_ATTN_DTYPES = (torch.float32, torch.bfloat16)
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_attention(kernel, q, k, v, q_dims):
@@ -221,7 +223,7 @@ def _check_attention(kernel, q, k, v, q_dims):
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{kernel}: no kernel for {dev}")
-    if q.dtype not in _ATTN_DTYPES:
+    if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"{kernel}: q must be float32 or bfloat16, got "
                          f"{q.dtype}")
     if q.dim() != q_dims or k.dim() != 4 or v.shape != k.shape:
@@ -304,3 +306,52 @@ def decode_attention(q, k, v, kv_len):
                            f"{lib.fitscore_error_string(err).decode()}")
     launches[name] += 1
     return out
+
+
+def rwkv6_chunked(r, k, v, logw, u, *, chunk: int = 16):
+    """RWKV6 chunked linear attention from a zero state: r, k, logw (B, S,
+    H, K); v (B, S, H, V); u (H, K) -> (y (B, S, H, V) fp32, final state
+    (B, H, K, V) fp32), see ``rwkv6_chunked_ref``.  The CUDA kernel
+    ``csrc/rwkv6_chunked.cu`` for CUDA tensors (r, k, v of one type, fp32
+    or bf16; logw and u fp32; contiguous; K, V <= 64; chunk <= 16); the
+    plain version for CPU ones.  Any S: the kernel reads the rows past S
+    as identity rows, the padding of ``rwkv6_chunked_ref``."""
+    if r.device.type == "cpu":
+        return rwkv6_chunked_ref(r, k, v, logw, u, chunk=chunk)
+    name = "rwkv6_chunked"
+    dev = r.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {dev}")
+    if r.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{name}: r must be float32 or bfloat16, got "
+                         f"{r.dtype}")
+    if r.dim() != 4 or v.dim() != 4 or v.shape[:3] != r.shape[:3]:
+        raise ValueError(f"{name}: shapes r {tuple(r.shape)}, v "
+                         f"{tuple(v.shape)}")
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    if not (1 <= K <= 64 and 1 <= V <= 64 and 1 <= chunk <= 16):
+        raise ValueError(f"{name}: K={K}, V={V}, chunk={chunk}; the kernel "
+                         "takes K, V <= 64 and chunk <= 16")
+    f32 = torch.float32
+    _check("r", r, (B, S, H, K), r.dtype, dev, name)
+    _check("k", k, (B, S, H, K), r.dtype, dev, name)
+    _check("v", v, (B, S, H, V), r.dtype, dev, name)
+    _check("logw", logw, (B, S, H, K), f32, dev, name)
+    _check("u", u, (H, K), f32, dev, name)
+    y = torch.empty((B, S, H, V), dtype=f32, device=dev)
+    state = torch.empty((B, H, K, V), dtype=f32, device=dev)
+    if B * H == 0:
+        return y, state
+    from ._build import library
+    lib = library()
+    err = lib.rwkv6_chunked_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+        u.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, H, K, V,
+        max(1, min(chunk, S)), int(r.dtype == torch.bfloat16),
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError("rwkv6_chunked launch failed: "
+                           f"{lib.fitscore_error_string(err).decode()}")
+    launches[name] += 1
+    return y, state

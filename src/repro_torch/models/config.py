@@ -3,8 +3,8 @@ the JAX package (dense GQA decoders, mixed local/global attention, QKV
 bias, MoE, MLA, encoder-decoder, RWKV6, hybrid SSM).  The port's copy of
 ``repro.models.config.ModelConfig``, field for field, so a configuration
 means the same in both packages.  The port's model stack runs the dense
-GQA decoder (``configs.ARCHS``); the other fields are kept so that
-``param_count`` and the configuration's meaning stay the reference's.
+GQA decoder and RWKV6 (``configs.ARCHS``); the other fields are kept so
+that ``param_count`` and the configuration's meaning stay the reference's.
 """
 from __future__ import annotations
 

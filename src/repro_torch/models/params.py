@@ -1,13 +1,16 @@
-"""Parameter templates and random initialisation of the dense GQA decoder:
-the port's copy of ``repro.models.params`` (``template``, ``_finalize``,
-``init_params``) for the architectures ``configs.ARCHS`` lists.
+"""Parameter templates and random initialisation of the dense GQA decoder
+and of RWKV6: the port's copy of ``repro.models.params`` (``template``,
+``_finalize``, ``init_params``) for the architectures ``configs.ARCHS``
+lists.
 
 The tree is the reference's: ``embed``, ``final_norm``, ``lm_head`` (unless
 tied) and ``layers``, a dict whose every entry carries a leading layer axis.
 Initialisers and scales are the reference's too: ``normal`` times
-``scale / sqrt(fan_in)`` for a dense weight, ones for a norm, zeros for the
-QKV biases.  The numbers differ (a ``torch.Generator`` is not a JAX key);
-``params_from_reference`` carries the JAX package's own weights across.
+``scale / sqrt(fan_in)`` for a dense weight, ones for a norm and RWKV6's
+``gn_scale``, zeros for the QKV biases and for RWKV6's token-shift mixes,
+``decay_base`` and ``bonus_u``.  The numbers differ (a ``torch.Generator``
+is not a JAX key); ``params_from_reference`` carries the JAX package's own
+weights across.
 """
 from __future__ import annotations
 
@@ -37,12 +40,31 @@ def _dense(fan_in: int, fan_out: int) -> ParamMeta:
 
 
 def _supported(cfg: ModelConfig) -> None:
-    if cfg.mla or cfg.rwkv or cfg.ssm or cfg.n_experts or \
+    if cfg.mla or cfg.ssm or cfg.n_experts or \
             cfg.arch_kind != "decoder" or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: the port's model stack runs the dense GQA decoder "
-            "only; MoE, MLA, RWKV6, SSM heads, encoder-decoder and frontends "
-            "are ROADMAP Queue 1 item 8")
+            "and RWKV6 only; MoE, MLA, SSM heads, encoder-decoder and "
+            "frontends are ROADMAP Queue 1 item 8")
+
+
+def _rwkv_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
+    """RWKV6's layer: static token-shift mixes, the r/k/v/g projections,
+    the data-dependent decay as a rank-64 LoRA over ``decay_base``, the
+    bonus ``u``, the per-head group norm's scale, and a relu^2 MLP with no
+    gate."""
+    d, a = cfg.d_model, cfg.q_dim
+    return {"ln1": _norm(d),
+            **{f"mix_{n}": ParamMeta((d,), "zeros") for n in "rkvgw"},
+            "w_r": _dense(d, a), "w_k": _dense(d, a), "w_v": _dense(d, a),
+            "w_g": _dense(d, a),
+            "decay_a": _dense(d, 64), "decay_b": _dense(64, a),
+            "decay_base": ParamMeta((a,), "zeros"),
+            "bonus_u": ParamMeta((a,), "zeros"),
+            "gn_scale": ParamMeta((a,), "ones"),
+            "wo": _dense(a, d), "ln2": _norm(d),
+            "mix_f": ParamMeta((d,), "zeros"),
+            "w_in": _dense(d, cfg.d_ff), "w_out": _dense(cfg.d_ff, d)}
 
 
 def _decoder_layer(cfg: ModelConfig) -> Dict[str, ParamMeta]:
@@ -68,7 +90,7 @@ def template(cfg: ModelConfig) -> Dict:
     _supported(cfg)
     tpl = {"embed": ParamMeta((cfg.vocab, cfg.d_model), "normal", 1.0),
            "final_norm": _norm(cfg.d_model),
-           "layers": _decoder_layer(cfg)}
+           "layers": _rwkv_block(cfg) if cfg.rwkv else _decoder_layer(cfg)}
     if not cfg.tie_embeddings:
         tpl["lm_head"] = _dense(cfg.d_model, cfg.vocab)
     return tpl

@@ -1,7 +1,8 @@
-"""The dense decoder's forward pass: the port's ``repro.models.transformer``
+"""The decoder's forward pass: the port's ``repro.models.transformer``
 (``Runtime``, ``mlp``, ``layer_windows``, the dense path of ``_std_layer``,
-``init_cache`` for the k/v cache, and ``forward``) for the architectures
-``configs.ARCHS`` lists.
+``_rwkv_layer``, ``init_cache`` for the k/v cache and for RWKV6's
+recurrent state, and ``forward``) for the architectures ``configs.ARCHS``
+lists.
 
 Modes: "train" (causal, no cache, logits for every position), "prefill"
 (fills the cache from position 0 and keeps only the last position's
@@ -12,6 +13,13 @@ place of ``lax.scan``.  The cache is written in place and returned.
 
 The reference's dtype sequence is kept: embeddings and each layer's
 matrices in ``cfg.dtype``, the norms and ``rope`` in fp32 and cast back.
+
+One difference from the reference, on RWKV6: a prefill from position 0
+starts from a zero recurrent state and zero token shifts, whatever the
+cache holds.  The reference starts it from the state in the cache, so a
+request prefilled into a reused engine slot continues its previous
+occupant's state (ROADMAP Queue 3); its Pallas kernel has no initial state
+and starts from zeros, as the port does.
 """
 from __future__ import annotations
 
@@ -22,8 +30,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .attention import _rms, attention_block
+from .attention import _proj, _rms, attention_block
 from .config import ModelConfig
+from .linear_scan import chunked_linear_attention, linear_attention_step
 from .params import _dtype, _supported
 
 
@@ -67,18 +76,92 @@ def _std_layer(blk, x, cfg, rt: Runtime, *, positions, window, cache,
     return x + mlp(blk, xn2, cfg), new_cache
 
 
+def _shifted(x):
+    """x moved one position later along S, zeros first: each position's
+    previous token (the token shift from a fresh start)."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def _rwkv_layer(blk, x, cfg, *, cache, cache_pos):
+    """RWKV6 time mix (the chunked kernel over the sequence, or one decode
+    step against the cached state) and relu^2 channel mix, each with its
+    token shift.  With a cache: ``cache_pos`` 0 (a prefill) starts from a
+    zero state and zero shifts, through the kernel for any S; one token at
+    a nonzero position (scalar or per row) takes the decode step; the
+    cache's state and shifts are overwritten in place."""
+    B, S, _ = x.shape
+    H, K = cfg.n_heads, cfg.head_dim
+    step = cache is not None and (isinstance(cache_pos, torch.Tensor) or
+                                  int(cache_pos) != 0)
+    if step and S != 1:
+        raise NotImplementedError(
+            f"{S} tokens against a cache at a nonzero position (chunked "
+            f"prefill) is ROADMAP Queue 1 item 8")
+    xn = _rms(x, blk["ln1"], cfg.norm_eps)
+    prev = cache["shift_a"][:, None, :].to(xn.dtype) if step else \
+        _shifted(xn)
+
+    def lerp(m):
+        return xn + (prev - xn) * blk[m].to(xn.dtype)
+
+    r = _proj(lerp("mix_r"), blk["w_r"]).reshape(B, S, H, K)
+    k = _proj(lerp("mix_k"), blk["w_k"]).reshape(B, S, H, K)
+    v = _proj(lerp("mix_v"), blk["w_v"]).reshape(B, S, H, K)
+    g = F.silu(_proj(lerp("mix_g"), blk["w_g"]))
+    dec = torch.tanh(_proj(lerp("mix_w"), blk["decay_a"])) @ \
+        blk["decay_b"].to(xn.dtype) + blk["decay_base"].to(xn.dtype)
+    logw = -torch.exp(dec.float()).reshape(B, S, H, K)
+    u = blk["bonus_u"].reshape(H, K)
+    if step:
+        y, state = linear_attention_step(r[:, 0], k[:, 0], v[:, 0],
+                                         logw[:, 0], cache["state"], u=u)
+        y = y[:, None]
+    else:
+        y, state = chunked_linear_attention(r, k, v, logw, u=u,
+                                            chunk=cfg.scan_chunk)
+    # per-head group norm in fp32
+    y32 = y.reshape(B, S, H, K).float()
+    y = (y32 * torch.rsqrt((y32 * y32).mean(-1, keepdim=True)
+                           + cfg.norm_eps)).reshape(B, S, H * K)
+    y = y * blk["gn_scale"].float()
+    x = x + _proj(y.to(x.dtype) * g, blk["wo"])
+
+    # channel mix with token shift
+    xn2 = _rms(x, blk["ln2"], cfg.norm_eps)
+    prev2 = cache["shift_f"][:, None, :].to(xn2.dtype) if step else \
+        _shifted(xn2)
+    xf = xn2 + (prev2 - xn2) * blk["mix_f"].to(xn2.dtype)
+    h = torch.square(F.relu(xf @ blk["w_in"].to(xf.dtype)))
+    x = x + h @ blk["w_out"].to(xf.dtype)
+    if cache is not None:
+        cache["state"].copy_(state)
+        cache["shift_a"].copy_(xn[:, -1])
+        cache["shift_f"].copy_(xn2[:, -1])
+    return x
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> Dict:
-    """Stacked (leading layer axis) k/v decode cache, zeros, on
-    ``device``."""
+    """Stacked (leading layer axis) decode cache, zeros, on ``device``:
+    k/v of (batch, max_len) positions, or RWKV6's fp32 (H, K, K) state and
+    its two token shifts a row."""
     from ..kernels.ops import resolve_device
     _supported(cfg)
+    dev = resolve_device(device)
+    dt = _dtype(cfg, dtype)
+    L = cfg.n_layers
+    if cfg.rwkv:
+        hd = cfg.head_dim
+        return {"state": torch.zeros((L, batch, cfg.n_heads, hd, hd),
+                                     dtype=torch.float32, device=dev),
+                "shift_a": torch.zeros((L, batch, cfg.d_model), dtype=dt,
+                                       device=dev),
+                "shift_f": torch.zeros((L, batch, cfg.d_model), dtype=dt,
+                                       device=dev)}
     if cfg.kv_cache_int8:
         raise NotImplementedError("the int8 KV cache is ROADMAP Queue 1 "
                                   "item 8")
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    dev = resolve_device(device)
-    dt = _dtype(cfg, dtype)
+    shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev)}
 
@@ -108,9 +191,12 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens: torch.Tensor, *,
         blk = {k: (w[i].to(cdt) if w.dim() >= 3 and w.is_floating_point()
                    else w[i]) for k, w in layers.items()}
         csl = None if cache is None else {k: c[i] for k, c in cache.items()}
-        x, _ = _std_layer(blk, x, cfg, rt, positions=positions,
-                          window=int(windows[i]), cache=csl,
-                          cache_pos=cache_pos)
+        if cfg.rwkv:
+            x = _rwkv_layer(blk, x, cfg, cache=csl, cache_pos=cache_pos)
+        else:
+            x, _ = _std_layer(blk, x, cfg, rt, positions=positions,
+                              window=int(windows[i]), cache=csl,
+                              cache_pos=cache_pos)
     if mode == "prefill":
         x = x[:, -1:]   # serving needs only the next token's logits
     x = _rms(x, params["final_norm"], cfg.norm_eps)

@@ -2,11 +2,18 @@
 port's ``repro.serving.engine``).
 
 One ``ReplicaEngine`` is one model replica on one card.  Fixed slot layout:
-the KV cache is (L, slots, Smax, KV, hd); a request occupies one slot from
-admission to completion, ``admit`` prefills its prompt into that slot
-(``flash_attention`` in every layer), and every ``step`` decodes one token
-for all slots (``decode_attention`` in every layer; idle slots run masked,
-the standard continuous-batching schedule).  Greedy decoding.
+the cache is (L, slots, ...) (the KV cache (L, slots, Smax, KV, hd), or
+RWKV6's recurrent state and token shifts); a request occupies one slot
+from admission to completion, ``admit`` prefills its prompt into that slot
+(``flash_attention``, or RWKV6's ``rwkv6_chunked``, in every layer), and
+every ``step`` decodes one token for all slots (``decode_attention`` in
+every layer, or RWKV6's decode step; idle slots run masked, the standard
+continuous-batching schedule).  Greedy decoding.
+
+A prefill starts its slot afresh: RWKV6's layers overwrite the slot's state
+and shifts from a zero start (``models.transformer._rwkv_layer``), where the
+reference's engine continues the previous occupant's state (ROADMAP Queue
+3).
 """
 from __future__ import annotations
 

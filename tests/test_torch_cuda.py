@@ -1,9 +1,9 @@
 """The port on the card: the CUDA select and the CUDA replay megakernel
 against their plain versions, and the replays on the card (per event and
 blocked) against the replays on the CPU, bit for bit; the two attention
-kernels against their plain versions within the JAX kernel tests'
-tolerances, and the model and engine through them against the plain
-attention.
+kernels and the RWKV6 chunked kernel against their plain versions within
+the JAX kernel tests' tolerances, and the model and engine through them
+against the plain versions.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips with a
 reason where ``torch.cuda.is_available()`` is false: the CUDA kernel has
@@ -308,5 +308,112 @@ def test_engine_on_card_equals_plain_attention(cuda):
     finally:
         attention.flash_attention = ops.flash_attention
         attention.decode_attention = ops.decode_attention
+    rel = float((kern - plain).abs().max() / plain.abs().max())
+    assert rel < 1e-4
+
+
+def _rwkv_inputs(seed, dev, dtype, B, S, H, K, V):
+    """The JAX kernel test's distributions; r, k, v in ``dtype``, logw and
+    u fp32."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    r = torch.randn((B, S, H, K), generator=g, device=dev)
+    k = 0.5 * torch.randn((B, S, H, K), generator=g, device=dev)
+    v = torch.randn((B, S, H, V), generator=g, device=dev)
+    lw = -torch.exp(torch.randn((B, S, H, K), generator=g, device=dev))
+    u = 0.1 * torch.randn((H, K), generator=g, device=dev)
+    return r.to(dtype), k.to(dtype), v.to(dtype), lw, u
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,V,chunk", [
+    (2, 64, 2, 16, 16, 16), (1, 48, 4, 32, 64, 16), (2, 16, 1, 8, 8, 16),
+    (1, 128, 2, 64, 64, 16), (2, 50, 2, 64, 64, 16), (1, 17, 3, 64, 32, 16),
+    (2, 40, 4, 16, 16, 8), (1, 511, 32, 64, 64, 16), (1, 5, 2, 64, 64, 16)])
+def test_rwkv6_kernel_equals_plain(B, S, H, K, V, chunk, dtype, cuda):
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
+    args = _rwkv_inputs(S + H, cuda, dtype, B, S, H, K, V)
+    n0 = ops.launches["rwkv6_chunked"]
+    y, st = ops.rwkv6_chunked(*args, chunk=chunk)
+    assert ops.launches["rwkv6_chunked"] == n0 + 1
+    want_y, want_st = rwkv6_chunked_ref(*args, chunk=chunk)
+    assert y.dtype == st.dtype == torch.float32
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(st, want_st, atol=1e-4, rtol=1e-4)
+
+
+def test_rwkv6_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    r, k, v, lw, u = _rwkv_inputs(0, cuda, torch.float32, 1, 16, 2, 8, 8)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.rwkv6_chunked(r.half(), k.half(), v.half(), lw, u)
+    with pytest.raises(ValueError, match="k must be"):
+        ops.rwkv6_chunked(r, k.to(torch.bfloat16), v, lw, u)
+    with pytest.raises(ValueError, match="logw must be"):
+        ops.rwkv6_chunked(r, k, v, lw.to(torch.bfloat16), u)
+    with pytest.raises(ValueError, match="u must be"):
+        ops.rwkv6_chunked(r, k, v, lw, u.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rwkv6_chunked(r.transpose(1, 2).contiguous().transpose(1, 2), k,
+                          v, lw, u)
+    with pytest.raises(ValueError, match="K, V <= 64"):
+        big = torch.zeros((1, 16, 2, 65), device=cuda)
+        ops.rwkv6_chunked(big, big, big, big, torch.zeros((2, 65),
+                                                          device=cuda))
+    with pytest.raises(ValueError, match="chunk <= 16"):
+        ops.rwkv6_chunked(r, k, v, lw, u, chunk=32)
+
+
+def test_rwkv_engine_on_card_equals_plain_kernel(cuda):
+    """The reduced rwkv6 model in fp32 on the card, its mixes, decay base
+    and bonus drawn nonzero: an engine's logits through the kernel equal
+    those through the plain version bound in its place, within 1e-4 of max
+    |logit|; a request prefilled into a reused slot gives the logits of a
+    fresh engine."""
+    import dataclasses
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
+    from repro_torch.models import linear_scan
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import ReplicaEngine
+    cfg = dataclasses.replace(get_reduced_config("rwkv6-1.6b"),
+                              dtype="float32")
+    params = init_params(cfg, seed=0, device=cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    lay = params["layers"]
+    for name in ("mix_r", "mix_k", "mix_v", "mix_g", "mix_w", "mix_f"):
+        lay[name].uniform_(0, 1, generator=g)
+    for name in ("decay_base", "bonus_u"):
+        lay[name].normal_(0, 0.5, generator=g)
+
+    def run():
+        eng = ReplicaEngine(cfg, params, slots=4, max_len=64, eos_id=-1)
+        out = []
+        for name in ("_prefill", "_decode"):
+            setattr(eng, name, (lambda f: lambda *a: (
+                out.append(f(*a)), out[-1])[1])(getattr(eng, name)))
+        eng.admit(1, [5, 6, 7, 8, 9], 6)
+        eng.step()
+        eng.admit(2, list(range(10, 40)), 5)
+        while eng.n_active:
+            eng.step()
+        eng.admit(3, list(range(40, 60)), 1)   # slot 0 again
+        fresh = ReplicaEngine(cfg, params, slots=4, max_len=64, eos_id=-1)
+        fresh_out = []
+        fresh._prefill = (lambda f: lambda *a: (
+            fresh_out.append(f(*a)), fresh_out[-1])[1])(fresh._prefill)
+        fresh.admit(3, list(range(40, 60)), 1)
+        assert torch.equal(out[-1], fresh_out[-1])
+        return torch.cat([o.reshape(-1) for o in out])
+
+    ops.launches.clear()
+    kern = run()
+    assert ops.launches["rwkv6_chunked"] == 4 * cfg.n_layers
+    assert ops.launches["flash_attention"] == 0
+    linear_scan.rwkv6_chunked = rwkv6_chunked_ref
+    try:
+        plain = run()
+    finally:
+        linear_scan.rwkv6_chunked = ops.rwkv6_chunked
     rel = float((kern - plain).abs().max() / plain.abs().max())
     assert rel < 1e-4

@@ -1,9 +1,11 @@
-"""The port's dense decoder (``repro_torch.models``) against the JAX
-package's, on the reduced qwen2.5-14b configuration in fp32: the same
-parameters (the JAX package's own init, QKV biases drawn nonzero by the
-test, carried across by ``params_from_reference``) and the same tokens
-give the same logits in train, prefill and decode modes, within 1e-4 of
-max |logit| (fp32; the attention sums run in another order)."""
+"""The port's model stack (``repro_torch.models``) against the JAX
+package's, on the reduced qwen2.5-14b and rwkv6-1.6b configurations in
+fp32: the same parameters (the JAX package's own init, with qwen's QKV
+biases and rwkv6's mixes, decay base, bonus and group-norm scale drawn
+nonzero by the test, carried across by ``params_from_reference``) and the
+same tokens give the same logits in train, prefill and decode modes, within
+1e-4 of max |logit| (fp32; the attention and scan sums run in another
+order)."""
 import dataclasses
 
 import jax
@@ -118,7 +120,7 @@ def test_param_count_of_the_full_config_equals_the_reference():
         cfg.d_model
     assert n == cfg.param_count() + extra
     assert 14.7e9 < n < 14.8e9
-    assert ARCHS == ["qwen2.5-14b"]
+    assert ARCHS == ["qwen2.5-14b", "rwkv6-1.6b"]
     with pytest.raises(KeyError):
         get_config("gemma3-12b")
 
@@ -251,3 +253,189 @@ def test_other_architectures_raise():
         init_cache(dataclasses.replace(get_reduced_config(ARCH),
                                        kv_cache_int8=True), 1, 4,
                    device="cpu")
+
+
+# ---------------------------------------------------------------- RWKV6
+
+RWKV = "rwkv6-1.6b"
+
+
+@pytest.fixture(scope="module")
+def rwkv_models():
+    from test_torch_rwkv import rwkv_reference_tree
+    ref_cfg = dataclasses.replace(ref_reduced(RWKV), dtype="float32",
+                                  remat=False)
+    cfg = dataclasses.replace(get_reduced_config(RWKV), dtype="float32")
+    tree = rwkv_reference_tree(ref_cfg)
+    return ref_cfg, cfg, tree, P_.params_from_reference(tree, cfg,
+                                                        device="cpu")
+
+
+def test_rwkv_config_equals_the_reference():
+    for full, ref in ((get_config(RWKV), ref_get_config(RWKV)),
+                      (get_reduced_config(RWKV), ref_reduced(RWKV))):
+        assert dataclasses.asdict(full) == dataclasses.asdict(ref)
+
+
+def test_rwkv_params_from_reference_carries_every_leaf(rwkv_models):
+    _, cfg, tree, params = rwkv_models
+    assert set(params["layers"]) == set(tree["layers"])
+    for k, arr in tree["layers"].items():
+        assert np.array_equal(params["layers"][k].numpy(), arr), k
+    assert np.array_equal(params["embed"].numpy(), tree["embed"])
+
+
+def test_rwkv_init_params_follows_the_reference_template():
+    """Same tree, shapes and initialisers as the JAX package's: zeros for
+    the mixes, decay base and bonus, ones for the norms and the group-norm
+    scale, normal weights of std ``1 / sqrt(fan_in)``."""
+    cfg = get_reduced_config(RWKV)
+    ref = ref_params.init_params(jax.random.PRNGKey(0), ref_reduced(RWKV))
+    p = P_.init_params(cfg, seed=3, device="cpu")
+    assert jax.tree.map(lambda a: tuple(a.shape), ref) == \
+        {k: ({kk: tuple(vv.shape) for kk, vv in v.items()}
+             if isinstance(v, dict) else tuple(v.shape))
+         for k, v in p.items()}
+    lay = p["layers"]
+    for name in ("mix_r", "mix_k", "mix_v", "mix_g", "mix_w", "mix_f",
+                 "decay_base", "bonus_u"):
+        assert torch.all(lay[name] == 0), name
+    for name in ("ln1", "ln2", "gn_scale"):
+        assert torch.all(lay[name] == 1), name
+    assert abs(float(lay["decay_b"].float().std()) * 8 - 1.0) < 0.05
+    assert abs(float(lay["w_out"].float().std()) *
+               np.sqrt(cfg.d_ff) - 1.0) < 0.05
+
+
+def test_rwkv_param_count_of_the_full_config_equals_the_reference():
+    """The template's elements at full width equal the JAX template's:
+    1 483 229 184 (2.97 GB in bf16)."""
+    cfg = get_config(RWKV)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
+            cfg.vocab, cfg.scan_chunk) == (24, 2048, 32, 64, 7168, 65536, 16)
+    n = sum(int(np.prod(((m[1],) if m[1] else ()) + m[0].shape))
+            for sub in P_._finalize(cfg, lambda m, n: (m, n)).values()
+            for m in (sub.values() if isinstance(sub, dict) else [sub]))
+    ref = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(
+        ref_params.abstract_params(ref_get_config(RWKV))))
+    assert n == ref == 1_483_229_184
+    assert cfg.param_count() == ref_get_config(RWKV).param_count()
+
+
+def test_rwkv_forward_train_equals_reference(rwkv_models):
+    ref_cfg, cfg, tree, params = rwkv_models
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (2, 21))
+    want, _, _ = ref_forward(tree, ref_cfg, RefRuntime(), jnp.asarray(toks),
+                             mode="train")
+    got, cache, aux = forward(params, cfg, Runtime(), torch.from_numpy(toks),
+                              mode="train")
+    assert cache is None and float(aux) == 0.0
+    assert tuple(got.shape) == (2, 21, cfg.vocab)
+    assert _rel(got, want) < REL_TOL
+
+
+@pytest.mark.parametrize("vector_pos", [False, True])
+def test_rwkv_prefill_then_decode_equals_reference(rwkv_models, vector_pos):
+    """Prefill 21 tokens (not a multiple of the chunk of 8) into a zero
+    cache, then three decode steps at one scalar position or at per-row
+    positions: logits, state and shifts equal the reference's."""
+    ref_cfg, cfg, tree, params = rwkv_models
+    rng = np.random.default_rng(3)
+    B, S = 2, 21
+    toks = rng.integers(0, cfg.vocab, (B, S))
+    rcache = ref_init_cache(ref_cfg, B, 32, dtype=jnp.float32)
+    cache = init_cache(cfg, B, 32, device="cpu")
+    assert set(cache) == set(rcache)
+    for k in cache:
+        assert cache[k].shape == rcache[k].shape
+        assert cache[k].dtype == torch.float32
+    want, rcache, _ = ref_forward(tree, ref_cfg, RefRuntime(),
+                                  jnp.asarray(toks), mode="prefill",
+                                  cache=rcache, cache_pos=0)
+    got, cache, _ = forward(params, cfg, Runtime(), torch.from_numpy(toks),
+                            mode="prefill", cache=cache, cache_pos=0)
+    assert tuple(got.shape) == (B, 1, cfg.vocab)
+    assert _rel(got, want) < REL_TOL
+    for k in cache:
+        np.testing.assert_allclose(cache[k].numpy(), np.asarray(rcache[k]),
+                                   atol=1e-4, rtol=1e-4)
+    pos = np.array([S, S - 3], np.int32) if vector_pos else S
+    for step in range(3):
+        tok = rng.integers(0, cfg.vocab, (B, 1))
+        rpos = jnp.asarray(pos) if vector_pos else pos
+        tpos = torch.from_numpy(pos) if vector_pos else pos
+        want, rcache, _ = ref_forward(tree, ref_cfg, RefRuntime(),
+                                      jnp.asarray(tok), mode="decode",
+                                      cache=rcache, cache_pos=rpos)
+        got, cache, _ = forward(params, cfg, Runtime(),
+                                torch.from_numpy(tok), mode="decode",
+                                cache=cache, cache_pos=tpos)
+        assert _rel(got, want) < REL_TOL, step
+        pos = pos + 1
+
+
+def test_rwkv_decode_equals_train_forward(rwkv_models):
+    """A prefill of S - 1 tokens and one decode step give the train-mode
+    logits of the last position."""
+    _, cfg, _, params = rwkv_models
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab,
+                                                              (2, 24)))
+    full, _, _ = forward(params, cfg, Runtime(), toks, mode="train")
+    cache = init_cache(cfg, 2, 24, device="cpu")
+    forward(params, cfg, Runtime(), toks[:, :-1], mode="prefill",
+            cache=cache, cache_pos=0)
+    last, _, _ = forward(params, cfg, Runtime(), toks[:, -1:], mode="decode",
+                         cache=cache, cache_pos=23)
+    err = float((last[:, 0] - full[:, -1]).abs().max()) / \
+        float(full.abs().max())
+    assert err < REL_TOL
+
+
+def test_rwkv_prefill_starts_from_zero_whatever_the_cache_holds(
+        rwkv_models):
+    """A prefill at position 0 overwrites the state and shifts from a zero
+    start, for a 1-token prompt too: a cache full of another request's
+    state gives the same logits and cache as a zero one."""
+    _, cfg, _, params = rwkv_models
+    rng = np.random.default_rng(5)
+    for S in (13, 1):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S)))
+        fresh = init_cache(cfg, 1, 32, device="cpu")
+        dirty = {k: torch.from_numpy(rng.standard_normal(c.shape).astype(
+            np.float32)) for k, c in fresh.items()}
+        want, _, _ = forward(params, cfg, Runtime(), toks, mode="prefill",
+                             cache=fresh, cache_pos=0)
+        got, _, _ = forward(params, cfg, Runtime(), toks, mode="prefill",
+                            cache=dirty, cache_pos=0)
+        assert torch.equal(got, want), S
+        for k in fresh:
+            assert torch.equal(dirty[k], fresh[k]), (S, k)
+
+
+def test_rwkv_time_mix_runs_through_the_kernel_wrapper(rwkv_models,
+                                                       monkeypatch):
+    """No cache and the prefill go to ``rwkv6_chunked`` once per layer
+    each; a decode step goes to the step, not the kernel."""
+    from repro_torch.models import linear_scan
+    _, cfg, _, params = rwkv_models
+    calls = []
+    fn = linear_scan.rwkv6_chunked
+    monkeypatch.setattr(linear_scan, "rwkv6_chunked",
+                        lambda *a, **k: (calls.append(k["chunk"]),
+                                         fn(*a, **k))[1])
+    toks = torch.zeros((1, 5), dtype=torch.int64)
+    forward(params, cfg, Runtime(), toks, mode="train")
+    cache = init_cache(cfg, 1, 8, device="cpu")
+    forward(params, cfg, Runtime(), toks, mode="prefill", cache=cache,
+            cache_pos=0)
+    forward(params, cfg, Runtime(), toks[:, :1], mode="decode", cache=cache,
+            cache_pos=torch.tensor([5], dtype=torch.int32))
+    assert calls == [cfg.scan_chunk] * (2 * cfg.n_layers)
+
+
+def test_rwkv_chunked_prefill_raises(rwkv_models):
+    _, cfg, _, params = rwkv_models
+    cache = init_cache(cfg, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        forward(params, cfg, Runtime(), torch.zeros((1, 3), dtype=torch.int64),
+                mode="prefill", cache=cache, cache_pos=4)

@@ -1,9 +1,12 @@
 """The port's serving path (``repro_torch.serving``, ``launch.serve``)
 against the JAX package's: the replica engine's logits step by step (fp32,
-within 1e-4 of max |logit|), and the placement side exactly - BinPool and
-host-zoo decisions, the device select's decisions, the fleet simulation's
-numbers and ``serve_real``'s stats, which chip_smoke.py holds on the card
-as ``REF_SERVE_STATS``."""
+within 1e-4 of max |logit|; qwen2.5-14b's and rwkv6-1.6b's reduced
+configurations), and the placement side exactly - BinPool and host-zoo
+decisions, the device select's decisions, the fleet simulation's numbers
+and ``serve_real``'s stats, which chip_smoke.py holds on the card as
+``REF_SERVE_STATS``.  On rwkv6 the reference's engine carries a slot's
+recurrent state into the next request prefilled there; the port starts
+each prefill afresh, and the tests show both."""
 import dataclasses
 import os
 import sys
@@ -247,3 +250,136 @@ def test_serve_cli_without_a_card_raises():
         pytest.skip("a CUDA card is present: nothing to refuse")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_main(["--requests", "4", "--real"])
+
+
+# ---------------------------------------------------------------- RWKV6
+
+RWKV = "rwkv6-1.6b"
+
+
+@pytest.fixture(scope="module")
+def rwkv_models():
+    from test_torch_rwkv import rwkv_reference_tree
+    ref_cfg = dataclasses.replace(ref_reduced(RWKV), dtype="float32")
+    cfg = dataclasses.replace(get_reduced_config(RWKV), dtype="float32")
+    tree = rwkv_reference_tree(ref_cfg)
+    return ref_cfg, cfg, tree, P_.params_from_reference(tree, cfg,
+                                                        device="cpu")
+
+
+def test_rwkv_engine_logits_equal_the_reference_on_fresh_slots(rwkv_models):
+    """Three requests admitted into fresh slots of both engines before any
+    step (a slot that idles through a decode step is no longer fresh in the
+    reference: its state moves), then decoded to the end: every prefill's
+    and every decode step's logits agree, and so do the tokens."""
+    ref_cfg, cfg, tree, params = rwkv_models
+    ref = RefEngine(ref_cfg, tree, slots=4, max_len=48, eos_id=-1)
+    eng = ReplicaEngine(cfg, params, slots=4, max_len=48, eos_id=-1)
+    want, got = [], []
+    _recorded(ref, want, ("_prefill", "_decode"))
+    _recorded(eng, got, ("_prefill", "_decode"))
+    for e in (ref, eng):
+        e.admit(1, [5, 6, 7, 8, 9], 7)
+        e.admit(2, [11, 3, 12], 5)
+        e.admit(3, list(range(20, 41)), 4)
+        while e.n_active:
+            e.step()
+    assert len(want) == len(got) == 3 + 6
+    for i, (a, b) in enumerate(zip(want, got)):
+        assert a.shape == b.shape, i
+        assert np.abs(a - b).max() / np.abs(a).max() < REL_TOL, i
+
+
+def test_rwkv_interleaved_batching_matches_isolated(rwkv_models):
+    """A request admitted after two steps (its slot idled through them)
+    and one in a fresh engine give the same tokens."""
+    _, cfg, _, params = rwkv_models
+    eng = ReplicaEngine(cfg, params, slots=4, max_len=64, eos_id=-1)
+    eng.admit(1, [5, 6, 7, 8], 6)
+    for _ in range(2):
+        eng.step()
+    eng.admit(2, [9, 10, 11], 6)
+    record = {}
+    while eng.n_active:
+        for rid, s in eng.seqs.items():
+            record[rid] = list(s.tokens)
+        eng.step()
+        for rid, s in eng.seqs.items():
+            record[rid] = list(s.tokens)
+    assert record[1] == _generate(cfg, params, 1, [5, 6, 7, 8], 6)
+    assert record[2] == _generate(cfg, params, 2, [9, 10, 11], 6)
+
+
+def _reused_and_fresh(engine_cls, cfg, params):
+    """Prefill logits of request B in a one-slot engine whose slot request
+    A (a 20-token prompt, 5 decodes) held before, and in a fresh one."""
+    prompt_a = list(np.random.default_rng(11).integers(2, cfg.vocab, 20))
+    prompt_b = list(np.random.default_rng(12).integers(2, cfg.vocab, 9))
+    out = []
+    for warm in (True, False):
+        eng = engine_cls(cfg, params, slots=1, max_len=48, eos_id=-1)
+        if warm:
+            eng.admit(1, prompt_a, 5)
+            while eng.n_active:
+                eng.step()
+        rec = []
+        _recorded(eng, rec, ("_prefill",))
+        eng.admit(2, prompt_b, 1)
+        out.append(rec[0])
+    return out
+
+
+def test_rwkv_reused_slot_starts_fresh_where_the_reference_leaks(
+        rwkv_models):
+    """The reference's engine prefills into a slice of the slot's cache
+    and its RWKV6 layers start from the state there (engine.py:51-61,
+    transformer.py:75,81-83): request B's logits in a reused slot differ
+    from a fresh engine's by more than 1e-3 of max |logit|.  The port's
+    equal its fresh ones exactly, and the reference's fresh ones within
+    1e-4."""
+    ref_cfg, cfg, tree, params = rwkv_models
+    ref_reused, ref_fresh = _reused_and_fresh(RefEngine, ref_cfg, tree)
+    scale = np.abs(ref_fresh).max()
+    leak = np.abs(ref_reused - ref_fresh).max()
+    reused, fresh = _reused_and_fresh(ReplicaEngine, cfg, params)
+    port = np.abs(fresh - ref_fresh).max()
+    print(f"reference reused - fresh: {leak:.3e} of max |logit| "
+          f"{scale:.3f} ({leak / scale:.3e}); port fresh - reference "
+          f"fresh: {port:.3e}")
+    assert leak / scale > 1e-3
+    assert np.array_equal(reused, fresh)
+    assert port / scale < REL_TOL
+
+
+def test_rwkv_serve_real_stats_equal_the_reference_and_the_chip_constant(
+        rwkv_models):
+    """chip_smoke.py's requests (phase 9 serves them at rwkv6-1.6b's full
+    width) through serve_real on the reduced configuration: the port's
+    stats equal the JAX package's and ``REF_SERVE_STATS``."""
+    ref_cfg, cfg, tree, params = rwkv_models
+    reqs = chip_smoke.serving_requests()
+    ref_reqs = [RefRequest(*dataclasses.astuple(r)) for r in reqs]
+    want = ref_serve_real(ref_cfg, tree, ref_reqs, "greedy",
+                          slots=chip_smoke.SERVE_SLOTS,
+                          max_len=chip_smoke.SERVE_MAX_LEN)
+    got = serve_real(cfg, params, reqs, "greedy",
+                     slots=chip_smoke.SERVE_SLOTS,
+                     max_len=chip_smoke.SERVE_MAX_LEN)
+    assert dataclasses.astuple(got) == dataclasses.astuple(want)
+    assert (got.replica_seconds, got.replicas_opened, got.peak_replicas) == \
+        chip_smoke.REF_SERVE_STATS
+
+
+def test_rwkv_serve_cli_on_the_cpu(capsys):
+    """The default request mix: the same line as the JAX package's
+    ``python -m repro.launch.serve --arch rwkv6-1.6b --real``."""
+    serve_main(["--arch", RWKV, "--real", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "real engines (greedy, cpu): replica_s=91 opened=3 peak=3" in out
+
+
+def test_rwkv_serve_cli_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_main(["--arch", RWKV, "--requests", "4", "--real"])
