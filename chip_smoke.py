@@ -4,8 +4,8 @@
 
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. Device and build: the card's name and power limit, then the port's five
-   kernels built from ``src/repro_torch/kernels/csrc`` (one nvcc per
+1. Device and build: the card's name and power limit, then the port's six
+   kernel sources built from ``src/repro_torch/kernels/csrc`` (one nvcc per
    source, started together; build time printed).
 2. Select vs plain: the CUDA select against ``select_ref`` on the card, on
    random, tied and full pools for every score policy, with and without a
@@ -92,6 +92,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    a prompt prefilled into a slot another request held gives a fresh
    engine's logits bit for bit.  Then torch.profiler over engine decode
    steps and one prefill.
+10. The legacy scorer (``ops.fitscore``, ``csrc/fitscore.cu``): kernel ==
+   ``fitscore_ref`` bit for bit (scores and chosen row) on the JAX kernel
+   test's shapes and on N in ``LEGACY_NS`` x d in {2, 5} x the four norms
+   x random pools, 1/64-grid pools tied across CTAs (repeated open_seq, so
+   the row decides) and pools where nothing fits (-1), each with its
+   open_seq (a permutation or repeated values) and without one.  Its main path: a
+   host Best Fit (l_inf) loop placing ``LEGACY_PLACEMENTS`` items into a
+   4096-bin pool, one launch an arrival, == the loop through the plain
+   version.  Then its device time at d=5, linf for each N beside its byte
+   bound and the plain version's (no PyTorch call computes it).
+11. Consolidation.  (a) The megakernel with its MIGRATE branch ==
+   ``replay_block_ref(migrate=True)`` on blocks opening with MIGRATE events
+   (a migrant whose source bin closes, RCP/PPE migrants off the base bin),
+   all 21 policies x T in {1, 8, 256}; without MIGRATE events the kernel
+   with the branch == without.  (b) The frontier: the 28 x 250 seed-11
+   grid, ``HEADLINE_POLICIES`` x underload:t{0.15,0.25,0.5}:e32 through
+   ``run_batch(consolidate=)``, per event and blocked: migrations and usage
+   totals == ``REF_CONS``.  (c) Full size: the 28 x 5000 suite,
+   clairvoyant, ``CONS_SPEC``, all 21 policies blocked: a mid-scan MIGRATE
+   chunk of every scan == ``replay_block_ref`` from the kernel's carry,
+   ``PER_EVENT_POLICIES`` per event == blocked; migrations, usage against
+   phase 6, the wall time split into replay, planner and copies, and the
+   device time a MIGRATE launch.
 
 Then, as a measurement and not a check, torch.profiler over 400 per-event
 replay steps of the main path's first rung (L=28, Np=64) and over one
@@ -173,6 +196,25 @@ RWKV_SHAPES = [(2, 64, 2, 16, 16, 16), (1, 48, 4, 32, 64, 16),
 # magnitude); a bf16 output may differ from the plain one by two such ulps
 # of the output's largest magnitude, on top of the atol / rtol check.
 BF16_REL = 2.0 ** -6
+
+# Phase 10, the legacy scorer: tests/test_kernels.py::test_fitscore's
+# shapes, the pool sizes timed (benchmarks/perf.py's 4096-bin row,
+# MAX_BINS_CAP, 2^20) and the arrivals of its main-path placement loop.
+LEGACY_TEST_SHAPES = [(100, 4, "linf"), (1000, 5, "l1"), (37, 2, "l2"),
+                      (300, 4, "first_fit"), (8, 4, "linf"),
+                      (256, 1, "linf")]
+LEGACY_NS = (4096, 65536, 1 << 20)
+LEGACY_PLACEMENTS = 256
+
+# Phase 11, consolidation.  The frontier of benchmarks/perf.py::
+# consolidate_sweep (the 28 x 250 seed-11 grid, HEADLINE_POLICIES,
+# underload:t{thr}:e32) as the JAX package's jnp path computes it: threshold
+# -> (total migrations, total usage rounded as that benchmark prints it).
+# tests/test_torch_consolidate.py ties both to the reference on the CPU.
+REF_CONS = {0.15: (45, 178306710), 0.25: (87, 177407906),
+            0.5: (149, 176133829)}
+# The full-size scenario: the default cadence (e256) plans once a block.
+CONS_SPEC = "underload:t0.25"
 
 
 def fail(msg: str) -> None:
@@ -865,7 +907,7 @@ def phase_blocked_main_path(dev, per_event_records, per_event_eps,
                  int(res.n_bins_opened[bi, 0])):
             fail(f"ppe_modified per event != blocked on {inst.name}")
     say("# ppe_modified per event == blocked on all 28 instances")
-    return launches
+    return launches, records
 
 
 def _attention_inputs(gen, dev, dtype, q_shape, kv_shape):
@@ -1454,6 +1496,448 @@ def phase_rwkv_serving(dev):
     return launches
 
 
+# ---------------------------------------------------------------- phase 10
+
+def legacy_inputs(rng, N, d, mode, dev):
+    """One input set of the legacy scorer: ``mode`` "random" (uniform
+    capacities, 70 % alive, a permuted open_seq), "grid" (1/64-grid capacities
+    and item from a few levels, so many bins tie on score in every CTA, and
+    an open_seq with repeated values, so tied bins also tie on it and the
+    row decides, across CTAs) or "none" (nothing fits: -1)."""
+    import numpy as np
+    import torch
+    if mode == "grid":
+        rem = rng.integers(8, 12, (N, d)) / 64.0
+        item = rng.integers(1, 8, d) / 64.0
+        alive = rng.random(N) > 0.1
+        oseq = rng.integers(0, max(1, N // 512), N).astype(np.int32)
+    elif mode == "none":
+        rem = rng.uniform(0.0, 0.4, (N, d))
+        item = np.full(d, 0.5)
+        alive = np.ones(N, bool)
+        oseq = rng.permutation(N).astype(np.int32)
+    else:
+        rem = rng.random((N, d))
+        item = rng.random(d) * 0.5
+        alive = rng.random(N) > 0.3
+        oseq = rng.permutation(N).astype(np.int32)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (rem.astype(np.float32), alive, item.astype(np.float32),
+                      oseq)]
+
+
+def legacy_bound(N, d, with_oseq):
+    """Bytes of one legacy scorer call (remaining, alive as bool, item and
+    open_seq read once; scores and the chosen row written once) at the
+    memory rate, against its fp32 operations (per bin and dim a subtract,
+    a compare and the norm's one or two) at the fp32 rate."""
+    nbytes = N * (4 * d + 1 + 4 + (4 if with_oseq else 0)) + 4 * d + 4
+    nops = N * d * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes", nbytes) if t_bytes >= t_ops else \
+        (t_ops, "operations", nbytes)
+
+
+def phase_legacy_fitscore(dev):
+    """The legacy scorer: kernel == plain bit for bit (scores and chosen
+    row) on the JAX kernel test's shapes and on N in LEGACY_NS x d in {2,
+    5} x the four norms x random / grid-tied / nothing-feasible pools;
+    then its main path, a host Best Fit (l_inf) loop placing
+    LEGACY_PLACEMENTS items into a 4096-bin pool through ``ops.fitscore``,
+    against the same loop through the plain version; then its times."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.legacy import NORMS, fitscore_ref
+    rng = np.random.default_rng(10)
+    cases = [(N, d, norm, "random") for N, d, norm in LEGACY_TEST_SHAPES]
+    cases += [(N, d, norm, mode) for N in LEGACY_NS for d in (2, 5)
+              for norm in NORMS for mode in ("random", "grid", "none")]
+    n_cases = 0
+    for N, d, norm, mode in cases:
+        rem, alive, item, oseq = legacy_inputs(rng, N, d, mode, dev)
+        for os_ in (oseq, None):
+            s_k, b_k = ops.fitscore(rem, alive, item, os_, norm=norm)
+            s_p, b_p = fitscore_ref(rem, alive, item, os_, norm=norm)
+            if not (torch.equal(s_k, s_p) and int(b_k) == int(b_p)):
+                fail(f"fitscore kernel != plain: N={N} d={d} {norm} {mode} "
+                     f"open_seq={os_ is not None}: best {int(b_k)} vs "
+                     f"{int(b_p)}")
+            if mode == "none" and int(b_k) != -1:
+                fail(f"fitscore: a pool where nothing fits gave {int(b_k)}")
+            n_cases += 1
+    say(f"# fitscore kernel == plain on {n_cases} cases (scores and chosen "
+        "row identical, ties across CTAs and -1 included)")
+
+    # the main path: one arrival at a time scored against a 4096-bin pool
+    # (benchmarks/perf.py's fitscore row), placed by Best Fit (l_inf)
+    N, d = 4096, 5
+    rem0 = torch.from_numpy(rng.random((N, d)).astype(np.float32)).to(dev)
+    alive = torch.ones(N, dtype=torch.bool, device=dev)
+    items = torch.from_numpy(
+        (rng.random((LEGACY_PLACEMENTS, d)) * 0.3).astype(np.float32)).to(dev)
+
+    def place(score):
+        rem, chosen = rem0.clone(), []
+        for k in range(LEGACY_PLACEMENTS):
+            _, b = score(rem, alive, items[k], None, norm="linf")
+            b = int(b)
+            chosen.append(b)
+            if b >= 0:
+                rem[b] -= items[k]
+        return chosen, rem
+    ops.launches.clear()
+    t0 = time.perf_counter()
+    got, rem_k = place(ops.fitscore)
+    wall = time.perf_counter() - t0
+    launches = ops.launches["fitscore"]
+    want, rem_p = place(fitscore_ref)
+    if got != want or not torch.equal(rem_k, rem_p):
+        fail("fitscore main path: kernel placements != plain placements")
+    if launches != LEGACY_PLACEMENTS:
+        fail(f"fitscore main path: {launches} launches for "
+             f"{LEGACY_PLACEMENTS} arrivals")
+    say(f"# fitscore main path: {LEGACY_PLACEMENTS} arrivals into {N} bins "
+        f"(Best Fit l_inf) in {wall:.3f} s, {launches} launches, "
+        f"{len(set(got)) - (-1 in got)} bins used, == plain")
+
+    rows = {}
+    for N in LEGACY_NS:
+        rem, alive_n, item, oseq = legacy_inputs(rng, N, 5, "random", dev)
+        ms = device_ms(lambda: ops.fitscore(rem, alive_n, item, oseq,
+                                            norm="linf"), 200)
+        plain_ms = device_ms(lambda: fitscore_ref(rem, alive_n, item, oseq,
+                                                  norm="linf"), 20)
+        bound_ms, bound_by, nbytes = legacy_bound(N, 5, True)
+        rows[N] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
+        say(f"# fitscore N={N} d=5 linf: device time {ms:.6f} ms, plain "
+            f"{plain_ms:.6f} ms; bound {bound_ms:.3e} ms by {bound_by} "
+            f"({nbytes} B at 3.35 TB/s); no PyTorch call computes it")
+    return launches, dict(rows[4096], max_abs_err=0.0)
+
+
+# ---------------------------------------------------------------- phase 11
+
+def live_items(kinds, items, n_max, upto):
+    """(L, n_max) bool: the items of each lane alive after its first
+    ``upto`` events."""
+    import numpy as np
+    from repro_torch.kernels.fitscore import ARRIVAL_KIND, DEPARTURE_KIND
+    L, E = kinds.shape
+    live = np.zeros((L, n_max), bool)
+    lanes = np.arange(L)
+    for i in range(min(upto, E)):
+        arr, dep = kinds[:, i] == ARRIVAL_KIND, kinds[:, i] == DEPARTURE_KIND
+        live[lanes[arr], items[arr, i]] = True
+        live[lanes[dep], items[dep, i]] = False
+    return live
+
+
+def migrate_streams(policy, flat, start, T, carry, rng, dev):
+    """The event streams of ``flat`` under ``policy`` cut at ``start``, with
+    a block of ``T`` events that opens with MIGRATE events of live items
+    chosen from ``carry`` (the packed carry after the first ``start``
+    events): per lane 1 (T = 1), 3 (T = 8) or 8 migrants, first an item
+    alone in its bin (the source bin closes), then for RCP/PPE an item of
+    the base bin, then others at random; the rest of the block is the
+    lane's next events.  Returns the streams over ``start + T`` events on
+    ``dev`` and the numbers of closing and base-bin migrants."""
+    import numpy as np
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import fitscore as fk
+    sizes, times, kinds, items, pdeps, dmask, arrivals, rdeps, n_items = \
+        flat
+    L, E = kinds.shape
+    live = live_items(kinds, items, sizes.shape[1], start)
+    place = carry["itemi"][..., fk.ITEMI_PLACE].cpu().numpy()
+    counts = carry["sloti"][..., fk.SLOTI_COUNTS].cpu().numpy()
+    base = carry["si"][:, fk.SI_BASE].cpu().numpy()
+    m = 1 if T == 1 else (3 if T == 8 else 8)
+    W = start + T
+    k2 = np.full((L, W), fk.PAD_KIND, np.int32)
+    i2 = np.zeros((L, W), np.int64)
+    t2 = np.zeros((L, W), np.float64)
+    k2[:, :start], i2[:, :start] = kinds[:, :start], items[:, :start]
+    t2[:, :start] = times[:, :start]
+    n_close = n_base = 0
+    for lane in range(L):
+        members = np.flatnonzero(live[lane])
+        pl = place[lane, members]
+        close = [int(j) for j in members[counts[lane, pl] == 1]]
+        on_base = [int(j) for j in members[pl == base[lane]]] \
+            if base[lane] >= 0 else []
+        pick = []
+        for pool in ((close, on_base) if lane % 2 == 0 else
+                     (on_base, close)):
+            if pool and len(pick) < m:
+                pick.append(pool[int(rng.integers(len(pool)))])
+        rest = [int(j) for j in rng.permutation(members) if j not in pick]
+        pick += rest[:m - len(pick)]
+        n_close += sum(j in close for j in pick)
+        n_base += sum(j in on_base for j in pick)
+        real = np.flatnonzero(kinds[lane, :start] != fk.PAD_KIND)
+        t_mig = times[lane, real[-1]] if len(real) else 0.0
+        n = len(pick)
+        k2[lane, start:start + n] = fk.MIGRATE_KIND
+        i2[lane, start:start + n] = pick
+        t2[lane, start:start + n] = t_mig
+        tail = slice(start, min(E, start + T - n))
+        w = tail.stop - tail.start
+        k2[lane, start + n:start + n + w] = kinds[lane, tail]
+        i2[lane, start + n:start + n + w] = items[lane, tail]
+        t2[lane, start + n:start + n + w] = times[lane, tail]
+    ev_i, ev_f, ev_size, dmask_p, _, _ = torchsim._event_streams(
+        policy, sizes, t2, k2, i2, pdeps, dmask, arrivals, rdeps, n_items,
+        None)
+    return [a.to(dev) for a in (ev_i, ev_f, ev_size, dmask_p)], n_close, \
+        n_base
+
+
+def phase_migrate_vs_plain(dev):
+    """(a) The megakernel with its MIGRATE branch against
+    ``replay_block_ref(migrate=True)`` on blocks that open with MIGRATE
+    events (``migrate_streams``), all 21 policies x T in {1, 8, 256}, from
+    a mid-replay carry: every carry array equal.  The same block without
+    its MIGRATE events through the kernel with and without the branch: equal
+    too (the branch costs nothing where nothing migrates)."""
+    import itertools
+    import numpy as np
+    import torch
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fitscore import replay_block_ref
+    rng = np.random.default_rng(11)
+    combos = list(itertools.product((8, 56), (64, 128, 300), (2, 4, 5)))
+    data = {}
+    n_cases = n_close = n_base = 0
+    for pi, policy in enumerate(torchsim.SCAN_POLICIES):
+        for ti, T in enumerate((1, 8, 256)):
+            L, Np, d = combos[(3 * pi + ti + 1) % len(combos)]
+            if (L, d) not in data:
+                data[(L, d)] = synthetic_lanes(rng, L, d)
+            flat = data[(L, d)]
+            E = flat[1].shape[1]
+            start = E // 2 if T < 256 else E - T // 2
+            (ev_i, ev_f, ev_size, dmask), fam, _ = padded_streams(
+                policy, flat, T, dev)
+            kw = torchsim.replay_block_kwargs(policy, Np, d)
+            carry = torchsim.packed_init_carry(fam, L, flat[0].shape[1], Np,
+                                               dev)
+            ops.fitscore_replay_block(carry, ev_i[:, :, :start],
+                                      ev_f[:, :, :start],
+                                      ev_size[:, :start], dmask, **kw)
+            blk = slice(start, start + T)
+            plain_blk = (ev_i[:, :, blk], ev_f[:, :, blk], ev_size[:, blk])
+            a, b = ({k: v.clone() for k, v in carry.items()}
+                    for _ in range(2))
+            ops.fitscore_replay_block(a, *plain_blk, dmask, **kw)
+            ops.fitscore_replay_block(b, *plain_blk, dmask, migrate=True,
+                                      **kw)
+            for k in a:
+                if not torch.equal(a[k], b[k]):
+                    fail(f"megakernel with the MIGRATE branch != without on "
+                         f"a stream without MIGRATE events: {policy} T={T} "
+                         f"{k}")
+            (mi, mf, ms, _), nc, nb = migrate_streams(policy, flat, start, T,
+                                                      carry, rng, dev)
+            n_close += nc
+            n_base += nb if fam == "rcp" else 0
+            plain = {k: v.clone() for k, v in carry.items()}
+            mblk = (mi[:, :, blk], mf[:, :, blk], ms[:, blk])
+            ops.fitscore_replay_block(carry, *mblk, dmask, migrate=True,
+                                      **kw)
+            replay_block_ref(plain, *mblk, dmask, migrate=True, **kw)
+            torch.cuda.synchronize()
+            for k in carry:
+                if not torch.equal(carry[k], plain[k]):
+                    err = float((carry[k].double() - plain[k].double())
+                                .abs().max())
+                    fail(f"MIGRATE megakernel != plain: {policy} L={L} "
+                         f"Np={Np} d={d} T={T}: {k} differs (max |diff| "
+                         f"{err})")
+            n_cases += 1
+    if not n_close or not n_base:
+        fail(f"MIGRATE blocks without a closing ({n_close}) or an RCP "
+             f"base-bin ({n_base}) migrant")
+    say(f"# MIGRATE megakernel == plain on {n_cases} blocks (21 policies x "
+        f"T in {{1, 8, 256}}, {n_close} migrants whose source bin closes, "
+        f"{n_base} RCP/PPE migrants off the base bin); without MIGRATE "
+        "events the kernel with the branch == without")
+
+
+def phase_frontier(dev):
+    """(b) The consolidation frontier: the 28 x 250 seed-11 grid, the four
+    headline policies x underload:t{0.15,0.25,0.5}:e32, per event (the CUDA
+    select) and blocked (T = BLOCK_EVENTS): migrations and usage totals
+    must equal REF_CONS, and the two paths' records each other."""
+    import numpy as np
+    from repro_torch.consolidate import ConsolidationSpec
+    from repro_torch.data import make_azure_like_suite
+    from repro_torch.kernels import ops
+    from repro_torch.sweep import pack_instances, run_batch
+    batch = pack_instances(make_azure_like_suite(28, 250, seed=11))
+    for thr, (ref_migs, ref_usage) in REF_CONS.items():
+        spec = ConsolidationSpec.parse(f"underload:t{thr:g}:e32")
+        runs = {}
+        for T in (0, BLOCK_EVENTS):
+            ops.launches.clear()
+            t0 = time.perf_counter()
+            res = [run_batch(batch, p, max_bins=64, device=dev,
+                             block_events=T, consolidate=spec)
+                   for p in HEADLINE_POLICIES]
+            migs = sum(int(r.migrations.sum()) for r in res)
+            usage = sum(float(r.usage_time.sum()) for r in res)
+            say(f"# frontier underload:t{thr:g}:e32 block_events={T}: "
+                f"{migs} migrations, usage {usage:.2f} in "
+                f"{time.perf_counter() - t0:.1f} s ({dict(ops.launches)})")
+            if (migs, f"{usage:.0f}") != (ref_migs, str(ref_usage)):
+                fail(f"frontier t{thr:g} block_events={T}: ({migs}, "
+                     f"{usage:.0f}) != REF_CONS ({ref_migs}, {ref_usage})")
+            runs[T] = res
+        for p, a, b in zip(HEADLINE_POLICIES, *runs.values()):
+            if not (np.array_equal(a.usage_time, b.usage_time) and
+                    np.array_equal(a.migrations, b.migrations)):
+                fail(f"frontier t{thr:g} {p}: per event != blocked")
+
+
+def phase_consolidation_main_path(dev, base_records, n_items: int = 5000):
+    """(c) Consolidation at full size: the 28 x 5000 suite, clairvoyant,
+    ``CONS_SPEC``, all 21 policies blocked (T = BLOCK_EVENTS) through
+    ``run_batch(consolidate=)``, its wall time split into replay, planner
+    and the carry's copies to the host; the middle MIGRATE chunk of each
+    scan replayed again by ``replay_block_ref`` from the kernel's carry must
+    give every carry array equal.  Then PER_EVENT_POLICIES per event (the
+    CUDA select): records equal the blocked ones.  Usage against phase 6's
+    unconsolidated records is reported, not asserted."""
+    import numpy as np
+    import torch
+    from repro_torch.consolidate import ConsolidationSpec, driver
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fitscore import replay_block_ref
+    from repro_torch.sweep import PredModel, SuiteSpec, run_batch
+    from repro_torch.sweep.grid import _built_suite, result_key
+    spec = ConsolidationSpec.parse(CONS_SPEC)
+    suite = SuiteSpec("azure", 28, n_items)
+    insts, _, batch = _built_suite(suite)
+    clair = PredModel("clairvoyant")
+    policies = torchsim.SCAN_POLICIES
+    split, mig_ms, mig_chunks = collections.Counter(), [], []
+    replay, plan, view, chunk = (driver._replay_batch, driver.plan_migrations,
+                                 driver._pool_view, torchsim.replay_chunk)
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            if key == "replay":
+                torch.cuda.synchronize()
+            split[key] += time.perf_counter() - t
+            return out
+        return run
+
+    def checked_chunk(carry, *a, migrate=False, **k):
+        if not migrate:
+            return chunk(carry, *a, **k)
+        mig_chunks.append(({n: v.clone() for n, v in carry.items()}, a, k))
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        out = chunk(carry, *a, migrate=True, **k)
+        t1.record()
+        mig_chunks[-1] += ({n: v.clone() for n, v in carry.items()},)
+        mig_ms.append((t0, t1, a[2].shape[1] // k["block_events"]))
+        return out
+
+    driver._replay_batch, driver.plan_migrations, driver._pool_view = (
+        timed("replay", replay), timed("planner", plan),
+        timed("copies", view))
+    torchsim.replay_chunk = checked_chunk
+    results, n_checked = {}, 0
+    ops.launches.clear()
+    try:
+        t_all = time.perf_counter()
+        for policy in policies:
+            mig_chunks.clear()
+            t0 = time.perf_counter()
+            res = run_batch(batch, policy, max_bins=64, device=dev,
+                            block_events=BLOCK_EVENTS, consolidate=spec)
+            results[policy] = res
+            # the middle MIGRATE chunk of the scan, again by the plain version
+            t_check = time.perf_counter()
+            if mig_chunks:
+                before, a, k, after = mig_chunks[len(mig_chunks) // 2]
+                for off in range(0, a[2].shape[1], k["block_events"]):
+                    sl = slice(off, off + k["block_events"])
+                    kw = {n: v for n, v in k.items() if n != "block_events"}
+                    replay_block_ref(before, a[0][:, :, sl], a[1][:, :, sl],
+                                     a[2][:, sl], a[3], migrate=True, **kw)
+                for n in before:
+                    if not torch.equal(before[n], after[n]):
+                        fail(f"consolidation {policy}: the kernel's MIGRATE "
+                             f"chunk != replay_block_ref ({n})")
+                n_checked += 1
+            split["check"] += time.perf_counter() - t_check
+            base = sum(base_records[result_key(suite, i.name, policy, clair,
+                                               0)]["usage_time"]
+                       for i in insts)
+            say(f"#   consolidation {policy:<26} {CONS_SPEC}: "
+                f"{int(res.migrations.sum())} migrations, usage "
+                f"{float(res.usage_time.sum()):.2f} = "
+                f"{float(res.usage_time.sum()) / base:.6f} of the "
+                f"unconsolidated, max_bins {int(res.max_bins.max())}, "
+                f"{time.perf_counter() - t0:.1f} s")
+        wall = time.perf_counter() - t_all
+        blocked_split = dict(split)
+        blocked_launches = dict(ops.launches)
+        ops.launches.clear()
+        t0 = time.perf_counter()
+        per_event = {p: run_batch(batch, p, max_bins=64, device=dev,
+                                  consolidate=spec)
+                     for p in PER_EVENT_POLICIES}
+        pe_wall = time.perf_counter() - t0
+        pe_launches = dict(ops.launches)
+    finally:
+        driver._replay_batch, driver.plan_migrations, driver._pool_view = \
+            replay, plan, view
+        torchsim.replay_chunk = chunk
+    torch.cuda.synchronize()
+    times = [a.elapsed_time(b) / n for a, b, n in mig_ms]
+    n_mig = blocked_launches.get("fitscore_replay_block_migrate", 0)
+    n_blk = blocked_launches.get("fitscore_replay_block", 0)
+    if not n_mig or not n_blk or "fitscore_select" in blocked_launches:
+        fail(f"consolidation blocked launches {blocked_launches}")
+    if not pe_launches.get("fitscore_select") or \
+            len(pe_launches) != 1:
+        fail(f"consolidation per-event launches {pe_launches}")
+    if not n_checked:
+        fail("no scan had a MIGRATE chunk to check")
+    for p, r in per_event.items():
+        b = results[p]
+        if not (np.array_equal(r.usage_time, b.usage_time) and
+                np.array_equal(r.n_bins_opened, b.n_bins_opened) and
+                np.array_equal(r.migrations, b.migrations)):
+            fail(f"consolidation {p}: per event != blocked")
+    rest = wall - sum(blocked_split.values())
+    say(f"# consolidation main path ({len(policies)} policies, blocked "
+        f"T={BLOCK_EVENTS}, {CONS_SPEC}): {wall:.1f} s = replay "
+        f"{blocked_split['replay']:.3f} s (set-up, copies to the card, "
+        f"launches to the device's end) + planner "
+        f"{blocked_split['planner']:.3f} s + carry copies to the host "
+        f"{blocked_split['copies']:.3f} s + the mid-scan checks' plain "
+        f"replays {blocked_split['check']:.3f} s + the rest (host "
+        f"aliveness, MIGRATE chunk building, the checks' clones) "
+        f"{rest:.3f} s; "
+        f"{n_blk} plain and {n_mig} MIGRATE megakernel launches; "
+        f"device time a MIGRATE launch {float(np.median(times)):.6f} ms "
+        f"(median of {len(times)} chunks, CUDA events); per event "
+        f"({', '.join(PER_EVENT_POLICIES)}): {pe_launches['fitscore_select']}"
+        f" select launches, {pe_wall:.1f} s, records == blocked; "
+        f"{n_checked} mid-scan MIGRATE chunks == replay_block_ref")
+    return n_mig, float(np.median(times))
+
+
 def profile_run(dev, label, fn, units: int, unit: str) -> None:
     """Device busy time against wall time of ``fn`` under torch.profiler.
     A measurement, not a check: if the profiler reports no device activity
@@ -1535,11 +2019,15 @@ def main() -> None:
     phase_headline(dev)
     phase_category_headline(dev)
     sel_launches, records, eps = phase_main_path(dev)
-    mk_launches = phase_blocked_main_path(dev, records, eps)
+    mk_launches, blocked_records = phase_blocked_main_path(dev, records, eps)
     flash, decode = phase_attention_vs_plain(dev)
     attn_launches = phase_serving(dev)
     rwkv = phase_rwkv_vs_plain(dev)
     rwkv_launches = phase_rwkv_serving(dev)
+    legacy_launches, legacy = phase_legacy_fitscore(dev)
+    phase_migrate_vs_plain(dev)
+    phase_frontier(dev)
+    mig_launches, mig_ms = phase_consolidation_main_path(dev, blocked_records)
     phase_profile(dev)
     say(f"# total {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -1552,7 +2040,7 @@ def main() -> None:
              source="src/repro_torch/kernels/csrc/replay_block.cu",
              replaces="src/repro/kernels/fitscore.py:865",
              launches=mk_launches, max_abs_err=mk_err, library_ms=None,
-             **mk),
+             migrate_launches=mig_launches, migrate_ms=mig_ms, **mk),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:68",
@@ -1564,7 +2052,11 @@ def main() -> None:
         dict(name="rwkv6_chunked", route="cuda",
              source="src/repro_torch/kernels/csrc/rwkv6_chunked.cu",
              replaces="src/repro/kernels/rwkv6_scan.py:69",
-             launches=rwkv_launches, **rwkv)]}))
+             launches=rwkv_launches, **rwkv),
+        dict(name="fitscore", route="cuda",
+             source="src/repro_torch/kernels/csrc/fitscore.cu",
+             replaces="src/repro/kernels/fitscore.py:154",
+             launches=legacy_launches, library_ms=None, **legacy)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -18,6 +18,9 @@ on one of two paths with the same decisions:
   ``kernels.ops.fitscore_replay_block`` (its plain version on the CPU)
   with the packed carry on the device.
 
+``migrate=True`` replays MIGRATE events on either path (consolidation:
+``repro_torch.consolidate``); without it they are no-ops.
+
 On the card the whole state stays on the device and the host reads it
 once, at the end.  Per-item category constants (classes, thresholds,
 errors, hybrid key ids) and RCP's running distinct-category count are pure
@@ -51,9 +54,10 @@ import torch
 
 from ..kernels import fitscore as fk
 from ..kernels.fitscore import (ARRIVAL_KIND, DEPARTURE_KIND, DPAD, KCAT,
-                                PAD_KIND, REPLAY_EV_F, REPLAY_EV_I,
-                                SCORE_BIG, SCORE_NEG, SELECT_POLICIES,
-                                TAG_VIRGIN, select_pad_geometry)
+                                MIGRATE_KIND, PAD_KIND, REPLAY_EV_F,
+                                REPLAY_EV_I, SCORE_BIG, SCORE_NEG,
+                                SELECT_POLICIES, TAG_VIRGIN,
+                                select_pad_geometry)
 from ..kernels.ops import fitscore_select, replay_chunk, resolve_device
 from .algorithms import (LA_BINARY_SPLIT, to_i32, departure_window_jnp,
                          dur_exponent_jnp, duration_class_jnp,
@@ -585,7 +589,8 @@ def _resume(carry0, dev):
 def _replay_batch(sizes, times, kinds, items, pdeps, dmask, arrivals=None,
                   rdeps=None, n_items=None, *, policy: str, max_bins: int,
                   device="cuda", block_events: int = 0, carry0=None,
-                  return_carry: bool = False, ev_extra=None):
+                  return_carry: bool = False, ev_extra=None,
+                  migrate: bool = False):
     """``L`` lanes' event replays in lockstep, any ``SCAN_POLICIES`` name.
 
     sizes (L, n_max, d); times / kinds / items (L, E); pdeps (L, n_max)
@@ -605,13 +610,19 @@ def _replay_batch(sizes, times, kinds, items, pdeps, dmask, arrivals=None,
     final carry is appended.  ``carry0`` resumes from a carry (this
     package's layout for the path taken: see ``replay_init_carry``), and
     ``ev_extra`` gives the full event axis' extra streams
-    (``replay_event_extras``) to a replay of a segment of it."""
+    (``replay_event_extras``) to a replay of a segment of it.
+
+    ``migrate=True`` replays events with ``kind == MIGRATE_KIND``: the
+    item's departure without the learning updates, then its re-placement
+    with its source slot kept out of the select's feasibility (see
+    ``kernels.fitscore.replay_stepper``).  Without it they are no-ops, as
+    in the reference's megakernel."""
     if block_events and block_events > 1:
         return _replay_batch_blocked(
             sizes, times, kinds, items, pdeps, dmask, arrivals, rdeps,
             n_items, policy=policy, max_bins=max_bins, device=device,
             block_events=block_events, carry0=carry0,
-            return_carry=return_carry, ev_extra=ev_extra)
+            return_carry=return_carry, ev_extra=ev_extra, migrate=migrate)
     spec = policy_spec(policy)
     dev = resolve_device(device)
     ev_i, ev_f, ev_size, dmask_p, fam, d = _event_streams(
@@ -622,6 +633,7 @@ def _replay_batch(sizes, times, kinds, items, pdeps, dmask, arrivals=None,
     ev_kind = ev_i[0].T.to(dev)
     ev_arr = (ev_kind == ARRIVAL_KIND).contiguous()
     ev_dep = (ev_kind == DEPARTURE_KIND).contiguous()
+    ev_mig = (ev_kind == MIGRATE_KIND).contiguous() if migrate else None
     ev_item = ev_i[1].T.to(device=dev, dtype=torch.int64).contiguous()
     ev_t = ev_f[0].T.contiguous().to(dev)
     ev_pdep = ev_f[1].T.contiguous().to(dev)
@@ -646,7 +658,8 @@ def _replay_batch(sizes, times, kinds, items, pdeps, dmask, arrivals=None,
     E = ev_t.shape[0]
     for e in range(E):
         step(S, ev_t[e], ev_arr[e], ev_dep[e], ev_item[e], ev_sz[e],
-             ev_pdep[e], {nm: v[e] for nm, v in ev_ex.items()})
+             ev_pdep[e], {nm: v[e] for nm, v in ev_ex.items()},
+             None if ev_mig is None else ev_mig[e])
     counters["scan_steps"] += E
 
     out = (S["usage"], S["opened"], S["placements"], S["overflow"])
@@ -675,7 +688,7 @@ def _replay_batch_blocked(sizes, times, kinds, items, pdeps, dmask,
                           arrivals, rdeps, n_items, *, policy: str,
                           max_bins: int, device, block_events: int,
                           carry0=None, return_carry: bool = False,
-                          ev_extra=None):
+                          ev_extra=None, migrate: bool = False):
     """Event-blocked replay: a host loop over blocks of ``T`` events, each
     block replayed by one launch of the megakernel
     (``kernels.ops.fitscore_replay_block``; its plain version on the CPU)
@@ -702,7 +715,7 @@ def _replay_batch_blocked(sizes, times, kinds, items, pdeps, dmask,
     carry = packed_init_carry(fam, L, n_max, max_bins, dev) \
         if carry0 is None else _resume(carry0, dev)
     replay_chunk(carry, ev_i.to(dev), ev_f.to(dev), ev_size.to(dev),
-                 dmask_p.to(dev), block_events=T,
+                 dmask_p.to(dev), block_events=T, migrate=migrate,
                  **replay_block_kwargs(policy, max_bins, d))
     counters["replay_blocks"] += NB
     out = (carry["sf"][:, fk.SF_USAGE].clone(),

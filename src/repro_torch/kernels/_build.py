@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels from the sources in ``csrc/`` at first use.
 
 ``nvcc`` compiles each source of ``csrc/`` (the select, ``select.cu``, the
-event-blocked replay megakernel, ``replay_block.cu``, the two attention
+event-blocked replay megakernel, ``replay_block.cu``, the legacy scorer,
+``fitscore.cu``, the two attention
 kernels, ``flash_attention.cu`` and ``decode_attention.cu``, and RWKV6's
 chunked linear attention, ``rwkv6_chunked.cu``) for Hopper
 (``sm_90a``), one compiler process per source, all started together, and
@@ -11,10 +12,11 @@ and written to ``_build/`` beside this file (listed in ``.gitignore``), so
 an edited source rebuilds and an unchanged one is reused.  Nothing is built
 when the module is imported.
 
-Flags: ``-O3``, and ``--fmad=false`` for the two placement sources:
+Flags: ``-O3``, and ``--fmad=false`` for the three placement sources:
 contraction is off there so that the score and capacity arithmetic round
-once per operation, as the JAX package's select does; the l2 norm's FMA
-chain is written out with ``fmaf`` in the source.  The attention and RWKV6
+once per operation, as the JAX package's select does (and as the legacy
+scorer's plain version does); the select's l2 norm's FMA chain is written
+out with ``fmaf`` in the source.  The attention and RWKV6
 kernels are held to a tolerance, not bit for bit, and keep contraction on.
 """
 from __future__ import annotations
@@ -33,6 +35,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 # source -> the flags it takes beside NVCC_FLAGS
 SOURCES = {"select.cu": ("--fmad=false",),
            "replay_block.cu": ("--fmad=false",),
+           "fitscore.cu": ("--fmad=false",),
            "flash_attention.cu": (), "decode_attention.cu": (),
            "rwkv6_chunked.cu": ()}
 HEADERS = ("fitscore_common.cuh",)
@@ -110,8 +113,12 @@ def library() -> ctypes.CDLL:
     lib.fitscore_select_launch.restype = i
     ll, f = ctypes.c_longlong, ctypes.c_float
     lib.fitscore_replay_block_launch.argtypes = \
-        [p] * 14 + [ll] * 3 + [i] * 11 + [f] * 3 + [i, p]
+        [p] * 14 + [ll] * 3 + [i] * 12 + [f] * 3 + [i, p]
     lib.fitscore_replay_block_launch.restype = i
+    lib.fitscore_legacy_blocks.argtypes = [i]
+    lib.fitscore_legacy_blocks.restype = i
+    lib.fitscore_legacy_launch.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.fitscore_legacy_launch.restype = i
     lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 6 + [f] + \
         [i] * 4 + [p]
     lib.flash_attention_launch.restype = i

@@ -9,7 +9,13 @@
 // families score, cbd, hybrid, rcp, la and adaptive (REPLAY_FAMILIES in
 // repro_torch/kernels/fitscore.py, whose replay_block_ref is the plain
 // version: the same fp32 op sequence, held equal to this kernel on the
-// card).  The MIGRATE branch of the reference (consolidation) is not here.
+// card).  With the compile-time flag MIGRATE set (consolidation, the
+// reference's migrate=True, fitscore.py:849-859) a MIGRATE event is the
+// item's full departure without the learning updates, then the arrival on
+// the post-departure state with the item's source slot kept out of the
+// select's feasibility (and out of RCP's base-bin test) but not out of its
+// free-slot stage; without it, MIGRATE events are no-ops and the kernel is
+// the exact migration-free one.
 //
 // What bounds it: the events of a lane form a serial chain - each event's
 // select reads the state the previous commit wrote - so a block costs T
@@ -61,7 +67,7 @@ constexpr int SI_SEQ = 0, SI_OPENED = 1, SI_OVERFLOW = 2, SI_BASE = 3;
 constexpr int KCAT = 64;
 constexpr int RAGG_BASE = 3 * KCAT;
 constexpr int RAGG_ROWS = RAGG_BASE + 8;
-constexpr int ARRIVAL = 1, DEPARTURE = 0;
+constexpr int ARRIVAL = 1, DEPARTURE = 0, MIGRATION = 2;
 constexpr int TAG_GENERAL = -2, TAG_BASE = -3, TAG_LARGE = -4,
               TAG_NONE = -99;
 constexpr int LOC_G = 0, LOC_B = 1, LOC_C = 2, LOC_L = 3;
@@ -95,7 +101,7 @@ __device__ __forceinline__ float row_max(const float* row,
   return m;
 }
 
-template <int FAM>
+template <int FAM, bool MIGRATE>
 __global__ void __launch_bounds__(kBlockThreads)
 replay_block_kernel(const ReplayArgs a) {
   const int lane = blockIdx.x;
@@ -127,7 +133,8 @@ replay_block_kernel(const ReplayArgs a) {
 
   for (int e = 0; e < a.T; ++e) {
     const int kind = evi[e];
-    if (kind != ARRIVAL && kind != DEPARTURE) continue;   // PAD: a no-op
+    const bool mig = MIGRATE && kind == MIGRATION;
+    if (kind != ARRIVAL && kind != DEPARTURE && !mig) continue;   // PAD
     const int j = evi[P + e];
     const float t = evf[e];
     const float pd = evf[P + e];
@@ -137,7 +144,11 @@ replay_block_kernel(const ReplayArgs a) {
     int* irow = itemi + static_cast<long long>(j) * COLS;
 
     // ------------------------------------------------------ departure
-    if (kind == DEPARTURE) {
+    // (a MIGRATE's too: then without the learning updates, and its arrival
+    // below must not pick the source slot `excl`)
+    int excl = -1;
+    if (kind == DEPARTURE || mig) {
+      if (mig) excl = irow[ITEMI_PLACE];
       if (tid == 0) {
         const int b = irow[ITEMI_PLACE];
         int* srow = sloti + b * COLS;
@@ -188,14 +199,14 @@ replay_block_kernel(const ReplayArgs a) {
             for (int i = 0; i < KCAT * DPAD; ++i) bcat[i] = 0.0f;
             si[SI_BASE] = -1;
           }
-          if (a.adaptive_alpha)
+          if (a.adaptive_alpha && !mig)
             sf[SF_ALPHA] = fmaxf(sf[SF_ALPHA], evf[2 * P + e]);
-        } else if (FAM == ADAPTIVE) {
+        } else if (FAM == ADAPTIVE && !mig) {
           sf[SF_ERR] = fmaxf(sf[SF_ERR], evf[2 * P + e]);
         }
       }
       __syncthreads();
-      continue;
+      if (!mig) continue;
     }
 
     // -------------------------------------------------------- arrival
@@ -243,6 +254,7 @@ replay_block_kernel(const ReplayArgs a) {
         for (int k = 0; k < DPAD; ++k) bl[k] = loads[base * DPAD + k];
         base_fits = fits(bl, sz);
       }
+      if (mig && base == excl) base_fits = false;   // off the base bin
       const bool is_on = ron[catj * COLS] != 0;
       d_large = a.large_bins && evi[3 * P + e] != 0;
       const bool fall = !d_large && !fits_gen;
@@ -268,7 +280,7 @@ replay_block_kernel(const ReplayArgs a) {
     for (int r = tid; r < Np; r += kBlockThreads) {
       const int* srow = sloti + r * COLS;
       if (srow[SLOTI_COUNTS] == 0) free_row = min(free_row, r);
-      if (!srow[SLOTI_ALIVE]) continue;
+      if (!srow[SLOTI_ALIVE] || (MIGRATE && r == excl)) continue;
       const float* frow = slotf + r * COLS;
       bool in_b = false;   // la: the slot is a fallback (foreign-class) bin
       if (FAM == CBD || FAM == HYBRID || FAM == RCP) {
@@ -409,8 +421,12 @@ replay_block_kernel(const ReplayArgs a) {
 }
 
 template <int FAM>
-cudaError_t launch(const ReplayArgs& a, int L, cudaStream_t stream) {
-  replay_block_kernel<FAM><<<L, kBlockThreads, 0, stream>>>(a);
+cudaError_t launch(const ReplayArgs& a, int L, bool migrate,
+                   cudaStream_t stream) {
+  if (migrate)
+    replay_block_kernel<FAM, true><<<L, kBlockThreads, 0, stream>>>(a);
+  else
+    replay_block_kernel<FAM, false><<<L, kBlockThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -418,16 +434,17 @@ cudaError_t launch(const ReplayArgs& a, int L, cudaStream_t stream) {
 
 extern "C" {
 
-// Launches one block of T events for L lanes on `stream` of card `device`;
-// returns the cudaError_t of the launch (0 on success).
+// Launches one block of T events for L lanes on `stream` of card `device`
+// (`migrate`: the kernel with the MIGRATE branch); returns the cudaError_t
+// of the launch (0 on success).
 int fitscore_replay_block_launch(
     void* loads, void* slotf, void* sloti, void* itemi, void* sf, void* si,
     void* hagg, void* ragg, void* ron, const void* evi, const void* evf,
     const void* size, const void* dmask, const void* rcp_rsqrt,
     long long ev_plane, long long ev_lane, long long size_lane, int L,
     int Np, int R, int T, int d, int family, int policy, int large_bins,
-    int adaptive_alpha, int direct_sum, int la_geometric, float la_split,
-    float low, float high, int device, void* stream) {
+    int adaptive_alpha, int direct_sum, int la_geometric, int migrate,
+    float la_split, float low, float high, int device, void* stream) {
   using namespace fitscore;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -462,14 +479,15 @@ int fitscore_replay_block_launch(
   a.low = low;
   a.high = high;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool mig = migrate != 0;
   cudaError_t err;
   switch (family) {
-    case SCORE: err = launch<SCORE>(a, L, s); break;
-    case CBD: err = launch<CBD>(a, L, s); break;
-    case HYBRID: err = launch<HYBRID>(a, L, s); break;
-    case RCP: err = launch<RCP>(a, L, s); break;
-    case LA: err = launch<LA>(a, L, s); break;
-    case ADAPTIVE: err = launch<ADAPTIVE>(a, L, s); break;
+    case SCORE: err = launch<SCORE>(a, L, mig, s); break;
+    case CBD: err = launch<CBD>(a, L, mig, s); break;
+    case HYBRID: err = launch<HYBRID>(a, L, mig, s); break;
+    case RCP: err = launch<RCP>(a, L, mig, s); break;
+    case LA: err = launch<LA>(a, L, mig, s); break;
+    case ADAPTIVE: err = launch<ADAPTIVE>(a, L, mig, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

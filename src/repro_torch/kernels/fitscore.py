@@ -41,7 +41,8 @@ IBIG = 2 ** 30       # int sentinel for (open_seq, row) tie-break argmins
 ARRIVAL_KIND = 1
 DEPARTURE_KIND = 0
 PAD_KIND = -1        # no-op filler event (the carry passes through)
-MIGRATE_KIND = 2     # consolidation re-place (not replayed by this package)
+MIGRATE_KIND = 2     # consolidation: leave the bin, re-place via the select
+#                      (replayed where the replay is asked for ``migrate``)
 
 # Bin-role tags carried per slot by the category families.
 TAG_VIRGIN, TAG_GENERAL, TAG_BASE, TAG_LARGE = -1, -2, -3, -4
@@ -241,7 +242,7 @@ def replay_stepper(family: str, policy: str, *, L: int, Np: int, R: int,
                    la_split: float = LA_BINARY_SPLIT, low: float = 2.0,
                    high: float = 16.0):
     """The replay's event step for ``L`` lanes of one kernel family, as a
-    function ``step(S, t, is_arr, is_dep, j, size, pdep, ex)``.
+    function ``step(S, t, is_arr, is_dep, j, size, pdep, ex, is_mig=None)``.
 
     ``S`` is the unpacked carry: the ``CORE_NAMES`` tensors (loads (L, Np,
     DPAD); counts/alive/open_seq/access_seq/closes/open_time (L, Np);
@@ -260,7 +261,18 @@ def replay_stepper(family: str, policy: str, *, L: int, Np: int, R: int,
     its event asks for: the fp32 op sequence of the reference's per-event
     jnp step (``repro.core.jaxsim._replay_batch``), with the placement
     decision made by ``select`` (``select_ref`` or the CUDA select's
-    wrapper).  RCP/PPE's threshold reads ``RCP_RSQRT``."""
+    wrapper).  RCP/PPE's threshold reads ``RCP_RSQRT``.
+
+    ``is_mig`` (L,) bool marks MIGRATE events (consolidation; None: no lane
+    migrates, the exact step without the branch).  A MIGRATE is the item's
+    full departure with the learning updates skipped (PPE's alpha, the
+    adaptive switch's error: a migration is no departure observation), then
+    the arrival machinery on the post-departure state with the item's source
+    slot kept out of feasibility - folded into the select's category mask,
+    and RCP's base-bin test - but not out of the free-slot stage, which may
+    reopen that very slot.  The step then runs in two passes: the departures
+    and the migrants' departures, then the arrivals and the migrants'
+    re-places; each lane takes part in the pass of its own event."""
     if family not in REPLAY_FAMILIES:
         raise ValueError(f"{family!r} is not a replay family")
     dev = dmask.device
@@ -271,13 +283,27 @@ def replay_stepper(family: str, policy: str, *, L: int, Np: int, R: int,
     neg = torch.tensor(SCORE_NEG, dtype=f32, device=dev)
     zero = torch.tensor(0.0, dtype=f32, device=dev)
     rsqrt = RCP_RSQRT.to(dev)
+    rows_n = torch.arange(Np, device=dev)[None, :]
+    no_pick = (torch.zeros(L, dtype=i32, device=dev),
+               torch.zeros(L, dtype=torch.bool, device=dev),
+               torch.zeros(L, dtype=torch.bool, device=dev))
 
-    def step(S, t, is_arr, is_dep, j, size, pdep, ex):
+    def event(S, t, is_arr, is_dep, j, size, pdep, ex, learn, excl,
+              decide=True):
+        """One event pass: ``learn`` (L,) bool gates the departure's
+        learning updates, ``excl`` (L,) int32 is the slot each lane's
+        select must not pick (-1: none; None: no lane has one), and
+        ``decide=False`` skips the select (a pass without arrivals)."""
         loads, counts, alive = S["loads"], S["counts"], S["alive"]
         open_seq, access_seq, closes = (S["open_seq"], S["access_seq"],
                                         S["closes"])
 
         def sel(pol, cmask=None):
+            if not decide:
+                return no_pick
+            if excl is not None:
+                em = rows_n != excl[:, None]
+                cmask = em if cmask is None else cmask & em
             return select(loads, counts, alive, open_seq, access_seq, closes,
                           size, pdep, t, dmask, cmask, policy=pol)
 
@@ -315,6 +341,9 @@ def replay_stepper(family: str, policy: str, *, L: int, Np: int, R: int,
                 0, slot_base + base.clamp_min(0))
             base_fits = ~has_base | (size <= 1.0 - base_loads + F32_EPS
                                      ).all(dim=1)
+            if excl is not None:
+                # a migrant off the base bin must not re-place into it
+                base_fits = base_fits & ((excl < 0) | (base != excl))
             is_on = S["on"].view(-1).index_select(0, ci)
             d_large = ex["large"] if large_bins else \
                 torch.zeros_like(is_on)
@@ -361,13 +390,15 @@ def replay_stepper(family: str, policy: str, *, L: int, Np: int, R: int,
 
         # ---- the shared slot bookkeeping: each lane touches one slot row,
         # the chosen slot of an arrival, the item's slot of a departure
-        # (for a pad event the row is read and written back unchanged)
+        # (for a lane without an event in this pass the row is read and
+        # written back unchanged: its item's slot, or the select's while the
+        # item has none, as in the migrants' pass for an arriving item)
         loads_f = loads.view(L * Np, DPAD)
         slot_f = [S[nm].view(-1) for nm in CORE_NAMES[1:7]]
         place_f = S["placements"].view(-1)
         pj = item_base + j
         b32 = torch.where(is_arr, slot, place_f.index_select(0, pj))
-        r = slot_base + b32
+        r = slot_base + torch.where(is_arr | is_dep | (b32 >= 0), b32, slot)
         row = loads_f.index_select(0, r)
         cnt, alv, osq, asq, cls, otm = (a.index_select(0, r)
                                         for a in slot_f)
@@ -408,7 +439,7 @@ def replay_stepper(family: str, policy: str, *, L: int, Np: int, R: int,
         # ---- the family's category state
         if family == "adaptive":
             S["err"] = torch.where(
-                is_dep, torch.maximum(S["err"], ex["errmax"]), S["err"])
+                learn, torch.maximum(S["err"], ex["errmax"]), S["err"])
             return
         tag_f = S["tag"].view(-1)
         tag_row = tag_f.index_select(0, r)
@@ -490,7 +521,7 @@ def replay_stepper(family: str, policy: str, *, L: int, Np: int, R: int,
                 torch.where(is_dep & base_closed, -1, base)).to(i32)
             if adaptive_alpha:
                 S["alpha"] = torch.where(
-                    is_dep, torch.maximum(S["alpha"], ex["p2err"]),
+                    learn, torch.maximum(S["alpha"], ex["p2err"]),
                     S["alpha"])
             locv = torch.where(d_gen, LOC_G, torch.where(
                 d_base, LOC_B, torch.where(d_large, LOC_L, LOC_C)))
@@ -499,6 +530,17 @@ def replay_stepper(family: str, policy: str, *, L: int, Np: int, R: int,
             S["loc"].masked_fill_(conv[:, None] & (S["loc"] == LOC_B),
                                   LOC_C)
         tag_f.index_copy_(0, r, new_tag)
+
+    def step(S, t, is_arr, is_dep, j, size, pdep, ex, is_mig=None):
+        if is_mig is None:
+            event(S, t, is_arr, is_dep, j, size, pdep, ex, is_dep, None)
+            return
+        src = S["placements"].view(-1).index_select(0, item_base + j)
+        none = torch.zeros_like(is_mig)
+        event(S, t, none, is_dep | is_mig, j, size, pdep, ex, is_dep, None,
+              decide=False)
+        event(S, t, is_arr | is_mig, none, j, size, pdep, ex, none,
+              torch.where(is_mig, src, -1))
 
     return step
 
@@ -589,7 +631,7 @@ def replay_block_ref(carry, ev_i, ev_f, ev_size, dmask, *, family: str,
                      adaptive_alpha: bool = False, direct_sum: bool = False,
                      la_mode: str = "binary",
                      la_split: float = LA_BINARY_SPLIT, low: float = 2.0,
-                     high: float = 16.0):
+                     high: float = 16.0, migrate: bool = False):
     """One block of ``T`` events for ``L`` lanes on the packed carry, in
     eager torch ops: the plain version of the CUDA megakernel
     (``csrc/replay_block.cu``) and the counterpart of the reference's
@@ -602,7 +644,9 @@ def replay_block_ref(carry, ev_i, ev_f, ev_size, dmask, *, family: str,
     REPLAY_EV_F[family]``; ``ev_size`` (L, T, DPAD) the items' sizes,
     ``dmask`` (L, DPAD) the real-dimension mask.  ``n`` is the slot-pool
     size (the carry's Np), ``d`` the real dimension count (hybrid tags
-    encode ``d + key``).  PAD events leave the carry unchanged."""
+    encode ``d + key``).  PAD events leave the carry unchanged, and so do
+    MIGRATE events unless ``migrate`` is set (the reference's megakernel
+    compiles its MIGRATE branch only then)."""
     L, Np, _ = carry["loads"].shape
     if Np != n:
         raise ValueError(f"replay_block_ref: the carry has {Np} slots, n={n}")
@@ -617,6 +661,7 @@ def replay_block_ref(carry, ev_i, ev_f, ev_size, dmask, *, family: str,
         kind = ev_i[0, :, e]
         step(S, ev_f[0, :, e], kind == ARRIVAL_KIND, kind == DEPARTURE_KIND,
              ev_i[1, :, e].long(), ev_size[:, e], ev_f[1, :, e],
-             {nm: v[:, e] for nm, v in ex_all.items()})
+             {nm: v[:, e] for nm, v in ex_all.items()},
+             (kind == MIGRATE_KIND) if migrate else None)
     pack_carry(S, carry, family)
     return carry

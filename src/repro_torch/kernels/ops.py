@@ -1,7 +1,8 @@
 """Wrappers that launch the port's hand-written kernels: the select
 (``fitscore_select``, ``csrc/select.cu``), the event-blocked replay
 megakernel (``fitscore_replay_block``, ``csrc/replay_block.cu``, with
-``replay_chunk``, the host loop over a chunk's blocks), the two attention
+``replay_chunk``, the host loop over a chunk's blocks), the legacy
+single-pool scorer (``fitscore``, ``csrc/fitscore.cu``), the two attention
 kernels of the model stack (``flash_attention``,
 ``csrc/flash_attention.cu``; ``decode_attention``,
 ``csrc/decode_attention.cu``) and RWKV6's chunked linear attention
@@ -11,7 +12,8 @@ A wrapper takes its kernel's plain PyTorch version only because the tensors
 it was given lie on the CPU.  For CUDA tensors it checks them, launches the
 kernel on the current stream or raises; there is no fallback.  Each launch
 adds one to ``launches`` under the kernel's name, so a run can show that it
-went through the kernel.
+went through the kernel; the megakernel's launches with its MIGRATE branch
+count under ``fitscore_replay_block_migrate``.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from . import fitscore as fk
 from .attention import decode_attention_ref, flash_attention_ref
 from .fitscore import (DPAD, KCAT, REPLAY_EV_F, REPLAY_EV_I, policy_code,
                        replay_block_ref, replay_carry_names, select_ref)
+from .legacy import NORMS, fitscore_ref
 from .rwkv6 import rwkv6_chunked_ref
 
 # kernel name -> launches since the caller last cleared it
@@ -118,10 +121,12 @@ def fitscore_replay_block(carry, ev_i, ev_f, ev_size, dmask, *, family: str,
                           adaptive_alpha: bool = False,
                           direct_sum: bool = False, la_mode: str = "binary",
                           la_split: float = 7200.0, low: float = 2.0,
-                          high: float = 16.0):
+                          high: float = 16.0, migrate: bool = False):
     """One block of ``T`` events for ``L`` lanes, the packed carry updated
     in place: the CUDA megakernel (``csrc/replay_block.cu``) for CUDA
     tensors, ``fitscore.replay_block_ref`` (same arguments) for CPU ones.
+    ``migrate`` replays MIGRATE events (consolidation; the kernel built
+    with its MIGRATE branch); without it they are no-ops.
 
     ``ev_i`` (2 + ni, L, T) int32 / ``ev_f`` (2 + nf, L, T) f32 may be
     views of longer streams (block slices): their last axis must be dense
@@ -129,7 +134,8 @@ def fitscore_replay_block(carry, ev_i, ev_f, ev_size, dmask, *, family: str,
     rows.  ``policy`` is read by the score family only."""
     kw = dict(family=family, policy=policy, n=n, d=d, large_bins=large_bins,
               adaptive_alpha=adaptive_alpha, direct_sum=direct_sum,
-              la_mode=la_mode, la_split=la_split, low=low, high=high)
+              la_mode=la_mode, la_split=la_split, low=low, high=high,
+              migrate=migrate)
     dev = carry["loads"].device
     if dev.type == "cpu":
         return replay_block_ref(carry, ev_i, ev_f, ev_size, dmask, **kw)
@@ -186,12 +192,12 @@ def fitscore_replay_block(carry, ev_i, ev_f, ev_size, dmask, *, family: str,
         ev_i.stride(0), ev_i.stride(1), ev_size.stride(0),
         L, Np, R, T, d, fk.REPLAY_FAMILIES.index(family), code,
         int(large_bins), int(adaptive_alpha), int(direct_sum),
-        int(la_mode == "geometric"), la_split, low, high, dev.index or 0,
-        stream)
+        int(la_mode == "geometric"), int(migrate), la_split, low, high,
+        dev.index or 0, stream)
     if err:
         raise RuntimeError("fitscore_replay_block launch failed: "
                            f"{lib.fitscore_error_string(err).decode()}")
-    launches[name] += 1
+    launches[name + "_migrate" if migrate else name] += 1
     return carry
 
 
@@ -201,7 +207,9 @@ def replay_chunk(carry, ev_i, ev_f, ev_size, dmask, *, block_events: int,
     ``fitscore_replay_block`` per block, the packed carry updated in place:
     the counterpart of the reference's ``fitscore_replay_chunk`` (a host
     loop here, one launch per block).  ``ev_i`` / ``ev_f`` (k, L, C),
-    ``ev_size`` (L, C, DPAD); pad the tail block with PAD events."""
+    ``ev_size`` (L, C, DPAD); pad the tail block with PAD events.
+    ``block_kwargs`` are ``fitscore_replay_block``'s, ``migrate``
+    included."""
     T = int(block_events)
     C = ev_size.shape[1]
     if T < 1 or C % T:
@@ -212,6 +220,49 @@ def replay_chunk(carry, ev_i, ev_f, ev_size, dmask, *, block_events: int,
                               ev_f[:, :, b:b + T], ev_size[:, b:b + T],
                               dmask, **block_kwargs)
     return carry
+
+
+def fitscore(remaining, alive, item, open_seq=None, *, norm: str = "linf"):
+    """The legacy single-pool scorer (see ``legacy.fitscore_ref``):
+    remaining (N, d) f32, alive (N,) bool, item (d,) f32, open_seq (N,)
+    int32 or None (the slot index) -> (scores (N,) f32, +inf where
+    infeasible; the chosen row, an int32 0-dim tensor, -1 when no bin is
+    feasible).  The CUDA kernel ``csrc/fitscore.cu`` for CUDA tensors,
+    ``fitscore_ref`` for CPU ones."""
+    if remaining.device.type == "cpu":
+        return fitscore_ref(remaining, alive, item, open_seq, norm=norm)
+    name = "fitscore"
+    dev = remaining.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {dev}")
+    if norm not in NORMS:
+        raise ValueError(f"{name}: norm {norm!r} not in {NORMS}")
+    if remaining.dim() != 2 or not 1 <= remaining.shape[0] < 2 ** 30:
+        raise ValueError(f"{name}: remaining must be (N, d) with 1 <= N < "
+                         f"2^30; got {tuple(remaining.shape)}")
+    N, d = remaining.shape
+    _check("remaining", remaining, (N, d), torch.float32, dev, name)
+    _check("alive", alive, (N,), torch.bool, dev, name)
+    _check("item", item, (d,), torch.float32, dev, name)
+    if open_seq is not None:
+        _check("open_seq", open_seq, (N,), torch.int32, dev, name)
+    from ._build import library
+    lib = library()
+    scores = torch.empty(N, dtype=torch.float32, device=dev)
+    best = torch.empty((), dtype=torch.int32, device=dev)
+    # the per-CTA partials of pass 1: (score, open_seq, row), 12 bytes each
+    partial = torch.empty(3 * lib.fitscore_legacy_blocks(N),
+                          dtype=torch.int32, device=dev)
+    err = lib.fitscore_legacy_launch(
+        remaining.data_ptr(), alive.data_ptr(), item.data_ptr(),
+        None if open_seq is None else open_seq.data_ptr(), scores.data_ptr(),
+        partial.data_ptr(), best.data_ptr(), N, d, NORMS.index(norm),
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError("fitscore launch failed: "
+                           f"{lib.fitscore_error_string(err).decode()}")
+    launches[name] += 1
+    return scores, best
 
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)

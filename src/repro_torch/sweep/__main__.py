@@ -6,11 +6,15 @@ card (the reference's ``python -m repro sweep``, all 21 scan policies).
         --seeds 0,1 --block-events 256
     # the same command again: every group prints "skip ... (cached)"
     PYTHONPATH=src python -m repro_torch sweep --device cpu --n-items 200
+    # the consolidation axis: each value adds a grid column
+    PYTHONPATH=src python -m repro_torch sweep --device cpu \
+        --consolidate none underload:t0.25:e32
 """
 from __future__ import annotations
 
 import argparse
 
+from ..consolidate import ConsolidationSpec
 from ..core.torchsim import SCAN_POLICIES
 from .grid import PredModel, SuiteSpec, SweepSpec, run_sweep, summarize_sweep
 from .store import SweepStore
@@ -48,6 +52,12 @@ def main(argv=None, prog: str = "python -m repro_torch sweep") -> None:
                     help="comma list of seeds for noisy prediction models")
     ap.add_argument("--max-bins", type=int, default=64)
     ap.add_argument("--max-bins-cap", type=int, default=8192)
+    ap.add_argument("--consolidate", nargs="+", default=["none"],
+                    help="consolidation scenario axis: none | "
+                         "underload[:THRESHOLD[:BUDGET]] | "
+                         "periodic:DT[:THRESHOLD[:BUDGET]] (tagged knobs "
+                         "t/b/e/c/dt accepted, e.g. underload:t0.25:b64); "
+                         "each value adds a grid column")
     ap.add_argument("--store", default="experiments/sweeps",
                     help="result-store directory")
     ap.add_argument("--no-store", action="store_true")
@@ -73,7 +83,9 @@ def main(argv=None, prog: str = "python -m repro_torch sweep") -> None:
         suites=suites, policies=policies,
         predictions=tuple(_pred(t) for t in args.preds),
         seeds=tuple(int(s) for s in args.seeds.split(",")),
-        max_bins=args.max_bins, max_bins_cap=args.max_bins_cap)
+        max_bins=args.max_bins, max_bins_cap=args.max_bins_cap,
+        consolidations=tuple(ConsolidationSpec.parse(t)
+                             for t in args.consolidate))
     store = None if args.no_store else SweepStore(args.store)
     print(f"# sweep {spec.spec_hash()} -> "
           f"{store.path(spec) if store else '(not stored)'}")

@@ -4,9 +4,9 @@ counterpart of ``repro.sweep.grid``.
 
 A ``SweepSpec`` is a frozen, canonically hashable description of the grid.
 Its ``spec_hash`` / ``suites_hash`` and the records ``run_sweep`` writes
-equal the reference's for the same (non-consolidating) spec, so the two
-packages share a result store.  ``run_sweep`` drives ``runner.run_batch``
-once per (suite, policy, prediction model), divides usage by the Eq.(1)
+equal the reference's for the same spec, so the two packages share a
+result store.  ``run_sweep`` drives ``runner.run_batch`` once per (suite,
+policy, consolidation, prediction model), divides usage by the Eq.(1)
 lower bound and, given a ``SweepStore``, skips every group already stored.
 """
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..consolidate import ConsolidationSpec
 from ..core import (BoxStats, lognormal_predictions_batch, lower_bound,
                     uniform_predictions_batch)
 from ..core.torchsim import MAX_BINS_CAP, POLICIES, known_policy
@@ -104,8 +105,7 @@ class PredModel:
 
 @dataclasses.dataclass(frozen=True)
 class SweepSpec:
-    """The full declarative grid (the reference's, without its
-    consolidation axis)."""
+    """The full declarative grid."""
 
     suites: Tuple[SuiteSpec, ...] = (SuiteSpec(),)
     policies: Tuple[str, ...] = POLICIES
@@ -113,6 +113,7 @@ class SweepSpec:
     seeds: Tuple[int, ...] = (0,)        # used by noisy prediction models
     max_bins: int = 64                   # initial slot pool per lane
     max_bins_cap: int = 8192             # escalation ladder ceiling
+    consolidations: Tuple[ConsolidationSpec, ...] = (ConsolidationSpec(),)
 
     def __post_init__(self):
         for p in self.policies:
@@ -123,7 +124,15 @@ class SweepSpec:
                              f"MAX_BINS_CAP {MAX_BINS_CAP}")
 
     def canonical(self) -> Dict:
-        return dataclasses.asdict(self)
+        blob = dataclasses.asdict(self)
+        # the consolidation axis enters the hash only when on: a spec with
+        # every consolidation disabled hashes as one without the axis
+        cons = [c.canonical() for c in self.consolidations if c.enabled]
+        if cons:
+            blob["consolidations"] = cons
+        else:
+            blob.pop("consolidations")
+        return blob
 
     def spec_hash(self) -> str:
         blob = json.dumps(self.canonical(), sort_keys=True)
@@ -138,25 +147,33 @@ class SweepSpec:
 
 
 def result_key(suite: SuiteSpec, instance_name: str, policy: str,
-               pred: PredModel, seed: int) -> str:
-    return (f"{suite.label()}/{instance_name}/{policy}/"
-            f"{pred.label()}/seed{seed}")
+               pred: PredModel, seed: int,
+               cons: Optional[ConsolidationSpec] = None) -> str:
+    key = (f"{suite.label()}/{instance_name}/{policy}/"
+           f"{pred.label()}/seed{seed}")
+    if cons is not None and cons.enabled:
+        key += f"/{cons.canonical()}"
+    return key
 
 
 def _group_cached(records: Dict[str, Dict], suite: SuiteSpec, policy: str,
-                  pred: PredModel, seeds: Sequence[int]) -> bool:
+                  pred: PredModel, seeds: Sequence[int],
+                  cons: ConsolidationSpec = ConsolidationSpec()) -> bool:
     """True when every (instance, seed) record of the group is present.
-    Suites of uncounted size (n_instances == 0) always recompute.  Records
-    of consolidating cells (the reference's ``consolidate`` field) are
-    other cells and do not count."""
+    Suites of uncounted size (n_instances == 0) always recompute.  A record
+    without a ``consolidate`` field counts as ``"none"``."""
     expected = suite.n_instances * len(seeds)
     if expected <= 0:
         return False
     have = sum(1 for r in records.values()
                if r["suite"] == suite.label() and r["policy"] == policy
                and r["pred"] == pred.label() and r["seed"] in seeds
-               and r.get("consolidate", "none") == "none")
+               and r.get("consolidate", "none") == cons.canonical())
     return have >= expected
+
+
+def _cell_label(policy: str, cons: ConsolidationSpec) -> str:
+    return f"{policy}+{cons.canonical()}" if cons.enabled else policy
 
 
 # Built suites (instances, Eq.(1) bounds, packed batch) are deterministic
@@ -187,9 +204,11 @@ def run_sweep(spec: SweepSpec, store=None, force: bool = False,
     value.
 
     record: usage_time, lower_bound, ratio, n_bins_opened, overflowed,
-    max_bins, suite, instance, policy, pred, seed - the reference's schema.
-    With a store, cached groups are skipped and every finished group is
-    saved (journaled first)."""
+    max_bins, suite, instance, policy, pred, seed - the reference's schema;
+    consolidating cells (``spec.consolidations`` entries that are
+    ``enabled``) add ``consolidate`` (the canonical spec string),
+    ``migrations`` and ``migration_cost``.  With a store, cached groups are
+    skipped and every finished group is saved (journaled first)."""
     from .runner import run_batch
     say = progress or (lambda *_: None)
     records: Dict[str, Dict] = {}
@@ -202,28 +221,30 @@ def run_sweep(spec: SweepSpec, store=None, force: bool = False,
             seeds = tuple(spec.seeds) if pred.noisy else (spec.seeds[0],)
             todo = []
             for p in spec.policies:
-                if _group_cached(records, suite, p, pred, seeds):
-                    say(f"skip {suite.label()}/{p}/{pred.label()} (cached)")
-                else:
-                    todo.append(p)
+                for cons in spec.consolidations:
+                    if _group_cached(records, suite, p, pred, seeds, cons):
+                        say(f"skip {suite.label()}/{_cell_label(p, cons)}/"
+                            f"{pred.label()} (cached)")
+                    else:
+                        todo.append((p, cons))
             if not todo:
                 continue
             if insts is None:
                 insts, lbs, batch = _built_suite(suite)
             pdeps = pad_predictions(
                 batch, [pred.durations(i, seeds) for i in insts])
-            for policy in todo:
-                say(f"run  {suite.label()}/{policy}/{pred.label()} "
-                    f"B={batch.B} S={len(seeds)}")
+            for policy, cons in todo:
+                say(f"run  {suite.label()}/{_cell_label(policy, cons)}/"
+                    f"{pred.label()} B={batch.B} S={len(seeds)}")
                 res = run_batch(batch, policy, pdeps, spec.max_bins,
                                 spec.max_bins_cap, device=device,
-                                block_events=block_events)
+                                block_events=block_events,
+                                consolidate=cons if cons.enabled else None)
                 group_recs = {}
                 for bi, inst in enumerate(insts):
                     for si, seed in enumerate(seeds):
                         u = res.usage_time[bi, si]
-                        group_recs[result_key(suite, inst.name, policy, pred,
-                                              seed)] = {
+                        rec = {
                             "suite": suite.label(),
                             "instance": inst.name,
                             "policy": policy,
@@ -237,6 +258,13 @@ def run_sweep(spec: SweepSpec, store=None, force: bool = False,
                             "overflowed": bool(res.overflowed[bi, si]),
                             "max_bins": int(res.max_bins[bi]),
                         }
+                        if cons.enabled:
+                            rec["consolidate"] = cons.canonical()
+                            rec["migrations"] = int(res.migrations[bi, si])
+                            rec["migration_cost"] = \
+                                float(res.migration_cost[bi, si])
+                        group_recs[result_key(suite, inst.name, policy,
+                                              pred, seed, cons)] = rec
                 records.update(group_recs)
                 if store is not None:
                     store.save(spec, records, group_records=group_recs)
@@ -246,8 +274,8 @@ def run_sweep(spec: SweepSpec, store=None, force: bool = False,
 def summarize_sweep(records: Dict[str, Dict]
                     ) -> Dict[Tuple[str, str], BoxStats]:
     """(policy, pred label) -> BoxStats over per-(instance, seed) ratios.
-    Consolidating records of a shared store summarize under
-    ``policy+consspec``, as in the reference."""
+    Consolidating records summarize under ``policy+consspec``, so the
+    consolidated and plain variants of a policy stay separate rows."""
     groups: Dict[Tuple[str, str], List[float]] = {}
     for rec in records.values():
         pol = rec["policy"]

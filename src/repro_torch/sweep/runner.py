@@ -11,6 +11,11 @@ A build or launch failure raises: there is no fallback path.
 Overflow handling mirrors ``torchsim.simulate(auto_grow=True)`` lane-wise:
 any instance whose slot pool overflowed (in any seed row) is re-run with
 ``max_bins`` doubled, rung after rung, up to ``max_bins_cap``.
+
+``consolidate`` (an enabled ``ConsolidationSpec``) replays through the
+chunked consolidating driver (``consolidate.consolidated_replay``) on the
+same ladder, and the result gains per-cell ``migrations`` /
+``migration_cost``.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from ..consolidate import ConsolidationSpec, consolidated_replay
 from ..core.torchsim import (MAX_BINS_CAP, _replay_batch, grow_max_bins,
                              known_policy)
 from ..kernels.ops import resolve_device
@@ -42,6 +48,8 @@ class BatchRunResult:
     n_bins_opened: np.ndarray  # (B, S) int
     overflowed: np.ndarray     # (B, S) bool (True only if the cap was hit)
     max_bins: np.ndarray       # (B,) slot-pool size that produced each lane
+    migrations: Optional[np.ndarray] = None      # (B, S), consolidate only
+    migration_cost: Optional[np.ndarray] = None  # (B, S), consolidate only
 
     @property
     def S(self) -> int:
@@ -51,7 +59,9 @@ class BatchRunResult:
 def run_batch(batch: InstanceBatch, policy: str,
               pdeps: Optional[np.ndarray] = None, max_bins: int = 64,
               max_bins_cap: int = MAX_BINS_CAP, auto_grow: bool = True,
-              device="cuda", block_events: int = 0) -> BatchRunResult:
+              device="cuda", block_events: int = 0,
+              consolidate: Optional[ConsolidationSpec] = None
+              ) -> BatchRunResult:
     """Replay every lane of ``batch`` under ``policy`` (any
     ``SCAN_POLICIES`` name).
 
@@ -60,7 +70,9 @@ def run_batch(batch: InstanceBatch, policy: str,
     ``device``: where the replay runs ("cuda" unless the caller asks for
     "cpu").  ``block_events`` > 1 replays whole blocks of that many events
     per megakernel launch; the rungs of the overflow ladder rerun the
-    overflowing lanes from a fresh carry either way."""
+    overflowing lanes from a fresh carry either way.  ``consolidate`` (an
+    enabled ``ConsolidationSpec``; None for the plain replay) interleaves
+    the consolidation planner and its MIGRATE chunks with the replay."""
     if not known_policy(policy):
         raise KeyError(f"{policy!r} is not a scan policy")
     dev = resolve_device(device)
@@ -74,16 +86,30 @@ def run_batch(batch: InstanceBatch, policy: str,
     opened = np.zeros((B, S), np.int64)
     over = np.ones((B, S), bool)
     mb_used = np.full(B, max_bins, np.int64)
+    migrations = migration_cost = None
+    if consolidate is not None:
+        if not consolidate.enabled:
+            raise ValueError("pass consolidate=None for non-consolidating "
+                             "runs")
+        migrations = np.zeros((B, S), np.int64)
+        migration_cost = np.zeros((B, S))
     arrays = (batch.sizes, batch.times, batch.kinds, batch.items, pdeps,
               batch.dmask, batch.arrivals, batch.pdeps, batch.n_items)
     lanes = np.arange(B)
     mb = max_bins
     while True:
         sub = _flatten_lanes(*(a[lanes] for a in arrays))
-        u, o, _placements, ov = _replay_batch(
-            *sub, policy=policy, max_bins=mb, device=dev,
-            block_events=block_events)
         n = lanes.size
+        if consolidate is not None:
+            u, o, _placements, ov, stats = consolidated_replay(
+                *sub, policy=policy, max_bins=mb, device=dev,
+                block_events=block_events, spec=consolidate)
+            migrations[lanes] = stats["migrations"].reshape(n, S)
+            migration_cost[lanes] = stats["migration_cost"].reshape(n, S)
+        else:
+            u, o, _placements, ov = _replay_batch(
+                *sub, policy=policy, max_bins=mb, device=dev,
+                block_events=block_events)
         usage[lanes] = u.cpu().numpy().reshape(n, S)
         opened[lanes] = o.cpu().numpy().reshape(n, S)
         ov = ov.cpu().numpy().reshape(n, S)
@@ -93,7 +119,8 @@ def run_batch(batch: InstanceBatch, policy: str,
         if lanes.size == 0 or not auto_grow or mb >= max_bins_cap:
             break
         mb = grow_max_bins(mb, max_bins_cap)
-    return BatchRunResult(usage, opened, over, mb_used)
+    return BatchRunResult(usage, opened, over, mb_used, migrations,
+                          migration_cost)
 
 
 def run_grid(batch: InstanceBatch, policies: Sequence[str],

@@ -1,9 +1,10 @@
 """The port on the card: the CUDA select and the CUDA replay megakernel
-against their plain versions, and the replays on the card (per event and
-blocked) against the replays on the CPU, bit for bit; the two attention
-kernels and the RWKV6 chunked kernel against their plain versions within
-the JAX kernel tests' tolerances, and the model and engine through them
-against the plain versions.
+(its MIGRATE branch included) against their plain versions, the replays on
+the card (per event, blocked, consolidating) against the replays on the
+CPU, and the legacy scorer against its plain version, bit for bit; the two
+attention kernels and the RWKV6 chunked kernel against their plain
+versions within the JAX kernel tests' tolerances, and the model and engine
+through them against the plain versions.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips with a
 reason where ``torch.cuda.is_available()`` is false: the CUDA kernel has
@@ -28,7 +29,8 @@ from repro_torch.sweep import pack_instances, pad_predictions, run_batch
 from repro_torch.sweep.runner import _flatten_lanes
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from chip_smoke import random_state  # noqa: E402  (random/tied/full pools)
+from chip_smoke import (legacy_inputs, migrate_streams,  # noqa: E402
+                        random_state)  # (the card check's input makers)
 
 pytestmark = pytest.mark.cuda
 
@@ -192,6 +194,91 @@ def test_megakernel_wrapper_rejects_what_the_kernel_does_not_take(lanes,
         ops.fitscore_replay_block(carry, ev[0].cpu(), *ev[1:], **kw)
     with pytest.raises(ValueError, match="slots"):
         ops.fitscore_replay_block(carry, *ev, **dict(kw, n=17))
+
+
+@pytest.mark.parametrize("policy", ["nrt_prioritized", "cbd", "hybrid",
+                                    "ppe", "rcp_modified", "la_geometric",
+                                    "adaptive"])
+def test_migrate_megakernel_equals_plain(policy, lanes, cuda):
+    """The megakernel with its MIGRATE branch against
+    ``replay_block_ref(migrate=True)`` on blocks that open with MIGRATE
+    events (T = 1, 8 and 64 past the end of two lanes): every carry array
+    equal; the launch counts under ``fitscore_replay_block_migrate``."""
+    *_, flat = lanes
+    rng = np.random.default_rng(5)
+    for T in (1, 8, 64):
+        carry, (ev_i, ev_f, ev_size, dmask), kw = _block_case(
+            policy, flat, 16, cuda)
+        # the carry after the first 48 events, as migrate_streams needs it
+        (mi, mf, ms, _), n_close, _ = migrate_streams(policy, flat, 48, T,
+                                                      carry, rng, cuda)
+        assert n_close > 0
+        plain = {k: v.clone() for k, v in carry.items()}
+        blk = slice(48, 48 + T)
+        n0 = ops.launches["fitscore_replay_block_migrate"]
+        ops.fitscore_replay_block(carry, mi[:, :, blk], mf[:, :, blk],
+                                  ms[:, blk], dmask, migrate=True, **kw)
+        assert ops.launches["fitscore_replay_block_migrate"] == n0 + 1
+        fk.replay_block_ref(plain, mi[:, :, blk], mf[:, :, blk], ms[:, blk],
+                            dmask, migrate=True, **kw)
+        for k in carry:
+            assert torch.equal(carry[k], plain[k]), (T, k)
+
+
+def test_consolidated_replay_on_card_equals_cpu(lanes, cuda):
+    """The consolidating driver on the card, per event and blocked, == on
+    the CPU: usage, opened bins, placements and the MIGRATE events."""
+    from repro_torch.consolidate import ConsolidationSpec, \
+        consolidated_replay
+    *_, flat = lanes
+    spec = ConsolidationSpec.parse("underload:t0.5:e16")
+    for policy in ("best_fit_l2", "ppe", "adaptive"):
+        want = consolidated_replay(*flat, policy=policy, max_bins=16,
+                                   device="cpu", spec=spec)
+        assert want[4]["migrations"].sum() > 0
+        for T in (0, 8):
+            got = consolidated_replay(*flat, policy=policy, max_bins=16,
+                                      device=cuda, block_events=T, spec=spec)
+            for a, b in zip(got[:4], want[:4]):
+                assert torch.equal(a.cpu(), b), (policy, T)
+            assert got[4]["events"] == want[4]["events"]
+
+
+@pytest.mark.parametrize("norm", ["l1", "l2", "linf", "first_fit"])
+def test_fitscore_kernel_equals_plain(norm, cuda):
+    """The legacy scorer against ``fitscore_ref``, bit for bit: random
+    pools, 1/64-grid pools tied across CTAs (repeated open_seq, so the row
+    decides), pools where nothing fits (-1)."""
+    from repro_torch.kernels.legacy import fitscore_ref
+    rng = np.random.default_rng(len(norm))
+    for N, d, mode in ((8, 4, "random"), (37, 2, "random"),
+                       (1000, 5, "grid"), (70000, 2, "grid"),
+                       (300, 3, "none"), (300000, 5, "random")):
+        rem, alive, item, oseq = legacy_inputs(rng, N, d, mode, cuda)
+        for os_ in (oseq, None):
+            n0 = ops.launches["fitscore"]
+            s, b = ops.fitscore(rem, alive, item, os_, norm=norm)
+            assert ops.launches["fitscore"] == n0 + 1
+            s_p, b_p = fitscore_ref(rem, alive, item, os_, norm=norm)
+            assert torch.equal(s, s_p), (N, d, mode)
+            assert int(b) == int(b_p), (N, d, mode)
+            if mode == "none":
+                assert int(b) == -1
+
+
+def test_fitscore_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    rem, alive, item, _ = legacy_inputs(np.random.default_rng(0), 64, 3,
+                                        "random", cuda)
+    with pytest.raises(ValueError, match="alive"):
+        ops.fitscore(rem, alive.int(), item)
+    with pytest.raises(ValueError, match="remaining"):
+        ops.fitscore(rem.double(), alive, item)
+    with pytest.raises(ValueError, match="item"):
+        ops.fitscore(rem, alive, item.cpu())
+    with pytest.raises(ValueError, match="open_seq"):
+        ops.fitscore(rem, alive, item, torch.arange(64, device=cuda))
+    with pytest.raises(ValueError, match="norm"):
+        ops.fitscore(rem, alive, item, norm="l3")
 
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}

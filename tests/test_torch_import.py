@@ -47,6 +47,36 @@ def test_import_loads_no_jax_and_no_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.consolidate",
+                                    "repro_torch.kernels.ops",
+                                    "repro_torch.kernels.legacy"])
+def test_entry_module_alone_loads_no_jax(module):
+    """Each of the consolidation and kernel entry modules, imported alone
+    in a fresh interpreter, loads neither JAX nor the JAX package."""
+    code = (f"import {module}, sys\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("name", ["KINDS", "_MIG_PAD", "PLAN_EPS"])
+def test_consolidation_constants_equal_reference(name):
+    import repro.consolidate.driver as ref_driver
+    import repro.consolidate.planner as ref_planner
+    import repro.consolidate.spec as ref_spec
+    import repro_torch.consolidate.driver as port_driver
+    import repro_torch.consolidate.planner as port_planner
+    import repro_torch.consolidate.spec as port_spec
+    mods = {"KINDS": (ref_spec, port_spec), "_MIG_PAD": (ref_driver,
+                                                         port_driver),
+            "PLAN_EPS": (ref_planner, port_planner)}[name]
+    assert getattr(mods[0], name) == getattr(mods[1], name)
+
+
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)",
                         re.MULTILINE)
 

@@ -195,7 +195,8 @@ _CUDA_NAMES = [(n, n) for n in (
     "IBIG", "SCORE_BIG", "SCORE_NEG", "F32_EPS")] + [
     ("COLS", n) for n in ("SLOTF_COLS", "SLOTI_COLS", "ITEMI_COLS", "SF_COLS",
                           "SI_COLS", "RON_COLS")] + [
-    ("ARRIVAL", "ARRIVAL_KIND"), ("DEPARTURE", "DEPARTURE_KIND")]
+    ("ARRIVAL", "ARRIVAL_KIND"), ("DEPARTURE", "DEPARTURE_KIND"),
+    ("MIGRATION", "MIGRATE_KIND")]
 
 
 @pytest.mark.parametrize("cuda_name,name", _CUDA_NAMES)
