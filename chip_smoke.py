@@ -4,9 +4,13 @@
 
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. Device and build: the card's name and power limit, then the port's six
+1. Device and build: the card's name and power limit, then the port's seven
    kernel sources built from ``src/repro_torch/kernels/csrc`` (one nvcc per
-   source, started together; build time printed).
+   source, started together; build time printed), each kernel's registers,
+   spills and static shared memory from ptxas (the attention kernels must
+   not spill), the HGMMA count of the tensor-core flash kernel's SASS
+   (``cuobjdump -sass``; 0 fails) and the attention kernels' dynamic
+   shared memory.
 2. Select vs plain: the CUDA select against ``select_ref`` on the card, on
    random, tied and full pools for every score policy, with and without a
    category mask - (slot, found, no_free) must be identical.  Then the
@@ -47,25 +51,33 @@ Phases (any failure exits non-zero, and no result line is printed):
    rest.
    Then ppe_modified x lognormal:1.0 x seed 0 per event at full size must
    equal its blocked records.
-7. Attention kernels vs plain: the CUDA flash and decode attention kernels
-   against ``flash_attention_ref`` / ``decode_attention_ref`` on the card,
-   fp32 and bf16, on the JAX package's kernel-test shapes (every causal /
-   window case) and on the serving path's shapes (H=40, KV=8, hd=128;
-   prefill Sq = Skv in {16, 511, 2048}; decode B in {4, 32} x S in {1024,
-   4096} with random kv_len and one row at S), within the JAX tests'
-   tolerances (2e-5 fp32, 2e-2 bf16, atol and rtol), and in bf16 also
-   within ``BF16_REL`` of the output's largest magnitude.  Then each kernel's
-   device time at the path's shapes in bf16 beside its bound, the plain
-   version's time and ``scaled_dot_product_attention``'s (a yardstick,
-   never on the path).
+7. Attention kernels vs plain: the CUDA flash kernels (tensor cores for
+   bf16 at hd 64 / 128, CUDA cores otherwise: ``ops.flash_route``, checked
+   per call) and the decode kernel against ``flash_attention_ref`` /
+   ``decode_attention_ref`` on the card, fp32 and bf16, on the JAX
+   package's kernel-test shapes (causal / window cases (T, 0), (T, 32),
+   (F, 0), (F, 16)), the tensor-core kernel's tile edges (Sq = Skv in {1,
+   63, 64, 65, 127, 129}, Sq 64 against Skv 192, B 2; hd 64 and 128),
+   decode's split edges (kv_len one before, at and past a split's end, 0,
+   S, S not a multiple of the split) and the serving path's shapes (H=40,
+   KV=8, hd=128; prefill Sq = Skv in {16, 511, 2048}; decode B in {4, 32} x
+   S in {1024, 4096} with random kv_len and one row at S), NaN in every
+   cache row past kv_len, within the JAX tests' tolerances (2e-5 fp32,
+   2e-2 bf16, atol and rtol), and in bf16 also within ``BF16_REL`` of the
+   output's largest magnitude.  Then each kernel's device time at the
+   path's shapes in bf16 beside its bound, the plain version's time,
+   ``scaled_dot_product_attention``'s (a yardstick, never on the path) and,
+   for flash, the CUDA-core kernel's on the same bf16 inputs; decode's
+   split count and device kernels a call (torch.profiler).
 8. Serving at full width: qwen2.5-14b (48 layers, d 5120, bf16, random
    weights from seed 0 made on the card), 12 requests as
    ``repro_torch.launch.serve --real`` draws them (prompts 32-511 tokens,
    decodes capped at 64) through ``serve_real(..., "greedy", slots=4,
    max_len=1024)``: the DVBP scheduler places them on replicas, real
    ``ReplicaEngine``s prefill and decode them.  Flash attention must have
-   launched 48 times per prefill and decode attention 48 times per engine
-   decode step; the placement stats must equal ``REF_SERVE_STATS``.  One
+   launched 48 times per prefill, every call through the tensor-core
+   kernel, and decode attention 48 times per engine decode step; the
+   placement stats must equal ``REF_SERVE_STATS``.  One
    request is teacher-forced (prefill and 8 decode steps) with every
    attention call running both the kernel and the plain version on the
    same q, k, v, cache and kv_len, held to each other at every layer within
@@ -126,6 +138,7 @@ before the last line, which is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import collections
+import hashlib
 import json
 import os
 import subprocess
@@ -313,6 +326,55 @@ def raw_select(st, policy):
     return launch, out
 
 
+# kernels whose ptxas report must show no spills (mangled-name parts)
+NO_SPILL_KERNELS = ("flash_sm90_kernel", "decode_kernel", "decode_mma_kernel")
+
+
+def ptxas_by_kernel(report: str) -> dict:
+    """{mangled kernel name: {"registers": n, "spill": bytes stored +
+    loaded, "smem": static bytes}} from nvcc's ``-Xptxas=-v`` output."""
+    import re
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": 0, "spill": 0, "smem": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[name]["smem"] = int(m.group(1))
+    return out
+
+
+def sass_instruction_counts(path: str, opcode: str) -> dict:
+    """{mangled kernel name: count of ``opcode`` in its SASS} from
+    ``cuobjdump -sass`` of the built library."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    res = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode:
+        fail(f"cuobjdump -sass failed: {res.stderr.strip()[:500]}")
+    out, name = {}, None
+    for line in res.stdout.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            out.setdefault(name, 0)
+        elif name and opcode in line:
+            out[name] += 1
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import _build
     smi = subprocess.run(
@@ -322,13 +384,33 @@ def phase_build():
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
         f"nvidia-smi failed: {smi.stderr.strip()}"
     t0 = time.perf_counter()
+    if os.path.exists(_build.library_path()):   # rebuild: ptxas reports
+        os.remove(_build.library_path())
     path, secs, report = _build.build()
-    _build.library()
+    lib = _build.library()
     say(f"# build: {os.path.relpath(path, ROOT)} "
         f"(nvcc {secs:.1f} s, ready in {time.perf_counter() - t0:.1f} s)")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"#   {line.strip()}")
+    digests = {}
+    for name in (*_build.SOURCES, *_build.HEADERS):
+        with open(os.path.join(_build.CSRC, name), "rb") as f:
+            digests[name] = hashlib.sha256(f.read()).hexdigest()[:16]
+    say(f"# build: sources sha256 {digests}")
+    for name, r in ptxas_by_kernel(report).items():
+        say(f"#   {name[:72]}: {r['registers']} registers, "
+            f"{r['spill']} bytes spilled, {r['smem']} bytes static smem")
+        if r["spill"] and any(k in name for k in NO_SPILL_KERNELS):
+            fail(f"{name} spills {r['spill']} bytes")
+    hgmma = {n: c for n, c in sass_instruction_counts(path, "HGMMA").items()
+             if "flash_sm90_kernel" in n}
+    say(f"# build: HGMMA instructions in the sm90 flash kernel's SASS: "
+        f"{hgmma}; dynamic smem a CTA: flash sm90 "
+        f"{lib.flash_attention_sm90_smem_bytes(64)} B (hd 64), "
+        f"{lib.flash_attention_sm90_smem_bytes(128)} B (hd 128); decode "
+        f"(G 5, hd 128, 8 splits) bf16 "
+        f"{lib.decode_attention_smem_bytes(5, 128, 1, 8)} B, fp32 "
+        f"{lib.decode_attention_smem_bytes(5, 128, 0, 8)} B")
+    if len(hgmma) != 2 or not all(hgmma.values()):
+        fail(f"the sm90 flash kernel has no HGMMA instructions: {hgmma}")
     return card
 
 
@@ -951,12 +1033,30 @@ def attention_bound(kind, shapes, nbytes_el, valid_pairs):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernels_per_call(fn, calls: int = 10):
+    """Device kernels a call of ``fn`` launches, counted by torch.profiler
+    over ``calls`` calls; None where the profiler sees no device kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n / calls if n else None
+
+
 def phase_attention_vs_plain(dev):
-    """The two attention kernels against their plain versions on the card
-    (fp32 and bf16, the JAX kernel tests' shapes and the serving path's),
-    then their times at the path's shapes in bf16."""
+    """The attention kernels against their plain versions on the card
+    (fp32 and bf16, the JAX kernel tests' shapes, the tensor-core flash
+    kernel's tile edges, decode's split edges and the serving path's
+    shapes), then their times at the path's shapes in bf16."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels._build import library
     from repro_torch.kernels.attention import (decode_attention_ref,
                                                flash_attention_ref)
     gen = torch.Generator(device=dev)
@@ -964,20 +1064,33 @@ def phase_attention_vs_plain(dev):
     flash_shapes = [(2, 128, 128, 4, 2, 64), (1, 256, 256, 4, 4, 64),
                     (2, 100, 100, 2, 1, 32), (1, 64, 192, 4, 2, 128),
                     (1, 96, 96, 8, 8, 16)] + \
-        [(1, s, s, 40, 8, 128) for s in (16, 511, 2048)]
+        [(1, s, s, 40, 8, 128) for s in (16, 511, 2048)] + \
+        [(b, sq, skv, 10, 2, hd) for hd in (64, 128)
+         for b, sq, skv in [(1, s, s) for s in (1, 63, 64, 65, 127, 129)] +
+         [(1, 64, 192), (2, 129, 129)]]
     decode_shapes = [(2, 8, 2, 64, 512), (1, 4, 4, 128, 300),
                      (3, 5, 1, 32, 64), (2, 16, 8, 64, 1024)] + \
         [(b, 40, 8, 128, s) for b in (4, 32) for s in (1024, 4096)]
+    # (B, H, KV, hd, S) at which kv_len sits on the split edges
+    edge_shapes = [(6, 40, 8, 128, 1024), (6, 40, 8, 128, 1000),
+                   (6, 10, 2, 64, 700), (6, 16, 2, 256, 333)]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     errs = {"flash_attention": 0.0, "decode_attention": 0.0}
-    n_cases = 0
+    n_cases = n_sm90 = 0
     for dtype_name, tol in ATTN_TOL.items():
         dtype = getattr(torch, dtype_name)
         for B, Sq, Skv, H, KV, hd in flash_shapes:
             q, k, v = _attention_inputs(gen, dev, dtype, (B, Sq, H, hd),
                                         (B, Skv, KV, hd))
-            for causal, window in ((True, 0), (True, 32), (False, 0)):
+            for causal, window in ((True, 0), (True, 32), (False, 0),
+                                   (False, 16)):
+                n90 = ops.launches["flash_attention_sm90"]
                 got = ops.flash_attention(q, k, v, causal=causal,
                                           window=window)
+                sm90 = ops.launches["flash_attention_sm90"] - n90
+                if sm90 != (ops.flash_route(dtype, hd) == "sm90"):
+                    fail(f"flash {dtype} hd={hd} took the wrong kernel")
+                n_sm90 += sm90
                 want = flash_attention_ref(q, k, v, causal=causal,
                                            window=window)
                 err = _allclose_err(got, want, tol, f"flash {dtype} "
@@ -985,37 +1098,63 @@ def phase_attention_vs_plain(dev):
                                     f"{causal} window={window}")
                 errs["flash_attention"] = max(errs["flash_attention"], err)
                 n_cases += 1
-        for B, H, KV, hd, S in decode_shapes:
+        for B, H, KV, hd, S in decode_shapes + edge_shapes:
             q, k, v = _attention_inputs(gen, dev, dtype, (B, H, hd),
                                         (B, S, KV, hd))
-            kv_len = torch.randint(1, S + 1, (B,), generator=gen,
-                                   device=dev, dtype=torch.int32)
-            kv_len[0] = S
-            if B >= 3:
-                kv_len[-1] = 0      # the Pallas kernel's zeros
+            edge = (B, H, KV, hd, S) in edge_shapes
+            if edge:
+                n_split, split = ops.decode_splits(B, KV, S, n_sm)
+                kv_len = torch.tensor(
+                    [split - 1, split, split + 1, 0, S,
+                     (n_split - 1) * split + 1], dtype=torch.int32,
+                    device=dev)
+            else:
+                kv_len = torch.randint(1, S + 1, (B,), generator=gen,
+                                       device=dev, dtype=torch.int32)
+                kv_len[0] = S
+                if B >= 3:
+                    kv_len[-1] = 0      # the Pallas kernel's zeros
+            for b in range(B):          # never read: NaN must not leak
+                k[b, int(kv_len[b]):] = float("nan")
+                v[b, int(kv_len[b]):] = float("nan")
             got = ops.decode_attention(q, k, v, kv_len)
+            if edge and ops.last_decode_grid != (n_split, split):
+                fail(f"decode {(B, H, KV, hd, S)}: launched "
+                     f"{ops.last_decode_grid}, the edges are at "
+                     f"{(n_split, split)}")
             want = decode_attention_ref(q, k, v, kv_len)
             err = _allclose_err(got, want, tol, f"decode {dtype} "
-                                f"{(B, H, KV, hd, S)}")
+                                f"{(B, H, KV, hd, S)} kv_len "
+                                f"{kv_len.tolist()}")
             errs["decode_attention"] = max(errs["decode_attention"], err)
             n_cases += 1
     torch.cuda.synchronize()
-    say(f"# attention kernels == plain on {n_cases} cases (fp32 within 2e-5, "
-        f"bf16 within 2e-2 and {BF16_REL} of max |plain|): max |diff| flash "
+    say(f"# attention kernels == plain on {n_cases} cases ({n_sm90} flash "
+        f"calls on the tensor-core kernel; fp32 within 2e-5, bf16 within "
+        f"2e-2 and {BF16_REL} of max |plain|): max |diff| flash "
         f"{errs['flash_attention']:.3e}, decode "
         f"{errs['decode_attention']:.3e}")
 
-    # times at the serving path's shapes, bf16 as the path runs them; the
-    # line of kernel numbers takes the largest prompt (Sq = Skv = 511) and
-    # the engine's decode (4 slots x 1024 positions)
+    # times at the serving path's shapes, bf16 as the path runs them, with
+    # the CUDA-core flash kernel (the fp32 route, launched raw) beside the
+    # tensor-core one; the line of kernel numbers takes the largest prompt
+    # (Sq = Skv = 511) and the engine's decode (4 slots x 1024 positions)
     F = torch.nn.functional
     bf = torch.bfloat16
+    lib = library()
     rows = {}
     for Sq in (16, 511, 2048):
         q, k, v = _attention_inputs(gen, dev, bf, (1, Sq, 40, 128),
                                     (1, Sq, 8, 128))
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        simt_out = torch.empty_like(q)
+        simt_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     simt_out.data_ptr(), 1, Sq, Sq, 40, 8, 128, 128 ** -0.5,
+                     1, 0, 1, dev.index or 0,
+                     torch.cuda.current_stream().cuda_stream)
         ms = device_ms(lambda: ops.flash_attention(q, k, v), 50)
+        simt_ms = device_ms(lambda: lib.flash_attention_launch(*simt_args),
+                            20)
         plain_ms = device_ms(lambda: flash_attention_ref(q, k, v), 5)
         lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), 50)
@@ -1023,10 +1162,12 @@ def phase_attention_vs_plain(dev):
             "flash", (1, 40, 8, 128, Sq, Sq), 2, Sq * (Sq + 1) // 2)
         rows[("flash", Sq)] = dict(ms=ms, plain_ms=plain_ms,
                                    library_ms=lib_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by)
+                                   bound_by=bound_by, simt_ms=simt_ms)
         say(f"# flash_attention bf16 B=1 Sq=Skv={Sq} H=40 KV=8 hd=128 "
-            f"causal: device time {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-            f"sdpa {lib_ms:.6f} ms; bound {bound_ms:.6f} ms by {bound_by}")
+            f"causal: device time {ms:.6f} ms (tensor cores; the CUDA-core "
+            f"kernel {simt_ms:.6f} ms), plain {plain_ms:.6f} ms, sdpa "
+            f"{lib_ms:.6f} ms; bound {bound_ms:.6f} ms by {bound_by}; "
+            f"{4 * Sq * (Sq + 1) // 2 * 40 * 128 / ms / 1e9:.1f} TFLOP/s")
     for B, S in ((4, 1024), (32, 1024), (4, 4096), (32, 4096)):
         q, k, v = _attention_inputs(gen, dev, bf, (B, 40, 128),
                                     (B, S, 8, 128))
@@ -1045,13 +1186,21 @@ def phase_attention_vs_plain(dev):
         n_valid = int(kv_len.sum())
         bound_ms, bound_by = attention_bound(
             "decode", (B, 40, 8, 128, B, n_valid), 2, n_valid)
+        n_split, split = ops.last_decode_grid
+        per_call = kernels_per_call(
+            lambda: ops.decode_attention(q, k, v, kv_len))
+        if n_split < 2:
+            fail(f"decode B={B} S={S}: {n_split} split, under 2 B KV CTAs")
         rows[("decode", B, S)] = dict(ms=ms, plain_ms=plain_ms,
                                       library_ms=lib_ms, bound_ms=bound_ms,
-                                      bound_by=bound_by)
+                                      bound_by=bound_by, n_split=n_split,
+                                      kernels_per_call=per_call)
         say(f"# decode_attention bf16 B={B} S={S} H=40 KV=8 hd=128 "
             f"({n_valid} valid rows): device time {ms:.6f} ms, plain "
             f"{plain_ms:.6f} ms, sdpa {lib_ms:.6f} ms; bound "
-            f"{bound_ms:.6f} ms by {bound_by}")
+            f"{bound_ms:.6f} ms by {bound_by}; {n_split} splits of {split} "
+            f"({n_split * B * 8} CTAs), device kernels a call "
+            f"{'not measured' if per_call is None else per_call}")
     flash = dict(rows[("flash", 511)], max_abs_err=errs["flash_attention"])
     decode = dict(rows[("decode", 4, 1024)],
                   max_abs_err=errs["decode_attention"])
@@ -1159,6 +1308,7 @@ def phase_serving(dev):
     reqs = serving_requests()
     stats, wall, times, counts = timed_serve_real(cfg, params, reqs)
     launches = {k: counts[k] for k in ("flash_attention",
+                                       "flash_attention_sm90",
                                        "decode_attention")}
     n_pre, n_dec = len(times["prefill"]), len(times["decode"])
     got = (stats.replica_seconds, stats.replicas_opened, stats.peak_replicas)
@@ -1182,6 +1332,10 @@ def phase_serving(dev):
     if launches["flash_attention"] != cfg.n_layers * n_pre or not n_pre:
         fail(f"flash_attention launches {launches['flash_attention']} != "
              f"{cfg.n_layers} x {n_pre} prefills")
+    if launches["flash_attention_sm90"] != launches["flash_attention"]:
+        fail(f"{launches['flash_attention_sm90']} of "
+             f"{launches['flash_attention']} flash calls went through the "
+             "tensor-core kernel")
     if launches["decode_attention"] != cfg.n_layers * n_dec or not n_dec:
         fail(f"decode_attention launches {launches['decode_attention']} != "
              f"{cfg.n_layers} x {n_dec} decode steps")
@@ -2042,9 +2196,11 @@ def main() -> None:
              launches=mk_launches, max_abs_err=mk_err, library_ms=None,
              migrate_launches=mig_launches, migrate_ms=mig_ms, **mk),
         dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu + "
+                    "src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:68",
-             launches=attn_launches["flash_attention"], **flash),
+             launches=attn_launches["flash_attention"],
+             sm90_launches=attn_launches["flash_attention_sm90"], **flash),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:55",

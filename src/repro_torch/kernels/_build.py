@@ -2,8 +2,10 @@
 
 ``nvcc`` compiles each source of ``csrc/`` (the select, ``select.cu``, the
 event-blocked replay megakernel, ``replay_block.cu``, the legacy scorer,
-``fitscore.cu``, the two attention
-kernels, ``flash_attention.cu`` and ``decode_attention.cu``, and RWKV6's
+``fitscore.cu``, the attention kernels,
+``flash_attention_sm90.cu`` (tensor cores, bf16 at hd 64 / 128),
+``flash_attention.cu`` (CUDA cores, every other call) and
+``decode_attention.cu``, and RWKV6's
 chunked linear attention, ``rwkv6_chunked.cu``) for Hopper
 (``sm_90a``), one compiler process per source, all started together, and
 links the objects into one shared library with a plain C interface, which
@@ -18,6 +20,10 @@ once per operation, as the JAX package's select does (and as the legacy
 scorer's plain version does); the select's l2 norm's FMA chain is written
 out with ``fmaf`` in the source.  The attention and RWKV6
 kernels are held to a tolerance, not bit for bit, and keep contraction on.
+
+``flash_attention_sm90.cu`` encodes its TMA tensor maps with the driver's
+``cuTensorMapEncodeTiled``, which it reaches through the runtime's
+``cudaGetDriverEntryPoint``: the library links no ``libcuda``.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 SOURCES = {"select.cu": ("--fmad=false",),
            "replay_block.cu": ("--fmad=false",),
            "fitscore.cu": ("--fmad=false",),
-           "flash_attention.cu": (), "decode_attention.cu": (),
+           "flash_attention_sm90.cu": (), "flash_attention.cu": (),
+           "decode_attention.cu": (),
            "rwkv6_chunked.cu": ()}
 HEADERS = ("fitscore_common.cuh",)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -122,9 +129,16 @@ def library() -> ctypes.CDLL:
     lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 6 + [f] + \
         [i] * 4 + [p]
     lib.flash_attention_launch.restype = i
-    lib.decode_attention_launch.argtypes = [p] * 5 + [i] * 5 + [f] + \
-        [i] * 2 + [p]
+    lib.flash_attention_sm90_launch.argtypes = [p] * 4 + [i] * 6 + [f] + \
+        [i] * 3 + [p]
+    lib.flash_attention_sm90_launch.restype = i
+    lib.flash_attention_sm90_smem_bytes.argtypes = [i]
+    lib.flash_attention_sm90_smem_bytes.restype = i
+    lib.decode_attention_launch.argtypes = [p] * 8 + [i] * 5 + [f] + \
+        [i] * 4 + [p]
     lib.decode_attention_launch.restype = i
+    lib.decode_attention_smem_bytes.argtypes = [i] * 4
+    lib.decode_attention_smem_bytes.restype = i
     lib.rwkv6_chunked_launch.argtypes = [p] * 7 + [i] * 8 + [p]
     lib.rwkv6_chunked_launch.restype = i
     lib.fitscore_error_string.argtypes = [i]

@@ -1,11 +1,12 @@
-// Single-token GQA decode attention over a KV cache, for Hopper (sm_90a).
+// Single-token GQA decode attention over a KV cache, split over the cache
+// positions (flash-decoding), for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/decode_attention.py::
 // decode_attention (kernel body _kernel).  q (B, H, hd) holds one new token
 // per batch row; k and v (B, S, KV, hd) are the cache, in fp32 or bf16, the
 // JAX package's layout; kv_len (B,) int32.  Query head h reads kv head
-// h / G (G = H / KV).  Positions >= min(kv_len[b], S) are masked: they get
-// p = 0 and their K and V rows are never read, so a row with kv_len = 0
+// h / G (G = H / KV <= 8).  Positions >= min(kv_len[b], S) are masked: they
+// get p = 0 and their K and V rows are never read, so a row with kv_len = 0
 // gives zeros, as the Pallas kernel does.  Scores (q . k) * scale, the
 // running max, denominator and accumulator are fp32 for both input types;
 // out = acc / max(l, 1e-30) in q's type.
@@ -13,29 +14,55 @@
 // What bounds it: the cache.  Each valid K and V row is read once and
 // carries 2 * G * hd multiply-adds, G = 5 on the serving path: about 2.5
 // operations a byte in bf16, far below the card's balance, so the bytes
-// bound it (the K and V rows below kv_len, q and out).
+// bound it (the K and V rows below kv_len, q and out).  The design keeps
+// enough bytes in flight on every SM and the arithmetic off the critical
+// path:
 //
-// Design (simple and right first): one CTA of 256 threads per (kv head,
-// batch row), so the G query rows that share a kv head read each K and V
-// row once.  The 8 warps take the valid positions in turn (warp w: w,
-// w + 8, ...), each lane holding hd / 32 dims of q, of the row and of the
-// accumulator; a warp reduces each of its G dot products with shuffles and
-// keeps its own running softmax.  The 8 partial softmaxes are merged
-// through shared memory at the end.  Split-S across CTAs (more than B * KV
-// CTAs on 132 SMs), vector loads and TMA are later work.
+// - Grid (n_split, KV, B): the wrapper splits the cache's S positions into
+//   n_split ranges of split_len (ops.decode_splits: about two CTAs an SM),
+//   so B = 4 puts 256 CTAs on the 132 SMs, not 32.  A CTA holds the G query
+//   rows of one kv head, so each K and V row is read once.
+// - A split walks its positions in chunks, K and V staged in shared memory
+//   by 16-byte cp.async (8 or 4 where the rows are not 16-byte multiples),
+//   only rows below min(kv_len, S); the next chunks' copies fly while one
+//   is scored.  A split that starts at or past min(kv_len, S) copies
+//   nothing and writes an empty partial (m = NEG_INF, l = 0).
+// - bf16 at hd <= 128 (the serving path): decode_mma_kernel, both products
+//   on the tensor cores by mma.sync (see its note), a ring of 3 chunks of
+//   64 positions.
+// - fp32, and bf16 at larger hd: decode_kernel on the CUDA cores in fp32,
+//   two buffers of 64 positions (32 for rows over 528 bytes).  Per chunk a
+//   thread a position scores it against the G query rows (held in shared
+//   memory in fp32); one max / sum reduction a query row for the whole
+//   chunk (a warp a row); then P . V, thread (position group, 16 bytes of
+//   hd), summed over the groups at the end of the split.
+// - Merge (finish): each split writes its partial (m, l, acc[G][hd]) in
+//   fp32 to scratch the wrapper allocates; the last CTA of a (batch row, kv
+//   head) to finish (an atomic counter, reset by that CTA) merges them,
+//   out = sum_s acc_s w_s / max(sum_s l_s w_s, 1e-30) with w_s =
+//   e^(m_s - max m), so a call is one launch.  With one split the CTA
+//   writes the output directly.
 //
 // Launched through a plain C interface (ctypes), on the caller's stream; it
-// allocates nothing and does not synchronise.
+// allocates nothing and does not synchronise.  The counters must be zero
+// before the launch and are zero after it; two launches that share them
+// must run in order (one stream).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace attn_decode {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGMax = 8;           // query heads per kv head
+constexpr int kMaxGroups = 16;     // position groups of the P . V pass
 constexpr float kNegInf = -1e30f;
+
+template <typename T>
+struct Vec {                       // elements of T in 16 bytes
+  static constexpr int kN = 16 / sizeof(T);
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -46,133 +73,699 @@ __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* out) {
   *out = __float2bfloat16(x);
 }
 
-// Shared memory, in floats: each warp's accumulator (G x hd), running max
-// and denominator (G each).
-inline size_t decode_smem_bytes(int G, int hd) {
-  return sizeof(float) * kWarps * static_cast<size_t>(G) * (hd + 2);
+// 16 bytes of shared memory as floats
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[4]) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
-// HDC = ceil(hd / 32) bound: 2, 4 or 8 dims a lane.
-template <typename T, int HDC>
+// How a split lays a chunk out, for hd and the element size (host and
+// device compute it alike).
+struct Geo {
+  int hdp;     // hd padded to 16 bytes
+  int pitch;   // bytes of a K or V row in shared memory (+16 against bank
+               // conflicts between neighbouring rows)
+  int nd;      // 16-byte vectors of a row
+  int npg;     // position groups of the P . V pass
+  int chunk;   // positions a chunk
+};
+
+__host__ __device__ inline Geo geometry(int hd, int esize) {
+  const int vec = 16 / esize;
+  Geo g;
+  g.hdp = (hd + vec - 1) / vec * vec;
+  g.pitch = g.hdp * esize + 16;
+  g.nd = g.hdp / vec;
+  g.npg = kThreads / g.nd < kMaxGroups ? kThreads / g.nd : kMaxGroups;
+  g.chunk = g.pitch > 528 ? 32 : 64;
+  return g;
+}
+
+__host__ __device__ inline int max3(int a, int b, int c) {
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+}
+
+// Bytes of the region that holds the two K and two V buffers and, at the
+// end of a split, the position groups' accumulators, then the merge's
+// weights.
+__host__ __device__ inline int region_bytes(const Geo& g, int G,
+                                            int n_split) {
+  return max3(4 * g.chunk * g.pitch, g.npg * G * g.hdp * 4,
+              (n_split + 1) * G * 4);
+}
+
+inline int smem_bytes(int G, int hd, int esize, int n_split) {
+  const Geo g = geometry(hd, esize);
+  return region_bytes(g, G, n_split) +
+         4 * (G * g.hdp + G * g.chunk + 3 * kGMax + 4);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Rows pos0 .. pos0 + cnt - 1 of one cache tensor into shared memory rows
+// of `pitch` bytes: cp.async of copy_bytes (16, 8 or 4), or element by
+// element where the rows allow none of these (copy_bytes 0).
+template <typename T>
+__device__ __forceinline__ void load_rows(uint8_t* dst, const T* src,
+                                          int pos0, int cnt, size_t row,
+                                          int hd, int pitch, int copy_bytes) {
+  if (copy_bytes) {
+    const int nv = hd * static_cast<int>(sizeof(T)) / copy_bytes;
+    for (int x = threadIdx.x; x < cnt * nv; x += kThreads) {
+      const int r = x / nv, c = x - r * nv;
+      const uint8_t* s = reinterpret_cast<const uint8_t*>(
+                             src + static_cast<size_t>(pos0 + r) * row) +
+                         c * copy_bytes;
+      const uint32_t d = smem_u32(dst + r * pitch + c * copy_bytes);
+      if (copy_bytes == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+                     "l"(s)
+                     : "memory");
+      else if (copy_bytes == 8)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d),
+                     "l"(s)
+                     : "memory");
+      else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d),
+                     "l"(s)
+                     : "memory");
+    }
+  } else {
+    for (int x = threadIdx.x; x < cnt * hd; x += kThreads) {
+      const int r = x / hd, c = x - r * hd;
+      reinterpret_cast<T*>(dst + r * pitch)[c] =
+          src[static_cast<size_t>(pos0 + r) * row + c];
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// waits until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The end of a split.  With one split, out = acc / max(l, 1e-30).  Else the
+// split's partial (m, l, acc) goes to scratch, and the last split of
+// (b, kvh) to arrive merges all of them: out = sum_s acc_s w_s /
+// max(sum_s l_s w_s, 1e-30), w_s = e^(m_s - M), M the largest m_s (an
+// empty split has m = NEG_INF and l = acc = 0).  acc_at(x) is this CTA's
+// accumulator of output x = g * hd + d; Ms and Ls hold its max and
+// denominator a query row; `work` is shared memory for (n_split + 1) * G
+// floats that acc_at no longer needs once every thread has called it.
+template <typename T, typename Acc>
+__device__ __forceinline__ void finish(Acc acc_at, const float* Ms,
+                                       const float* Ls, int* last,
+                                       float* work, T* out, float* part_acc,
+                                       float* part_ml, int* counter, int b,
+                                       int kvh, int split, int n_split,
+                                       int H, int KV, int hd) {
+  const int G = H / KV, tid = threadIdx.x;
+  const size_t bh = static_cast<size_t>(b) * KV + kvh;
+  T* ob = out + (static_cast<size_t>(b) * H + kvh * G) * hd;
+  if (n_split == 1) {
+    for (int x = tid; x < G * hd; x += kThreads)
+      from_f32(acc_at(x) / fmaxf(Ls[x / hd], 1e-30f), &ob[x]);
+    return;
+  }
+  float* pa = part_acc + (bh * n_split + split) * G * hd;
+  float* pm = part_ml + (bh * n_split + split) * G * 2;
+  for (int x = tid; x < G * hd; x += kThreads) pa[x] = acc_at(x);
+  if (tid < G) {
+    pm[2 * tid] = Ms[tid];
+    pm[2 * tid + 1] = Ls[tid];
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *last = atomicAdd(counter + bh, 1) == n_split - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  const float* qa = part_acc + bh * n_split * G * hd;
+  const float* qm = part_ml + bh * n_split * G * 2;
+  float* w = work;                    // [n_split][G]: m_s, then w_s
+  float* den = work + n_split * G;    // [G]
+  for (int x = tid; x < n_split * G; x += kThreads) w[x] = __ldcg(qm + 2 * x);
+  __syncthreads();
+  if (tid < G) {
+    float mx = kNegInf;
+    for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, w[s * G + tid]);
+    float d = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float f = expf(w[s * G + tid] - mx);
+      w[s * G + tid] = f;
+      d = fmaf(__ldcg(qm + 2 * (s * G + tid) + 1), f, d);
+    }
+    den[tid] = fmaxf(d, 1e-30f);
+  }
+  __syncthreads();
+  for (int x = tid; x < G * hd; x += kThreads) {
+    const int g = x / hd;
+    float num = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < n_split; ++s)
+      num = fmaf(__ldcg(qa + static_cast<size_t>(s) * G * hd + x),
+                 w[s * G + g], num);
+    from_f32(num / den[g], &ob[x]);
+  }
+  if (tid == 0) counter[bh] = 0;
+}
+
+template <typename T, int CH>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ kv_len,
-              T* __restrict__ out, int S, int H, int KV, int hd,
-              float scale) {
-  extern __shared__ float smem[];
+              T* __restrict__ out, float* __restrict__ part_acc,
+              float* __restrict__ part_ml, int* __restrict__ counter, int S,
+              int H, int KV, int hd, float scale, int split_len,
+              int copy_bytes) {
+  constexpr int kVec = Vec<T>::kN;
+  constexpr int kGS = kThreads / CH;             // row sets of the scoring
+  constexpr int kGT = (kGMax + kGS - 1) / kGS;   // rows a thread scores
+  extern __shared__ __align__(16) uint8_t smem[];
   const int G = H / KV;
-  float* Acc = smem;                               // [kWarps][G][hd]
-  float* Mw = Acc + kWarps * G * hd;               // [kWarps][G]
-  float* Lw = Mw + kWarps * G;                     // [kWarps][G]
+  const Geo geo = geometry(hd, sizeof(T));
+  const int pitch = geo.pitch, hdp = geo.hdp;
+  float* Red = reinterpret_cast<float*>(smem);   // [npg][G][hdp], at the end
+  float* Qs =
+      reinterpret_cast<float*>(smem + region_bytes(geo, G, gridDim.x));
+  float* Ss = Qs + G * hdp;                      // [G][CH] scores, then p
+  float* Ms = Ss + G * CH;                       // running max
+  float* Ls = Ms + kGMax;                        // running denominator
+  float* As = Ls + kGMax;                        // this chunk's rescale
+  int* last = reinterpret_cast<int*>(As + kGMax);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int n_split = gridDim.x;
   const int n = max(0, min(kv_len[b], S));
-  const size_t k_row = static_cast<size_t>(KV) * hd;
+  const int s0 = split * split_len;
+  const int s1 = min(s0 + split_len, n);
+  const size_t row = static_cast<size_t>(KV) * hd;   // elements a position
   const T* qb = q + (static_cast<size_t>(b) * H + kvh * G) * hd;
-  const T* kb = k + static_cast<size_t>(b) * S * k_row + kvh * hd;
-  const T* vb = v + static_cast<size_t>(b) * S * k_row + kvh * hd;
+  const T* kb = k + static_cast<size_t>(b) * S * row + kvh * hd;
+  const T* vb = v + static_cast<size_t>(b) * S * row + kvh * hd;
 
-  float qr[kGMax][HDC], acc[kGMax][HDC], m[kGMax], l[kGMax];
-#pragma unroll
-  for (int g = 0; g < kGMax; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int c = 0; c < HDC; ++c) {
-      const int d = lane + 32 * c;
-      qr[g][c] = g < G && d < hd ? to_f32(qb[g * hd + d]) : 0.f;
-      acc[g][c] = 0.f;
-    }
+  if (s0 < s1) {   // the first chunk into buffer 0
+    load_rows(smem, kb, s0, min(CH, s1 - s0), row, hd, pitch, copy_bytes);
+    load_rows(smem + 2 * CH * pitch, vb, s0, min(CH, s1 - s0), row, hd,
+              pitch, copy_bytes);
   }
+  cp_async_commit();
+  for (int x = tid; x < G * hdp; x += kThreads) {
+    const int g = x / hdp, d = x - g * hdp;
+    Qs[x] = d < hd ? to_f32(qb[g * hd + d]) : 0.f;
+  }
+  // K's pad columns meet q's zero pad: keep them finite
+  for (int x = tid; x < 2 * CH * (hdp - hd); x += kThreads) {
+    const int r = x / (hdp - hd), d = hd + x % (hdp - hd);
+    from_f32(0.f, reinterpret_cast<T*>(smem + r * pitch) + d);
+  }
+  if (tid < kGMax) {
+    Ms[tid] = kNegInf;
+    Ls[tid] = 0.f;
+  }
+  float acc[kGMax][kVec];
+#pragma unroll
+  for (int g = 0; g < kGMax; ++g)
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[g][e] = 0.f;
+  const int pg = tid / geo.nd, dv = tid - pg * geo.nd;
+  const bool pv_thread = pg < geo.npg;
 
-  for (int s = warp; s < n; s += kWarps) {
-    float kr[HDC], vr[HDC];
-#pragma unroll
-    for (int c = 0; c < HDC; ++c) {
-      const int d = lane + 32 * c;
-      kr[c] = d < hd ? to_f32(kb[s * k_row + d]) : 0.f;
-      vr[c] = d < hd ? to_f32(vb[s * k_row + d]) : 0.f;
+  for (int c0 = s0, it = 0; c0 < s1; c0 += CH, ++it) {
+    const int cnt = min(CH, s1 - c0), buf = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();   // chunk c0 visible; the other buffer's readers done
+    if (c0 + CH < s1) {
+      const int nxt = min(CH, s1 - c0 - CH);
+      load_rows(smem + (buf ^ 1) * CH * pitch, kb, c0 + CH, nxt, row, hd,
+                pitch, copy_bytes);
+      load_rows(smem + (2 + (buf ^ 1)) * CH * pitch, vb, c0 + CH, nxt, row,
+                hd, pitch, copy_bytes);
+      cp_async_commit();
     }
+    const uint8_t* Kc = smem + buf * CH * pitch;
+    const uint8_t* Vc = smem + (2 + buf) * CH * pitch;
+
+    // scores: thread (j, gs) takes position j against rows gs, gs + kGS, ..
+    {
+      const int j = tid % CH, gs = tid / CH;
+      if (j < cnt) {
+        float dot[kGT];
 #pragma unroll
-    for (int g = 0; g < kGMax; ++g) {
-      if (g >= G) break;
-      float dot = 0.f;
+        for (int t = 0; t < kGT; ++t) dot[t] = 0.f;
+        const uint4* kr = reinterpret_cast<const uint4*>(Kc + j * pitch);
+        for (int dd = 0; dd < geo.nd; ++dd) {
+          float kf[kVec];
+          unpack(kr[dd], kf);
 #pragma unroll
-      for (int c = 0; c < HDC; ++c) dot = fmaf(qr[g][c], kr[c], dot);
+          for (int t = 0; t < kGT; ++t) {
+            const int g = gs + t * kGS;
+            if (g < G) {
+              const float4* qv =
+                  reinterpret_cast<const float4*>(Qs + g * hdp + dd * kVec);
+#pragma unroll
+              for (int e = 0; e < kVec / 4; ++e) {
+                const float4 qq = qv[e];
+                dot[t] = fmaf(qq.x, kf[4 * e], dot[t]);
+                dot[t] = fmaf(qq.y, kf[4 * e + 1], dot[t]);
+                dot[t] = fmaf(qq.z, kf[4 * e + 2], dot[t]);
+                dot[t] = fmaf(qq.w, kf[4 * e + 3], dot[t]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < kGT; ++t) {
+          const int g = gs + t * kGS;
+          if (g < G) Ss[g * CH + j] = dot[t] * scale;
+        }
+      }
+    }
+    __syncthreads();
+
+    // the chunk's softmax statistics, one reduction a query row
+    for (int g = warp; g < G; g += kWarps) {
+      float sv[CH / 32];
+      float mx = kNegInf;
+#pragma unroll
+      for (int u = 0; u < CH / 32; ++u) {
+        const int j = lane + 32 * u;
+        sv[u] = j < cnt ? Ss[g * CH + j] : kNegInf;
+        mx = fmaxf(mx, sv[u]);
+      }
 #pragma unroll
       for (int o = 16; o; o >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, o);
-      const float sc = dot * scale;
-      const float m_new = fmaxf(m[g], sc);
-      const float alpha = expf(m[g] - m_new);
-      const float p = expf(sc - m_new);
-      l[g] = l[g] * alpha + p;
-      m[g] = m_new;
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_old = Ms[g], m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < HDC; ++c) acc[g][c] = fmaf(p, vr[c],
-                                                     acc[g][c] * alpha);
+      for (int u = 0; u < CH / 32; ++u) {
+        const int j = lane + 32 * u;
+        const float p = j < cnt ? expf(sv[u] - m_new) : 0.f;
+        Ss[g * CH + j] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int o = 16; o; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        As[g] = alpha;
+        Ls[g] = Ls[g] * alpha + sum;
+        Ms[g] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + P V: thread (pg, dv) takes positions pg, pg +
+    // npg, ... and the 16 bytes dv of hd
+    if (pv_thread) {
+#pragma unroll
+      for (int g = 0; g < kGMax; ++g) {
+        if (g < G) {
+          const float a = As[g];
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) acc[g][e] *= a;
+        }
+      }
+      for (int j = pg; j < cnt; j += geo.npg) {
+        float vf[kVec];
+        unpack(*reinterpret_cast<const uint4*>(Vc + j * pitch + dv * 16), vf);
+#pragma unroll
+        for (int g = 0; g < kGMax; ++g) {
+          if (g < G) {
+            const float p = Ss[g * CH + j];
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) acc[g][e] = fmaf(p, vf[e],
+                                                          acc[g][e]);
+          }
+        }
+      }
     }
   }
-
-  // merge the warps' partial softmaxes
+  __syncthreads();   // the buffers' last readers are done: reuse as Red
+  if (pv_thread) {
 #pragma unroll
-  for (int g = 0; g < kGMax; ++g) {
-    if (g >= G) break;
+    for (int g = 0; g < kGMax; ++g) {
+      if (g < G) {
+        float4* r = reinterpret_cast<float4*>(Red + (pg * G + g) * hdp +
+                                              dv * kVec);
 #pragma unroll
-    for (int c = 0; c < HDC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < hd) Acc[(warp * G + g) * hd + d] = acc[g][c];
-    }
-    if (lane == 0) {
-      Mw[warp * G + g] = m[g];
-      Lw[warp * G + g] = l[g];
+        for (int e = 0; e < kVec / 4; ++e)
+          r[e] = make_float4(acc[g][4 * e], acc[g][4 * e + 1],
+                             acc[g][4 * e + 2], acc[g][4 * e + 3]);
+      }
     }
   }
   __syncthreads();
-  T* ob = out + (static_cast<size_t>(b) * H + kvh * G) * hd;
-  for (int x = tid; x < G * hd; x += kThreads) {
-    const int g = x / hd, d = x - g * hd;
-    float mx = kNegInf;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, Mw[w * G + g]);
-    float num = 0.f, den = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(Mw[w * G + g] - mx);
-      num = fmaf(Acc[(w * G + g) * hd + d], f, num);
-      den = fmaf(Lw[w * G + g], f, den);
-    }
-    from_f32(num / fmaxf(den, 1e-30f), &ob[x]);
-  }
+
+  finish(
+      [&](int x) {
+        const int g = x / hd, d = x - g * hd;
+        float sum = 0.f;
+        for (int p = 0; p < geo.npg; ++p) sum += Red[(p * G + g) * hdp + d];
+        return sum;
+      },
+      Ms, Ls, last, reinterpret_cast<float*>(smem), out, part_acc, part_ml,
+      counter, b, kvh, split, n_split, H, KV, hd);
 }
 
-template <typename T, int HDC>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* kv_len, void* out, int B, int S, int H,
-                   int KV, int hd, float scale, cudaStream_t stream) {
-  const size_t smem = decode_smem_bytes(H / KV, hd);
-  auto kern = decode_kernel<T, HDC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kern<<<dim3(KV, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(kv_len),
-      static_cast<T*>(out), S, H, KV, hd, scale);
-  return cudaGetLastError();
+// ---- bf16 at hd <= 128: both products on the tensor cores (mma.sync)
+//
+// A warp takes 16 positions of each 64-position chunk and keeps its own
+// running softmax.  S^T is never formed: scores = Q (the G query rows,
+// padded to 16, as the A operand in registers) x K^T (B fragments read
+// straight from the K rows in shared memory); thread (g, t) of the warp
+// then holds query row g's scores of positions 2t, 2t + 1 of each 8, so
+// the row's max and sum are two shuffles, and its p values are the A
+// operand of P . V as they stand (rounded to bf16, about 2^-9 of each p),
+// with V's B fragments by ldmatrix.trans.  K and V come through a ring of
+// kMmaStages chunks of cp.async; the four warps' softmaxes are merged at
+// the end of the split.
+
+constexpr int kMmaStages = 3;
+constexpr int kMmaChunk = 64;      // positions a chunk, 16 a warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+__host__ __device__ inline int mma_hdp(int hd) { return (hd + 15) / 16 * 16; }
+__host__ __device__ inline int mma_pitch(int hd) {
+  return mma_hdp(hd) * 2 + 16;
+}
+
+// the ring; then the warps' partials (acc, m, l and the merge factor, a
+// query row each); then the merge's weights
+__host__ __device__ inline int mma_region_bytes(int G, int hd, int n_split) {
+  return max3(kMmaStages * 2 * kMmaChunk * mma_pitch(hd),
+              kWarps * kGMax * (mma_hdp(hd) + 3) * 4, (n_split + 1) * G * 4);
+}
+
+inline int mma_smem_bytes(int G, int hd, int n_split) {
+  return mma_region_bytes(G, hd, n_split) + 4 * (2 * kGMax + 4);
+}
+
+// d += A (16 x 16 bf16, rows 8-15 zero: registers a0, a2) . B (16 x 8)
+__device__ __forceinline__ void mma_rows8(float (&d)[4], uint32_t a0,
+                                          uint32_t a2, uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
+                                              uint32_t& r1, uint32_t& r2,
+                                              uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// NK bounds hd / 16 (4 or 8): it sizes the q fragments and accumulators.
+template <int NK>
+__global__ void __launch_bounds__(kThreads)
+decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const int* __restrict__ kv_len,
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
+                  float* __restrict__ part_ml, int* __restrict__ counter,
+                  int S, int H, int KV, int hd, float scale, int split_len,
+                  int copy_bytes) {
+  constexpr int CH = kMmaChunk;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int G = H / KV;
+  const int hdp = mma_hdp(hd), pitch = mma_pitch(hd), nk = hdp / 16;
+  const int n_split = gridDim.x;
+  float* Ms = reinterpret_cast<float*>(smem + mma_region_bytes(G, hd,
+                                                               n_split));
+  float* Ls = Ms + kGMax;
+  int* last = reinterpret_cast<int*>(Ls + kGMax);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int n = max(0, min(kv_len[b], S));
+  const int s0 = split * split_len;
+  const int s1 = min(s0 + split_len, n);
+  const int n_chunks = s1 > s0 ? (s1 - s0 + CH - 1) / CH : 0;
+  const size_t row = static_cast<size_t>(KV) * hd;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * S * row + kvh * hd;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * S * row + kvh * hd;
+  auto stage_k = [&](int st) { return smem + (2 * st) * CH * pitch; };
+  auto stage_v = [&](int st) { return smem + (2 * st + 1) * CH * pitch; };
+
+  // zero the ring once: pad columns and rows past a chunk's end stay
+  // finite (a p = 0 meets them)
+  for (int x = tid; x < kMmaStages * 2 * CH * pitch / 16; x += kThreads)
+    reinterpret_cast<uint4*>(smem)[x] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  for (int c = 0; c < kMmaStages - 1; ++c) {
+    if (c < n_chunks) {
+      const int pos = s0 + c * CH, cnt = min(CH, s1 - pos);
+      load_rows(stage_k(c), kb, pos, cnt, row, hd, pitch, copy_bytes);
+      load_rows(stage_v(c), vb, pos, cnt, row, hd, pitch, copy_bytes);
+    }
+    cp_async_commit();
+  }
+
+  // q fragments: query row g of this kv head, dims 16 kk + 2t (+ 8), + 1
+  uint32_t qa[NK][2];
+  {
+    const uint16_t* qr = reinterpret_cast<const uint16_t*>(q) +
+                         (static_cast<size_t>(b) * H + kvh * G + g) * hd;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int d = 16 * kk + 8 * h2 + 2 * t;
+        const uint32_t lo = g < G && d < hd ? qr[d] : 0u;
+        const uint32_t hi = g < G && d + 1 < hd ? qr[d + 1] : 0u;
+        qa[kk][h2] = lo | (hi << 16);
+      }
+  }
+  float o[2 * NK][4];
+#pragma unroll
+  for (int i = 0; i < 2 * NK; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  float m = -INFINITY, l = 0.f;   // row g; l summed over this thread's keys
+
+  const int p0 = 16 * warp;
+  for (int it = 0; it < n_chunks; ++it) {
+    const int st = it % kMmaStages;
+    cp_async_wait<kMmaStages - 2>();
+    __syncthreads();   // chunk it visible; the stage refilled below is free
+    {
+      const int c = it + kMmaStages - 1;
+      if (c < n_chunks) {
+        const int pos = s0 + c * CH, cnt = min(CH, s1 - pos);
+        load_rows(stage_k(c % kMmaStages), kb, pos, cnt, row, hd, pitch,
+                  copy_bytes);
+        load_rows(stage_v(c % kMmaStages), vb, pos, cnt, row, hd, pitch,
+                  copy_bytes);
+      }
+      cp_async_commit();
+    }
+    const int cnt = min(CH, s1 - (s0 + it * CH));
+    if (p0 >= cnt) continue;
+    const uint8_t* Kc = stage_k(st);
+    const uint8_t* Vc = stage_v(st);
+
+    // scores of positions p0 + 8 nt + 2t (+ 1) against query row g
+    float sc[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+      const uint8_t* kr = Kc + (p0 + 8 * nt + g) * pitch + 4 * t;
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk)
+        if (kk < nk)
+          mma_rows8(sc[nt], qa[kk][0], qa[kk][1],
+                    *reinterpret_cast<const uint32_t*>(kr + 32 * kk),
+                    *reinterpret_cast<const uint32_t*>(kr + 32 * kk + 16));
+    }
+    float mx = m;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = p0 + 8 * nt + 2 * t + e < cnt;
+        sc[nt][e] = ok ? sc[nt][e] * scale : -INFINITY;
+        mx = fmaxf(mx, sc[nt][e]);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float mb = mx == -INFINITY ? 0.f : mx;   // no -inf - -inf
+    const float alpha = ex2((m - mb) * kLog2e);
+    m = mx;
+    float p[2][2];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) p[nt][e] = ex2((sc[nt][e] - mb) * kLog2e);
+    l = l * alpha + (p[0][0] + p[0][1]) + (p[1][0] + p[1][1]);
+    const uint32_t a0 = pack_bf16(p[0][0], p[0][1]);
+    const uint32_t a2 = pack_bf16(p[1][0], p[1][1]);
+#pragma unroll
+    for (int i = 0; i < 2 * NK; ++i) {
+      o[i][0] *= alpha;
+      o[i][1] *= alpha;
+    }
+    // O += P V, 16 dims of hd an ldmatrix.x4.trans
+    const int mi = lane >> 3;
+    const uint32_t va = smem_u32(Vc + (p0 + (lane & 7) + 8 * (mi & 1)) *
+                                          pitch + 16 * (mi >> 1));
+#pragma unroll
+    for (int dt = 0; dt < NK; ++dt) {
+      if (dt < nk) {
+        uint32_t r0, r1, r2, r3;
+        ldsm_x4_trans(va + 32 * dt, r0, r1, r2, r3);
+        mma_rows8(o[2 * dt], a0, a2, r0, r1);
+        mma_rows8(o[2 * dt + 1], a0, a2, r2, r3);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+
+  // merge the four warps: warp w's acc, m, l and factor of row g
+  __syncthreads();   // the ring's last readers are done
+  float* Wo = reinterpret_cast<float*>(smem);        // [kWarps][kGMax][hdp]
+  float* Wm = Wo + kWarps * kGMax * hdp;             // [kWarps][kGMax]
+  float* Wl = Wm + kWarps * kGMax;
+  float* Wf = Wl + kWarps * kGMax;
+  float* wo = Wo + (warp * kGMax + g) * hdp + 2 * t;
+#pragma unroll
+  for (int i = 0; i < 2 * NK; ++i)
+    if (8 * i < hdp) *reinterpret_cast<float2*>(wo + 8 * i) =
+        make_float2(o[i][0], o[i][1]);
+  if (t == 0) {
+    Wm[warp * kGMax + g] = m == -INFINITY ? kNegInf : m;
+    Wl[warp * kGMax + g] = l;
+  }
+  __syncthreads();
+  if (tid < G) {
+    float mx = kNegInf;
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, Wm[w * kGMax + tid]);
+    float den = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(Wm[w * kGMax + tid] - mx);
+      Wf[w * kGMax + tid] = f;
+      den = fmaf(Wl[w * kGMax + tid], f, den);
+    }
+    Ms[tid] = mx;
+    Ls[tid] = den;
+  }
+  __syncthreads();
+  finish(
+      [&](int x) {
+        const int gg = x / hd, d = x - gg * hd;
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w)
+          sum = fmaf(Wo[(w * kGMax + gg) * hdp + d], Wf[w * kGMax + gg], sum);
+        return sum;
+      },
+      Ms, Ls, last, Wo, out, part_acc, part_ml, counter, b, kvh, split,
+      n_split, H, KV, hd);
+}
+
+// the widest cp.async the rows and both cache pointers allow (0: none)
+inline int copy_width(const void* k, const void* v, int row_bytes) {
+  for (int cb = 16; cb >= 4; cb /= 2)
+    if (row_bytes % cb == 0 && reinterpret_cast<uintptr_t>(k) % cb == 0 &&
+        reinterpret_cast<uintptr_t>(v) % cb == 0)
+      return cb;
+  return 0;
+}
+
+template <typename K>
+cudaError_t set_smem(K kern, int smem) {
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// bf16 at hd <= 128 on the tensor cores; fp32, and bf16 at larger hd, on the
+// CUDA cores
+bool use_mma(int bf16, int hd) { return bf16 && hd <= 128; }
+
+int smem_for(int bf16, int G, int hd, int n_split) {
+  return use_mma(bf16, hd) ? mma_smem_bytes(G, hd, n_split)
+                           : smem_bytes(G, hd, bf16 ? 2 : 4, n_split);
 }
 
 template <typename T>
-cudaError_t launch_hd(const void* q, const void* k, const void* v,
-                      const void* kv_len, void* out, int B, int S, int H,
-                      int KV, int hd, float scale, cudaStream_t stream) {
-  if (hd <= 64)
-    return launch<T, 2>(q, k, v, kv_len, out, B, S, H, KV, hd, scale,
-                        stream);
-  if (hd <= 128)
-    return launch<T, 4>(q, k, v, kv_len, out, B, S, H, KV, hd, scale,
-                        stream);
-  return launch<T, 8>(q, k, v, kv_len, out, B, S, H, KV, hd, scale, stream);
+cudaError_t launch_core(const void* q, const void* k, const void* v,
+                        const void* kv_len, void* out, float* part_acc,
+                        float* part_ml, int* counter, int B, int S, int H,
+                        int KV, int hd, float scale, int n_split,
+                        int split_len, cudaStream_t stream) {
+  const int smem = smem_bytes(H / KV, hd, sizeof(T), n_split);
+  const int cb = copy_width(k, v, hd * static_cast<int>(sizeof(T)));
+  auto kern = geometry(hd, sizeof(T)).chunk == 64 ? decode_kernel<T, 64>
+                                                  : decode_kernel<T, 32>;
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(n_split, KV, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(kv_len),
+      static_cast<T*>(out), part_acc, part_ml, counter, S, H, KV, hd, scale,
+      split_len, cb);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const void* kv_len, void* out, float* part_acc,
+                       float* part_ml, int* counter, int B, int S, int H,
+                       int KV, int hd, float scale, int n_split,
+                       int split_len, cudaStream_t stream) {
+  const int smem = mma_smem_bytes(H / KV, hd, n_split);
+  const int cb = copy_width(k, v, hd * 2);
+  auto kern = hd <= 64 ? decode_mma_kernel<4> : decode_mma_kernel<8>;
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  using bf = __nv_bfloat16;
+  kern<<<dim3(n_split, KV, B), kThreads, smem, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), static_cast<const int*>(kv_len),
+      static_cast<bf*>(out), part_acc, part_ml, counter, S, H, KV, hd, scale,
+      split_len, cb);
+  return cudaGetLastError();
 }
 
 }  // namespace attn_decode
@@ -181,24 +774,47 @@ extern "C" {
 
 // Launches decode attention on `stream` of card `device`; `bf16` selects
 // the input type (0: fp32).  The caller guarantees 1 <= hd <= 256,
-// H % KV == 0, 1 <= H / KV <= 8, contiguous tensors.  Returns the
-// cudaError_t of the launch (0 on success).
+// H % KV == 0, 1 <= H / KV <= 8, contiguous tensors, n_split * split_len
+// >= S and, when n_split > 1, scratch of B * KV * n_split * G * hd floats
+// (part_acc) and of B * KV * n_split * G * 2 (part_ml) and B * KV zeroed
+// int32 counters.  One kernel launch.  Returns the cudaError_t of the
+// launch (0 on success).
 int decode_attention_launch(const void* q, const void* k, const void* v,
-                            const void* kv_len, void* out, int B, int S,
-                            int H, int KV, int hd, float scale, int bf16,
-                            int device, void* stream) {
+                            const void* kv_len, void* out, void* part_acc,
+                            void* part_ml, void* counter, int B, int S, int H,
+                            int KV, int hd, float scale, int n_split,
+                            int split_len, int bf16, int device,
+                            void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (hd < 1 || hd > 256 || KV < 1 || H % KV ||
-      H / KV > attn_decode::kGMax)
+      H / KV > attn_decode::kGMax || n_split < 1 || split_len < 1 ||
+      static_cast<long long>(n_split) * split_len < S ||
+      (n_split > 1 && (!part_acc || !part_ml || !counter)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? attn_decode::launch_hd<__nv_bfloat16>(q, k, v, kv_len, out, B,
-                                                   S, H, KV, hd, scale, s)
-           : attn_decode::launch_hd<float>(q, k, v, kv_len, out, B, S, H,
-                                           KV, hd, scale, s);
+  float* pa = static_cast<float*>(part_acc);
+  float* pm = static_cast<float*>(part_ml);
+  int* cnt = static_cast<int*>(counter);
+  cudaError_t err;
+  if (attn_decode::use_mma(bf16, hd))
+    err = attn_decode::launch_mma(q, k, v, kv_len, out, pa, pm, cnt, B, S, H,
+                                  KV, hd, scale, n_split, split_len, s);
+  else if (bf16)
+    err = attn_decode::launch_core<__nv_bfloat16>(
+        q, k, v, kv_len, out, pa, pm, cnt, B, S, H, KV, hd, scale, n_split,
+        split_len, s);
+  else
+    err = attn_decode::launch_core<float>(q, k, v, kv_len, out, pa, pm, cnt,
+                                          B, S, H, KV, hd, scale, n_split,
+                                          split_len, s);
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory of one CTA for G query heads a kv head at head dim
+// hd and n_split splits; `bf16` selects the input type (0: fp32).
+int decode_attention_smem_bytes(int G, int hd, int bf16, int n_split) {
+  return attn_decode::smem_for(bf16, G, hd, n_split);
 }
 
 }  // extern "C"

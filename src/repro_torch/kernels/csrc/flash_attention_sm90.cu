@@ -1,0 +1,579 @@
+// Blockwise (flash) GQA attention forward on Hopper's tensor cores, for bf16
+// inputs with head dim 64 or 128 (sm_90a: TMA, mbarrier, wgmma).
+//
+// Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
+// (kernel body _kernel) for the calls it takes; the wrapper
+// (kernels/ops.py::flash_attention) routes fp32 and other head dims to the
+// CUDA-core kernel of flash_attention.cu.  Semantics are that kernel's: q
+// (B, Sq, H, hd), k and v (B, Skv, KV, hd), out (B, Sq, H, hd), the JAX
+// package's layout; query head h reads kv head h / G; scores (q . k) *
+// scale; a score is masked where kpos >= Skv, where causal and kpos > qpos
+// (top-left aligned) and where window > 0 and qpos - kpos >= window; a
+// masked position gets p = 0; out = acc / max(l, 1e-30), so a row with no
+// valid key gives zeros.
+//
+// What bounds it: operations above a few hundred rows (2 * 2 * valid pairs
+// * H * hd at the 989 TFLOP/s bf16 tensor-core rate), bytes below.  The
+// design puts both products on the tensor cores:
+//
+// - One CTA per (128-row Q tile, q head, batch row); the grid's slowest
+//   axis is the tile, longest (last) tiles first, so causal work is
+//   balanced.  Consumer warpgroups 0 and 1 own 64 query rows each; warp 8
+//   is the producer.
+// - The producer loads Q once and K, V tiles of 64 keys into a ring of
+//   kStages stages with TMA (128-byte swizzle, full / empty mbarrier
+//   pairs).  The tensor maps are 4-D (hd, heads, S, B), so TMA zero-fills
+//   the rows past Sq or Skv of each batch row and never reads the next
+//   one's.
+// - S = Q . K^T by wgmma m64n64k16 (Q and K from shared memory, K-major),
+//   fp32 accumulators.  The online softmax runs on the accumulator
+//   fragment in registers (row max and sum across the 4 threads of a row
+//   by shuffles, exp2 with the scale folded in); per-element masks only on
+//   tiles that straddle the diagonal, the window's edge or the ragged end;
+//   a warpgroup skips the tiles its rows cannot see.
+// - P is rounded to bf16 in registers and is the register A operand of
+//   O += P . V (wgmma m64nHDk16, V from shared memory MN-major, i.e. with
+//   the transpose flag).  This rounding is the one numeric difference from
+//   the plain version, which keeps p in fp32: about 2^-9 of each p.
+// - out = acc / max(l, 1e-30) in fp32, rounded to bf16 and stored from
+//   registers; rows >= Sq are not written.
+//
+// The tensor maps are encoded on the host for each call through the
+// driver's cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint,
+// so the library does not link libcuda.  Launched through a plain C
+// interface (ctypes) on the caller's stream; it allocates nothing and does
+// not synchronise.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <atomic>
+#include <initializer_list>
+
+namespace attn90 {
+
+constexpr int kBM = 128;                   // query rows a CTA
+constexpr int kBN = 64;                    // keys a tile
+constexpr int kStages = 3;
+constexpr int kConsumers = 256;            // two warpgroups of 64 rows
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kBox = 64;                   // bf16 columns of one 128 B row
+
+// Dynamic shared memory, from a 1024-byte aligned base (the 128-byte
+// swizzle repeats every 8 rows of 128 bytes): Q (hd / 64 boxes of kBM
+// rows), then kStages K tiles and kStages V tiles (hd / 64 boxes of kBN
+// rows each), then the mbarriers.
+template <int HD>
+struct Layout {
+  static constexpr int kQBox = kBM * 128;             // bytes of a Q box
+  static constexpr int kKVBox = kBN * 128;            // of a K or V box
+  static constexpr int kKVTile = kKVBox * (HD / kBox);
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQBox * (HD / kBox);
+  static constexpr int kV = kK + kStages * kKVTile;
+  static constexpr int kBar = kV + kStages * kKVTile;
+  // q_full, then k_full, v_full and empty for each stage
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map into shared memory; completion is reported
+// to `bar` as transaction bytes.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for a 128-byte swizzled tile:
+// start address, leading and stride byte offsets (in 16-byte units), and
+// the layout type 1 (128-byte swizzle) in bits 62-63.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of a register that an
+// asynchronous wgmma uses across the fence / wait around it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D (64 x 64, fp32) (+)= A (64 x 16, smem) . B (16 x 64, smem), both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, bf16 registers) . B (16 x 64, smem,
+// MN-major: the transpose flag set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, bf16 registers) . B (16 x 128, smem,
+// MN-major: the transpose flag set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
+                  int KV, float scale_log2, int causal, int window) {
+  using L = Layout<HD>;
+  constexpr int kChunks = HD / kBox;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t bar_q = base + L::kBar;
+  auto bar_k = [&](int st) { return bar_q + 8u * (1 + st); };
+  auto bar_v = [&](int st) { return bar_q + 8u * (1 + kStages + st); };
+  auto bar_e = [&](int st) { return bar_q + 8u * (1 + 2 * kStages + st); };
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tile = gridDim.z - 1 - blockIdx.z;       // longest tiles first
+  const int q0 = tile * kBM;
+  const int kvh = h / (H / KV);
+  // the keys any row of this tile can see, in whole tiles from kt0
+  const int q_last = min(q0 + kBM, Sq) - 1;
+  const int k_end = causal ? min(Skv, q_last + 1) : Skv;
+  const int kt0 = window > 0 ? (max(0, q0 - window + 1) / kBN) * kBN : 0;
+  const int n_tiles = k_end > kt0 ? (k_end - kt0 + kBN - 1) / kBN : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar_k(st), 1);
+      mbar_init(bar_v(st), 1);
+      mbar_init(bar_e(st), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer: one thread issues every TMA load
+    if (threadIdx.x != kConsumers) return;
+    mbar_expect_tx(bar_q, kBM * HD * 2);
+    for (int c = 0; c < kChunks; ++c)
+      tma_load_4d(sQ + c * L::kQBox, &tm_q, c * kBox, h, q0, b, bar_q);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages;
+      if (it >= kStages) mbar_wait(bar_e(st), ((it / kStages) - 1) & 1);
+      const int k0 = kt0 + it * kBN;
+      mbar_expect_tx(bar_k(st), kBN * HD * 2);
+      for (int c = 0; c < kChunks; ++c)
+        tma_load_4d(sK + st * L::kKVTile + c * L::kKVBox, &tm_k, c * kBox,
+                    kvh, k0, b, bar_k(st));
+      mbar_expect_tx(bar_v(st), kBN * HD * 2);
+      for (int c = 0; c < kChunks; ++c)
+        tma_load_4d(sV + st * L::kKVTile + c * L::kKVBox, &tm_v, c * kBox,
+                    kvh, k0, b, bar_v(st));
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows q0 + 64 wg .. + 63; this thread
+  // holds rows r0 and r0 + 8 of them, columns 8 n + 2 (lane % 4) + {0, 1}
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int wg_first = q0 + 64 * wg, wg_last = wg_first + 63;
+  const int r0 = wg_first + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+  const int r1 = r0 + 8;
+  const int cq = 2 * (lane % 4);
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages;
+    const uint32_t par = (it / kStages) & 1;
+    const int k0 = kt0 + it * kBN;
+    mbar_wait(bar_k(st), par);
+    // a tile that no row of this warpgroup can see: release it unread
+    if ((causal && k0 > wg_last) ||
+        (window > 0 && wg_first - (k0 + kBN - 1) >= window)) {
+      mbar_wait(bar_v(st), par);
+      mbar_arrive(bar_e(st));
+      continue;
+    }
+
+    // S = Q K^T over hd / 16 steps of 16
+    float s[kBN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j) {
+      const uint32_t qa =
+          sQ + (j / 4) * L::kQBox + wg * 64 * 128 + (j % 4) * 32;
+      const uint32_t ka = sK + st * L::kKVTile + (j / 4) * L::kKVBox +
+                          (j % 4) * 32;
+      wgmma_ss_n64(s, sw128_desc(qa, 16, 1024), sw128_desc(ka, 16, 1024),
+                   j > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+
+    // masks, only where the tile straddles the ragged end, the diagonal or
+    // the window's edge for some row of this warpgroup
+    if (k0 + kBN > Skv || (causal && k0 + kBN - 1 > wg_first) ||
+        (window > 0 && wg_last - k0 >= window)) {
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        const int kpos = k0 + 8 * (i / 4) + cq + (i & 1);
+        const int qpos = (i & 2) ? r1 : r0;
+        const bool ok = kpos < Skv && (!causal || kpos <= qpos) &&
+                        (window <= 0 || qpos - kpos < window);
+        if (!ok) s[i] = -INFINITY;
+      }
+    }
+
+    // online softmax on the fragment: rows r0 (i & 2 == 0) and r1
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < kBN / 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+    }
+#pragma unroll
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+    }
+    // scaled maxima (0 while a row has seen no valid key, so that exp2 of a
+    // masked score stays 0 and no -inf - -inf appears)
+    const float b0 = mx0 == -INFINITY ? 0.f : mx0 * scale_log2;
+    const float b1 = mx1 == -INFINITY ? 0.f : mx1 * scale_log2;
+    const float a0 = ex2(m0 * scale_log2 - b0);
+    const float a1 = ex2(m1 * scale_log2 - b1);
+    m0 = mx0;
+    m1 = mx1;
+    float rs0 = 0.f, rs1 = 0.f;
+    uint32_t pa[kBN / 16][4];
+#pragma unroll
+    for (int n = 0; n < kBN / 8; ++n) {
+      const float p0 = ex2(fmaf(s[4 * n], scale_log2, -b0));
+      const float p1 = ex2(fmaf(s[4 * n + 1], scale_log2, -b0));
+      const float p2 = ex2(fmaf(s[4 * n + 2], scale_log2, -b1));
+      const float p3 = ex2(fmaf(s[4 * n + 3], scale_log2, -b1));
+      rs0 += p0 + p1;
+      rs1 += p2 + p3;
+      // the A fragment of keys 16 (n / 2) .. + 15: registers (row r0, keys
+      // 2q..), (r1, 2q..), (r0, 8 + 2q..), (r1, 8 + 2q..)
+      pa[n / 2][(n % 2) * 2] = pack_bf16(p0, p1);
+      pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    l0 = l0 * a0 + rs0;
+    l1 = l1 * a1 + rs1;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      o[4 * n] *= a0;
+      o[4 * n + 1] *= a0;
+      o[4 * n + 2] *= a1;
+      o[4 * n + 3] *= a1;
+    }
+
+    // O += P V over kBN / 16 steps of 16 keys
+    mbar_wait(bar_v(st), par);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      const uint64_t vd = sw128_desc(sV + st * L::kKVTile + kk * 16 * 128,
+                                     L::kKVBox, 1024);
+      if constexpr (HD == 64)
+        wgmma_rs_n64(o, pa[kk], vd);
+      else
+        wgmma_rs_n128(o, pa[kk], vd);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(o);
+    fence_regs(pa);
+    mbar_arrive(bar_e(st));
+  }
+
+  // out = acc / max(l, 1e-30), the row sums completed across the quad
+#pragma unroll
+  for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+  }
+  const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
+  const size_t row_stride = static_cast<size_t>(H) * HD;
+  __nv_bfloat16* ob = out + static_cast<size_t>(b) * Sq * row_stride +
+                      static_cast<size_t>(h) * HD + cq;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    if (r0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + r0 * row_stride + 8 * n) =
+          __floats2bfloat162_rn(o[4 * n] * i0, o[4 * n + 1] * i0);
+    if (r1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + r1 * row_stride + 8 * n) =
+          __floats2bfloat162_rn(o[4 * n + 2] * i1, o[4 * n + 3] * i1);
+  }
+}
+
+// ---- host side
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &status) == cudaSuccess &&
+        status == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map (hd, heads, S, B) of a contiguous (B, S, heads, hd) bf16 tensor,
+// read in boxes of (64, 1, rows, 1) with 128-byte swizzle; rows past S read
+// as zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+              int hd, int rows) {
+  const EncodeTiled enc = encode_fn();
+  if (!enc) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(hd) * 2,
+                                 static_cast<cuuint64_t>(heads) * hd * 2,
+                                 static_cast<cuuint64_t>(S) * heads * hd * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBox), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(ptr), dims, strides, box, estride,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Cards whose kernel at HD has been given its dynamic shared memory size
+// (once a card: the attribute stays set for the process).
+constexpr int kMaxCards = 64;
+
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int B, int Sq, int Skv, int H, int KV, float scale,
+                   int causal, int window, int device, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, B, Sq, H, HD, kBM) ||
+      !make_map(&mk, k, B, Skv, KV, HD, kBN) ||
+      !make_map(&mv, v, B, Skv, KV, HD, kBN))
+    return cudaErrorInvalidValue;
+  auto kern = flash_sm90_kernel<HD>;
+  const int smem = Layout<HD>::kBytes;
+  static std::atomic<bool> smem_set[kMaxCards];
+  if (device < 0 || device >= kMaxCards) return cudaErrorInvalidDevice;
+  if (!smem_set[device].load(std::memory_order_acquire)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set[device].store(true, std::memory_order_release);
+  }
+  const dim3 grid(H, B, (Sq + kBM - 1) / kBM);
+  kern<<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), Sq, Skv, H, KV,
+      scale * 1.4426950408889634f, causal, window);
+  return cudaGetLastError();
+}
+
+}  // namespace attn90
+
+extern "C" {
+
+// Launches the tensor-core flash attention on `stream` of card `device`.
+// The caller guarantees bf16 tensors, hd in {64, 128}, H % KV == 0,
+// Sq, Skv >= 1, contiguous tensors with 16-byte aligned pointers.  Returns
+// the cudaError_t of the launch (0 on success; cudaErrorInvalidValue if a
+// tensor map cannot be encoded, cudaErrorMisalignedAddress for a pointer
+// that is not 16-byte aligned).
+int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
+                                void* out, int B, int Sq, int Skv, int H,
+                                int KV, int hd, float scale, int causal,
+                                int window, int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  if ((hd != 64 && hd != 128) || KV < 1 || H % KV || Sq < 1 || Skv < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (const void* p : {q, k, v, static_cast<const void*>(out)})
+    if (reinterpret_cast<uintptr_t>(p) % 16)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      hd == 64 ? attn90::launch<64>(q, k, v, out, B, Sq, Skv, H, KV, scale,
+                                    causal, window, device, s)
+               : attn90::launch<128>(q, k, v, out, B, Sq, Skv, H, KV, scale,
+                                     causal, window, device, s);
+  return static_cast<int>(err);
+}
+
+// Dynamic shared memory of one CTA at head dim hd (64 or 128).
+int flash_attention_sm90_smem_bytes(int hd) {
+  return hd == 64 ? attn90::Layout<64>::kBytes : attn90::Layout<128>::kBytes;
+}
+
+}  // extern "C"

@@ -2,18 +2,20 @@
 (``fitscore_select``, ``csrc/select.cu``), the event-blocked replay
 megakernel (``fitscore_replay_block``, ``csrc/replay_block.cu``, with
 ``replay_chunk``, the host loop over a chunk's blocks), the legacy
-single-pool scorer (``fitscore``, ``csrc/fitscore.cu``), the two attention
-kernels of the model stack (``flash_attention``,
-``csrc/flash_attention.cu``; ``decode_attention``,
-``csrc/decode_attention.cu``) and RWKV6's chunked linear attention
-(``rwkv6_chunked``, ``csrc/rwkv6_chunked.cu``).
+single-pool scorer (``fitscore``, ``csrc/fitscore.cu``), the attention
+kernels of the model stack (``flash_attention``:
+``csrc/flash_attention_sm90.cu`` on the tensor cores for bf16 at hd 64 or
+128, ``csrc/flash_attention.cu`` otherwise, see ``flash_route``;
+``decode_attention``, ``csrc/decode_attention.cu``) and RWKV6's chunked
+linear attention (``rwkv6_chunked``, ``csrc/rwkv6_chunked.cu``).
 
 A wrapper takes its kernel's plain PyTorch version only because the tensors
 it was given lie on the CPU.  For CUDA tensors it checks them, launches the
 kernel on the current stream or raises; there is no fallback.  Each launch
 adds one to ``launches`` under the kernel's name, so a run can show that it
 went through the kernel; the megakernel's launches with its MIGRATE branch
-count under ``fitscore_replay_block_migrate``.
+count under ``fitscore_replay_block_migrate``, and flash attention's calls
+through its tensor-core kernel also under ``flash_attention_sm90``.
 """
 from __future__ import annotations
 
@@ -295,11 +297,32 @@ def _check_attention(kernel, q, k, v, q_dims):
                          "dim, hd <= 256 and H a multiple of KV")
 
 
+# head dims the tensor-core flash kernel takes (bf16 only)
+FLASH_SM90_HEAD_DIMS = (64, 128)
+
+
+def flash_route(dtype, hd: int) -> str:
+    """The kernel that serves a ``flash_attention`` call on the card,
+    decided before the launch from the call's dtype and head dim alone:
+    "sm90", the tensor-core kernel (``csrc/flash_attention_sm90.cu``), for
+    bf16 at hd 64 or 128; "simt", the CUDA-core kernel
+    (``csrc/flash_attention.cu``), for every other call (fp32, which TF32
+    products would hold to no better than ~1e-3, and the other head dims).
+    The tensor-core kernel reads q, k, v through TMA, which needs 16-byte
+    aligned tensors: the wrapper raises for a call on that route whose
+    tensors are not."""
+    return "sm90" if dtype == torch.bfloat16 and \
+        hd in FLASH_SM90_HEAD_DIMS else "simt"
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Blockwise GQA attention forward: q (B, Sq, H, hd), k/v (B, Skv, KV,
-    hd) -> (B, Sq, H, hd) in q's type (see ``flash_attention_ref``).  The
-    CUDA kernel ``csrc/flash_attention.cu`` for CUDA tensors (fp32 or bf16,
-    contiguous, hd <= 256); the plain version for CPU ones."""
+    hd) -> (B, Sq, H, hd) in q's type (see ``flash_attention_ref``).  On
+    CUDA tensors (fp32 or bf16, contiguous, hd <= 256) one of two CUDA
+    kernels, as ``flash_route`` picks; every call counts under
+    ``launches["flash_attention"]``, the tensor-core kernel's also under
+    ``launches["flash_attention_sm90"]``.  The plain version for CPU
+    tensors."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     name = "flash_attention"
@@ -312,16 +335,73 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     from ._build import library
     lib = library()
     dev = q.device
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-        Skv, H, KV, hd, hd ** -0.5, int(causal), int(window),
-        int(q.dtype == torch.bfloat16), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if flash_route(q.dtype, hd) == "sm90":
+        kernel = "flash_attention_sm90"
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError(f"{name}: bf16 q, k, v at hd {hd} must be "
+                             "16-byte aligned (the tensor-core kernel reads "
+                             "them through TMA)")
+        err = lib.flash_attention_sm90_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Skv, H, KV, hd, hd ** -0.5, int(causal), int(window),
+            dev.index or 0, stream)
+    else:
+        kernel = name
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Skv, H, KV, hd, hd ** -0.5, int(causal), int(window),
+            int(q.dtype == torch.bfloat16), dev.index or 0, stream)
     if err:
-        raise RuntimeError("flash_attention launch failed: "
+        raise RuntimeError(f"{kernel} launch failed: "
                            f"{lib.fitscore_error_string(err).decode()}")
     launches[name] += 1
+    if kernel != name:
+        launches[kernel] += 1
     return out
+
+
+# positions a decode split takes at least; split lengths are multiples of it
+DECODE_SPLIT_MIN = 64
+
+
+def decode_splits(B: int, KV: int, S: int, n_sm: int = 132) -> tuple:
+    """How ``decode_attention``'s kernel splits a cache of capacity ``S``:
+    (n_split, split_len), a grid of (n_split, KV, B) CTAs.  Enough splits to
+    put about two CTAs on each of ``n_sm`` SMs, none shorter than
+    ``DECODE_SPLIT_MIN`` positions, split_len a multiple of it and no split
+    starting at or past ``S``.  From the shapes alone, so the wrapper needs
+    no sync to read ``kv_len``; splits past a row's ``kv_len`` are empty."""
+    if S <= DECODE_SPLIT_MIN:
+        return 1, DECODE_SPLIT_MIN
+    want = -(-2 * n_sm // max(1, B * KV))
+    n = max(1, min(want, S // DECODE_SPLIT_MIN))
+    split_len = -(-S // n)
+    split_len = -(-split_len // DECODE_SPLIT_MIN) * DECODE_SPLIT_MIN
+    return -(-S // split_len), split_len
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# (n_split, split_len) of the last decode_attention launch
+last_decode_grid: tuple = (0, 0)
+
+# (device index, stream) -> int32 counters of the decode kernel's merge, zero
+# between launches (the merging CTA resets its own); one set a stream, so
+# launches that share a set run in order
+_decode_counters: dict = {}
+
+
+def _decode_counter(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (dev.index or 0, stream)
+    c = _decode_counters.get(key)
+    if c is None or c.numel() < n:
+        c = _decode_counters[key] = torch.zeros(max(n, 256),
+                                                dtype=torch.int32, device=dev)
+    return c
 
 
 def decode_attention(q, k, v, kv_len):
@@ -329,7 +409,10 @@ def decode_attention(q, k, v, kv_len):
     KV, hd), kv_len (B,) int32 -> (B, H, hd) in q's type (see
     ``decode_attention_ref``).  The CUDA kernel
     ``csrc/decode_attention.cu`` for CUDA tensors (fp32 or bf16,
-    contiguous, hd <= 256, at most 8 query heads per kv head); the plain
+    contiguous, hd <= 256, at most 8 query heads per kv head): one launch a
+    call, the cache split as ``decode_splits`` says (the grid launched is
+    kept in ``last_decode_grid``), the splits' partials in fp32 scratch
+    merged by the last CTA of each (row, kv head).  The plain
     version for CPU ones."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_len)
@@ -337,8 +420,9 @@ def decode_attention(q, k, v, kv_len):
     _check_attention(name, q, k, v, 3)
     B, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
-    if H // KV > 8:
-        raise ValueError(f"{name}: {H // KV} query heads per kv head; the "
+    G = H // KV
+    if G > 8:
+        raise ValueError(f"{name}: {G} query heads per kv head; the "
                          "kernel takes at most 8")
     _check("kv_len", kv_len, (B,), torch.int32, q.device, name)
     out = torch.empty_like(q)
@@ -347,14 +431,25 @@ def decode_attention(q, k, v, kv_len):
     from ._build import library
     lib = library()
     dev = q.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n_split, split_len = decode_splits(B, KV, S, _sm_count(dev))
+    part_acc = part_ml = counter = None
+    if n_split > 1:
+        scratch = torch.empty(B * KV * n_split * G * (hd + 2),
+                              dtype=torch.float32, device=dev)
+        part_acc = scratch.data_ptr()
+        part_ml = scratch[B * KV * n_split * G * hd:].data_ptr()
+        counter = _decode_counter(dev, stream, B * KV).data_ptr()
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), B, S, H, KV, hd, hd ** -0.5,
-        int(q.dtype == torch.bfloat16), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), part_acc, part_ml, counter, B, S, H, KV, hd,
+        hd ** -0.5, n_split, split_len, int(q.dtype == torch.bfloat16),
+        dev.index or 0, stream)
     if err:
         raise RuntimeError("decode_attention launch failed: "
                            f"{lib.fitscore_error_string(err).decode()}")
+    global last_decode_grid
+    last_decode_grid = (n_split, split_len)
     launches[name] += 1
     return out
 

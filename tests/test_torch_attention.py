@@ -14,7 +14,7 @@ import torch
 import repro.kernels.ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro_torch.kernels import ops
-from repro_torch.kernels.attention import (decode_attention_ref,
+from repro_torch.kernels.attention import (NEG_INF, decode_attention_ref,
                                            flash_attention_ref)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -144,3 +144,114 @@ def test_wrappers_refuse_a_device_without_a_kernel(kernel):
             ops.decode_attention(q[:, 0], k, k,
                                  torch.empty((1,), dtype=torch.int32,
                                              device="meta"))
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.bfloat16, 96, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt"), (torch.bfloat16, 16, "simt"),
+    (torch.bfloat16, 32, "simt"), (torch.bfloat16, 200, "simt"),
+    (torch.bfloat16, 256, "simt")])
+def test_flash_route_is_decided_by_dtype_and_head_dim(dtype, hd, route):
+    """bf16 at hd 64 or 128 takes the tensor-core kernel; fp32 and every
+    other head dim keep the CUDA-core kernel."""
+    assert ops.flash_route(dtype, hd) == route
+
+
+# (B, KV, S) -> (n_split, split_len) at the serving path's shapes
+TIMED_SPLITS = {(4, 8, 1024): (8, 128), (32, 8, 1024): (2, 512),
+                (4, 8, 4096): (8, 512), (32, 8, 4096): (2, 2048)}
+
+
+@pytest.mark.parametrize("B,KV,S", [(1, 1, 1), (1, 1, 64), (1, 8, 65),
+                                    (1, 8, 511), (2, 2, 512), (3, 1, 100),
+                                    (1, 1, 1 << 16), (64, 8, 4096),
+                                    *TIMED_SPLITS])
+def test_decode_splits_cover_the_cache_and_fill_the_card(B, KV, S):
+    n_split, split_len = ops.decode_splits(B, KV, S)
+    assert split_len % ops.DECODE_SPLIT_MIN == 0 and split_len >= 64
+    assert n_split * split_len >= S > (n_split - 1) * split_len or S <= 64
+    ctas = n_split * B * KV
+    if S // ops.DECODE_SPLIT_MIN >= -(-264 // (B * KV)):
+        # two CTAs an SM asked, at least one kept after rounding split_len
+        assert ctas >= 132
+    if (B, KV, S) in TIMED_SPLITS:
+        assert (n_split, split_len) == TIMED_SPLITS[(B, KV, S)]
+        assert ctas >= 2 * B * KV
+
+
+def decode_split_merge(q, k, v, kv_len, split_len):
+    """The decode kernel's arithmetic with plain torch ops: each split of
+    ``split_len`` positions gives a partial (m, l, acc) over its valid
+    positions, an empty split (m, l, acc) = (NEG_INF, 0, 0); the partials
+    merge as ``finish`` merges them, out = sum acc_s w_s / max(sum l_s w_s,
+    1e-30), w_s = exp(m_s - max m).  fp32 throughout, the result in q's
+    type."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    f32 = torch.float32
+    qg = q.to(f32).reshape(B, KV, G, hd)
+    kt = k.to(f32).permute(0, 2, 1, 3)                   # (B, KV, S, hd)
+    vt = v.to(f32).permute(0, 2, 1, 3)
+    n_split = -(-S // split_len)
+    ms, ls, accs = [], [], []
+    for s in range(n_split):
+        lo = s * split_len
+        m = torch.full((B, KV, G), NEG_INF)
+        l = torch.zeros((B, KV, G))
+        acc = torch.zeros((B, KV, G, hd))
+        for b in range(B):
+            hi = min(lo + split_len, max(0, min(int(kv_len[b]), S)))
+            if hi <= lo:
+                continue                                   # empty split
+            sc = (qg[b] @ kt[b, :, lo:hi].transpose(-1, -2)) * hd ** -0.5
+            m[b] = sc.amax(-1)
+            p = torch.exp(sc - m[b][..., None])
+            l[b] = p.sum(-1)
+            acc[b] = p @ vt[b, :, lo:hi]
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    w = torch.exp(m - m.amax(0))
+    out = (acc * w[..., None]).sum(0) / \
+        torch.clamp_min((l * w).sum(0), 1e-30)[..., None]
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,hd,S", [(1, 10, 2, 32, 1024),
+                                         (2, 40, 8, 16, 1000),
+                                         (3, 8, 8, 16, 300)])
+def test_decode_split_and_merge_equal_the_plain_version(B, H, KV, hd, S,
+                                                        dtype):
+    """The split-and-merge arithmetic at the split length ``decode_splits``
+    gives, with kv_len at a split's edges (split - 1, split, split + 1), 0,
+    S, and S not a multiple of the split, against
+    ``decode_attention_ref``; the positions past kv_len hold NaN and reach
+    nothing."""
+    n_split, split_len = ops.decode_splits(B, KV, S)
+    assert n_split > 1
+    rng = np.random.default_rng(S + H)
+    td = DTYPES[dtype][1]
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        td) for s in ((B, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    edges = [split_len - 1, split_len, split_len + 1, 0, S,
+             (n_split - 1) * split_len + 1]
+    for n in edges:
+        kv_len = torch.full((B,), n, dtype=torch.int32)
+        kv_len[-1] = min(S, n + 1)
+        kk, vv = k.clone(), v.clone()
+        for b in range(B):
+            kk[b, int(kv_len[b]):] = float("nan")
+            vv[b, int(kv_len[b]):] = float("nan")
+        got = decode_split_merge(q, kk, vv, kv_len, split_len)
+        want = decode_attention_ref(q, kk, vv, kv_len)
+        assert torch.isfinite(got.float()).all()
+        for b in range(B):
+            if int(kv_len[b]) == 0:
+                assert float(got[b].float().abs().max()) == 0.0
+        tol = TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)

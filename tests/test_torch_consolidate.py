@@ -148,17 +148,35 @@ def test_should_plan_equals_reference():
 
 # ------------------------------------------ driver vs reference and oracle
 
-@pytest.mark.parametrize("policy", SCAN_POLICIES)
-def test_driver_equals_reference_and_oracle(policy, pair):
-    """Per event, on the CPU: usage, opened bins, the emitted MIGRATE
-    events and the churn equal the reference's jnp driver and its
-    sequential consolidating oracle exactly, for every scan policy."""
+# The periodic cadence (should_plan's dt re-arm) and binding per-lane
+# budgets, for one policy of each family and ppe (its learning updates
+# skipped on a migrant's departure), per event and at T 8.  Their e4
+# cadence compiles the reference's driver anew for each policy, so the
+# cases take this subset and not all 21.
+NEW_SPECS = ("periodic:dt500:t0.5:e4", "periodic:dt3000:t0.6:b3:e8:c1.5",
+             "underload:t0.5:b2:e4")
+NEW_SPEC_POLICIES = ("first_fit", "best_fit_l2", "cbd", "hybrid", "ppe",
+                     "la_binary", "adaptive")
+DRIVER_CASES = [pytest.param(SPEC, 0, p, id=p) for p in SCAN_POLICIES] + [
+    pytest.param(s, T, p, id=f"{s}-T{T}-{p}") for s in NEW_SPECS
+    for T in (0, 8) for p in NEW_SPEC_POLICIES]
+
+
+@pytest.mark.parametrize("spec,block_events,policy", DRIVER_CASES)
+def test_driver_equals_reference_and_oracle(spec, block_events, policy,
+                                            pair):
+    """On the CPU, per event (and for the added specs also at T 8):
+    usage, opened bins, placements, the emitted MIGRATE events and the
+    churn (migrations, bins closed, budget exhausted, migration cost)
+    equal the reference's jnp driver and its sequential consolidating
+    oracle exactly, for every scan policy at the reference test's spec."""
     insts, _, flat = pair
-    usage, opened, placements, over, stats = _port_run(policy, 0)
+    usage, opened, placements, over, stats = _port_run(policy, block_events,
+                                                       spec)
     assert not bool(over.any())
     ru, ro, rp, rov, rs = ref_cons.consolidated_replay(
         *(jnp.asarray(a) for a in flat), policy=policy, max_bins=32,
-        backend="jnp", spec=ref_cons.ConsolidationSpec.parse(SPEC))
+        backend="jnp", spec=ref_cons.ConsolidationSpec.parse(spec))
     assert np.array_equal(usage.numpy(), np.asarray(ru))
     assert np.array_equal(opened.numpy(), np.asarray(ro))
     assert np.array_equal(placements.numpy(), np.asarray(rp))
@@ -169,12 +187,23 @@ def test_driver_equals_reference_and_oracle(policy, pair):
     for lane, inst in enumerate(insts):
         res, ost = ref_cons.run_consolidating(
             inst, host_algorithm(policy),
-            ref_cons.ConsolidationSpec.parse(SPEC))
+            ref_cons.ConsolidationSpec.parse(spec))
         assert float(usage[lane]) == res.usage_time
         assert int(opened[lane]) == res.n_bins_opened
         assert stats["events"][lane] == ost["events"]
         assert int(stats["migrations"][lane]) == ost["migrations"]
         assert int(stats["bins_closed"][lane]) == ost["bins_closed"]
+
+
+def test_added_specs_migrate_and_exhaust_budgets():
+    """Guard the added cases: across them items move, the periodic cadence
+    plans, and a per-lane budget binds."""
+    runs = {(s, p): _port_run(p, 0, s)[4] for s in NEW_SPECS
+            for p in NEW_SPEC_POLICIES}
+    assert sum(r["migrations"].sum() for r in runs.values()) > 0
+    assert sum(runs[(NEW_SPECS[0], p)]["migrations"].sum()
+               for p in NEW_SPEC_POLICIES) > 0
+    assert sum(r["budget_exhausted"].sum() for r in runs.values()) > 0
 
 
 def test_scenario_actually_migrates():

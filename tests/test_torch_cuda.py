@@ -291,24 +291,43 @@ def _attn_inputs(seed, dev, dtype, *shapes):
             for s in shapes]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd", [
-    (2, 128, 128, 4, 2, 64), (2, 100, 100, 2, 1, 32),
-    (1, 64, 192, 4, 2, 128), (1, 96, 96, 8, 8, 16),
-    (2, 77, 77, 40, 8, 128), (1, 40, 50, 6, 2, 256), (1, 33, 33, 3, 1, 200)])
+# both dtypes on both routes' head dims, then the tensor-core route's
+# cases: lengths around its 64-key and 128-row tiles, keys beyond the
+# queries, two batch rows; G = 5 as on the serving path
+FLASH_CASES = [
+    (dtype, *shape) for dtype in (torch.float32, torch.bfloat16)
+    for shape in ((2, 128, 128, 4, 2, 64), (2, 100, 100, 2, 1, 32),
+                  (1, 64, 192, 4, 2, 128), (1, 96, 96, 8, 8, 16),
+                  (2, 77, 77, 40, 8, 128), (1, 40, 50, 6, 2, 256),
+                  (1, 33, 33, 3, 1, 200))] + [
+    (torch.bfloat16, *shape, hd) for hd in (64, 128)
+    for shape in [(1, s, s, 10, 2) for s in (1, 63, 64, 65, 127, 129, 511)]
+    + [(1, 64, 192, 4, 2), (2, 129, 129, 10, 2)]]
+
+
+@pytest.mark.parametrize("dtype,B,Sq,Skv,H,KV,hd", FLASH_CASES)
 def test_flash_kernel_equals_plain(B, Sq, Skv, H, KV, hd, dtype, cuda):
+    """Each call takes the kernel ``flash_route`` names (bf16 at hd 64 /
+    128 the tensor-core one, every other call the CUDA-core one) and
+    equals the plain version; bf16 also within 2^-6 of max |plain|."""
     from repro_torch.kernels.attention import flash_attention_ref
     q, k, v = _attn_inputs(Sq + H, cuda, dtype, (B, Sq, H, hd),
                            (B, Skv, KV, hd), (B, Skv, KV, hd))
     tol = ATTN_TOL[dtype]
+    sm90 = int(ops.flash_route(dtype, hd) == "sm90")
     for causal, window in ((True, 0), (True, 32), (False, 0), (False, 16)):
-        n0 = ops.launches["flash_attention"]
+        n0, n90 = ops.launches["flash_attention"], \
+            ops.launches["flash_attention_sm90"]
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         assert ops.launches["flash_attention"] == n0 + 1
+        assert ops.launches["flash_attention_sm90"] == n90 + sm90
         want = flash_attention_ref(q, k, v, causal=causal, window=window)
         assert got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
+        if dtype == torch.bfloat16:
+            assert float((got.float() - want.float()).abs().max()) <= \
+                2.0 ** -6 * float(want.float().abs().max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -330,6 +349,38 @@ def test_decode_kernel_equals_plain(B, H, KV, hd, S, dtype, cuda):
     assert float(got[1].abs().max()) == 0.0
     torch.testing.assert_close(got.float(), want.float(),
                                atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,hd,S", [
+    (6, 40, 8, 128, 1024), (6, 40, 8, 128, 1000), (6, 10, 2, 64, 700),
+    (6, 16, 2, 256, 333)])
+def test_decode_kernel_at_split_edges(B, H, KV, hd, S, dtype, cuda):
+    """kv_len one before, at and one past a split's edge, 0, S, and the
+    last split's first position, with S not always a multiple of the
+    split; NaN past kv_len is never read."""
+    from repro_torch.kernels.attention import decode_attention_ref
+    n_split, split_len = ops.decode_splits(
+        B, KV, S, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert n_split > 1
+    q, k, v = _attn_inputs(S + hd, cuda, dtype, (B, H, hd), (B, S, KV, hd),
+                           (B, S, KV, hd))
+    lens = [split_len - 1, split_len, split_len + 1, 0, S,
+            (n_split - 1) * split_len + 1]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    for b, n in enumerate(lens):
+        k[b, n:] = float("nan")
+        v[b, n:] = float("nan")
+    n0 = ops.launches["decode_attention"]
+    got = ops.decode_attention(q, k, v, kv_len)
+    assert ops.launches["decode_attention"] == n0 + 1
+    assert ops.last_decode_grid == (n_split, split_len)
+    want = decode_attention_ref(q, k, v, kv_len)
+    assert float(got[3].abs().max()) == 0.0
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+    # the merge's counters are left at zero: the same call again agrees
+    assert torch.equal(ops.decode_attention(q, k, v, kv_len), got)
 
 
 def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -355,6 +406,23 @@ def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="at most 8"):
         qq = torch.zeros((1, 18, 16), device=cuda)
         ops.decode_attention(qq, k, v, kv_len)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_sm90_route_rejects_tensors_tma_cannot_read(which, cuda):
+    """bf16 at hd 128 stays on the tensor-core route whatever the pointers;
+    a contiguous tensor that is not 16-byte aligned raises before any
+    launch."""
+    t = dict(zip("qkv", _attn_inputs(1, cuda, torch.bfloat16, (1, 8, 4, 128),
+                                     (1, 8, 2, 128), (1, 8, 2, 128))))
+    buf = torch.empty(t[which].numel() + 1, dtype=torch.bfloat16,
+                      device=cuda)
+    t[which] = buf[1:].view(t[which].shape).copy_(t[which])
+    assert t[which].is_contiguous() and t[which].data_ptr() % 16
+    n0 = ops.launches["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(t["q"], t["k"], t["v"])
+    assert ops.launches["flash_attention"] == n0
 
 
 def test_engine_on_card_equals_plain_attention(cuda):
