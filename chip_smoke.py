@@ -4,13 +4,13 @@
 
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. Device and build: the card's name and power limit, then the port's seven
+1. Device and build: the card's name and power limit, then the port's eight
    kernel sources built from ``src/repro_torch/kernels/csrc`` (one nvcc per
    source, started together; build time printed), each kernel's registers,
    spills and static shared memory from ptxas (the attention kernels must
    not spill), the HGMMA count of the tensor-core flash kernel's SASS
    (``cuobjdump -sass``; 0 fails) and the attention kernels' dynamic
-   shared memory.
+   shared memory, and the replay warp kernel's.
 2. Select vs plain: the CUDA select against ``select_ref`` on the card, on
    random, tied and full pools for every score policy, with and without a
    category mask - (slot, found, no_free) must be identical.  Then the
@@ -20,12 +20,19 @@ Phases (any failure exits non-zero, and no result line is printed):
 3. Megakernel vs plain: the CUDA replay megakernel against
    ``replay_block_ref`` on the card for all 21 policy names (every kernel
    family), L in {8, 56}, Np in {64, 128, 300}, d in {2, 4, 5}, T in {1,
-   64, 256} with a PAD tail, from a mid-replay carry: every carry array
-   must be equal.  Then its device time per launch over a whole scan of the
-   main path (L=56 and 28, Np=64 and 128, T=256) beside its bound (the
-   bytes and operations each block's data needs) and the serial chain of
-   events per lane; the same scan replayed again must end in the same
-   carry, and its mid-scan block, replayed by ``replay_block_ref`` from the
+   64, 256} with a PAD tail, from a mid-replay carry, and on the warp
+   kernel's hazards (``HAZARDS``: an arrival and its departure in
+   consecutive events, an RCP base conversion then a converted item's
+   departure, an all-PAD block, a block whose last real event is its 5th,
+   with MIGRATE events too): every carry array must be equal, on the route
+   ``ops.replay_route`` picks (warp up to 256 slots, global above) and on
+   the other where its kernel takes the pool; the blocks each route ran
+   are printed.  Then its device time per launch over a whole scan of the
+   main path (L=56 and 28, Np=64, 128 and 256, T=256), on the warp route
+   and on the global kernel, beside its bound (the bytes and operations
+   each block's data needs) and the serial chain of events per lane; the
+   two routes and the same scan replayed again must end in the same carry,
+   and its mid-scan block, replayed by ``replay_block_ref`` from the
    kernel's carry, must give every carry array equal.
 4. Headline grids: the 28 x 250, seed-11 Azure-like grid of four score
    policies (first_fit, best_fit_l2, greedy, nrt_prioritized; max_bins=64)
@@ -44,7 +51,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    find every group cached.
 6. Main path blocked: the same sweep with all 21 policies and
    ``block_events=BLOCK_EVENTS``: the megakernel must have launched once
-   per block of every scan and the select never, the score policies'
+   per block of every scan (counted by route) and the select never, the score policies'
    records must equal phase 5's on its keys, and every record is finite,
    overflow-free and at least the Eq.(1) bound; the wall time is split into
    the scans' CPU set-up, their copies to the card, their launches and the
@@ -117,16 +124,19 @@ Phases (any failure exits non-zero, and no result line is printed):
 11. Consolidation.  (a) The megakernel with its MIGRATE branch ==
    ``replay_block_ref(migrate=True)`` on blocks opening with MIGRATE events
    (a migrant whose source bin closes, RCP/PPE migrants off the base bin),
-   all 21 policies x T in {1, 8, 256}; without MIGRATE events the kernel
-   with the branch == without.  (b) The frontier: the 28 x 250 seed-11
+   all 21 policies x T in {1, 8, 256}, on both routes as in phase 3;
+   without MIGRATE events the kernel with the branch == without.  (b) The frontier: the 28 x 250 seed-11
    grid, ``HEADLINE_POLICIES`` x underload:t{0.15,0.25,0.5}:e32 through
    ``run_batch(consolidate=)``, per event and blocked: migrations and usage
    totals == ``REF_CONS``.  (c) Full size: the 28 x 5000 suite,
    clairvoyant, ``CONS_SPEC``, all 21 policies blocked: a mid-scan MIGRATE
    chunk of every scan == ``replay_block_ref`` from the kernel's carry,
    ``PER_EVENT_POLICIES`` per event == blocked; migrations, usage against
-   phase 6, the wall time split into replay, planner and copies, and the
-   device time a MIGRATE launch.
+   phase 6, the wall time split into replay, planner and copies, the
+   CUDA events around the path's MIGRATE chunk calls (the host's launch
+   gaps included), and each scan's middle MIGRATE chunk replayed five times
+   on each route's kernel (equal to the path's; device time, side by
+   side).
 
 Then, as a measurement and not a check, torch.profiler over 400 per-event
 replay steps of the main path's first rung (L=28, Np=64) and over one
@@ -408,7 +418,13 @@ def phase_build():
         f"{lib.flash_attention_sm90_smem_bytes(128)} B (hd 128); decode "
         f"(G 5, hd 128, 8 splits) bf16 "
         f"{lib.decode_attention_smem_bytes(5, 128, 1, 8)} B, fp32 "
-        f"{lib.decode_attention_smem_bytes(5, 128, 0, 8)} B")
+        f"{lib.decode_attention_smem_bytes(5, 128, 0, 8)} B; replay warp "
+        f"kernel (T 256, 8192 item rows) score at Np 64 "
+        f"{lib.fitscore_replay_block_warp_smem_bytes(0, 64, 256, 8192)} B, "
+        f"rcp at Np 64 "
+        f"{lib.fitscore_replay_block_warp_smem_bytes(3, 64, 256, 8192)} B, "
+        f"at Np 256 "
+        f"{lib.fitscore_replay_block_warp_smem_bytes(3, 256, 256, 8192)} B")
     if len(hgmma) != 2 or not all(hgmma.values()):
         fail(f"the sm90 flash kernel has no HGMMA instructions: {hgmma}")
     return card
@@ -531,22 +547,193 @@ def padded_streams(policy, flat, extra, dev):
     return [a.to(dev) for a in (ev_i, ev_f, ev_size, dmask)], fam, d
 
 
+# ------------------------------------------ the warp kernel's hazards
+
+def hazard_lanes(n: int = 48):
+    """Three lanes of 1/64-grid instances (fp32-exact; d = 2, 3, 4) whose
+    items arrive 100 time units apart and live 100-3000 units, but every
+    seventh, which departs one unit after it arrives: its arrival and its
+    departure are consecutive events.  Predictions clairvoyant, pdep ==
+    arrival and power-of-two noise.  Flattened lane arrays as
+    ``torchsim._replay_batch`` takes them."""
+    import numpy as np
+    from repro_torch.core.types import Instance
+    from repro_torch.sweep import pack_instances, pad_predictions
+    from repro_torch.sweep.runner import _flatten_lanes
+    insts, preds = [], []
+    for lane, d in enumerate((2, 3, 4)):
+        rng = np.random.default_rng(40 + lane)
+        arr = 100.0 * np.arange(n)
+        dur = 100.0 * rng.integers(1, 31, n)
+        dur[3::7] = 1.0
+        insts.append(Instance(rng.integers(1, 24, (n, d)) / 64.0, arr,
+                              arr + dur, f"h{lane}").sorted_by_arrival())
+        real = insts[-1].durations
+        noisy = real * rng.choice([0.25, 0.5, 2.0, 4.0], n)
+        preds.append(np.stack([real, np.zeros(n), noisy])[lane][None])
+    batch = pack_instances(insts)
+    return _flatten_lanes(batch.sizes, batch.times, batch.kinds, batch.items,
+                          pad_predictions(batch, preds), batch.dmask,
+                          batch.arrivals, batch.pdeps, batch.n_items)
+
+
+def _conversion_block(policy, flat, streams, kw, T):
+    """The first block of ``T`` events in which a lane converts its RCP base
+    bin and then sees the departure of an item the conversion turned from
+    LOC_B into LOC_C: its start, found by replaying the lanes event by
+    event with ``replay_block_ref`` on the CPU."""
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import fitscore as fk
+    ev_i, ev_f, ev_size, dmask = streams
+    L, E = ev_i.shape[1:]
+    carry = torchsim.packed_init_carry(kw["family"], L, flat[0].shape[1],
+                                       kw["n"], "cpu")
+    conv = {}          # lane -> (event, the items the conversion turned)
+    for e in range(E):
+        aux0 = carry["itemi"][..., fk.ITEMI_AUX].clone()
+        base0 = carry["si"][:, fk.SI_BASE].clone()
+        fk.replay_block_ref(carry, ev_i[:, :, e:e + 1], ev_f[:, :, e:e + 1],
+                            ev_size[:, e:e + 1], dmask, **kw)
+        aux1 = carry["itemi"][..., fk.ITEMI_AUX]
+        for lane in range(L):
+            kind, j = int(ev_i[0, lane, e]), int(ev_i[1, lane, e])
+            turned = ((aux0[lane] == fk.LOC_B) & (aux1[lane] == fk.LOC_C))
+            if kind == fk.ARRIVAL_KIND and base0[lane] >= 0 and \
+                    carry["si"][lane, fk.SI_BASE] < 0 and turned.any():
+                conv[lane] = (e, set(turned.nonzero()[:, 0].tolist()))
+            if kind == fk.DEPARTURE_KIND and lane in conv and \
+                    j in conv[lane][1] and e - conv[lane][0] < T - 2:
+                return max(0, conv[lane][0] - 2)
+    raise AssertionError(f"{policy}: no base conversion followed by a "
+                         f"converted item's departure within {T} events")
+
+
+HAZARDS = ("arrive_depart", "convert_then_depart", "all_pad",
+           "last_real_5th", "last_real_5th_migrate")
+
+
+def hazard_block(name, policy, max_bins: int = 20):
+    """One of ``HAZARDS`` for ``policy`` on ``hazard_lanes``, on the CPU:
+    (the carry before the block, the block's (ev_i, ev_f, ev_size), dmask,
+    the kernel's keyword arguments, migrate).  "arrive_depart": a block of
+    16 holding an item's arrival and, next, its departure;
+    "convert_then_depart" (RCP/PPE only): a block of 32 holding a base
+    conversion and a converted item's departure; "all_pad": 16 PAD events
+    from a mid-replay carry; "last_real_5th": a block of 32 whose last real
+    event is its 5th; "last_real_5th_migrate": a block of 8 opening with
+    three MIGRATE events (``migrate_streams``), PAD from its 6th event."""
+    import numpy as np
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import fitscore as fk
+    flat = hazard_lanes()
+    streams = list(torchsim._event_streams(policy, *flat, None))
+    fam, d = streams[4:]
+    streams = streams[:4]
+    kw = torchsim.replay_block_kwargs(policy, max_bins, d)
+    kinds, items = streams[0][0], streams[0][1]
+    migrate = False
+    if name == "arrive_depart":
+        T = 16
+        nxt = (kinds[0, :-1] == fk.ARRIVAL_KIND) & \
+            (kinds[0, 1:] == fk.DEPARTURE_KIND) & \
+            (items[0, :-1] == items[0, 1:])
+        start = [int(p) for p in nxt.nonzero()[:, 0] if p >= 16][0] - 6
+    elif name == "convert_then_depart":
+        if fam != "rcp":
+            raise ValueError(f"{name} needs an RCP-family policy")
+        T = 32
+        start = _conversion_block(policy, flat, streams, kw, T)
+    elif name in ("all_pad", "last_real_5th"):
+        T, start = (16, 40) if name == "all_pad" else (32, 40)
+        streams[0] = streams[0].clone()
+        streams[0][0, :, start + (0 if name == "all_pad" else 5):
+                   start + T] = fk.PAD_KIND
+    elif name == "last_real_5th_migrate":
+        T, start, migrate = 8, 40, True
+    else:
+        raise ValueError(f"unknown hazard {name!r}")
+    L = kinds.shape[0]
+    carry = torchsim.packed_init_carry(fam, L, flat[0].shape[1], max_bins,
+                                       "cpu")
+    ev_i, ev_f, ev_size, dmask = streams
+    fk.replay_block_ref(carry, ev_i[:, :, :start], ev_f[:, :, :start],
+                        ev_size[:, :start], dmask, **kw)
+    if migrate:
+        (ev_i, ev_f, ev_size, _), _, _ = migrate_streams(
+            policy, flat, start, T, carry, np.random.default_rng(3), "cpu")
+        ev_i[0, :, start + 5:] = fk.PAD_KIND
+    blk = slice(start, start + T)
+    return carry, (ev_i[:, :, blk], ev_f[:, :, blk], ev_size[:, blk]), \
+        dmask, kw, migrate
+
+
+def other_route(Np: int):
+    """The megakernel route ``ops.replay_route`` does not pick for a pool of
+    ``Np`` slots, where its kernel takes such a pool (the global kernel
+    takes any; the warp kernel up to ``ops.REPLAY_WARP_MAX_SLOTS``), else
+    None."""
+    from repro_torch.kernels import ops
+    if ops.replay_route(Np) == "warp":
+        return "global"
+    return "warp" if Np <= ops.REPLAY_WARP_MAX_SLOTS else None
+
+
+def check_routes(carry, blk, dmask, kw, what, migrate=False, on_fail=fail):
+    """One block from ``carry`` (on the card) through the route
+    ``ops.replay_route`` picks (the wrapper, which must count one launch
+    under that route) and through the other route's kernel where it takes
+    the pool (``ops.replay_block_launcher``, not counted), each against
+    ``replay_block_ref`` on a copy of the same carry: every carry array
+    equal, else ``on_fail(message)``.  ``carry`` ends at the block's end.
+    Returns the routes run and the largest |difference| seen (0)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fitscore import replay_block_ref
+    Np = carry["loads"].shape[1]
+    route, alt = ops.replay_route(Np), other_route(Np)
+    plain = {k: v.clone() for k, v in carry.items()}
+    other = {k: v.clone() for k, v in carry.items()}
+    counter = f"fitscore_replay_block_{route}"
+    n0 = ops.launches[counter]
+    ops.fitscore_replay_block(carry, *blk, dmask, migrate=migrate, **kw)
+    if ops.launches[counter] != n0 + 1:
+        on_fail(f"megakernel: {what}: the wrapper did not count one launch "
+                f"on the {route} route")
+    if alt:
+        ops.replay_block_launcher(other, *blk, dmask, route=alt,
+                                  migrate=migrate, **kw)()
+    replay_block_ref(plain, *blk, dmask, migrate=migrate, **kw)
+    torch.cuda.synchronize()
+    runs = [(route, carry)] + ([(alt, other)] if alt else [])
+    max_err = 0.0
+    for r, got in runs:
+        for k in got:
+            err = float((got[k].double() - plain[k].double()).abs().max())
+            max_err = max(max_err, err)
+            if not torch.equal(got[k], plain[k]):
+                on_fail(f"megakernel ({r} route) != plain: {what}: {k} "
+                        f"differs (max |diff| {err})")
+    return [r for r, _ in runs], max_err
+
+
 def phase_megakernel_vs_plain(dev):
     """Every policy name, T in {1, 64, 256}, with (L, Np, d) cycling
     through {8, 56} x {64, 128, 300} x {2, 4, 5}: one launch against one
     ``replay_block_ref`` block from the same mid-replay carry (replayed by
-    the kernel up to the block); T = 64 and 256 straddle the end of the
-    longest lane, so the block ends in PAD events."""
+    the kernel up to the block), on the route ``ops.replay_route`` picks
+    and on the other where its kernel takes the pool (``check_routes``);
+    T = 64 and 256 straddle the end of the longest lane, so the block ends
+    in PAD events.  Then the warp kernel's hazards (``HAZARDS``) for every
+    policy, on both routes."""
     import itertools
     import numpy as np
-    import torch
     from repro_torch.core import torchsim
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fitscore import replay_block_ref
     rng = np.random.default_rng(12)
     combos = list(itertools.product((8, 56), (64, 128, 300), (2, 4, 5)))
     data = {}
     n_cases = max_err = 0
+    routes = collections.Counter()
     for pi, policy in enumerate(torchsim.SCAN_POLICIES):
         for ti, T in enumerate((1, 64, 256)):
             L, Np, d = combos[(3 * pi + ti) % len(combos)]
@@ -563,24 +750,32 @@ def phase_megakernel_vs_plain(dev):
             ops.fitscore_replay_block(carry, ev_i[:, :, :start],
                                       ev_f[:, :, :start],
                                       ev_size[:, :start], dmask, **kw)
-            plain = {k: v.clone() for k, v in carry.items()}
             blk = slice(start, start + T)
-            ops.fitscore_replay_block(carry, ev_i[:, :, blk],
-                                      ev_f[:, :, blk], ev_size[:, blk],
-                                      dmask, **kw)
-            replay_block_ref(plain, ev_i[:, :, blk], ev_f[:, :, blk],
-                             ev_size[:, blk], dmask, **kw)
-            torch.cuda.synchronize()
-            for k in carry:
-                err = float((carry[k].double() - plain[k].double())
-                            .abs().max())
-                max_err = max(max_err, err)
-                if not torch.equal(carry[k], plain[k]):
-                    fail(f"megakernel != plain: {policy} L={L} Np={Np} "
-                         f"d={d} T={T}: {k} differs (max |diff| {err})")
+            ran, err = check_routes(
+                carry, (ev_i[:, :, blk], ev_f[:, :, blk], ev_size[:, blk]),
+                dmask, kw, f"{policy} L={L} Np={Np} d={d} T={T}")
+            routes.update(f"{r} (Np {Np})" for r in ran)
+            max_err = max(max_err, err)
             n_cases += 1
+    n_haz = 0
+    for policy in torchsim.SCAN_POLICIES:
+        for name in HAZARDS:
+            if name == "convert_then_depart" and \
+                    torchsim.replay_block_kwargs(policy, 1, 1)["family"] \
+                    != "rcp":
+                continue
+            carry, blk, dmask, kw, mig = hazard_block(name, policy)
+            carry = {k: v.to(dev) for k, v in carry.items()}
+            ran, err = check_routes(
+                carry, [a.to(dev) for a in blk], dmask.to(dev), kw,
+                f"hazard {name} {policy}", migrate=mig)
+            routes.update(f"{r} (hazards)" for r in ran)
+            max_err = max(max_err, err)
+            n_haz += 1
     say(f"# megakernel == plain on {n_cases} blocks (21 policies x T in "
-        "{1, 64, 256}; every carry array equal)")
+        f"{{1, 64, 256}}) and {n_haz} hazard blocks ({', '.join(HAZARDS)});"
+        f" every carry array equal; blocks by route: "
+        f"{dict(sorted(routes.items()))}")
     return max_err
 
 
@@ -643,16 +838,64 @@ def block_bytes(before, after, blk, fam, d):
     return nbytes, nops
 
 
+def time_launches(launchers, spin_cycles: int = 400_000_000) -> float:
+    """Device ms per launch of ``launchers`` (functions of no arguments,
+    one launch each), run in order while a spin kernel holds the stream so
+    the events bracket their work back to back."""
+    import torch
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    t0.record()
+    for launch in launchers:
+        launch()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / len(launchers)
+
+
+def time_routes(fresh, blocks, dmask, kw, routes, reps: int = 1,
+                spin_cycles: int = 400_000_000):
+    """Each route's device ms per launch over ``blocks`` (tuples (ev_i,
+    ev_f, ev_size)), replayed ``reps`` times, each time from a new carry
+    ``fresh()``, through ``ops.replay_block_launcher`` (uncounted); the
+    final carries of every route and rep must be equal.  Returns
+    {route: ms} and the last final carry."""
+    import torch
+    from repro_torch.kernels import ops
+    times, final = {}, None
+    for route in routes:
+        # one launch on a throwaway carry loads the module and the kernel
+        ops.replay_block_launcher(fresh(), *blocks[0], dmask, route=route,
+                                  **kw)()
+        runs = [fresh() for _ in range(reps)]
+        launchers = [ops.replay_block_launcher(c, *blk, dmask, route=route,
+                                               **kw)
+                     for c in runs for blk in blocks]
+        times[route] = time_launches(launchers, spin_cycles)
+        for c in runs:
+            final = final or c
+            for n in c:
+                if not torch.equal(c[n], final[n]):
+                    fail(f"megakernel: the {route} route's replay differs "
+                         f"from the {routes[0]} route's ({n})")
+    return times, final
+
+
 def time_megakernel(dev, n_items: int = 5000):
     """Device time per launch of the megakernel over a whole scan of the
-    main path (a spin kernel holds the stream while the launches queue).
-    Then the same scan again, launch by launch, for the checks and the
-    bound: the mid-scan block (NB // 2) is replayed by ``replay_block_ref``
-    from the kernel's carry and every carry array must be equal, the final
-    carry must equal the timed run's, and each block's bytes and operations
-    are counted from its data (``block_bytes``).  The line of kernel
-    numbers takes the medians over the 21 policies at the lognormal
-    groups' first rung (L=56, Np=64)."""
+    main path, on the warp route and on the global kernel (the route before
+    it, same blocks, each from a fresh carry; both end in the same carry),
+    a spin kernel holding the stream while the launches queue.  Then the
+    same scan again through the wrapper, launch by launch, for the checks
+    and the bound: the mid-scan block (NB // 2) is replayed by
+    ``replay_block_ref`` from the kernel's carry and every carry array must
+    be equal, the final carry must equal the timed runs', and each block's
+    bytes and operations are counted from its data (``block_bytes``).  The
+    line of kernel numbers takes the medians over the 21 policies at the
+    lognormal groups' first rung (L=56, Np=64); L=28 at Np 64, 128 and 256
+    are timed for one policy a family."""
     import numpy as np
     import torch
     from repro_torch.core import torchsim
@@ -675,13 +918,15 @@ def time_megakernel(dev, n_items: int = 5000):
     NB = -(-E // T)
     mid = NB // 2
     say(f"# megakernel timing: one scan of {E} events = {NB} launches of "
-        f"T={T}; block {mid} checked against the plain version")
+        f"T={T}, on the warp route and on the global kernel; block {mid} "
+        "checked against the plain version")
     one_per_family = ("first_fit", "cbd", "hybrid", "ppe_modified",
                       "la_binary", "adaptive")
     rows = {}
     for L, Np, policies in ((56, 64, torchsim.SCAN_POLICIES),
                             (28, 64, one_per_family),
-                            (28, 128, one_per_family)):
+                            (28, 128, one_per_family),
+                            (28, 256, one_per_family)):
         flat = lanes[L]
         for policy in policies:
             (ev_i, ev_f, ev_size, dmask), fam, d = padded_streams(
@@ -692,19 +937,8 @@ def time_megakernel(dev, n_items: int = 5000):
 
             def fresh():
                 return torchsim.packed_init_carry(fam, L, b.n_max, Np, dev)
-            warm = fresh()
-            ops.fitscore_replay_block(warm, *blocks[0], dmask, **kw)
-            timed = fresh()
-            torch.cuda.synchronize()
-            t0, t1 = torch.cuda.Event(enable_timing=True), \
-                torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(400_000_000)      # ~0.2 s of spinning
-            t0.record()
-            for blk in blocks:
-                ops.fitscore_replay_block(timed, *blk, dmask, **kw)
-            t1.record()
-            torch.cuda.synchronize()
-            ms = t0.elapsed_time(t1) / NB
+            times, timed = time_routes(fresh, blocks, dmask, kw,
+                                       ("warp", "global"))
 
             carry, counts = fresh(), []
             for k, blk in enumerate(blocks):
@@ -733,24 +967,40 @@ def time_megakernel(dev, n_items: int = 5000):
             bound_ms = float(np.maximum(t_bytes, t_ops).mean())
             bound_by = "bytes" if t_bytes.sum() >= t_ops.sum() else \
                 "operations"
-            real = ((ev_i[0] != PAD_KIND).view(L, NB, T).sum(2)
-                    .max(0).values.double().mean())
-            rows[(L, Np, policy)] = (ms, bound_ms, bound_by, plain_ms)
-            say(f"#   megakernel L={L} Np={Np} T={T} {policy:<26} "
-                f"{ms:.6f} ms/launch (device), bound {bound_ms:.3e} ms by "
-                f"{bound_by} ({nbytes.mean():.0f} B, {nops.mean():.0f} "
-                f"fp32 ops a launch); serial chain {float(real):.1f} events "
-                f"a launch, {ms / float(real) * 1e3:.3f} us each; plain "
-                f"{plain_ms:.1f} ms on block {mid} (wall), equal")
+            real = float((ev_i[0] != PAD_KIND).view(L, NB, T).sum(2)
+                         .max(0).values.double().mean())
+            ms, gms = times["warp"], times["global"]
+            rows[(L, Np, policy)] = (ms, gms, bound_ms, bound_by, plain_ms,
+                                     ms / real * 1e3, gms / real * 1e3)
+            say(f"#   megakernel L={L} Np={Np} T={T} {policy:<26} warp "
+                f"{ms:.6f} ms/launch (device), global {gms:.6f} "
+                f"({gms / ms:.2f}x); bound {bound_ms:.3e} ms by {bound_by} "
+                f"({nbytes.mean():.0f} B, {nops.mean():.0f} fp32 ops a "
+                f"launch); serial chain {real:.1f} events a launch, warp "
+                f"{ms / real * 1e3:.3f} us each, global "
+                f"{gms / real * 1e3:.3f}; plain {plain_ms:.1f} ms on block "
+                f"{mid} (wall), equal")
+    for L, Np in ((56, 64), (28, 64), (28, 128), (28, 256)):
+        sel = [r for (l, n, _), r in rows.items() if (l, n) == (L, Np)]
+        say(f"# megakernel medians at L={L} Np={Np} over {len(sel)} "
+            f"policies: warp {np.median([r[0] for r in sel]):.6f} ms, "
+            f"global {np.median([r[1] for r in sel]):.6f} ms a launch; "
+            f"warp {np.median([r[5] for r in sel]):.3f} us, global "
+            f"{np.median([r[6] for r in sel]):.3f} us a chained event")
     main = [rows[(56, 64, p)] for p in torchsim.SCAN_POLICIES]
     med = {"ms": float(np.median([r[0] for r in main])),
-           "bound_ms": float(np.median([r[1] for r in main])),
-           "bound_by": main[0][2],
-           "plain_ms": float(np.median([r[3] for r in main]))}
+           "global_ms": float(np.median([r[1] for r in main])),
+           "bound_ms": float(np.median([r[2] for r in main])),
+           "bound_by": main[0][3],
+           "plain_ms": float(np.median([r[4] for r in main])),
+           "us_per_event": float(np.median([r[5] for r in main])),
+           "global_us_per_event": float(np.median([r[6] for r in main]))}
     say(f"# megakernel == plain on block {mid} of {len(rows)} main-path "
-        f"scans; medians over 21 policies at L=56 Np=64 T={T}: "
-        f"{med['ms']:.6f} ms/launch, bound {med['bound_ms']:.3e} ms, "
-        f"plain {med['plain_ms']:.1f} ms/block")
+        f"scans; medians over 21 policies at L=56 Np=64 T={T}: warp "
+        f"{med['ms']:.6f} ms/launch ({med['us_per_event']:.3f} us an "
+        f"event), global {med['global_ms']:.6f} ms/launch "
+        f"({med['global_us_per_event']:.3f} us), bound "
+        f"{med['bound_ms']:.3e} ms, plain {med['plain_ms']:.1f} ms/block")
     return med
 
 
@@ -791,7 +1041,8 @@ def phase_category_headline(dev):
             f"block_events={T}: total usage {total:.2f} in "
             f"{time.perf_counter() - t0:.1f} s ({ops.launches[kernel]} "
             f"{kernel} launches)")
-        if not ops.launches[kernel] or len(ops.launches) != 1:
+        want = {kernel} if T == 0 else {kernel, kernel + "_warp"}
+        if not ops.launches[kernel] or set(ops.launches) != want:
             fail(f"category headline (block_events={T}) launches "
                  f"{dict(ops.launches)}")
         if f"{total:.0f}" != str(REF_USAGE_CAT_28x4):
@@ -935,6 +1186,8 @@ def phase_blocked_main_path(dev, per_event_records, per_event_eps,
     finally:
         torchsim._event_streams, torchsim.replay_chunk = streams, chunk
     launches = ops.launches["fitscore_replay_block"]
+    by_route = {r: ops.launches[f"fitscore_replay_block_{r}"]
+                for r in ("warp", "global")}
     blocks = torchsim.counters["replay_blocks"]
     replays = len(spec.policies) * (1 + len(spec.seeds))
     eps = replays * n_events / wall
@@ -942,7 +1195,9 @@ def phase_blocked_main_path(dev, per_event_records, per_event_eps,
         f"in {wall:.1f} s, {eps:.0f} events/s ({replays} replays of "
         f"{n_events} events; per event, phase 5: {per_event_eps:.0f} "
         f"events/s), {launches} megakernel launches = {blocks // NB} scans "
-        f"x {NB} blocks, {ops.launches['fitscore_select']} select launches")
+        f"x {NB} blocks ({by_route['warp']} on the warp route, "
+        f"{by_route['global']} on the global), "
+        f"{ops.launches['fitscore_select']} select launches")
     scans = blocks // NB
     say(f"# blocked main path split over {scans} scans: category set-up "
         f"and streams (CPU) {split['set-up']:.3f} s, padding, carry and "
@@ -950,6 +1205,7 @@ def phase_blocked_main_path(dev, per_event_records, per_event_eps,
         f"device's end {split['blocks']:.3f} s, the runner's other host "
         f"work {wall - sum(split.values()):.3f} s")
     if launches != blocks or blocks % NB or not launches or \
+            sum(by_route.values()) != launches or \
             ops.launches["fitscore_select"]:
         fail(f"megakernel launches {launches}, blocks {blocks} (a scan is "
              f"{NB}), select launches {ops.launches['fitscore_select']}")
@@ -989,7 +1245,7 @@ def phase_blocked_main_path(dev, per_event_records, per_event_eps,
                  int(res.n_bins_opened[bi, 0])):
             fail(f"ppe_modified per event != blocked on {inst.name}")
     say("# ppe_modified per event == blocked on all 28 instances")
-    return launches, records
+    return launches, by_route, records
 
 
 def _attention_inputs(gen, dev, dtype, q_shape, kv_shape):
@@ -1853,7 +2109,8 @@ def phase_migrate_vs_plain(dev):
     """(a) The megakernel with its MIGRATE branch against
     ``replay_block_ref(migrate=True)`` on blocks that open with MIGRATE
     events (``migrate_streams``), all 21 policies x T in {1, 8, 256}, from
-    a mid-replay carry: every carry array equal.  The same block without
+    a mid-replay carry, on both routes where their kernels take the pool
+    (``check_routes``): every carry array equal.  The same block without
     its MIGRATE events through the kernel with and without the branch: equal
     too (the branch costs nothing where nothing migrates)."""
     import itertools
@@ -1866,6 +2123,7 @@ def phase_migrate_vs_plain(dev):
     combos = list(itertools.product((8, 56), (64, 128, 300), (2, 4, 5)))
     data = {}
     n_cases = n_close = n_base = 0
+    routes = collections.Counter()
     for pi, policy in enumerate(torchsim.SCAN_POLICIES):
         for ti, T in enumerate((1, 8, 256)):
             L, Np, d = combos[(3 * pi + ti + 1) % len(combos)]
@@ -1898,27 +2156,20 @@ def phase_migrate_vs_plain(dev):
                                                       carry, rng, dev)
             n_close += nc
             n_base += nb if fam == "rcp" else 0
-            plain = {k: v.clone() for k, v in carry.items()}
             mblk = (mi[:, :, blk], mf[:, :, blk], ms[:, blk])
-            ops.fitscore_replay_block(carry, *mblk, dmask, migrate=True,
-                                      **kw)
-            replay_block_ref(plain, *mblk, dmask, migrate=True, **kw)
-            torch.cuda.synchronize()
-            for k in carry:
-                if not torch.equal(carry[k], plain[k]):
-                    err = float((carry[k].double() - plain[k].double())
-                                .abs().max())
-                    fail(f"MIGRATE megakernel != plain: {policy} L={L} "
-                         f"Np={Np} d={d} T={T}: {k} differs (max |diff| "
-                         f"{err})")
+            ran, _ = check_routes(carry, mblk, dmask, kw,
+                                  f"MIGRATE {policy} L={L} Np={Np} d={d} "
+                                  f"T={T}", migrate=True)
+            routes.update(f"{r} (Np {Np})" for r in ran)
             n_cases += 1
     if not n_close or not n_base:
         fail(f"MIGRATE blocks without a closing ({n_close}) or an RCP "
              f"base-bin ({n_base}) migrant")
     say(f"# MIGRATE megakernel == plain on {n_cases} blocks (21 policies x "
         f"T in {{1, 8, 256}}, {n_close} migrants whose source bin closes, "
-        f"{n_base} RCP/PPE migrants off the base bin); without MIGRATE "
-        "events the kernel with the branch == without")
+        f"{n_base} RCP/PPE migrants off the base bin; blocks by route: "
+        f"{dict(sorted(routes.items()))}); without MIGRATE events the "
+        "kernel with the branch == without")
 
 
 def phase_frontier(dev):
@@ -1979,6 +2230,7 @@ def phase_consolidation_main_path(dev, base_records, n_items: int = 5000):
     clair = PredModel("clairvoyant")
     policies = torchsim.SCAN_POLICIES
     split, mig_ms, mig_chunks = collections.Counter(), [], []
+    mig_route_ms = collections.defaultdict(list)
     replay, plan, view, chunk = (driver._replay_batch, driver.plan_migrations,
                                  driver._pool_view, torchsim.replay_chunk)
 
@@ -2022,11 +2274,29 @@ def phase_consolidation_main_path(dev, base_records, n_items: int = 5000):
             t_check = time.perf_counter()
             if mig_chunks:
                 before, a, k, after = mig_chunks[len(mig_chunks) // 2]
-                for off in range(0, a[2].shape[1], k["block_events"]):
-                    sl = slice(off, off + k["block_events"])
-                    kw = {n: v for n, v in k.items() if n != "block_events"}
-                    replay_block_ref(before, a[0][:, :, sl], a[1][:, :, sl],
-                                     a[2][:, sl], a[3], migrate=True, **kw)
+                kw = {n: v for n, v in k.items() if n != "block_events"}
+                T = k["block_events"]
+                blocks = [(a[0][:, :, o:o + T], a[1][:, :, o:o + T],
+                           a[2][:, o:o + T])
+                          for o in range(0, a[2].shape[1], T)]
+                # the same chunk on each route's kernel, five times each
+                Np = before["loads"].shape[1]
+                routes = tuple(r for r in ("warp", "global")
+                               if r == "global" or
+                               Np <= ops.REPLAY_WARP_MAX_SLOTS)
+                ms, final = time_routes(
+                    lambda: {n: v.clone() for n, v in before.items()},
+                    blocks, a[3], dict(kw, migrate=True), routes, reps=5,
+                    spin_cycles=50_000_000)
+                for r, t in ms.items():
+                    mig_route_ms[r].append(t)
+                for n in before:
+                    if not torch.equal(final[n], after[n]):
+                        fail(f"consolidation {policy}: a MIGRATE chunk "
+                             f"replayed on the {routes[-1]} route != the "
+                             f"path's ({n})")
+                for blk in blocks:
+                    replay_block_ref(before, *blk, a[3], migrate=True, **kw)
                 for n in before:
                     if not torch.equal(before[n], after[n]):
                         fail(f"consolidation {policy}: the kernel's MIGRATE "
@@ -2079,17 +2349,25 @@ def phase_consolidation_main_path(dev, base_records, n_items: int = 5000):
         f"{blocked_split['replay']:.3f} s (set-up, copies to the card, "
         f"launches to the device's end) + planner "
         f"{blocked_split['planner']:.3f} s + carry copies to the host "
-        f"{blocked_split['copies']:.3f} s + the mid-scan checks' plain "
-        f"replays {blocked_split['check']:.3f} s + the rest (host "
+        f"{blocked_split['copies']:.3f} s + the mid-scan checks (plain "
+        f"replays, the routes' replays) {blocked_split['check']:.3f} s + "
+        f"the rest (host "
         f"aliveness, MIGRATE chunk building, the checks' clones) "
         f"{rest:.3f} s; "
         f"{n_blk} plain and {n_mig} MIGRATE megakernel launches; "
-        f"device time a MIGRATE launch {float(np.median(times)):.6f} ms "
-        f"(median of {len(times)} chunks, CUDA events); per event "
+        f"CUDA events around the path's MIGRATE chunk calls "
+        f"{float(np.median(times)):.6f} ms a launch (median of "
+        f"{len(times)} chunks; the host's launch gaps included); each "
+        f"scan's middle MIGRATE chunk again, five times on each route's "
+        f"kernel, launches queued behind a spin (device time): "
+        + ", ".join(f"{r} median {float(np.median(v)):.6f} ms a launch "
+                    f"({len(v)} chunks)" for r, v in mig_route_ms.items())
+        + "; per event "
         f"({', '.join(PER_EVENT_POLICIES)}): {pe_launches['fitscore_select']}"
         f" select launches, {pe_wall:.1f} s, records == blocked; "
         f"{n_checked} mid-scan MIGRATE chunks == replay_block_ref")
-    return n_mig, float(np.median(times))
+    return n_mig, float(np.median(times)), {
+        r: float(np.median(v)) for r, v in mig_route_ms.items()}
 
 
 def profile_run(dev, label, fn, units: int, unit: str) -> None:
@@ -2173,7 +2451,8 @@ def main() -> None:
     phase_headline(dev)
     phase_category_headline(dev)
     sel_launches, records, eps = phase_main_path(dev)
-    mk_launches, blocked_records = phase_blocked_main_path(dev, records, eps)
+    mk_launches, mk_routes, blocked_records = phase_blocked_main_path(
+        dev, records, eps)
     flash, decode = phase_attention_vs_plain(dev)
     attn_launches = phase_serving(dev)
     rwkv = phase_rwkv_vs_plain(dev)
@@ -2181,7 +2460,8 @@ def main() -> None:
     legacy_launches, legacy = phase_legacy_fitscore(dev)
     phase_migrate_vs_plain(dev)
     phase_frontier(dev)
-    mig_launches, mig_ms = phase_consolidation_main_path(dev, blocked_records)
+    mig_launches, mig_ms, mig_mid = phase_consolidation_main_path(
+        dev, blocked_records)
     phase_profile(dev)
     say(f"# total {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -2191,10 +2471,14 @@ def main() -> None:
              replaces="src/repro/kernels/fitscore.py:330",
              launches=sel_launches, library_ms=None, **sel),
         dict(name="fitscore_replay_block", route="cuda",
-             source="src/repro_torch/kernels/csrc/replay_block.cu",
+             source="src/repro_torch/kernels/csrc/replay_block_sm90.cu + "
+                    "src/repro_torch/kernels/csrc/replay_block.cu",
              replaces="src/repro/kernels/fitscore.py:865",
-             launches=mk_launches, max_abs_err=mk_err, library_ms=None,
-             migrate_launches=mig_launches, migrate_ms=mig_ms, **mk),
+             launches=mk_launches, launches_warp=mk_routes["warp"],
+             launches_global=mk_routes["global"], max_abs_err=mk_err,
+             library_ms=None, migrate_launches=mig_launches,
+             migrate_ms=mig_ms, migrate_device_ms=mig_mid.get("warp"),
+             migrate_global_device_ms=mig_mid.get("global"), **mk),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu + "
                     "src/repro_torch/kernels/csrc/flash_attention.cu",

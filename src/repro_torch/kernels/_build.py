@@ -1,7 +1,9 @@
 """Build the port's CUDA kernels from the sources in ``csrc/`` at first use.
 
 ``nvcc`` compiles each source of ``csrc/`` (the select, ``select.cu``, the
-event-blocked replay megakernel, ``replay_block.cu``, the legacy scorer,
+event-blocked replay megakernel, ``replay_block_sm90.cu`` (one warp a lane,
+pools of up to 256 slots) and ``replay_block.cu`` (larger pools), the
+legacy scorer,
 ``fitscore.cu``, the attention kernels,
 ``flash_attention_sm90.cu`` (tensor cores, bf16 at hd 64 / 128),
 ``flash_attention.cu`` (CUDA cores, every other call) and
@@ -14,7 +16,7 @@ and written to ``_build/`` beside this file (listed in ``.gitignore``), so
 an edited source rebuilds and an unchanged one is reused.  Nothing is built
 when the module is imported.
 
-Flags: ``-O3``, and ``--fmad=false`` for the three placement sources:
+Flags: ``-O3``, and ``--fmad=false`` for the four placement sources:
 contraction is off there so that the score and capacity arithmetic round
 once per operation, as the JAX package's select does (and as the legacy
 scorer's plain version does); the select's l2 norm's FMA chain is written
@@ -40,12 +42,13 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 # source -> the flags it takes beside NVCC_FLAGS
 SOURCES = {"select.cu": ("--fmad=false",),
+           "replay_block_sm90.cu": ("--fmad=false",),
            "replay_block.cu": ("--fmad=false",),
            "fitscore.cu": ("--fmad=false",),
            "flash_attention_sm90.cu": (), "flash_attention.cu": (),
            "decode_attention.cu": (),
            "rwkv6_chunked.cu": ()}
-HEADERS = ("fitscore_common.cuh",)
+HEADERS = ("fitscore_common.cuh", "replay_common.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
@@ -122,6 +125,13 @@ def library() -> ctypes.CDLL:
     lib.fitscore_replay_block_launch.argtypes = \
         [p] * 14 + [ll] * 3 + [i] * 12 + [f] * 3 + [i, p]
     lib.fitscore_replay_block_launch.restype = i
+    lib.fitscore_replay_block_warp_launch.argtypes = \
+        lib.fitscore_replay_block_launch.argtypes
+    lib.fitscore_replay_block_warp_launch.restype = i
+    lib.fitscore_replay_block_warp_smem_bytes.argtypes = [i] * 4
+    lib.fitscore_replay_block_warp_smem_bytes.restype = i
+    lib.fitscore_replay_block_warp_smem_max.argtypes = []
+    lib.fitscore_replay_block_warp_smem_max.restype = i
     lib.fitscore_legacy_blocks.argtypes = [i]
     lib.fitscore_legacy_blocks.restype = i
     lib.fitscore_legacy_launch.argtypes = [p] * 7 + [i] * 4 + [p]

@@ -27,79 +27,35 @@
 // at the main path's shapes (L = 28..56 lanes, Np = 64..128, T = 256),
 // far below T serial steps of latency.
 //
-// Design (simple and right first): one CTA per lane, 256 threads looping
-// over the block's events.  The carry stays in global memory (at Np <= 128
-// a lane's slot state is <= 12 KB and lives in L1/L2; global memory is
-// also right up to MAX_BINS_CAP = 65536 slots, where shared memory could
-// not hold it).  Per event every thread reads the event's scalars; a
-// departure is applied by thread 0 alone (one slot row, one item row, the
-// family's aggregate rows); an arrival's family inputs are computed by
-// every thread from the same state, the select is a block-wide reduction
-// over the Np slots with the family's mask applied per slot, and thread 0
-// commits.  __syncthreads separates the phases.  The family is a template
-// parameter; the policy code and the family flags are runtime ints.  Built
-// with --fmad=false, so the capacity, time and aggregate arithmetic rounds
-// once per operation as in the JAX package; the l2 norm is the explicit
-// fmaf chain of fitscore_common.cuh.
+// Design: one CTA per lane, 256 threads looping over the block's events,
+// the carry in global memory.  This is the route for pools of more than
+// kWarpMaxSlots = 256 slots, up to MAX_BINS_CAP = 65536, where a lane's
+// slot state (96 B a slot) outgrows shared memory; smaller pools take the
+// warp kernel of replay_block_sm90.cu, which keeps the slot state and the
+// event block in shared memory (ops.replay_route decides from the pool
+// size).  Per event every thread reads the event's scalars; a departure is
+// applied by thread 0 alone (one slot row, one item row, the family's
+// aggregate rows); an arrival's family inputs are computed by every thread
+// from the same state, the select is a block-wide reduction over the Np
+// slots with the family's mask applied per slot, and thread 0 commits.
+// __syncthreads separates the phases.  The family is a template parameter;
+// the policy code and the family flags are runtime ints.  Built with
+// --fmad=false, so the capacity, time and aggregate arithmetic rounds once
+// per operation as in the JAX package; the l2 norm is the explicit fmaf
+// chain of fitscore_common.cuh.  At the main path's pools (64-128 slots) it
+// took 0.47 ms per 256-event block, 1.8-4.7 us a chained event (PERF.md
+// section 6): per event two or three __syncthreads over 8 warps, thread 0
+// walking the warps' partials, the carry read back from L1/L2 right after
+// thread 0 wrote it, and RCP's 512-float loops on thread 0 alone.
 //
 // Launched through a plain C interface (ctypes), on the caller's stream; it
 // allocates nothing and does not synchronise.
-#include "fitscore_common.cuh"
+#include "replay_common.cuh"
 
 namespace fitscore {
 
 constexpr int kBlockThreads = 256;
 constexpr int kBlockWarps = kBlockThreads / 32;
-
-// Kernel families, in the order of REPLAY_FAMILIES.
-enum Family : int { SCORE = 0, CBD = 1, HYBRID = 2, RCP = 3, LA = 4,
-                    ADAPTIVE = 5 };
-
-// Packed-carry columns (repro_torch/kernels/fitscore.py; a CPU test,
-// tests/test_torch_replay_block.py, holds these constants to that module's).
-constexpr int COLS = 8;
-constexpr int SLOTF_CLOSES = 0, SLOTF_OPEN_TIME = 1;
-constexpr int SLOTI_COUNTS = 0, SLOTI_ALIVE = 1, SLOTI_OSEQ = 2,
-              SLOTI_ASEQ = 3, SLOTI_TAG = 4;
-constexpr int ITEMI_PLACE = 0, ITEMI_AUX = 1;
-constexpr int SF_USAGE = 0, SF_ALPHA = 1, SF_ERR = 2;
-constexpr int SI_SEQ = 0, SI_OPENED = 1, SI_OVERFLOW = 2, SI_BASE = 3;
-constexpr int KCAT = 64;
-constexpr int RAGG_BASE = 3 * KCAT;
-constexpr int RAGG_ROWS = RAGG_BASE + 8;
-constexpr int ARRIVAL = 1, DEPARTURE = 0, MIGRATION = 2;
-constexpr int TAG_GENERAL = -2, TAG_BASE = -3, TAG_LARGE = -4,
-              TAG_NONE = -99;
-constexpr int LOC_G = 0, LOC_B = 1, LOC_C = 2, LOC_L = 3;
-
-struct ReplayArgs {
-  float* loads;      // (L, Np, 8)
-  float* slotf;      // (L, Np, 8)
-  int* sloti;        // (L, Np, 8)
-  int* itemi;        // (L, R, 8)
-  float* sf;         // (L, 8)
-  int* si;           // (L, 8)
-  float* hagg;       // (L, R, 8)          hybrid
-  float* ragg;       // (L, RAGG_ROWS, 8) rcp
-  int* ron;          // (L, KCAT, 8)       rcp
-  const int* evi;    // streams (kind, item, extras...) x lanes x T
-  const float* evf;  // streams (t, pdep, extras...) x lanes x T
-  const float* size; // lanes x T x 8
-  const float* dmask;      // (L, 8)
-  const float* rcp_rsqrt;  // (KCAT,) the reference's rsqrt(x), x = 1..64
-  long long ev_plane, ev_lane, size_lane;   // strides in elements
-  int Np, R, T, d, policy;
-  int large_bins, adaptive_alpha, direct_sum, la_geometric;
-  float la_split, low, high;
-};
-
-__device__ __forceinline__ float row_max(const float* row,
-                                         const float (&add)[DPAD]) {
-  float m = row[0] + add[0];
-#pragma unroll
-  for (int k = 1; k < DPAD; ++k) m = fmaxf(m, row[k] + add[k]);
-  return m;
-}
 
 template <int FAM, bool MIGRATE>
 __global__ void __launch_bounds__(kBlockThreads)
@@ -448,36 +404,11 @@ int fitscore_replay_block_launch(
   using namespace fitscore;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  ReplayArgs a;
-  a.loads = static_cast<float*>(loads);
-  a.slotf = static_cast<float*>(slotf);
-  a.sloti = static_cast<int*>(sloti);
-  a.itemi = static_cast<int*>(itemi);
-  a.sf = static_cast<float*>(sf);
-  a.si = static_cast<int*>(si);
-  a.hagg = static_cast<float*>(hagg);
-  a.ragg = static_cast<float*>(ragg);
-  a.ron = static_cast<int*>(ron);
-  a.evi = static_cast<const int*>(evi);
-  a.evf = static_cast<const float*>(evf);
-  a.size = static_cast<const float*>(size);
-  a.dmask = static_cast<const float*>(dmask);
-  a.rcp_rsqrt = static_cast<const float*>(rcp_rsqrt);
-  a.ev_plane = ev_plane;
-  a.ev_lane = ev_lane;
-  a.size_lane = size_lane;
-  a.Np = Np;
-  a.R = R;
-  a.T = T;
-  a.d = d;
-  a.policy = policy;
-  a.large_bins = large_bins;
-  a.adaptive_alpha = adaptive_alpha;
-  a.direct_sum = direct_sum;
-  a.la_geometric = la_geometric;
-  a.la_split = la_split;
-  a.low = low;
-  a.high = high;
+  const ReplayArgs a = make_replay_args(
+      loads, slotf, sloti, itemi, sf, si, hagg, ragg, ron, evi, evf, size,
+      dmask, rcp_rsqrt, ev_plane, ev_lane, size_lane, Np, R, T, d, policy,
+      large_bins, adaptive_alpha, direct_sum, la_geometric, la_split, low,
+      high);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool mig = migrate != 0;
   cudaError_t err;

@@ -1,7 +1,9 @@
 """Wrappers that launch the port's hand-written kernels: the select
 (``fitscore_select``, ``csrc/select.cu``), the event-blocked replay
-megakernel (``fitscore_replay_block``, ``csrc/replay_block.cu``, with
-``replay_chunk``, the host loop over a chunk's blocks), the legacy
+megakernel (``fitscore_replay_block``: ``csrc/replay_block_sm90.cu``, one
+warp a lane, for pools of up to 256 slots, ``csrc/replay_block.cu``
+otherwise, see ``replay_route``; with ``replay_chunk``, the host loop over
+a chunk's blocks), the legacy
 single-pool scorer (``fitscore``, ``csrc/fitscore.cu``), the attention
 kernels of the model stack (``flash_attention``:
 ``csrc/flash_attention_sm90.cu`` on the tensor cores for bf16 at hd 64 or
@@ -14,8 +16,10 @@ it was given lie on the CPU.  For CUDA tensors it checks them, launches the
 kernel on the current stream or raises; there is no fallback.  Each launch
 adds one to ``launches`` under the kernel's name, so a run can show that it
 went through the kernel; the megakernel's launches with its MIGRATE branch
-count under ``fitscore_replay_block_migrate``, and flash attention's calls
-through its tensor-core kernel also under ``flash_attention_sm90``.
+count under ``fitscore_replay_block_migrate``, and every megakernel launch
+also under its route (``fitscore_replay_block_warp`` or
+``fitscore_replay_block_global``); flash attention's calls through its
+tensor-core kernel also under ``flash_attention_sm90``.
 """
 from __future__ import annotations
 
@@ -117,33 +121,44 @@ def _rcp_rsqrt_on(device: torch.device) -> torch.Tensor:
     return fk.RCP_RSQRT.to(device)
 
 
-def fitscore_replay_block(carry, ev_i, ev_f, ev_size, dmask, *, family: str,
-                          policy: str, n: int, d: int,
+# the largest slot pool the warp kernel takes (kWarpMaxSlots in
+# csrc/replay_common.cuh): eight slots a thread
+REPLAY_WARP_MAX_SLOTS = 256
+
+
+def replay_route(Np: int) -> str:
+    """The kernel that serves a ``fitscore_replay_block`` launch on the
+    card, from the pool size alone: "warp" (``csrc/replay_block_sm90.cu``:
+    one warp a lane, the slot state and the event block in shared memory)
+    for 1 <= Np <= ``REPLAY_WARP_MAX_SLOTS``, "global" (``csrc/
+    replay_block.cu``: a 256-thread CTA a lane, the carry in global memory)
+    above, up to ``MAX_BINS_CAP``."""
+    if Np < 1:
+        raise ValueError(f"replay_route: a pool of {Np} slots")
+    return "warp" if Np <= REPLAY_WARP_MAX_SLOTS else "global"
+
+
+def replay_block_launcher(carry, ev_i, ev_f, ev_size, dmask, *, route: str,
+                          family: str, policy: str, n: int, d: int,
                           large_bins: bool = True,
                           adaptive_alpha: bool = False,
                           direct_sum: bool = False, la_mode: str = "binary",
                           la_split: float = 7200.0, low: float = 2.0,
                           high: float = 16.0, migrate: bool = False):
-    """One block of ``T`` events for ``L`` lanes, the packed carry updated
-    in place: the CUDA megakernel (``csrc/replay_block.cu``) for CUDA
-    tensors, ``fitscore.replay_block_ref`` (same arguments) for CPU ones.
-    ``migrate`` replays MIGRATE events (consolidation; the kernel built
-    with its MIGRATE branch); without it they are no-ops.
-
-    ``ev_i`` (2 + ni, L, T) int32 / ``ev_f`` (2 + nf, L, T) f32 may be
-    views of longer streams (block slices): their last axis must be dense
-    and their strides equal; ``ev_size`` (L, T, DPAD) likewise, with dense
-    rows.  ``policy`` is read by the score family only."""
-    kw = dict(family=family, policy=policy, n=n, d=d, large_bins=large_bins,
-              adaptive_alpha=adaptive_alpha, direct_sum=direct_sum,
-              la_mode=la_mode, la_split=la_split, low=low, high=high,
-              migrate=migrate)
-    dev = carry["loads"].device
-    if dev.type == "cpu":
-        return replay_block_ref(carry, ev_i, ev_f, ev_size, dmask, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"fitscore_replay_block: no kernel for {dev}")
+    """Checks ``fitscore_replay_block``'s arguments (CUDA tensors) and
+    returns a function of no arguments that launches ``route``'s kernel
+    ("warp" or "global") once on them, raising if the launch fails; it
+    counts nothing.  ``fitscore_replay_block`` calls it with
+    ``replay_route(n)``; a measurement may time the other route with it.
+    The warp route raises for carries or sizes that are not 16-byte
+    aligned, and for more item rows than its shared memory holds (RCP
+    keeps a bit an item row there: about 1.5 million rows at 256 slots)."""
     name = "fitscore_replay_block"
+    dev = carry["loads"].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {dev}")
+    if route not in ("warp", "global"):
+        raise ValueError(f"{name}: route {route!r}")
     names = replay_carry_names(family)
     if set(carry) != set(names):
         raise ValueError(f"{name}: carry arrays {sorted(carry)} are not "
@@ -155,6 +170,9 @@ def fitscore_replay_block(carry, ev_i, ev_f, ev_size, dmask, *, family: str,
     R = carry["itemi"].shape[1]
     if Np != n:
         raise ValueError(f"{name}: the carry has {Np} slots, n={n}")
+    if route == "warp" and not 1 <= Np <= REPLAY_WARP_MAX_SLOTS:
+        raise ValueError(f"{name}: the warp kernel takes 1 to "
+                         f"{REPLAY_WARP_MAX_SLOTS} slots, not {Np}")
     f32, i32 = torch.float32, torch.int32
     shapes = {"loads": ((L, Np, DPAD), f32), "slotf": ((L, Np, 8), f32),
               "sloti": ((L, Np, 8), i32), "itemi": ((L, R, 8), i32),
@@ -180,26 +198,85 @@ def fitscore_replay_block(carry, ev_i, ev_f, ev_size, dmask, *, family: str,
                          f"{ev_f.stride()} differ, or ev_size rows are not "
                          f"dense ({ev_size.stride()})")
     _check("dmask", dmask, (L, DPAD), f32, dev, name)
+    if route == "warp":
+        for nm, t in (*carry.items(), ("ev_size", ev_size)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: {nm} must be 16-byte aligned on "
+                                 "the warp route (it reads rows as float4)")
     from ._build import library
     lib = library()
+    fam_code = fk.REPLAY_FAMILIES.index(family)
+    if route == "warp":
+        smem = lib.fitscore_replay_block_warp_smem_bytes(fam_code, Np, T, R)
+        if smem > lib.fitscore_replay_block_warp_smem_max():
+            raise ValueError(
+                f"{name}: {R} item rows need {smem} B of shared memory on "
+                f"the warp route, more than the "
+                f"{lib.fitscore_replay_block_warp_smem_max()} B a CTA takes")
+    fn = lib.fitscore_replay_block_warp_launch if route == "warp" else \
+        lib.fitscore_replay_block_launch
     hagg, ragg, ron = (carry[nm].data_ptr() if nm in carry else None
                        for nm in ("hagg", "ragg", "ron"))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.fitscore_replay_block_launch(
-        carry["loads"].data_ptr(), carry["slotf"].data_ptr(),
-        carry["sloti"].data_ptr(), carry["itemi"].data_ptr(),
-        carry["sf"].data_ptr(), carry["si"].data_ptr(), hagg, ragg, ron,
-        ev_i.data_ptr(), ev_f.data_ptr(), ev_size.data_ptr(),
-        dmask.data_ptr(), _rcp_rsqrt_on(dev).data_ptr(),
-        ev_i.stride(0), ev_i.stride(1), ev_size.stride(0),
-        L, Np, R, T, d, fk.REPLAY_FAMILIES.index(family), code,
-        int(large_bins), int(adaptive_alpha), int(direct_sum),
-        int(la_mode == "geometric"), int(migrate), la_split, low, high,
-        dev.index or 0, stream)
-    if err:
-        raise RuntimeError("fitscore_replay_block launch failed: "
-                           f"{lib.fitscore_error_string(err).decode()}")
+    args = (carry["loads"].data_ptr(), carry["slotf"].data_ptr(),
+            carry["sloti"].data_ptr(), carry["itemi"].data_ptr(),
+            carry["sf"].data_ptr(), carry["si"].data_ptr(), hagg, ragg, ron,
+            ev_i.data_ptr(), ev_f.data_ptr(), ev_size.data_ptr(),
+            dmask.data_ptr(), _rcp_rsqrt_on(dev).data_ptr(),
+            ev_i.stride(0), ev_i.stride(1), ev_size.stride(0),
+            L, Np, R, T, d, fam_code, code,
+            int(large_bins), int(adaptive_alpha), int(direct_sum),
+            int(la_mode == "geometric"), int(migrate), la_split, low, high,
+            dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch():
+        err = fn(*args)
+        if err:
+            raise RuntimeError(f"{name} ({route} kernel) launch failed: "
+                               f"{lib.fitscore_error_string(err).decode()}")
+    return launch
+
+
+def fitscore_replay_block(carry, ev_i, ev_f, ev_size, dmask, *, family: str,
+                          policy: str, n: int, d: int,
+                          large_bins: bool = True,
+                          adaptive_alpha: bool = False,
+                          direct_sum: bool = False, la_mode: str = "binary",
+                          la_split: float = 7200.0, low: float = 2.0,
+                          high: float = 16.0, migrate: bool = False):
+    """One block of ``T`` events for ``L`` lanes, the packed carry updated
+    in place: for CUDA tensors the CUDA megakernel ``replay_route(n)``
+    names (``csrc/replay_block_sm90.cu`` up to ``REPLAY_WARP_MAX_SLOTS``
+    slots, ``csrc/replay_block.cu`` above), ``fitscore.replay_block_ref``
+    (same arguments) for CPU ones.  ``migrate`` replays MIGRATE events
+    (consolidation; the kernel built with its MIGRATE branch); without it
+    they are no-ops.
+
+    ``ev_i`` (2 + ni, L, T) int32 / ``ev_f`` (2 + nf, L, T) f32 may be
+    views of longer streams (block slices): their last axis must be dense
+    and their strides equal; ``ev_size`` (L, T, DPAD) likewise, with dense
+    rows.  ``policy`` is read by the score family only.
+
+    Every DEPARTURE and MIGRATE event must name an item its lane has
+    placed: an ARRIVAL of it in this block or an earlier one, and no
+    DEPARTURE since.  The replays' streams hold to it (``torchsim.
+    event_sequence`` sorts each departure after its arrival, since an
+    ``Instance`` has departures > arrivals; consolidation migrates live
+    items only).  The departure of an item with no slot (placement -1) is
+    outside the contract: the plain version, the two kernels and the JAX
+    package's megakernel each do something else with it."""
+    kw = dict(family=family, policy=policy, n=n, d=d, large_bins=large_bins,
+              adaptive_alpha=adaptive_alpha, direct_sum=direct_sum,
+              la_mode=la_mode, la_split=la_split, low=low, high=high,
+              migrate=migrate)
+    dev = carry["loads"].device
+    if dev.type == "cpu":
+        return replay_block_ref(carry, ev_i, ev_f, ev_size, dmask, **kw)
+    route = replay_route(carry["loads"].shape[1])
+    replay_block_launcher(carry, ev_i, ev_f, ev_size, dmask, route=route,
+                          **kw)()
+    name = "fitscore_replay_block"
     launches[name + "_migrate" if migrate else name] += 1
+    launches[f"{name}_{route}"] += 1
     return carry
 
 

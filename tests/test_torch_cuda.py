@@ -29,8 +29,10 @@ from repro_torch.sweep import pack_instances, pad_predictions, run_batch
 from repro_torch.sweep.runner import _flatten_lanes
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from chip_smoke import (legacy_inputs, migrate_streams,  # noqa: E402
-                        random_state)  # (the card check's input makers)
+from chip_smoke import (HAZARDS, check_routes, hazard_block,  # noqa: E402
+                        legacy_inputs, migrate_streams, padded_streams,
+                        random_state, synthetic_lanes)
+# (the card check's input makers)
 
 pytestmark = pytest.mark.cuda
 
@@ -124,29 +126,29 @@ def test_overflow_ladder_on_card_equals_cpu(lanes, cuda):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
 
 
-def _block_case(policy, flat, max_bins, device):
+def _block_case(policy, flat, max_bins, device, prefix=48):
     """Streams, kernel arguments and a mid-replay packed carry (the first
-    48 events replayed) of one policy on ``device``."""
+    ``prefix`` events replayed) of one policy on ``device``."""
     ev_i, ev_f, ev_size, dmask, fam, d = torchsim._event_streams(
         policy, *flat, None)
     kw = torchsim.replay_block_kwargs(policy, max_bins, d)
     ev = [a.to(device) for a in (ev_i, ev_f, ev_size, dmask)]
     carry = torchsim.packed_init_carry(fam, flat[0].shape[0],
                                        flat[0].shape[1], max_bins, device)
-    ops.replay_chunk(carry, ev[0][:, :, :48], ev[1][:, :, :48],
-                     ev[2][:, :48], ev[3], block_events=48, **kw)
+    ops.replay_chunk(carry, ev[0][:, :, :prefix], ev[1][:, :, :prefix],
+                     ev[2][:, :prefix], ev[3], block_events=prefix, **kw)
     return carry, ev, kw
 
 
 @pytest.mark.parametrize("policy", torchsim.SCAN_POLICIES)
 def test_megakernel_equals_replay_block_ref(policy, lanes, cuda):
     """One launch (and one plain block) from the same mid-replay carry,
-    T = 1 and T = 64 past the end of two of the three lanes (PAD): every
-    carry array equal."""
+    the 136 events before the block replayed, T = 1 and T = 64 past the
+    end of two of the three lanes (PAD): every carry array equal."""
     *_, flat = lanes
     for T in (1, 64):
         carry, (ev_i, ev_f, ev_size, dmask), kw = _block_case(
-            policy, flat, 16, cuda)
+            policy, flat, 16, cuda, prefix=136)
         plain = {k: v.clone() for k, v in carry.items()}
         blk = slice(136, 136 + T)
         n0 = ops.launches["fitscore_replay_block"]
@@ -242,6 +244,177 @@ def test_consolidated_replay_on_card_equals_cpu(lanes, cuda):
             for a, b in zip(got[:4], want[:4]):
                 assert torch.equal(a.cpu(), b), (policy, T)
             assert got[4]["events"] == want[4]["events"]
+
+
+# (L, Np) of the route tests: both routes (warp up to 256 slots, global
+# above), pools that are not a multiple of 32, one lane, and more lanes
+# than the card has SMs
+ROUTE_SHAPES = [(1, 31), (56, 64), (140, 128), (56, 256), (1, 257),
+                (140, 300), (56, 100)]
+_route_lanes = {}
+
+
+def _lanes_of(L, d):
+    if (L, d) not in _route_lanes:
+        _route_lanes[(L, d)] = synthetic_lanes(
+            np.random.default_rng(100 + L + d), L, d, n_max=200)
+    return _route_lanes[(L, d)]
+
+
+def _fail(msg):
+    raise AssertionError(msg)
+
+
+def _routes_equal_plain(carry, blk, dmask, kw, migrate, what):
+    """``chip_smoke.check_routes``, failing the test where it finds a
+    difference or a launch the wrapper did not count.  Returns the routes
+    run."""
+    return check_routes(carry, blk, dmask, kw, what, migrate=migrate,
+                        on_fail=_fail)[0]
+
+
+@pytest.mark.parametrize("migrate", [False, True])
+@pytest.mark.parametrize("policy", torchsim.SCAN_POLICIES)
+def test_megakernel_routes_equal_replay_block_ref(policy, migrate, cuda):
+    """Every policy, with and without the MIGRATE branch (then on blocks
+    that open with MIGRATE events), T in {1, 8, 256}, (L, Np) cycling
+    through ``ROUTE_SHAPES`` and d through {2, 4, 5}: both routes' kernels
+    == ``replay_block_ref`` from the same mid-replay carry."""
+    pi = torchsim.SCAN_POLICIES.index(policy)
+    rng = np.random.default_rng(pi)
+    routes = set()
+    for ti, T in enumerate((1, 8, 256)):
+        L, Np = ROUTE_SHAPES[(3 * pi + ti + int(migrate)) % len(ROUTE_SHAPES)]
+        d = (2, 4, 5)[(pi + ti) % 3]
+        flat = _lanes_of(L, d)
+        E = flat[1].shape[1]
+        (ev_i, ev_f, ev_size, dmask), fam, _ = padded_streams(
+            policy, flat, T, cuda)
+        kw = torchsim.replay_block_kwargs(policy, Np, d)
+        start = E // 2 if T < 256 else E - T // 2
+        carry = torchsim.packed_init_carry(fam, L, flat[0].shape[1], Np,
+                                           cuda)
+        ops.fitscore_replay_block(carry, ev_i[:, :, :start],
+                                  ev_f[:, :, :start], ev_size[:, :start],
+                                  dmask, **kw)
+        if migrate:
+            (ev_i, ev_f, ev_size, _), _, _ = migrate_streams(
+                policy, flat, start, T, carry, rng, cuda)
+        blk = slice(start, start + T)
+        routes.update(_routes_equal_plain(
+            carry, (ev_i[:, :, blk], ev_f[:, :, blk], ev_size[:, blk]),
+            dmask, kw, migrate, (L, Np, d, T)))
+    assert routes == {"warp", "global"}
+
+
+HAZARD_POLICIES = ("first_fit", "nrt_prioritized", "cbd",
+                   "hybrid_direct_sum", "ppe", "rcp", "la_geometric",
+                   "adaptive")
+
+
+@pytest.mark.parametrize("name,policy", [
+    (n, p) for n in HAZARDS for p in HAZARD_POLICIES
+    if n != "convert_then_depart" or p in ("ppe", "rcp")])
+def test_megakernel_hazards_equal_replay_block_ref(name, policy, cuda):
+    """The warp kernel's hazards (``chip_smoke.HAZARDS``, the blocks the
+    CPU tests hold the plain version to the reference's interpret-mode
+    megakernel on) through both routes: every carry array equal."""
+    carry, blk, dmask, kw, mig = hazard_block(name, policy)
+    carry = {k: v.to(cuda) for k, v in carry.items()}
+    assert _routes_equal_plain(carry, [a.to(cuda) for a in blk],
+                               dmask.to(cuda), kw, mig, name) == \
+        ["warp", "global"]
+
+
+@pytest.mark.parametrize("policy", ["greedy", "cbdt", "reduced_hybrid",
+                                    "rcp_modified", "la_binary",
+                                    "adaptive"])
+def test_warp_kernel_block_of_several_tiles(policy, cuda):
+    """A block of 600 events is three tiles of the warp kernel's shared
+    memory (256, 256, 88): the rows the first tiles' commits write reach
+    the later tiles' departures through itemi; a whole replay in such
+    blocks == the plain version's."""
+    flat = _lanes_of(56, 4)
+    E = flat[1].shape[1]
+    T = 600
+    (ev_i, ev_f, ev_size, dmask), fam, _ = padded_streams(
+        policy, flat, -(-E // T) * T - E, cuda)
+    kw = torchsim.replay_block_kwargs(policy, 64, 4)
+    carry = torchsim.packed_init_carry(fam, 56, flat[0].shape[1], 64, cuda)
+    for b in range(0, ev_size.shape[1], T):
+        _routes_equal_plain(carry, (ev_i[:, :, b:b + T], ev_f[:, :, b:b + T],
+                                    ev_size[:, b:b + T]), dmask, kw, False,
+                            b)
+
+
+def test_warp_route_refuses_what_it_does_not_take(lanes, cuda):
+    """The warp kernel takes pools of up to 256 slots and 16-byte aligned
+    carries and sizes (it reads rows as float4); the wrapper raises, and
+    never gives way to the other kernel."""
+    *_, flat = lanes
+    carry, (ev_i, ev_f, ev_size, dmask), kw = _block_case(
+        "cbd", flat, 16, cuda)
+    ev = (ev_i[:, :, :8], ev_f[:, :, :8], ev_size[:, :8], dmask)
+    big = torchsim.packed_init_carry("cbd", 3, flat[0].shape[1], 300, cuda)
+    with pytest.raises(ValueError, match="1 to 256 slots"):
+        ops.replay_block_launcher(big, *ev, route="warp",
+                                  **dict(kw, n=300))
+    shifted = torch.empty(carry["loads"].numel() + 1, device=cuda)[1:]
+    shifted = shifted.view(carry["loads"].shape)
+    shifted.copy_(carry["loads"])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.fitscore_replay_block(dict(carry, loads=shifted), *ev, **kw)
+
+
+def _with_item_rows(carry, R):
+    """``carry`` with ``R`` item rows, the rows past its own as a fresh
+    carry holds them (no slot, aux LOC_G)."""
+    big = dict(carry)
+    big["itemi"] = torch.zeros(carry["itemi"].shape[:1] + (R, fk.ITEMI_COLS),
+                               dtype=torch.int32, device=carry["itemi"].device)
+    big["itemi"][:, :, fk.ITEMI_PLACE] = -1
+    big["itemi"][:, :carry["itemi"].shape[1]] = carry["itemi"]
+    return big
+
+
+@pytest.mark.parametrize("policy", ["rcp", "ppe_modified"])
+def test_warp_kernel_bitmap_past_48kb(policy, cuda):
+    """RCP's LOC_B bitmap takes a bit an item row: at 400 000 item rows the
+    warp kernel's shared memory passes 48 KB (it opts in to more).  The
+    conversion block, with far rows marked LOC_B that only a conversion
+    reaches, through both routes == the plain version; a lane that
+    converts turns them all to LOC_C."""
+    carry, blk, dmask, kw, mig = hazard_block("convert_then_depart", policy)
+    carry = _with_item_rows({k: v.to(cuda) for k, v in carry.items()},
+                            400_000)
+    carry["itemi"][:, [40_000, 350_001, 399_999], fk.ITEMI_AUX] = fk.LOC_B
+    from repro_torch.kernels._build import library
+    T = blk[0].shape[2]
+    smem = library().fitscore_replay_block_warp_smem_bytes(
+        fk.REPLAY_FAMILIES.index("rcp"), kw["n"], T, 400_000)
+    assert 48 * 1024 < smem <= library().fitscore_replay_block_warp_smem_max()
+    assert _routes_equal_plain(carry, [a.to(cuda) for a in blk],
+                               dmask.to(cuda), kw, mig, policy) == \
+        ["warp", "global"]
+    far = carry["itemi"][:, [40_000, 350_001, 399_999], fk.ITEMI_AUX]
+    converted = (far == fk.LOC_C).all(1)
+    assert converted.any()
+    assert (converted | (far == fk.LOC_B).all(1)).all()
+
+
+def test_warp_route_refuses_more_item_rows_than_its_bitmap_holds(cuda):
+    """Two million item rows need more shared memory than a CTA may take:
+    the warp route raises, and never gives way to the global kernel."""
+    carry, blk, dmask, kw, _ = hazard_block("convert_then_depart", "rcp")
+    carry = _with_item_rows({k: v[:1].to(cuda) for k, v in carry.items()},
+                            2_000_000)
+    ev_i, ev_f, ev_size = blk
+    n0 = dict(ops.launches)
+    with pytest.raises(ValueError, match="item rows"):
+        ops.fitscore_replay_block(carry, ev_i[:, :1].to(cuda),
+                                  ev_f[:, :1].to(cuda), ev_size[:1].to(cuda),
+                                  dmask[:1].to(cuda), **kw)
+    assert dict(ops.launches) == n0
 
 
 @pytest.mark.parametrize("norm", ["l1", "l2", "linf", "first_fit"])

@@ -168,7 +168,8 @@ def _cuda_constants():
     import re
     csrc = os.path.join(os.path.dirname(fk.__file__), "csrc")
     text = "".join(open(os.path.join(csrc, f)).read()
-                   for f in ("fitscore_common.cuh", "replay_block.cu"))
+                   for f in ("fitscore_common.cuh", "replay_common.cuh",
+                             "replay_block.cu", "replay_block_sm90.cu"))
     text = re.sub(r"//[^\n]*", "", text)
     found = {}
     for decls in re.findall(r"constexpr\s+(?:int|float)\s+([^;]+);", text):
