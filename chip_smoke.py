@@ -13,10 +13,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    shared memory, and the replay warp kernel's.
 2. Select vs plain: the CUDA select against ``select_ref`` on the card, on
    random, tied and full pools for every score policy, with and without a
-   category mask - (slot, found, no_free) must be identical.  Then the
-   kernel's and the plain version's time at the main path's shapes (L=28
-   and 56 lanes at Np=64 slots, L=28 at Np=128; d=5) beside the card's
-   bound for the same work.
+   category mask - (slot, found, no_free) must be identical - on the route
+   ``ops.select_route`` picks (the warp kernel up to 256 slots, the cta
+   kernel above) and, up to 256 slots, on the cta kernel too.  Then both
+   kernels' device time per raw launch on the same inputs, the plain
+   version's, and the wrapper's wall time per call at the main path's
+   shapes (L=28 and 56 lanes at Np=64 slots, L=28 at Np=128; d=5) beside
+   the card's bound for the same work.
 3. Megakernel vs plain: the CUDA replay megakernel against
    ``replay_block_ref`` on the card for all 21 policy names (every kernel
    family), L in {8, 56}, Np in {64, 128, 300}, d in {2, 4, 5}, T in {1,
@@ -45,10 +48,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    at the generator's default size (28 x 5000 nominal, 138221 VMs), two of
    the 8 score policies (``PER_EVENT_POLICIES``: first_fit, best_fit_l2) x
    {clairvoyant, lognormal:1.0} x seeds {0, 1} into a temporary store.
-   Every replay step must have launched the select once; best_fit_l2 x
-   clairvoyant is replayed again with the plain select bound in place of
-   the kernel's wrapper and must agree; a second run over the store must
-   find every group cached.
+   The per-event loop runs in windows of ``torchsim.STEP_WINDOW`` steps,
+   each a replay of one CUDA graph.  Every replay step must have launched
+   the select once (counted once a graph replay), all on the warp route;
+   best_fit_l2 x clairvoyant is replayed again with the plain select bound
+   in place of the kernel's wrapper and must agree; first_fit x
+   clairvoyant is replayed again graphed and as the eager loop, each equal
+   to the sweep's records, with both walls printed; a second run over the
+   store must find every group cached.
 6. Main path blocked: the same sweep with all 21 policies and
    ``block_events=BLOCK_EVENTS``: the megakernel must have launched once
    per block of every scan (counted by route) and the select never, the score policies'
@@ -138,9 +145,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    on each route's kernel (equal to the path's; device time, side by
    side).
 
-Then, as a measurement and not a check, torch.profiler over 400 per-event
-replay steps of the main path's first rung (L=28, Np=64) and over one
-blocked scan: device busy time against wall time.
+Then, as a measurement and not a check, on the main path's first rung
+(L=28, Np=64): torch.profiler over 2048 graphed per-event steps and 400
+eager ones (device busy time against wall time, the select's own time in
+the graphed steps), CUDA events around each graph replay (the graphed
+windows' device time a step), the whole scan's wall time a step at windows
+of 64, 128 and 256 steps, the select's device time a launch inside a CUDA
+graph of 256 launches, and torch.profiler over one blocked scan.
 
 Prints the card's name and power limit and a JSON line of kernel numbers
 before the last line, which is ``{"ok": true, "device": {...}}``.
@@ -315,27 +326,6 @@ def device_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def raw_select(st, policy):
-    """One select launch with no wrapper work (pointers bound up front),
-    for timing the kernel alone; not counted as a main-path launch."""
-    import torch
-    from repro_torch.kernels._build import library
-    from repro_torch.kernels.fitscore import policy_code
-    lib = library()
-    L, Np, _ = st[0].shape
-    out = torch.empty((L, 3), dtype=torch.int32, device=st[0].device)
-    args = [t.data_ptr() for t in st[:6]] + \
-        [st[6].data_ptr(), st[9].data_ptr(), None, st[7].data_ptr(),
-         st[8].data_ptr(), out.data_ptr(), L, Np, policy_code(policy),
-         st[0].device.index or 0,
-         torch.cuda.current_stream().cuda_stream]
-
-    def launch():
-        if lib.fitscore_select_launch(*args):
-            fail("select launch failed")
-    return launch, out
-
-
 # kernels whose ptxas report must show no spills (mangled-name parts)
 NO_SPILL_KERNELS = ("flash_sm90_kernel", "decode_kernel", "decode_mma_kernel")
 
@@ -433,10 +423,11 @@ def phase_build():
 def phase_kernel_vs_plain(dev):
     import numpy as np
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.kernels.fitscore import SELECT_POLICIES, select_ref
-    from repro_torch.kernels.ops import fitscore_select
     rng = np.random.default_rng(2026)
     n_cases = max_err = 0
+    by_route = collections.Counter()
     for mode in ("random", "ties", "full"):
         for L in (28, 56):
             for Np in (64, 128, 256, 300):
@@ -444,20 +435,34 @@ def phase_kernel_vs_plain(dev):
                     st = random_state(rng, L, Np, d, mode, dev)
                     for policy in SELECT_POLICIES:
                         for cmask in (None, st[10]):
-                            k = fitscore_select(*st[:10], cmask,
-                                                policy=policy)
                             p = select_ref(*st[:10], cmask, policy=policy)
-                            for a, b in zip(k, p):
-                                err = int((a.long() - b.long()).abs().max())
-                                max_err = max(max_err, err)
-                                if err:
-                                    fail(f"select kernel != plain: {mode} "
-                                         f"L={L} Np={Np} d={d} {policy} "
-                                         f"cmask={cmask is not None}")
+                            # the wrapper's route, then the other route's
+                            # kernel where it takes the pool (uncounted)
+                            route = ops.select_route(Np)
+                            runs = [(route, ops.fitscore_select(
+                                *st[:10], cmask, policy=policy))]
+                            if route == "warp":
+                                launch, out = ops.select_launcher(
+                                    *st[:10], cmask, policy=policy,
+                                    route="cta")
+                                launch()
+                                runs.append(("cta", out))
+                            for r, k in runs:
+                                for a, b in zip(k, p):
+                                    err = int((a.long() - b.long()).abs()
+                                              .max())
+                                    max_err = max(max_err, err)
+                                    if err:
+                                        fail(f"select kernel ({r} route) "
+                                             f"!= plain: {mode} L={L} "
+                                             f"Np={Np} d={d} {policy} "
+                                             f"cmask={cmask is not None}")
+                                by_route[r] += 1
                             n_cases += 1
     torch.cuda.synchronize()
-    say(f"# kernel == plain on {n_cases} random cases "
-        "(slot, found, no_free identical)")
+    say(f"# kernel == plain on {n_cases} random cases (slot, found, "
+        f"no_free identical): {by_route['warp']} on the warp route, "
+        f"{by_route['cta']} on the cta route")
 
     # timing at the main path's shapes: the first rung of the ladder (64
     # slots) for the clairvoyant (28 lanes) and the lognormal groups (56
@@ -470,38 +475,49 @@ def phase_kernel_vs_plain(dev):
 
 
 def time_select(dev, L, Np, d, policy):
-    """Device and wall time per call of the kernel and of ``select_ref``
-    on one random pool, beside the card's bound for the same work."""
+    """Device time per raw launch of the select's two kernels (the warp
+    route's and the cta route's, on the same inputs) and of
+    ``select_ref``, the wrapper's wall time per call, and the card's bound
+    for the same work."""
     import numpy as np
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.kernels.fitscore import select_ref
-    from repro_torch.kernels.ops import fitscore_select
     st = random_state(np.random.default_rng(7), L, Np, d, "random", dev)
-    launch, out = raw_select(st, policy)
-    launch()
-    if not torch.equal(out[:, 0], select_ref(*st[:10], policy=policy)[0]):
-        fail("raw select launch disagrees with the plain version")
-    ms = device_ms(launch, 500)
+    want = select_ref(*st[:10], policy=policy)
+    ms = {}
+    for route in ops.SELECT_ROUTES:
+        launch, out = ops.select_launcher(*st[:10], policy=policy,
+                                          route=route)
+        launch()
+        if not all(torch.equal(a, b) for a, b in zip(out, want)):
+            fail(f"raw select launch ({route}) disagrees with the plain "
+                 "version")
+        ms[route] = device_ms(launch, 500)
     plain_ms = device_ms(lambda: select_ref(*st[:10], policy=policy), 4)
-    wrap_ms = time_ms(lambda: fitscore_select(*st[:10], policy=policy), 500)
+    wrap_ms = time_ms(lambda: ops.fitscore_select(*st[:10], policy=policy),
+                      500)
     plain_wall_ms = time_ms(lambda: select_ref(*st[:10], policy=policy), 50)
     # bytes the function must move for best_fit_l2 over the d real dims:
     # loads, counts, alive, open_seq per slot, size and dmask per lane, the
-    # (L, 3) output (the kernel's padding of d to 8 is not the function's)
-    nbytes = L * Np * (d * 4 + 4 + 1 + 4) + L * 2 * d * 4 + L * 3 * 4
+    # outputs (slot int32, found and no_free bool) (the kernel's padding of
+    # d to 8 is not the function's)
+    nbytes = L * Np * (d * 4 + 4 + 1 + 4) + L * 2 * d * 4 + L * (4 + 2)
     # fp32 operations per slot: feasibility (sub, add, compare) and the l2
     # residual (sub, sub, mul, fma) on d dims, the sqrt, the argmin compare
     nops = L * Np * (d * 3 + d * 5 + 2)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
     bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
         (t_ops, "operations")
-    say(f"# select L={L} Np={Np} d={d} {policy}: device time per call: "
-        f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms; bound "
+    say(f"# select L={L} Np={Np} d={d} {policy}: device time per raw "
+        f"launch: warp kernel {ms['warp']:.6f} ms, cta kernel "
+        f"{ms['cta']:.6f} ms, plain {plain_ms:.6f} ms; bound "
         f"{bound_ms:.3e} ms by {bound_by} ({nbytes} B at 3.35 TB/s); wall "
-        f"time per call: wrapper {wrap_ms:.6f} ms, plain {plain_wall_ms:.6f}"
-        f" ms")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+        f"time per call: wrapper ({ops.select_route(Np)} route) "
+        f"{wrap_ms:.6f} ms, plain {plain_wall_ms:.6f} ms")
+    return {"ms": ms[ops.select_route(Np)], "cta_ms": ms["cta"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "wrapper_ms": wrap_ms}
 
 
 def synthetic_lanes(rng, L, d, n_max=300):
@@ -1041,7 +1057,11 @@ def phase_category_headline(dev):
             f"block_events={T}: total usage {total:.2f} in "
             f"{time.perf_counter() - t0:.1f} s ({ops.launches[kernel]} "
             f"{kernel} launches)")
-        want = {kernel} if T == 0 else {kernel, kernel + "_warp"}
+        # per event: the select's warp route, from CUDA graphs of
+        # STEP_WINDOW steps (the scans are longer than two windows)
+        want = {kernel, kernel + "_warp", "replay_step_graph",
+                "replay_step_capture"} if T == 0 else \
+            {kernel, kernel + "_warp"}
         if not ops.launches[kernel] or set(ops.launches) != want:
             fail(f"category headline (block_events={T}) launches "
                  f"{dict(ops.launches)}")
@@ -1080,15 +1100,25 @@ def phase_main_path(dev, n_items: int = 5000):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ops.launches["fitscore_select"]
+        graphs = {k: ops.launches[k] for k in ("replay_step_graph",
+                                               "replay_step_capture")}
         steps = torchsim.counters["scan_steps"]
         replays = sum(len(spec.policies) * (len(spec.seeds) if p.noisy
                                             else 1) for p in preds)
         say(f"# main path: {len(records)} records in {wall:.1f} s, "
             f"{replays * n_events / wall:.0f} events/s "
             f"({replays} replays of {n_events} events), "
-            f"{launches} select launches over {steps} scan steps")
-        if launches != steps or steps == 0:
-            fail(f"select launches {launches} != scan steps {steps}")
+            f"{launches} select launches over {steps} scan steps "
+            f"({ops.launches['fitscore_select_warp']} on the warp route; "
+            f"{graphs['replay_step_graph']} CUDA graph replays of "
+            f"{torchsim.STEP_WINDOW} steps from "
+            f"{graphs['replay_step_capture']} captures)")
+        if launches != steps or steps == 0 or \
+                ops.launches["fitscore_select_warp"] != launches or \
+                not graphs["replay_step_graph"]:
+            fail(f"select launches {launches} != scan steps {steps}, or "
+                 f"not all on the warp route, or no graph replays: "
+                 f"{dict(ops.launches)}")
         for (pol, pred), st in summarize_sweep(records).items():
             say(f"#   ratio {pol:<16} {pred:<12} mean {st.mean:.6f}")
         # usage accumulates in fp32 (as in the reference), the Eq.(1)
@@ -1118,6 +1148,38 @@ def phase_main_path(dev, n_items: int = 5000):
                      int(plain.n_bins_opened[bi, 0])):
                 fail(f"plain select differs on {inst.name}")
 
+        # one scan again, graphed (the path) and eagerly (a window longer
+        # than half the scan runs the plain loop): equal records, both walls
+        walls = {}
+        for how, window in (("graphed", torchsim.STEP_WINDOW),
+                            ("eager", 1 << 30)):
+            old = torchsim.STEP_WINDOW
+            torchsim.STEP_WINDOW = window
+            ops.launches.clear()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = run_batch(batch, "first_fit", None, spec.max_bins,
+                                spec.max_bins_cap, device=dev)
+                torch.cuda.synchronize()
+                walls[how] = time.perf_counter() - t0
+            finally:
+                torchsim.STEP_WINDOW = old
+            if bool(ops.launches["replay_step_graph"]) != (how == "graphed"):
+                fail(f"first_fit x clairvoyant {how}: {dict(ops.launches)}")
+            for bi, inst in enumerate(insts):
+                r = records[result_key(suite, inst.name, "first_fit",
+                                       preds[0], 0)]
+                if (r["usage_time"], r["n_bins_opened"]) != \
+                        (float(res.usage_time[bi, 0]),
+                         int(res.n_bins_opened[bi, 0])):
+                    fail(f"first_fit x clairvoyant {how} differs from the "
+                         f"sweep's records on {inst.name}")
+        say(f"# first_fit x clairvoyant again: graphed "
+            f"{walls['graphed']:.3f} s, eager {walls['eager']:.3f} s "
+            f"({walls['eager'] / walls['graphed']:.2f}x); both == the "
+            f"sweep's records")
+
         msgs = []
         ops.launches.clear()
         again = run_sweep(spec, store=SweepStore(tmp), device=dev,
@@ -1126,7 +1188,7 @@ def phase_main_path(dev, n_items: int = 5000):
                 not all(m.startswith("skip") for m in msgs):
             fail("a second run over the store recomputed groups")
         say(f"# rerun over the store: all {len(msgs)} groups cached")
-    return launches, records, replays * n_events / wall
+    return launches, records, replays * n_events / wall, graphs, walls
 
 
 def phase_blocked_main_path(dev, per_event_records, per_event_eps,
@@ -2045,6 +2107,41 @@ def live_items(kinds, items, n_max, upto):
     return live
 
 
+def with_migrations(flat, every: int = 7, seed: int = 0):
+    """``flat`` (``_replay_batch``'s lane arrays, numpy) with one more event
+    after every ``every`` events of each lane, at the time of the event
+    before it: a MIGRATE of one of the lane's live items, drawn from
+    ``seed``, or a PAD event where the lane holds none.  The stream a
+    per-event replay with ``migrate=True`` takes, as the consolidating
+    driver makes them, but without the planner."""
+    import numpy as np
+    from repro_torch.kernels import fitscore as fk
+    sizes, times, kinds, items = flat[:4]
+    rng = np.random.default_rng(seed)
+    L, E = kinds.shape
+    W = E + E // every
+    t2 = np.zeros((L, W), times.dtype)
+    k2 = np.full((L, W), fk.PAD_KIND, kinds.dtype)
+    i2 = np.zeros((L, W), items.dtype)
+    for lane in range(L):
+        live, w = [], 0
+        for e in range(E):
+            k, it = int(kinds[lane, e]), int(items[lane, e])
+            t2[lane, w], k2[lane, w], i2[lane, w] = times[lane, e], k, it
+            w += 1
+            if k == fk.ARRIVAL_KIND:
+                live.append(it)
+            elif k == fk.DEPARTURE_KIND and it in live:
+                live.remove(it)
+            if (e + 1) % every == 0:
+                t2[lane, w] = times[lane, e]
+                if live:
+                    k2[lane, w] = fk.MIGRATE_KIND
+                    i2[lane, w] = live[int(rng.integers(len(live)))]
+                w += 1
+    return (sizes, t2, k2, i2) + tuple(flat[4:])
+
+
 def migrate_streams(policy, flat, start, T, carry, rng, dev):
     """The event streams of ``flat`` under ``policy`` cut at ``start``, with
     a block of ``T`` events that opens with MIGRATE events of live items
@@ -2333,7 +2430,11 @@ def phase_consolidation_main_path(dev, base_records, n_items: int = 5000):
     if not n_mig or not n_blk or "fitscore_select" in blocked_launches:
         fail(f"consolidation blocked launches {blocked_launches}")
     if not pe_launches.get("fitscore_select") or \
-            len(pe_launches) != 1:
+            pe_launches.get("fitscore_select_warp") != \
+            pe_launches["fitscore_select"] or \
+            not set(pe_launches) <= {"fitscore_select", "fitscore_select_warp",
+                                     "replay_step_graph",
+                                     "replay_step_capture"}:
         fail(f"consolidation per-event launches {pe_launches}")
     if not n_checked:
         fail("no scan had a MIGRATE chunk to check")
@@ -2364,14 +2465,17 @@ def phase_consolidation_main_path(dev, base_records, n_items: int = 5000):
                     f"({len(v)} chunks)" for r, v in mig_route_ms.items())
         + "; per event "
         f"({', '.join(PER_EVENT_POLICIES)}): {pe_launches['fitscore_select']}"
-        f" select launches, {pe_wall:.1f} s, records == blocked; "
+        f" select launches ({pe_launches.get('replay_step_graph', 0)} "
+        f"graph replays), {pe_wall:.1f} s, records == blocked; "
         f"{n_checked} mid-scan MIGRATE chunks == replay_block_ref")
     return n_mig, float(np.median(times)), {
         r: float(np.median(v)) for r, v in mig_route_ms.items()}
 
 
-def profile_run(dev, label, fn, units: int, unit: str) -> None:
-    """Device busy time against wall time of ``fn`` under torch.profiler.
+def profile_run(dev, label, fn, units: int, unit: str) -> dict:
+    """Device busy time against wall time of ``fn`` under torch.profiler,
+    per ``unit``: {"wall_us", "busy_us", "share" (%), "kernels", "by_name"
+    ({kernel: device µs})}, empty if the profiler saw no device kernels.
     A measurement, not a check: if the profiler reports no device activity
     it says so."""
     import torch
@@ -2391,7 +2495,7 @@ def profile_run(dev, label, fn, units: int, unit: str) -> None:
     if not n_k:
         say(f"# profile {label}: the profiler saw no device kernels (not "
             "measured)")
-        return
+        return {}
     say(f"# profile {label} (under the profiler): wall "
         f"{wall_us / units:.1f} us/{unit}, device busy "
         f"{busy_us / units:.1f} us/{unit} "
@@ -2401,23 +2505,124 @@ def profile_run(dev, label, fn, units: int, unit: str) -> None:
     for e in top:
         say(f"#   {e.self_device_time_total / units:10.2f} us/{unit} "
             f"x{e.count / units:.1f}  {e.key[:90]}")
+    return {"wall_us": wall_us / units, "busy_us": busy_us / units,
+            "share": 100 * busy_us / wall_us, "kernels": n_k / units,
+            "by_name": {e.key: e.self_device_time_total / units
+                        for e in kernels}}
 
 
-def phase_profile(dev, n_items: int = 5000, steps: int = 400):
+def select_in_graph_ms(dev, L: int = 56, Np: int = 64, n: int = 256):
+    """Device time per select launch inside a CUDA graph of ``n`` launches
+    (the warp route, best_fit_l2, d=5; uncounted), replayed behind a spin:
+    the select as the graphed per-event path launches it."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    st = random_state(np.random.default_rng(7), L, Np, 5, "random", dev)
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        launch, _ = ops.select_launcher(*st[:10], policy="best_fit_l2",
+                                        route=ops.select_route(Np))
+        g.capture_begin()
+        for _ in range(n):
+            launch()
+        g.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    ms = device_ms(g.replay, 3) / n
+    g.reset()
+    return ms
+
+
+def phase_profile(dev, n_items: int = 5000, steps: int = 2048,
+                  eager_steps: int = 400):
     """Where the time goes on the main path's first rung (L=28
-    clairvoyant lanes, max_bins 64): ``steps`` per-event replay steps of
-    best_fit_l2, and one whole blocked scan of best_fit_l2 and of
-    ppe_modified."""
+    clairvoyant lanes, max_bins 64, best_fit_l2): ``steps`` per-event
+    steps graphed (the path; the warm-up window and the capture included)
+    and ``eager_steps`` as the plain loop, under the profiler; the whole
+    scan's wall time at windows of 64, 128 and 256 steps, and at
+    ``STEP_WINDOW`` its graph replays' device time by CUDA events around
+    each; the select's own device time inside a graph; and one whole
+    blocked scan of best_fit_l2 and of ppe_modified."""
+    import torch
+    from repro_torch.core import torchsim
     from repro_torch.core.torchsim import _replay_batch
     from repro_torch.sweep import SuiteSpec
     from repro_torch.sweep.grid import _built_suite
     _, _, b = _built_suite(SuiteSpec("azure", 28, n_items))
-    ev = slice(0, steps)
-    head = (b.sizes, b.times[:, ev], b.kinds[:, ev], b.items[:, ev],
-            b.pdeps, b.dmask)
-    profile_run(dev, f"per event, {steps} steps, L=28 Np=64 best_fit_l2",
-                lambda: _replay_batch(*head, policy="best_fit_l2",
-                                      max_bins=64, device=dev), steps, "step")
+
+    def per_event(n, window):
+        ev = slice(0, n)
+        old = torchsim.STEP_WINDOW
+        torchsim.STEP_WINDOW = window
+        try:
+            _replay_batch(b.sizes, b.times[:, ev], b.kinds[:, ev],
+                          b.items[:, ev], b.pdeps, b.dmask,
+                          policy="best_fit_l2", max_bins=64, device=dev)
+        finally:
+            torchsim.STEP_WINDOW = old
+
+    K = torchsim.STEP_WINDOW
+    out = {"graphed": profile_run(
+        dev, f"per event graphed (windows of {K}), {steps} steps, L=28 "
+        f"Np=64 best_fit_l2", lambda: per_event(steps, K), steps, "step")}
+    out["eager"] = profile_run(
+        dev, f"per event eager, {eager_steps} steps, L=28 Np=64 best_fit_l2",
+        lambda: per_event(eager_steps, 1 << 30), eager_steps, "step")
+    sel = {k: v for k, v in out["graphed"].get("by_name", {}).items()
+           if "select_warp_kernel" in k}
+    out["select_in_graph_us"] = sum(sel.values()) or None
+    if sel:
+        say(f"# profile: the select inside the graphed steps "
+            f"{sum(sel.values()):.2f} us/step ({', '.join(sel)})")
+
+    # the whole scan of the first rung at each window (the path's wall),
+    # and at STEP_WINDOW its graph replays' device time by CUDA events
+    E = b.times.shape[1]
+    walls = {}
+    for w in (64, 128, 256):
+        walls[w] = time_ms(lambda: per_event(E, w), 1) * 1e3 / E
+    out["window_walls_us"] = walls
+    say(f"# whole first-rung scan ({E} steps), wall a step by window: "
+        + ", ".join(f"{w}: {v:.2f} us" for w, v in walls.items())
+        + f" (STEP_WINDOW = {K})")
+    replays, graph_cls = [], torchsim._Graph
+
+    class TimedGraph(graph_cls):
+        """The path's graph with CUDA events around each replay: the device
+        time of the graphed windows, without the eager ones."""
+
+        def replay(self):
+            a, z = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            super().replay()
+            z.record()
+            replays.append((a, z))
+
+    torchsim._Graph = TimedGraph
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        per_event(E, K)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        torchsim._Graph = graph_cls
+    n_rep = len(replays)
+    graph_us = 1e3 * sum(a.elapsed_time(z) for a, z in replays)
+    out["graph_step_us"] = graph_us / (n_rep * K)
+    out["graph_busy_share"] = 100 * graph_us / wall_us
+    say(f"# the same scan's graph replays alone (CUDA events around each): "
+        f"{n_rep} replays of {K} steps, {out['graph_step_us']:.2f} us of "
+        f"device time a step; the device busy in them "
+        f"{out['graph_busy_share']:.1f} % of the scan's wall "
+        f"({wall_us / E:.2f} us a step; the rest the warm-up window, the "
+        f"capture and the tail, run eagerly)")
+    out["select_graph_ms"] = select_in_graph_ms(dev)
+    say(f"# select launched from a CUDA graph (L=56, Np=64, warp route): "
+        f"{out['select_graph_ms']:.6f} ms a launch of device time")
+
     full = (b.sizes, b.times, b.kinds, b.items, b.pdeps, b.dmask,
             b.arrivals, b.pdeps, b.n_items)
     NB = -(-b.times.shape[1] // BLOCK_EVENTS)
@@ -2428,6 +2633,7 @@ def phase_profile(dev, n_items: int = 5000, steps: int = 400):
                                           device=dev,
                                           block_events=BLOCK_EVENTS),
                     NB, "block")
+    return out
 
 
 def main() -> None:
@@ -2450,7 +2656,7 @@ def main() -> None:
     mk = time_megakernel(dev)
     phase_headline(dev)
     phase_category_headline(dev)
-    sel_launches, records, eps = phase_main_path(dev)
+    sel_launches, records, eps, graphs, graph_walls = phase_main_path(dev)
     mk_launches, mk_routes, blocked_records = phase_blocked_main_path(
         dev, records, eps)
     flash, decode = phase_attention_vs_plain(dev)
@@ -2462,14 +2668,25 @@ def main() -> None:
     phase_frontier(dev)
     mig_launches, mig_ms, mig_mid = phase_consolidation_main_path(
         dev, blocked_records)
-    phase_profile(dev)
+    prof = phase_profile(dev)
     say(f"# total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [
         dict(name="fitscore_select", route="cuda",
-             source="src/repro_torch/kernels/csrc/select.cu",
+             source="src/repro_torch/kernels/csrc/select.cu (+ "
+                    "warp_select.cuh)",
              replaces="src/repro/kernels/fitscore.py:330",
-             launches=sel_launches, library_ms=None, **sel),
+             routes={"warp": "select_warp_kernel, Np <= 256 (ms)",
+                     "cta": "select_cta_kernel, Np > 256 (cta_ms)"},
+             launches=sel_launches, library_ms=None,
+             graph_replays=graphs["replay_step_graph"],
+             graph_captures=graphs["replay_step_capture"],
+             in_graph_ms=prof["select_graph_ms"],
+             graph_step_us=prof["graph_step_us"],
+             graph_busy_share=prof["graph_busy_share"],
+             select_us_a_graphed_step=prof["select_in_graph_us"],
+             scan_wall_graphed_s=graph_walls["graphed"],
+             scan_wall_eager_s=graph_walls["eager"], **sel),
         dict(name="fitscore_replay_block", route="cuda",
              source="src/repro_torch/kernels/csrc/replay_block_sm90.cu + "
                     "src/repro_torch/kernels/csrc/replay_block.cu",

@@ -8,11 +8,14 @@ the 13 category-structured ones (CBD/CBDT, the Hybrids, RCP/PPE, Lifetime
 Alignment, adaptive).  ``_replay_batch`` replays ``L`` lanes in lockstep,
 on one of two paths with the same decisions:
 
-* per event (the default): a Python loop over the event axis whose step
+* per event (the default): a loop over the event axis whose step
   (``kernels.fitscore.replay_stepper``) processes every lane at once, with
   the placement decision made by ``kernels.ops.fitscore_select`` - the
   hand-written CUDA select on the card, ``select_ref`` on the CPU; the
-  category families pass their compatibility mask as ``cmask``;
+  category families pass their compatibility mask as ``cmask``.  On the
+  card the loop runs in windows of ``STEP_WINDOW`` steps, each window one
+  replay of a CUDA graph of the unchanged steps (``replay_windows``); on
+  the CPU it is the plain Python loop;
 * event-blocked (``block_events=T > 1``): a host loop over blocks of T
   events, each replayed by one launch of the CUDA megakernel
   ``kernels.ops.fitscore_replay_block`` (its plain version on the CPU)
@@ -58,7 +61,8 @@ from ..kernels.fitscore import (ARRIVAL_KIND, DEPARTURE_KIND, DPAD, KCAT,
                                 REPLAY_EV_I, SCORE_BIG, SCORE_NEG,
                                 SELECT_POLICIES, TAG_VIRGIN,
                                 select_pad_geometry)
-from ..kernels.ops import fitscore_select, replay_chunk, resolve_device
+from ..kernels.ops import (fitscore_select, launches, replay_chunk,
+                           resolve_device)
 from .algorithms import (LA_BINARY_SPLIT, to_i32, departure_window_jnp,
                          dur_exponent_jnp, duration_class_jnp,
                          geo_class_jnp, hybrid_threshold_jnp, la_class_jnp,
@@ -87,6 +91,13 @@ MAX_BINS_CAP = int(os.environ.get("REPRO_MAX_BINS_CAP", "65536"))
 # run (one select per step for the score family); "replay_blocks", blocks
 # of the event-blocked replay (one megakernel launch each).
 counters: collections.Counter = collections.Counter()
+
+# Steps of the per-event replay that one CUDA graph replays on the card (a
+# window; see ``replay_windows``).  Chosen on the card from the wall time a
+# step of a whole main-path scan at windows of 64, 128 and 256 steps: the
+# first window runs eagerly and the capture at the eager cost, so the
+# smallest window was the fastest (PERF.md, PR 18).
+STEP_WINDOW = 64
 
 
 class CapacityError(RuntimeError):
@@ -601,9 +612,11 @@ def _replay_batch(sizes, times, kinds, items, pdeps, dmask, arrivals=None,
     PAD_KIND`` leave the carry untouched.
 
     ``block_events=T > 1`` replays through the event-blocked megakernel
-    (``_replay_batch_blocked``); otherwise a Python loop over the events
-    whose step (``kernels.fitscore.replay_stepper``) selects with one or
-    more calls of ``fitscore_select`` (the CUDA select on the card).
+    (``_replay_batch_blocked``); otherwise a loop over the events whose
+    step (``kernels.fitscore.replay_stepper``) selects with one or more
+    calls of ``fitscore_select`` (the CUDA select on the card), replayed
+    on the card in windows of ``STEP_WINDOW`` steps as CUDA graphs
+    (``replay_windows``).
 
     Returns (usage (L,) f32, opened (L,) i32, placements (L, n_max) i32,
     overflow (L,) bool) as tensors on ``device``; with ``return_carry`` the
@@ -655,12 +668,12 @@ def _replay_batch(sizes, times, kinds, items, pdeps, dmask, arrivals=None,
         large_bins=spec.large_bins, adaptive_alpha=spec.adaptive_alpha,
         direct_sum=spec.direct_sum, la_mode=spec.la_mode, low=spec.low,
         high=spec.high)
-    E = ev_t.shape[0]
-    for e in range(E):
-        step(S, ev_t[e], ev_arr[e], ev_dep[e], ev_item[e], ev_sz[e],
-             ev_pdep[e], {nm: v[e] for nm, v in ev_ex.items()},
-             None if ev_mig is None else ev_mig[e])
-    counters["scan_steps"] += E
+    ev = {"t": ev_t, "arr": ev_arr, "dep": ev_dep, "item": ev_item,
+          "size": ev_sz, "pdep": ev_pdep}
+    if ev_mig is not None:
+        ev["mig"] = ev_mig
+    _run_events(step, S, ev, ev_ex, dev)
+    counters["scan_steps"] += ev_t.shape[0]
 
     out = (S["usage"], S["opened"], S["placements"], S["overflow"])
     if return_carry:
@@ -669,6 +682,143 @@ def _replay_batch(sizes, times, kinds, items, pdeps, dmask, arrivals=None,
             carry.append({k: S[k] for k in cat})
         return out + (carry,)
     return out
+
+
+def run_steps(step, S, ev, ex, lo: int, hi: int) -> None:
+    """Steps ``lo`` to ``hi - 1`` of the per-event replay on the unpacked
+    carry ``S``: ``ev`` holds the event-major streams (``t``, ``arr``,
+    ``dep``, ``item``, ``size``, ``pdep`` and, for a replay with
+    ``migrate``, ``mig``; (E, L, ...) each), ``ex`` the family's extra
+    streams by name; step ``e`` reads row ``e`` of each."""
+    mig = ev.get("mig")
+    for e in range(lo, hi):
+        step(S, ev["t"][e], ev["arr"][e], ev["dep"][e], ev["item"][e],
+             ev["size"][e], ev["pdep"][e], {nm: v[e] for nm, v in ex.items()},
+             None if mig is None else mig[e])
+
+
+def step_windows(E: int, K: int):
+    """The schedule of ``replay_windows`` for ``E`` events in windows of
+    ``K`` steps, a pure function of the shape: ``(start, stop, how)`` in
+    event order, covering every event once.  ``how`` is "warm" (the first
+    window, run eagerly through the window body), "capture" (the second,
+    captured into a CUDA graph, then replayed), "replay" (a replay of that
+    graph) or "eager" (the steps as they stand: the tail of fewer than
+    ``K`` events, or a whole call of fewer than ``2 K``)."""
+    if K < 1:
+        raise ValueError(f"step_windows: a window of {K} steps")
+    if E < 2 * K:
+        return [(0, E, "eager")] if E > 0 else []
+    n = E // K
+    out = [(0, K, "warm"), (K, 2 * K, "capture")]
+    out += [(w * K, (w + 1) * K, "replay") for w in range(2, n)]
+    if E % K:
+        out.append((n * K, E, "eager"))
+    return out
+
+
+def window_body(step, S, buf, bex, K: int) -> None:
+    """One window: ``K`` steps reading rows 0 to ``K - 1`` of the static
+    window buffers ``buf`` / ``bex`` (``run_steps``' layout), then every
+    carry entry the steps replaced (the step updates the slot state in
+    place and replaces the rest: usage, overflow, opened, seq, adaptive's
+    err, RCP's aggregates, flags and base) copied back into the tensor the
+    window's first step read.  So ``S`` ends holding the tensors it began
+    with, and a CUDA graph of the body, which reads the addresses it
+    captured, starts each replay from the state the last one left."""
+    start = dict(S)
+    run_steps(step, S, buf, bex, 0, K)
+    for nm, v in S.items():
+        if v is not start[nm]:
+            start[nm].copy_(v)
+            S[nm] = start[nm]
+
+
+class _Graph:
+    """A CUDA graph of one window body, captured on a side stream: the
+    capture runs nothing on the device.  ``replay`` launches it on the
+    current stream, ``reset`` releases it and its private memory pool.
+    (Not ``torch.cuda.graph``, which also collects garbage and empties the
+    allocator's cache at each capture; a replay with an overflow ladder or
+    a segmented one captures once a call.)"""
+
+    def __init__(self, body, dev):
+        self.graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.graph.capture_begin()
+            try:
+                body()
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+    def replay(self):
+        self.graph.replay()
+
+    def reset(self):
+        self.graph.reset()
+
+
+def replay_windows(step, S, ev, ex, K: int) -> None:
+    """The per-event replay of all ``E`` events of ``ev`` / ``ex``
+    (``run_steps``' layout) in windows of ``K`` steps, on the schedule of
+    ``step_windows``: each window's rows go into static window buffers (one
+    copy a stream), then ``window_body`` runs on them.  The first window
+    runs eagerly, the second is captured into one CUDA graph (``_Graph``)
+    and every later full window is a replay of it.  The result is the eager
+    loop's, bit for bit: the same kernels on the same data.
+
+    A capture runs nothing, so the launches that the steps count while it
+    records them (``kernels.ops.launches``) are taken back and added once a
+    replay instead; ``launches["replay_step_graph"]`` counts the replays,
+    ``launches["replay_step_capture"]`` the captures.  A failed capture or
+    replay raises.  The graph and its memory pool are released before the
+    function returns."""
+    E = ev["t"].shape[0]
+    sched = step_windows(E, K)
+    if E < 2 * K:   # one eager piece: no window buffers
+        run_steps(step, S, ev, ex, 0, E)
+        return
+    buf = {nm: v.new_empty((K,) + v.shape[1:]) for nm, v in ev.items()}
+    bex = {nm: v.new_empty((K,) + v.shape[1:]) for nm, v in ex.items()}
+    graph, delta = None, collections.Counter()
+    try:
+        for lo, hi, how in sched:
+            if how == "eager":
+                run_steps(step, S, ev, ex, lo, hi)
+                continue
+            for b, src in ((buf, ev), (bex, ex)):
+                for nm, v in b.items():
+                    v.copy_(src[nm][lo:hi])
+            if how == "warm":
+                window_body(step, S, buf, bex, K)
+                continue
+            if how == "capture":
+                before = collections.Counter(launches)
+                graph = _Graph(lambda: window_body(step, S, buf, bex, K),
+                               ev["t"].device)
+                delta = launches - before
+                launches.clear()
+                launches.update(before)
+                launches["replay_step_capture"] += 1
+            graph.replay()
+            launches.update(delta)
+            launches["replay_step_graph"] += 1
+    finally:
+        if graph is not None:
+            graph.reset()
+
+
+def _run_events(step, S, ev, ex, dev) -> None:
+    """The per-event loop over every event of ``ev``: windows of
+    ``STEP_WINDOW`` steps replayed as CUDA graphs on the card, the plain
+    loop on the CPU."""
+    if dev.type == "cuda":
+        replay_windows(step, S, ev, ex, STEP_WINDOW)
+    else:
+        run_steps(step, S, ev, ex, 0, ev["t"].shape[0])
 
 
 def replay_block_kwargs(policy: str, max_bins: int, d: int) -> dict:

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels from the sources in ``csrc/`` at first use.
 
-``nvcc`` compiles each source of ``csrc/`` (the select, ``select.cu``, the
+``nvcc`` compiles each source of ``csrc/`` (the select, ``select.cu`` (one
+warp a lane up to 256 slots, a CTA a lane above), the
 event-blocked replay megakernel, ``replay_block_sm90.cu`` (one warp a lane,
 pools of up to 256 slots) and ``replay_block.cu`` (larger pools), the
 legacy scorer,
@@ -48,7 +49,7 @@ SOURCES = {"select.cu": ("--fmad=false",),
            "flash_attention_sm90.cu": (), "flash_attention.cu": (),
            "decode_attention.cu": (),
            "rwkv6_chunked.cu": ()}
-HEADERS = ("fitscore_common.cuh", "replay_common.cuh")
+HEADERS = ("fitscore_common.cuh", "replay_common.cuh", "warp_select.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
@@ -119,7 +120,7 @@ def library() -> ctypes.CDLL:
     path = build()[0]
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fitscore_select_launch.argtypes = [p] * 12 + [i, i, i, i, p]
+    lib.fitscore_select_launch.argtypes = [p] * 14 + [i] * 5 + [p]
     lib.fitscore_select_launch.restype = i
     ll, f = ctypes.c_longlong, ctypes.c_float
     lib.fitscore_replay_block_launch.argtypes = \

@@ -27,8 +27,9 @@
 //   * One warp (one 32-thread CTA) a lane, so no __syncthreads: thread i
 //     owns slots i, i + 32, ...; the argmin over (score, open_seq, row)
 //     reduces by __reduce_min_sync over an order-preserving integer key of
-//     the score, the lowest free row by __ballot_sync, and every thread
-//     gets the winner; __syncwarp orders the shared-memory phases.  At L
+//     the score, the lowest free row by __ballot_sync (warp_select.cuh,
+//     shared with the select's warp route), and every thread gets the
+//     winner; __syncwarp orders the shared-memory phases.  At L
 //     lanes the grid is L one-warp CTAs; past 132 lanes the SMs hold
 //     several each.
 //   * The lane's slot state lives in shared memory for the whole launch,
@@ -72,15 +73,14 @@
 // Launched through a plain C interface (ctypes), on the caller's stream; it
 // allocates nothing and does not synchronise.
 #include <atomic>
-#include <climits>
 
 #include "replay_common.cuh"
+#include "warp_select.cuh"
 
 namespace fitscore {
 
 constexpr int kWarpTile = 256;   // events staged in shared memory at a time
 constexpr int kEvLane = kWarpTile / 32;   // events of a tile a thread stages
-constexpr unsigned kFull = 0xffffffffu;
 // the slot rows are staged as float4 / float2 / int4: columns in this order
 static_assert(SLOTF_CLOSES == 0 && SLOTF_OPEN_TIME == 1, "slotf columns");
 static_assert(SLOTI_COUNTS == 0 && SLOTI_ALIVE == 1 && SLOTI_OSEQ == 2 &&
@@ -104,14 +104,6 @@ __host__ __device__ inline int warp_smem_words(int fam, int Np, int tile,
                                                int R) {
   return tile_words(fam, tile) + round4(Np * (DPAD + 7)) +
          (fam == RCP ? RAGG_ROWS * DPAD + 2 * KCAT + loc_words(R) : 0);
-}
-
-// An unsigned key that orders like the float (finite or infinite, not
-// NaN), with -0 ranked as +0, as the float comparison ranks them.
-__device__ __forceinline__ unsigned order_key(float f) {
-  unsigned u = __float_as_uint(f);
-  if ((u << 1) == 0u) u = 0u;
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
 // Maximum over the 8 threads of each aligned group (one dim a thread).
@@ -152,7 +144,8 @@ struct Pick {
 // pair without branches so the two slots' loads and scores overlap.  Each
 // thread keeps its best (class, score, open_seq, row) - class 1, case (b)
 // of NRT_PRIORITIZED and LA's fallback bins, ranks after every class-0 slot
-// - and the warp's winner comes out of __reduce_min_sync, in every thread.
+// - and the warp's winner comes out of warp_argmin (warp_select.cuh), in
+// every thread.
 template <int FAM, bool MIGRATE, int SPT, int POL>
 __device__ __forceinline__ Pick warp_select(
     const Slots& s, const float (&sz)[DPAD], const float (&dm)[DPAD],
@@ -175,8 +168,7 @@ __device__ __forceinline__ Pick warp_select(
                     (!TAGGED || tag == want);
     if (ok) okbits |= 1u << i;
   }
-  int bcls = 2, bos = 0, brow = 0;   // class 2: no candidate
-  unsigned bkey = ~0u;
+  WarpCand best;
   auto consider = [&](int i) {
     const int r = tid + 32 * i;
     const int q = r < s.Np ? r : 0;
@@ -204,15 +196,7 @@ __device__ __forceinline__ Pick warp_select(
                                   [&] { return s.closes[q]; }, t, pd,
                                   case_b);
     ok = ok && sc < SCORE_BIG;   // a candidate, as in select.cu
-    const int cls = (case_b || in_b) ? 1 : 0;
-    const unsigned key = order_key(sc);
-    if (ok && (cls < bcls ||
-               (cls == bcls && (key < bkey || (key == bkey && os < bos))))) {
-      bcls = cls;
-      bkey = key;
-      bos = os;
-      brow = r;
-    }
+    best.offer(ok, (case_b || in_b) ? 1 : 0, order_key(sc), os, r);
   };
 #pragma unroll
   for (int i = 0; i < SPT; i += 2) {
@@ -221,29 +205,10 @@ __device__ __forceinline__ Pick warp_select(
     consider(i + 1);
   }
   Pick p;
+  p.found = warp_argmin<NEED_B>(best, p.b);
   p.no_free = false;
-  int wcls = 0;
-  if (NEED_B) {
-    wcls = __reduce_min_sync(kFull, bcls);
-    p.found = wcls < 2;
-  }
-  if (!NEED_B || p.found) {
-    const bool in1 = bcls == wcls;
-    const unsigned kmin = __reduce_min_sync(kFull, in1 ? bkey : ~0u);
-    if (!NEED_B) p.found = kmin != ~0u;
-    if (p.found) {
-      const bool in2 = in1 && bkey == kmin;
-      const int omin = __reduce_min_sync(kFull, in2 ? bos : INT_MAX);
-      p.b = __reduce_min_sync(kFull, (in2 && bos == omin) ? brow : INT_MAX);
-    }
-  }
   if (!p.found) {
-    int free_row = IBIG;
-#pragma unroll
-    for (int i = 0; i < SPT; ++i) {
-      const unsigned m = __ballot_sync(kFull, (freebits >> i) & 1u);
-      if (m && free_row == IBIG) free_row = i * 32 + __ffs(m) - 1;
-    }
+    const int free_row = warp_first_free<SPT>(freebits);
     p.no_free = free_row >= IBIG;
     p.b = p.no_free ? 0 : free_row;
   }

@@ -1,7 +1,8 @@
 """Wrappers that launch the port's hand-written kernels: the select
-(``fitscore_select``, ``csrc/select.cu``), the event-blocked replay
-megakernel (``fitscore_replay_block``: ``csrc/replay_block_sm90.cu``, one
-warp a lane, for pools of up to 256 slots, ``csrc/replay_block.cu``
+(``fitscore_select``, ``csrc/select.cu``: one warp a lane for pools of up
+to 256 slots, a CTA a lane above, see ``select_route``), the event-blocked
+replay megakernel (``fitscore_replay_block``: ``csrc/replay_block_sm90.cu``,
+one warp a lane, for pools of up to 256 slots, ``csrc/replay_block.cu``
 otherwise, see ``replay_route``; with ``replay_chunk``, the host loop over
 a chunk's blocks), the legacy
 single-pool scorer (``fitscore``, ``csrc/fitscore.cu``), the attention
@@ -15,7 +16,9 @@ A wrapper takes its kernel's plain PyTorch version only because the tensors
 it was given lie on the CPU.  For CUDA tensors it checks them, launches the
 kernel on the current stream or raises; there is no fallback.  Each launch
 adds one to ``launches`` under the kernel's name, so a run can show that it
-went through the kernel; the megakernel's launches with its MIGRATE branch
+went through the kernel; the select's launches also count under their
+route (``fitscore_select_warp`` or ``fitscore_select_cta``), the
+megakernel's launches with its MIGRATE branch
 count under ``fitscore_replay_block_migrate``, and every megakernel launch
 also under its route (``fitscore_replay_block_warp`` or
 ``fitscore_replay_block_global``); flash attention's calls through its
@@ -35,7 +38,9 @@ from .fitscore import (DPAD, KCAT, REPLAY_EV_F, REPLAY_EV_I, policy_code,
 from .legacy import NORMS, fitscore_ref
 from .rwkv6 import rwkv6_chunked_ref
 
-# kernel name -> launches since the caller last cleared it
+# kernel name -> launches since the caller last cleared it; the per-event
+# replay adds its CUDA graph replays and captures (``replay_step_graph``,
+# ``replay_step_capture``, see ``core.torchsim.replay_windows``)
 launches: collections.Counter = collections.Counter()
 
 
@@ -65,33 +70,56 @@ def _check(name, t, shape, dtype, device, kernel="fitscore_select"):
             f"{t.device} (contiguous={t.is_contiguous()})")
 
 
-def fitscore_select(loads, counts, alive, open_seq, access_seq, closes, size,
-                    pdep, now, dmask, cmask=None, *, policy: str):
-    """The fused placement decision for ``L`` lanes (see ``select_ref``).
+# the largest slot pool the select's warp route takes (kSelectWarpMaxSlots
+# in csrc/select.cu): eight slots a thread
+SELECT_WARP_MAX_SLOTS = 256
+SELECT_ROUTES = ("warp", "cta")
 
-    loads (L, Np, 8) f32; counts/open_seq/access_seq (L, Np) int32; alive
-    (L, Np) bool; closes (L, Np) f32; size/dmask (L, 8) f32; pdep/now (L,)
-    f32; cmask (L, Np) bool or None.  Returns (slot int32, found bool,
-    no_free bool), each (L,)."""
-    if loads.device.type == "cpu":
-        return select_ref(loads, counts, alive, open_seq, access_seq, closes,
-                          size, pdep, now, dmask, cmask, policy=policy)
+
+def select_route(Np: int) -> str:
+    """The kernel that serves a ``fitscore_select`` call on the card, from
+    the pool size alone: "warp" (one warp a lane, four lanes a CTA,
+    ``csrc/select.cu::select_warp_kernel``) for 1 <= Np <=
+    ``SELECT_WARP_MAX_SLOTS``, "cta" (a 256-thread CTA a lane,
+    ``select_cta_kernel``) above, up to ``MAX_BINS_CAP``."""
+    if Np < 1:
+        raise ValueError(f"select_route: a pool of {Np} slots")
+    return "warp" if Np <= SELECT_WARP_MAX_SLOTS else "cta"
+
+
+def select_launcher(loads, counts, alive, open_seq, access_seq, closes, size,
+                    pdep, now, dmask, cmask=None, *, policy: str,
+                    route: str):
+    """Checks ``fitscore_select``'s arguments (CUDA tensors) and allocates
+    its outputs; returns ``(launch, (slot, found, no_free))``, where
+    ``launch`` is a function of no arguments that launches ``route``'s
+    kernel ("warp" or "cta") once on them into those outputs, raising if
+    the launch fails; it counts nothing.  ``fitscore_select`` calls it with
+    ``select_route(Np)``; a measurement may time the other route with it
+    (the cta kernel takes any pool, the warp kernel up to
+    ``SELECT_WARP_MAX_SLOTS`` slots)."""
+    name = "fitscore_select"
     if loads.device.type != "cuda":
-        raise ValueError(f"fitscore_select: no kernel for {loads.device}")
+        raise ValueError(f"{name}: no kernel for {loads.device}")
+    if route not in SELECT_ROUTES:
+        raise ValueError(f"{name}: route {route!r}")
     code = policy_code(policy)
     dev = loads.device
     if loads.dim() != 3:
-        raise ValueError(f"fitscore_select: loads must be (L, Np, {DPAD})")
+        raise ValueError(f"{name}: loads must be (L, Np, {DPAD})")
     L, Np, _ = loads.shape
+    if route == "warp" and not 1 <= Np <= SELECT_WARP_MAX_SLOTS:
+        raise ValueError(f"{name}: the warp kernel takes 1 to "
+                         f"{SELECT_WARP_MAX_SLOTS} slots, not {Np}")
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     _check("loads", loads, (L, Np, DPAD), f32, dev)
     if loads.data_ptr() % 16:
-        raise ValueError("fitscore_select: loads must be 16-byte aligned")
-    for name, t, dt in (("counts", counts, i32), ("alive", alive, b8),
-                        ("open_seq", open_seq, i32),
-                        ("access_seq", access_seq, i32),
-                        ("closes", closes, f32)):
-        _check(name, t, (L, Np), dt, dev)
+        raise ValueError(f"{name}: loads must be 16-byte aligned")
+    for nm, t, dt in (("counts", counts, i32), ("alive", alive, b8),
+                      ("open_seq", open_seq, i32),
+                      ("access_seq", access_seq, i32),
+                      ("closes", closes, f32)):
+        _check(nm, t, (L, Np), dt, dev)
     _check("size", size, (L, DPAD), f32, dev)
     _check("dmask", dmask, (L, DPAD), f32, dev)
     _check("pdep", pdep, (L,), f32, dev)
@@ -100,19 +128,45 @@ def fitscore_select(loads, counts, alive, open_seq, access_seq, closes, size,
         _check("cmask", cmask, (L, Np), b8, dev)
     from ._build import library
     lib = library()
-    out = torch.empty((L, 3), dtype=i32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.fitscore_select_launch(
-        loads.data_ptr(), counts.data_ptr(), alive.data_ptr(),
-        open_seq.data_ptr(), access_seq.data_ptr(), closes.data_ptr(),
-        size.data_ptr(), dmask.data_ptr(),
-        None if cmask is None else cmask.data_ptr(), pdep.data_ptr(),
-        now.data_ptr(), out.data_ptr(), L, Np, code, dev.index or 0, stream)
-    if err:
-        raise RuntimeError("fitscore_select launch failed: "
-                           f"{lib.fitscore_error_string(err).decode()}")
+    slot = torch.empty(L, dtype=i32, device=dev)
+    flags = torch.empty((2, L), dtype=b8, device=dev)
+    args = (loads.data_ptr(), counts.data_ptr(), alive.data_ptr(),
+            open_seq.data_ptr(), access_seq.data_ptr(), closes.data_ptr(),
+            size.data_ptr(), dmask.data_ptr(),
+            None if cmask is None else cmask.data_ptr(), pdep.data_ptr(),
+            now.data_ptr(), slot.data_ptr(), flags[0].data_ptr(),
+            flags[1].data_ptr(), L, Np, code, SELECT_ROUTES.index(route),
+            dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch():
+        err = lib.fitscore_select_launch(*args)
+        if err:
+            raise RuntimeError(f"{name} ({route} kernel) launch failed: "
+                               f"{lib.fitscore_error_string(err).decode()}")
+    return launch, (slot, flags[0], flags[1])
+
+
+def fitscore_select(loads, counts, alive, open_seq, access_seq, closes, size,
+                    pdep, now, dmask, cmask=None, *, policy: str):
+    """The fused placement decision for ``L`` lanes (see ``select_ref``).
+
+    loads (L, Np, 8) f32; counts/open_seq/access_seq (L, Np) int32; alive
+    (L, Np) bool; closes (L, Np) f32; size/dmask (L, 8) f32; pdep/now (L,)
+    f32; cmask (L, Np) bool or None.  Returns (slot int32, found bool,
+    no_free bool), each (L,).  For CUDA tensors the kernel
+    ``select_route(Np)`` names, counted under ``fitscore_select`` and
+    ``fitscore_select_{route}``; ``select_ref`` for CPU ones."""
+    if loads.device.type == "cpu":
+        return select_ref(loads, counts, alive, open_seq, access_seq, closes,
+                          size, pdep, now, dmask, cmask, policy=policy)
+    route = select_route(loads.shape[1]) if loads.dim() == 3 else "warp"
+    launch, out = select_launcher(loads, counts, alive, open_seq,
+                                  access_seq, closes, size, pdep, now, dmask,
+                                  cmask, policy=policy, route=route)
+    launch()
     launches["fitscore_select"] += 1
-    return out[:, 0], out[:, 1] > 0, out[:, 2] > 0
+    launches[f"fitscore_select_{route}"] += 1
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -126,6 +126,124 @@ def test_overflow_ladder_on_card_equals_cpu(lanes, cuda):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
 
 
+@pytest.mark.parametrize("policy", SELECT_POLICIES)
+def test_warp_select_equals_select_ref(policy, cuda):
+    """The warp route (one warp a lane) at every slot count it takes a
+    thread 1, 2 or 8 slots of, pools that are not a multiple of 32, one
+    lane and more lanes than a CTA holds; the cta kernel on the same
+    inputs too, through ``ops.select_launcher``."""
+    rng = np.random.default_rng(40 + SELECT_POLICIES.index(policy))
+    for mode in ("random", "ties"):
+        for Np in (1, 31, 32, 64, 100, 256):
+            for L in (1, 28, 56):
+                st = random_state(rng, L, Np, 5, mode, cuda)
+                for cmask in (None, st[10]):
+                    n0 = ops.launches["fitscore_select_warp"]
+                    got = ops.fitscore_select(*st[:10], cmask, policy=policy)
+                    assert ops.launches["fitscore_select_warp"] == n0 + 1
+                    ref = select_ref(*st[:10], cmask, policy=policy)
+                    launch, cta = ops.select_launcher(
+                        *st[:10], cmask, policy=policy, route="cta")
+                    launch()
+                    for a, b, c in zip(got, ref, cta):
+                        assert torch.equal(a.long(), b.long()), \
+                            (mode, Np, L, cmask is not None)
+                        assert torch.equal(c.long(), b.long()), \
+                            (mode, Np, L, cmask is not None, "cta")
+
+
+@pytest.mark.parametrize("Np", [257, 1024])
+def test_cta_select_equals_select_ref_above_256_slots(Np, cuda):
+    rng = np.random.default_rng(Np)
+    for policy in SELECT_POLICIES:
+        for mode in ("random", "ties", "full"):
+            st = random_state(rng, 28, Np, 5, mode, cuda)
+            for cmask in (None, st[10]):
+                n0 = dict(ops.launches)
+                got = ops.fitscore_select(*st[:10], cmask, policy=policy)
+                assert ops.launches["fitscore_select_cta"] == \
+                    n0.get("fitscore_select_cta", 0) + 1
+                assert ops.launches["fitscore_select_warp"] == \
+                    n0.get("fitscore_select_warp", 0)
+                ref = select_ref(*st[:10], cmask, policy=policy)
+                for a, b in zip(got, ref):
+                    assert torch.equal(a.long(), b.long()), \
+                        (policy, mode, cmask is not None)
+
+
+def test_warp_route_refuses_a_pool_above_256_slots(cuda):
+    st = random_state(np.random.default_rng(0), 4, 257, 2, "random", cuda)
+    with pytest.raises(ValueError, match="warp kernel takes 1 to 256"):
+        ops.select_launcher(*st[:10], policy="first_fit", route="warp")
+
+
+def _replay_counted(flat, policy, cuda, migrate, window):
+    """``_replay_batch`` on the card with ``STEP_WINDOW = window``: its
+    outputs and final carry, and the launches it counted."""
+    old = torchsim.STEP_WINDOW
+    torchsim.STEP_WINDOW = window
+    try:
+        ops.launches.clear()
+        torchsim.counters.clear()
+        out = torchsim._replay_batch(*flat, policy=policy, max_bins=16,
+                                     device=cuda, return_carry=True,
+                                     migrate=migrate)
+        torch.cuda.synchronize()
+    finally:
+        torchsim.STEP_WINDOW = old
+    return out, dict(ops.launches), torchsim.counters["scan_steps"]
+
+
+@pytest.mark.parametrize("migrate", [False, True])
+@pytest.mark.parametrize("policy", ["best_fit_l2", "cbdt", "hybrid", "ppe",
+                                    "la_geometric", "adaptive"])
+def test_graphed_replay_equals_eager_on_card(policy, migrate, lanes, cuda):
+    """The per-event replay in windows of 16 steps replayed as CUDA graphs
+    (``torchsim.replay_windows``) == the eager loop on the card, outputs
+    and final carry bit for bit; the launches counted once a replay equal
+    the eager loop's, one capture, a graph replay a full window past the
+    first."""
+    from chip_smoke import with_migrations
+    *_, flat = lanes
+    if migrate:
+        flat = with_migrations(tuple(np.asarray(a) for a in flat), 5)
+    E = flat[1].shape[1]
+    eager, want, steps = _replay_counted(flat, policy, cuda, migrate, E)
+    assert "replay_step_graph" not in want and steps == E
+    got, have, steps = _replay_counted(flat, policy, cuda, migrate, 16)
+    sched = torchsim.step_windows(E, 16)
+    assert have == dict(
+        want, replay_step_capture=1,
+        replay_step_graph=sum(h in ("capture", "replay") for *_, h in sched))
+    assert steps == E and have["fitscore_select"] >= E
+    assert set(want) - {"fitscore_select"} == {"fitscore_select_warp"}
+    for a, b in zip(got[:4], eager[:4]):
+        assert torch.equal(a, b)
+    carry = [(a, b) for a, b in zip(got[4][:12], eager[4][:12])]
+    if len(eager[4]) > 12:
+        carry += [(got[4][12][k], v) for k, v in eager[4][12].items()]
+    for a, b in carry:
+        assert torch.equal(a, b)
+
+
+def test_graphed_replay_through_the_overflow_ladder(lanes, cuda):
+    """``run_batch`` from a 1-slot pool: each rung's replay captures a
+    graph of its own and releases it; the results equal the CPU's."""
+    batch, pdeps, _ = lanes
+    old = torchsim.STEP_WINDOW
+    torchsim.STEP_WINDOW = 16
+    try:
+        ops.launches.clear()
+        a = run_batch(batch, "nrt_prioritized", pdeps, max_bins=1,
+                      device=cuda)
+    finally:
+        torchsim.STEP_WINDOW = old
+    assert ops.launches["replay_step_capture"] > 1
+    b = run_batch(batch, "nrt_prioritized", pdeps, max_bins=1, device="cpu")
+    for f in ("usage_time", "n_bins_opened", "overflowed", "max_bins"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
 def _block_case(policy, flat, max_bins, device, prefix=48):
     """Streams, kernel arguments and a mid-replay packed carry (the first
     ``prefix`` events replayed) of one policy on ``device``."""
