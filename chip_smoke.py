@@ -1,6 +1,13 @@
 """Drive the PyTorch + CUDA port on one card and check it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent TREE]
+
+``--parent TREE`` (a ``git archive`` of an earlier commit, unpacked) also
+builds that tree's ``rwkv6_chunked.cu`` and ``fitscore.cu`` into a library
+of their own and times them in turns with the port's kernels on the same
+inputs (phases 9a and 10).  Float32 matrix products run in full float32
+(``allow_tf32`` off, precision "highest"), so the plain versions the
+kernels are held to are not themselves TF32; phases 9a and 10 check it.
 
 Phases (any failure exits non-zero, and no result line is printed):
 
@@ -8,9 +15,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    kernel sources built from ``src/repro_torch/kernels/csrc`` (one nvcc per
    source, started together; build time printed), each kernel's registers,
    spills and static shared memory from ptxas (the attention kernels must
-   not spill), the HGMMA count of the tensor-core flash kernel's SASS
-   (``cuobjdump -sass``; 0 fails) and the attention kernels' dynamic
-   shared memory, and the replay warp kernel's.
+   not spill), the HGMMA count of the tensor-core flash kernel's SASS and
+   the HMMA count of the RWKV6 kernel's (``cuobjdump -sass``; 0 fails),
+   and the attention, RWKV6 and replay warp kernels' dynamic shared
+   memory.
 2. Select vs plain: the CUDA select against ``select_ref`` on the card, on
    random, tied and full pools for every score policy, with and without a
    category mask - (slot, found, no_free) must be identical - on the route
@@ -103,9 +111,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``rwkv6_chunked_ref`` on the card, fp32 and bf16 r, k, v, on
    ``RWKV_SHAPES`` (the JAX kernel test's shapes, lengths that are not a
    multiple of the chunk, chunk 8, and the path's B 1 / H 32 / K = V = 64
-   at S in {16, 511, 2048}): y and the final state within ``RWKV_TOL``
-   atol and rtol; then its device time at the path's shapes in bf16 beside
-   its bound and the plain version's (no PyTorch call computes it).
+   at S in {16, 511, 2048}) and ``RWKV_CROSS_SHAPES`` (across the kernel's
+   windows and column blocks): y and the final state within ``RWKV_TOL``
+   atol and rtol, and the grid launched ((B * H, ceil(V / 16)), at least 4
+   CTAs a (b, h) at V 64); then its device time at the path's shapes in
+   bf16 with its grid and windows, beside its bound, the plain version's
+   and (``--parent``) the parent kernel's (no PyTorch call computes it).
    (b) rwkv6-1.6b at full width (24 layers, d 2048, 32 heads of 64, d_ff
    7168, vocab 65 536, bf16, random weights from seed 0 made on the card)
    serving phase 8's 12 requests through ``serve_real``: the kernel must
@@ -117,17 +128,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    plain version bound in its place, logits within ``SERVE_LOGIT_TOL``;
    a prompt prefilled into a slot another request held gives a fresh
    engine's logits bit for bit.  Then torch.profiler over engine decode
-   steps and one prefill.
+   steps and one prefill, and the prefill's ``rwkv6_chunked`` share.
 10. The legacy scorer (``ops.fitscore``, ``csrc/fitscore.cu``): kernel ==
    ``fitscore_ref`` bit for bit (scores and chosen row) on the JAX kernel
    test's shapes and on N in ``LEGACY_NS`` x d in {2, 5} x the four norms
    x random pools, 1/64-grid pools tied across CTAs (repeated open_seq, so
    the row decides) and pools where nothing fits (-1), each with its
-   open_seq (a permutation or repeated values) and without one.  Its main path: a
-   host Best Fit (l_inf) loop placing ``LEGACY_PLACEMENTS`` items into a
-   4096-bin pool, one launch an arrival, == the loop through the plain
-   version.  Then its device time at d=5, linf for each N beside its byte
-   bound and the plain version's (no PyTorch call computes it).
+   open_seq (a permutation or repeated values) and without one; 50 calls
+   back to back on one stream and 50 alternating between two, each ==
+   plain (the merge's counter resets).  Its main path: a host Best Fit
+   (l_inf) loop placing ``LEGACY_PLACEMENTS`` items into a 4096-bin pool,
+   one launch an arrival, == the loop through the plain version.  Then its
+   device time at d=5, linf for each N beside its byte bound, an empty
+   kernel's launch (the floor below ~1 M bins), the plain version's and
+   (``--parent``) the parent's two-launch kernel's (no PyTorch call
+   computes it).
 11. Consolidation.  (a) The megakernel with its MIGRATE branch ==
    ``replay_block_ref(migrate=True)`` on blocks opening with MIGRATE events
    (a migrant whose source bin closes, RCP/PPE migrants off the base bin),
@@ -225,6 +240,13 @@ RWKV_SHAPES = [(2, 64, 2, 16, 16, 16), (1, 48, 4, 32, 64, 16),
                (2, 16, 1, 8, 8, 16), (1, 128, 2, 64, 64, 16),
                (2, 50, 2, 64, 64, 16), (2, 40, 4, 16, 16, 8)] + \
     [(1, s, 32, 64, 64, 16) for s in (16, 511, 2048)]
+# Shapes across the kernel's windows (8 chunks) and column blocks (16 state
+# columns): S of three windows and a ragged tail at chunk 16 and 8, V 40 (a
+# half block), K 48 and 20, B 2 with odd H, and K / V whose rows are not
+# 16-byte multiples (plain loads instead of TMA).
+RWKV_CROSS_SHAPES = [(2, 389, 3, 48, 40, 16), (2, 197, 3, 64, 40, 8),
+                     (1, 389, 2, 64, 64, 16), (2, 133, 3, 20, 12, 16),
+                     (1, 70, 2, 7, 5, 8)]
 # Both attention versions compute in fp32 and round the result to bf16
 # once, so an element may round one bf16 ulp apart (at most 2^-7 of its
 # magnitude); a bf16 output may differ from the plain one by two such ulps
@@ -375,6 +397,61 @@ def sass_instruction_counts(path: str, opcode: str) -> dict:
     return out
 
 
+def check_fp32_precision():
+    """The plain versions' float32 matrix products must run in full float32
+    (``main`` sets it): in TF32 the reference would itself be off by more
+    than ``RWKV_TOL``."""
+    import torch
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        fail("float32 matmul precision is not 'highest' (allow_tf32 "
+             f"{torch.backends.cuda.matmul.allow_tf32}, precision "
+             f"{torch.get_float32_matmul_precision()!r})")
+
+
+# the parent tree's kernels (``--parent TREE``), timed beside the port's
+PARENT_SOURCES = ("rwkv6_chunked.cu", "fitscore.cu")
+
+
+def parent_library(tree):
+    """``PARENT_SOURCES`` of the tree at ``tree`` (a ``git archive`` of an
+    earlier commit) built with the port's flags into a library of their own
+    under the build directory (its C symbols are the port's names, so it is
+    loaded apart), or None without a tree."""
+    import ctypes
+    from repro_torch.kernels import _build
+    if not tree:
+        return None
+    csrc = os.path.join(tree, "src", "repro_torch", "kernels", "csrc")
+    out = os.path.join(_build.BUILD_DIR, "parent")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    nvcc, objs, procs = _build._nvcc(), [], []
+    for src in PARENT_SOURCES:
+        objs.append(os.path.join(out, src + ".o"))
+        procs.append(subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, *_build.SOURCES[src], "-I", csrc,
+             "-c", "-o", objs[-1], os.path.join(csrc, src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for src, proc in zip(PARENT_SOURCES, procs):
+        report = proc.communicate()[0]
+        if proc.returncode:
+            fail(f"parent {src} did not build:\n{report[-2000:]}")
+    path = os.path.join(out, "libparent.so")
+    res = subprocess.run([nvcc, "-shared", "-o", path, *objs],
+                         capture_output=True, text=True)
+    if res.returncode:
+        fail(f"parent link failed: {res.stderr[-2000:]}")
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rwkv6_chunked_launch.argtypes = [p] * 7 + [i] * 8 + [p]
+    lib.fitscore_legacy_blocks.argtypes = [i]
+    lib.fitscore_legacy_launch.argtypes = [p] * 7 + [i] * 4 + [p]
+    say(f"# parent: {', '.join(PARENT_SOURCES)} of {tree} built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return lib
+
+
 def phase_build():
     from repro_torch.kernels import _build
     smi = subprocess.run(
@@ -417,6 +494,13 @@ def phase_build():
         f"{lib.fitscore_replay_block_warp_smem_bytes(3, 256, 256, 8192)} B")
     if len(hgmma) != 2 or not all(hgmma.values()):
         fail(f"the sm90 flash kernel has no HGMMA instructions: {hgmma}")
+    hmma = {n: c for n, c in sass_instruction_counts(path, "HMMA").items()
+            if "rwkv6_chunked_kernel" in n}
+    say(f"# build: HMMA instructions in the rwkv6 kernel's SASS: {hmma}; "
+        f"dynamic smem a CTA: bf16 {lib.rwkv6_chunked_smem_bytes(1)} B, "
+        f"fp32 {lib.rwkv6_chunked_smem_bytes(0)} B")
+    if len(hmma) != 4 or not all(hmma.values()):
+        fail(f"the rwkv6 kernel has no HMMA instructions: {hmma}")
     return card
 
 
@@ -1775,45 +1859,102 @@ def _rwkv_err(got, want, what):
     return err
 
 
-def phase_rwkv_vs_plain(dev):
+def in_turns(new, old, reps: int):
+    """Device times of two versions of one call in turns (old, new, new,
+    old, each ``device_ms`` over ``reps`` calls): (new ms, old ms), each
+    the mean of its two readings."""
+    o1, n1, n2, o2 = (device_ms(f, reps) for f in (old, new, new, old))
+    return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+def parent_rwkv(parent, args, L):
+    """A call of the parent tree's ``rwkv6_chunked_launch`` on ``args``
+    (uncounted), and its outputs."""
+    import torch
+    r, k, v, lw, u = args
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    y = torch.empty((B, S, H, V), dtype=torch.float32, device=r.device)
+    st = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+
+    def call():
+        err = parent.rwkv6_chunked_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+            u.data_ptr(), y.data_ptr(), st.data_ptr(), B, S, H, K, V, L,
+            int(r.dtype == torch.bfloat16), r.device.index or 0, stream)
+        if err:
+            fail(f"the parent rwkv6_chunked launch failed ({err})")
+    return call, y, st
+
+
+def phase_rwkv_vs_plain(dev, parent=None):
     """Phase 9a: the RWKV6 chunked kernel against ``rwkv6_chunked_ref`` on
-    the card (``RWKV_SHAPES``, fp32 and bf16 r, k, v), then its time at the
-    serving path's shapes in bf16 beside its bound and the plain
-    version's.  No PyTorch call computes chunked RWKV6: no library time."""
+    the card (``RWKV_SHAPES`` and ``RWKV_CROSS_SHAPES``, fp32 and bf16 r,
+    k, v, float32 matmuls at "highest"), the grid and window launched (at
+    least 4 CTAs a (b, h) at the path's V 64), then its time at the
+    serving path's shapes in bf16 beside its bound, the plain version's
+    and, given the parent tree's library, the parent kernel's on the same
+    inputs in turns.  No PyTorch call computes chunked RWKV6: no library
+    time."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
+    check_fp32_precision()
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
     err = 0.0
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for B, S, H, K, V, L in RWKV_SHAPES:
+        for B, S, H, K, V, L in RWKV_SHAPES + RWKV_CROSS_SHAPES:
             args = _rwkv_inputs(gen, dev, dtype, B, S, H, K, V)
             y, st = ops.rwkv6_chunked(*args, chunk=L)
             want_y, want_st = rwkv6_chunked_ref(*args, chunk=L)
             what = f"rwkv6_chunked {dtype} {(B, S, H, K, V)} chunk {L}"
             err = max(err, _rwkv_err(y, want_y, what + " y"),
                       _rwkv_err(st, want_st, what + " state"))
+            if ops.last_rwkv_grid[:2] != (B * H, -(-V // 16)):
+                fail(f"{what}: grid {ops.last_rwkv_grid}")
             n_cases += 1
     torch.cuda.synchronize()
     say(f"# rwkv6_chunked == plain on {n_cases} cases (y and final state "
-        f"within {RWKV_TOL} atol and rtol): max |diff| {err:.3e}")
+        f"within {RWKV_TOL} atol and rtol; {len(RWKV_CROSS_SHAPES)} shapes "
+        f"a type across windows and column blocks): max |diff| {err:.3e}")
     rows = {}
     for S in (16, 511, 2048):
         args = _rwkv_inputs(gen, dev, torch.bfloat16, 1, S, 32, 64, 64)
         n_chunks = -(-S // 16)
+        y, st = ops.rwkv6_chunked(*args)
+        grid = ops.last_rwkv_grid
+        if grid[1] < 4:
+            fail(f"rwkv6_chunked at V 64 launched {grid[1]} CTAs a (b, h)")
         ms = device_ms(lambda: ops.rwkv6_chunked(*args), 100)
+        parent_ms = parent_diff = None
+        if parent is not None:
+            call, py, pst = parent_rwkv(parent, args, 16)
+            ms, parent_ms = in_turns(lambda: ops.rwkv6_chunked(*args), call,
+                                     100)
+            parent_diff = max(float((py - y).abs().max()),
+                              float((pst - st).abs().max()))
         plain_ms = device_ms(lambda: rwkv6_chunked_ref(*args),
                              max(1, 400 // (3 * n_chunks + 20)))
         bound_ms, bound_by = rwkv_bound(1, S, 32, 64, 64, 16, 2)
         rows[S] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=None)
-        say(f"# rwkv6_chunked bf16 B=1 S={S} H=32 K=V=64 chunk 16: device "
-            f"time {ms:.6f} ms ({ms * 1e3 / n_chunks:.3f} us a chunk), "
-            f"plain {plain_ms:.6f} ms; bound {bound_ms:.6f} ms by "
-            f"{bound_by}; library call: none")
-    return dict(rows[511], max_abs_err=err)
+                       bound_by=bound_by, library_ms=None,
+                       parent_ms=parent_ms)
+        vs_parent = "parent kernel: no tree given" if parent is None else \
+            (f"parent kernel {parent_ms:.6f} ms on the same inputs "
+             f"({parent_ms / ms:.2f}x; max |new - parent| "
+             f"{parent_diff:.3e})")
+        say(f"# rwkv6_chunked bf16 B=1 S={S} H=32 K=V=64 chunk 16: grid "
+            f"{grid[0]} x {grid[1]} CTAs, {-(-n_chunks // grid[2])} "
+            f"window(s) of {grid[2]} chunks; device time {ms:.6f} ms "
+            f"({ms * 1e3 / n_chunks:.3f} us a chunk), plain "
+            f"{plain_ms:.6f} ms; bound {bound_ms:.6f} ms by {bound_by}; "
+            f"{vs_parent}; library call: none")
+    return dict(rows[511], max_abs_err=err, grid=list(grid[:2]),
+                window=grid[2], ms_by_S={S: r["ms"] for S, r in rows.items()},
+                parent_ms_by_S={S: r["parent_ms"] for S, r in rows.items()})
 
 
 def phase_rwkv_serving(dev):
@@ -1960,9 +2101,17 @@ def phase_rwkv_serving(dev):
     del eng
     sub = init_cache(cfg, 1, SERVE_MAX_LEN, device=dev)
     toks = torch.tensor([prompt], dtype=torch.int64, device=dev)
-    profile_run(dev, f"rwkv prefill of {len(prompt)} tokens",
-                lambda: forward(params, cfg, Runtime(), toks, mode="prefill",
-                                cache=sub, cache_pos=0), 1, "prefill")
+    prof = profile_run(dev, f"rwkv prefill of {len(prompt)} tokens",
+                       lambda: forward(params, cfg, Runtime(), toks,
+                                       mode="prefill", cache=sub,
+                                       cache_pos=0), 1, "prefill")
+    if prof:
+        rwkv_us = sum(us for name, us in prof["by_name"].items()
+                      if "rwkv6_chunked_kernel" in name)
+        say(f"# rwkv prefill: rwkv6_chunked {rwkv_us:.2f} us of the "
+            f"prefill's {prof['busy_us']:.1f} us of device time "
+            f"({100 * rwkv_us / prof['busy_us']:.2f} %; "
+            f"{100 * rwkv_us / prof['wall_us']:.2f} % of its wall)")
     del params
     torch.cuda.empty_cache()
     return launches
@@ -2011,17 +2160,75 @@ def legacy_bound(N, d, with_oseq):
         (t_ops, "operations", nbytes)
 
 
-def phase_legacy_fitscore(dev):
-    """The legacy scorer: kernel == plain bit for bit (scores and chosen
-    row) on the JAX kernel test's shapes and on N in LEGACY_NS x d in {2,
-    5} x the four norms x random / grid-tied / nothing-feasible pools;
-    then its main path, a host Best Fit (l_inf) loop placing
-    LEGACY_PLACEMENTS items into a 4096-bin pool through ``ops.fitscore``,
-    against the same loop through the plain version; then its times."""
+def legacy_back_to_back(dev, n_streams: int, calls: int = 50) -> list:
+    """``calls`` consecutive ``ops.fitscore`` calls (20 CTAs each; random,
+    grid-tied and nothing-fits pools, the four norms in turn), on the
+    current stream (``n_streams`` 1) or alternating between two new ones,
+    then each against ``fitscore_ref``: the calls that differ.  A counter
+    left unreset would leave the next launch on its stream without a last
+    CTA, and its row unwritten."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.legacy import NORMS, fitscore_ref
+    rng = np.random.default_rng(50)
+    cases = [legacy_inputs(rng, 5000, 5, mode, dev)
+             for mode in ("random", "grid", "none")]
+    main = torch.cuda.current_stream(dev)
+    streams = [main] if n_streams == 1 else \
+        [torch.cuda.Stream(dev) for _ in range(n_streams)]
+    for st in streams:
+        st.wait_stream(main)
+    outs = []
+    for i in range(calls):
+        with torch.cuda.stream(streams[i % n_streams]):
+            outs.append(ops.fitscore(*cases[i % 3], norm=NORMS[i % 4]))
+    torch.cuda.synchronize()
+    bad = []
+    for i, (s, b) in enumerate(outs):
+        s_p, b_p = fitscore_ref(*cases[i % 3], norm=NORMS[i % 4])
+        if not (torch.equal(s, s_p) and int(b) == int(b_p)):
+            bad.append(i)
+    return bad
+
+
+def parent_fitscore(parent, rem, alive, item, oseq):
+    """A call of the parent tree's two-launch ``fitscore_legacy_launch``
+    (l_inf; uncounted)."""
+    import torch
+    N, d = rem.shape
+    scores = torch.empty(N, dtype=torch.float32, device=rem.device)
+    best = torch.empty((), dtype=torch.int32, device=rem.device)
+    partial = torch.empty(3 * parent.fitscore_legacy_blocks(N),
+                          dtype=torch.int32, device=rem.device)
+    stream = torch.cuda.current_stream(rem.device).cuda_stream
+
+    def call():
+        err = parent.fitscore_legacy_launch(
+            rem.data_ptr(), alive.data_ptr(), item.data_ptr(),
+            oseq.data_ptr(), scores.data_ptr(), partial.data_ptr(),
+            best.data_ptr(), N, d, 2, rem.device.index or 0, stream)
+        if err:
+            fail(f"the parent fitscore launch failed ({err})")
+    return call
+
+
+def phase_legacy_fitscore(dev, parent=None):
+    """The legacy scorer: kernel == plain bit for bit (scores and chosen
+    row) on the JAX kernel test's shapes and on N in LEGACY_NS x d in {2,
+    5} x the four norms x random / grid-tied / nothing-feasible pools;
+    then 50 calls back to back on one stream and on two (the last CTA's
+    counter reset); then its main path, a host Best Fit (l_inf) loop
+    placing LEGACY_PLACEMENTS items into a 4096-bin pool through
+    ``ops.fitscore``, against the same loop through the plain version; then
+    its times beside the bound, an empty kernel's launch and, given the
+    parent tree's library, the parent's two-launch kernel in turns."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._build import library
+    from repro_torch.kernels.legacy import NORMS, fitscore_ref
+    check_fp32_precision()
     rng = np.random.default_rng(10)
     cases = [(N, d, norm, "random") for N, d, norm in LEGACY_TEST_SHAPES]
     cases += [(N, d, norm, mode) for N in LEGACY_NS for d in (2, 5)
@@ -2041,6 +2248,13 @@ def phase_legacy_fitscore(dev):
             n_cases += 1
     say(f"# fitscore kernel == plain on {n_cases} cases (scores and chosen "
         "row identical, ties across CTAs and -1 included)")
+    for n_streams in (1, 2):
+        bad = legacy_back_to_back(dev, n_streams)
+        if bad:
+            fail(f"fitscore back to back on {n_streams} stream(s): calls "
+                 f"{bad} != plain")
+    say("# fitscore: 50 calls back to back on one stream and 50 alternating "
+        "between two streams, each == plain (the counter resets)")
 
     # the main path: one arrival at a time scored against a 4096-bin pool
     # (benchmarks/perf.py's fitscore row), placed by Best Fit (l_inf)
@@ -2074,20 +2288,37 @@ def phase_legacy_fitscore(dev):
         f"(Best Fit l_inf) in {wall:.3f} s, {launches} launches, "
         f"{len(set(got)) - (-1 in got)} bins used, == plain")
 
+    lib = library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    floor_ms = device_ms(lambda: lib.fitscore_empty_launch(dev.index or 0,
+                                                           stream), 200)
     rows = {}
     for N in LEGACY_NS:
         rem, alive_n, item, oseq = legacy_inputs(rng, N, 5, "random", dev)
-        ms = device_ms(lambda: ops.fitscore(rem, alive_n, item, oseq,
-                                            norm="linf"), 200)
+
+        def call():
+            return ops.fitscore(rem, alive_n, item, oseq, norm="linf")
+        ms, parent_ms = device_ms(call, 200), None
+        if parent is not None:
+            ms, parent_ms = in_turns(call, parent_fitscore(
+                parent, rem, alive_n, item, oseq), 200)
         plain_ms = device_ms(lambda: fitscore_ref(rem, alive_n, item, oseq,
                                                   norm="linf"), 20)
         bound_ms, bound_by, nbytes = legacy_bound(N, 5, True)
         rows[N] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
+                       bound_by=bound_by, parent_ms=parent_ms)
+        vs_parent = "parent kernel: no tree given" if parent is None else \
+            f"parent (two launches) {parent_ms:.6f} ms in turns"
         say(f"# fitscore N={N} d=5 linf: device time {ms:.6f} ms, plain "
             f"{plain_ms:.6f} ms; bound {bound_ms:.3e} ms by {bound_by} "
-            f"({nbytes} B at 3.35 TB/s); no PyTorch call computes it")
-    return launches, dict(rows[4096], max_abs_err=0.0)
+            f"({nbytes} B at 3.35 TB/s), an empty kernel's launch "
+            f"{floor_ms:.6f} ms: the floor is "
+            f"{'a launch' if floor_ms > bound_ms else 'the bytes'}; "
+            f"{vs_parent}; no PyTorch call computes it")
+    return launches, dict(rows[4096], max_abs_err=0.0, floor_ms=floor_ms,
+                          ms_by_N={N: r["ms"] for N, r in rows.items()},
+                          parent_ms_by_N={N: r["parent_ms"]
+                                          for N, r in rows.items()})
 
 
 # ---------------------------------------------------------------- phase 11
@@ -2643,6 +2874,15 @@ def main() -> None:
         fail(f"torch is not importable: {e}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a card")
+    parent_tree = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--parent":
+        parent_tree = os.path.abspath(sys.argv[2])
+    elif len(sys.argv) != 1:
+        fail("usage: python3 chip_smoke.py [--parent TREE]")
+    # the plain versions' float32 products in full float32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     try:
         import repro_torch  # noqa: F401
     except ImportError as e:
@@ -2651,6 +2891,7 @@ def main() -> None:
     t_start = time.perf_counter()
     card = phase_build()
     say(f"# torch {torch.__version__} cuda {torch.version.cuda} on {card}")
+    parent = parent_library(parent_tree)
     sel = phase_kernel_vs_plain(dev)
     mk_err = phase_megakernel_vs_plain(dev)
     mk = time_megakernel(dev)
@@ -2661,9 +2902,9 @@ def main() -> None:
         dev, records, eps)
     flash, decode = phase_attention_vs_plain(dev)
     attn_launches = phase_serving(dev)
-    rwkv = phase_rwkv_vs_plain(dev)
+    rwkv = phase_rwkv_vs_plain(dev, parent)
     rwkv_launches = phase_rwkv_serving(dev)
-    legacy_launches, legacy = phase_legacy_fitscore(dev)
+    legacy_launches, legacy = phase_legacy_fitscore(dev, parent)
     phase_migrate_vs_plain(dev)
     phase_frontier(dev)
     mig_launches, mig_ms, mig_mid = phase_consolidation_main_path(

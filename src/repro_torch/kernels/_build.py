@@ -24,9 +24,10 @@ scorer's plain version does); the select's l2 norm's FMA chain is written
 out with ``fmaf`` in the source.  The attention and RWKV6
 kernels are held to a tolerance, not bit for bit, and keep contraction on.
 
-``flash_attention_sm90.cu`` encodes its TMA tensor maps with the driver's
-``cuTensorMapEncodeTiled``, which it reaches through the runtime's
-``cudaGetDriverEntryPoint``: the library links no ``libcuda``.
+``flash_attention_sm90.cu`` and ``rwkv6_chunked.cu`` encode their TMA
+tensor maps with the driver's ``cuTensorMapEncodeTiled``, which they reach
+through the runtime's ``cudaGetDriverEntryPoint`` (``tma_common.cuh``): the
+library links no ``libcuda``.
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ SOURCES = {"select.cu": ("--fmad=false",),
            "flash_attention_sm90.cu": (), "flash_attention.cu": (),
            "decode_attention.cu": (),
            "rwkv6_chunked.cu": ()}
-HEADERS = ("fitscore_common.cuh", "replay_common.cuh", "warp_select.cuh")
+HEADERS = ("fitscore_common.cuh", "replay_common.cuh", "warp_select.cuh",
+           "tma_common.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
@@ -135,8 +137,10 @@ def library() -> ctypes.CDLL:
     lib.fitscore_replay_block_warp_smem_max.restype = i
     lib.fitscore_legacy_blocks.argtypes = [i]
     lib.fitscore_legacy_blocks.restype = i
-    lib.fitscore_legacy_launch.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.fitscore_legacy_launch.argtypes = [p] * 8 + [i] * 4 + [p]
     lib.fitscore_legacy_launch.restype = i
+    lib.fitscore_empty_launch.argtypes = [i, p]
+    lib.fitscore_empty_launch.restype = i
     lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 6 + [f] + \
         [i] * 4 + [p]
     lib.flash_attention_launch.restype = i
@@ -152,6 +156,10 @@ def library() -> ctypes.CDLL:
     lib.decode_attention_smem_bytes.restype = i
     lib.rwkv6_chunked_launch.argtypes = [p] * 7 + [i] * 8 + [p]
     lib.rwkv6_chunked_launch.restype = i
+    for fn in (lib.rwkv6_chunked_window, lib.rwkv6_chunked_col_block):
+        fn.argtypes, fn.restype = [], i
+    lib.rwkv6_chunked_smem_bytes.argtypes = [i]
+    lib.rwkv6_chunked_smem_bytes.restype = i
     lib.fitscore_error_string.argtypes = [i]
     lib.fitscore_error_string.restype = ctypes.c_char_p
     return lib

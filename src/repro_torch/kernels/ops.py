@@ -360,7 +360,9 @@ def fitscore(remaining, alive, item, open_seq=None, *, norm: str = "linf"):
     remaining (N, d) f32, alive (N,) bool, item (d,) f32, open_seq (N,)
     int32 or None (the slot index) -> (scores (N,) f32, +inf where
     infeasible; the chosen row, an int32 0-dim tensor, -1 when no bin is
-    feasible).  The CUDA kernel ``csrc/fitscore.cu`` for CUDA tensors,
+    feasible).  The CUDA kernel ``csrc/fitscore.cu`` for CUDA tensors (one
+    launch a call: up to 4096 bins one cluster of CTAs, above that the last
+    CTA, counted on the stream's counter, reduces the per-CTA partials),
     ``fitscore_ref`` for CPU ones."""
     if remaining.device.type == "cpu":
         return fitscore_ref(remaining, alive, item, open_seq, norm=norm)
@@ -381,16 +383,17 @@ def fitscore(remaining, alive, item, open_seq=None, *, norm: str = "linf"):
         _check("open_seq", open_seq, (N,), torch.int32, dev, name)
     from ._build import library
     lib = library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     scores = torch.empty(N, dtype=torch.float32, device=dev)
     best = torch.empty((), dtype=torch.int32, device=dev)
-    # the per-CTA partials of pass 1: (score, open_seq, row), 12 bytes each
+    # the per-CTA partials: (score, open_seq, row), 12 bytes each
     partial = torch.empty(3 * lib.fitscore_legacy_blocks(N),
                           dtype=torch.int32, device=dev)
     err = lib.fitscore_legacy_launch(
         remaining.data_ptr(), alive.data_ptr(), item.data_ptr(),
         None if open_seq is None else open_seq.data_ptr(), scores.data_ptr(),
-        partial.data_ptr(), best.data_ptr(), N, d, NORMS.index(norm),
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        partial.data_ptr(), _stream_counter(name, dev, stream, 1).data_ptr(),
+        best.data_ptr(), N, d, NORMS.index(norm), dev.index or 0, stream)
     if err:
         raise RuntimeError("fitscore launch failed: "
                            f"{lib.fitscore_error_string(err).decode()}")
@@ -520,18 +523,20 @@ def _sm_count(device: torch.device) -> int:
 # (n_split, split_len) of the last decode_attention launch
 last_decode_grid: tuple = (0, 0)
 
-# (device index, stream) -> int32 counters of the decode kernel's merge, zero
-# between launches (the merging CTA resets its own); one set a stream, so
-# launches that share a set run in order
-_decode_counters: dict = {}
+# (kernel, device index, stream) -> int32 counters of a last-CTA merge
+# (decode attention's, the legacy scorer's), zero between launches (the
+# merging CTA resets its own); one set a kernel and stream, so launches that
+# share a set run in order
+_counters: dict = {}
 
 
-def _decode_counter(dev: torch.device, stream: int, n: int) -> torch.Tensor:
-    key = (dev.index or 0, stream)
-    c = _decode_counters.get(key)
+def _stream_counter(kernel: str, dev: torch.device, stream: int,
+                    n: int) -> torch.Tensor:
+    key = (kernel, dev.index or 0, stream)
+    c = _counters.get(key)
     if c is None or c.numel() < n:
-        c = _decode_counters[key] = torch.zeros(max(n, 256),
-                                                dtype=torch.int32, device=dev)
+        c = _counters[key] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                         device=dev)
     return c
 
 
@@ -570,7 +575,7 @@ def decode_attention(q, k, v, kv_len):
                               dtype=torch.float32, device=dev)
         part_acc = scratch.data_ptr()
         part_ml = scratch[B * KV * n_split * G * hd:].data_ptr()
-        counter = _decode_counter(dev, stream, B * KV).data_ptr()
+        counter = _stream_counter(name, dev, stream, B * KV).data_ptr()
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
         out.data_ptr(), part_acc, part_ml, counter, B, S, H, KV, hd,
@@ -585,12 +590,19 @@ def decode_attention(q, k, v, kv_len):
     return out
 
 
+# (CTAs along B * H, CTAs along V, chunks a window) of the last
+# rwkv6_chunked launch
+last_rwkv_grid: tuple = (0, 0, 0)
+
+
 def rwkv6_chunked(r, k, v, logw, u, *, chunk: int = 16):
     """RWKV6 chunked linear attention from a zero state: r, k, logw (B, S,
     H, K); v (B, S, H, V); u (H, K) -> (y (B, S, H, V) fp32, final state
     (B, H, K, V) fp32), see ``rwkv6_chunked_ref``.  The CUDA kernel
     ``csrc/rwkv6_chunked.cu`` for CUDA tensors (r, k, v of one type, fp32
-    or bf16; logw and u fp32; contiguous; K, V <= 64; chunk <= 16); the
+    or bf16; logw and u fp32; contiguous; K, V <= 64; chunk <= 16): one
+    CTA per (row, head, 16 state columns), walking the sequence in windows
+    of 8 chunks (the grid launched is kept in ``last_rwkv_grid``); the
     plain version for CPU ones.  Any S: the kernel reads the rows past S
     as identity rows, the padding of ``rwkv6_chunked_ref``."""
     if r.device.type == "cpu":
@@ -630,5 +642,8 @@ def rwkv6_chunked(r, k, v, logw, u, *, chunk: int = 16):
     if err:
         raise RuntimeError("rwkv6_chunked launch failed: "
                            f"{lib.fitscore_error_string(err).decode()}")
+    global last_rwkv_grid
+    last_rwkv_grid = (B * H, -(-V // lib.rwkv6_chunked_col_block()),
+                      lib.rwkv6_chunked_window())
     launches[name] += 1
     return y, state

@@ -29,7 +29,8 @@ from repro_torch.sweep import pack_instances, pad_predictions, run_batch
 from repro_torch.sweep.runner import _flatten_lanes
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from chip_smoke import (HAZARDS, check_routes, hazard_block,  # noqa: E402
+from chip_smoke import (HAZARDS, RWKV_CROSS_SHAPES,  # noqa: E402
+                        check_routes, hazard_block, legacy_back_to_back,
                         legacy_inputs, migrate_streams, padded_streams,
                         random_state, synthetic_lanes)
 # (the card check's input makers)
@@ -39,9 +40,17 @@ pytestmark = pytest.mark.cuda
 
 @pytest.fixture
 def cuda():
+    """The card, with float32 matrix products in full float32: the plain
+    versions the kernels are held to would otherwise run their products in
+    TF32 (three decimal digits) on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU "
                     "mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
     return torch.device("cuda")
 
 
@@ -542,10 +551,21 @@ def test_fitscore_kernel_equals_plain(norm, cuda):
     decides), pools where nothing fits (-1)."""
     from repro_torch.kernels.legacy import fitscore_ref
     rng = np.random.default_rng(len(norm))
+    # CTA-count edges (256 bins a CTA, at most 1024 CTAs, so 262144 bins
+    # before a CTA takes a second tile), ties across CTAs, rows wider than
+    # the staged 8 floats, and an array that is not 16-byte aligned
     for N, d, mode in ((8, 4, "random"), (37, 2, "random"),
                        (1000, 5, "grid"), (70000, 2, "grid"),
-                       (300, 3, "none"), (300000, 5, "random")):
-        rem, alive, item, oseq = legacy_inputs(rng, N, d, mode, cuda)
+                       (300, 3, "none"), (300000, 5, "random"),
+                       (255, 1, "random"), (256, 5, "grid"),
+                       (257, 5, "grid"), (262144, 5, "grid"),
+                       (262145, 3, "grid"), (1000, 8, "grid"),
+                       (1000, 9, "random"), (1000, 5, "unaligned")):
+        rem, alive, item, oseq = legacy_inputs(
+            rng, N, d, "grid" if mode == "unaligned" else mode, cuda)
+        if mode == "unaligned":   # the rows one row into a larger array
+            rem = torch.cat([rem[:1], rem])[1:]
+            assert rem.is_contiguous() and rem.data_ptr() % 16
         for os_ in (oseq, None):
             n0 = ops.launches["fitscore"]
             s, b = ops.fitscore(rem, alive, item, os_, norm=norm)
@@ -555,6 +575,14 @@ def test_fitscore_kernel_equals_plain(norm, cuda):
             assert int(b) == int(b_p), (N, d, mode)
             if mode == "none":
                 assert int(b) == -1
+
+
+@pytest.mark.parametrize("n_streams", [1, 2])
+def test_fitscore_counter_resets_between_calls(n_streams, cuda):
+    """50 consecutive legacy scorer calls, on one stream or alternating
+    between two, each equal to ``fitscore_ref``: the last CTA of a launch
+    resets its stream's counter, so the next launch's last CTA is found."""
+    assert legacy_back_to_back(cuda, n_streams) == []
 
 
 def test_fitscore_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -775,17 +803,44 @@ def _rwkv_inputs(seed, dev, dtype, B, S, H, K, V):
 @pytest.mark.parametrize("B,S,H,K,V,chunk", [
     (2, 64, 2, 16, 16, 16), (1, 48, 4, 32, 64, 16), (2, 16, 1, 8, 8, 16),
     (1, 128, 2, 64, 64, 16), (2, 50, 2, 64, 64, 16), (1, 17, 3, 64, 32, 16),
-    (2, 40, 4, 16, 16, 8), (1, 511, 32, 64, 64, 16), (1, 5, 2, 64, 64, 16)])
+    (2, 40, 4, 16, 16, 8), (1, 511, 32, 64, 64, 16), (1, 5, 2, 64, 64, 16),
+    *RWKV_CROSS_SHAPES])
 def test_rwkv6_kernel_equals_plain(B, S, H, K, V, chunk, dtype, cuda):
+    """Within 1e-4 atol and rtol (the JAX kernel test's tolerance), on the
+    JAX kernel test's shapes, ragged lengths and the windows' and column
+    blocks' edges (``RWKV_CROSS_SHAPES``)."""
     from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
     args = _rwkv_inputs(S + H, cuda, dtype, B, S, H, K, V)
     n0 = ops.launches["rwkv6_chunked"]
     y, st = ops.rwkv6_chunked(*args, chunk=chunk)
     assert ops.launches["rwkv6_chunked"] == n0 + 1
+    assert ops.last_rwkv_grid[:2] == (B * H, -(-V // 16))
     want_y, want_st = rwkv6_chunked_ref(*args, chunk=chunk)
     assert y.dtype == st.dtype == torch.float32
     torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(st, want_st, atol=1e-4, rtol=1e-4)
+
+
+def test_rwkv6_kernel_on_two_streams_equals_plain(cuda):
+    """Two calls in flight on two streams, each equal to the plain version
+    on its own inputs."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
+    shapes = [(1, 300, 4, 64, 64, 16), (2, 77, 3, 64, 40, 8)]
+    args = [_rwkv_inputs(i, cuda, torch.bfloat16, *shp[:5])
+            for i, shp in enumerate(shapes)]
+    main = torch.cuda.current_stream()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for st, a, shp in zip(streams, args, shapes):
+        st.wait_stream(main)
+        with torch.cuda.stream(st):
+            outs.append(ops.rwkv6_chunked(*a, chunk=shp[5]))
+    for st in streams:
+        main.wait_stream(st)
+    for (y, st), a, shp in zip(outs, args, shapes):
+        want_y, want_st = rwkv6_chunked_ref(*a, chunk=shp[5])
+        torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(st, want_st, atol=1e-4, rtol=1e-4)
 
 
 def test_rwkv6_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -138,6 +138,103 @@ def test_plain_takes_bf16_inputs_as_fp32():
     assert torch.equal(y, y32) and torch.equal(st, st32)
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: half of the low 13 bits' range is
+    added to the float32 pattern, then those bits are cleared."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b with each operand split into TF32 hi + lo parts and the three
+    products a_hi b_lo + a_lo b_hi + a_hi b_hi summed in fp32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return ah @ bl + al @ bh + ah @ bh
+
+
+def _mm_tf32(a, b):
+    """a @ b with both operands rounded to TF32 once."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _kernel_products(r, k, v, logw, u, mm, chunk=16):
+    """``rwkv6_chunked_ref``'s chunked form with the CUDA kernel's three
+    products done by ``mm``: the pair matrix r_dec k_idec^T (the bonus
+    then on its diagonal), y = A v + r_dec S_{n-1}, and U_n = k_dec^T v;
+    the rest (decays, the state's recurrence) in fp32."""
+    B, S, H, K = k.shape
+    V = v.shape[-1]
+    f32 = torch.float32
+    r, k, v, u = (t.to(f32) for t in (r, k, v, u))
+    lw = logw.to(f32).clamp(LOG_DECAY_MIN, 0.0)
+    pad = (-S) % chunk   # identity rows at the tail, as the kernel reads
+    N = (S + pad) // chunk
+
+    def lay(t):   # (B, S, H, F) -> (B, H, N, L, F)
+        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+        return t.reshape(B, N, chunk, H, t.shape[-1]).permute(0, 3, 1, 2, 4)
+
+    r, k, v, lw = lay(r), lay(k), lay(v), lay(lw)
+    cum = torch.cumsum(lw, dim=3)
+    tot = cum[:, :, :, -1:]
+    r_dec = r * torch.exp(cum - lw)
+    k_idec = k * torch.exp(-cum)
+    k_dec = k * torch.exp(tot - cum)
+    below = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool),
+                       diagonal=-1)
+    bonus = (r * u[None, :, None, None, :] * k).sum(-1)
+    A = torch.where(below, mm(r_dec, k_idec.transpose(-1, -2)), 0.0) + \
+        torch.diag_embed(bonus)
+    upd = mm(k_dec.transpose(-1, -2), v)
+    decay = torch.exp(tot[:, :, :, 0])[..., None]
+    state = torch.zeros((B, H, K, V), dtype=f32)
+    ys = []
+    for n in range(N):
+        # A v + r_dec S in one accumulation, as the kernel's mma chain does
+        ys.append(mm(torch.cat([A[:, :, n], r_dec[:, :, n]], dim=-1),
+                     torch.cat([v[:, :, n], state], dim=-2)))
+        state = decay[:, :, n] * state + upd[:, :, n]
+    y = torch.stack(ys, dim=2).permute(0, 2, 3, 1, 4).reshape(B, N * chunk, H,
+                                                              V)
+    return y[:, :S], state
+
+
+def test_3xtf32_products_hold_the_tolerance_and_single_tf32_does_not():
+    """The CUDA kernel's precision scheme, emulated on the CPU (the card is
+    absent here): its three products in TF32 on the tensor cores.  At the
+    serving path's K = V = 64, chunk 16 and bf16 r, k, v (B 1, S 511; H cut
+    from 32 to 4 for time), with the kernel tests' input distributions,
+    y and the final state are held to ``rwkv6_chunked_ref`` within
+    ``chip_smoke.RWKV_TOL`` = 1e-4 atol and rtol, the tolerance the CUDA
+    kernel is held to on the card (the JAX kernel test's).  The 3xTF32
+    split keeps ~21 bits of each operand (a relative error near 1e-6 a
+    product, sums of up to 64 channels and 16 rows on top) and holds it;
+    one pass of TF32 keeps 11 bits (~5e-4 a product) and misses it, which
+    is why the kernel pays for the split."""
+    arrs = [torch.from_numpy(a) for a in _inputs(1, 511, 4, 64, 64, seed=19)]
+    r, k, v = (t.to(torch.bfloat16) for t in arrs[:3])
+    want_y, want_st = rwkv6_chunked_ref(r, k, v, arrs[3], arrs[4])
+
+    def misses(got, want):
+        return int((got - want).abs().gt(TOL + TOL * want.abs()).sum())
+
+    y3, st3 = _kernel_products(r, k, v, arrs[3], arrs[4], _mm_3xtf32)
+    assert misses(y3, want_y) == 0 and misses(st3, want_st) == 0
+    y1, st1 = _kernel_products(r, k, v, arrs[3], arrs[4], _mm_tf32)
+    assert misses(y1, want_y) > y1.numel() // 10
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -11 + 2.0 ** -20,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0],
+                     dtype=torch.float32)
+    want = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                         -(1.0 + 2.0 ** -10), 1.0, 3.0])
+    assert torch.equal(_tf32(x), want)
+
+
 def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
     t = [torch.from_numpy(a) for a in _inputs(2, 40, 2, 16, 16)]
     n0 = sum(ops.launches.values())
