@@ -160,6 +160,43 @@ Phases (any failure exits non-zero, and no result line is printed):
    on each route's kernel (equal to the path's; device time, side by
    side).
 
+12. The replay against the port's own oracle: 8 fp32-exact instances
+   (1/64-grid sizes, integer times; ``ORACLE_ITEMS`` items, d
+   ``ORACLE_D``), clairvoyant and power-of-two noise, 16 lanes of 3000
+   events.  For all 21 policies ``run_batch`` per event with
+   ``trace_level=1`` (the CUDA select in CUDA graphs of event windows) and
+   blocked (the megakernel) must equal ``core.run(inst,
+   torchsim.host_algorithm(policy), ...)``: usage exactly and opened bins,
+   lane by lane, and the traced open-bin, load and usage series event for
+   event (``obs.diff_traces`` against ``oracle_trace``, which rebuilds
+   them from the oracle's placements; the first divergence is printed).
+   Then ``run_batch(consolidate=ORACLE_CONS)`` on 4 of the instances,
+   blocked for one policy of each family and ppe, per event for first_fit
+   and ppe: usage, opened bins and migrations equal
+   ``run_consolidating``'s.  The oracle's and the card's wall times are
+   printed.
+13. The scheduler's zoo: ``DVBPScheduler`` over ``ZOO_REQUESTS`` requests
+   built like ``launch/serve.py``'s (arrivals rounded up to whole seconds,
+   ``ZOO_TPS`` tokens a second: float32-exact).  Every registry policy on
+   the host; ``select_backend="device"`` on the card for the score
+   policies, CBD and CBDT (one CUDA select a request, the class from the
+   host's float64 ``duration_class`` / ``departure_window``): every
+   decision and the stats equal to the host zoo's.
+14. ``obs`` on the card: a per-event and a blocked sweep, a consolidating
+   replay and the device select under ``obs.recording()`` - the
+   reference's span names present (``sweep.run_batch``, ``sweep.scan``,
+   ``pack.instances``, ``suite.build``, ``consolidate.replay``,
+   ``serving.select``, ``store.save``); a JSONL run log and a Perfetto
+   file written, the log summarized by ``python -m repro_torch obs``;
+   ``torch_profile`` with a log directory writes a trace of the profiled
+   ops (its device kernels counted; "not measured" where the profiler
+   records no device activity); traced card replays == traced CPU
+   replays of the same
+   lanes at ``trace_level=2`` (``diff_traces(...) is None``, one policy a
+   family) and a slot flipped in one event pinpointed at that (lane,
+   event, "slot"); the untraced and traced per-event replays' wall time a
+   step at phase 12's shape, in turns.
+
 Then, as a measurement and not a check, on the main path's first rung
 (L=28, Np=64): torch.profiler over 2048 graphed per-event steps and 400
 eager ones (device busy time against wall time, the select's own time in
@@ -2703,6 +2740,429 @@ def phase_consolidation_main_path(dev, base_records, n_items: int = 5000):
         r: float(np.median(v)) for r, v in mig_route_ms.items()}
 
 
+# ------------------------------------ phases 12-14: oracle, zoo, obs
+
+# Phase 12: 8 fp32-exact instances of ORACLE_ITEMS items in ORACLE_D dims,
+# two prediction rows each (16 lanes of 3000 events); the consolidation
+# scenario and its policies (one of each kernel family, and ppe).
+ORACLE_SEEDS = tuple(range(1, 9))
+ORACLE_ITEMS = 1500
+ORACLE_D = 5
+ORACLE_CONS = "underload:t0.25:e32"
+ORACLE_CONS_POLICIES = ("first_fit", "cbd", "hybrid", "rcp", "la_binary",
+                        "adaptive", "ppe")
+ORACLE_CONS_PER_EVENT = ("first_fit", "ppe")   # 32-event chunks run eagerly
+# Phase 13: the request stream, and a clock rate that keeps every
+# predicted departure a float32-exact number of 1/64 seconds.
+ZOO_REQUESTS = 2000
+ZOO_TPS = 64.0
+
+
+def quantized_instance(seed, n, d):
+    """tests/test_replay_block.py's fp32-exact instance: 1/64-grid sizes,
+    integer arrivals and durations."""
+    import numpy as np
+    from repro_torch.core.types import Instance
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 24, (n, d)) / 64.0
+    arr = np.sort(rng.integers(0, 50000, n)).astype(float)
+    dur = rng.integers(10, 5000, n).astype(float)
+    return Instance(sizes, arr, arr + dur, f"q{seed}").sorted_by_arrival()
+
+
+def oracle_lanes(seeds=ORACLE_SEEDS, n_items=ORACLE_ITEMS, d=ORACLE_D):
+    """Phase 12's instances, their predicted durations (clairvoyant and
+    power-of-two noise, (2, n) each), the packed batch and its pdeps."""
+    import numpy as np
+    from repro_torch.sweep import pack_instances, pad_predictions
+    insts = [quantized_instance(s, n_items, d) for s in seeds]
+    preds = []
+    for s, inst in zip(seeds, insts):
+        noise = np.random.default_rng(100 + s).choice(
+            [0.25, 0.5, 1.0, 2.0, 4.0], inst.n_items)
+        preds.append(np.stack([inst.durations, inst.durations * noise]))
+    batch = pack_instances(insts)
+    return insts, preds, batch, pad_predictions(batch, preds)
+
+
+def oracle_trace(card, insts, results):
+    """The oracle's decision series in ``card``'s layout (a ``ReplayTrace``
+    of ``len(insts) * card.S`` lanes): after each event the open-bin count,
+    the aggregate load and the running usage, rebuilt from the oracle's
+    placements (``results``, lane order); the slot and tag series are
+    ``card``'s own, since the oracle numbers bins absolutely and the replay
+    reuses slots.  PAD events repeat the lane's last state."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.kernels.fitscore import ARRIVAL_KIND
+    L, E = card.slot.shape
+    d = card.load.shape[2]
+    open_bins = np.zeros((L, E), card.open_bins.dtype)
+    load = np.zeros((L, E, d), card.load.dtype)
+    usage = np.zeros((L, E), card.usage.dtype)
+    for lane in range(L):
+        inst, r = insts[lane // card.S], results[lane]
+        counts, opened_at = {}, {}
+        agg, u = np.zeros(d), 0.0
+        for e in range(E):
+            kind, item = int(card.kinds[lane, e]), int(card.items[lane, e])
+            if kind == ARRIVAL_KIND:
+                b = int(r.placements[item])
+                if b not in counts:
+                    counts[b], opened_at[b] = 0, float(card.times[lane, e])
+                counts[b] += 1
+                agg[:inst.d] += inst.sizes[item]
+            elif e < 2 * inst.n_items:          # a departure
+                b = int(r.placements[item])
+                counts[b] -= 1
+                agg[:inst.d] -= inst.sizes[item]
+                if not counts[b]:
+                    del counts[b]
+                    u += float(card.times[lane, e]) - opened_at.pop(b)
+            open_bins[lane, e], load[lane, e], usage[lane, e] = \
+                len(counts), agg, u
+    return dataclasses.replace(card, open_bins=open_bins, load=load,
+                               usage=usage)
+
+
+def phase_oracle(dev, n_items: int = ORACLE_ITEMS):
+    """Phase 12: the card's replay against the port's own float64 oracle.
+    All 21 policies through ``run_batch``: per event with ``trace_level=1``
+    (the CUDA select, in CUDA graphs of event windows) and blocked
+    (``block_events=BLOCK_EVENTS``, the megakernel), usage and opened bins
+    equal to ``core.run(inst, torchsim.host_algorithm(policy), ...)`` lane
+    by lane, and the traced open-bin, load and usage series equal to the
+    oracle's event for event (``diff_traces``; the first divergence is
+    printed before the run fails).  Then ``run_batch(consolidate=
+    ORACLE_CONS)`` over 4 of the instances, blocked for
+    ``ORACLE_CONS_POLICIES`` and per event for ``ORACLE_CONS_PER_EVENT``:
+    usage, opened bins and migrations equal to ``run_consolidating``.
+    Returns the launches of both parts."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.consolidate import ConsolidationSpec, run_consolidating
+    from repro_torch.core import run as oracle_run
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import ops
+    from repro_torch.sweep import pack_instances, pad_predictions, run_batch
+    insts, preds, batch, pdeps = oracle_lanes(n_items=n_items)
+    S = pdeps.shape[1]
+    walls = collections.Counter()
+    ops.launches.clear()
+    for policy in torchsim.SCAN_POLICIES:
+        t0 = time.perf_counter()
+        want = [oracle_run(inst, torchsim.host_algorithm(policy),
+                           predicted_durations=preds[b][s])
+                for b, inst in enumerate(insts) for s in range(S)]
+        t1 = time.perf_counter()
+        traced = run_batch(batch, policy, pdeps, max_bins=64, device=dev,
+                           trace_level=1)
+        t2 = time.perf_counter()
+        blocked = run_batch(batch, policy, pdeps, max_bins=64, device=dev,
+                            block_events=BLOCK_EVENTS)
+        t3 = time.perf_counter()
+        walls["oracle"] += t1 - t0
+        walls["traced"] += t2 - t1
+        walls["blocked"] += t3 - t2
+        usage = np.array([r.usage_time for r in want]).reshape(-1, S)
+        opened = np.array([r.n_bins_opened for r in want]).reshape(-1, S)
+        div = obs.diff_traces(traced.trace,
+                              oracle_trace(traced.trace, insts, want))
+        if div is not None:
+            say(f"# oracle {policy}: first divergence of the card's trace "
+                f"from the oracle's: {div}")
+            fail(f"phase 12 {policy}: the traced replay diverges from the "
+                 f"oracle at lane {div.lane}, event {div.event} "
+                 f"({div.field})")
+        for what, res in (("per event", traced), ("blocked", blocked)):
+            bad = np.argwhere((res.usage_time != usage) |
+                              (res.n_bins_opened != opened))
+            if len(bad):
+                b, s = bad[0]
+                fail(f"phase 12 {policy} {what}: lane {b * S + s} usage "
+                     f"{res.usage_time[b, s]} opened "
+                     f"{res.n_bins_opened[b, s]} != the oracle's "
+                     f"{usage[b, s]} / {opened[b, s]}")
+    launches = dict(ops.launches)
+    if not launches.get("fitscore_select") or \
+            not launches.get("fitscore_replay_block"):
+        fail(f"phase 12 launches {launches}")
+    say(f"# phase 12: 21 policies x {batch.B} x {S} lanes of "
+        f"{batch.times.shape[1]} events ({n_items} items, d {ORACLE_D}): "
+        f"per event (traced) and blocked == core.run in usage and opened "
+        f"bins, traced open bins, load and usage == the oracle's at every "
+        f"event; wall: oracle {walls['oracle']:.1f} s, card traced "
+        f"{walls['traced']:.1f} s, card blocked {walls['blocked']:.1f} s "
+        f"({launches})")
+
+    spec = ConsolidationSpec.parse(ORACLE_CONS)
+    sub = insts[:4]
+    sub_batch = pack_instances(sub)
+    sub_pdeps = pad_predictions(sub_batch, preds[:4])
+    ops.launches.clear()
+    walls = collections.Counter()
+    for policy in ORACLE_CONS_POLICIES:
+        t0 = time.perf_counter()
+        want = [run_consolidating(inst, torchsim.host_algorithm(policy),
+                                  spec, predicted_durations=preds[b][s])
+                for b, inst in enumerate(sub) for s in range(S)]
+        walls["oracle"] += time.perf_counter() - t0
+        usage = np.array([r.usage_time for r, _ in want]).reshape(-1, S)
+        opened = np.array([r.n_bins_opened for r, _ in want]).reshape(-1, S)
+        migs = np.array([st["migrations"] for _, st in want]).reshape(-1, S)
+        if not migs.any():
+            fail(f"phase 12 consolidation {policy}: the oracle migrates "
+                 f"nothing")
+        for T in ((0, BLOCK_EVENTS) if policy in ORACLE_CONS_PER_EVENT
+                  else (BLOCK_EVENTS,)):
+            t0 = time.perf_counter()
+            res = run_batch(sub_batch, policy, sub_pdeps, max_bins=64,
+                            device=dev, block_events=T, consolidate=spec)
+            walls[f"T{T}"] += time.perf_counter() - t0
+            if not (np.array_equal(res.usage_time, usage) and
+                    np.array_equal(res.n_bins_opened, opened) and
+                    np.array_equal(res.migrations, migs)):
+                fail(f"phase 12 consolidation {policy} block_events={T}: "
+                     f"usage {res.usage_time.tolist()} opened "
+                     f"{res.n_bins_opened.tolist()} migrations "
+                     f"{res.migrations.tolist()} != run_consolidating's "
+                     f"{usage.tolist()} / {opened.tolist()} / "
+                     f"{migs.tolist()}")
+    cons_launches = dict(ops.launches)
+    if not cons_launches.get("fitscore_select") or \
+            not cons_launches.get("fitscore_replay_block_migrate"):
+        fail(f"phase 12 consolidation launches {cons_launches}")
+    say(f"# phase 12 consolidation {ORACLE_CONS}, {len(sub)} x {S} lanes: "
+        f"blocked ({', '.join(ORACLE_CONS_POLICIES)}) and per event "
+        f"({', '.join(ORACLE_CONS_PER_EVENT)}) == run_consolidating in "
+        f"usage, opened bins and migrations; wall: oracle "
+        f"{walls['oracle']:.1f} s, card per event {walls['T0']:.1f} s, card "
+        f"blocked {walls[f'T{BLOCK_EVENTS}']:.1f} s ({cons_launches})")
+    return launches, cons_launches
+
+
+def zoo_requests(n: int = ZOO_REQUESTS, seed: int = 0):
+    """``launch/serve.py``'s workload (``synth_requests``, log-normal
+    predictions at sigma 0.5) with arrivals rounded up to whole seconds:
+    with ``ZOO_TPS`` tokens a second every size, time and predicted
+    departure is exact in float32, so the card's select and the host's
+    float64 zoo see the same numbers."""
+    import dataclasses
+    import math
+    from repro_torch.serving.fleet import attach_predictions, synth_requests
+    reqs = attach_predictions(synth_requests(n, seed=seed), 0.5, seed=seed)
+    return [dataclasses.replace(r, arrival=float(math.ceil(r.arrival)))
+            for r in reqs]
+
+
+def drive_scheduler(sched, reqs, tps: float = ZOO_TPS):
+    """Place ``reqs`` in arrival order, finishing each after its decode at
+    ``tps`` tokens a second (``serving.fleet.simulate_fleet``'s loop):
+    every decision and the final stats."""
+    import heapq
+    heap, picks = [], []
+    for r in reqs:
+        while heap and heap[0][0] <= r.arrival:
+            ft, rid = heapq.heappop(heap)
+            sched.finish(rid, ft)
+        picks.append(sched.place(r, r.arrival))
+        heapq.heappush(heap, (r.arrival + r.decode_len / tps, r.rid))
+    while heap:
+        ft, rid = heapq.heappop(heap)
+        sched.finish(rid, ft)
+    s = sched.stats
+    return picks, (s.replica_seconds, s.replicas_opened, s.peak_replicas)
+
+
+def phase_scheduler_zoo(dev, n: int = ZOO_REQUESTS):
+    """Phase 13: ``DVBPScheduler`` over ``zoo_requests``: every registry
+    policy on the host (all requests placed, the fleet empty at the end);
+    ``select_backend="device"`` on the card for the score policies, CBD and
+    CBDT - one CUDA select a request, every decision and the stats equal
+    to the host run's.  Returns the device runs' select launches."""
+    from repro_torch.core.algorithms import ALL_ALGORITHMS
+    from repro_torch.kernels import ops
+    from repro_torch.serving.scheduler import (_DEVICE_CATEGORY_POLICIES,
+                                               _DEVICE_POLICIES,
+                                               DVBPScheduler)
+    reqs = zoo_requests(n)
+    kwargs = {"cbdt": {"rho": 8.0}}
+    host, t0 = {}, time.perf_counter()
+    for name in ALL_ALGORITHMS:
+        sched = DVBPScheduler(name, policy_kwargs=kwargs.get(name),
+                              tokens_per_second=ZOO_TPS)
+        host[name] = drive_scheduler(sched, reqs)
+        if len(host[name][0]) != n or sched.open_replicas() or \
+                not host[name][1][0] > 0:
+            fail(f"phase 13 host {name}: {host[name][1]}")
+    host_wall = time.perf_counter() - t0
+    device = [(p, kw) for p in _DEVICE_POLICIES + _DEVICE_CATEGORY_POLICIES
+              for kw in ([{"norm": m} for m in ("l1", "l2", "linf")]
+                         if p == "best_fit" else [kwargs.get(p)])]
+    ops.launches.clear()
+    t0 = time.perf_counter()
+    for name, kw in device:
+        want = drive_scheduler(DVBPScheduler(
+            name, policy_kwargs=kw, tokens_per_second=ZOO_TPS), reqs)
+        c0 = ops.launches["fitscore_select"]
+        sched = DVBPScheduler(name, policy_kwargs=kw,
+                              tokens_per_second=ZOO_TPS,
+                              select_backend="device", device=dev)
+        got = drive_scheduler(sched, reqs)
+        if ops.launches["fitscore_select"] - c0 != n or \
+                sched.last_select_backend != "cuda":
+            fail(f"phase 13 {name} {kw}: {ops.launches['fitscore_select']}"
+                 f" select launches, backend {sched.last_select_backend}")
+        if got != want:
+            first = next(i for i, (a, b) in enumerate(zip(got[0], want[0]))
+                         if a != b) if got[0] != want[0] else None
+            fail(f"phase 13 {name} {kw}: the card's select != the host "
+                 f"zoo (first different decision: request {first}; stats "
+                 f"{got[1]} vs {want[1]})")
+    dev_wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    say(f"# phase 13: {n} requests, {len(ALL_ALGORITHMS)} registry "
+        f"policies on the host in {host_wall:.1f} s; device select on the "
+        f"card for {len(device)} configurations (score policies, cbd, "
+        f"cbdt) == the host zoo decision for decision in {dev_wall:.1f} s "
+        f"({launches}); replica-seconds " + ", ".join(
+            f"{k} {v[1][0]:g}" for k, v in sorted(host.items())))
+    return launches
+
+
+def phase_obs(dev):
+    """Phase 14: ``repro_torch.obs`` on the card.  Under
+    ``obs.recording()``: a sweep per event and one blocked (``run_sweep``),
+    a consolidating ``run_batch`` and a scheduler on the device select; the
+    reference's span names must be there.  The recording goes to a JSONL
+    run log and a Perfetto file, and ``python -m repro_torch obs``
+    summarizes the log; ``torch_profile`` with a log directory writes a
+    trace of the profiled ops, its device kernels counted.  A traced card
+    replay and a traced
+    CPU replay of the same lanes give ``diff_traces(...) is None``; a slot
+    flipped in one event is pinpointed at that (lane, event, "slot").
+    Then the traced and untraced per-event replays' wall time a step at
+    phase 12's shape.  Returns the launches of the recorded run."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.consolidate import ConsolidationSpec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fitscore import ARRIVAL_KIND
+    from repro_torch.serving.scheduler import DVBPScheduler
+    from repro_torch.sweep import (PredModel, SuiteSpec, SweepSpec,
+                                   SweepStore, run_batch, run_sweep)
+    out = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    ops.launches.clear()
+    obs.reset()
+    with obs.recording():
+        for T in (0, BLOCK_EVENTS):
+            spec = SweepSpec(suites=(SuiteSpec("azure", 4, 400, 31 + T),),
+                             policies=("best_fit_l2", "ppe_modified"),
+                             predictions=(PredModel("clairvoyant"),),
+                             seeds=(0,))
+            run_sweep(spec, SweepStore(os.path.join(out, "store")),
+                      device=dev, block_events=T)
+        _, _, small, small_pdeps = oracle_lanes(seeds=(1, 2), n_items=400)
+        run_batch(small, "cbd", small_pdeps, max_bins=64, device=dev,
+                  consolidate=ConsolidationSpec.parse(ORACLE_CONS))
+        sched = DVBPScheduler("cbd", tokens_per_second=ZOO_TPS,
+                              select_backend="device", device=dev)
+        drive_scheduler(sched, zoo_requests(50))
+        events, counters = obs.events(), obs.counters()
+    launches = dict(ops.launches)
+    names = {e["name"] for e in events}
+    want = {"sweep.run_batch", "sweep.scan", "pack.instances", "suite.build",
+            "consolidate.replay", "serving.select", "store.save"}
+    if not want <= names:
+        fail(f"phase 14: spans {sorted(want - names)} missing; recorded "
+             f"{sorted(names)}")
+    for c in ("sweep.scan_calls", "consolidate.migrations",
+              "serving.select_cuda", "experiment.cache_miss"):
+        if not counters.get(c):
+            fail(f"phase 14: counter {c} is {counters.get(c)}")
+    if not launches.get("fitscore_select") or \
+            not launches.get("fitscore_replay_block"):
+        fail(f"phase 14 launches {launches}")
+    log = obs.export_jsonl(os.path.join(out, "run.obs.jsonl"), events,
+                           counters, meta={"check": "chip_smoke phase 14"})
+    perfetto = obs.export_perfetto(os.path.join(out, "trace.json"), events,
+                                   counters)
+    if len(json.load(open(perfetto))["traceEvents"]) != len(events):
+        fail("phase 14: the Perfetto file lost spans")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "obs", log],
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode or not all(n in proc.stdout for n in want):
+        fail(f"phase 14: python -m repro_torch obs: {proc.returncode} "
+             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+
+    with obs.recording(clear=False), \
+            obs.torch_profile(os.path.join(out, "profile")) as prof_path:
+        run_batch(small, "best_fit_l2", small_pdeps, max_bins=64, device=dev,
+                  block_events=BLOCK_EVENTS)
+        torch.cuda.synchronize()
+    cats = collections.Counter(e.get("cat") for e in
+                               json.load(open(prof_path))["traceEvents"])
+    if not cats["cpu_op"] or "profiler.torch_trace" not in \
+            {e["name"] for e in obs.events()}:
+        fail(f"phase 14: the torch_profile trace {prof_path} holds no "
+             f"profiled op ({dict(cats)})")
+    kernels = cats["kernel"] or "no (not measured: the profiler recorded " \
+        f"no device activity; {dict(cats)})"
+
+    t_card = t_cpu = 0.0
+    for policy in ("best_fit_l2", "cbd", "reduced_hybrid", "ppe",
+                   "la_binary", "adaptive"):
+        t0 = time.perf_counter()
+        card = run_batch(small, policy, small_pdeps, max_bins=64,
+                         device=dev, trace_level=2).trace
+        t1 = time.perf_counter()
+        cpu = run_batch(small, policy, small_pdeps, max_bins=64,
+                        device="cpu", trace_level=2).trace
+        t_card += t1 - t0
+        t_cpu += time.perf_counter() - t1
+        div = obs.diff_traces(card, cpu)
+        if div is not None or not np.array_equal(card.alive, cpu.alive):
+            fail(f"phase 14 {policy}: the card's trace != the CPU's: {div}")
+    lane = card.L - 1
+    ev = int(np.flatnonzero(card.kinds[lane] == ARRIVAL_KIND)[7])
+    slot = card.slot.copy()
+    slot[lane, ev] += 1
+    div = obs.diff_traces(card, dataclasses.replace(card, slot=slot))
+    if div is None or (div.lane, div.event, div.field) != (lane, ev, "slot"):
+        fail(f"phase 14: a flipped slot at ({lane}, {ev}) gives {div}")
+
+    step_s = collections.defaultdict(list)
+    _, _, batch, pdeps = oracle_lanes()
+    E = batch.times.shape[1]
+    for rep in range(2):
+        for level in ((0, 1) if rep == 0 else (1, 0)):
+            for policy in ("best_fit_l2", "ppe"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run_batch(batch, policy, pdeps, max_bins=64, device=dev,
+                          trace_level=level)
+                torch.cuda.synchronize()
+                step_s[(policy, level)].append(
+                    (time.perf_counter() - t0) / E * 1e6)
+    say(f"# phase 14: spans {sorted(names)}; run log {len(events)} spans, "
+        f"{len(counters)} counters; `python -m repro_torch obs` summarized "
+        f"it; torch_profile wrote a trace with {kernels} device kernels; "
+        f"traced "
+        f"card == traced CPU replays (6 policies, {card.L} lanes x "
+        f"{card.E} events: card {t_card:.1f} s, CPU "
+        f"{t_cpu:.1f} s); a flipped slot found at (lane {lane}, event "
+        f"{ev}, slot); wall a step at {batch.B} x 2 lanes x {E} events, "
+        f"untraced / traced (two runs each, in turns): " + "; ".join(
+            f"{p} {min(step_s[(p, 0)]):.2f} / {min(step_s[(p, 1)]):.2f} µs"
+            for p in ("best_fit_l2", "ppe")))
+    return launches, {f"{p}_{'traced' if lv else 'untraced'}_us_a_step":
+                      min(v) for (p, lv), v in step_s.items()}
+
+
 def profile_run(dev, label, fn, units: int, unit: str) -> dict:
     """Device busy time against wall time of ``fn`` under torch.profiler,
     per ``unit``: {"wall_us", "busy_us", "share" (%), "kernels", "by_name"
@@ -2909,6 +3369,9 @@ def main() -> None:
     phase_frontier(dev)
     mig_launches, mig_ms, mig_mid = phase_consolidation_main_path(
         dev, blocked_records)
+    oracle_launches, oracle_cons_launches = phase_oracle(dev)
+    zoo_launches = phase_scheduler_zoo(dev)
+    obs_launches, trace_steps = phase_obs(dev)
     prof = phase_profile(dev)
     say(f"# total {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -2927,7 +3390,13 @@ def main() -> None:
              graph_busy_share=prof["graph_busy_share"],
              select_us_a_graphed_step=prof["select_in_graph_us"],
              scan_wall_graphed_s=graph_walls["graphed"],
-             scan_wall_eager_s=graph_walls["eager"], **sel),
+             scan_wall_eager_s=graph_walls["eager"],
+             oracle_phase_launches=oracle_launches["fitscore_select"],
+             oracle_consolidation_launches=oracle_cons_launches[
+                 "fitscore_select"],
+             scheduler_zoo_launches=zoo_launches["fitscore_select"],
+             obs_phase_launches=obs_launches["fitscore_select"],
+             **trace_steps, **sel),
         dict(name="fitscore_replay_block", route="cuda",
              source="src/repro_torch/kernels/csrc/replay_block_sm90.cu + "
                     "src/repro_torch/kernels/csrc/replay_block.cu",
@@ -2936,7 +3405,12 @@ def main() -> None:
              launches_global=mk_routes["global"], max_abs_err=mk_err,
              library_ms=None, migrate_launches=mig_launches,
              migrate_ms=mig_ms, migrate_device_ms=mig_mid.get("warp"),
-             migrate_global_device_ms=mig_mid.get("global"), **mk),
+             migrate_global_device_ms=mig_mid.get("global"),
+             oracle_phase_launches=oracle_launches["fitscore_replay_block"],
+             oracle_consolidation_launches=oracle_cons_launches.get(
+                 "fitscore_replay_block_migrate", 0),
+             obs_phase_launches=obs_launches["fitscore_replay_block"],
+             **mk),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu + "
                     "src/repro_torch/kernels/csrc/flash_attention.cu",

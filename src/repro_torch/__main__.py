@@ -3,8 +3,11 @@
 Subcommands:
   * ``sweep`` - batched experiment grids on the card (see
     ``repro_torch.sweep.__main__``; ``--device cpu`` runs on the CPU).
+  * ``obs`` - summarize a JSONL observability run log (spans + counters,
+    ``obs.export_jsonl``), optionally converting it to Perfetto JSON.
 
     PYTHONPATH=src python -m repro_torch sweep --suites azure --n-instances 28
+    PYTHONPATH=src python -m repro_torch obs run.obs.jsonl --perfetto t.json
 """
 from __future__ import annotations
 
@@ -21,7 +24,10 @@ def main(argv=None) -> None:
         from .sweep.__main__ import main as sweep_main
         sweep_main(rest)
         return
-    raise SystemExit(f"unknown subcommand {cmd!r}; try: sweep")
+    if cmd == "obs":
+        from .obs.cli import main as obs_main
+        raise SystemExit(obs_main(rest))
+    raise SystemExit(f"unknown subcommand {cmd!r}; try: sweep, obs")
 
 
 if __name__ == "__main__":

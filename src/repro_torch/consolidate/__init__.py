@@ -17,15 +17,18 @@ those bins close earlier, trading migration churn for usage time.  Here:
     periodic sweep, load-fraction threshold, per-lane budget, cost,
     planning cadence), whose canonical strings equal the reference's;
   * :func:`~.driver.consolidated_replay`, chunked batched replay with the
-    planner interleaved.
+    planner interleaved;
+  * :func:`~.oracle.run_consolidating`, the sequential consolidating host
+    oracle (float64, the host algorithm classes), which the chunked replay is held
+    to decision for decision.
 
-The reference's sequential consolidating oracle (``run_consolidating``)
-is not ported: it runs the host algorithm classes, which the port has only
-in part.  The port's tests hold the driver against it directly.
+Churn counters: ``consolidate.migrations``, ``consolidate.bins_closed``,
+``consolidate.budget_exhausted`` (see ``repro_torch.obs``).
 """
 from .spec import ConsolidationSpec
 from .planner import PlanResult, plan_migrations, should_plan
 from .driver import consolidated_replay
+from .oracle import run_consolidating
 
 __all__ = ["ConsolidationSpec", "PlanResult", "plan_migrations",
-           "should_plan", "consolidated_replay"]
+           "should_plan", "consolidated_replay", "run_consolidating"]

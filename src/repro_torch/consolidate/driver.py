@@ -20,9 +20,11 @@ item placements), copied to the host and viewed in float64 - the snapshot
 the JAX package's driver and its sequential oracle take, so with
 fp32-exact instances the three emit identical MIGRATE events.
 
-The reference's ``obs`` spans and churn counters (``consolidate.replay``,
-``consolidate.plan``, ``consolidate.migrations`` ...) are not ported: the
-port has no ``obs`` layer yet.  The churn is in the returned stats.
+The whole replay is one ``consolidate.replay`` span, each planning
+boundary a ``consolidate.plan`` instant, and the churn also lands in the
+counters ``consolidate.migrations``, ``consolidate.bins_closed`` and
+``consolidate.budget_exhausted`` (``repro_torch.obs``), as in the
+reference.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.torchsim import _replay_batch, replay_event_extras
 from ..kernels import fitscore as fk
 from ..kernels.fitscore import (ARRIVAL_KIND, DEPARTURE_KIND, MIGRATE_KIND,
@@ -119,69 +122,77 @@ def consolidated_replay(sizes, times, kinds, items, pdeps, dmask,
 
     carry = None
     out = None
-    for s in range(0, E, K):
-        e = min(s + K, E)
-        out = segment(times32[:, s:e], kinds_np[:, s:e], items_np[:, s:e],
-                      carry, tuple(x[:, s:e] for x in extras), False)
-        carry = out[4]
-        # host aliveness and lane clocks from the chunk's events: an item's
-        # last arrival or departure in the chunk decides whether it lives
-        k = kinds_np[:, s:e]
-        real = (k == ARRIVAL_KIND) | (k == DEPARTURE_KIND)
-        ln, col = np.nonzero(real)                  # lane-major, in order
-        key = ln * R + items_np[:, s:e][ln, col]
-        uk, from_end = np.unique(key[::-1], return_index=True)
-        at = len(key) - 1 - from_end                # each key's last event
-        live.flat[uk] = k[ln[at], col[at]] == ARRIVAL_KIND
-        last = np.where(real, np.arange(s, e), -1).max(axis=1)
-        has = last >= 0
-        last_t[has] = times64[has, last[has]]
-        if e >= E:
-            break   # never plan after the final chunk
-        view = _pool_view(carry, d)
-        plans: List[List[int]] = []
-        for lane in range(L):
-            run, t_next[lane] = should_plan(
-                spec, float(last_t[lane]), float(t_next[lane]))
-            members = np.flatnonzero(live[lane])
-            if not run or not len(members):
-                plans.append([])
+    with obs.span("consolidate.replay", cat="consolidate", policy=policy,
+                  spec=spec.canonical(), lanes=L):
+        for s in range(0, E, K):
+            e = min(s + K, E)
+            out = segment(times32[:, s:e], kinds_np[:, s:e], items_np[:, s:e],
+                          carry, tuple(x[:, s:e] for x in extras), False)
+            carry = out[4]
+            # host aliveness and lane clocks from the chunk's events: an item's
+            # last arrival or departure in the chunk decides whether it lives
+            k = kinds_np[:, s:e]
+            real = (k == ARRIVAL_KIND) | (k == DEPARTURE_KIND)
+            ln, col = np.nonzero(real)                  # lane-major, in order
+            key = ln * R + items_np[:, s:e][ln, col]
+            uk, from_end = np.unique(key[::-1], return_index=True)
+            at = len(key) - 1 - from_end                # each key's last event
+            live.flat[uk] = k[ln[at], col[at]] == ARRIVAL_KIND
+            last = np.where(real, np.arange(s, e), -1).max(axis=1)
+            has = last >= 0
+            last_t[has] = times64[has, last[has]]
+            if e >= E:
+                break   # never plan after the final chunk
+            view = _pool_view(carry, d)
+            plans: List[List[int]] = []
+            for lane in range(L):
+                run, t_next[lane] = should_plan(
+                    spec, float(last_t[lane]), float(t_next[lane]))
+                members = np.flatnonzero(live[lane])
+                if not run or not len(members):
+                    plans.append([])
+                    continue
+                place = view["placements"][lane, members]
+                order = np.argsort(place, kind="stable")
+                rows, starts = np.unique(place[order], return_index=True)
+                bin_items = {int(r): members[order[a:b]].tolist()
+                             for r, a, b in zip(rows, starts,
+                                                list(starts[1:]) +
+                                                [len(order)])}
+                plan = plan_migrations(
+                    view["loads"][lane], view["counts"][lane],
+                    view["alive"][lane], view["open_seq"][lane], bin_items,
+                    sizes64[lane], threshold=spec.threshold,
+                    budget=int(budget_left[lane]))
+                bins_closed[lane] += plan.bins_closed
+                budget_exh[lane] += plan.budget_exhausted
+                migrations[lane] += len(plan.items)
+                if budget_left[lane] >= 0:
+                    budget_left[lane] -= len(plan.items)
+                events[lane].extend(
+                    (float(last_t[lane]), it) for it in plan.items)
+                plans.append(plan.items)
+            w = max(len(p) for p in plans)
+            if not w:
                 continue
-            place = view["placements"][lane, members]
-            order = np.argsort(place, kind="stable")
-            rows, starts = np.unique(place[order], return_index=True)
-            bin_items = {int(r): members[order[a:b]].tolist()
-                         for r, a, b in zip(rows, starts,
-                                            list(starts[1:]) +
-                                            [len(order)])}
-            plan = plan_migrations(
-                view["loads"][lane], view["counts"][lane],
-                view["alive"][lane], view["open_seq"][lane], bin_items,
-                sizes64[lane], threshold=spec.threshold,
-                budget=int(budget_left[lane]))
-            bins_closed[lane] += plan.bins_closed
-            budget_exh[lane] += plan.budget_exhausted
-            migrations[lane] += len(plan.items)
-            if budget_left[lane] >= 0:
-                budget_left[lane] -= len(plan.items)
-            events[lane].extend(
-                (float(last_t[lane]), it) for it in plan.items)
-            plans.append(plan.items)
-        w = max(len(p) for p in plans)
-        if not w:
-            continue
-        wp = -(-w // _MIG_PAD) * _MIG_PAD
-        m_times = np.repeat(last_t[:, None], wp, axis=1).astype(np.float32)
-        m_kinds = np.full((L, wp), PAD_KIND, np.int32)
-        m_items = np.zeros((L, wp), np.int64)
-        for lane, p in enumerate(plans):
-            m_kinds[lane, :len(p)] = MIGRATE_KIND
-            m_items[lane, :len(p)] = p
-        # extras at a migrate boundary: the running value as of the
-        # chunk's last event (MIGRATE events never advance them)
-        m_ex = tuple(x[:, e - 1:e].repeat(1, wp) for x in extras)
-        out = segment(m_times, m_kinds, m_items, carry, m_ex, True)
-        carry = out[4]
+            wp = -(-w // _MIG_PAD) * _MIG_PAD
+            m_times = np.repeat(last_t[:, None], wp, axis=1).astype(np.float32)
+            m_kinds = np.full((L, wp), PAD_KIND, np.int32)
+            m_items = np.zeros((L, wp), np.int64)
+            for lane, p in enumerate(plans):
+                m_kinds[lane, :len(p)] = MIGRATE_KIND
+                m_items[lane, :len(p)] = p
+            # extras at a migrate boundary: the running value as of the
+            # chunk's last event (MIGRATE events never advance them)
+            m_ex = tuple(x[:, e - 1:e].repeat(1, wp) for x in extras)
+            out = segment(m_times, m_kinds, m_items, carry, m_ex, True)
+            carry = out[4]
+            obs.instant("consolidate.plan", chunk_end=int(e),
+                        migrations=int(sum(len(p) for p in plans)),
+                        bins_closed=int(bins_closed.sum()))
+    obs.counter_add("consolidate.migrations", int(migrations.sum()))
+    obs.counter_add("consolidate.bins_closed", int(bins_closed.sum()))
+    obs.counter_add("consolidate.budget_exhausted", int(budget_exh.sum()))
     usage, opened, placements, overflow = out[:4]
     stats = {"migrations": migrations, "bins_closed": bins_closed,
              "budget_exhausted": budget_exh,

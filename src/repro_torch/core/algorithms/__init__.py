@@ -1,24 +1,27 @@
-"""The DVBP algorithm zoo of the port: the item classifiers of the
-category-structured policies in float32 torch (the replay's), and the host
-(numpy) policies that the serving scheduler binds.
+"""The DVBP algorithm zoo of the port: the host (numpy, float64) policies
+of the registry, and the item classifiers of the category-structured
+policies in float32 torch (the replay's).  Importing this package
+populates the registry.
 
-The classifiers are the port's copy of the jnp twins in
-``repro.core.algorithms`` (``duration``, ``learned``, ``adaptive``,
-``departure``).
+The host policies are the reference's classes (``repro.core.algorithms``),
+copied module for module: ``anyfit`` (First Fit, MRU, Best Fit, Next Fit,
+Round-Robin Next Fit), ``departure`` (CBDT, the two NRT policies, Greedy),
+``duration`` (CBD, Hybrid, Reduced Hybrid and their direct-sum variants),
+``learned`` (RCP, PPE, their modified variants, Lifetime Alignment) and
+``adaptive`` (the adaptive switch and the departure-error estimator that
+PPE shares).  The oracle engine (``core.engine.run``), the consolidating
+oracle and the serving scheduler bind them.
 
-Each function is the same fp32 op sequence as its jnp twin, so the replay
-puts every item in the same category as the JAX package's scan.  Power-of-
-two class boundaries come from ``torch.frexp`` (exact), as the reference's
+The classifiers below are the port's copy of the jnp twins in the
+reference's ``duration``, ``learned``, ``adaptive`` and ``departure``
+modules; the replay (``core.torchsim``) imports them from here.  Each
+function is the same fp32 op sequence as its jnp twin, so the replay puts
+every item in the same category as the JAX package's scan.  Power-of-two
+class boundaries come from ``torch.frexp`` (exact), as the reference's
 come from ``jnp.frexp``.  Two of XLA's rewrites are reproduced: its
 float-to-int32 casts saturate (``to_i32``), and it compiles a division by
 a constant into a product with the constant's float32 reciprocal
 (``_div_const``), which rounds differently from the division.
-
-The host policies (``base``, ``anyfit``, ``departure``) are the reference's
-numpy classes: First Fit, MRU, Best Fit, Next Fit, Round-Robin Next Fit,
-CBDT, the two NRT policies and Greedy.  The reference's other host classes
-(CBD, the hybrids, RCP/PPE, Lifetime Alignment, the adaptive policy) are
-not ported yet.
 """
 from __future__ import annotations
 
@@ -27,9 +30,21 @@ import math
 import torch
 
 from .base import REGISTRY, Algorithm, get_algorithm, register  # noqa: F401
-from . import anyfit, departure  # noqa: F401  (populate the registry)
+from . import adaptive, anyfit, departure, duration, learned  # noqa: F401
+from .learned import LA_BINARY_SPLIT
 
-LA_BINARY_SPLIT = 7200.0   # 120 min, as deployed at Azure
+ALL_ALGORITHMS = sorted(REGISTRY)
+
+NON_CLAIRVOYANT = ["first_fit", "mru", "next_fit", "rr_next_fit", "best_fit"]
+CLAIRVOYANT = ["cbdt", "nrt_standard", "nrt_prioritized", "greedy", "cbd",
+               "hybrid", "reduced_hybrid", "hybrid_direct_sum",
+               "reduced_hybrid_direct_sum"]
+LEARNING_AUGMENTED = ["rcp", "ppe", "rcp_modified", "ppe_modified",
+                      "lifetime_alignment"]
+# Any Fit algorithms (never open a new bin when the item fits in an open bin)
+ANY_FIT = ["first_fit", "mru", "rr_next_fit", "best_fit_l1", "best_fit_l2",
+           "best_fit_linf", "nrt_standard", "nrt_prioritized", "greedy",
+           "la_binary", "la_geometric"]
 
 _I32_MAX, _I32_MIN = 2 ** 31 - 1, -2 ** 31
 

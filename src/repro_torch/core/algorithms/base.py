@@ -1,5 +1,5 @@
 """Algorithm base class and registry for the DVBP zoo (the port's copy of
-``repro.core.algorithms.base``, without the consolidation hook)."""
+``repro.core.algorithms.base``)."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -36,6 +36,16 @@ class Algorithm:
 
     def on_departed(self, item: int, idx: int, now: float, size: np.ndarray):
         pass
+
+    def on_migrated_out(self, item: int, idx: int, now: float,
+                        size: np.ndarray):
+        """Consolidation removed ``item`` from ``idx`` ahead of a re-place.
+
+        Defaults to the departure bookkeeping; policies that *learn* from
+        departures (prediction-error estimators) override, because a
+        migration reveals nothing about the item's real duration.
+        """
+        self.on_departed(item, idx, now, size)
 
     def on_closed(self, idx: int, now: float):
         pass

@@ -24,6 +24,12 @@ on one of two paths with the same decisions:
 ``migrate=True`` replays MIGRATE events on either path (consolidation:
 ``repro_torch.consolidate``); without it they are no-ops.
 
+``trace_level >= 1`` takes the per-event path (as the reference bypasses
+its blocked kernel) and also writes each event's post-event state into
+(L, E, ...) tensors allocated before the loop (``traced_stepper``): the
+decision series of ``repro_torch.obs.ReplayTrace``.  On the card the
+traced steps run inside the same CUDA graphs of event windows.
+
 On the card the whole state stays on the device and the host reads it
 once, at the end.  Per-item category constants (classes, thresholds,
 errors, hybrid key ids) and RCP's running distinct-category count are pure
@@ -63,6 +69,7 @@ from ..kernels.fitscore import (ARRIVAL_KIND, DEPARTURE_KIND, DPAD, KCAT,
                                 select_pad_geometry)
 from ..kernels.ops import (fitscore_select, launches, replay_chunk,
                            resolve_device)
+from .. import obs
 from .algorithms import (LA_BINARY_SPLIT, to_i32, departure_window_jnp,
                          dur_exponent_jnp, duration_class_jnp,
                          geo_class_jnp, hybrid_threshold_jnp, la_class_jnp,
@@ -207,6 +214,26 @@ def known_policy(policy: str) -> bool:
         return True
     except KeyError:
         return False
+
+
+def host_algorithm(policy: str):
+    """The oracle engine's algorithm (``core.engine.run``) equivalent to a
+    scan policy: the parity reference the replay is held to."""
+    from .algorithms import get_algorithm
+    spec = policy_spec(policy)
+    if spec.family == "score":
+        if policy.startswith("best_fit_"):
+            return get_algorithm("best_fit", norm=policy.split("_")[-1])
+        return get_algorithm(policy)
+    if spec.family == "cbd":
+        return get_algorithm("cbd", beta=spec.beta)
+    if spec.family == "cbdt":
+        return get_algorithm("cbdt", rho=spec.rho)
+    if spec.family == "la":
+        return get_algorithm("lifetime_alignment", mode=spec.la_mode)
+    if spec.family == "adaptive":
+        return get_algorithm("adaptive", low=spec.low, high=spec.high)
+    return get_algorithm(policy)
 
 
 @dataclasses.dataclass
@@ -601,7 +628,7 @@ def _replay_batch(sizes, times, kinds, items, pdeps, dmask, arrivals=None,
                   rdeps=None, n_items=None, *, policy: str, max_bins: int,
                   device="cuda", block_events: int = 0, carry0=None,
                   return_carry: bool = False, ev_extra=None,
-                  migrate: bool = False):
+                  migrate: bool = False, trace_level: int = 0):
     """``L`` lanes' event replays in lockstep, any ``SCAN_POLICIES`` name.
 
     sizes (L, n_max, d); times / kinds / items (L, E); pdeps (L, n_max)
@@ -629,8 +656,16 @@ def _replay_batch(sizes, times, kinds, items, pdeps, dmask, arrivals=None,
     item's departure without the learning updates, then its re-placement
     with its source slot kept out of the select's feasibility (see
     ``kernels.fitscore.replay_stepper``).  Without it they are no-ops, as
-    in the reference's megakernel."""
-    if block_events and block_events > 1:
+    in the reference's megakernel.
+
+    ``trace_level >= 1`` appends a fifth output, the per-event decision
+    series as a dict of (L, E, ...) tensors on ``device`` (see
+    ``traced_stepper``), and replays per event whatever ``block_events``
+    says; ``trace_level=0`` is the untraced replay, unchanged.  A traced
+    replay does not return its carry."""
+    if trace_level and return_carry:
+        raise ValueError("a traced replay does not return its carry")
+    if block_events and block_events > 1 and not trace_level:
         return _replay_batch_blocked(
             sizes, times, kinds, items, pdeps, dmask, arrivals, rdeps,
             n_items, policy=policy, max_bins=max_bins, device=device,
@@ -672,16 +707,80 @@ def _replay_batch(sizes, times, kinds, items, pdeps, dmask, arrivals=None,
           "size": ev_sz, "pdep": ev_pdep}
     if ev_mig is not None:
         ev["mig"] = ev_mig
+    trace = None
+    if trace_level:
+        step, trace = traced_stepper(step, S, ev_t.shape[0], d, trace_level)
+        ev_ex = dict(ev_ex, trace_pad=(ev_kind == PAD_KIND).contiguous())
     _run_events(step, S, ev, ev_ex, dev)
     counters["scan_steps"] += ev_t.shape[0]
 
     out = (S["usage"], S["opened"], S["placements"], S["overflow"])
+    if trace is not None:
+        return out + (trace,)
     if return_carry:
         carry = [S[nm] for nm in fk.CORE_NAMES]
         if cat:
             carry.append({k: S[k] for k in cat})
         return out + (carry,)
     return out
+
+
+def traced_stepper(step, S, E: int, d: int, trace_level: int = 1):
+    """``step`` wrapped to record each event's post-event state, the
+    reference's trace series (``repro.core.jaxsim._replay_batch``):
+
+    * ``slot`` (L, E) int32: the slot an arrival chose, the slot a
+      departure (or a MIGRATE event) left; -1 on PAD events;
+    * ``open_bins`` (L, E) int32: open slots after the event;
+    * ``load`` (L, E, d) f32: the aggregate load over all slots;
+    * ``tag`` (L, E) int32: the touched slot's category tag (-1 for the
+      families without tags, and on PAD events);
+    * ``usage`` (L, E) f32: the running usage;
+    * ``alive`` (L, E, Np) bool, at ``trace_level >= 2``.
+
+    The tensors are allocated here, before the loop, on the carry's
+    device, and written at a step counter held on that device, so a CUDA
+    graph of a window of traced steps records the writes and each replay
+    of it fills the next window's columns.  The wrapped step reads PAD
+    events from its extra stream ``trace_pad`` (L,) bool.  Returns
+    ``(traced_step, trace)``."""
+    place = S["placements"]
+    L, Np = S["alive"].shape
+    dev = place.device
+    i32 = torch.int32
+
+    def new(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    trace = {"slot": new((L, E), i32), "open_bins": new((L, E), i32),
+             "load": new((L, E, d), torch.float32), "tag": new((L, E), i32),
+             "usage": new((L, E), torch.float32)}
+    if trace_level >= 2:
+        trace["alive"] = new((L, E, Np), torch.bool)
+    at = new((1,), torch.int64)
+    none = torch.full((L,), -1, dtype=i32, device=dev)
+
+    def traced(S, t, is_arr, is_dep, j, size, pdep, ex, is_mig=None):
+        src = place.gather(1, j[:, None])[:, 0]
+        step(S, t, is_arr, is_dep, j, size, pdep, ex, is_mig)
+        dst = place.gather(1, j[:, None])[:, 0]
+        slot = torch.where(ex["trace_pad"], none,
+                           torch.where(is_arr, dst, src))
+        if "tag" in S:
+            tag = S["tag"].gather(1, slot.clamp_min(0)[:, None])[:, 0]
+            tag = torch.where(slot >= 0, tag, none)
+        else:
+            tag = none
+        row = {"slot": slot, "open_bins": S["alive"].sum(dim=1, dtype=i32),
+               "load": S["loads"].sum(dim=1)[:, :d], "tag": tag,
+               "usage": S["usage"]}
+        if trace_level >= 2:
+            row["alive"] = S["alive"]
+        for nm, v in row.items():
+            trace[nm].index_copy_(1, at, v.unsqueeze(1))
+        at.add_(1)
+
+    return traced, trace
 
 
 def run_steps(step, S, ev, ex, lo: int, hi: int) -> None:
@@ -919,6 +1018,7 @@ def simulate(inst: Instance, policy: str = "first_fit",
                 f"(cap {max_bins_cap}; raise REPRO_MAX_BINS_CAP or pass "
                 f"a larger max_bins_cap)",
                 policy=policy, max_bins=max_bins, instance=inst.name)
+        obs.counter_add("sweep.overflow_rungs")
         max_bins = grow_max_bins(max_bins, max_bins_cap)
     return TorchSimResult(float(usage[0]), int(opened[0]),
                           placements[0].cpu().numpy(), bool(overflow[0]),

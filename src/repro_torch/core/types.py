@@ -13,7 +13,8 @@ from typing import Optional
 import numpy as np
 
 # Feasibility tolerance of the f64 host-side checks (instance validation,
-# the Eq.(1) bound); the fp32 replay uses ``kernels.fitscore.F32_EPS``.
+# the Eq.(1) bound, the host algorithms and the oracle engine's capacity
+# checks); the fp32 replay uses ``kernels.fitscore.F32_EPS``.
 EPS = 1e-9
 
 
@@ -80,3 +81,39 @@ class Arrival:
     @property
     def pdur(self) -> Optional[float]:
         return None if self.pdep is None else self.pdep - self.now
+
+
+@dataclasses.dataclass(frozen=True)
+class MigrantArrival(Arrival):
+    """A consolidation re-place: an already-known item leaving its bin.
+
+    ``now`` is the migration time (scoring and bin bookkeeping happen on the
+    current clock), but categorization stays anchored to the item's
+    original arrival - its duration class was fixed when it first arrived -
+    so ``pdur`` derives from ``orig_now``, not ``now``.  Mirrors the
+    batched replay, whose per-item category constants are computed once
+    from the original arrivals (``core.torchsim._category_setup``).
+    """
+
+    orig_now: float = 0.0
+
+    @property
+    def pdur(self) -> Optional[float]:
+        return None if self.pdep is None else self.pdep - self.orig_now
+
+
+@dataclasses.dataclass
+class PackingResult:
+    """Outcome of one engine run (``core.engine.run``)."""
+
+    usage_time: float            # accumulated bin usage time (the objective)
+    n_bins_opened: int
+    peak_open_bins: int
+    placements: np.ndarray       # (n,) absolute bin index per item
+    algorithm: str
+    instance: str
+    span: float                  # duration during which >=1 item is active
+
+    def ratio(self, lower_bound: float) -> float:
+        return self.usage_time / lower_bound if lower_bound > 0 \
+            else float("inf")

@@ -8,15 +8,25 @@ replica-occupancy seconds, the paper's accumulated bin usage time; a
 replica with no active request is released ("bin closed").
 
 The scheduler drives ``core.bins.BinPool`` and the host algorithm zoo
-(``core.algorithms``), as the reference does.  With
+(``core.algorithms``: every registry policy, from First Fit to modified
+PPE and the adaptive switch), as the reference does.  With
 ``select_backend="device"`` the decision of the score policies
 (``first_fit``, ``best_fit``, ``mru``, ``greedy``, ``nrt_standard``,
-``nrt_prioritized``) and of CBDT (First Fit within the request's departure
-window, as a category mask) runs through ``kernels.ops.fitscore_select``:
-the CUDA select on the card, its plain version on the CPU.  Both paths
-apply the same (score, opening-order) rule, so they agree decision for
-decision on fp32-exact sizes.  The reference's degradation ladder, its
-spans and its megakernel route (``select_block``) are not ported yet.
+``nrt_prioritized``) and of CBD and CBDT (First Fit within the request's
+duration class / departure window, as a category mask) runs through
+``kernels.ops.fitscore_select``: the CUDA select on the card, its plain
+version on the CPU.  The class comes from the host class's own float64
+function (``duration_class`` / ``departure_window``), so both paths agree
+on its boundary.  Both apply the same (score, opening-order) rule, so they
+agree decision for decision on fp32-exact sizes.
+
+Each decision is a ``serving.select`` span and a ``serving.select_<tag>``
+counter, ``tag`` naming what decided: ``host`` (the numpy zoo), ``cuda``
+(the CUDA select) or ``torch`` (its plain version on the CPU,
+``ops.resolved_select_impl``); the demand-vector memo counts
+``serving.size_memo_hit`` / ``serving.size_memo_miss`` (``repro_torch.
+obs``).  A failing device select raises: the reference's degradation
+ladder and its megakernel route (``select_block``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,17 +37,20 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.algorithms import get_algorithm
 from ..core.algorithms.departure import departure_window
+from ..core.algorithms.duration import duration_class
 from ..core.bins import BinPool
 from ..core.types import Arrival
 from ..kernels.fitscore import DPAD
+from ..kernels.ops import resolved_select_impl
 
 # scheduler policies with an on-device select
 _DEVICE_POLICIES = ("first_fit", "best_fit", "mru", "greedy",
                     "nrt_standard", "nrt_prioritized")
 # category-structured policies with an on-device masked select
-_DEVICE_CATEGORY_POLICIES = ("cbdt",)
+_DEVICE_CATEGORY_POLICIES = ("cbd", "cbdt")
 
 # Demand-vector memo: requests quantize to a small set of (prompt, decode,
 # caps) keys, so admission mostly re-derives vectors it already built.  A
@@ -54,7 +67,9 @@ def _demand_vector(prompt_len: int, decode_len: int,
     hit = _SIZE_CACHE.get(key)
     if hit is not None:
         _SIZE_CACHE.move_to_end(key)
+        obs.counter_add("serving.size_memo_hit")
         return hit
+    obs.counter_add("serving.size_memo_miss")
     kv = (prompt_len + decode_len) / caps.kv_tokens
     size = np.array([1.0 / caps.slots, min(kv, 1.0),
                      prompt_len / caps.prefill_budget])
@@ -136,20 +151,24 @@ class DVBPScheduler:
             departures = np.zeros(0)
         self.alg.bind(self.pool, _Inst())
         self.stats = PlacementStats()
+        self.last_select_backend: Optional[str] = None  # set by place()
         self._open_at: Dict[int, float] = {}
         self._active: Dict[int, tuple] = {}   # rid -> (bin idx, size)
         self.placements: Dict[int, int] = {}
 
     # ------------------------------------------------------ device fast path
-    def _request_category(self, pdep: Optional[float]) -> Optional[int]:
-        """The arriving request's CBDT window (None for score policies),
-        from the host class's own function, so both paths agree on the
-        boundary."""
+    def _request_category(self, pdep: Optional[float],
+                          now: float) -> Optional[int]:
+        """The arriving request's CBD duration class or CBDT window (None
+        for score policies), from the host class's own float64 function,
+        so both paths agree on the boundary."""
         if not self._category_policy:
             return None
         if pdep is None:
             raise ValueError(f"{self.alg.name} needs predicted decode "
                              "lengths")
+        if self._policy == "cbd":
+            return int(duration_class(pdep - now, self.alg.beta))
         return int(departure_window(pdep, self.alg.rho))
 
     def _select_device(self, size: np.ndarray, pdep: Optional[float],
@@ -158,8 +177,8 @@ class DVBPScheduler:
         ``ops.fitscore_select`` (one lane).  The pool's bin indices are
         absolute and never reused, so the free-slot stage is disabled
         (counts = 1) and only the best feasible slot is read; -1 means
-        "open a new bin", the host algorithms' contract.  ``cat`` (CBDT)
-        becomes the category mask: only same-window replicas are
+        "open a new bin", the host algorithms' contract.  ``cat`` (CBD /
+        CBDT) becomes the category mask: only same-class replicas are
         eligible."""
         from ..kernels.ops import fitscore_select
         p, dev, n = self.pool, self.device, self.pool._cap
@@ -195,13 +214,19 @@ class DVBPScheduler:
             pdur = req.predicted_decode_len / self.tps
         pdep = None if pdur is None else now + pdur
         arr = Arrival(req.rid, size, now, pdep)
-        if self.select_backend == "host":
-            idx = self.alg.select_bin(arr)
-        else:
-            cat = self._request_category(pdep)
-            idx = self._select_device(size, pdep, now, cat)
-            if cat is not None:
-                self.alg._cat = cat   # the host class's tag bookkeeping
+        with obs.span("serving.select", policy=self._policy,
+                      rid=req.rid) as sp:
+            if self.select_backend == "host":
+                idx, tag = self.alg.select_bin(arr), "host"
+            else:
+                cat = self._request_category(pdep, now)
+                idx = self._select_device(size, pdep, now, cat)
+                tag = resolved_select_impl(self.device)
+                if cat is not None:
+                    self.alg._cat = cat   # the host class's tag bookkeeping
+            sp.set(backend=tag)
+        self.last_select_backend = tag
+        obs.counter_add(f"serving.select_{tag}")
         opened = idx < 0
         if opened:
             idx = self.pool.open_bin(now)

@@ -9,7 +9,10 @@ counterpart of ``repro.sweep.batching``.
     item 0 and a time after the lane's last real event; they are no-ops.
 
 Each lane's real event prefix is ``torchsim.event_sequence``, memoized on
-the instance content (the lexsort is packing's only O(n log n) step).
+the instance content (the lexsort is packing's only O(n log n) step); the
+memo's hits, misses and bytes are the counters ``pack.evseq_hit`` /
+``pack.evseq_miss`` / ``pack.evseq_bytes``, and a packing is one
+``pack.instances`` span (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import obs
 from ..core.torchsim import event_sequence
 from ..core.types import Instance
 from ..kernels.fitscore import PAD_KIND
@@ -48,14 +52,18 @@ def event_sequence_cached(inst: Instance):
     hit = _EVSEQ_CACHE.get(key)
     if hit is not None:
         _EVSEQ_CACHE.move_to_end(key)
+        obs.counter_add("pack.evseq_hit")
         return hit
+    obs.counter_add("pack.evseq_miss")
     val = event_sequence(inst)
     _EVSEQ_CACHE[key] = val
+    obs.counter_add("pack.evseq_bytes", sum(a.nbytes for a in val))
     nbytes = sum(sum(a.nbytes for a in v) for v in _EVSEQ_CACHE.values())
     while len(_EVSEQ_CACHE) > 1 and (len(_EVSEQ_CACHE) > _EVSEQ_CACHE_MAX
                                      or nbytes > _EVSEQ_CACHE_MAX_BYTES):
         _, old = _EVSEQ_CACHE.popitem(last=False)
         nbytes -= sum(a.nbytes for a in old)
+        obs.counter_add("pack.evseq_bytes", -sum(a.nbytes for a in old))
     return val
 
 
@@ -89,6 +97,11 @@ class InstanceBatch:
 def pack_instances(instances: Sequence[Instance]) -> InstanceBatch:
     if not instances:
         raise ValueError("cannot pack an empty instance list")
+    with obs.span("pack.instances", B=len(instances)):
+        return _pack_instances(instances)
+
+
+def _pack_instances(instances: Sequence[Instance]) -> InstanceBatch:
     B = len(instances)
     n_max = max(i.n_items for i in instances)
     d_max = max(i.d for i in instances)

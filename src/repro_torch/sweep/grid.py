@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import obs
 from ..consolidate import ConsolidationSpec
 from ..core import (BoxStats, lognormal_predictions_batch, lower_bound,
                     uniform_predictions_batch)
@@ -186,9 +187,13 @@ def _built_suite(suite: SuiteSpec):
     key = json.dumps(dataclasses.asdict(suite), sort_keys=True)
     if key in _SUITE_CACHE:
         _SUITE_CACHE.move_to_end(key)
+        obs.counter_add("sweep.suite_cache_hit")
         return _SUITE_CACHE[key]
-    insts = suite.build()
-    built = (insts, [lower_bound(i) for i in insts], pack_instances(insts))
+    obs.counter_add("sweep.suite_cache_miss")
+    with obs.span("suite.build", suite=suite.label()):
+        insts = suite.build()
+        built = (insts, [lower_bound(i) for i in insts],
+                 pack_instances(insts))
     _SUITE_CACHE[key] = built
     while len(_SUITE_CACHE) > _SUITE_CACHE_MAX:
         _SUITE_CACHE.popitem(last=False)
@@ -208,12 +213,17 @@ def run_sweep(spec: SweepSpec, store=None, force: bool = False,
     consolidating cells (``spec.consolidations`` entries that are
     ``enabled``) add ``consolidate`` (the canonical spec string),
     ``migrations`` and ``migration_cost``.  With a store, cached groups are
-    skipped and every finished group is saved (journaled first)."""
+    skipped and every finished group is saved (journaled first).  The
+    reference's spans and counters are emitted under its names
+    (``store.load``, ``suite.build``, ``sweep.pad``, ``store.save``,
+    ``experiment.cache_hit`` / ``cache_miss``, ``sweep.suite_cache_*``)."""
     from .runner import run_batch
     say = progress or (lambda *_: None)
     records: Dict[str, Dict] = {}
     if store is not None and not force:
-        records.update(store.load(spec))
+        with obs.span("store.load", spec=spec.suites_hash()):
+            records.update(store.load(spec))
+        obs.counter_add("store.load")
 
     for suite in spec.suites:
         insts = lbs = batch = None   # built lazily: cached suites stay free
@@ -225,17 +235,21 @@ def run_sweep(spec: SweepSpec, store=None, force: bool = False,
                     if _group_cached(records, suite, p, pred, seeds, cons):
                         say(f"skip {suite.label()}/{_cell_label(p, cons)}/"
                             f"{pred.label()} (cached)")
+                        obs.counter_add("experiment.cache_hit")
                     else:
                         todo.append((p, cons))
             if not todo:
                 continue
             if insts is None:
                 insts, lbs, batch = _built_suite(suite)
-            pdeps = pad_predictions(
-                batch, [pred.durations(i, seeds) for i in insts])
+            with obs.span("sweep.pad", suite=suite.label(),
+                          pred=pred.label()):
+                pdeps = pad_predictions(
+                    batch, [pred.durations(i, seeds) for i in insts])
             for policy, cons in todo:
                 say(f"run  {suite.label()}/{_cell_label(policy, cons)}/"
                     f"{pred.label()} B={batch.B} S={len(seeds)}")
+                obs.counter_add("experiment.cache_miss")
                 res = run_batch(batch, policy, pdeps, spec.max_bins,
                                 spec.max_bins_cap, device=device,
                                 block_events=block_events,
@@ -267,7 +281,9 @@ def run_sweep(spec: SweepSpec, store=None, force: bool = False,
                                               pred, seed, cons)] = rec
                 records.update(group_recs)
                 if store is not None:
-                    store.save(spec, records, group_records=group_recs)
+                    with obs.span("store.save", spec=spec.suites_hash()):
+                        store.save(spec, records, group_records=group_recs)
+                    obs.counter_add("store.save")
     return records
 
 

@@ -16,6 +16,13 @@ any instance whose slot pool overflowed (in any seed row) is re-run with
 chunked consolidating driver (``consolidate.consolidated_replay``) on the
 same ladder, and the result gains per-cell ``migrations`` /
 ``migration_cost``.
+
+``trace_level`` >= 1 replays per event and returns the per-event decision
+series as ``result.trace`` (an ``obs.ReplayTrace``).  The reference's
+spans (``sweep.run_batch``, ``sweep.flatten``, ``sweep.scan``) and
+counters (``sweep.device_transfer_bytes``, ``sweep.scan_calls``,
+``sweep.overflow_rungs``) are emitted under the same names; its jit
+counters have nothing to count here (no compiled traces).
 """
 from __future__ import annotations
 
@@ -24,10 +31,12 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from .. import obs
 from ..consolidate import ConsolidationSpec, consolidated_replay
 from ..core.torchsim import (MAX_BINS_CAP, _replay_batch, grow_max_bins,
                              known_policy)
 from ..kernels.ops import resolve_device
+from ..obs.trace import ReplayTrace, from_scan
 from .batching import InstanceBatch, instances_pdeps
 
 
@@ -48,6 +57,7 @@ class BatchRunResult:
     n_bins_opened: np.ndarray  # (B, S) int
     overflowed: np.ndarray     # (B, S) bool (True only if the cap was hit)
     max_bins: np.ndarray       # (B,) slot-pool size that produced each lane
+    trace: Optional[ReplayTrace] = None          # trace_level >= 1 only
     migrations: Optional[np.ndarray] = None      # (B, S), consolidate only
     migration_cost: Optional[np.ndarray] = None  # (B, S), consolidate only
 
@@ -60,8 +70,8 @@ def run_batch(batch: InstanceBatch, policy: str,
               pdeps: Optional[np.ndarray] = None, max_bins: int = 64,
               max_bins_cap: int = MAX_BINS_CAP, auto_grow: bool = True,
               device="cuda", block_events: int = 0,
-              consolidate: Optional[ConsolidationSpec] = None
-              ) -> BatchRunResult:
+              consolidate: Optional[ConsolidationSpec] = None,
+              trace_level: int = 0) -> BatchRunResult:
     """Replay every lane of ``batch`` under ``policy`` (any
     ``SCAN_POLICIES`` name).
 
@@ -72,7 +82,13 @@ def run_batch(batch: InstanceBatch, policy: str,
     per megakernel launch; the rungs of the overflow ladder rerun the
     overflowing lanes from a fresh carry either way.  ``consolidate`` (an
     enabled ``ConsolidationSpec``; None for the plain replay) interleaves
-    the consolidation planner and its MIGRATE chunks with the replay."""
+    the consolidation planner and its MIGRATE chunks with the replay.
+
+    ``trace_level`` >= 1 also returns the per-event decision series as
+    ``result.trace`` (level >= 2 adds the per-slot alive mask).  Tracing
+    never changes decisions, but it changes the execution plan: the replay
+    runs per event (``block_events`` is not used).  The consolidating path
+    is untraced.  ``trace_level=0`` runs the untraced replay unchanged."""
     if not known_policy(policy):
         raise KeyError(f"{policy!r} is not a scan policy")
     dev = resolve_device(device)
@@ -97,30 +113,65 @@ def run_batch(batch: InstanceBatch, policy: str,
               batch.dmask, batch.arrivals, batch.pdeps, batch.n_items)
     lanes = np.arange(B)
     mb = max_bins
-    while True:
-        sub = _flatten_lanes(*(a[lanes] for a in arrays))
-        n = lanes.size
-        if consolidate is not None:
-            u, o, _placements, ov, stats = consolidated_replay(
-                *sub, policy=policy, max_bins=mb, device=dev,
-                block_events=block_events, spec=consolidate)
-            migrations[lanes] = stats["migrations"].reshape(n, S)
-            migration_cost[lanes] = stats["migration_cost"].reshape(n, S)
-        else:
-            u, o, _placements, ov = _replay_batch(
-                *sub, policy=policy, max_bins=mb, device=dev,
-                block_events=block_events)
-        usage[lanes] = u.cpu().numpy().reshape(n, S)
-        opened[lanes] = o.cpu().numpy().reshape(n, S)
-        ov = ov.cpu().numpy().reshape(n, S)
-        over[lanes] = ov
-        mb_used[lanes] = mb
-        lanes = lanes[ov.any(axis=1)]
-        if lanes.size == 0 or not auto_grow or mb >= max_bins_cap:
-            break
-        mb = grow_max_bins(mb, max_bins_cap)
-    return BatchRunResult(usage, opened, over, mb_used, migrations,
-                          migration_cost)
+    trace_np = None
+    with obs.span("sweep.run_batch", policy=policy, device=dev.type, B=B,
+                  S=S) as rb_span:
+        rungs = 0
+        while True:
+            with obs.span("sweep.flatten"):
+                sub = _flatten_lanes(*(a[lanes] for a in arrays))
+            obs.counter_add("sweep.device_transfer_bytes",
+                            sum(int(x.nbytes) for x in sub))
+            n = lanes.size
+            tr = None
+            with obs.span("sweep.scan", policy=policy, max_bins=mb,
+                          lanes=int(n) * S), obs.torch_profile():
+                if consolidate is not None:
+                    u, o, _placements, ov, stats = consolidated_replay(
+                        *sub, policy=policy, max_bins=mb, device=dev,
+                        block_events=block_events, spec=consolidate)
+                    migrations[lanes] = stats["migrations"].reshape(n, S)
+                    migration_cost[lanes] = \
+                        stats["migration_cost"].reshape(n, S)
+                else:
+                    out = _replay_batch(
+                        *sub, policy=policy, max_bins=mb, device=dev,
+                        block_events=block_events, trace_level=trace_level)
+                    u, o, _placements, ov = out[:4]
+                    if trace_level:
+                        tr = {k: v.cpu().numpy() for k, v in out[4].items()}
+                usage[lanes] = u.cpu().numpy().reshape(n, S)
+                opened[lanes] = o.cpu().numpy().reshape(n, S)
+                ov = ov.cpu().numpy().reshape(n, S)
+            obs.counter_add("sweep.scan_calls")
+            over[lanes] = ov
+            mb_used[lanes] = mb
+            if tr is not None:
+                if trace_np is None:
+                    trace_np = {k: np.zeros((B * S,) + v.shape[1:], v.dtype)
+                                for k, v in tr.items()}
+                rows = (lanes[:, None] * S + np.arange(S)).ravel()
+                for k, v in tr.items():
+                    if k == "alive" and v.shape[2] != trace_np[k].shape[2]:
+                        # a grown pool: widen the earlier rungs' masks
+                        wide = np.zeros(trace_np[k].shape[:2] + v.shape[2:],
+                                        bool)
+                        wide[:, :, :trace_np[k].shape[2]] = trace_np[k]
+                        trace_np[k] = wide
+                    trace_np[k][rows] = v
+            lanes = lanes[ov.any(axis=1)]
+            if lanes.size == 0 or not auto_grow or mb >= max_bins_cap:
+                break
+            mb = grow_max_bins(mb, max_bins_cap)
+            rungs += 1
+            obs.counter_add("sweep.overflow_rungs")
+        if rungs:
+            rb_span.set(overflow_rungs=rungs)
+    trace = None if trace_np is None else from_scan(
+        trace_np, batch.times, batch.kinds, batch.items, policy=policy, S=S)
+    return BatchRunResult(usage, opened, over, mb_used, trace=trace,
+                          migrations=migrations,
+                          migration_cost=migration_cost)
 
 
 def run_grid(batch: InstanceBatch, policies: Sequence[str],

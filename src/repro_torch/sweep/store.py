@@ -58,6 +58,7 @@ try:
 except ImportError:          # non-POSIX: single-process stores still work
     fcntl = None
 
+from .. import obs
 from .grid import SweepSpec
 
 SCHEMA_VERSION = 2
@@ -104,6 +105,7 @@ class SweepStore:
             # journal instead of killing the sweep
             side = path + ".corrupt"
             os.replace(path, side)
+            obs.counter_add("store.corrupt")
             warnings.warn(
                 f"sweep store {path!r} is corrupt ({e}); quarantined to "
                 f"{side!r}, rebuilding from the journal", RuntimeWarning,
@@ -129,9 +131,11 @@ class SweepStore:
                     if rec.get("sha") != _records_sha(rec["records"]):
                         raise ValueError("journal line checksum mismatch")
                     out.update(rec["records"])
+                    obs.counter_add("store.journal_records",
+                                    len(rec["records"]))
                 except (json.JSONDecodeError, ValueError, KeyError,
                         TypeError):
-                    continue
+                    obs.counter_add("store.journal_skipped")
         return out
 
     def load(self, spec: SweepSpec) -> Dict[str, Dict]:

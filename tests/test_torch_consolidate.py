@@ -25,6 +25,7 @@ from repro.core import Instance
 from repro.core.jaxsim import SCAN_POLICIES, host_algorithm
 from repro.sweep.runner import _flatten_lanes, instances_pdeps
 import repro_torch.consolidate as port_cons
+from repro_torch.core import Instance as PortInstance
 from repro_torch.consolidate import driver as port_driver
 from repro_torch.consolidate import planner as port_planner
 from repro_torch.core import torchsim
@@ -48,6 +49,12 @@ def qinst(seed, n=40, d=3):
     arr = np.sort(rng.integers(0, 50000, n)).astype(float)
     dur = rng.integers(10, 5000, n).astype(float)
     return Instance(sizes, arr, arr + dur, f"q{seed}").sorted_by_arrival()
+
+
+def port_inst(inst):
+    """The port's ``Instance`` of a reference instance."""
+    return PortInstance(inst.sizes, inst.arrivals, inst.departures,
+                        inst.name)
 
 
 @pytest.fixture(scope="module")
@@ -169,7 +176,9 @@ def test_driver_equals_reference_and_oracle(spec, block_events, policy,
     usage, opened bins, placements, the emitted MIGRATE events and the
     churn (migrations, bins closed, budget exhausted, migration cost)
     equal the reference's jnp driver and its sequential consolidating
-    oracle exactly, for every scan policy at the reference test's spec."""
+    oracle exactly, for every scan policy at the reference test's spec;
+    and equal the port's own oracle (``port_cons.run_consolidating`` with
+    ``torchsim.host_algorithm``) as well."""
     insts, _, flat = pair
     usage, opened, placements, over, stats = _port_run(policy, block_events,
                                                        spec)
@@ -193,6 +202,15 @@ def test_driver_equals_reference_and_oracle(spec, block_events, policy,
         assert stats["events"][lane] == ost["events"]
         assert int(stats["migrations"][lane]) == ost["migrations"]
         assert int(stats["bins_closed"][lane]) == ost["bins_closed"]
+        own, own_st = port_cons.run_consolidating(
+            port_inst(inst), torchsim.host_algorithm(policy),
+            port_cons.ConsolidationSpec.parse(spec))
+        assert float(usage[lane]) == own.usage_time
+        assert int(opened[lane]) == own.n_bins_opened
+        assert stats["events"][lane] == own_st["events"]
+        for k in ("migrations", "bins_closed", "budget_exhausted",
+                  "migration_cost"):
+            assert stats[k][lane] == own_st[k], k
 
 
 def test_added_specs_migrate_and_exhaust_budgets():

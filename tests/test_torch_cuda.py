@@ -253,6 +253,40 @@ def test_graphed_replay_through_the_overflow_ladder(lanes, cuda):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
 
 
+@pytest.mark.parametrize("policy", ["best_fit_l2", "cbd", "hybrid", "ppe",
+                                    "la_binary", "adaptive"])
+def test_traced_graphed_replay_equals_eager_traced(policy, lanes, cuda):
+    """``trace_level=2`` on the card: the windows of 16 traced steps
+    replayed as CUDA graphs write the same trace as the eager traced loop
+    (their step counter lives on the device), and the same outputs as the
+    untraced replay; the traced run still replays graphs."""
+    *_, flat = lanes
+    E = flat[1].shape[1]
+    old = torchsim.STEP_WINDOW
+    try:
+        outs = {}
+        for window in (E, 16):
+            torchsim.STEP_WINDOW = window
+            ops.launches.clear()
+            outs[window] = torchsim._replay_batch(
+                *flat, policy=policy, max_bins=16, device=cuda,
+                trace_level=2)
+            torch.cuda.synchronize()
+        assert ops.launches["replay_step_graph"] > 1
+    finally:
+        torchsim.STEP_WINDOW = old
+    plain = torchsim._replay_batch(*flat, policy=policy, max_bins=16,
+                                   device=cuda)
+    eager, graphed = outs[E], outs[16]
+    for a, b, c in zip(graphed[:4], eager[:4], plain):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert graphed[4].keys() == eager[4].keys()
+    for k, v in eager[4].items():
+        assert torch.equal(graphed[4][k], v), k
+    assert torch.equal(graphed[4]["open_bins"],
+                       graphed[4]["alive"].sum(dim=2, dtype=torch.int32))
+
+
 def _block_case(policy, flat, max_bins, device, prefix=48):
     """Streams, kernel arguments and a mid-replay packed carry (the first
     ``prefix`` events replayed) of one policy on ``device``."""

@@ -190,7 +190,9 @@ def test_host_only_policies_equal_the_reference(policy):
 
 def test_scheduler_refuses_what_it_does_not_take():
     with pytest.raises(KeyError):
-        DVBPScheduler("cbd", policy_kwargs={"beta": 2.0})
+        DVBPScheduler("no_such_policy")
+    with pytest.raises(ValueError, match="no on-device select"):
+        DVBPScheduler("hybrid", select_backend="device", device="cpu")
     with pytest.raises(ValueError, match="select_backend"):
         DVBPScheduler("first_fit", select_backend="pallas")
 
