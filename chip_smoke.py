@@ -189,13 +189,43 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``serving.select``, ``store.save``); a JSONL run log and a Perfetto
    file written, the log summarized by ``python -m repro_torch obs``;
    ``torch_profile`` with a log directory writes a trace of the profiled
-   ops (its device kernels counted; "not measured" where the profiler
-   records no device activity); traced card replays == traced CPU
-   replays of the same
+   ops that holds every megakernel launch of the profiled blocked replay
+   (the lead-in's surviving kernels counted apart); traced card replays ==
+   traced CPU replays of the same
    lanes at ``trace_level=2`` (``diff_traces(...) is None``, one policy a
    family) and a slot flipped in one event pinpointed at that (lane,
    event, "slot"); the untraced and traced per-event replays' wall time a
    step at phase 12's shape, in turns.
+15. Resilience on the card (``phase_resilience``): first a guard - no
+   ``REPRO_TORCH_FAULTS`` and no ``resilience.*`` counter moved in phases
+   1-14 (checked before phase 14 resets the counters, and again here).
+   The ladder: ``run_batch`` of the 28 x 250 seed-11 suite blocked
+   (best_fit_l2) under ``sweep.scan:xla:1:1`` (-> per event),
+   ``xla:1:2`` (-> the CPU) and ``oom:1:1`` (a retry), each equal to the
+   fault-free blocked run bit for bit and each counter moved by exactly
+   one.  ``checkpointed_replay`` of its lanes in segments of
+   ``CKPT_EVERY`` events for ``CKPT_POLICIES`` (and rcp with MIGRATE
+   events), per event and blocked, equal to the unsegmented card replay,
+   with the per-event segments' warm-up and capture time; a segmented
+   replay stopped by an injected fault at its 2nd segment and resumed.
+   ``python -m repro_torch sweep --device cuda --resume`` killed by
+   ``sweep.group:kill:2`` and by ``ckpt.segment:kill:3`` (two stores, in
+   parallel subprocesses) and rerun: each store equal to a clean card
+   run's.  The scheduler's guarded device select (cbd, nrt_prioritized)
+   under ``serving.select:xla:5:1`` and ``xla:1:0`` equal to the host zoo
+   decision for decision.
+16. The streamed replay on the card (``phase_stream``), the shapes of
+   benchmarks/perf.py's perf/stream_replay rows: ``synthetic_source(10
+   000, seed=21)`` at max_bins 128 and ``synthetic_source(100 000,
+   seed=22)`` at 256, 2048-event chunks over 2048 item rows: first_fit
+   per event (10k) and one policy a family blocked at T = 256, each equal
+   to the in-memory card replay of the materialized instance, with fewer
+   item rows than items (hybrid pins its table); the walls, a chunk's
+   split (host streams, staging, replay, the builder), the accounted
+   ``peak_device_bytes`` and ``torch.cuda.max_memory_allocated`` beside
+   the in-memory replay's; a pool of 16 rows that grows; prefetch 0
+   against 1 at 100k (in turns, equal); a stream killed at
+   ``ckpt.save:kill:2`` in a subprocess, resumed here from its snapshot.
 
 Then, as a measurement and not a check, on the main path's first rung
 (L=28, Np=64): torch.profiler over 2048 graphed per-event steps and 400
@@ -214,6 +244,7 @@ import collections
 import hashlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -3037,7 +3068,9 @@ def phase_obs(dev):
     reference's span names must be there.  The recording goes to a JSONL
     run log and a Perfetto file, and ``python -m repro_torch obs``
     summarizes the log; ``torch_profile`` with a log directory writes a
-    trace of the profiled ops, its device kernels counted.  A traced card
+    trace of the profiled ops that must hold every megakernel launch of
+    the profiled blocked replay (its lead-in kernels counted apart).  A
+    traced card
     replay and a traced
     CPU replay of the same lanes give ``diff_traces(...) is None``; a slot
     flipped in one event is pinpointed at that (lane, event, "slot").
@@ -3099,19 +3132,28 @@ def phase_obs(dev):
         fail(f"phase 14: python -m repro_torch obs: {proc.returncode} "
              f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
 
+    from repro_torch.obs.export import LEAD_IN_KERNELS
+    mk0 = ops.launches["fitscore_replay_block"]
     with obs.recording(clear=False), \
             obs.torch_profile(os.path.join(out, "profile")) as prof_path:
         run_batch(small, "best_fit_l2", small_pdeps, max_bins=64, device=dev,
                   block_events=BLOCK_EVENTS)
         torch.cuda.synchronize()
-    cats = collections.Counter(e.get("cat") for e in
-                               json.load(open(prof_path))["traceEvents"])
+    mk_launched = ops.launches["fitscore_replay_block"] - mk0
+    trace = json.load(open(prof_path))["traceEvents"]
+    cats = collections.Counter(e.get("cat") for e in trace)
+    knames = [e["name"] for e in trace if e.get("cat") == "kernel"]
+    lead = sum("spin_kernel" in k for k in knames)
+    mk_traced = sum("replay_warp_kernel" in k for k in knames)
     if not cats["cpu_op"] or "profiler.torch_trace" not in \
-            {e["name"] for e in obs.events()}:
-        fail(f"phase 14: the torch_profile trace {prof_path} holds no "
-             f"profiled op ({dict(cats)})")
-    kernels = cats["kernel"] or "no (not measured: the profiler recorded " \
-        f"no device activity; {dict(cats)})"
+            {e["name"] for e in obs.events()} or not mk_launched or \
+            mk_traced != mk_launched:
+        fail(f"phase 14: the torch_profile trace {prof_path} holds "
+             f"{mk_traced} of the block's {mk_launched} megakernel launches "
+             f"({dict(cats)}; {lead} of the {LEAD_IN_KERNELS} lead-in "
+             "kernels)")
+    kernels = f"{len(knames) - lead} ({mk_traced} of {mk_launched} " \
+        f"megakernel launches; {lead} of {LEAD_IN_KERNELS} lead-in kernels)"
 
     t_card = t_cpu = 0.0
     for policy in ("best_fit_l2", "cbd", "reduced_hybrid", "ppe",
@@ -3161,6 +3203,502 @@ def phase_obs(dev):
             for p in ("best_fit_l2", "ppe")))
     return launches, {f"{p}_{'traced' if lv else 'untraced'}_us_a_step":
                       min(v) for (p, lv), v in step_s.items()}
+
+
+# The ladder's plans on the card (phase 15): each injected at the first
+# crossing of ``sweep.scan`` of one blocked run_batch, with the counters
+# it must move by exactly this much.
+RESILIENCE_PLANS = (
+    ("sweep.scan:xla:1:1", {"resilience.degrade_blocked_perevent": 1}),
+    ("sweep.scan:xla:1:2", {"resilience.degrade_blocked_perevent": 1,
+                            "resilience.degrade_cuda_cpu": 1}),
+    ("sweep.scan:oom:1:1", {"resilience.retry": 1}))
+# checkpointed_replay on the card: one policy a family plus a hybrid, in
+# segments of CKPT_EVERY events (each per-event segment a call of its own:
+# a warm-up window, a capture, replays)
+CKPT_POLICIES = ("greedy", "cbd", "rcp", "la_binary", "adaptive", "hybrid")
+CKPT_EVERY = 256
+# the port's sweep CLI killed and resumed on the card (subprocesses)
+CHAOS_FAULTS = ("sweep.group:kill:2", "ckpt.segment:kill:3")
+CHAOS_ARGS = ("--suites", "azure", "--n-instances", "2", "--n-items", "200",
+              "--policies", "greedy,cbd,rcp", "--preds", "clairvoyant",
+              "--resume", "--checkpoint-every", "128")
+# phase 16: benchmarks/perf.py's perf/stream_replay shapes (items, seed,
+# max_bins), at chunk_events STREAM_CHUNK and item_rows STREAM_ROWS
+STREAM_CELLS = ((10_000, 21, 128), (100_000, 22, 256))
+STREAM_CHUNK, STREAM_ROWS = 2048, 2048
+STREAM_BLOCKED = ("first_fit", "cbd", "hybrid", "rcp", "la_binary",
+                  "adaptive")
+# the per-event stream (first_fit) runs at the 10k cell only: at 100k its
+# 98 chunks would each pay a warm-up window and a capture (~20 s)
+STREAM_PER_EVENT_ITEMS = 10_000
+
+
+def resilience_guard(where: str) -> None:
+    """No fault plan in this process, and no ``resilience.*`` counter moved:
+    no retry or degradation happened unseen on the paths run so far."""
+    from repro_torch import obs
+    from repro_torch.resilience import faults
+    if os.environ.get("REPRO_TORCH_FAULTS") or faults.active() is not None:
+        fail(f"{where}: a fault plan is set (REPRO_TORCH_FAULTS="
+             f"{os.environ.get('REPRO_TORCH_FAULTS')!r})")
+    moved = {k: v for k, v in obs.counters().items()
+             if k.startswith("resilience.") and v}
+    if moved:
+        fail(f"{where}: resilience counters moved on the main paths: "
+             f"{moved}")
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _port_env(fault: str = "") -> dict:
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env.pop("REPRO_TORCH_FAULTS", None)
+    if fault:
+        env["REPRO_TORCH_FAULTS"] = fault
+    return env
+
+
+def _store_results(store: str) -> dict:
+    files = [f for f in os.listdir(store)
+             if f.startswith("sweep_") and f.endswith(".json")]
+    if len(files) != 1:
+        fail(f"store {store}: {files}")
+    with open(os.path.join(store, files[0])) as f:
+        return json.load(f)["results"]
+
+
+def segment_costs(dev, fn):
+    """``fn()`` with the per-event path's warm-up windows and captures
+    timed (synchronized around each): (wall s, warm-up s, capture s)."""
+    import torch
+    from repro_torch.core import torchsim
+    spent = collections.Counter()
+    body, graph_cls = torchsim.window_body, torchsim._Graph
+
+    def timed_body(*a, **k):
+        if dev.type != "cuda" or torch.cuda.is_current_stream_capturing():
+            return body(*a, **k)
+        _sync(dev)
+        t = time.perf_counter()
+        body(*a, **k)
+        _sync(dev)
+        spent["warm"] += time.perf_counter() - t
+
+    class TimedCapture(graph_cls):
+        def __init__(self, *a, **k):
+            _sync(dev)
+            t = time.perf_counter()
+            super().__init__(*a, **k)
+            _sync(dev)
+            spent["capture"] += time.perf_counter() - t
+
+    torchsim.window_body, torchsim._Graph = timed_body, TimedCapture
+    try:
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        torchsim.window_body, torchsim._Graph = body, graph_cls
+    return out, wall, spent["warm"], spent["capture"]
+
+
+def phase_resilience(dev, n_items: int = 250, chaos_items: str = "200"):
+    """Phase 15: ``repro_torch.resilience`` on the card.  (a) The ladder:
+    ``run_batch`` of the 28 x ``n_items`` seed-11 suite blocked
+    (best_fit_l2, ``BLOCK_EVENTS``) under each of ``RESILIENCE_PLANS``
+    equals the fault-free blocked run bit for bit, each counter moved by
+    exactly the plan.  (b) ``checkpointed_replay`` of its lanes in segments
+    of ``CKPT_EVERY`` events, per event and blocked, for
+    ``CKPT_POLICIES`` (and rcp with MIGRATE events), equals the
+    unsegmented card replay (usage, bins, placements, overflow); one
+    segmented replay is stopped at its second segment and resumed from its
+    snapshot; the per-event segments' share of warm-up windows and
+    captures.  (c) ``python -m repro_torch sweep --device cuda --resume``
+    killed by each of ``CHAOS_FAULTS`` (in parallel subprocesses) and
+    rerun: each store equals a clean card run's.  (d) The scheduler's
+    guarded select under injected failure equals the host zoo decision
+    for decision.  Returns the launches of the phase and its numbers."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import ops
+    from repro_torch.resilience import checkpoint, faults
+    from repro_torch.serving.scheduler import DVBPScheduler
+    from repro_torch.sweep import (PredModel, SuiteSpec, SweepSpec,
+                                   SweepStore, run_batch, run_sweep)
+    from repro_torch.sweep.grid import _built_suite
+    from repro_torch.sweep.runner import _flatten_lanes
+    resilience_guard("phase 15")
+    ops.launches.clear()
+    out = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    _, _, batch = _built_suite(SuiteSpec("azure", 28, n_items, 11))
+    kw = dict(max_bins=64, device=dev, block_events=BLOCK_EVENTS)
+    base = run_batch(batch, "best_fit_l2", **kw)
+    walls = {}
+    for plan, want in RESILIENCE_PLANS:
+        before = obs.counters()
+        t0 = time.perf_counter()
+        with faults.injected(plan):
+            res = run_batch(batch, "best_fit_l2", **kw)
+        walls[plan] = time.perf_counter() - t0
+        moved = {k: v for k, v in obs.counter_deltas(before).items()
+                 if k.startswith("resilience.")
+                 and not k.startswith("resilience.fault_")}
+        if moved != want:
+            fail(f"phase 15 {plan}: counters moved {moved}, want {want}")
+        for f in ("usage_time", "n_bins_opened", "overflowed"):
+            if not np.array_equal(getattr(res, f), getattr(base, f)):
+                fail(f"phase 15 {plan}: {f} != the fault-free run's")
+    out["ladder_wall_s"] = walls
+    say(f"# phase 15 ladder: run_batch 28 x {n_items} blocked "
+        f"(T={BLOCK_EVENTS}) under " + "; ".join(
+            f"{p} ({', '.join(RESILIENCE_PLANS[i][1])}) {walls[p]:.2f} s"
+            for i, (p, _) in enumerate(RESILIENCE_PLANS))
+        + " == the fault-free run bit for bit, each counter +1")
+
+    flat = _flatten_lanes(batch.sizes, batch.times, batch.kinds,
+                          batch.items, batch.pdeps[:, None], batch.dmask,
+                          batch.arrivals, batch.pdeps, batch.n_items)
+    cases = [(p, T, False) for p in CKPT_POLICIES
+             for T in (0, BLOCK_EVENTS)]
+    cases += [("rcp", 0, True), ("rcp", BLOCK_EVENTS, True)]
+    mig = with_migrations(flat)
+    seg = collections.defaultdict(float)
+    for policy, T, migrate in cases:
+        arrays = mig if migrate else flat
+        whole, t_whole, _, _ = segment_costs(dev, lambda: [
+            v.cpu() for v in torchsim._replay_batch(
+                *arrays, policy=policy, max_bins=64, device=dev,
+                block_events=T, migrate=migrate)])
+        ck = checkpoint.ReplayCheckpointer(os.path.join(root, "ckpt"),
+                                           every_events=CKPT_EVERY)
+        got, t_seg, warm, capt = segment_costs(dev, lambda: [
+            v.cpu() for v in checkpoint.checkpointed_replay(
+                arrays, policy=policy, max_bins=64, device=dev,
+                block_events=T, ckpt=ck, key=f"{policy}-{T}-{migrate}",
+                migrate=migrate)])
+        for a, b, nm in zip(got, whole, ("usage", "opened", "placements",
+                                         "overflow")):
+            if not torch.equal(a, b):
+                fail(f"phase 15 checkpointed {policy} T={T} "
+                     f"migrate={migrate}: {nm} != the unsegmented replay")
+        way = "blocked" if T else "per_event"
+        seg[f"{way}_whole_s"] += t_whole
+        seg[f"{way}_segmented_s"] += t_seg
+        seg[f"{way}_warm_s"] += warm
+        seg[f"{way}_capture_s"] += capt
+    E = flat[1].shape[1]
+    nseg = -(-E // CKPT_EVERY)
+    ck = checkpoint.ReplayCheckpointer(os.path.join(root, "kill"),
+                                       every_events=CKPT_EVERY)
+    for T in (0, BLOCK_EVENTS):
+        with faults.injected("ckpt.segment:error:2"):
+            try:
+                checkpoint.checkpointed_replay(flat, policy="rcp",
+                                               max_bins=64, device=dev,
+                                               block_events=T, ckpt=ck,
+                                               key=f"kill{T}")
+                fail("phase 15: the injected segment fault did not fire")
+            except faults.InjectedFault:
+                pass
+        c0 = obs.counter_get("resilience.ckpt_resume")
+        got = checkpoint.checkpointed_replay(flat, policy="rcp", max_bins=64,
+                                             device=dev, block_events=T,
+                                             ckpt=ck, key=f"kill{T}")
+        want = torchsim._replay_batch(*flat, policy="rcp", max_bins=64,
+                                      device=dev, block_events=T)
+        if obs.counter_get("resilience.ckpt_resume") != c0 + 1 or \
+                not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"phase 15: the resumed segmented replay (T={T}) != the "
+                 "unsegmented one")
+    share = 100 * (seg["per_event_warm_s"] + seg["per_event_capture_s"]) \
+        / seg["per_event_segmented_s"]
+    out["segments"] = dict(seg, per_event_warm_capture_share=share,
+                           segments_a_replay=nseg)
+    say(f"# phase 15 checkpointed_replay: {len(cases)} replays "
+        f"({', '.join(CKPT_POLICIES)} per event and blocked, rcp with "
+        f"MIGRATE events), {flat[1].shape[0]} lanes x {E} events in "
+        f"{nseg} segments of "
+        f"{CKPT_EVERY} == the unsegmented card replays (usage, bins, "
+        f"placements, overflow); a replay stopped at its 2nd segment "
+        f"resumed == (per event and blocked); per event: unsegmented "
+        f"{seg['per_event_whole_s']:.2f} s, segmented "
+        f"{seg['per_event_segmented_s']:.2f} s, of which warm-up windows "
+        f"{seg['per_event_warm_s']:.2f} s and captures "
+        f"{seg['per_event_capture_s']:.2f} s ({share:.1f} %); blocked: "
+        f"unsegmented {seg['blocked_whole_s']:.2f} s, segmented "
+        f"{seg['blocked_segmented_s']:.2f} s")
+
+    # (c) the CLI killed and resumed, two stores in parallel
+    spec = SweepSpec(suites=(SuiteSpec("azure", 2, int(chaos_items), 2026),),
+                     policies=("greedy", "cbd", "rcp"),
+                     predictions=(PredModel("clairvoyant"),))
+    clean = os.path.join(root, "clean")
+    run_sweep(spec, store=SweepStore(clean), device=dev)
+    want = _store_results(clean)
+    cmd = [sys.executable, "-m", "repro_torch", "sweep", "--device",
+           dev.type] + list(CHAOS_ARGS)
+    cmd[cmd.index("--n-items") + 1] = chaos_items
+    stores = {f: os.path.join(root, f.replace(":", "_"))
+              for f in CHAOS_FAULTS}
+    t0 = time.perf_counter()
+    for fault, expect in ((True, 137), (False, 0)):
+        procs = {f: subprocess.Popen(
+            cmd + ["--store", stores[f]], env=_port_env(f if fault else ""),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for f in CHAOS_FAULTS}
+        for f, p in procs.items():
+            so, se = p.communicate(timeout=600)
+            if p.returncode != expect:
+                fail(f"phase 15 {f} ({'killed' if fault else 'resumed'} "
+                     f"run): rc {p.returncode}, want {expect}: {so[-1500:]}"
+                     f" {se[-1500:]}")
+    for f, store in stores.items():
+        if _store_results(store) != want:
+            fail(f"phase 15: the store killed by {f} and resumed != a "
+                 "clean card run's")
+    out["chaos_wall_s"] = time.perf_counter() - t0
+    say(f"# phase 15 chaos: `python -m repro_torch sweep --device "
+        f"{dev.type} --resume` killed by {' and by '.join(CHAOS_FAULTS)} "
+        f"(rc 137, in parallel) and rerun: both stores == a clean card "
+        f"run's ({len(want)} records) in {out['chaos_wall_s']:.1f} s")
+
+    reqs = zoo_requests(300)
+    counter = f"resilience.degrade_select_{ops.resolved_select_impl(dev)}" \
+        "_host"
+    for policy in ("cbd", "nrt_prioritized"):
+        want = drive_scheduler(DVBPScheduler(
+            policy, tokens_per_second=ZOO_TPS), reqs)
+        for plan, n_deg in (("serving.select:xla:5:1", 1),
+                            ("serving.select:xla:1:0", len(reqs))):
+            c0 = obs.counter_get(counter)
+            sched = DVBPScheduler(policy, tokens_per_second=ZOO_TPS,
+                                  select_backend="device", device=dev)
+            with faults.injected(plan):
+                got = drive_scheduler(sched, reqs)
+            moved = obs.counter_get(counter) - c0
+            if got != want or moved != n_deg:
+                fail(f"phase 15 scheduler {policy} {plan}: decisions "
+                     f"{'==' if got == want else '!='} the host zoo, "
+                     f"{moved} degradations (want {n_deg})")
+    say(f"# phase 15 scheduler: cbd and nrt_prioritized on the device "
+        f"select under serving.select:xla:5:1 and :1:0 ({len(reqs)} "
+        f"requests) == the host zoo decision for decision, {counter} +1 "
+        f"/ +{len(reqs)}")
+    return dict(ops.launches), out
+
+
+def _stream_split(dev, fn):
+    """``fn()`` (a streamed replay) with its host preparation
+    (``torchsim.event_streams``), staging and replays
+    (``torchsim.replay_streams``, synchronized) timed; the rest of the
+    wall is the chunk builder's (merge, pool scatter) and the driver's."""
+    from repro_torch.core import torchsim
+    from repro_torch.stream import replay as sr
+    spent = collections.Counter()
+    streams, replay, stage = torchsim.event_streams, \
+        torchsim.replay_streams, sr._Stager.stage
+
+    def timed(name, f, sync=False):
+        def g(*a, **k):
+            t = time.perf_counter()
+            r = f(*a, **k)
+            if sync:
+                _sync(dev)
+            spent[name] += time.perf_counter() - t
+            return r
+        return g
+
+    torchsim.event_streams = timed("streams", streams)
+    torchsim.replay_streams = timed("replay", replay, sync=True)
+    sr._Stager.stage = timed("stage", stage)
+    try:
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        torchsim.event_streams, torchsim.replay_streams = streams, replay
+        sr._Stager.stage = stage
+    spent["builder_and_rest"] = wall - sum(spent.values())
+    return res, wall, dict(spent)
+
+
+def phase_stream(dev, cells=STREAM_CELLS, chunk=STREAM_CHUNK,
+                 rows=STREAM_ROWS):
+    """Phase 16: ``repro_torch.stream`` on the card, the shapes of
+    benchmarks/perf.py's perf/stream_replay rows: ``synthetic_source`` of
+    each of ``cells`` (items, seed, max_bins) at ``chunk`` events a chunk
+    and ``rows`` item rows.  first_fit per event (the 10k cell) and
+    ``STREAM_BLOCKED`` blocked at ``BLOCK_EVENTS``, each streamed replay
+    equal to the in-memory card replay of the materialized instance
+    (usage, bins, slot pool), with fewer item rows than items but for
+    hybrid; both runs' walls, the chunk's wall, the accounted
+    ``peak_device_bytes`` and ``torch.cuda.max_memory_allocated`` of each;
+    a run whose pool starts at 16 rows and grows; prefetch 0 against 1
+    (timed in turns, results equal); where a chunk's time goes; and a
+    ``StreamCheckpointer`` resume after a subprocess killed at
+    ``ckpt.save:kill:2``.  Returns the launches and the numbers."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import ops
+    from repro_torch.resilience.checkpoint import StreamCheckpointer
+    from repro_torch.stream import replay_stream, synthetic_source
+    cuda = dev.type == "cuda"
+
+    def peak_reset():
+        _sync(dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+            return torch.cuda.memory_allocated(dev)
+        return 0
+
+    def peak_since(base):
+        return torch.cuda.max_memory_allocated(dev) - base if cuda else 0
+
+    ops.launches.clear()
+    out = {}
+    for n, seed, mb in cells:
+        src = synthetic_source(n, seed=seed)
+        inst = src.inst
+        runs = [("first_fit", 0)] if n <= STREAM_PER_EVENT_ITEMS else []
+        runs += [(p, BLOCK_EVENTS) for p in STREAM_BLOCKED]
+        cell = {}
+        for policy, T in runs:
+            base = peak_reset()
+            t0 = time.perf_counter()
+            mem = torchsim.simulate(inst, policy, max_bins=mb, device=dev,
+                                    block_events=T)
+            _sync(dev)
+            t_mem = time.perf_counter() - t0
+            mem_peak = peak_since(base)
+            base = peak_reset()
+            res, t_st, split = _stream_split(dev, lambda: replay_stream(
+                src, policy, chunk_events=chunk, item_rows=rows, max_bins=mb,
+                device=dev, block_events=T))
+            st_peak = peak_since(base)
+            if (res.usage, res.opened, res.max_bins, res.overflow) != (
+                    mem.usage_time, mem.n_bins_opened, mem.max_bins,
+                    mem.overflowed):
+                fail(f"phase 16 {n} {policy} T={T}: the stream ({res.usage}"
+                     f", {res.opened}, {res.max_bins}) != the in-memory "
+                     f"replay ({mem.usage_time}, {mem.n_bins_opened}, "
+                     f"{mem.max_bins})")
+            if policy != "hybrid" and not res.item_rows < inst.n_items:
+                fail(f"phase 16 {n} {policy}: {res.item_rows} item rows "
+                     f"for {inst.n_items} items")
+            key = f"{policy}_{'blocked' if T else 'per_event'}"
+            cell[key] = {"stream_s": t_st, "in_memory_s": t_mem,
+                         "chunks": res.n_chunks,
+                         "chunk_ms": 1e3 * t_st / res.n_chunks,
+                         "item_rows": res.item_rows,
+                         "max_bins": res.max_bins,
+                         "peak_device_bytes": res.peak_device_bytes,
+                         "stream_max_allocated": st_peak,
+                         "in_memory_max_allocated": mem_peak,
+                         "split_s": split}
+            say(f"# phase 16 {n} items (seed {seed}) {policy} "
+                f"{'blocked T=%d' % T if T else 'per event'}: stream == "
+                f"in memory (usage {res.usage:.2f}, {res.opened} bins, "
+                f"max_bins {res.max_bins}); {res.n_chunks} chunks of "
+                f"{chunk}, {res.item_rows} item rows for {inst.n_items} "
+                f"items; stream {t_st:.2f} s ({1e3 * t_st / res.n_chunks:.1f}"
+                f" ms a chunk: " + ", ".join(
+                    f"{k} {1e3 * v / res.n_chunks:.1f}"
+                    for k, v in split.items()) +
+                f" ms), in memory {t_mem:.2f} s; device bytes: accounted "
+                f"{res.peak_device_bytes}, max allocated {st_peak} "
+                f"(in memory {mem_peak})")
+        out[n] = cell
+
+    # a pool that starts small and grows; prefetch 0 against 1, in turns
+    n, seed, mb = cells[0]
+    src = synthetic_source(n, seed=seed)
+    want = out[n]["first_fit_blocked"]
+    g0 = obs.counter_get("stream.pool_growths")
+    res = replay_stream(src, "first_fit", chunk_events=chunk, item_rows=16,
+                        max_bins=mb, device=dev, block_events=BLOCK_EVENTS)
+    grew = obs.counter_get("stream.pool_growths") - g0
+    if not grew or res.item_rows <= 16 or res.max_bins != want["max_bins"]:
+        fail(f"phase 16 pool growth: {grew} growths, {res.item_rows} rows")
+    mem = torchsim.simulate(src.inst, "first_fit", max_bins=mb, device=dev,
+                            block_events=BLOCK_EVENTS)
+    if (res.usage, res.opened) != (mem.usage_time, mem.n_bins_opened):
+        fail("phase 16 pool growth: the grown stream != in memory")
+    n, seed, mb = cells[-1]
+    src = synthetic_source(n, seed=seed)
+    walls = collections.defaultdict(list)
+    results = {}
+    for depth in (0, 1, 1, 0) * 3:
+        _sync(dev)
+        t0 = time.perf_counter()
+        r = replay_stream(src, "first_fit", chunk_events=chunk,
+                          item_rows=rows, max_bins=mb, device=dev,
+                          block_events=BLOCK_EVENTS, prefetch=depth)
+        _sync(dev)
+        walls[depth].append(time.perf_counter() - t0)
+        results[depth] = (r.usage, r.opened, r.max_bins)
+    if results[0] != results[1]:
+        fail(f"phase 16 prefetch: {results}")
+    out["prefetch_s"] = {d: min(v) for d, v in walls.items()}
+    out["prefetch_median_s"] = {d: statistics.median(v)
+                                for d, v in walls.items()}
+    out["pool_growths"] = grew
+    say(f"# phase 16: a pool of 16 rows grew {grew:g} times to "
+        f"{res.item_rows}, == in memory; {n} items first_fit blocked, "
+        f"prefetch 0 / 1 (six turns each, alternating; best / median): "
+        f"{out['prefetch_s'][0]:.3f} / {out['prefetch_s'][1]:.3f} s, "
+        f"{out['prefetch_median_s'][0]:.3f} / "
+        f"{out['prefetch_median_s'][1]:.3f} s, "
+        f"results equal")
+
+    # a StreamCheckpointer resume after a subprocess kill at the 2nd save
+    n, seed, mb = cells[0]
+    root = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    code = (f"from repro_torch.stream import replay_stream, "
+            f"synthetic_source\n"
+            f"from repro_torch.resilience.checkpoint import "
+            f"StreamCheckpointer\n"
+            f"replay_stream(synthetic_source({n}, seed={seed}), 'rcp', "
+            f"chunk_events={chunk}, item_rows={rows}, max_bins={mb}, "
+            f"device={dev.type!r}, block_events={BLOCK_EVENTS}, "
+            f"checkpointer=StreamCheckpointer({root!r}, every_chunks=2))\n")
+    p = subprocess.run([sys.executable, "-c", code],
+                       env=_port_env("ckpt.save:kill:2"),
+                       capture_output=True, text=True, timeout=600)
+    if p.returncode != 137 or not os.listdir(root):
+        fail(f"phase 16: the killed stream: rc {p.returncode}, "
+             f"{os.listdir(root)} {p.stderr[-1500:]}")
+    c0 = obs.counter_get("resilience.stream_ckpt_resume")
+    res = replay_stream(synthetic_source(n, seed=seed), "rcp",
+                        chunk_events=chunk, item_rows=rows, max_bins=mb,
+                        device=dev, block_events=BLOCK_EVENTS,
+                        checkpointer=StreamCheckpointer(root,
+                                                        every_chunks=2))
+    want = out[n]["rcp_blocked"]
+    if obs.counter_get("resilience.stream_ckpt_resume") != c0 + 1 or \
+            res.n_chunks != want["chunks"]:
+        fail(f"phase 16: the stream did not resume ({res.n_chunks} chunks)")
+    mem = torchsim.simulate(synthetic_source(n, seed=seed).inst, "rcp",
+                            max_bins=mb, device=dev,
+                            block_events=BLOCK_EVENTS)
+    if (res.usage, res.opened) != (mem.usage_time, mem.n_bins_opened):
+        fail("phase 16: the resumed stream != in memory")
+    say(f"# phase 16: a {n}-item rcp stream killed at its 2nd snapshot "
+        f"(rc 137) resumed in this process == in memory "
+        f"(usage {res.usage:.2f})")
+    return dict(ops.launches), out
 
 
 def profile_run(dev, label, fn, units: int, unit: str) -> dict:
@@ -3371,7 +3909,10 @@ def main() -> None:
         dev, blocked_records)
     oracle_launches, oracle_cons_launches = phase_oracle(dev)
     zoo_launches = phase_scheduler_zoo(dev)
+    resilience_guard("phases 1-13")    # phase 14 resets the counters
     obs_launches, trace_steps = phase_obs(dev)
+    res_launches, res_numbers = phase_resilience(dev)
+    stream_launches, stream_numbers = phase_stream(dev)
     prof = phase_profile(dev)
     say(f"# total {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -3396,6 +3937,12 @@ def main() -> None:
                  "fitscore_select"],
              scheduler_zoo_launches=zoo_launches["fitscore_select"],
              obs_phase_launches=obs_launches["fitscore_select"],
+             resilience_phase_launches=res_launches.get(
+                 "fitscore_select", 0),
+             stream_phase_launches=stream_launches.get(
+                 "fitscore_select", 0),
+             segment_warm_capture_share=res_numbers["segments"][
+                 "per_event_warm_capture_share"],
              **trace_steps, **sel),
         dict(name="fitscore_replay_block", route="cuda",
              source="src/repro_torch/kernels/csrc/replay_block_sm90.cu + "
@@ -3410,6 +3957,13 @@ def main() -> None:
              oracle_consolidation_launches=oracle_cons_launches.get(
                  "fitscore_replay_block_migrate", 0),
              obs_phase_launches=obs_launches["fitscore_replay_block"],
+             resilience_phase_launches=res_launches.get(
+                 "fitscore_replay_block", 0),
+             stream_phase_launches=stream_launches.get(
+                 "fitscore_replay_block", 0),
+             stream_chunk_ms={
+                 str(n): stream_numbers[n]["first_fit_blocked"]["chunk_ms"]
+                 for n, _, _ in STREAM_CELLS},
              **mk),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu + "

@@ -18,6 +18,9 @@ and nothing of JAX or ``repro``.  Subpackages mirror the reference:
                   consolidating oracle
     obs/          spans, counters, replay decision traces, exporters, the
                   ``obs`` CLI
+    resilience/   fault seams, the degradation ladder, checkpoint and
+                  resume, input validation
+    stream/       the bounded-memory chunked replay of full traces
     cluster/      job->host placement with failure re-entry
     serving/      the DVBP request scheduler, replica engines, the fleet
     models/, configs/, launch/   the model stack and the serving launcher

@@ -5,9 +5,12 @@ Subcommands:
     ``repro_torch.sweep.__main__``; ``--device cpu`` runs on the CPU).
   * ``obs`` - summarize a JSONL observability run log (spans + counters,
     ``obs.export_jsonl``), optionally converting it to Perfetto JSON.
+  * ``validate`` - check the workload suites for malformed rows
+    (``repro_torch.resilience.validate``; exit status 1 on any).
 
     PYTHONPATH=src python -m repro_torch sweep --suites azure --n-instances 28
     PYTHONPATH=src python -m repro_torch obs run.obs.jsonl --perfetto t.json
+    PYTHONPATH=src python -m repro_torch validate --suites azure huawei
 """
 from __future__ import annotations
 
@@ -27,7 +30,12 @@ def main(argv=None) -> None:
     if cmd == "obs":
         from .obs.cli import main as obs_main
         raise SystemExit(obs_main(rest))
-    raise SystemExit(f"unknown subcommand {cmd!r}; try: sweep, obs")
+    if cmd == "validate":
+        from .resilience.validate import main as validate_main
+        validate_main(rest)
+        return
+    raise SystemExit(f"unknown subcommand {cmd!r}; try: sweep, obs, "
+                     "validate")
 
 
 if __name__ == "__main__":

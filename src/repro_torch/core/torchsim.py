@@ -24,6 +24,11 @@ on one of two paths with the same decisions:
 ``migrate=True`` replays MIGRATE events on either path (consolidation:
 ``repro_torch.consolidate``); without it they are no-ops.
 
+``_replay_batch`` is its two halves in turn: ``event_streams`` builds the
+per-event streams on the host, ``replay_streams`` replays them on the
+device.  The streamed replay (``repro_torch.stream``) calls them apart, to
+build and stage a chunk's streams while the card replays the one before.
+
 ``trace_level >= 1`` takes the per-event path (as the reference bypasses
 its blocked kernel) and also writes each event's post-event state into
 (L, E, ...) tensors allocated before the loop (``traced_stepper``): the
@@ -537,6 +542,49 @@ def packed_init_carry(fam: str, L: int, item_rows: int, max_bins: int,
     return carry
 
 
+def grow_live_items(carry, max_items: int):
+    """A packed carry with its item axis padded to ``max_items`` rows
+    (placements -1, RCP's slot memo 0): fresh rows are virgin, so any
+    stream that names them only after it assigns them replays the same.
+    Returns ``carry`` itself when it already has the rows."""
+    itemi = carry["itemi"]
+    L, n, _ = itemi.shape
+    if max_items <= n:
+        return carry
+    if "hagg" in carry:
+        raise ValueError("grow_live_items: hybrid's key table is sized by "
+                         "the whole instance and does not grow")
+    tail = torch.zeros((L, max_items - n, fk.ITEMI_COLS), dtype=itemi.dtype,
+                       device=itemi.device)
+    tail[:, :, fk.ITEMI_PLACE] = -1
+    return dict(carry, itemi=torch.cat([itemi, tail], dim=1))
+
+
+def grow_item_rows(carry, item_rows: int):
+    """Either carry of ``replay_init_carry`` with its item axis padded to
+    ``item_rows`` rows: the packed dict through ``grow_live_items``, the
+    per-event list by its placements (-1) and RCP's slot memo ``loc`` (0).
+    Decisions are unchanged.  Hybrid's carry does not grow."""
+    if isinstance(carry, dict):
+        return grow_live_items(carry, item_rows)
+    place = carry[7]
+    L, n = place.shape
+    if item_rows <= n:
+        return carry
+    out = list(carry)
+    out[7] = torch.cat([place, place.new_full((L, item_rows - n), -1)], 1)
+    if len(carry) > 12:
+        cat = dict(carry[12])
+        if "agg" in cat:
+            raise ValueError("grow_item_rows: hybrid's key table is sized "
+                             "by the whole instance and does not grow")
+        if "loc" in cat:
+            cat["loc"] = torch.cat(
+                [cat["loc"], cat["loc"].new_zeros((L, item_rows - n))], 1)
+        out[12] = cat
+    return out
+
+
 def replay_init_carry(policy: str, max_bins: int, d: int, item_rows: int,
                       *, L: int = 1, block_events: int = 0, device="cuda"):
     """The fresh carry ``_replay_batch`` starts from for this
@@ -665,18 +713,63 @@ def _replay_batch(sizes, times, kinds, items, pdeps, dmask, arrivals=None,
     replay does not return its carry."""
     if trace_level and return_carry:
         raise ValueError("a traced replay does not return its carry")
-    if block_events and block_events > 1 and not trace_level:
-        return _replay_batch_blocked(
-            sizes, times, kinds, items, pdeps, dmask, arrivals, rdeps,
-            n_items, policy=policy, max_bins=max_bins, device=device,
-            block_events=block_events, carry0=carry0,
-            return_carry=return_carry, ev_extra=ev_extra, migrate=migrate)
-    spec = policy_spec(policy)
-    dev = resolve_device(device)
-    ev_i, ev_f, ev_size, dmask_p, fam, d = _event_streams(
+    T = int(block_events) if block_events and block_events > 1 and \
+        not trace_level else 0
+    streams = event_streams(policy, sizes, times, kinds, items, pdeps, dmask,
+                            arrivals, rdeps, n_items, ev_extra,
+                            block_events=T)
+    return replay_streams(*streams, policy=policy, max_bins=max_bins,
+                          n_max=sizes.shape[1], device=device,
+                          block_events=T, carry0=carry0,
+                          return_carry=return_carry, migrate=migrate,
+                          trace_level=trace_level)
+
+
+def event_streams(policy, sizes, times, kinds, items, pdeps, dmask,
+                  arrivals=None, rdeps=None, n_items=None, ev_extra=None, *,
+                  block_events: int = 0):
+    """The host half of ``_replay_batch`` (same arguments): the replay's
+    per-event streams on the CPU, ``(ev_i, ev_f, ev_size, dmask_p, d)`` as
+    ``_event_streams`` builds them, padded with PAD events to a multiple of
+    ``block_events`` when it is > 1.  ``replay_streams`` replays them, on
+    the CPU or from copies on the card."""
+    ev_i, ev_f, ev_size, dmask_p, _fam, d = _event_streams(
         policy, sizes, times, kinds, items, pdeps, dmask, arrivals, rdeps,
         n_items, ev_extra)
-    L, n_max = sizes.shape[0], sizes.shape[1]
+    T = int(block_events)
+    pad = (-ev_size.shape[1]) % T if T > 1 else 0
+    if pad:
+        L = ev_size.shape[0]
+        fill_i = torch.zeros((ev_i.shape[0], L, pad), dtype=torch.int32)
+        fill_i[0] = PAD_KIND
+        ev_i = torch.cat([ev_i, fill_i], dim=2)
+        ev_f = torch.cat([ev_f, ev_f.new_zeros(ev_f.shape[:2] + (pad,))],
+                         dim=2)
+        ev_size = torch.cat([ev_size, ev_size.new_zeros((L, pad, DPAD))],
+                            dim=1)
+    return ev_i, ev_f, ev_size, dmask_p, d
+
+
+def replay_streams(ev_i, ev_f, ev_size, dmask_p, d: int, *, policy: str,
+                   max_bins: int, n_max: int, device="cuda",
+                   block_events: int = 0, carry0=None,
+                   return_carry: bool = False, migrate: bool = False,
+                   trace_level: int = 0):
+    """The device half of ``_replay_batch``: the replay of streams that
+    ``event_streams`` built (on the CPU or already copied to ``device``;
+    with ``block_events > 1`` padded to its multiple) over ``n_max`` item
+    rows, per event or, for ``block_events > 1``, blocked.  Returns what
+    ``_replay_batch`` returns."""
+    if block_events and block_events > 1 and not trace_level:
+        return _replay_batch_blocked(
+            ev_i, ev_f, ev_size, dmask_p, d, policy=policy,
+            max_bins=max_bins, n_max=n_max, device=device,
+            block_events=block_events, carry0=carry0,
+            return_carry=return_carry, migrate=migrate)
+    spec = policy_spec(policy)
+    fam = _KERNEL_FAMILY[spec.family]
+    dev = resolve_device(device)
+    L = ev_size.shape[0]
     # event-major streams on the device: each step reads one row of each
     ev_kind = ev_i[0].T.to(dev)
     ev_arr = (ev_kind == ARRIVAL_KIND).contiguous()
@@ -933,34 +1026,22 @@ def replay_block_kwargs(policy: str, max_bins: int, d: int) -> dict:
                 la_split=LA_BINARY_SPLIT, low=spec.low, high=spec.high)
 
 
-def _replay_batch_blocked(sizes, times, kinds, items, pdeps, dmask,
-                          arrivals, rdeps, n_items, *, policy: str,
-                          max_bins: int, device, block_events: int,
-                          carry0=None, return_carry: bool = False,
-                          ev_extra=None, migrate: bool = False):
-    """Event-blocked replay: a host loop over blocks of ``T`` events, each
+def _replay_batch_blocked(ev_i, ev_f, ev_size, dmask_p, d: int, *,
+                          policy: str, max_bins: int, n_max: int, device,
+                          block_events: int, carry0=None,
+                          return_carry: bool = False, migrate: bool = False):
+    """Event-blocked replay of ``event_streams``' streams (padded to a
+    multiple of ``T``): a host loop over blocks of ``T`` events, each
     block replayed by one launch of the megakernel
     (``kernels.ops.fitscore_replay_block``; its plain version on the CPU)
-    with the packed carry on the device.  The tail block is padded with
-    PAD events.  Decision for decision the per-event replay's."""
+    with the packed carry on the device.  Decision for decision the
+    per-event replay's."""
     spec = policy_spec(policy)
+    fam = _KERNEL_FAMILY[spec.family]
     dev = resolve_device(device)
-    ev_i, ev_f, ev_size, dmask_p, fam, d = _event_streams(
-        policy, sizes, times, kinds, items, pdeps, dmask, arrivals, rdeps,
-        n_items, ev_extra)
-    L, n_max = sizes.shape[0], sizes.shape[1]
+    L = ev_size.shape[0]
     T = int(block_events)
-    E = ev_size.shape[1]
-    NB = -(-E // T)
-    pad = NB * T - E
-    if pad:
-        fill_i = torch.zeros((ev_i.shape[0], L, pad), dtype=torch.int32)
-        fill_i[0] = PAD_KIND
-        ev_i = torch.cat([ev_i, fill_i], dim=2)
-        ev_f = torch.cat([ev_f, ev_f.new_zeros(ev_f.shape[:2] + (pad,))],
-                         dim=2)
-        ev_size = torch.cat([ev_size, ev_size.new_zeros((L, pad, DPAD))],
-                            dim=1)
+    NB = ev_size.shape[1] // T
     carry = packed_init_carry(fam, L, n_max, max_bins, dev) \
         if carry0 is None else _resume(carry0, dev)
     replay_chunk(carry, ev_i.to(dev), ev_f.to(dev), ev_size.to(dev),

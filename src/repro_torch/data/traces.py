@@ -7,15 +7,18 @@
     synthetic PM type.
   * ``make_huawei_like_suite``: the d = 2 (CPU, memory) analogue of
     Appendix D.
-  * ``load_azure_csv``: the real trace when present (data/azure/*.csv).
+  * ``load_azure_csv``: the real trace when present (data/azure/*.csv);
+    ``iter_azure_requests`` streams one machineId's requests from it line
+    by line (``repro_torch.stream.CsvSource``).
 
 The numpy draws are the reference's, in the same order, so the same seeds
 give identical instances.  All times are in seconds.
 """
 from __future__ import annotations
 
+import csv
 import os
-from typing import List, Optional
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -155,3 +158,65 @@ def load_azure_csv(root: str = "data/azure") -> Optional[List[Instance]]:
         out.append(Instance(np.clip(sizes[good], 1e-6, 1.0), arr[good],
                             dep[good], f"azure_pm{int(pm)}").sorted_by_arrival())
     return out or None
+
+
+def _azure_type_table(root: str, machine_id: int):
+    """The (clipped) size-vector table for one machineId, with the same
+    keep-nonzero-dims / clip cleaning as ``load_azure_csv``."""
+    tpath = os.path.join(root, "vmtype.csv")
+    ttab = np.genfromtxt(tpath, delimiter=",", names=True)
+    rows = ttab[ttab["machineId"] == machine_id]
+    if not len(rows):
+        raise ValueError(f"no machineId {machine_id} in {tpath}")
+    dims = ["core", "memory", "hdd", "ssd", "nic"]
+    cols = [np.nan_to_num(rows[c]) for c in dims]
+    keep = [i for i, c in enumerate(cols) if np.any(c > 0)]
+    return {int(v): np.clip(np.array([cols[i][j] for i in keep]),
+                            1e-6, 1.0)
+            for j, v in enumerate(rows["vmTypeId"])}
+
+
+def azure_stream_meta(root: str, machine_id: int) -> int:
+    """Dimension count of one machineId's cleaned size vectors (the
+    streaming reader's only up-front fact - no request scan needed)."""
+    table = _azure_type_table(root, machine_id)
+    return len(next(iter(table.values())))
+
+
+def iter_azure_requests(root: str = "data/azure", machine_id: int = 0) \
+        -> Iterator[Tuple[np.ndarray, float, float]]:
+    """Stream one machineId's ``(size_vec, arrival_s, departure_s)``
+    requests from an Azure-format trace without materializing it: only the
+    (small) vmtype table is loaded; vmrequest.csv is read line by line.
+
+    Applies exactly ``load_azure_csv``'s cleaning - requests joined
+    against the type table, ``starttime >= 0``, finite ``endtime <= 14``
+    days, strictly positive duration, times scaled to seconds - and
+    yields in file order, which for the published trace is arrival order.
+    Raises ``ValueError`` on a ``starttime`` regression rather than
+    buffering for a sort (a sorted spill would defeat the bounded-memory
+    contract; pre-sort the CSV once if yours is unordered)."""
+    table = _azure_type_table(root, machine_id)
+    rpath = os.path.join(root, "vmrequest.csv")
+    last = -np.inf
+    with open(rpath, newline="") as fh:
+        for row in csv.DictReader(fh):
+            try:
+                vmtype = int(float(row["vmTypeId"]))
+                start = float(row["starttime"])
+                end = float(row["endtime"])
+            except (KeyError, TypeError, ValueError):
+                continue            # genfromtxt turns bad cells into nan
+            size = table.get(vmtype)
+            if size is None or not (start >= 0) or not np.isfinite(end) \
+                    or end > 14.0:
+                continue
+            arr, dep = start * DAY, end * DAY
+            if dep <= arr:
+                continue
+            if arr < last:
+                raise ValueError(
+                    f"vmrequest.csv is not arrival-sorted: starttime "
+                    f"{start} after {last / DAY}; sort it once up front")
+            last = arr
+            yield size, arr, dep

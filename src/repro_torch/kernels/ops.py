@@ -31,6 +31,7 @@ import functools
 
 import torch
 
+from ..resilience import faults
 from . import fitscore as fk
 from .attention import decode_attention_ref, flash_attention_ref
 from .fitscore import (DPAD, KCAT, REPLAY_EV_F, REPLAY_EV_I, policy_code,
@@ -155,7 +156,12 @@ def fitscore_select(loads, counts, alive, open_seq, access_seq, closes, size,
     f32; cmask (L, Np) bool or None.  Returns (slot int32, found bool,
     no_free bool), each (L,).  For CUDA tensors the kernel
     ``select_route(Np)`` names, counted under ``fitscore_select`` and
-    ``fitscore_select_{route}``; ``select_ref`` for CPU ones."""
+    ``fitscore_select_{route}``; ``select_ref`` for CPU ones.
+
+    Crosses the fault seam ``kernel.select`` once a call.  Inside a CUDA
+    graph of replay steps the call runs only while the graph is captured:
+    its replays cross no seam (see ``resilience.faults``)."""
+    faults.fire("kernel.select")
     if loads.device.type == "cpu":
         return select_ref(loads, counts, alive, open_seq, access_seq, closes,
                           size, pdep, now, dmask, cmask, policy=policy)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import json
 import os
 import time
+import warnings
 from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
 
@@ -119,22 +120,71 @@ def summarize(events: Optional[List[dict]] = None,
     return "\n".join(lines)
 
 
+# Spin kernels (``torch.cuda._sleep``, "spin_kernel" in a trace) that open
+# every device-profiling session of ``torch_profile``.  In a process whose
+# earlier profiler sessions were read through ``key_averages``, a new
+# session's first kernel records are missing from its trace (31 kernels
+# gave 26 after two read sessions of 90 000 kernels; none were missing
+# after unread ones; behind the lead-in all 31 were there:
+# scripts/profile_sessions.py on the card); a short profiled block can lose
+# all of its kernels.  The lead-in takes those first records, and
+# ``lead_in_survivors`` checks that it was long enough: a session whose
+# trace holds none of its spin kernels may have lost the block's first
+# kernels too, and says so (``profiler.lead_in_lost``, a warning).
+LEAD_IN_KERNELS = 2048
+LEAD_IN_NAME = "obs.torch_profile.lead_in"
+
+# the torch_profile session open in this process, if any (sessions do not
+# nest: an inner one is a no-op inside an outer one)
+_ACTIVE: List[str] = []
+
+
+def lead_in_survivors(path: str) -> int:
+    """The lead-in's spin kernels in the Chrome trace at ``path``; none
+    means the lead-in was lost whole, and with it perhaps the block's
+    first kernels: counted ``profiler.lead_in_lost`` and warned."""
+    with open(path) as f:
+        trace = json.load(f)["traceEvents"]
+    n = sum(e.get("cat") == "kernel" and "spin_kernel" in e.get("name", "")
+            for e in trace)
+    if not n:
+        collector.counter_add("profiler.lead_in_lost")
+        warnings.warn(f"torch_profile: none of the {LEAD_IN_KERNELS} "
+                      f"lead-in kernels is in {path}; the block's first "
+                      "kernels may be missing too", RuntimeWarning,
+                      stacklevel=3)
+    return n
+
+
+def _lead_in(torch) -> None:
+    with torch.profiler.record_function(LEAD_IN_NAME):
+        for _ in range(LEAD_IN_KERNELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+
+
 @contextmanager
 def torch_profile(logdir: Optional[str] = None):
     """``torch.profiler`` start/stop around a block, recorded as a
     ``profiler.torch_trace`` span, writing a Chrome trace of the host ops
     and (when a card is in use) its kernels into ``logdir``.  Active only
-    when a log dir is given (or env ``REPRO_OBS_PROFILE`` names one);
-    otherwise a no-op, so it can wrap the replay dispatch unconditionally.
-    Yields the trace file's path, which exists once the block has exited."""
+    when a log dir is given (or env ``REPRO_OBS_PROFILE`` names one) and
+    no other ``torch_profile`` session is open; otherwise a no-op, so it
+    can wrap the replay dispatch unconditionally.  A session that profiles
+    the card starts with ``LEAD_IN_KERNELS`` spin kernels under a
+    ``LEAD_IN_NAME`` range, so that the block's own kernels are in the
+    trace, and its trace is checked for them (``lead_in_survivors``).
+    Yields the trace file's path, which exists once the block has
+    exited."""
     logdir = logdir or os.environ.get("REPRO_OBS_PROFILE", "")
-    if not logdir:
+    if not logdir or _ACTIVE:
         yield None
         return
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
+    cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+    if cuda:
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir, f"torch_trace_{os.getpid()}_"
@@ -143,8 +193,14 @@ def torch_profile(logdir: Optional[str] = None):
                         logdir=logdir):
         prof = profile(activities=acts)
         prof.start()
+        _ACTIVE.append(path)
         try:
+            if cuda:
+                _lead_in(torch)
             yield path
         finally:
+            _ACTIVE.pop()
             prof.stop()
             prof.export_chrome_trace(path)
+            if cuda:
+                lead_in_survivors(path)

@@ -25,8 +25,17 @@ counter, ``tag`` naming what decided: ``host`` (the numpy zoo), ``cuda``
 (the CUDA select) or ``torch`` (its plain version on the CPU,
 ``ops.resolved_select_impl``); the demand-vector memo counts
 ``serving.size_memo_hit`` / ``serving.size_memo_miss`` (``repro_torch.
-obs``).  A failing device select raises: the reference's degradation
-ladder and its megakernel route (``select_block``) are not ported yet.
+obs``).
+
+The device select runs behind a two-rung ladder (``_select_guarded``):
+each decision crosses the fault seam ``serving.select``, and when the
+device select fails with an injected fault or an OOM, the host zoo
+decides instead (counted ``resilience.degrade_select_<tag>_host``), so
+the scheduler never stops placing.  Only an injected fault degrades: an
+OOM is retried on the device and then raises, and any other failure (a
+CUDA error, a bug) raises at once, as ``resilience.guard`` classifies
+it.  The reference's
+megakernel route (``select_block``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..resilience import faults, guard
 from ..core.algorithms import get_algorithm
 from ..core.algorithms.departure import departure_window
 from ..core.algorithms.duration import duration_class
@@ -205,6 +215,35 @@ class DVBPScheduler:
             policy=self._device_policy)
         return int(slot[0]) if bool(found[0]) else -1
 
+    def _select_guarded(self, size: np.ndarray, pdep: Optional[float],
+                        now: float, arr: Arrival):
+        """The placement decision behind the serving ladder: the device
+        select, then the host zoo.  An OOM is retried
+        (``guard.guarded_call``); a device select that fails with a
+        degradable error (``guard.is_degradable``: an injected fault)
+        steps down to the host zoo, counted
+        ``resilience.degrade_select_<tag>_host``; anything else propagates.
+        Returns ``(idx, tag)``, ``tag`` naming what decided."""
+        if self.select_backend == "host":
+            return self.alg.select_bin(arr), "host"
+        tag = resolved_select_impl(self.device)
+        cat = self._request_category(pdep, now)
+        def attempt():
+            faults.fire("serving.select")
+            return self._select_device(size, pdep, now, cat)
+        try:
+            idx = guard.guarded_call(attempt, site="serving.select")
+        except Exception as e:
+            if not guard.is_degradable(e):
+                raise
+            obs.counter_add(f"resilience.degrade_select_{tag}_host")
+            obs.instant("resilience.degrade_select", frm=tag, to="host",
+                        error=str(e)[:200])
+            return self.alg.select_bin(arr), "host"
+        if cat is not None:
+            self.alg._cat = cat   # the host class's tag bookkeeping
+        return idx, tag
+
     # ------------------------------------------------------------------- api
     def place(self, req: Request, now: float) -> int:
         """Place a request; returns the replica (bin) index."""
@@ -216,14 +255,7 @@ class DVBPScheduler:
         arr = Arrival(req.rid, size, now, pdep)
         with obs.span("serving.select", policy=self._policy,
                       rid=req.rid) as sp:
-            if self.select_backend == "host":
-                idx, tag = self.alg.select_bin(arr), "host"
-            else:
-                cat = self._request_category(pdep, now)
-                idx = self._select_device(size, pdep, now, cat)
-                tag = resolved_select_impl(self.device)
-                if cat is not None:
-                    self.alg._cat = cat   # the host class's tag bookkeeping
+            idx, tag = self._select_guarded(size, pdep, now, arr)
             sp.set(backend=tag)
         self.last_select_backend = tag
         obs.counter_add(f"serving.select_{tag}")

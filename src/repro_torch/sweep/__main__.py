@@ -9,10 +9,15 @@ card (the reference's ``python -m repro sweep``, all 21 scan policies).
     # the consolidation axis: each value adds a grid column
     PYTHONPATH=src python -m repro_torch sweep --device cpu \
         --consolidate none underload:t0.25:e32
+    # checkpoint every replay under STORE/checkpoints: a killed sweep rerun
+    # with the same arguments resumes mid-scan, with the same store
+    PYTHONPATH=src python -m repro_torch sweep --resume \
+        --checkpoint-every 2048
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 from ..consolidate import ConsolidationSpec
 from ..core.torchsim import SCAN_POLICIES
@@ -70,6 +75,15 @@ def main(argv=None, prog: str = "python -m repro_torch sweep") -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device of the replay (default cuda; cpu runs "
                          "the plain PyTorch select)")
+    ap.add_argument("--resume", action="store_true",
+                    help="checkpoint every replay under STORE/checkpoints "
+                         "and resume a killed sweep bit for bit (sugar for "
+                         "--checkpoint-dir STORE/checkpoints)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="snapshot the replay's carry here between "
+                         "segments; a rerun resumes from the last snapshot")
+    ap.add_argument("--checkpoint-every", type=int, default=2048,
+                    help="events between checkpoint snapshots")
     args = ap.parse_args(argv)
 
     policies = SCAN_POLICIES if args.policies == "all" else \
@@ -87,11 +101,16 @@ def main(argv=None, prog: str = "python -m repro_torch sweep") -> None:
         consolidations=tuple(ConsolidationSpec.parse(t)
                              for t in args.consolidate))
     store = None if args.no_store else SweepStore(args.store)
+    ckpt_dir = args.checkpoint_dir
+    if args.resume and ckpt_dir is None:
+        ckpt_dir = os.path.join(args.store, "checkpoints")
     print(f"# sweep {spec.spec_hash()} -> "
           f"{store.path(spec) if store else '(not stored)'}")
     records = run_sweep(spec, store=store, force=args.force,
                         progress=lambda m: print(f"# {m}", flush=True),
-                        device=args.device, block_events=args.block_events)
+                        device=args.device, block_events=args.block_events,
+                        checkpoint_dir=ckpt_dir,
+                        checkpoint_every=args.checkpoint_every)
 
     print(f"{'policy':<18} {'pred':<14} {'n':>4} {'mean':>8} {'median':>8} "
           f"{'q1':>8} {'q3':>8}")

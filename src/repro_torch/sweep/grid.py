@@ -201,12 +201,20 @@ def _built_suite(suite: SuiteSpec):
 
 
 def run_sweep(spec: SweepSpec, store=None, force: bool = False,
-              progress=None, device="cuda",
-              block_events: int = 0) -> Dict[str, Dict]:
+              progress=None, device="cuda", block_events: int = 0,
+              checkpoint_dir: Optional[str] = None,
+              checkpoint_every: int = 2048) -> Dict[str, Dict]:
     """Expand and run the grid on ``device``; returns {result_key: record}.
     ``block_events`` > 1 replays through the event-blocked megakernel: an
     execution argument, so records and store files are the same for any
     value.
+
+    ``checkpoint_dir`` turns on checkpointed replay: the carry is
+    snapshotted every ``checkpoint_every`` events
+    (``resilience.checkpoint``), so a killed sweep rerun over the same spec
+    continues mid-scan bit for bit; the store's group journal already
+    makes whole finished groups resumable.  Each group crosses the fault
+    seam ``sweep.group``.
 
     record: usage_time, lower_bound, ratio, n_bins_opened, overflowed,
     max_bins, suite, instance, policy, pred, seed - the reference's schema;
@@ -217,7 +225,11 @@ def run_sweep(spec: SweepSpec, store=None, force: bool = False,
     reference's spans and counters are emitted under its names
     (``store.load``, ``suite.build``, ``sweep.pad``, ``store.save``,
     ``experiment.cache_hit`` / ``cache_miss``, ``sweep.suite_cache_*``)."""
+    from ..resilience import faults
+    from ..resilience.checkpoint import ReplayCheckpointer
     from .runner import run_batch
+    ckpt = None if checkpoint_dir is None else \
+        ReplayCheckpointer(checkpoint_dir, every_events=checkpoint_every)
     say = progress or (lambda *_: None)
     records: Dict[str, Dict] = {}
     if store is not None and not force:
@@ -250,10 +262,15 @@ def run_sweep(spec: SweepSpec, store=None, force: bool = False,
                 say(f"run  {suite.label()}/{_cell_label(policy, cons)}/"
                     f"{pred.label()} B={batch.B} S={len(seeds)}")
                 obs.counter_add("experiment.cache_miss")
+                faults.fire("sweep.group")
+                ckpt_key = "-".join((spec.suites_hash(), suite.label(),
+                                     _cell_label(policy, cons),
+                                     pred.label()))
                 res = run_batch(batch, policy, pdeps, spec.max_bins,
                                 spec.max_bins_cap, device=device,
                                 block_events=block_events,
-                                consolidate=cons if cons.enabled else None)
+                                consolidate=cons if cons.enabled else None,
+                                checkpoint=ckpt, checkpoint_key=ckpt_key)
                 group_recs = {}
                 for bi, inst in enumerate(insts):
                     for si, seed in enumerate(seeds):

@@ -6,7 +6,14 @@ to L = B*S lanes (lane = b*S + s, b-major: the store's records depend on
 this order) and replays them in one ``torchsim._replay_batch`` call, for
 any ``SCAN_POLICIES`` policy.  ``block_events=T > 1`` replays through the
 event-blocked megakernel, T events per launch; it never changes a result.
-A build or launch failure raises: there is no fallback path.
+
+Each replay dispatch crosses the fault seam ``sweep.scan`` and runs
+behind the resilience ladder (``resilience.guard``): an OOM is retried on
+the same plan; an injected fault degrades the plan blocked -> per event
+-> the CPU, with the same results.  Only injected faults degrade: a real
+OOM whose retries are spent, a CUDA launch or runtime error, a build
+failure or a bug raises.  ``checkpoint`` replays in checkpointed segments instead
+(``resilience.checkpointed_replay``), so a killed run resumes bit for bit.
 
 Overflow handling mirrors ``torchsim.simulate(auto_grow=True)`` lane-wise:
 any instance whose slot pool overflowed (in any seed row) is re-run with
@@ -37,6 +44,8 @@ from ..core.torchsim import (MAX_BINS_CAP, _replay_batch, grow_max_bins,
                              known_policy)
 from ..kernels.ops import resolve_device
 from ..obs.trace import ReplayTrace, from_scan
+from ..resilience import faults, guard
+from ..resilience.checkpoint import ReplayCheckpointer, checkpointed_replay
 from .batching import InstanceBatch, instances_pdeps
 
 
@@ -49,6 +58,48 @@ def _flatten_lanes(sizes, times, kinds, items, pdeps, dmask, arrivals,
     return (rep(sizes), rep(times), rep(kinds), rep(items),
             pdeps.reshape(B * S, n_max), rep(dmask), rep(arrivals),
             rep(rdeps), rep(n_items))
+
+
+def _dispatch(sub, *, policy: str, max_bins: int, device,
+              block_events: int, trace_level: int):
+    """One replay dispatch behind the resilience ladder
+    (``guard.replay_rungs``): an OOM retries on the same plan, an injected
+    fault moves down blocked -> per event -> the CPU, each rung with the
+    same decisions.  The results are read to the host inside
+    the ladder, so a failure at execution surfaces there."""
+    rungs = guard.replay_rungs(device, 0 if trace_level else block_events)
+
+    def attempt(rung):
+        faults.fire("sweep.scan")
+        out = _replay_batch(*sub, policy=policy, max_bins=max_bins,
+                            device=rung.device,
+                            block_events=rung.block_events,
+                            trace_level=trace_level)
+        # placements stay on the device: the sweep reads usage, bins and
+        # overflow only
+        host = tuple(None if k == 2 else v.cpu().numpy()
+                     for k, v in enumerate(out[:4]))
+        if trace_level:
+            host += ({k: v.cpu().numpy() for k, v in out[4].items()},)
+        return host
+
+    rung, out = guard.run_ladder(attempt, rungs, site="sweep.scan")
+    if rung is not rungs[0]:
+        obs.annotate(degraded_to=rung.label)
+    return out
+
+
+def _run_checkpointed(sub, *, policy: str, max_bins: int, device,
+                      block_events: int, ckpt: ReplayCheckpointer,
+                      key: str):
+    """One replay dispatch through the segmented checkpointed replay
+    (untraced; ``resilience.checkpoint``)."""
+    faults.fire("sweep.scan")
+    out = checkpointed_replay(sub, policy=policy, max_bins=max_bins,
+                              device=device, block_events=block_events,
+                              ckpt=ckpt, key=key)
+    return tuple(None if k == 2 else v.cpu().numpy()
+                 for k, v in enumerate(out))
 
 
 @dataclasses.dataclass
@@ -71,7 +122,9 @@ def run_batch(batch: InstanceBatch, policy: str,
               max_bins_cap: int = MAX_BINS_CAP, auto_grow: bool = True,
               device="cuda", block_events: int = 0,
               consolidate: Optional[ConsolidationSpec] = None,
-              trace_level: int = 0) -> BatchRunResult:
+              trace_level: int = 0,
+              checkpoint: Optional[ReplayCheckpointer] = None,
+              checkpoint_key: str = "") -> BatchRunResult:
     """Replay every lane of ``batch`` under ``policy`` (any
     ``SCAN_POLICIES`` name).
 
@@ -88,7 +141,14 @@ def run_batch(batch: InstanceBatch, policy: str,
     ``result.trace`` (level >= 2 adds the per-slot alive mask).  Tracing
     never changes decisions, but it changes the execution plan: the replay
     runs per event (``block_events`` is not used).  The consolidating path
-    is untraced.  ``trace_level=0`` runs the untraced replay unchanged."""
+    is untraced.  ``trace_level=0`` runs the untraced replay unchanged.
+
+    ``checkpoint`` (a ``resilience.ReplayCheckpointer``) replays in
+    checkpointed segments so that a killed run resumes bit for bit
+    (untraced; ``checkpoint_key`` names the snapshot file).  Without it,
+    each dispatch runs behind the resilience ladder: under an injected
+    fault on ``device="cuda"`` a degraded dispatch may finish on the CPU,
+    with the same results; a real failure raises."""
     if not known_policy(policy):
         raise KeyError(f"{policy!r} is not a scan policy")
     dev = resolve_device(device)
@@ -127,22 +187,30 @@ def run_batch(batch: InstanceBatch, policy: str,
             with obs.span("sweep.scan", policy=policy, max_bins=mb,
                           lanes=int(n) * S), obs.torch_profile():
                 if consolidate is not None:
+                    faults.fire("sweep.scan")
                     u, o, _placements, ov, stats = consolidated_replay(
-                        *sub, policy=policy, max_bins=mb, device=dev,
+                        *sub, policy=policy, max_bins=mb,
+                        device=dev,
                         block_events=block_events, spec=consolidate)
+                    u, o, ov = (v.cpu().numpy() for v in (u, o, ov))
                     migrations[lanes] = stats["migrations"].reshape(n, S)
                     migration_cost[lanes] = \
                         stats["migration_cost"].reshape(n, S)
+                elif checkpoint is not None and not trace_level:
+                    u, o, _placements, ov = _run_checkpointed(
+                        sub, policy=policy, max_bins=mb, device=dev,
+                        block_events=block_events, ckpt=checkpoint,
+                        key=f"{checkpoint_key or policy}-mb{mb}")
                 else:
-                    out = _replay_batch(
-                        *sub, policy=policy, max_bins=mb, device=dev,
-                        block_events=block_events, trace_level=trace_level)
+                    out = _dispatch(sub, policy=policy, max_bins=mb,
+                                    device=dev, block_events=block_events,
+                                    trace_level=trace_level)
                     u, o, _placements, ov = out[:4]
                     if trace_level:
-                        tr = {k: v.cpu().numpy() for k, v in out[4].items()}
-                usage[lanes] = u.cpu().numpy().reshape(n, S)
-                opened[lanes] = o.cpu().numpy().reshape(n, S)
-                ov = ov.cpu().numpy().reshape(n, S)
+                        tr = out[4]
+                usage[lanes] = u.reshape(n, S)
+                opened[lanes] = o.reshape(n, S)
+                ov = ov.reshape(n, S)
             obs.counter_add("sweep.scan_calls")
             over[lanes] = ov
             mb_used[lanes] = mb

@@ -30,7 +30,10 @@ the run):
   * every completed group is ALSO appended to a ``.journal.jsonl``
     sidecar (one checksummed line per group delta, fsynced) *before* the
     main rewrite, so a crash mid-rewrite loses nothing: ``load`` unions
-    journal records over the main blob, skipping torn tail lines.
+    journal records over the main blob, skipping torn tail lines;
+  * loading the main file crosses the fault seam ``store.load`` and each
+    save ends with ``store.save``, both with the file's ``path``, so the
+    ``truncate`` fault kind can tear it (``resilience.faults``).
 
 Multi-process safety (several sweep processes may share one store):
 ``save`` holds an exclusive ``flock`` on a ``.lock``
@@ -59,6 +62,7 @@ except ImportError:          # non-POSIX: single-process stores still work
     fcntl = None
 
 from .. import obs
+from ..resilience import faults
 from .grid import SweepSpec
 
 SCHEMA_VERSION = 2
@@ -88,6 +92,7 @@ class SweepStore:
         path = self.path(spec)
         if not os.path.exists(path):
             return {}
+        faults.fire("store.load", path=path)
         try:
             with open(path) as f:
                 blob = json.load(f)
@@ -204,4 +209,7 @@ class SweepStore:
             finally:
                 if os.path.exists(tmp):
                     os.unlink(tmp)
+        # the seam after the replace: the "truncate" fault kind corrupts
+        # the file just written, as a torn write would
+        faults.fire("store.save", path=path)
         return path

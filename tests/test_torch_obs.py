@@ -367,3 +367,53 @@ def test_torch_profile_writes_a_trace(tmp_path, monkeypatch):
     assert os.path.exists(path)
     assert json.loads(open(path).read())["traceEvents"]
     assert [e["name"] for e in events] == ["profiler.torch_trace"]
+
+
+def test_torch_profile_sessions_do_not_nest_and_skip_the_lead_in(
+        tmp_path, monkeypatch):
+    """A torch_profile inside another (run_batch opens one around each
+    replay dispatch) is a no-op, so the outer trace holds the inner block;
+    without a card no lead-in kernels are launched."""
+    monkeypatch.setenv("REPRO_OBS_PROFILE", str(tmp_path / "env"))
+    from repro_torch.obs import export
+    monkeypatch.setattr(export, "_lead_in", lambda torch: pytest.fail(
+        "a lead-in on the CPU"))
+    with obs.recording():
+        with obs.torch_profile(str(tmp_path / "outer")) as outer:
+            with obs.torch_profile(str(tmp_path / "inner")) as inner:
+                torch.ones(8).mul_(3)
+            batch = pack_instances([quantized_instance(1, 12, 3)])
+            run_batch(batch, "first_fit", max_bins=8, device="cpu")
+        events = obs.events()
+    assert inner is None and not os.path.exists(tmp_path / "inner")
+    assert not os.path.exists(tmp_path / "env")
+    names = {e["name"] for e in json.load(open(outer))["traceEvents"]}
+    assert "aten::mul_" in names
+    assert [e["name"] for e in events].count("profiler.torch_trace") == 1
+    with obs.torch_profile() as path:       # the env's directory
+        pass
+    assert os.path.dirname(path) == str(tmp_path / "env")
+
+
+@pytest.mark.parametrize("spins,lost", [(3, 0), (0, 1)])
+def test_lead_in_survivors_counts_and_warns_on_a_lost_lead_in(
+        tmp_path, spins, lost):
+    """A card trace is checked for the lead-in's spin kernels: a trace
+    with none of them is counted as ``profiler.lead_in_lost`` and warned
+    about, so a loss past the lead-in is seen, not silent."""
+    from repro_torch.obs import export
+    evs = [{"cat": "kernel", "name": "spin_kernel(long)", "ts": i}
+           for i in range(spins)]
+    evs.append({"cat": "kernel", "name": "replay_warp_kernel", "ts": 9})
+    evs.append({"cat": "cpu_op", "name": "spin_kernel", "ts": 10})
+    path = str(tmp_path / "t.json")
+    with open(path, "w") as f:
+        json.dump({"traceEvents": evs}, f)
+    with obs.recording():
+        if lost:
+            with pytest.warns(RuntimeWarning, match="lead-in"):
+                n = export.lead_in_survivors(path)
+        else:
+            n = export.lead_in_survivors(path)
+        assert obs.counter_get("profiler.lead_in_lost") == lost
+    assert n == spins
