@@ -226,6 +226,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    the in-memory replay's; a pool of 16 rows that grows; prefetch 0
    against 1 at 100k (in turns, equal); a stream killed at
    ``ckpt.save:kill:2`` in a subprocess, resumed here from its snapshot.
+17. The experiment API and online serving (``phase_api_serving``): (a)
+   ``api.Experiment`` over phase 4's 28 x 250 suite == ``run_sweep``'s
+   records, total ``REF_USAGE_28x4``; (b) ``serve_traffic`` (the live
+   one-lane carry, blocks of the megakernel, double-buffered) over
+   benchmarks/perf.py::serve_throughput's trace (2000 Poisson requests at
+   5e4 a second, 1.2e5 tokens a second) for one policy of each live family
+   (score, cbd, rcp, la, adaptive) at batch sizes 1, 32 and 256: each ==
+   the sequential host-zoo oracle decision for decision and in its fleet
+   numbers, a second pass adding no launch geometry (us a placed request,
+   p50 / p99 placement latency, the wall's split into host stream
+   building, launching and resolving); (c) a stream with one slot a
+   replica whose peak passes 256, from a 64-slot pool: it regrows to 512
+   and its blocks move from the warp kernel to the global one, == the
+   oracle; (e) phase 13's requests through the scheduler's ``select_block``
+   == the host zoo; (f) ``python -m repro_torch serve`` in both modes on
+   the card (its default) == with ``--device cpu``, row for row (the
+   wall-clock columns aside); (d) injected faults at ``serving.select``,
+   ``kernel.dispatch_block`` and ``kernel.select_block``: each steps one
+   rung and moves no other resilience counter, decisions unchanged.  Then
+   one early block of each geometry of (b) through both routes ==
+   ``replay_block_ref``, and its device time a block at L=1 beside its
+   bound.
 
 Then, as a measurement and not a check, on the main path's first rung
 (L=28, Np=64): torch.profiler over 2048 graphed per-event steps and 400
@@ -3701,6 +3723,362 @@ def phase_stream(dev, cells=STREAM_CELLS, chunk=STREAM_CHUNK,
     return dict(ops.launches), out
 
 
+# phase 17: benchmarks/perf.py::serve_throughput's shape - one Poisson trace
+# at a control-plane rate through the double-buffered block dispatcher at
+# batch sizes T, one policy a live kernel family (cbdt shares cbd's)
+SERVE_TRAFFIC = dict(n=2000, rate=5e4, seed=0, sigma_pred=0.3)
+SERVE_TPS = 1.2e5
+SERVE_TS = (1, 32, 256)
+SERVE_FAMILIES = (("best_fit_linf", "best_fit", {"norm": "linf"}),
+                  ("cbd", "cbd", {"beta": 2.0}), ("rcp", "rcp", None),
+                  ("la_binary", "lifetime_alignment", {"mode": "binary"}),
+                  ("adaptive", "adaptive", None))
+# the regrow stream: one slot a replica, so open replicas = requests in
+# flight; at 4e4 tokens a second the peak passes 256, from a 64-slot pool
+SERVE_REGROW_TPS = 4e4
+# phase 17 (f): ``python -m repro_torch serve`` in both modes, by
+# subprocess, on the card by default and again with ``--device cpu``
+SERVE_CLI = ("serve", "--requests", "400", "--policies",
+             "best_fit_linf,cbd,rcp")
+SERVE_CLI_MODES = {
+    "planning": ("--sigma", "0.5", "--baselines"),
+    "traffic": ("--traffic", "poisson", "--rate", "5e4", "--tps", "1.2e5",
+                "--sigma", "0.3")}
+# the fault plans of phase 17 (d): (plan, the serve path or the scheduler's
+# block select, the resilience counters the plan must move and by how much)
+SERVE_FAULTS = (
+    ("serving.select:xla:3:1", "dispatch",
+     {"resilience.degrade_dispatch_block_events": 1}),
+    ("serving.select:xla:5:2", "dispatch",
+     {"resilience.degrade_dispatch_block_events": 1,
+      "resilience.degrade_dispatch_events_cpu": 1}),
+    ("kernel.dispatch_block:xla:7:1", "dispatch",
+     {"resilience.degrade_dispatch_block_events": 1}),
+    ("kernel.select_block:xla:4:3", "select",
+     {"resilience.degrade_select_cuda_block_cuda": 3}),
+)
+
+
+def serve_oracle(reqs, policy, kwargs, caps, tps):
+    """The sequential host oracle of ``serve_traffic``: one host-zoo
+    ``DVBPScheduler.place`` a request at its arrival, departures in finish
+    order.  Returns (placements, (replica_seconds, opened, peak))."""
+    import heapq
+    from repro_torch.serving.scheduler import DVBPScheduler
+    sched = DVBPScheduler(policy, caps, kwargs, tokens_per_second=tps)
+    heap, placements = [], {}
+    for r in sorted(reqs, key=lambda x: x.arrival):
+        while heap and heap[0][0] <= r.arrival:
+            ft, rid = heapq.heappop(heap)
+            sched.finish(rid, ft)
+        placements[r.rid] = sched.place(r, r.arrival)
+        heapq.heappush(heap, (r.arrival + r.decode_len / tps, r.rid))
+    while heap:
+        ft, rid = heapq.heappop(heap)
+        sched.finish(rid, ft)
+    st = sched.stats
+    return placements, (st.replica_seconds, st.replicas_opened,
+                        st.peak_replicas)
+
+
+def served(rep):
+    return rep.placements, (rep.replica_seconds, rep.replicas_opened,
+                            rep.peak_replicas)
+
+
+def phase_api_serving(dev, n_zoo: int = ZOO_REQUESTS):
+    """Phase 17: the experiment API and online serving on the card.
+
+    (a) ``api.Experiment`` over phase 4's 28 x 250 seed-11 suite and
+    ``HEADLINE_POLICIES`` == ``run_sweep``'s records, total usage
+    ``REF_USAGE_28x4``.  (b) ``serve_traffic`` over ``poisson_requests(
+    **SERVE_TRAFFIC)`` at ``SERVE_TPS`` for ``SERVE_FAMILIES`` at batch
+    sizes ``SERVE_TS`` (benchmarks/perf.py::serve_throughput's geometries
+    and pool): each == the sequential host oracle, decision for decision
+    and in its fleet numbers; a second pass adds no launch geometry and is
+    the timed one (us a placed request, the latency quantiles, the wall's
+    split into host stream building, launching and resolving).  (c) One
+    stream with one slot a replica at ``SERVE_REGROW_TPS``, from a 64-slot
+    pool: the pool regrows past 256 slots, the blocks move from the warp
+    kernel to the global one, == the oracle.  (d) ``SERVE_FAULTS``: each
+    injected fault steps one rung and nothing else moves; decisions == the
+    fault-free run.  (e) Phase 13's requests through the scheduler's
+    ``select_block`` (the megakernel at T=1 a decision) == the host zoo.
+    (f) ``python -m repro_torch serve`` (``SERVE_CLI``) in both modes, on
+    the card by default == ``--device cpu``.
+    Then one mid-stream block of each geometry, copied from (b)'s first
+    pass: both routes == ``replay_block_ref`` on it, and the megakernel's
+    device time a block at L=1 beside its bound.  Returns the launches of
+    (a)-(e) and the numbers."""
+    from repro_torch import api, obs
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fitscore import PAD_KIND
+    from repro_torch.resilience import faults
+    from repro_torch.serving import dispatch
+    from repro_torch.serving.dispatch import serve_traffic
+    from repro_torch.serving.scheduler import (_DEVICE_CATEGORY_POLICIES,
+                                               _DEVICE_POLICIES,
+                                               DVBPScheduler,
+                                               ReplicaCapacity)
+    from repro_torch.serving.traffic import poisson_requests
+    from repro_torch.sweep import SuiteSpec, SweepSpec, run_sweep
+
+    def resilience_moved():
+        return {k: v for k, v in obs.counters().items()
+                if k.startswith("resilience.") and v}
+
+    res0 = resilience_moved()
+    geo0 = ops.dispatch_trace_count()
+    out = {}
+    ops.launches.clear()
+    # (a) the experiment API over the headline suite
+    t0 = time.perf_counter()
+    exp = api.Experiment(api.synthetic("azure", 28, 250, seed=11),
+                         policies=HEADLINE_POLICIES, max_bins=64)
+    res = exp.run(device=dev)
+    records = run_sweep(SweepSpec(suites=(SuiteSpec("azure", 28, 250, 11),),
+                                  policies=HEADLINE_POLICIES, max_bins=64),
+                        device=dev)
+    total = res.usage_total()
+    if res.records != records or f"{total:.0f}" != str(REF_USAGE_28x4):
+        fail(f"phase 17 (a): Experiment {total:.0f} ({len(res.records)} "
+             f"records) != run_sweep's records / REF_USAGE_28x4")
+    say(f"# phase 17 (a): api.Experiment 28x250 seed 11 "
+        f"{','.join(HEADLINE_POLICIES)} == run_sweep's {len(records)} "
+        f"records, total usage {total:.2f} == REF_USAGE_28x4 in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (b) serve_traffic, five families x T, against the host oracle
+    caps = ReplicaCapacity()
+    reqs = poisson_requests(SERVE_TRAFFIC["n"], rate=SERVE_TRAFFIC["rate"],
+                            seed=SERVE_TRAFFIC["seed"],
+                            sigma_pred=SERVE_TRAFFIC["sigma_pred"])
+    split = collections.Counter()
+
+    def timed(name):
+        orig = getattr(dispatch.BlockDispatcher, name)
+
+        def wrap(self, *a, **k):
+            t = time.perf_counter()
+            try:
+                return orig(self, *a, **k)
+            finally:
+                split[name] += time.perf_counter() - t
+        return orig, wrap
+
+    captured, seen = {}, collections.Counter()
+    orig_dispatch = ops.fitscore_replay_dispatch
+
+    def capture(carry, ev_i, ev_f, ev_size, dmask, **kw):
+        T = ev_size.shape[1]
+        seen[T] += 1
+        if seen[T] == 3:   # an early mid-stream block of this geometry
+            captured[T] = ({k: v.clone() for k, v in carry.items()},
+                           (ev_i.clone(), ev_f.clone(), ev_size.clone()),
+                           dmask.clone(), kw)
+        return orig_dispatch(carry, ev_i, ev_f, ev_size, dmask, **kw)
+
+    stats = {}
+    t_oracle = t_first = 0.0
+    for kpol, hpol, kw in SERVE_FAMILIES:
+        t = time.perf_counter()
+        want = serve_oracle(reqs, hpol, kw, caps, SERVE_TPS)
+        t_oracle += time.perf_counter() - t
+        for T in SERVE_TS:
+            args = dict(tps=SERVE_TPS, batch_max=T, max_bins=64, device=dev)
+            t = time.perf_counter()
+            if kpol == SERVE_FAMILIES[0][0]:
+                ops.fitscore_replay_dispatch = capture
+            try:
+                first = serve_traffic(reqs, kpol, caps, **args)
+            finally:
+                ops.fitscore_replay_dispatch = orig_dispatch
+            t_first += time.perf_counter() - t
+            g = ops.dispatch_trace_count()
+            split.clear()
+            saved = [timed(nm) for nm in ("_streams", "_launch", "_resolve")]
+            for (o, w), nm in zip(saved, ("_streams", "_launch", "_resolve")):
+                setattr(dispatch.BlockDispatcher, nm, w)
+            try:
+                rep = serve_traffic(reqs, kpol, caps, **args)
+            finally:
+                for (o, w), nm in zip(saved, ("_streams", "_launch",
+                                              "_resolve")):
+                    setattr(dispatch.BlockDispatcher, nm, o)
+            if served(first) != want or served(rep) != want:
+                bad = served(first)[0] != want[0]
+                fail(f"phase 17 (b): {kpol} T={T}: serve_traffic != the "
+                     f"host oracle ({'placements' if bad else 'fleet'}: "
+                     f"{served(rep)[1]} vs {want[1]})")
+            if ops.dispatch_trace_count() != g or \
+                    rep.metrics.get("serving.jit_trace", 0):
+                fail(f"phase 17 (b): {kpol} T={T}: the second pass added "
+                     "launch geometries")
+            p50, p99 = rep.latency_quantiles()
+            wall = rep.wall_seconds
+            stats[(kpol, T)] = dict(
+                us_per_request=wall / rep.placed * 1e6, p50_us=p50 * 1e6,
+                p99_us=p99 * 1e6, wall_s=wall,
+                streams_share=split["_streams"] / wall,
+                launch_share=split["_launch"] / wall,
+                resolve_share=split["_resolve"] / wall,
+                peak=rep.peak_replicas)
+    for kpol, _, _ in SERVE_FAMILIES:
+        say(f"# phase 17 (b): {kpol}: " + "; ".join(
+            f"T={T} {s['us_per_request']:.1f} us a request, p50 "
+            f"{s['p50_us']:.0f} / p99 {s['p99_us']:.0f} us, host streams "
+            f"{s['streams_share']:.3f} / launch {s['launch_share']:.3f} / "
+            f"resolve {s['resolve_share']:.3f} of the wall"
+            for T in SERVE_TS for s in [stats[(kpol, T)]]))
+    say(f"# phase 17 (b): {SERVE_TRAFFIC['n']} requests x "
+        f"{len(SERVE_FAMILIES)} families x T {SERVE_TS} == the host oracle "
+        f"(placements, replica ids, replica-seconds, opened, peak "
+        f"{stats[(SERVE_FAMILIES[0][0], 1)]['peak']}); first passes "
+        f"{t_first:.1f} s, the oracle {t_oracle:.1f} s; launch geometries "
+        f"{ops.dispatch_trace_count() - geo0}, none added by the second "
+        "passes")
+
+    # (c) a stream that regrows 64 -> 512 slots across the route switch
+    caps1 = ReplicaCapacity(slots=1)
+    want = serve_oracle(reqs, "best_fit", {"norm": "linf"}, caps1,
+                        SERVE_REGROW_TPS)
+    c0, g0 = obs.counter_get("serving.carry_regrow"), \
+        ops.launches["fitscore_replay_block_global"]
+    rep = serve_traffic(reqs, "best_fit_linf", caps1, tps=SERVE_REGROW_TPS,
+                        batch_max=32, max_bins=64, device=dev)
+    regrows = obs.counter_get("serving.carry_regrow") - c0
+    glob = ops.launches["fitscore_replay_block_global"] - g0
+    if served(rep) != want or rep.peak_replicas <= ops.REPLAY_WARP_MAX_SLOTS \
+            or regrows < 3 or not glob:
+        fail(f"phase 17 (c): peak {rep.peak_replicas}, {regrows} regrows, "
+             f"{glob} global launches, == oracle {served(rep) == want}")
+    say(f"# phase 17 (c): one slot a replica, peak {rep.peak_replicas} "
+        f"replicas: the pool regrew {regrows} times from 64 slots and "
+        f"{glob} blocks took the global kernel; == the host oracle")
+    out["regrow"] = dict(peak=rep.peak_replicas, regrows=regrows,
+                         global_launches=glob)
+
+    # (e) the scheduler's megakernel select against the host zoo
+    zreqs = zoo_requests(n_zoo)
+    zkw = {"cbdt": {"rho": 8.0}}
+    device = [(p, kw) for p in _DEVICE_POLICIES + _DEVICE_CATEGORY_POLICIES
+              for kw in ([{"norm": m} for m in ("l1", "l2", "linf")]
+                         if p == "best_fit" else [zkw.get(p)])]
+    t0 = time.perf_counter()
+    for name, kw in device:
+        want = drive_scheduler(DVBPScheduler(
+            name, policy_kwargs=kw, tokens_per_second=ZOO_TPS), zreqs)
+        c0 = ops.launches["fitscore_select_block"]
+        sched = DVBPScheduler(name, policy_kwargs=kw,
+                              tokens_per_second=ZOO_TPS,
+                              select_backend="device", device=dev,
+                              select_block=True)
+        got = drive_scheduler(sched, zreqs)
+        if got != want or sched.last_select_backend != "cuda_block" or \
+                ops.launches["fitscore_select_block"] - c0 != n_zoo:
+            fail(f"phase 17 (e): {name} {kw}: the block select != the host "
+                 f"zoo ({got[1]} vs {want[1]}, backend "
+                 f"{sched.last_select_backend})")
+    say(f"# phase 17 (e): {n_zoo} requests x {len(device)} configurations "
+        f"through select_block == the host zoo in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # (f) the serve CLI in both modes: the card (its default) == the CPU
+    t0 = time.perf_counter()
+    procs = {(mode, dflag): subprocess.Popen(
+        [sys.executable, "-m", "repro_torch", *SERVE_CLI, *margs, *dflag],
+        cwd=ROOT, env=_port_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for mode, margs in SERVE_CLI_MODES.items()
+        for dflag in ((), ("--device", "cpu"))}
+    rows = {}
+    for key, proc in procs.items():
+        stdout, err = proc.communicate(timeout=600)
+        if proc.returncode:
+            fail(f"phase 17 (f): serve {key}: rc {proc.returncode} "
+                 f"{err[-1500:]}")
+        body = [ln.split() for ln in stdout.splitlines()
+                if ln and not ln.startswith("#")][1:]
+        # traffic mode: req/s and the latencies are wall clock
+        rows[key] = [r[:1] + r[4:] for r in body] \
+            if key[0] == "traffic" else body
+    for mode in SERVE_CLI_MODES:
+        card, cpu = rows[(mode, ())], rows[(mode, ("--device", "cpu"))]
+        if card != cpu or len(card) < 3:
+            fail(f"phase 17 (f): serve {mode} on the card {card} != on the "
+                 f"CPU {cpu}")
+    say(f"# phase 17 (f): python -m repro_torch serve, capacity planning "
+        f"and --traffic poisson, on the card by default == --device cpu, "
+        f"row for row ({time.perf_counter() - t0:.1f} s, 4 processes)")
+    moved = {k: v - res0.get(k, 0) for k, v in resilience_moved().items()
+             if v != res0.get(k, 0)}
+    if moved:
+        fail(f"phase 17: resilience counters moved without a fault plan: "
+             f"{moved}")
+    launches = dict(ops.launches)
+
+    # (d) injected faults: one rung a fault, the same decisions
+    small = reqs[:400]
+    for plan, path, moves in SERVE_FAULTS:
+        before = obs.counters()
+        if path == "dispatch":
+            want = served(serve_traffic(small, "best_fit_linf", caps,
+                                        tps=SERVE_TPS, batch_max=32,
+                                        device=dev))
+            with faults.injected(plan) as p:
+                got = served(serve_traffic(small, "best_fit_linf", caps,
+                                           tps=SERVE_TPS, batch_max=32,
+                                           device=dev))
+        else:
+            want = drive_scheduler(DVBPScheduler(
+                "cbd", tokens_per_second=ZOO_TPS), zreqs[:200])
+            with faults.injected(plan) as p:
+                got = drive_scheduler(DVBPScheduler(
+                    "cbd", tokens_per_second=ZOO_TPS,
+                    select_backend="device", device=dev, select_block=True),
+                    zreqs[:200])
+        delta = {k: v for k, v in obs.counter_deltas(before).items()
+                 if k.startswith("resilience.")}
+        expect = dict(moves, **{"resilience.fault_xla":
+                                 sum(p.fired.values())})
+        if got != want or delta != expect:
+            fail(f"phase 17 (d): {plan}: == fault-free {got == want}, "
+                 f"counters {delta} (expected {expect})")
+    say(f"# phase 17 (d): {len(SERVE_FAULTS)} fault plans "
+        f"({', '.join(p for p, _, _ in SERVE_FAULTS)}): each fault stepped "
+        "one rung, no other resilience counter moved, decisions == the "
+        "fault-free runs")
+
+    # the path's blocks at L=1: both routes == plain, device time, bound
+    blocks = {}
+    for T, (carry, blk, dmask, kw) in sorted(captured.items()):
+        bkw = torchsim.replay_block_kwargs(kw["policy"], kw["n"], kw["d"])
+        after = {k: v.clone() for k, v in carry.items()}
+        routes, _ = check_routes(after, blk, dmask, bkw,
+                                 f"serving block T={T}")
+        nbytes, nops = block_bytes(carry, after, blk, bkw["family"],
+                                   kw["d"])
+        t_bytes = float(nbytes) / HBM_BYTES_PER_S * 1e3
+        t_ops = float(nops) / F32_OPS_PER_S * 1e3
+        runs = [{k: v.clone() for k, v in carry.items()} for _ in range(50)]
+        ms = time_launches([ops.replay_block_launcher(
+            c, *blk, dmask, route=ops.replay_route(kw["n"]), **bkw)
+            for c in runs])
+        blocks[T] = dict(device_ms=ms, bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else
+                         "operations", routes=routes,
+                         events=int((blk[0][0] != PAD_KIND).sum()))
+    say("# phase 17: the dispatcher's megakernel at L=1 (best_fit_linf, "
+        "the 3rd block of each geometry, both routes == replay_block_ref):"
+        " " + "; ".join(
+            f"T={T} ({b['events']} real events) {b['device_ms'] * 1e3:.2f} "
+            f"us a block, bound {b['bound_ms'] * 1e3:.4f} us by "
+            f"{b['bound_by']}" for T, b in blocks.items()))
+    out.update(stats={f"{k}_T{T}": v for (k, T), v in stats.items()},
+               blocks=blocks)
+    return launches, out
+
+
 def profile_run(dev, label, fn, units: int, unit: str) -> dict:
     """Device busy time against wall time of ``fn`` under torch.profiler,
     per ``unit``: {"wall_us", "busy_us", "share" (%), "kernels", "by_name"
@@ -3913,6 +4291,7 @@ def main() -> None:
     obs_launches, trace_steps = phase_obs(dev)
     res_launches, res_numbers = phase_resilience(dev)
     stream_launches, stream_numbers = phase_stream(dev)
+    api_launches, api_numbers = phase_api_serving(dev)
     prof = phase_profile(dev)
     say(f"# total {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -3964,6 +4343,23 @@ def main() -> None:
              stream_chunk_ms={
                  str(n): stream_numbers[n]["first_fit_blocked"]["chunk_ms"]
                  for n, _, _ in STREAM_CELLS},
+             dispatch_phase_launches=api_launches.get(
+                 "fitscore_replay_block", 0),
+             dispatch_launches_by_T={
+                 k[len("fitscore_replay_dispatch_T"):]: v
+                 for k, v in sorted(api_launches.items())
+                 if k.startswith("fitscore_replay_dispatch_T")},
+             select_block_launches=api_launches.get(
+                 "fitscore_select_block", 0),
+             serve_block_device_ms={
+                 str(T): b["device_ms"]
+                 for T, b in api_numbers["blocks"].items()},
+             serve_block_bound_ms={
+                 str(T): b["bound_ms"]
+                 for T, b in api_numbers["blocks"].items()},
+             serve_us_per_request={
+                 k: v["us_per_request"]
+                 for k, v in api_numbers["stats"].items()},
              **mk),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu + "

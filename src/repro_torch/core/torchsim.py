@@ -397,18 +397,18 @@ def _event_streams(policy, sizes, times, kinds, items, pdeps, dmask,
     def g(a):
         return a.gather(1, items)
 
-    ev_i = [kinds, items]
-    for nm in REPLAY_EV_I[fam]:
-        ev_i.append(xs_extra[0] if nm == "x" else g(consts[nm]))
-    ev_f = [times, g(pdeps)] + [g(consts[nm]) for nm in REPLAY_EV_F[fam]]
+    ints = {nm: xs_extra[0] if nm == "x" else g(consts[nm])
+            for nm in REPLAY_EV_I[fam]}
+    floats = {nm: g(consts[nm]) for nm in REPLAY_EV_F[fam]}
+    ev_i, ev_f = fk.stack_event_streams(
+        fam, dict(ints, kind=kinds, item=items),
+        dict(floats, t=times, pdep=g(pdeps)))
     sizes_p = torch.zeros((L, n_max, DPAD), dtype=torch.float32)
     sizes_p[:, :, :d] = sizes
     dmask_p = torch.zeros((L, DPAD), dtype=torch.float32)
     dmask_p[:, :d] = 1.0 if dmask is None else dmask
     ev_size = sizes_p.gather(1, items[:, :, None].expand(-1, -1, DPAD))
-    return (torch.stack([a.to(torch.int32) for a in ev_i]),
-            torch.stack([a.to(torch.float32) for a in ev_f]), ev_size,
-            dmask_p, fam, d)
+    return ev_i, ev_f, ev_size, dmask_p, fam, d
 
 
 # ======================================================================
@@ -540,6 +540,45 @@ def packed_init_carry(fam: str, L: int, item_rows: int, max_bins: int,
         carry["ragg"] = zeros((L, fk.RAGG_ROWS, DPAD), f32)
         carry["ron"] = zeros((L, KCAT, fk.RON_COLS), i32)
     return carry
+
+
+def make_live_carry(policy: str, max_bins: int, d: int,
+                    max_items: int = 256, device="cuda"):
+    """A fresh one-lane packed carry for an *open-ended* event stream: the
+    serving front end's live fleet (``serving.dispatch.BlockDispatcher``),
+    ``packed_init_carry`` at L=1 over ``max_bins`` slots and ``max_items``
+    item rows, so ``kernels.ops.fitscore_replay_dispatch`` replays event
+    blocks on it as the blocked sweep does.  Hybrid has no live form: its
+    key table is built from the whole instance up front."""
+    fam = _KERNEL_FAMILY[policy_spec(policy).family]
+    if fam == "hybrid":
+        raise ValueError(f"{policy!r} is clairvoyant-only (whole-instance "
+                         "key table); no live serving carry")
+    select_pad_geometry(max_bins, d)
+    return packed_init_carry(fam, 1, max_items, max_bins, device)
+
+
+def grow_live_carry(carry, max_bins: int, d: int):
+    """A live carry with its slot axis padded to ``max_bins`` slots (the
+    serving overflow rung).  The new slots are virgin (zero loads and
+    counts, closes ``SCORE_NEG``, tags ``TAG_VIRGIN``), so a stream that
+    did not overflow the old pool makes the same decisions on the grown
+    one.  Returns ``carry`` itself when it already has the slots."""
+    select_pad_geometry(max_bins, d)
+    loads = carry["loads"]
+    L, Np, _ = loads.shape
+    if max_bins <= Np:
+        return carry
+
+    def wide(a, fill=None, col=None):
+        tail = a.new_zeros((L, max_bins - Np) + a.shape[2:])
+        if col is not None:
+            tail[:, :, col] = fill
+        return torch.cat([a, tail], dim=1)
+
+    return dict(carry, loads=wide(loads),
+                slotf=wide(carry["slotf"], NEG, fk.SLOTF_CLOSES),
+                sloti=wide(carry["sloti"], TAG_VIRGIN, fk.SLOTI_TAG))
 
 
 def grow_live_items(carry, max_items: int):

@@ -613,6 +613,22 @@ def pack_carry(S, carry, family: str) -> None:
         carry["ron"][..., 0].copy_(S["on"])
 
 
+REPLAY_EV_I_NAMES = {fam: ("kind", "item") + ex for fam, ex in REPLAY_EV_I.items()}
+REPLAY_EV_F_NAMES = {fam: ("t", "pdep") + ex for fam, ex in REPLAY_EV_F.items()}
+
+
+def stack_event_streams(family: str, ints, floats):
+    """The megakernel's stacked per-event streams from named ones: ``ev_i``
+    (2 + ni, L, E) int32 in the order ``REPLAY_EV_I_NAMES[family]`` and
+    ``ev_f`` (2 + nf, L, E) f32 in the order ``REPLAY_EV_F_NAMES[family]``
+    (``event_extras`` reads them back by name).  ``ints`` / ``floats`` map
+    those names to (L, E) tensors."""
+    return (torch.stack([torch.as_tensor(ints[nm]).to(torch.int32)
+                         for nm in REPLAY_EV_I_NAMES[family]]),
+            torch.stack([torch.as_tensor(floats[nm]).to(torch.float32)
+                         for nm in REPLAY_EV_F_NAMES[family]]))
+
+
 def event_extras(family: str, ev_i, ev_f):
     """The family's extra per-event streams by name, from the stacked
     ``ev_i`` / ``ev_f`` rows past kind/item and t/pdep, in the dtypes the

@@ -4,7 +4,9 @@ to 256 slots, a CTA a lane above, see ``select_route``), the event-blocked
 replay megakernel (``fitscore_replay_block``: ``csrc/replay_block_sm90.cu``,
 one warp a lane, for pools of up to 256 slots, ``csrc/replay_block.cu``
 otherwise, see ``replay_route``; with ``replay_chunk``, the host loop over
-a chunk's blocks), the legacy
+a chunk's blocks; ``fitscore_replay_dispatch``, a block of the serving
+front end's live carry; ``fitscore_select_block``, one scheduler decision
+at T=1), the legacy
 single-pool scorer (``fitscore``, ``csrc/fitscore.cu``), the attention
 kernels of the model stack (``flash_attention``:
 ``csrc/flash_attention_sm90.cu`` on the tensor cores for bf16 at hd 64 or
@@ -21,7 +23,9 @@ route (``fitscore_select_warp`` or ``fitscore_select_cta``), the
 megakernel's launches with its MIGRATE branch
 count under ``fitscore_replay_block_migrate``, and every megakernel launch
 also under its route (``fitscore_replay_block_warp`` or
-``fitscore_replay_block_global``); flash attention's calls through its
+``fitscore_replay_block_global``) and, launched for the serving front end
+or the scheduler, under ``fitscore_replay_dispatch_T{T}`` or
+``fitscore_select_block``; flash attention's calls through its
 tensor-core kernel also under ``flash_attention_sm90``.
 """
 from __future__ import annotations
@@ -359,6 +363,105 @@ def replay_chunk(carry, ev_i, ev_f, ev_size, dmask, *, block_events: int,
                               ev_f[:, :, b:b + T], ev_size[:, b:b + T],
                               dmask, **block_kwargs)
     return carry
+
+
+# the launch geometries fitscore_replay_dispatch has served: (policy, Np,
+# dpad, T, migrate, route) - the port's stand-in for the reference's jit
+# cache of its block dispatch (``dispatch_trace_count``)
+_dispatch_geometries: set = set()
+
+
+def fitscore_replay_dispatch(carry, ev_i, ev_f, ev_size, dmask, *,
+                             policy: str, n: int, d: int,
+                             migrate: bool = False):
+    """One ``T``-event block of a *live* replay, the serving front end's: a
+    batch of pending arrivals (plus the departures that fired since the
+    last block, plus PAD filler up to the block geometry) replayed by
+    ``fitscore_replay_block`` on a persistent one-lane carry
+    (``core.torchsim.make_live_carry``), updated in place and returned.
+
+    ``policy`` is any scan policy whose family has a live form (score, cbd,
+    cbdt, rcp, la, adaptive); its ``PolicySpec`` knobs resolve here, so the
+    caller passes one name.  Crosses the fault seam
+    ``kernel.dispatch_block`` once a call.  Each distinct launch geometry
+    is remembered (``dispatch_trace_count``); on the card the launch also
+    counts under ``fitscore_replay_dispatch_T{T}``."""
+    from ..core.torchsim import replay_block_kwargs
+    faults.fire("kernel.dispatch_block")
+    dev = carry["loads"].device
+    Np, T = carry["loads"].shape[1], ev_size.shape[1]
+    route = replay_route(Np) if dev.type == "cuda" else dev.type
+    _dispatch_geometries.add((policy, Np, ev_size.shape[2], T, migrate,
+                              route))
+    fitscore_replay_block(carry, ev_i, ev_f, ev_size, dmask, migrate=migrate,
+                          **replay_block_kwargs(policy, n, d))
+    if dev.type == "cuda":
+        launches[f"fitscore_replay_dispatch_T{T}"] += 1
+    return carry
+
+
+def dispatch_trace_count() -> int:
+    """How many distinct launch geometries ``fitscore_replay_dispatch`` has
+    served in this process: the serving front end's invariant (after the
+    fixed block geometries are warm, mixed batch sizes add none), in place
+    of the reference's jit-cache size."""
+    return len(_dispatch_geometries)
+
+
+def fitscore_select_block(loads, alive, open_seq, access_seq, closes, size,
+                          pdep, now, cat=None, tags=None, *, policy: str,
+                          n: int, d: int):
+    """One placement decision through the replay megakernel at T=1: a
+    one-lane carry holding the pool's state replays one ARRIVAL and the
+    chosen slot is read back from its placement.
+
+    ``loads`` (n, d) f32, ``alive`` (n,) bool, ``open_seq`` /
+    ``access_seq`` (n,) int32, ``closes`` (n,) f32, ``size`` (d,) f32 -
+    tensors on one device; ``pdep`` / ``now`` floats.  ``cat`` and ``tags``
+    (the request's CBD / CBDT class and the replicas' class tags, (n,)
+    int32) select the class-restricted First Fit of the cbd family.  The
+    first ``n`` slots hold count 1, so the free-slot stage never fires:
+    the serving pool opens replicas itself, with absolute indices.  Returns
+    ``(slot, found)`` as 0-dim tensors on that device; found False means
+    "open a new replica", the host algorithms' contract.  Crosses the fault
+    seam ``kernel.select_block``; on the card the launch also counts under
+    ``fitscore_select_block``."""
+    faults.fire("kernel.select_block")
+    dev = loads.device
+    f32, i32 = torch.float32, torch.int32
+    family = "score" if cat is None else "cbd"
+    sloti = torch.zeros((1, n, fk.SLOTI_COLS), dtype=i32, device=dev)
+    sloti[0, :, fk.SLOTI_COUNTS] = 1
+    sloti[0, :, fk.SLOTI_ALIVE] = alive.to(i32)
+    sloti[0, :, fk.SLOTI_OSEQ] = open_seq.to(i32)
+    sloti[0, :, fk.SLOTI_ASEQ] = access_seq.to(i32)
+    if tags is not None:
+        sloti[0, :, fk.SLOTI_TAG] = tags.to(i32)
+    slotf = torch.zeros((1, n, fk.SLOTF_COLS), dtype=f32, device=dev)
+    slotf[0, :, fk.SLOTF_CLOSES] = closes.to(f32)
+    carry = {"loads": torch.zeros((1, n, DPAD), dtype=f32, device=dev),
+             "slotf": slotf, "sloti": sloti,
+             "itemi": torch.full((1, 1, fk.ITEMI_COLS), -1, dtype=i32,
+                                 device=dev),
+             "sf": torch.zeros((1, fk.SF_COLS), dtype=f32, device=dev),
+             "si": torch.zeros((1, fk.SI_COLS), dtype=i32, device=dev)}
+    carry["loads"][0, :, :d] = loads.to(f32)
+    ints = {"kind": [[fk.ARRIVAL_KIND]], "item": [[0]]}
+    if cat is not None:
+        ints["cat"] = [[int(cat)]]
+    ev_i, ev_f = fk.stack_event_streams(
+        family, ints, {"t": [[float(now)]], "pdep": [[float(pdep)]]})
+    ev_size = torch.zeros((1, 1, DPAD), dtype=f32, device=dev)
+    ev_size[0, 0, :d] = size.to(f32)
+    dmask = torch.zeros((1, DPAD), dtype=f32, device=dev)
+    dmask[0, :d] = 1.0
+    fitscore_replay_block(
+        carry, ev_i.to(dev), ev_f.to(dev), ev_size, dmask, family=family,
+        policy=policy if family == "score" else "first_fit", n=n, d=d)
+    if dev.type == "cuda":
+        launches["fitscore_select_block"] += 1
+    return (carry["itemi"][0, 0, fk.ITEMI_PLACE],
+            carry["si"][0, fk.SI_OPENED] == 0)
 
 
 def fitscore(remaining, alive, item, open_seq=None, *, norm: str = "linf"):

@@ -14,7 +14,13 @@ Every failure-prone boundary of the port crosses a named host-side *seam*,
     ``sweep.grid``;
   * ``ckpt.segment`` / ``ckpt.save`` - the segmented checkpointed replay;
   * ``store.load`` / ``store.save`` - sweep-store I/O (``path=`` context);
-  * ``serving.select`` - one device placement decision of the scheduler.
+  * ``serving.select`` - one device placement decision of the scheduler,
+    and one rung of a block dispatch of the serving front end
+    (``serving.dispatch.BlockDispatcher``);
+  * ``kernel.dispatch_block`` - ``kernels.ops.fitscore_replay_dispatch``,
+    once a block of the live replay;
+  * ``kernel.select_block`` - ``kernels.ops.fitscore_select_block``, once
+    a decision of the scheduler's megakernel select.
 
 A ``FaultPlan`` scripts which calls fail and how: each spec matches sites
 by glob, arms at the ``at``-th crossing of a matching site and fires for

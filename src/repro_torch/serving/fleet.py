@@ -46,10 +46,18 @@ def simulate_fleet(reqs: List[Request], policy: str = "greedy",
                    tps: float = 50.0, policy_kwargs: Optional[Dict] = None
                    ) -> Dict:
     """Event-driven fleet simulation; service time = decode_len / tps.
-    The host-side implementation; the reference's batched capacity
-    planning (``repro.api``) is not ported yet."""
+
+    Legacy entry point: the host-side implementation.  Batched capacity
+    planning (same decisions, replay lanes, sweep store) lives in
+    ``repro_torch.api``: ``Experiment(serving_requests(reqs, caps, tps),
+    policies, settings).run()``.  The host baselines (round_robin /
+    pack_all) only exist here."""
     if policy in ("round_robin", "pack_all"):
+        # the host baselines have no api replacement: no migration warning
         return _baseline(reqs, policy, caps, tps)
+    from ..api._migration import warn_legacy
+    warn_legacy("serving.fleet.simulate_fleet",
+                "repro_torch.api.Experiment(api.serving_requests(...))")
     sched = DVBPScheduler(policy, caps, policy_kwargs, tokens_per_second=tps)
     heap = []   # (finish time, rid)
     for r in sorted(reqs, key=lambda x: x.arrival):

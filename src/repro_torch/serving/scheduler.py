@@ -27,15 +27,20 @@ counter, ``tag`` naming what decided: ``host`` (the numpy zoo), ``cuda``
 ``serving.size_memo_hit`` / ``serving.size_memo_miss`` (``repro_torch.
 obs``).
 
-The device select runs behind a two-rung ladder (``_select_guarded``):
-each decision crosses the fault seam ``serving.select``, and when the
-device select fails with an injected fault or an OOM, the host zoo
-decides instead (counted ``resilience.degrade_select_<tag>_host``), so
-the scheduler never stops placing.  Only an injected fault degrades: an
-OOM is retried on the device and then raises, and any other failure (a
-CUDA error, a bug) raises at once, as ``resilience.guard`` classifies
-it.  The reference's
-megakernel route (``select_block``) is not ported yet.
+With ``select_block=True`` the device decision runs through the replay
+megakernel at T=1 instead (``kernels.ops.fitscore_select_block``: one
+ARRIVAL replayed on a one-lane snapshot of the pool), the kernel the
+sweep's blocked replay and the serving front end's block dispatch run;
+its tag is ``<tag>_block``.
+
+The device select runs behind a ladder (``_select_guarded``): the block
+select when ``select_block`` is set, then the per-request select, then
+the host zoo.  Each rung crosses the fault seam ``serving.select``, and
+when it fails with an injected fault the next rung decides (counted
+``resilience.degrade_select_<from>_<to>``), so the scheduler never stops
+placing.  Only an injected fault steps down: an OOM is retried on the
+device and then raises, and any other failure (a CUDA error, a bug)
+raises at once, as ``resilience.guard`` classifies it.
 """
 from __future__ import annotations
 
@@ -122,16 +127,27 @@ class DVBPScheduler:
 
     ``select_backend``: "host" (the numpy algorithm zoo, the default) or
     "device" (``ops.fitscore_select`` on ``device``: the CUDA kernel on a
-    card, the plain version on the CPU)."""
+    card, the plain version on the CPU); ``select_block`` routes the
+    device decision through the replay megakernel at T=1.  ``policy`` is
+    a registry name or an ``api.Policy``."""
 
     def __init__(self, policy="nrt_prioritized",
                  caps: ReplicaCapacity = ReplicaCapacity(),
                  policy_kwargs: Optional[Dict] = None,
                  tokens_per_second: float = 50.0,
-                 select_backend: str = "host", device="cuda"):
+                 select_backend: str = "host", device="cuda",
+                 select_block: bool = False):
+        if not isinstance(policy, str):   # an api.Policy
+            name, kw = policy.registry_args()
+            policy, policy_kwargs = name, {**kw, **(policy_kwargs or {})}
         if select_backend not in ("host", "device"):
             raise ValueError(f"select_backend {select_backend!r}: 'host' or "
                              "'device'")
+        if select_block and select_backend != "device":
+            raise ValueError("select_block routes the device select through "
+                             "the replay megakernel; it needs "
+                             "select_backend='device'")
+        self.select_block = select_block
         self.caps = caps
         self.tps = tokens_per_second
         self.pool = BinPool(d=3)
@@ -182,33 +198,42 @@ class DVBPScheduler:
         return int(departure_window(pdep, self.alg.rho))
 
     def _select_device(self, size: np.ndarray, pdep: Optional[float],
-                       now: float, cat: Optional[int]) -> int:
+                       now: float, cat: Optional[int],
+                       block: bool = False) -> int:
         """The placement decision over the whole pool state through
-        ``ops.fitscore_select`` (one lane).  The pool's bin indices are
-        absolute and never reused, so the free-slot stage is disabled
-        (counts = 1) and only the best feasible slot is read; -1 means
-        "open a new bin", the host algorithms' contract.  ``cat`` (CBD /
-        CBDT) becomes the category mask: only same-class replicas are
-        eligible."""
-        from ..kernels.ops import fitscore_select
+        ``ops.fitscore_select`` (one lane), or with ``block`` through
+        ``ops.fitscore_select_block`` (the megakernel at T=1).  The pool's
+        bin indices are absolute and never reused, so the free-slot stage
+        is disabled (counts = 1) and only the best feasible slot is read;
+        -1 means "open a new bin", the host algorithms' contract.  ``cat``
+        (CBD / CBDT) becomes the category mask: only same-class replicas
+        are eligible."""
+        from ..kernels.ops import fitscore_select, fitscore_select_block
         p, dev, n = self.pool, self.device, self.pool._cap
         f32, i32 = torch.float32, torch.int32
+        t_at = float(pdep) if pdep is not None else float(now)
+        closes = np.maximum(p.indicated_close, -1e30)
+
+        def t(a, dt):   # a copy: the demand vectors are read-only
+            return torch.tensor(np.asarray(a)).to(device=dev, dtype=dt)
+        if block:
+            slot, found = fitscore_select_block(
+                t(p.used, f32), t(p.alive, torch.bool), t(p.open_seq, i32),
+                t(p.access_seq, i32), t(closes, f32), t(size, f32), t_at,
+                float(now), cat=cat,
+                tags=None if cat is None else t(p.tag, i32),
+                policy=self._device_policy, n=n, d=3)
+            return int(slot) if bool(found) else -1
         loads = np.zeros((1, n, DPAD), np.float32)
         loads[0, :, :3] = p.used
         sz = np.zeros((1, DPAD), np.float32)
         sz[0, :3] = size
         dmask = np.zeros((1, DPAD), np.float32)
         dmask[0, :3] = 1.0
-
-        def t(a, dt):
-            return torch.as_tensor(np.ascontiguousarray(a)).to(
-                device=dev, dtype=dt)
-        t_at = float(pdep) if pdep is not None else float(now)
         slot, found, _ = fitscore_select(
             t(loads, f32), torch.ones((1, n), dtype=i32, device=dev),
             t(p.alive[None], torch.bool), t(p.open_seq[None], i32),
-            t(p.access_seq[None], i32),
-            t(np.maximum(p.indicated_close, -1e30)[None], f32),
+            t(p.access_seq[None], i32), t(closes[None], f32),
             t(sz, f32), torch.tensor([t_at], dtype=f32, device=dev),
             torch.tensor([float(now)], dtype=f32, device=dev), t(dmask, f32),
             None if cat is None else t((p.tag == cat)[None], torch.bool),
@@ -217,32 +242,38 @@ class DVBPScheduler:
 
     def _select_guarded(self, size: np.ndarray, pdep: Optional[float],
                         now: float, arr: Arrival):
-        """The placement decision behind the serving ladder: the device
-        select, then the host zoo.  An OOM is retried
-        (``guard.guarded_call``); a device select that fails with a
-        degradable error (``guard.is_degradable``: an injected fault)
-        steps down to the host zoo, counted
-        ``resilience.degrade_select_<tag>_host``; anything else propagates.
-        Returns ``(idx, tag)``, ``tag`` naming what decided."""
+        """The placement decision behind the serving ladder: the block
+        select (with ``select_block``), the per-request device select, then
+        the host zoo.  Each device rung crosses the seam ``serving.select``
+        and retries an OOM (``guard.guarded_call``); a rung that fails with
+        a degradable error (``guard.is_degradable``: an injected fault)
+        steps down, counted ``resilience.degrade_select_<from>_<to>``;
+        anything else propagates.  Returns ``(idx, tag)``, ``tag`` naming
+        what decided."""
         if self.select_backend == "host":
             return self.alg.select_bin(arr), "host"
         tag = resolved_select_impl(self.device)
         cat = self._request_category(pdep, now)
-        def attempt():
-            faults.fire("serving.select")
-            return self._select_device(size, pdep, now, cat)
-        try:
-            idx = guard.guarded_call(attempt, site="serving.select")
-        except Exception as e:
-            if not guard.is_degradable(e):
-                raise
-            obs.counter_add(f"resilience.degrade_select_{tag}_host")
-            obs.instant("resilience.degrade_select", frm=tag, to="host",
-                        error=str(e)[:200])
-            return self.alg.select_bin(arr), "host"
-        if cat is not None:
-            self.alg._cat = cat   # the host class's tag bookkeeping
-        return idx, tag
+        rungs = [(f"{tag}_block", True)] if self.select_block else []
+        rungs.append((tag, False))
+        for i, (label, block) in enumerate(rungs):
+            def attempt():
+                faults.fire("serving.select")
+                return self._select_device(size, pdep, now, cat, block)
+            try:
+                idx = guard.guarded_call(attempt, site="serving.select")
+            except Exception as e:
+                if not guard.is_degradable(e):
+                    raise
+                nxt = rungs[i + 1][0] if i + 1 < len(rungs) else "host"
+                obs.counter_add(f"resilience.degrade_select_{label}_{nxt}")
+                obs.instant("resilience.degrade_select", frm=label, to=nxt,
+                            error=str(e)[:200])
+                continue
+            if cat is not None:
+                self.alg._cat = cat   # the host class's tag bookkeeping
+            return idx, label
+        return self.alg.select_bin(arr), "host"
 
     # ------------------------------------------------------------------- api
     def place(self, req: Request, now: float) -> int:

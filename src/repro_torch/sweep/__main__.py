@@ -1,5 +1,8 @@
 """``python -m repro_torch sweep``: evaluate a DVBP experiment grid on the
-card (the reference's ``python -m repro sweep``, all 21 scan policies).
+card (the reference's ``python -m repro sweep``, all 21 scan policies;
+``--suites azure_trace --trace-root DIR`` reads an Azure Packing2020 dump).
+The legacy ``python -m repro_torch.sweep`` runs the same with a migration
+warning.
 
     PYTHONPATH=src python -m repro_torch sweep --suites azure \
         --n-instances 28 --n-items 5000 --preds clairvoyant lognormal:1.0 \
@@ -46,6 +49,8 @@ def main(argv=None, prog: str = "python -m repro_torch sweep") -> None:
     ap.add_argument("--n-items", type=int, default=500)
     ap.add_argument("--suite-seed", type=int, default=None,
                     help="instance-generator seed (default: family-specific)")
+    ap.add_argument("--trace-root", default="data/azure",
+                    help="Azure Packing2020 dump directory (azure_trace)")
     ap.add_argument("--policies", default="all",
                     help=f"comma list from {','.join(SCAN_POLICIES)} "
                          "or 'all' (parametric names like cbd_beta4 / "
@@ -91,7 +96,7 @@ def main(argv=None, prog: str = "python -m repro_torch sweep") -> None:
     suites = tuple(
         SuiteSpec(fam, args.n_instances, args.n_items,
                   args.suite_seed if args.suite_seed is not None
-                  else SUITE_DEFAULT_SEED[fam])
+                  else SUITE_DEFAULT_SEED[fam], trace_root=args.trace_root)
         for fam in args.suites)
     spec = SweepSpec(
         suites=suites, policies=policies,
@@ -120,4 +125,6 @@ def main(argv=None, prog: str = "python -m repro_torch sweep") -> None:
 
 
 if __name__ == "__main__":
+    from ..api._migration import warn_legacy
+    warn_legacy("python -m repro_torch.sweep", "python -m repro_torch sweep")
     main(prog="python -m repro_torch.sweep")

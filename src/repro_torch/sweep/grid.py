@@ -202,12 +202,19 @@ def _built_suite(suite: SuiteSpec):
 
 def run_sweep(spec: SweepSpec, store=None, force: bool = False,
               progress=None, device="cuda", block_events: int = 0,
+              trace_level: int = 0, traces: Optional[Dict] = None,
               checkpoint_dir: Optional[str] = None,
               checkpoint_every: int = 2048) -> Dict[str, Dict]:
     """Expand and run the grid on ``device``; returns {result_key: record}.
     ``block_events`` > 1 replays through the event-blocked megakernel: an
     execution argument, so records and store files are the same for any
     value.
+
+    ``trace_level`` >= 1 also captures each replay's per-event decision
+    series (``obs.ReplayTrace``): pass a dict as ``traces`` and it is
+    filled with one single-lane trace per ``result_key``.  Traced groups
+    always recompute (the trace exists only by replaying), so the cached
+    group skip is bypassed; records still land in the store.
 
     ``checkpoint_dir`` turns on checkpointed replay: the carry is
     snapshotted every ``checkpoint_every`` events
@@ -244,7 +251,8 @@ def run_sweep(spec: SweepSpec, store=None, force: bool = False,
             todo = []
             for p in spec.policies:
                 for cons in spec.consolidations:
-                    if _group_cached(records, suite, p, pred, seeds, cons):
+                    if not trace_level and _group_cached(
+                            records, suite, p, pred, seeds, cons):
                         say(f"skip {suite.label()}/{_cell_label(p, cons)}/"
                             f"{pred.label()} (cached)")
                         obs.counter_add("experiment.cache_hit")
@@ -269,8 +277,16 @@ def run_sweep(spec: SweepSpec, store=None, force: bool = False,
                 res = run_batch(batch, policy, pdeps, spec.max_bins,
                                 spec.max_bins_cap, device=device,
                                 block_events=block_events,
+                                trace_level=trace_level,
                                 consolidate=cons if cons.enabled else None,
                                 checkpoint=ckpt, checkpoint_key=ckpt_key)
+                if traces is not None and res.trace is not None:
+                    S = len(seeds)
+                    for bi, inst in enumerate(insts):
+                        for si, seed in enumerate(seeds):
+                            traces[result_key(suite, inst.name, policy,
+                                              pred, seed, cons)] = \
+                                res.trace.lane(bi * S + si)
                 group_recs = {}
                 for bi, inst in enumerate(insts):
                     for si, seed in enumerate(seeds):

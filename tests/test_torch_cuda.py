@@ -1,7 +1,8 @@
 """The port on the card: the CUDA select and the CUDA replay megakernel
 (its MIGRATE branch included) against their plain versions, the replays on
-the card (per event, blocked, consolidating) against the replays on the
-CPU, and the legacy scorer against its plain version, bit for bit; the two
+the card (per event, blocked, consolidating; the serving front end's live
+carry and the scheduler's block select) against the replays on the CPU,
+and the legacy scorer against its plain version, bit for bit; the two
 attention kernels and the RWKV6 chunked kernel against their plain
 versions within the JAX kernel tests' tolerances, and the model and engine
 through them against the plain versions.
@@ -952,3 +953,61 @@ def test_rwkv_engine_on_card_equals_plain_kernel(cuda):
         linear_scan.rwkv6_chunked = ops.rwkv6_chunked
     rel = float((kern - plain).abs().max() / plain.abs().max())
     assert rel < 1e-4
+
+
+# -------------------------------------------------------- online serving
+
+@pytest.mark.parametrize("policy", ["best_fit_linf", "cbd", "rcp",
+                                    "la_binary", "adaptive"])
+@pytest.mark.parametrize("T", [1, 32, 256])
+def test_serve_traffic_on_card_equals_cpu(policy, T, cuda):
+    """The live carry's blocks on the card (the megakernel, double-buffered)
+    place every request as the plain version on the CPU does, with the same
+    fleet numbers."""
+    from repro_torch.serving.dispatch import serve_traffic
+    from repro_torch.serving.scheduler import ReplicaCapacity
+    from repro_torch.serving.traffic import poisson_requests
+    reqs = poisson_requests(300, rate=5e4, seed=3, sigma_pred=0.3)
+    card, cpu = ((r.placements, r.replica_seconds, r.replicas_opened,
+                  r.peak_replicas)
+                 for r in (serve_traffic(reqs, policy, ReplicaCapacity(),
+                                         tps=1.2e5, batch_max=T, device=dev)
+                           for dev in (cuda, "cpu")))
+    assert card == cpu
+
+
+def test_serve_traffic_regrow_across_routes_on_card(cuda):
+    """One slot a replica from an 8-slot pool: the carry regrows past 256
+    slots while blocks are in flight and the launches move from the warp
+    kernel to the global one; the placements equal the CPU's."""
+    from repro_torch.serving.dispatch import serve_traffic
+    from repro_torch.serving.scheduler import ReplicaCapacity
+    from repro_torch.serving.traffic import poisson_requests
+    reqs = poisson_requests(400, rate=5e4, seed=4, sigma_pred=0.3)
+    g0 = ops.launches["fitscore_replay_block_global"]
+    card, cpu = (serve_traffic(reqs, "best_fit_linf",
+                               ReplicaCapacity(slots=1), tps=8e3,
+                               batch_max=8, max_bins=8, device=dev)
+                 for dev in (cuda, "cpu"))
+    assert card.peak_replicas > ops.REPLAY_WARP_MAX_SLOTS
+    assert ops.launches["fitscore_replay_block_global"] > g0
+    assert card.placements == cpu.placements
+    assert card.replica_seconds == cpu.replica_seconds
+
+
+@pytest.mark.parametrize("policy,kwargs", [
+    ("best_fit", {"norm": "l2"}), ("nrt_prioritized", None),
+    ("cbd", {"beta": 2.0})])
+def test_select_block_on_card_equals_host(policy, kwargs, cuda):
+    from chip_smoke import drive_scheduler, zoo_requests
+    from repro_torch.serving.scheduler import DVBPScheduler
+    reqs = zoo_requests(300)
+    want = drive_scheduler(DVBPScheduler(policy, policy_kwargs=kwargs,
+                                         tokens_per_second=64.0), reqs)
+    n0 = ops.launches["fitscore_select_block"]
+    sched = DVBPScheduler(policy, policy_kwargs=kwargs,
+                          tokens_per_second=64.0, select_backend="device",
+                          device=cuda, select_block=True)
+    assert drive_scheduler(sched, reqs) == want
+    assert ops.launches["fitscore_select_block"] - n0 == len(reqs)
+    assert sched.last_select_backend == "cuda_block"
