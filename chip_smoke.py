@@ -91,6 +91,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``scaled_dot_product_attention``'s (a yardstick, never on the path) and,
    for flash, the CUDA-core kernel's on the same bf16 inputs; decode's
    split count and device kernels a call (torch.profiler).
+   (7b) The decode kernel's window and its up to 16 query heads a kv
+   head: windows 1, 64 and 1024 with kv_len before, at and past the window
+   and the window's start on a split's edge and inside a split, at
+   gemma3-12b's and nemotron-4-340b's decode shapes and on the tensor-core
+   route (G 4, 12, 16), and G 12 / 16 at hd 64, 128, 192, 256, fp32 and
+   bf16, NaN in every cache row outside the window; flash on the CUDA-core
+   route at hd 192 and 256 (causal, windowed, non-causal, Skv past Sq).
+   Then both kernels' device times at phase 18's shapes
+   (``DENSE_DECODE_SHAPES``, ``DENSE_PREFILL_SHAPES``) beside their bound,
+   the plain version's and SDPA's with the same mask.
 8. Serving at full width: qwen2.5-14b (48 layers, d 5120, bf16, random
    weights from seed 0 made on the card), 12 requests as
    ``repro_torch.launch.serve --real`` draws them (prompts 32-511 tokens,
@@ -248,6 +258,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    one early block of each geometry of (b) through both routes ==
    ``replay_block_ref``, and its device time a block at L=1 beside its
    bound.
+
+18. The other dense architectures at full width in bf16 (random weights
+   from seed 0 made on the card, one model alive at a time): (a)
+   minitron-8b through ``serve_real`` on phase 8's requests (stats
+   ``REF_SERVE_STATS``, flash 32 launches a prefill all on the tensor-core
+   kernel, decode 32 an engine step); (b) gemma3-12b (max_len
+   ``GEMMA_MAX_LEN``), a request whose 1100-token prompt and 16 decode
+   steps make the 40 local layers' window of 1024 bind, windowed and full
+   calls counted apart, and an engine of 4 slots at depths on both sides
+   of 1024; (c) nemotron-4-340b at its full widths, its depth cut to
+   ``NEMOTRON_LAYERS`` (G = 12, hd 192); (d) pixtral-12b with 256 stub
+   patch embeddings before its prompt; (e) whisper-medium over 1500 stub
+   encoder frames, its decode steps cross-attending to the stashed
+   ``enc_out``.  Each model's teacher-forced request (``DENSE_REQUESTS``)
+   runs three times: the kernels alone (timed, launches counted), every
+   attention call also through its plain version (held within the bf16
+   tolerance of phase 7), and the plain versions alone; the kernel run's
+   logits within ``SERVE_LOGIT_TOL`` of the plain run's.
 
 Then, as a measurement and not a check, on the main path's first rung
 (L=28, Np=64): torch.profiler over 2048 graphed per-event steps and 400
@@ -575,7 +603,11 @@ def phase_build():
         f"{lib.flash_attention_sm90_smem_bytes(128)} B (hd 128); decode "
         f"(G 5, hd 128, 8 splits) bf16 "
         f"{lib.decode_attention_smem_bytes(5, 128, 1, 8)} B, fp32 "
-        f"{lib.decode_attention_smem_bytes(5, 128, 0, 8)} B; replay warp "
+        f"{lib.decode_attention_smem_bytes(5, 128, 0, 8)} B, (G 12, hd "
+        f"192, 8 splits) bf16 {lib.decode_attention_smem_bytes(12, 192, 1, 8)}"
+        f" B, (G 2, hd 256) bf16 {lib.decode_attention_smem_bytes(2, 256, 1, 8)}"
+        f" B, (G 16, hd 256) fp32 "
+        f"{lib.decode_attention_smem_bytes(16, 256, 0, 8)} B; replay warp "
         f"kernel (T 256, 8192 item rows) score at Np 64 "
         f"{lib.fitscore_replay_block_warp_smem_bytes(0, 64, 256, 8192)} B, "
         f"rcp at Np 64 "
@@ -1699,6 +1731,168 @@ def phase_attention_vs_plain(dev):
     return flash, decode
 
 
+# phase 7b: the decode shapes of phase 18 (B, S, H, KV, hd, window):
+# gemma3-12b's local layers and nemotron-4-340b's layers, 4 slots
+DENSE_DECODE_SHAPES = {"gemma3-12b": (4, 2048, 16, 8, 256, 1024),
+                       "nemotron-4-340b": (4, 1024, 96, 8, 192, 0)}
+# and their prefill shapes (Sq = Skv, H, KV, hd, window) in phase 18
+DENSE_PREFILL_SHAPES = {"gemma3-12b local": (1100, 16, 8, 256, 1024),
+                        "gemma3-12b global": (1100, 16, 8, 256, 0),
+                        "nemotron-4-340b": (256, 96, 8, 192, 0)}
+
+
+def windowed_lens(S, window, split_len, B):
+    """kv_len for B rows: before, at and past the window, the window's
+    start on a split's edge and one position inside a split, and S (as
+    tests/test_torch_cuda.py draws them)."""
+    lens = [max(1, window // 2), window, window + 1, split_len + window,
+            split_len + 1 + window, S]
+    return [min(S, n) for n in lens][:B]
+
+
+def decode_valid_rows(kv_len, S, window):
+    """Cache rows a decode call reads: [max(0, n - window), min(n, S)) a
+    row."""
+    return sum(max(0, min(n, S) - (max(0, n - window) if window else 0))
+               for n in kv_len)
+
+
+def phase_attention_dense_archs(dev):
+    """Phase 7b: the decode kernel's window and its G <= 16 against
+    ``decode_attention_ref``, flash's CUDA-core route at hd 192 and 256,
+    then both kernels' times at phase 18's decode and prefill shapes (see
+    the module docstring).  Returns {(kind, name): row of numbers}."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.attention import (decode_attention_ref,
+                                               flash_attention_ref)
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    errs = {"window": 0.0, "groups": 0.0, "flash": 0.0}
+    n_cases = 0
+    win_shapes = [(6, 2048, 16, 8, 256), (6, 1024, 96, 8, 192),
+                  (6, 2048, 32, 8, 128), (6, 1500, 32, 2, 64),
+                  (6, 700, 24, 2, 128)]
+    group_shapes = [(4, 777, G * 2, 2, hd) for G in (12, 16)
+                    for hd in (64, 128, 192, 256)]
+    for dtype_name, tol in ATTN_TOL.items():
+        dtype = getattr(torch, dtype_name)
+        for B, S, H, KV, hd in win_shapes + group_shapes:
+            windows = (1, 64, 1024) if (B, S, H, KV, hd) in win_shapes \
+                else (0,)
+            q, k, v = _attention_inputs(gen, dev, dtype, (B, H, hd),
+                                        (B, S, KV, hd))
+            split_len = ops.decode_splits(B, KV, S, n_sm)[1]
+            for window in windows:
+                lens = windowed_lens(S, window, split_len, B) if window \
+                    else [0, 1, 128, S]
+                kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+                kk, vv = k.clone(), v.clone()
+                for b, n in enumerate(lens):   # never read: NaN
+                    kk[b, n:], vv[b, n:] = float("nan"), float("nan")
+                    kk[b, :max(0, n - window) if window else 0] = float("nan")
+                    vv[b, :max(0, n - window) if window else 0] = float("nan")
+                got = ops.decode_attention(q, kk, vv, kv_len, window=window)
+                want = decode_attention_ref(q, kk, vv, kv_len, window=window)
+                key = "window" if window else "groups"
+                errs[key] = max(errs[key], _allclose_err(
+                    got, want, tol, f"decode {dtype_name} "
+                    f"{(B, S, H, KV, hd)} window {window} kv_len {lens}"))
+                n_cases += 1
+        for B, Sq, H, KV, hd in ((1, 300, 16, 8, 256), (2, 129, 24, 2, 192),
+                                 (1, 256, 96, 8, 192), (1, 64, 4, 4, 256)):
+            for Skv in (Sq, 3 * Sq + 7):
+                q, k, v = _attention_inputs(gen, dev, dtype, (B, Sq, H, hd),
+                                            (B, Skv, KV, hd))
+                cases = ((False, 0), (False, 16)) if Skv != Sq else \
+                    ((True, 0), (True, 64), (True, 1), (False, 0))
+                for causal, window in cases:
+                    n90 = ops.launches["flash_attention_sm90"]
+                    got = ops.flash_attention(q, k, v, causal=causal,
+                                              window=window)
+                    if ops.launches["flash_attention_sm90"] != n90:
+                        fail(f"flash hd={hd} took the tensor-core kernel")
+                    want = flash_attention_ref(q, k, v, causal=causal,
+                                               window=window)
+                    errs["flash"] = max(errs["flash"], _allclose_err(
+                        got, want, tol, f"flash {dtype_name} "
+                        f"{(B, Sq, Skv, H, KV, hd)} causal={causal} "
+                        f"window={window}"))
+                    n_cases += 1
+    torch.cuda.synchronize()
+    say(f"# 7b: decode with a window (1 / 64 / 1024, kv_len before, at and "
+        f"past it, its start on a split's edge and inside a split) and "
+        f"with 12 and 16 query heads a kv head, flash on the CUDA-core "
+        f"route at hd 192 / 256 (causal, windowed, non-causal): {n_cases} "
+        f"cases == plain (fp32 2e-5, bf16 2e-2 and {BF16_REL} of max "
+        f"|plain|): max |diff| window {errs['window']:.3e}, groups "
+        f"{errs['groups']:.3e}, flash {errs['flash']:.3e}")
+
+    # times in bf16 at phase 18's shapes, beside the bound, the plain
+    # version and SDPA with the same mask (a yardstick only)
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    rows = {}
+    for name, (B, S, H, KV, hd, window) in DENSE_DECODE_SHAPES.items():
+        q, k, v = _attention_inputs(gen, dev, bf, (B, H, hd), (B, S, KV, hd))
+        lens = [S, S - 1, S // 2 + 3, 700][:B]
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        pos = torch.arange(S, device=dev)[None, :]
+        mask = pos < kv_len[:, None]
+        if window:
+            mask &= pos >= kv_len[:, None] - window
+        qt, kt, vt = q[:, :, None], k.transpose(1, 2).contiguous(), \
+            v.transpose(1, 2).contiguous()
+        ms = device_ms(lambda: ops.decode_attention(q, k, v, kv_len,
+                                                    window=window), 200)
+        plain_ms = device_ms(lambda: decode_attention_ref(
+            q, k, v, kv_len, window=window), 10)
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask[:, None, None, :], enable_gqa=True),
+            200)
+        n_valid = decode_valid_rows(lens, S, window)
+        bound_ms, bound_by = attention_bound(
+            "decode", (B, H, KV, hd, B, n_valid), 2, n_valid)
+        n_split, split = ops.last_decode_grid
+        rows[("decode", name)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by=bound_by, n_split=n_split)
+        say(f"# 7b: decode_attention bf16 {name} B={B} S={S} H={H} KV={KV} "
+            f"hd={hd} window={window} ({n_valid} valid rows): device time "
+            f"{ms:.6f} ms, plain {plain_ms:.6f} ms, sdpa {lib_ms:.6f} ms; "
+            f"bound {bound_ms:.6f} ms by {bound_by}; {n_split} splits of "
+            f"{split}")
+    for name, (Sq, H, KV, hd, window) in DENSE_PREFILL_SHAPES.items():
+        q, k, v = _attention_inputs(gen, dev, bf, (1, Sq, H, hd),
+                                    (1, Sq, KV, hd))
+        qpos = torch.arange(Sq, device=dev)
+        mask = qpos[None, :] <= qpos[:, None]
+        if window:
+            mask &= qpos[:, None] - qpos[None, :] < window
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ms = device_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                   window=window), 20)
+        plain_ms = device_ms(lambda: flash_attention_ref(
+            q, k, v, causal=True, window=window), 3)
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
+        pairs = int(mask.sum())
+        bound_ms, bound_by = attention_bound(
+            "flash", (1, H, KV, hd, Sq, Sq), 2, pairs)
+        rows[("flash", name)] = dict(ms=ms, plain_ms=plain_ms,
+                                     library_ms=lib_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by)
+        say(f"# 7b: flash_attention bf16 {name} Sq=Skv={Sq} H={H} KV={KV} "
+            f"hd={hd} window={window} (CUDA-core route): device time "
+            f"{ms:.6f} ms, plain {plain_ms:.6f} ms, sdpa {lib_ms:.6f} ms; "
+            f"bound {bound_ms:.6f} ms by {bound_by}; "
+            f"{4 * pairs * H * hd / ms / 1e9:.1f} TFLOP/s")
+    say(f"# 7b: phase 7b took {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def serving_requests():
     """Phase 8's requests: ``launch.serve --real``'s draw (synth_requests,
     then predictions at sigma 0), the first ``SERVE_REQUESTS``, prompts as
@@ -1711,21 +1905,37 @@ def serving_requests():
                     r.predicted_decode_len) for r in reqs]
 
 
-def teacher_forced_logits(cfg, params, prompt, forced, dev):
+def teacher_forced_logits(cfg, params, prompt, forced, dev,
+                          max_len=SERVE_MAX_LEN, times=None, **kw):
     """Logits of one request's prefill and of one decode step per forced
-    token, through the engine's two forward calls."""
+    token, through the engine's two forward calls; ``kw`` goes to the
+    prefill (``frontend_embeds``, ``enc_embeds``: a decode step reads the
+    encoder's output from the cache).  With ``times`` (a dict of lists)
+    each call's host-clock ms, between synchronizations."""
     import torch
     from repro_torch.models.transformer import Runtime, forward, init_cache
-    cache = init_cache(cfg, 1, SERVE_MAX_LEN, device=dev)
+    cache = init_cache(cfg, 1, max_len, device=dev)
     toks = torch.tensor([prompt], dtype=torch.int64, device=dev)
-    out, _, _ = forward(params, cfg, Runtime(), toks, mode="prefill",
-                        cache=cache, cache_pos=0)
+
+    def call(kind, *a, **k):
+        if times is not None:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        out = forward(params, cfg, Runtime(), *a, **k)[0]
+        if times is not None:
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    out = call("prefill", toks, mode="prefill", cache=cache, cache_pos=0,
+               **kw)
     logits = [out[:, -1]]
+    n0 = len(prompt) + (kw["frontend_embeds"].shape[1]
+                        if "frontend_embeds" in kw else 0)
     for i, tok in enumerate(forced):
-        pos = torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev)
-        out, _, _ = forward(params, cfg, Runtime(),
-                            torch.tensor([[tok]], device=dev), mode="decode",
-                            cache=cache, cache_pos=pos)
+        pos = torch.tensor([n0 + i], dtype=torch.int32, device=dev)
+        out = call("decode", torch.tensor([[tok]], device=dev),
+                   mode="decode", cache=cache, cache_pos=pos)
         logits.append(out[:, 0])
     return torch.cat(logits).float()
 
@@ -1769,16 +1979,57 @@ def timed_serve_real(cfg, params, reqs):
     return stats, wall, times, counts
 
 
+def checked_attention(tol, calls, kinds):
+    """The two attention wrappers bound so that each call also runs its
+    plain version on the same inputs (the kernel's output goes on): each
+    call's max |diff| goes to ``calls[name]``, its kind (causal, windowed,
+    non-causal flash; windowed or full decode) counted in ``kinds``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.attention import (decode_attention_ref,
+                                               flash_attention_ref)
+
+    def flash(q, k, v, *, causal=True, window=0):
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        kind = "flash " + ("non-causal" if not causal else
+                           "windowed" if window else "causal")
+        calls["flash_attention"].append(_allclose_err(
+            got, flash_attention_ref(q, k, v, causal=causal, window=window),
+            tol, f"{kind} call {len(calls['flash_attention'])}"))
+        kinds[kind] += 1
+        return got
+
+    def decode(q, k, v, kv_len, *, window=0):
+        got = ops.decode_attention(q, k, v, kv_len, window=window)
+        kind = "decode " + ("windowed" if window else "full")
+        calls["decode_attention"].append(_allclose_err(
+            got, decode_attention_ref(q, k, v, kv_len, window=window), tol,
+            f"{kind} call {len(calls['decode_attention'])}"))
+        kinds[kind] += 1
+        return got
+    return flash, decode
+
+
+def bound_attention(flash, decode):
+    """Bind ``flash`` and ``decode`` as the model's attention functions;
+    returns a function that puts the kernels' wrappers back."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    attention.flash_attention, attention.decode_attention = flash, decode
+
+    def restore():
+        attention.flash_attention = ops.flash_attention
+        attention.decode_attention = ops.decode_attention
+    return restore
+
+
 def phase_serving(dev):
     """serve_real at qwen2.5-14b's full width on the card (see the module
     docstring, phase 8).  Returns the two attention kernels' launches."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.kernels.attention import (decode_attention_ref,
                                                flash_attention_ref)
-    from repro_torch.models import attention
     from repro_torch.models.params import init_params, param_count
     from repro_torch.models.transformer import Runtime, forward, init_cache
     from repro_torch.serving.engine import ReplicaEngine
@@ -1843,30 +2094,16 @@ def phase_serving(dev):
     forced = list(np.random.default_rng(99).integers(2, cfg.vocab, 8))
     tol = ATTN_TOL["bfloat16"]
     calls = {"flash_attention": [], "decode_attention": []}
-
-    def both(kernel, plain, name):
-        def call(*a, **kw):
-            got = kernel(*a, **kw)
-            calls[name].append(_allclose_err(
-                got, plain(*a, **kw), tol, f"{name} call "
-                f"{len(calls[name])} of the teacher-forced request"))
-            return got
-        return call
-
     runs = {}
-    for name, flash, decode_ in (
-            ("kernel", both(ops.flash_attention, flash_attention_ref,
-                            "flash_attention"),
-             both(ops.decode_attention, decode_attention_ref,
-                  "decode_attention")),
-            ("plain", flash_attention_ref, decode_attention_ref)):
-        attention.flash_attention, attention.decode_attention = flash, decode_
+    for name, fns in (
+            ("kernel", checked_attention(tol, calls, collections.Counter())),
+            ("plain", (flash_attention_ref, decode_attention_ref))):
+        restore = bound_attention(*fns)
         try:
             runs[name] = teacher_forced_logits(cfg, params, prompt, forced,
                                                dev)
         finally:
-            attention.flash_attention = ops.flash_attention
-            attention.decode_attention = ops.decode_attention
+            restore()
     if len(calls["flash_attention"]) != cfg.n_layers or \
             len(calls["decode_attention"]) != cfg.n_layers * len(forced):
         fail(f"teacher-forced request: {len(calls['flash_attention'])} flash "
@@ -4079,6 +4316,270 @@ def phase_api_serving(dev, n_zoo: int = ZOO_REQUESTS):
     return launches, out
 
 
+# phase 18: nemotron-4-340b's depth on one card (its 96 layers are ~680 GB
+# in bf16), gemma3-12b's cache (its window of 1024 must bind), and the
+# teacher-forced requests' lengths (prompt, decode steps)
+NEMOTRON_LAYERS = 4
+GEMMA_MAX_LEN = 2048
+DENSE_REQUESTS = {"gemma3-12b": (1100, 16), "nemotron-4-340b": (256, 8),
+                  "pixtral-12b": (128, 8), "whisper-medium": (64, 8),
+                  "minitron-8b": (221, 8)}
+WHISPER_FRAMES = 1500    # whisper's 30 s window
+
+
+def dense_config(arch):
+    """Phase 18's configuration of ``arch``: the full one, nemotron's depth
+    cut to ``NEMOTRON_LAYERS``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch == "nemotron-4-340b":
+        cfg = dataclasses.replace(cfg, n_layers=NEMOTRON_LAYERS)
+    return cfg
+
+
+def dense_teacher_forced(cfg, params, dev, max_len, **kw):
+    """Phase 18's teacher-forced request of ``cfg`` (lengths from
+    ``DENSE_REQUESTS``), three times: through the kernels alone, timed
+    (prefill ms, decode ms a step) with the launch counts set to 0 just
+    before and read just after; with every attention call also run through
+    its plain version (each within ``ATTN_TOL`` bf16); and through the
+    plain versions alone.  Fails unless the kernel run's logits are within
+    ``SERVE_LOGIT_TOL`` of max |logit| of the plain run's."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.attention import (decode_attention_ref,
+                                               flash_attention_ref)
+    n_prompt, n_forced = DENSE_REQUESTS[cfg.name]
+    prompt = list(np.random.default_rng(7).integers(2, cfg.vocab, n_prompt))
+    forced = list(np.random.default_rng(99).integers(2, cfg.vocab,
+                                                     n_forced))
+    times = collections.defaultdict(list)
+    torch.cuda.synchronize()
+    ops.launches.clear()
+    kern = teacher_forced_logits(cfg, params, prompt, forced, dev, max_len,
+                                 times=times, **kw)
+    torch.cuda.synchronize()
+    counts = collections.Counter(ops.launches)
+    calls = {"flash_attention": [], "decode_attention": []}
+    kinds = collections.Counter()
+    restore = bound_attention(*checked_attention(ATTN_TOL["bfloat16"], calls,
+                                                 kinds))
+    try:
+        checked = teacher_forced_logits(cfg, params, prompt, forced, dev,
+                                        max_len, **kw)
+    finally:
+        restore()
+    restore = bound_attention(flash_attention_ref, decode_attention_ref)
+    try:
+        plain = teacher_forced_logits(cfg, params, prompt, forced, dev,
+                                      max_len, **kw)
+    finally:
+        restore()
+    scale = float(plain.abs().max())
+    rel = float((kern - plain).abs().max()) / scale
+    rel_checked = float((checked - plain).abs().max()) / scale
+    if not np.isfinite(rel) or rel > SERVE_LOGIT_TOL or \
+            not np.isfinite(rel_checked) or rel_checked > SERVE_LOGIT_TOL:
+        fail(f"{cfg.name}: teacher-forced logits differ: {rel} (checked run "
+             f"{rel_checked}) > {SERVE_LOGIT_TOL}")
+    dec = np.array(times["decode"])
+    say(f"# 18 {cfg.name}: teacher-forced request (prompt {n_prompt}"
+        f"{', +' + str(kw['frontend_embeds'].shape[1]) + ' patches' if 'frontend_embeds' in kw else ''}"
+        f"{', ' + str(kw['enc_embeds'].shape[1]) + ' encoder frames' if 'enc_embeds' in kw else ''}"
+        f", {n_forced} decode steps): every attention call kernel == plain "
+        f"({len(calls['flash_attention'])} flash, "
+        f"{len(calls['decode_attention'])} decode: {dict(sorted(kinds.items()))}"
+        f"; max |diff| flash {max(calls['flash_attention']):.3e}, decode "
+        f"{max(calls['decode_attention']):.3e}); logits kernel vs plain "
+        f"{rel:.3e} of max |logit| {scale:.3f} (tolerance {SERVE_LOGIT_TOL})")
+    say(f"# 18 {cfg.name}: kernels alone: prefill {times['prefill'][0]:.1f} "
+        f"ms, decode median {np.median(dec):.2f} ms a step "
+        f"({dec.min():.2f}-{dec.max():.2f}), launches "
+        f"{dict(sorted((k, v) for k, v in counts.items() if 'attention' in k))}")
+    return dict(prefill_ms=times["prefill"][0],
+                decode_ms=float(np.median(dec)), logit_rel=rel,
+                launches=counts, kinds=kinds,
+                flash_err=max(calls["flash_attention"]),
+                decode_err=max(calls["decode_attention"]))
+
+
+def dense_model(cfg, dev):
+    """``init_params(cfg, seed=0)`` on the card, its size printed."""
+    import torch
+    from repro_torch.models.params import init_params, param_count
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n = param_count(params)
+    gb = n * params["embed"].element_size() / 1e9
+    say(f"# 18 {cfg.name}: {cfg.n_layers} layers"
+        f"{f' + {cfg.n_enc_layers} encoder' if cfg.n_enc_layers else ''} "
+        f"d={cfg.d_model} H={cfg.n_heads} KV={cfg.n_kv_heads} "
+        f"hd={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab} {cfg.mlp_act}"
+        f": {n} parameters ({gb:.2f} GB) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; decode floor "
+        f"{gb * 1e9 / HBM_BYTES_PER_S * 1e3:.2f} ms a step (weight bytes "
+        f"at 3.35 TB/s)")
+    return params, gb
+
+
+def free_model(params):
+    import torch
+    params.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_dense_archs(dev):
+    """Phase 18: minitron-8b, gemma3-12b, nemotron-4-340b (depth cut),
+    pixtral-12b and whisper-medium at full width in bf16, one model alive
+    at a time (see the module docstring).  Returns {arch: numbers}."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ReplicaEngine
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) minitron-8b: serve_real on phase 8's requests
+    cfg = dense_config("minitron-8b")
+    params, gb = dense_model(cfg, dev)
+    reqs = serving_requests()
+    stats, wall, times, counts = timed_serve_real(cfg, params, reqs)
+    got = (stats.replica_seconds, stats.replicas_opened, stats.peak_replicas)
+    n_pre, n_dec = len(times["prefill"]), len(times["decode"])
+    new_tokens = sum(r.decode_len for r in reqs)
+    pre, dec = np.array(times["prefill"]), np.array(times["decode"])
+    say(f"# 18 {cfg.name}: serve_real of {len(reqs)} requests in {wall:.1f} "
+        f"s, {new_tokens / wall:.1f} new tokens/s; {n_pre} prefills, median "
+        f"{np.median(pre):.1f} ms; {n_dec} engine decode steps (4 slots), "
+        f"median {np.median(dec):.2f} ms (floor {gb * 1e9 / HBM_BYTES_PER_S * 1e3:.2f}); "
+        f"stats {got}; launches flash {counts['flash_attention']} (sm90 "
+        f"{counts['flash_attention_sm90']}), decode "
+        f"{counts['decode_attention']}")
+    if got != REF_SERVE_STATS:
+        fail(f"{cfg.name}: placement stats {got} != REF_SERVE_STATS")
+    if not n_pre or counts["flash_attention"] != cfg.n_layers * n_pre or \
+            counts["flash_attention_sm90"] != counts["flash_attention"]:
+        fail(f"{cfg.name}: flash launches {counts['flash_attention']} (sm90 "
+             f"{counts['flash_attention_sm90']}) != {cfg.n_layers} x {n_pre}")
+    if not n_dec or counts["decode_attention"] != cfg.n_layers * n_dec:
+        fail(f"{cfg.name}: decode launches {counts['decode_attention']} != "
+             f"{cfg.n_layers} x {n_dec}")
+    tf = dense_teacher_forced(cfg, params, dev, SERVE_MAX_LEN)
+    out[cfg.name] = dict(tf, gb=gb, serve_decode_ms=float(np.median(dec)),
+                         serve_prefill_ms=float(np.median(pre)),
+                         tokens_per_s=new_tokens / wall,
+                         serve_launches=counts)
+    free_model(params)
+
+    # (b) gemma3-12b: the window binds at prefill and on every decode step
+    cfg = dense_config("gemma3-12b")
+    params, gb = dense_model(cfg, dev)
+    tf = dense_teacher_forced(cfg, params, dev, GEMMA_MAX_LEN)
+    n_local = sum(not cfg.layer_is_global(i) for i in range(cfg.n_layers))
+    n_forced = DENSE_REQUESTS[cfg.name][1]
+    want = {"flash windowed": n_local,
+            "flash causal": cfg.n_layers - n_local,
+            "decode windowed": n_local * n_forced,
+            "decode full": (cfg.n_layers - n_local) * n_forced}
+    if dict(tf["kinds"]) != want:
+        fail(f"{cfg.name}: attention calls {dict(tf['kinds'])} != {want}")
+    if tf["launches"]["decode_attention_window"] != n_local * n_forced:
+        fail(f"{cfg.name}: {tf['launches']['decode_attention_window']} "
+             f"windowed decode launches, want {n_local * n_forced}")
+    # an engine with slots on both sides of the window: kernels alone
+    # (timed, launches counted), then every call checked
+    prompt = list(np.random.default_rng(8).integers(2, cfg.vocab, 1100))
+    lens = (1000, 1020, 1030, 1100)
+
+    def engine_steps(n_steps):
+        eng = ReplicaEngine(cfg, params, slots=len(lens),
+                            max_len=GEMMA_MAX_LEN, eos_id=-1)
+        for i, n in enumerate(lens):
+            eng.admit(2000 + i, prompt[:n], 64)
+        ms = []
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        depths = [int(p) for p in eng.pos]
+        del eng
+        return ms, depths
+    torch.cuda.synchronize()
+    ops.launches.clear()
+    step_ms, depths = engine_steps(8)
+    eng_counts = collections.Counter(ops.launches)
+    calls = {"flash_attention": [], "decode_attention": []}
+    kinds = collections.Counter()
+    restore = bound_attention(*checked_attention(ATTN_TOL["bfloat16"], calls,
+                                                 kinds))
+    try:
+        engine_steps(4)
+    finally:
+        restore()
+    if not (min(depths) < cfg.window < max(depths)):
+        fail(f"{cfg.name}: engine depths {depths} do not straddle "
+             f"{cfg.window}")
+    if eng_counts["decode_attention_window"] != 8 * n_local or \
+            eng_counts["decode_attention"] != 8 * cfg.n_layers:
+        fail(f"{cfg.name}: engine decode launches {dict(eng_counts)}")
+    say(f"# 18 {cfg.name}: engine of 4 slots at depths {list(lens)} -> "
+        f"{depths}: decode median {np.median(step_ms):.2f} ms a step "
+        f"({min(step_ms):.2f}-{max(step_ms):.2f}; floor "
+        f"{gb * 1e9 / HBM_BYTES_PER_S * 1e3:.2f}), launches decode "
+        f"{eng_counts['decode_attention']} (windowed "
+        f"{eng_counts['decode_attention_window']}); 4 checked steps: every "
+        f"call kernel == plain ({dict(sorted(kinds.items()))}, max |diff| "
+        f"decode {max(calls['decode_attention']):.3e})")
+    out[cfg.name] = dict(tf, gb=gb, engine_decode_ms=float(np.median(step_ms)),
+                         engine_launches=eng_counts)
+    free_model(params)
+
+    # (c) nemotron-4-340b at full width, depth cut; G = 12
+    cfg = dense_config("nemotron-4-340b")
+    params, gb = dense_model(cfg, dev)
+    out[cfg.name] = dict(dense_teacher_forced(cfg, params, dev,
+                                              SERVE_MAX_LEN), gb=gb)
+    free_model(params)
+
+    # (d) pixtral-12b: 256 stub patches before the prompt
+    cfg = dense_config("pixtral-12b")
+    params, gb = dense_model(cfg, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    patches = (0.1 * torch.randn((1, cfg.n_frontend_tokens, cfg.d_model),
+                                 generator=g, device=dev)).to(torch.bfloat16)
+    out[cfg.name] = dict(dense_teacher_forced(
+        cfg, params, dev, SERVE_MAX_LEN, frontend_embeds=patches), gb=gb)
+    free_model(params)
+
+    # (e) whisper-medium: 1500 stub frames through the encoder
+    cfg = dense_config("whisper-medium")
+    params, gb = dense_model(cfg, dev)
+    frames = (0.1 * torch.randn((1, WHISPER_FRAMES, cfg.d_model),
+                                generator=g, device=dev)).to(torch.bfloat16)
+    tf = dense_teacher_forced(cfg, params, dev, SERVE_MAX_LEN,
+                              enc_embeds=frames)
+    n_forced = DENSE_REQUESTS[cfg.name][1]
+    want = {"flash non-causal": cfg.n_enc_layers + cfg.n_layers,
+            "flash causal": cfg.n_layers,
+            "decode full": 2 * cfg.n_layers * n_forced}
+    if dict(tf["kinds"]) != want:
+        fail(f"{cfg.name}: attention calls {dict(tf['kinds'])} != {want}")
+    out[cfg.name] = dict(tf, gb=gb)
+    free_model(params)
+    say(f"# 18: phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def profile_run(dev, label, fn, units: int, unit: str) -> dict:
     """Device busy time against wall time of ``fn`` under torch.profiler,
     per ``unit``: {"wall_us", "busy_us", "share" (%), "kernels", "by_name"
@@ -4277,6 +4778,7 @@ def main() -> None:
     mk_launches, mk_routes, blocked_records = phase_blocked_main_path(
         dev, records, eps)
     flash, decode = phase_attention_vs_plain(dev)
+    dense_rows = phase_attention_dense_archs(dev)
     attn_launches = phase_serving(dev)
     rwkv = phase_rwkv_vs_plain(dev, parent)
     rwkv_launches = phase_rwkv_serving(dev)
@@ -4292,6 +4794,7 @@ def main() -> None:
     res_launches, res_numbers = phase_resilience(dev)
     stream_launches, stream_numbers = phase_stream(dev)
     api_launches, api_numbers = phase_api_serving(dev)
+    dense = phase_dense_archs(dev)
     prof = phase_profile(dev)
     say(f"# total {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -4366,11 +4869,34 @@ def main() -> None:
                     "src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:68",
              launches=attn_launches["flash_attention"],
-             sm90_launches=attn_launches["flash_attention_sm90"], **flash),
+             sm90_launches=attn_launches["flash_attention_sm90"],
+             dense_archs_launches={
+                 a: {"flash_attention": d["launches"]["flash_attention"],
+                     "sm90": d["launches"]["flash_attention_sm90"]}
+                 for a, d in dense.items()},
+             dense_archs_serve_launches=dense["minitron-8b"][
+                 "serve_launches"]["flash_attention"],
+             dense_shapes={name: row for (kind, name), row in
+                           dense_rows.items() if kind == "flash"},
+             **flash),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:55",
-             launches=attn_launches["decode_attention"], **decode),
+             launches=attn_launches["decode_attention"],
+             dense_archs_launches={
+                 a: {"decode_attention": d["launches"]["decode_attention"],
+                     "windowed": d["launches"]["decode_attention_window"]}
+                 for a, d in dense.items()},
+             dense_archs_serve_launches=dense["minitron-8b"][
+                 "serve_launches"]["decode_attention"],
+             gemma3_engine_launches={
+                 "decode_attention": dense["gemma3-12b"]["engine_launches"][
+                     "decode_attention"],
+                 "windowed": dense["gemma3-12b"]["engine_launches"][
+                     "decode_attention_window"]},
+             dense_shapes={name: row for (kind, name), row in
+                           dense_rows.items() if kind == "decode"},
+             **decode),
         dict(name="rwkv6_chunked", route="cuda",
              source="src/repro_torch/kernels/csrc/rwkv6_chunked.cu",
              replaces="src/repro/kernels/rwkv6_scan.py:69",

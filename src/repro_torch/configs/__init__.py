@@ -2,8 +2,12 @@
 
 Each module defines ``CONFIG`` (the full-scale configuration, as in the JAX
 package's ``repro.configs``) and ``reduced()`` (a tiny configuration of the
-same family for CPU tests).  ``ARCHS`` lists only what the port supports:
-the dense GQA decoder (qwen2.5-14b) and RWKV6 (rwkv6-1.6b).
+same family for CPU tests).  ``ARCHS`` lists only what the port supports,
+in the JAX package's order: the dense GQA decoders (gemma3-12b with its
+local / global windows, qwen2.5-14b, minitron-8b, nemotron-4-340b), the
+encoder-decoder whisper-medium, pixtral-12b with its stub patch prefix,
+and RWKV6 (rwkv6-1.6b).  The MoE, MLA and SSM architectures are ROADMAP
+Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -11,7 +15,8 @@ import importlib
 
 from ..models.config import ModelConfig
 
-ARCHS = ["qwen2.5-14b", "rwkv6-1.6b"]
+ARCHS = ["gemma3-12b", "qwen2.5-14b", "minitron-8b", "nemotron-4-340b",
+         "whisper-medium", "pixtral-12b", "rwkv6-1.6b"]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

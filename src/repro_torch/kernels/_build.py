@@ -150,7 +150,7 @@ def library() -> ctypes.CDLL:
     lib.flash_attention_sm90_smem_bytes.argtypes = [i]
     lib.flash_attention_sm90_smem_bytes.restype = i
     lib.decode_attention_launch.argtypes = [p] * 8 + [i] * 5 + [f] + \
-        [i] * 4 + [p]
+        [i] * 5 + [p]
     lib.decode_attention_launch.restype = i
     lib.decode_attention_smem_bytes.argtypes = [i] * 4
     lib.decode_attention_smem_bytes.restype = i

@@ -51,10 +51,12 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def decode_attention_ref(q, k, v, kv_len, *, scale=None):
+def decode_attention_ref(q, k, v, kv_len, *, window: int = 0, scale=None):
     """q (B, H, hd), one token per row; k, v (B, S, KV, hd); kv_len (B,)
     int -> (B, H, hd) in q's type.  Positions ``>= min(kv_len[b], S)`` are
-    masked; ``kv_len = 0`` gives zeros."""
+    masked, and with ``window > 0`` those ``< kv_len[b] - window`` too (the
+    query sits at position ``kv_len[b] - 1``: the reference's ``q_pos -
+    k_pos < window``); a row with no valid position gives zeros."""
     B, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -64,8 +66,12 @@ def decode_attention_ref(q, k, v, kv_len, *, scale=None):
     kt = k.to(f32).permute(0, 2, 1, 3)                  # (B, KV, S, hd)
     vt = v.to(f32).permute(0, 2, 1, 3)
     s = (qg @ kt.transpose(-1, -2)) * scale             # (B, KV, G, S)
-    valid = (torch.arange(S, device=q.device)[None, :] <
-             kv_len.to(q.device)[:, None])[:, None, None, :]
+    pos = torch.arange(S, device=q.device)[None, :]
+    n = kv_len.to(q.device).long()[:, None]
+    valid = pos < n
+    if window > 0:
+        valid &= pos >= n - window
+    valid = valid[:, None, None, :]
     s = torch.where(valid, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), 0.0)

@@ -5,11 +5,15 @@
 // decode_attention (kernel body _kernel).  q (B, H, hd) holds one new token
 // per batch row; k and v (B, S, KV, hd) are the cache, in fp32 or bf16, the
 // JAX package's layout; kv_len (B,) int32.  Query head h reads kv head
-// h / G (G = H / KV <= 8).  Positions >= min(kv_len[b], S) are masked: they
-// get p = 0 and their K and V rows are never read, so a row with kv_len = 0
-// gives zeros, as the Pallas kernel does.  Scores (q . k) * scale, the
-// running max, denominator and accumulator are fp32 for both input types;
-// out = acc / max(l, 1e-30) in q's type.
+// h / G (G = H / KV <= 16: 12 at nemotron-4-340b's width).  Row b reads the
+// positions [lo, min(kv_len[b], S)), lo = max(0, kv_len[b] - window) for a
+// sliding window (window > 0: gemma3's local layers; the TPU kernel has no
+// window, the reference's models mask q_pos - k_pos >= window through XLA)
+// and 0 without.  The other positions are masked: they get p = 0 and their
+// K and V rows are never read, so a row with no valid position gives
+// zeros, as the Pallas kernel does at kv_len = 0.  Scores (q . k) * scale,
+// the running max, denominator and accumulator are fp32 for both input
+// types; out = acc / max(l, 1e-30) in q's type.
 //
 // What bounds it: the cache.  Each valid K and V row is read once and
 // carries 2 * G * hd multiply-adds, G = 5 on the serving path: about 2.5
@@ -24,9 +28,11 @@
 //   rows of one kv head, so each K and V row is read once.
 // - A split walks its positions in chunks, K and V staged in shared memory
 //   by 16-byte cp.async (8 or 4 where the rows are not 16-byte multiples),
-//   only rows below min(kv_len, S); the next chunks' copies fly while one
-//   is scored.  A split that starts at or past min(kv_len, S) copies
-//   nothing and writes an empty partial (m = NEG_INF, l = 0).
+//   only rows in [lo, min(kv_len, S)); the next chunks' copies fly while
+//   one is scored.  A split that starts at or past min(kv_len, S), or ends
+//   at or before lo, copies nothing and writes an empty partial (m =
+//   NEG_INF, l = 0); a split that straddles lo starts its walk at lo, so
+//   its chunks hold only valid rows and need no window mask.
 // - bf16 at hd <= 128 (the serving path): decode_mma_kernel, both products
 //   on the tensor cores by mma.sync (see its note), a ring of 3 chunks of
 //   64 positions.
@@ -34,8 +40,10 @@
 //   two buffers of 64 positions (32 for rows over 528 bytes).  Per chunk a
 //   thread a position scores it against the G query rows (held in shared
 //   memory in fp32); one max / sum reduction a query row for the whole
-//   chunk (a warp a row); then P . V, thread (position group, 16 bytes of
-//   hd), summed over the groups at the end of the split.
+//   chunk (a warp a row); then P . V, thread (row set, position group, 16
+//   bytes of hd), each row set 8 query rows (two sets above G = 8, so a
+//   thread's accumulator stays 8 rows), summed over the groups at the end
+//   of the split.
 // - Merge (finish): each split writes its partial (m, l, acc[G][hd]) in
 //   fp32 to scratch the wrapper allocates; the last CTA of a (batch row, kv
 //   head) to finish (an atomic counter, reset by that CTA) merges them,
@@ -55,7 +63,8 @@ namespace attn_decode {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kGMax = 8;           // query heads per kv head
+constexpr int kGMax = 16;          // query heads per kv head
+constexpr int kRowSet = 8;         // query rows a thread accumulates
 constexpr int kMaxGroups = 16;     // position groups of the P . V pass
 constexpr float kNegInf = -1e30f;
 
@@ -128,6 +137,16 @@ inline int smem_bytes(int G, int hd, int esize, int n_split) {
   const Geo g = geometry(hd, esize);
   return region_bytes(g, G, n_split) +
          4 * (G * g.hdp + G * g.chunk + 3 * kGMax + 4);
+}
+
+// The positions [s0, s1) that split `split` of a row reads: its range cut
+// to [lo, min(len, S)), empty when s0 >= s1.
+__device__ __forceinline__ void split_range(int len, int S, int window,
+                                            int split, int split_len,
+                                            int& s0, int& s1) {
+  const int lo = window > 0 ? max(0, len - window) : 0;
+  s0 = max(split * split_len, lo);
+  s1 = min(split * split_len + split_len, max(0, min(len, S)));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -246,17 +265,20 @@ __device__ __forceinline__ void finish(Acc acc_at, const float* Ms,
   if (tid == 0) counter[bh] = 0;
 }
 
+// (kThreads, 1): the ring of a chunk of 32 or 64 rows of up to 1040 bytes
+// holds one CTA an SM at the large head dims, so ptxas may use registers
+// past the 128 that would keep four CTAs resident, rather than spill
 template <typename T, int CH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ kv_len,
               T* __restrict__ out, float* __restrict__ part_acc,
               float* __restrict__ part_ml, int* __restrict__ counter, int S,
-              int H, int KV, int hd, float scale, int split_len,
+              int H, int KV, int hd, float scale, int window, int split_len,
               int copy_bytes) {
   constexpr int kVec = Vec<T>::kN;
   constexpr int kGS = kThreads / CH;             // row sets of the scoring
-  constexpr int kGT = (kGMax + kGS - 1) / kGS;   // rows a thread scores
+  constexpr int kGT = kRowSet / kGS;   // rows a thread scores a pass
   extern __shared__ __align__(16) uint8_t smem[];
   const int G = H / KV;
   const Geo geo = geometry(hd, sizeof(T));
@@ -273,9 +295,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int n_split = gridDim.x;
-  const int n = max(0, min(kv_len[b], S));
-  const int s0 = split * split_len;
-  const int s1 = min(s0 + split_len, n);
+  int s0, s1;
+  split_range(kv_len[b], S, window, split, split_len, s0, s1);
   const size_t row = static_cast<size_t>(KV) * hd;   // elements a position
   const T* qb = q + (static_cast<size_t>(b) * H + kvh * G) * hd;
   const T* kb = k + static_cast<size_t>(b) * S * row + kvh * hd;
@@ -300,13 +321,18 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Ms[tid] = kNegInf;
     Ls[tid] = 0.f;
   }
-  float acc[kGMax][kVec];
+  // P . V: thread (row set rs, position group pg, 16 bytes dv of hd)
+  // accumulates query rows g0 .. g0 + 7 (those below G)
+  const int n_rs = (G + kRowSet - 1) / kRowSet;
+  const int npg = geo.npg / n_rs;
+  const int pgr = tid / geo.nd, dv = tid - pgr * geo.nd;
+  const int rs = pgr % n_rs, pg = pgr / n_rs, g0 = rs * kRowSet;
+  const bool pv_thread = pgr < npg * n_rs;
+  float acc[kRowSet][kVec];
 #pragma unroll
-  for (int g = 0; g < kGMax; ++g)
+  for (int r = 0; r < kRowSet; ++r)
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[g][e] = 0.f;
-  const int pg = tid / geo.nd, dv = tid - pg * geo.nd;
-  const bool pv_thread = pg < geo.npg;
+    for (int e = 0; e < kVec; ++e) acc[r][e] = 0.f;
 
   for (int c0 = s0, it = 0; c0 < s1; c0 += CH, ++it) {
     const int cnt = min(CH, s1 - c0), buf = it & 1;
@@ -323,20 +349,21 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const uint8_t* Kc = smem + buf * CH * pitch;
     const uint8_t* Vc = smem + (2 + buf) * CH * pitch;
 
-    // scores: thread (j, gs) takes position j against rows gs, gs + kGS, ..
+    // scores: thread (js, gs) takes position js against rows gs, gs + kGS,
+    // .. of each row set of 8 (a second pass above G = 8)
     {
-      const int j = tid % CH, gs = tid / CH;
-      if (j < cnt) {
+      const int js = tid % CH, gs = tid / CH;
+      for (int gp = 0; gp < G && js < cnt; gp += kRowSet) {
         float dot[kGT];
 #pragma unroll
         for (int t = 0; t < kGT; ++t) dot[t] = 0.f;
-        const uint4* kr = reinterpret_cast<const uint4*>(Kc + j * pitch);
+        const uint4* kr = reinterpret_cast<const uint4*>(Kc + js * pitch);
         for (int dd = 0; dd < geo.nd; ++dd) {
           float kf[kVec];
           unpack(kr[dd], kf);
 #pragma unroll
           for (int t = 0; t < kGT; ++t) {
-            const int g = gs + t * kGS;
+            const int g = gp + gs + t * kGS;
             if (g < G) {
               const float4* qv =
                   reinterpret_cast<const float4*>(Qs + g * hdp + dd * kVec);
@@ -353,8 +380,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
 #pragma unroll
         for (int t = 0; t < kGT; ++t) {
-          const int g = gs + t * kGS;
-          if (g < G) Ss[g * CH + j] = dot[t] * scale;
+          const int g = gp + gs + t * kGS;
+          if (g < G) Ss[g * CH + js] = dot[t] * scale;
         }
       }
     }
@@ -398,23 +425,23 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // npg, ... and the 16 bytes dv of hd
     if (pv_thread) {
 #pragma unroll
-      for (int g = 0; g < kGMax; ++g) {
-        if (g < G) {
-          const float a = As[g];
+      for (int r = 0; r < kRowSet; ++r) {
+        if (g0 + r < G) {
+          const float a = As[g0 + r];
 #pragma unroll
-          for (int e = 0; e < kVec; ++e) acc[g][e] *= a;
+          for (int e = 0; e < kVec; ++e) acc[r][e] *= a;
         }
       }
-      for (int j = pg; j < cnt; j += geo.npg) {
+      for (int j = pg; j < cnt; j += npg) {
         float vf[kVec];
         unpack(*reinterpret_cast<const uint4*>(Vc + j * pitch + dv * 16), vf);
 #pragma unroll
-        for (int g = 0; g < kGMax; ++g) {
-          if (g < G) {
-            const float p = Ss[g * CH + j];
+        for (int r = 0; r < kRowSet; ++r) {
+          if (g0 + r < G) {
+            const float p = Ss[(g0 + r) * CH + j];
 #pragma unroll
-            for (int e = 0; e < kVec; ++e) acc[g][e] = fmaf(p, vf[e],
-                                                          acc[g][e]);
+            for (int e = 0; e < kVec; ++e) acc[r][e] = fmaf(p, vf[e],
+                                                          acc[r][e]);
           }
         }
       }
@@ -423,14 +450,14 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();   // the buffers' last readers are done: reuse as Red
   if (pv_thread) {
 #pragma unroll
-    for (int g = 0; g < kGMax; ++g) {
-      if (g < G) {
-        float4* r = reinterpret_cast<float4*>(Red + (pg * G + g) * hdp +
-                                              dv * kVec);
+    for (int r = 0; r < kRowSet; ++r) {
+      if (g0 + r < G) {
+        float4* w = reinterpret_cast<float4*>(
+            Red + (pg * G + g0 + r) * hdp + dv * kVec);
 #pragma unroll
         for (int e = 0; e < kVec / 4; ++e)
-          r[e] = make_float4(acc[g][4 * e], acc[g][4 * e + 1],
-                             acc[g][4 * e + 2], acc[g][4 * e + 3]);
+          w[e] = make_float4(acc[r][4 * e], acc[r][4 * e + 1],
+                             acc[r][4 * e + 2], acc[r][4 * e + 3]);
       }
     }
   }
@@ -440,7 +467,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       [&](int x) {
         const int g = x / hd, d = x - g * hd;
         float sum = 0.f;
-        for (int p = 0; p < geo.npg; ++p) sum += Red[(p * G + g) * hdp + d];
+        for (int p = 0; p < npg; ++p) sum += Red[(p * G + g) * hdp + d];
         return sum;
       },
       Ms, Ls, last, reinterpret_cast<float*>(smem), out, part_acc, part_ml,
@@ -453,12 +480,14 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // running softmax.  S^T is never formed: scores = Q (the G query rows,
 // padded to 16, as the A operand in registers) x K^T (B fragments read
 // straight from the K rows in shared memory); thread (g, t) of the warp
-// then holds query row g's scores of positions 2t, 2t + 1 of each 8, so
-// the row's max and sum are two shuffles, and its p values are the A
-// operand of P . V as they stand (rounded to bf16, about 2^-9 of each p),
-// with V's B fragments by ldmatrix.trans.  K and V come through a ring of
-// kMmaStages chunks of cp.async; the four warps' softmaxes are merged at
-// the end of the split.
+// then holds query row g's scores of positions 2t, 2t + 1 of each 8 (and,
+// with HI, above G = 8, row g + 8's), so a row's max and sum are two
+// shuffles, and its p values are the A operand of P . V as they stand
+// (rounded to bf16, about 2^-9 of each p), with V's B fragments by
+// ldmatrix.trans.  Without HI rows 8-15 of the tile are zero and their
+// statistics are not carried.  K and V come through a ring of kMmaStages
+// chunks of cp.async; the four warps' softmaxes are merged at the end of
+// the split.
 
 constexpr int kMmaStages = 3;
 constexpr int kMmaChunk = 64;      // positions a chunk, 16 a warp
@@ -480,15 +509,17 @@ inline int mma_smem_bytes(int G, int hd, int n_split) {
   return mma_region_bytes(G, hd, n_split) + 4 * (2 * kGMax + 4);
 }
 
-// d += A (16 x 16 bf16, rows 8-15 zero: registers a0, a2) . B (16 x 8)
-__device__ __forceinline__ void mma_rows8(float (&d)[4], uint32_t a0,
-                                          uint32_t a2, uint32_t b0,
+// d += A (16 x 16 bf16: a0 / a2 row g, a1 / a3 row g + 8, zero for a
+// tile of 8 rows) . B (16 x 8)
+__device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0,
+                                          uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint32_t b0,
                                           uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
@@ -513,8 +544,32 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The running softmax of one query row in a warp: max m (over the warp's
+// positions so far), this thread's share l of the denominator; update()
+// takes the scores of this thread's 4 positions of a 16-position slice
+// (-INFINITY where masked) and returns the rescale of the row's
+// accumulators, the p values left in sc.
+struct RowSoftmax {
+  float m = -INFINITY, l = 0.f;
+  __device__ __forceinline__ float update(float (&sc)[4]) {
+    float mx = m;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx = fmaxf(mx, sc[e]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float mb = mx == -INFINITY ? 0.f : mx;   // no -inf - -inf
+    const float alpha = ex2((m - mb) * kLog2e);
+    m = mx;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[e] = ex2((sc[e] - mb) * kLog2e);
+    l = l * alpha + (sc[0] + sc[1]) + (sc[2] + sc[3]);
+    return alpha;
+  }
+};
+
 // NK bounds hd / 16 (4 or 8): it sizes the q fragments and accumulators.
-template <int NK>
+// HI: G > 8, rows 8-15 of the tile live.
+template <int NK, bool HI>
 __global__ void __launch_bounds__(kThreads)
 decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -522,9 +577,10 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const int* __restrict__ kv_len,
                   __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
                   float* __restrict__ part_ml, int* __restrict__ counter,
-                  int S, int H, int KV, int hd, float scale, int split_len,
-                  int copy_bytes) {
+                  int S, int H, int KV, int hd, float scale, int window,
+                  int split_len, int copy_bytes) {
   constexpr int CH = kMmaChunk;
+  constexpr int kRows = HI ? 2 : 1;   // query rows a thread: g (and g + 8)
   extern __shared__ __align__(16) uint8_t smem[];
   const int G = H / KV;
   const int hdp = mma_hdp(hd), pitch = mma_pitch(hd), nk = hdp / 16;
@@ -537,9 +593,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int n = max(0, min(kv_len[b], S));
-  const int s0 = split * split_len;
-  const int s1 = min(s0 + split_len, n);
+  int s0, s1;
+  split_range(kv_len[b], S, window, split, split_len, s0, s1);
   const int n_chunks = s1 > s0 ? (s1 - s0 + CH - 1) / CH : 0;
   const size_t row = static_cast<size_t>(KV) * hd;
   const __nv_bfloat16* kb = k + static_cast<size_t>(b) * S * row + kvh * hd;
@@ -561,27 +616,32 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   }
 
-  // q fragments: query row g of this kv head, dims 16 kk + 2t (+ 8), + 1
-  uint32_t qa[NK][2];
+  // q fragments: query row g + 8 r of this kv head, dims 16 kk + 2t (+ 8),
+  // + 1 (row r = 1 only with HI)
+  uint32_t qa[kRows][NK][2];
   {
     const uint16_t* qr = reinterpret_cast<const uint16_t*>(q) +
-                         (static_cast<size_t>(b) * H + kvh * G + g) * hd;
+                         (static_cast<size_t>(b) * H + kvh * G) * hd;
 #pragma unroll
-    for (int kk = 0; kk < NK; ++kk)
+    for (int r = 0; r < kRows; ++r)
 #pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int d = 16 * kk + 8 * h2 + 2 * t;
-        const uint32_t lo = g < G && d < hd ? qr[d] : 0u;
-        const uint32_t hi = g < G && d + 1 < hd ? qr[d + 1] : 0u;
-        qa[kk][h2] = lo | (hi << 16);
-      }
+      for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int gr = g + 8 * r, d = 16 * kk + 8 * h2 + 2 * t;
+          const uint16_t* qg = qr + static_cast<size_t>(gr) * hd;
+          const uint32_t lo = gr < G && d < hd ? qg[d] : 0u;
+          const uint32_t hi = gr < G && d + 1 < hd ? qg[d + 1] : 0u;
+          qa[r][kk][h2] = lo | (hi << 16);
+        }
   }
+  // o[i][0..1]: row g, dims 8 i + 2t, + 1; o[i][2..3]: row g + 8
   float o[2 * NK][4];
 #pragma unroll
   for (int i = 0; i < 2 * NK; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  float m = -INFINITY, l = 0.f;   // row g; l summed over this thread's keys
+  RowSoftmax sm[kRows];
 
   const int p0 = 16 * warp;
   for (int it = 0; it < n_chunks; ++it) {
@@ -604,7 +664,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const uint8_t* Kc = stage_k(st);
     const uint8_t* Vc = stage_v(st);
 
-    // scores of positions p0 + 8 nt + 2t (+ 1) against query row g
+    // scores of positions p0 + 8 nt + 2t (+ 1): sc[nt][0..1] row g,
+    // sc[nt][2..3] row g + 8
     float sc[2][4];
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
@@ -614,36 +675,37 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int kk = 0; kk < NK; ++kk)
         if (kk < nk)
-          mma_rows8(sc[nt], qa[kk][0], qa[kk][1],
+          mma_16816(sc[nt], qa[0][kk][0], HI ? qa[kRows - 1][kk][0] : 0u,
+                    qa[0][kk][1], HI ? qa[kRows - 1][kk][1] : 0u,
                     *reinterpret_cast<const uint32_t*>(kr + 32 * kk),
                     *reinterpret_cast<const uint32_t*>(kr + 32 * kk + 16));
     }
-    float mx = m;
+    // per row r: its 4 scores (positions 2t, 2t + 1 of slices nt = 0, 1),
+    // masked past the chunk's end, through the running softmax
+    float p[kRows][4], alpha[kRows];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int r = 0; r < kRows; ++r) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = p0 + 8 * nt + 2 * t + e < cnt;
-        sc[nt][e] = ok ? sc[nt][e] * scale : -INFINITY;
-        mx = fmaxf(mx, sc[nt][e]);
-      }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float mb = mx == -INFINITY ? 0.f : mx;   // no -inf - -inf
-    const float alpha = ex2((m - mb) * kLog2e);
-    m = mx;
-    float p[2][2];
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) p[nt][e] = ex2((sc[nt][e] - mb) * kLog2e);
-    l = l * alpha + (p[0][0] + p[0][1]) + (p[1][0] + p[1][1]);
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = p0 + 8 * nt + 2 * t + e < cnt;
+          p[r][2 * nt + e] = ok ? sc[nt][2 * r + e] * scale : -INFINITY;
+        }
+      alpha[r] = sm[r].update(p[r]);
+    }
     const uint32_t a0 = pack_bf16(p[0][0], p[0][1]);
-    const uint32_t a2 = pack_bf16(p[1][0], p[1][1]);
+    const uint32_t a2 = pack_bf16(p[0][2], p[0][3]);
+    const uint32_t a1 = HI ? pack_bf16(p[kRows - 1][0], p[kRows - 1][1]) : 0u;
+    const uint32_t a3 = HI ? pack_bf16(p[kRows - 1][2], p[kRows - 1][3]) : 0u;
 #pragma unroll
     for (int i = 0; i < 2 * NK; ++i) {
-      o[i][0] *= alpha;
-      o[i][1] *= alpha;
+      o[i][0] *= alpha[0];
+      o[i][1] *= alpha[0];
+      if (HI) {
+        o[i][2] *= alpha[kRows - 1];
+        o[i][3] *= alpha[kRows - 1];
+      }
     }
     // O += P V, 16 dims of hd an ldmatrix.x4.trans
     const int mi = lane >> 3;
@@ -654,29 +716,36 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       if (dt < nk) {
         uint32_t r0, r1, r2, r3;
         ldsm_x4_trans(va + 32 * dt, r0, r1, r2, r3);
-        mma_rows8(o[2 * dt], a0, a2, r0, r1);
-        mma_rows8(o[2 * dt + 1], a0, a2, r2, r3);
+        mma_16816(o[2 * dt], a0, a1, a2, a3, r0, r1);
+        mma_16816(o[2 * dt + 1], a0, a1, a2, a3, r2, r3);
       }
     }
   }
   cp_async_wait<0>();
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    sm[r].l += __shfl_xor_sync(0xffffffffu, sm[r].l, 1);
+    sm[r].l += __shfl_xor_sync(0xffffffffu, sm[r].l, 2);
+  }
 
-  // merge the four warps: warp w's acc, m, l and factor of row g
+  // merge the four warps: warp w's acc, m, l and factor of each row
   __syncthreads();   // the ring's last readers are done
   float* Wo = reinterpret_cast<float*>(smem);        // [kWarps][kGMax][hdp]
   float* Wm = Wo + kWarps * kGMax * hdp;             // [kWarps][kGMax]
   float* Wl = Wm + kWarps * kGMax;
   float* Wf = Wl + kWarps * kGMax;
-  float* wo = Wo + (warp * kGMax + g) * hdp + 2 * t;
 #pragma unroll
-  for (int i = 0; i < 2 * NK; ++i)
-    if (8 * i < hdp) *reinterpret_cast<float2*>(wo + 8 * i) =
-        make_float2(o[i][0], o[i][1]);
-  if (t == 0) {
-    Wm[warp * kGMax + g] = m == -INFINITY ? kNegInf : m;
-    Wl[warp * kGMax + g] = l;
+  for (int r = 0; r < kRows; ++r) {
+    const int gr = g + 8 * r;
+    float* wo = Wo + (warp * kGMax + gr) * hdp + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 2 * NK; ++i)
+      if (8 * i < hdp) *reinterpret_cast<float2*>(wo + 8 * i) =
+          make_float2(o[i][2 * r], o[i][2 * r + 1]);
+    if (t == 0) {
+      Wm[warp * kGMax + gr] = sm[r].m == -INFINITY ? kNegInf : sm[r].m;
+      Wl[warp * kGMax + gr] = sm[r].l;
+    }
   }
   __syncthreads();
   if (tid < G) {
@@ -733,8 +802,8 @@ template <typename T>
 cudaError_t launch_core(const void* q, const void* k, const void* v,
                         const void* kv_len, void* out, float* part_acc,
                         float* part_ml, int* counter, int B, int S, int H,
-                        int KV, int hd, float scale, int n_split,
-                        int split_len, cudaStream_t stream) {
+                        int KV, int hd, float scale, int window,
+                        int n_split, int split_len, cudaStream_t stream) {
   const int smem = smem_bytes(H / KV, hd, sizeof(T), n_split);
   const int cb = copy_width(k, v, hd * static_cast<int>(sizeof(T)));
   auto kern = geometry(hd, sizeof(T)).chunk == 64 ? decode_kernel<T, 64>
@@ -745,18 +814,22 @@ cudaError_t launch_core(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(kv_len),
       static_cast<T*>(out), part_acc, part_ml, counter, S, H, KV, hd, scale,
-      split_len, cb);
+      window, split_len, cb);
   return cudaGetLastError();
 }
 
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* kv_len, void* out, float* part_acc,
                        float* part_ml, int* counter, int B, int S, int H,
-                       int KV, int hd, float scale, int n_split,
-                       int split_len, cudaStream_t stream) {
+                       int KV, int hd, float scale, int window,
+                       int n_split, int split_len, cudaStream_t stream) {
   const int smem = mma_smem_bytes(H / KV, hd, n_split);
   const int cb = copy_width(k, v, hd * 2);
-  auto kern = hd <= 64 ? decode_mma_kernel<4> : decode_mma_kernel<8>;
+  const bool hi = H / KV > 8;
+  auto kern = hd <= 64 ? (hi ? decode_mma_kernel<4, true>
+                             : decode_mma_kernel<4, false>)
+                       : (hi ? decode_mma_kernel<8, true>
+                             : decode_mma_kernel<8, false>);
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
   using bf = __nv_bfloat16;
@@ -764,7 +837,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), static_cast<const int*>(kv_len),
       static_cast<bf*>(out), part_acc, part_ml, counter, S, H, KV, hd, scale,
-      split_len, cb);
+      window, split_len, cb);
   return cudaGetLastError();
 }
 
@@ -773,8 +846,9 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 extern "C" {
 
 // Launches decode attention on `stream` of card `device`; `bf16` selects
-// the input type (0: fp32).  The caller guarantees 1 <= hd <= 256,
-// H % KV == 0, 1 <= H / KV <= 8, contiguous tensors, n_split * split_len
+// the input type (0: fp32); `window` > 0 reads only the last `window`
+// positions before kv_len (0: all).  The caller guarantees 1 <= hd <= 256,
+// H % KV == 0, 1 <= H / KV <= 16, contiguous tensors, n_split * split_len
 // >= S and, when n_split > 1, scratch of B * KV * n_split * G * hd floats
 // (part_acc) and of B * KV * n_split * G * 2 (part_ml) and B * KV zeroed
 // int32 counters.  One kernel launch.  Returns the cudaError_t of the
@@ -782,13 +856,14 @@ extern "C" {
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* kv_len, void* out, void* part_acc,
                             void* part_ml, void* counter, int B, int S, int H,
-                            int KV, int hd, float scale, int n_split,
-                            int split_len, int bf16, int device,
+                            int KV, int hd, float scale, int window,
+                            int n_split, int split_len, int bf16, int device,
                             void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (hd < 1 || hd > 256 || KV < 1 || H % KV ||
-      H / KV > attn_decode::kGMax || n_split < 1 || split_len < 1 ||
+      H / KV > attn_decode::kGMax || window < 0 || n_split < 1 ||
+      split_len < 1 ||
       static_cast<long long>(n_split) * split_len < S ||
       (n_split > 1 && (!part_acc || !part_ml || !counter)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -799,15 +874,16 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
   cudaError_t err;
   if (attn_decode::use_mma(bf16, hd))
     err = attn_decode::launch_mma(q, k, v, kv_len, out, pa, pm, cnt, B, S, H,
-                                  KV, hd, scale, n_split, split_len, s);
+                                  KV, hd, scale, window, n_split, split_len,
+                                  s);
   else if (bf16)
     err = attn_decode::launch_core<__nv_bfloat16>(
-        q, k, v, kv_len, out, pa, pm, cnt, B, S, H, KV, hd, scale, n_split,
-        split_len, s);
+        q, k, v, kv_len, out, pa, pm, cnt, B, S, H, KV, hd, scale, window,
+        n_split, split_len, s);
   else
     err = attn_decode::launch_core<float>(q, k, v, kv_len, out, pa, pm, cnt,
-                                          B, S, H, KV, hd, scale, n_split,
-                                          split_len, s);
+                                          B, S, H, KV, hd, scale, window,
+                                          n_split, split_len, s);
   return static_cast<int>(err);
 }
 

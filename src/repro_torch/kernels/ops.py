@@ -649,26 +649,37 @@ def _stream_counter(kernel: str, dev: torch.device, stream: int,
     return c
 
 
-def decode_attention(q, k, v, kv_len):
+# query heads a kv head the decode kernel takes (kGMax in
+# csrc/decode_attention.cu)
+DECODE_G_MAX = 16
+
+
+def decode_attention(q, k, v, kv_len, *, window: int = 0):
     """Single-token GQA decode over a KV cache: q (B, H, hd), k/v (B, S,
-    KV, hd), kv_len (B,) int32 -> (B, H, hd) in q's type (see
+    KV, hd), kv_len (B,) int32, ``window`` 0 (none) or the number of
+    positions before ``kv_len`` a row reads -> (B, H, hd) in q's type (see
     ``decode_attention_ref``).  The CUDA kernel
     ``csrc/decode_attention.cu`` for CUDA tensors (fp32 or bf16,
-    contiguous, hd <= 256, at most 8 query heads per kv head): one launch a
-    call, the cache split as ``decode_splits`` says (the grid launched is
-    kept in ``last_decode_grid``), the splits' partials in fp32 scratch
-    merged by the last CTA of each (row, kv head).  The plain
-    version for CPU ones."""
+    contiguous, hd <= 256, at most ``DECODE_G_MAX`` query heads per kv
+    head): one launch a call, the cache split as ``decode_splits`` says (the
+    grid launched is kept in ``last_decode_grid``; a split wholly before a
+    row's window reads nothing), the splits' partials in fp32 scratch
+    merged by the last CTA of each (row, kv head).  Every launch counts
+    under ``launches["decode_attention"]``, a windowed one also under
+    ``launches["decode_attention_window"]``.  The plain version for CPU
+    ones."""
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, kv_len)
+        return decode_attention_ref(q, k, v, kv_len, window=window)
     name = "decode_attention"
     _check_attention(name, q, k, v, 3)
     B, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
-    if G > 8:
+    if G > DECODE_G_MAX:
         raise ValueError(f"{name}: {G} query heads per kv head; the "
-                         "kernel takes at most 8")
+                         f"kernel takes at most {DECODE_G_MAX}")
+    if window < 0:
+        raise ValueError(f"{name}: window {window} < 0")
     _check("kv_len", kv_len, (B,), torch.int32, q.device, name)
     out = torch.empty_like(q)
     if B == 0:
@@ -688,14 +699,16 @@ def decode_attention(q, k, v, kv_len):
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
         out.data_ptr(), part_acc, part_ml, counter, B, S, H, KV, hd,
-        hd ** -0.5, n_split, split_len, int(q.dtype == torch.bfloat16),
-        dev.index or 0, stream)
+        hd ** -0.5, int(window), n_split, split_len,
+        int(q.dtype == torch.bfloat16), dev.index or 0, stream)
     if err:
         raise RuntimeError("decode_attention launch failed: "
                            f"{lib.fitscore_error_string(err).decode()}")
     global last_decode_grid
     last_decode_grid = (n_split, split_len)
     launches[name] += 1
+    if window:
+        launches[name + "_window"] += 1
     return out
 
 

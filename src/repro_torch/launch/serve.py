@@ -3,14 +3,15 @@ technique as the serving control plane); the port's ``repro.launch.serve``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 40 \\
         --policy nrt_prioritized --sigma 0.5 [--real] [--device cpu] \\
-        [--arch qwen2.5-14b | rwkv6-1.6b]
+        [--arch ARCH]
 
 Prints the replica-occupancy seconds of a simulated fleet for a few
 policies beside a round-robin baseline; with ``--real`` it also serves the
 first 12 requests (prompts cut to 16 tokens, decodes to 32) with real
-``ReplicaEngine``s of the reduced configuration of ``--arch`` (the dense
-GQA decoder qwen2.5-14b, or RWKV6 rwkv6-1.6b), placed by the
-``DVBPScheduler``.  Runs on the card unless ``--device cpu``.
+``ReplicaEngine``s of the reduced configuration of ``--arch`` (one of
+``configs.ARCHS``: the dense GQA decoders, whisper-medium and pixtral-12b
+on text prompts alone, RWKV6), placed by the ``DVBPScheduler``.  Runs on
+the card unless ``--device cpu``.
 """
 from __future__ import annotations
 

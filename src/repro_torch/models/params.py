@@ -1,10 +1,12 @@
 """Parameter templates and random initialisation of the dense GQA decoder
-and of RWKV6: the port's copy of ``repro.models.params`` (``template``,
-``_finalize``, ``init_params``) for the architectures ``configs.ARCHS``
-lists.
+(with whisper's encoder and cross-attention) and of RWKV6: the port's copy
+of ``repro.models.params`` (``template``, ``stack_counts``, ``_finalize``,
+``init_params``) for the architectures ``configs.ARCHS`` lists.
 
 The tree is the reference's: ``embed``, ``final_norm``, ``lm_head`` (unless
-tied) and ``layers``, a dict whose every entry carries a leading layer axis.
+tied) and ``layers``, a dict whose every entry carries a leading layer axis;
+an encoder-decoder adds ``enc_layers`` (stacked ``n_enc_layers`` deep) and
+``enc_norm``, and its decoder layers ``ln_x`` and ``x_wq`` .. ``x_wo``.
 Initialisers and scales are the reference's too: ``normal`` times
 ``scale / sqrt(fan_in)`` for a dense weight, ones for a norm and RWKV6's
 ``gn_scale``, zeros for the QKV biases and for RWKV6's token-shift mixes,
@@ -40,12 +42,11 @@ def _dense(fan_in: int, fan_out: int) -> ParamMeta:
 
 
 def _supported(cfg: ModelConfig) -> None:
-    if cfg.mla or cfg.ssm or cfg.n_experts or \
-            cfg.arch_kind != "decoder" or cfg.frontend != "none":
+    if cfg.mla or cfg.ssm or cfg.n_experts:
         raise NotImplementedError(
             f"{cfg.name}: the port's model stack runs the dense GQA decoder "
-            "and RWKV6 only; MoE, MLA, SSM heads, encoder-decoder and "
-            "frontends are ROADMAP Queue 1 item 8")
+            "(with a stub frontend or an encoder), and RWKV6 only; MoE, MLA "
+            "and SSM heads are ROADMAP Queue 1 item 8")
 
 
 def _rwkv_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
@@ -67,42 +68,74 @@ def _rwkv_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
             "w_in": _dense(d, cfg.d_ff), "w_out": _dense(cfg.d_ff, d)}
 
 
-def _decoder_layer(cfg: ModelConfig) -> Dict[str, ParamMeta]:
+def _attention_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
     d = cfg.d_model
-    blk = {"ln1": _norm(d),
-           "wq": _dense(d, cfg.q_dim), "wk": _dense(d, cfg.kv_dim),
+    blk = {"wq": _dense(d, cfg.q_dim), "wk": _dense(d, cfg.kv_dim),
            "wv": _dense(d, cfg.kv_dim), "wo": _dense(cfg.q_dim, d)}
     if cfg.qkv_bias:
         blk["bq"] = ParamMeta((cfg.q_dim,), "zeros")
         blk["bk"] = ParamMeta((cfg.kv_dim,), "zeros")
         blk["bv"] = ParamMeta((cfg.kv_dim,), "zeros")
-    blk["ln2"] = _norm(d)
-    blk["w_in"] = _dense(d, cfg.d_ff)
-    blk["w_out"] = _dense(cfg.d_ff, d)
+    return blk
+
+
+def _mlp_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
+    d = cfg.d_model
+    blk = {"w_in": _dense(d, cfg.d_ff), "w_out": _dense(cfg.d_ff, d)}
     if cfg.mlp_act.endswith("_glu"):
         blk["w_gate"] = _dense(d, cfg.d_ff)
     return blk
 
 
+def _decoder_layer(cfg: ModelConfig) -> Dict[str, ParamMeta]:
+    """Self-attention and MLP; with an encoder, also the cross-attention's
+    norm ``ln_x`` and its projections ``x_wq`` .. ``x_wo``."""
+    blk = {"ln1": _norm(cfg.d_model), **_attention_block(cfg),
+           "ln2": _norm(cfg.d_model), **_mlp_block(cfg)}
+    if cfg.arch_kind == "encdec":
+        blk["ln_x"] = _norm(cfg.d_model)
+        blk.update({f"x_{k}": m for k, m in _attention_block(cfg).items()})
+    return blk
+
+
+def _encoder_layer(cfg: ModelConfig) -> Dict[str, ParamMeta]:
+    return {"ln1": _norm(cfg.d_model), **_attention_block(cfg),
+            "ln2": _norm(cfg.d_model), **_mlp_block(cfg)}
+
+
 def template(cfg: ModelConfig) -> Dict:
-    """The parameter template.  The layer dict is *unstacked*; every entry
-    of ``layers`` gets a leading axis of ``cfg.n_layers`` (``_finalize``)."""
+    """The parameter template.  The layer dicts are *unstacked*; each entry
+    of ``stack_counts(cfg)`` gets a leading axis of that many layers
+    (``_finalize``)."""
     _supported(cfg)
     tpl = {"embed": ParamMeta((cfg.vocab, cfg.d_model), "normal", 1.0),
            "final_norm": _norm(cfg.d_model),
            "layers": _rwkv_block(cfg) if cfg.rwkv else _decoder_layer(cfg)}
     if not cfg.tie_embeddings:
         tpl["lm_head"] = _dense(cfg.d_model, cfg.vocab)
+    if cfg.arch_kind == "encdec":
+        tpl["enc_layers"] = _encoder_layer(cfg)
+        tpl["enc_norm"] = _norm(cfg.d_model)
     return tpl
+
+
+def stack_counts(cfg: ModelConfig) -> Dict[str, int]:
+    """Depth of each stacked entry of the template."""
+    out = {"layers": cfg.n_layers}
+    if cfg.arch_kind == "encdec":
+        out["enc_layers"] = cfg.n_enc_layers
+    return out
 
 
 def _finalize(cfg: ModelConfig, leaf_fn) -> Dict:
     """Apply ``leaf_fn(meta, stacked_n)`` over the template, ``stacked_n``
-    the layer count for the entries of ``layers`` and None elsewhere."""
+    the depth from ``stack_counts`` for a stacked entry's leaves and None
+    elsewhere."""
+    stacks = stack_counts(cfg)
     out = {}
     for key, sub in template(cfg).items():
         if isinstance(sub, dict):
-            out[key] = {k: leaf_fn(m, cfg.n_layers) for k, m in sub.items()}
+            out[key] = {k: leaf_fn(m, stacks[key]) for k, m in sub.items()}
         else:
             out[key] = leaf_fn(sub, None)
     return out
@@ -114,12 +147,18 @@ def _dtype(cfg: ModelConfig, dtype) -> torch.dtype:
     return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
 
+# elements of one fp32 draw (1 GB): a larger leaf is drawn in blocks of rows
+_DRAW_ELEMS = 1 << 28
+
+
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                 dtype=None) -> Dict:
     """Random parameters made directly on ``device`` in ``dtype`` (default
     ``cfg.dtype``) from one ``torch.Generator`` seeded with ``seed`` on that
-    device.  A normal weight is drawn in fp32, scaled and cast one layer
-    at a time, so no fp32 copy of the whole stack is ever held."""
+    device.  A normal weight is drawn in fp32, a layer at a time and, past
+    ``_DRAW_ELEMS`` elements, in blocks of rows, scaled in place and cast:
+    no fp32 copy of a whole stack or of a whole large matrix (nemotron's
+    256000 x 18432 ``lm_head``) is ever held."""
     from ..kernels.ops import resolve_device
     dev = resolve_device(device)
     dt = _dtype(cfg, dtype)
@@ -133,9 +172,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         if meta.init == "ones":
             return torch.ones(shape, dtype=dt, device=dev)
         out = torch.empty(shape, dtype=dt, device=dev)
+        rows, rest = meta.shape[0], meta.shape[1:]
+        step = max(1, _DRAW_ELEMS // max(1, math.prod(rest)))
         for part in (out if n else [out]):
-            part.copy_(torch.randn(meta.shape, generator=gen, device=dev,
-                                   dtype=torch.float32) * meta.scale)
+            for r0 in range(0, rows, step):
+                blk = torch.randn((min(step, rows - r0),) + rest,
+                                  generator=gen, device=dev,
+                                  dtype=torch.float32)
+                part[r0:r0 + blk.shape[0]].copy_(blk.mul_(meta.scale))
         return out
 
     return _finalize(cfg, leaf)
@@ -159,7 +203,7 @@ def params_from_reference(tree: Dict, cfg: ModelConfig, *, device="cuda",
                              f"template wants {shape}")
         return torch.from_numpy(arr).to(device=dev, dtype=dt)
 
-    tpl = template(cfg)
+    tpl, stacks = template(cfg), stack_counts(cfg)
     if set(tree) != set(tpl):
         raise ValueError(f"reference tree has keys {sorted(tree)}, the "
                          f"template {sorted(tpl)}")
@@ -170,7 +214,7 @@ def params_from_reference(tree: Dict, cfg: ModelConfig, *, device="cuda",
                 raise ValueError(f"{key}: reference keys "
                                  f"{sorted(tree[key])}, template "
                                  f"{sorted(sub)}")
-            out[key] = {k: leaf(m, cfg.n_layers, tree[key][k])
+            out[key] = {k: leaf(m, stacks[key], tree[key][k])
                         for k, m in sub.items()}
         else:
             out[key] = leaf(sub, None, tree[key])

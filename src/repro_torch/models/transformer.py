@@ -1,7 +1,8 @@
 """The decoder's forward pass: the port's ``repro.models.transformer``
-(``Runtime``, ``mlp``, ``layer_windows``, the dense path of ``_std_layer``,
-``_rwkv_layer``, ``init_cache`` for the k/v cache and for RWKV6's
-recurrent state, and ``forward``) for the architectures ``configs.ARCHS``
+(``Runtime``, ``mlp``, ``layer_windows``, the dense path of ``_std_layer``
+with its cross block, ``_rwkv_layer``, ``init_cache`` for the k/v cache
+and for RWKV6's recurrent state, and ``forward`` with pixtral's stub patch
+prefix and whisper's encoder) for the architectures ``configs.ARCHS``
 lists.
 
 Modes: "train" (causal, no cache, logits for every position), "prefill"
@@ -44,12 +45,15 @@ class Runtime:
 
 
 def _act(cfg: ModelConfig, gate, up):
-    """The MLP activation (the reference's ``models.moe._act``) for the
-    port's configurations: ``silu_glu``."""
-    if cfg.mlp_act != "silu_glu":
-        raise NotImplementedError(f"mlp_act {cfg.mlp_act!r} is ROADMAP "
-                                  "Queue 1 item 8")
-    return F.silu(gate) * up
+    """The MLP activation (the reference's ``models.moe._act``).  GELU is
+    the tanh form, ``jax.nn.gelu``'s default, not PyTorch's erf default."""
+    if cfg.mlp_act == "silu_glu":
+        return F.silu(gate) * up
+    if cfg.mlp_act == "gelu_glu":
+        return F.gelu(gate, approximate="tanh") * up
+    if cfg.mlp_act == "relu2":
+        return torch.square(F.relu(up))
+    return F.gelu(up, approximate="tanh")
 
 
 def mlp(blk, x, cfg: ModelConfig):
@@ -65,15 +69,40 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 
 
 def _std_layer(blk, x, cfg, rt: Runtime, *, positions, window, cache,
-               cache_pos):
-    """Attention + MLP layer of the dense decoder."""
+               cache_pos, cross_kv=None):
+    """Attention + MLP layer of the dense decoder; with ``cross_kv`` (the
+    encoder's output) a cross-attention block between them."""
     xn = _rms(x, blk["ln1"], cfg.norm_eps)
     attn, new_cache = attention_block(blk, xn, cfg, positions=positions,
                                       window=window, cache=cache,
                                       cache_pos=cache_pos)
     x = x + attn
+    if cross_kv is not None:
+        xx = _rms(x, blk["ln_x"], cfg.norm_eps)
+        xo, _ = attention_block(blk, xx, cfg, positions=positions, window=0,
+                                cross_states=cross_kv, prefix="x_")
+        x = x + xo
     xn2 = _rms(x, blk["ln2"], cfg.norm_eps)
     return x + mlp(blk, xn2, cfg), new_cache
+
+
+def _enc_layer(blk, h, cfg):
+    """Whisper's encoder layer: bidirectional self-attention, written as
+    cross-attention onto the layer's own normed input (the reference's
+    form; the positional signal comes from the stub frontend), then the
+    MLP."""
+    hn = _rms(h, blk["ln1"], cfg.norm_eps)
+    a, _ = attention_block(blk, hn, cfg, positions=None, window=0,
+                           cross_states=hn)
+    h = h + a
+    return h + mlp(blk, _rms(h, blk["ln2"], cfg.norm_eps), cfg)
+
+
+def _layer(stack, i, cdt):
+    """Layer ``i`` of a stacked dict, its matrices in the compute type, as
+    the reference's scan body casts its layer slice."""
+    return {k: (w[i].to(cdt) if w.dim() >= 3 and w.is_floating_point()
+                else w[i]) for k, w in stack.items()}
 
 
 def _shifted(x):
@@ -168,14 +197,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 
 def forward(params, cfg: ModelConfig, rt: Runtime, tokens: torch.Tensor, *,
             mode: str = "train", cache: Optional[Dict] = None,
-            cache_pos=None):
+            cache_pos=None, frontend_embeds: Optional[torch.Tensor] = None,
+            enc_embeds: Optional[torch.Tensor] = None):
     """tokens: (B, S) integer.  Returns (logits, cache or None, aux loss),
-    as the reference does (the aux loss is 0: no MoE here)."""
+    as the reference does (the aux loss is 0: no MoE here).
+
+    ``frontend_embeds`` (B, n_front, d): pixtral's stub patch embeddings,
+    prepended to the tokens' (positions run over ``n_front + S``, a prefill
+    writes the cache from 0).  ``enc_embeds`` (B, Se, d): whisper's stub
+    frame embeddings; the encoder stack runs over them, then ``enc_norm``,
+    and every decoder layer cross-attends to the result.  With a cache the
+    encoder's output is kept in it as ``"enc_out"``: a decode step without
+    ``enc_embeds`` takes it from there (recomputing each layer's cross K/V
+    from it, as the reference does) and puts it back."""
     _supported(cfg)
-    B, S = tokens.shape
     dev = tokens.device
     cdt = _dtype(cfg, None)
     x = params["embed"].to(cdt)[tokens]
+    if frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
+    B, S = x.shape[:2]
     if cache_pos is None:
         cache_pos = 0
     pos0 = torch.as_tensor(cache_pos, dtype=torch.int32, device=dev)
@@ -183,23 +224,27 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens: torch.Tensor, *,
         pos0 = pos0[:, None]   # per-slot depths (continuous batching)
     positions = pos0 + torch.arange(S, dtype=torch.int32, device=dev)[None, :] \
         + torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    cross_kv = cache.pop("enc_out", None) if cache is not None else None
+    if cfg.arch_kind == "encdec" and enc_embeds is not None:
+        e = enc_embeds.to(x.dtype)
+        for i in range(cfg.n_enc_layers):
+            e = _enc_layer(_layer(params["enc_layers"], i, cdt), e, cfg)
+        cross_kv = _rms(e, params["enc_norm"], cfg.norm_eps)
     windows = layer_windows(cfg)
-    layers = params["layers"]
     for i in range(cfg.n_layers):
-        # the layer's matrices in the compute type, as the reference's scan
-        # body casts its layer slice
-        blk = {k: (w[i].to(cdt) if w.dim() >= 3 and w.is_floating_point()
-                   else w[i]) for k, w in layers.items()}
+        blk = _layer(params["layers"], i, cdt)
         csl = None if cache is None else {k: c[i] for k, c in cache.items()}
         if cfg.rwkv:
             x = _rwkv_layer(blk, x, cfg, cache=csl, cache_pos=cache_pos)
         else:
             x, _ = _std_layer(blk, x, cfg, rt, positions=positions,
                               window=int(windows[i]), cache=csl,
-                              cache_pos=cache_pos)
+                              cache_pos=cache_pos, cross_kv=cross_kv)
     if mode == "prefill":
         x = x[:, -1:]   # serving needs only the next token's logits
     x = _rms(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head.to(x.dtype)
+    if cache is not None and cross_kv is not None:
+        cache["enc_out"] = cross_kv
     return logits, cache, torch.zeros((), dtype=torch.float32, device=dev)

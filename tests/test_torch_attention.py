@@ -1,19 +1,28 @@
 """The port's plain attention versions (``repro_torch.kernels.attention``,
 run by the ``ops`` wrappers on CPU tensors) against the JAX package's
 Pallas kernels in interpret mode, on the shapes of tests/test_kernels.py
-and on G = 5 cases (qwen2.5-14b's 40 query heads over 8 kv heads), fp32
-and bf16, at the JAX tests' tolerances: 2e-5 (fp32) and 2e-2 (bf16), atol
-and rtol.  Inputs are drawn with numpy from a seed and handed to both;
+and on G = 5 cases (qwen2.5-14b's 40 query heads over 8 kv heads) and G =
+12 and 16 (nemotron-4-340b's 96 over 8, and the decode kernel's most),
+fp32 and bf16, at the JAX tests' tolerances: 2e-5 (fp32) and 2e-2 (bf16),
+atol and rtol.  The windowed decode (which the Pallas kernel lacks) is
+held to the reference models' XLA path, ``gqa_attention``, and the MLP
+activations to the reference's ``_act``.  Inputs are drawn with numpy from a seed and handed to both;
 bf16 inputs are the same fp32 draws rounded to bf16 by each framework
 (both round to nearest even, so both see the same values)."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import repro.kernels.ops as ref_ops
+from repro.configs import get_reduced_config as ref_reduced
 from repro.kernels import ref as ref_ref
+from repro.models.attention import gqa_attention
+from repro.models.moe import _act as ref_act
 from repro_torch.kernels import ops
+from repro_torch.models.transformer import _act
 from repro_torch.kernels.attention import (NEG_INF, decode_attention_ref,
                                            flash_attention_ref)
 
@@ -29,7 +38,10 @@ FLASH_SHAPES = [(2, 128, 128, 4, 2, 64), (1, 256, 256, 4, 4, 64),
 DECODE_SHAPES = [(2, 8, 2, 64, 512), (1, 4, 4, 128, 300), (3, 5, 1, 32, 64),
                  (2, 16, 8, 64, 1024),
                  # G = 5
-                 (3, 10, 2, 32, 100), (2, 40, 8, 16, 40)]
+                 (3, 10, 2, 32, 100), (2, 40, 8, 16, 40),
+                 # G = 12 (nemotron-4-340b's 96 over 8) and 16, the most
+                 # the decode kernel takes
+                 (3, 24, 2, 32, 100), (2, 32, 2, 16, 130)]
 
 
 def _both(rng, shape, dtype):
@@ -180,13 +192,14 @@ def test_decode_splits_cover_the_cache_and_fill_the_card(B, KV, S):
         assert ctas >= 2 * B * KV
 
 
-def decode_split_merge(q, k, v, kv_len, split_len):
+def decode_split_merge(q, k, v, kv_len, split_len, window=0):
     """The decode kernel's arithmetic with plain torch ops: each split of
     ``split_len`` positions gives a partial (m, l, acc) over its valid
-    positions, an empty split (m, l, acc) = (NEG_INF, 0, 0); the partials
-    merge as ``finish`` merges them, out = sum acc_s w_s / max(sum l_s w_s,
-    1e-30), w_s = exp(m_s - max m).  fp32 throughout, the result in q's
-    type."""
+    positions (with a window, from ``max(its start, kv_len - window)``, where
+    the kernel starts its walk), an empty split (m, l, acc) = (NEG_INF, 0,
+    0); the partials merge as ``finish`` merges them, out = sum acc_s w_s /
+    max(sum l_s w_s, 1e-30), w_s = exp(m_s - max m).  fp32 throughout, the
+    result in q's type."""
     B, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -197,12 +210,13 @@ def decode_split_merge(q, k, v, kv_len, split_len):
     n_split = -(-S // split_len)
     ms, ls, accs = [], [], []
     for s in range(n_split):
-        lo = s * split_len
         m = torch.full((B, KV, G), NEG_INF)
         l = torch.zeros((B, KV, G))
         acc = torch.zeros((B, KV, G, hd))
         for b in range(B):
-            hi = min(lo + split_len, max(0, min(int(kv_len[b]), S)))
+            n = int(kv_len[b])
+            lo = max(s * split_len, max(0, n - window) if window else 0)
+            hi = min(s * split_len + split_len, max(0, min(n, S)))
             if hi <= lo:
                 continue                                   # empty split
             sc = (qg[b] @ kt[b, :, lo:hi].transpose(-1, -2)) * hd ** -0.5
@@ -255,3 +269,84 @@ def test_decode_split_and_merge_equal_the_plain_version(B, H, KV, hd, S,
         tol = TOL[dtype]
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,hd,S,window", [(1, 10, 2, 32, 1024, 64),
+                                                (2, 24, 2, 16, 1000, 200),
+                                                (3, 32, 2, 16, 300, 1)])
+def test_decode_window_split_and_merge_equal_the_plain_version(
+        B, H, KV, hd, S, window, dtype):
+    """The windowed walk: with the window's start on a split's edge, one
+    position inside a split, and the window ending past, at and before a
+    split's edge, the splits read from ``max(start, kv_len - window)``; the
+    positions outside the window hold NaN and reach nothing.  G = 5, 12
+    and 16."""
+    n_split, split_len = ops.decode_splits(B, KV, S)
+    assert n_split > 1
+    rng = np.random.default_rng(S + H + window)
+    td = DTYPES[dtype][1]
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        td) for s in ((B, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    starts = [split_len, split_len + 1, split_len - 1, 0,
+              (n_split - 1) * split_len]
+    for lo in starts:
+        kv_len = torch.full((B,), min(S, lo + window), dtype=torch.int32)
+        kv_len[-1] = min(S, max(1, window // 2))   # the window not full
+        kk, vv = k.clone(), v.clone()
+        for b in range(B):
+            n = int(kv_len[b])
+            kk[b, n:], vv[b, n:] = float("nan"), float("nan")
+            kk[b, :max(0, n - window)] = float("nan")
+            vv[b, :max(0, n - window)] = float("nan")
+        got = decode_split_merge(q, kk, vv, kv_len, split_len, window)
+        want = decode_attention_ref(q, kk, vv, kv_len, window=window)
+        assert torch.isfinite(got.float()).all()
+        tol = TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,hd,S,window", [
+    (3, 8, 2, 16, 64, 8), (2, 24, 2, 32, 100, 1), (2, 32, 2, 16, 130, 64),
+    (3, 10, 2, 32, 300, 100)])
+def test_decode_window_plain_equals_gqa_attention(B, H, KV, hd, S, window,
+                                                  dtype):
+    """``decode_attention_ref(window=)`` against the reference's
+    ``models.attention.gqa_attention`` (the XLA path of its models'
+    decode: the query at position ``kv_len - 1``, ``window`` and
+    ``kv_len`` masks), with kv_len before, at and past the window and at
+    S; G = 4, 12, 16 and 5."""
+    rng = np.random.default_rng(B * 7 + S + window)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _both(rng, s, dtype) for s in ((B, H, hd), (B, S, KV, hd),
+                                       (B, S, KV, hd)))
+    kv_len = np.array([max(1, window - 1), window + 1, S][:B], np.int32)
+    if B == 3:
+        kv_len[0] = window
+    want = gqa_attention(qj[:, None], kj, vj,
+                         q_positions=jnp.asarray(kv_len - 1)[:, None],
+                         k_positions=jnp.arange(S)[None, :], causal=True,
+                         window=window, kv_len=jnp.asarray(kv_len))[:, 0]
+    got = decode_attention_ref(qt, kt, vt, torch.from_numpy(kv_len),
+                               window=window)
+    _assert_close(got, want, dtype)
+    whole = decode_attention_ref(qt, kt, vt, torch.from_numpy(kv_len))
+    assert not torch.equal(got, whole)      # the window binds
+
+
+@pytest.mark.parametrize("act", ["silu_glu", "gelu_glu", "gelu", "relu2"])
+def test_mlp_activation_equals_the_reference(act):
+    """``_act`` against the reference's ``models.moe._act``: GELU in its
+    tanh form (``jax.nn.gelu``'s default), relu^2 ignoring the gate."""
+    rng = np.random.default_rng(11)
+    gate, up = (rng.standard_normal((3, 40)).astype(np.float32) * 3
+                for _ in range(2))
+    cfg = dataclasses.replace(ref_reduced("qwen2.5-14b"), mlp_act=act)
+    want = np.asarray(ref_act(cfg, jnp.asarray(gate), jnp.asarray(up)))
+    got = _act(cfg, torch.from_numpy(gate), torch.from_numpy(up)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+    if act == "gelu":
+        erf = torch.nn.functional.gelu(torch.from_numpy(up)).numpy()
+        assert np.abs(erf - want).max() > 1e-4   # not PyTorch's default

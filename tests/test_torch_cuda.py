@@ -33,7 +33,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from chip_smoke import (HAZARDS, RWKV_CROSS_SHAPES,  # noqa: E402
                         check_routes, hazard_block, legacy_back_to_back,
                         legacy_inputs, migrate_streams, padded_streams,
-                        random_state, synthetic_lanes)
+                        random_state, synthetic_lanes, windowed_lens)
 # (the card check's input makers)
 
 pytestmark = pytest.mark.cuda
@@ -737,6 +737,63 @@ def test_decode_kernel_at_split_edges(B, H, KV, hd, S, dtype, cuda):
     assert torch.equal(ops.decode_attention(q, k, v, kv_len), got)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,hd,S", [
+    (6, 32, 8, 128, 2048), (6, 16, 8, 256, 2048), (6, 96, 8, 192, 1024),
+    (6, 32, 2, 64, 1500), (6, 24, 2, 128, 700)])
+@pytest.mark.parametrize("window", [1, 64, 1024])
+def test_decode_kernel_window_equals_plain(B, H, KV, hd, S, window, dtype,
+                                           cuda):
+    """A sliding window on decode (gemma3's local layers take 1024): each
+    row reads [kv_len - window, kv_len); the rows outside hold NaN and
+    reach nothing; a split wholly before the window is empty.  G = 4, 2,
+    12, 16 and 12 on both routes' head dims."""
+    from repro_torch.kernels.attention import decode_attention_ref
+    n_split, split_len = ops.decode_splits(
+        B, KV, S, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    q, k, v = _attn_inputs(S + hd + window, cuda, dtype, (B, H, hd),
+                           (B, S, KV, hd), (B, S, KV, hd))
+    lens = windowed_lens(S, window, split_len, B)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    for b, n in enumerate(lens):
+        k[b, n:], v[b, n:] = float("nan"), float("nan")
+        k[b, :max(0, n - window)] = float("nan")
+        v[b, :max(0, n - window)] = float("nan")
+    n0, nw = ops.launches["decode_attention"], \
+        ops.launches["decode_attention_window"]
+    got = ops.decode_attention(q, k, v, kv_len, window=window)
+    assert ops.launches["decode_attention"] == n0 + 1
+    assert ops.launches["decode_attention_window"] == nw + 1
+    want = decode_attention_ref(q, k, v, kv_len, window=window)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+    assert torch.equal(ops.decode_attention(q, k, v, kv_len, window=window),
+                       got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [9, 12, 16])
+@pytest.mark.parametrize("hd", [64, 128, 192, 256])
+def test_decode_kernel_up_to_16_query_heads(G, hd, dtype, cuda):
+    """More than 8 query heads a kv head: the tensor-core route (bf16, hd
+    <= 128) carries the tile's rows 8-15, the CUDA-core route two row sets
+    of 8; kv_len at 0, 1, a split's edge and S."""
+    from repro_torch.kernels.attention import decode_attention_ref
+    B, KV, S = 4, 2, 777
+    q, k, v = _attn_inputs(G * hd, cuda, dtype, (B, G * KV, hd),
+                           (B, S, KV, hd), (B, S, KV, hd))
+    lens = [0, 1, 128, S]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    for b, n in enumerate(lens):
+        k[b, n:], v[b, n:] = float("nan"), float("nan")
+    got = ops.decode_attention(q, k, v, kv_len)
+    want = decode_attention_ref(q, k, v, kv_len)
+    assert float(got[0].abs().max()) == 0.0
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+
+
 def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q, k, v = _attn_inputs(0, cuda, torch.float32, (1, 8, 4, 16),
                            (1, 8, 2, 16), (1, 8, 2, 16))
@@ -757,9 +814,11 @@ def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ops.flash_attention(big, big, big)
     with pytest.raises(ValueError, match="kv_len"):
         ops.decode_attention(q[:, 0], k, v, kv_len.long())
-    with pytest.raises(ValueError, match="at most 8"):
-        qq = torch.zeros((1, 18, 16), device=cuda)
+    with pytest.raises(ValueError, match="at most 16"):
+        qq = torch.zeros((1, 34, 16), device=cuda)
         ops.decode_attention(qq, k, v, kv_len)
+    with pytest.raises(ValueError, match="window"):
+        ops.decode_attention(q[:, 0], k, v, kv_len, window=-1)
 
 
 @pytest.mark.parametrize("which", ["q", "k", "v"])
@@ -810,6 +869,69 @@ def test_engine_on_card_equals_plain_attention(cuda):
     kern = run()
     assert ops.launches["flash_attention"] == 2 * cfg.n_layers
     assert ops.launches["decode_attention"] == kern.shape[0] * cfg.n_layers
+    attention.flash_attention = flash_attention_ref
+    attention.decode_attention = decode_attention_ref
+    try:
+        plain = run()
+    finally:
+        attention.flash_attention = ops.flash_attention
+        attention.decode_attention = ops.decode_attention
+    rel = float((kern - plain).abs().max() / plain.abs().max())
+    assert rel < 1e-4
+
+
+@pytest.mark.parametrize("arch", ["gemma3-12b", "minitron-8b",
+                                  "nemotron-4-340b", "pixtral-12b",
+                                  "whisper-medium"])
+def test_dense_archs_on_card_equal_plain_attention(arch, cuda):
+    """The reduced configurations in fp32 on the card (gemma3's window of
+    8 binding on decode, pixtral's patch prefix, whisper's encoder and
+    cross calls): a prefill and four decode steps through the kernels equal
+    the same through the plain attention bound in their place, within 1e-4
+    of max |logit|."""
+    import dataclasses
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels.attention import (decode_attention_ref,
+                                               flash_attention_ref)
+    from repro_torch.models import attention
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import Runtime, forward, init_cache
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32")
+    params = init_params(cfg, seed=0, device=cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 20), generator=g, device=cuda)
+    kw = {}
+    if cfg.frontend == "vision_stub":
+        kw["frontend_embeds"] = 0.1 * torch.randn(
+            (2, cfg.n_frontend_tokens, cfg.d_model), generator=g,
+            device=cuda)
+    if cfg.arch_kind == "encdec":
+        kw["enc_embeds"] = 0.1 * torch.randn((2, 48, cfg.d_model),
+                                             generator=g, device=cuda)
+    S = 20 + (cfg.n_frontend_tokens if "frontend_embeds" in kw else 0)
+
+    def run():
+        cache = init_cache(cfg, 2, S + 4, device=cuda)
+        out, _, _ = forward(params, cfg, Runtime(), toks, mode="prefill",
+                            cache=cache, cache_pos=0, **kw)
+        outs = [out[:, -1]]
+        for i in range(4):
+            pos = torch.tensor([S + i, S + i - 2], dtype=torch.int32,
+                               device=cuda)
+            out, _, _ = forward(params, cfg, Runtime(), toks[:, i:i + 1],
+                                mode="decode", cache=cache, cache_pos=pos)
+            outs.append(out[:, 0])
+        return torch.stack(outs)
+
+    ops.launches.clear()
+    kern = run()
+    enc = cfg.n_enc_layers if cfg.arch_kind == "encdec" else 0
+    cross = 2 if cfg.arch_kind == "encdec" else 1
+    assert ops.launches["flash_attention"] == enc + cross * cfg.n_layers
+    assert ops.launches["decode_attention"] == 4 * cross * cfg.n_layers
+    n_local = sum(not cfg.layer_is_global(i) for i in range(cfg.n_layers))
+    assert ops.launches["decode_attention_window"] == 4 * n_local
     attention.flash_attention = flash_attention_ref
     attention.decode_attention = decode_attention_ref
     try:

@@ -120,9 +120,11 @@ def test_param_count_of_the_full_config_equals_the_reference():
         cfg.d_model
     assert n == cfg.param_count() + extra
     assert 14.7e9 < n < 14.8e9
-    assert ARCHS == ["qwen2.5-14b", "rwkv6-1.6b"]
+    assert ARCHS == ["gemma3-12b", "qwen2.5-14b", "minitron-8b",
+                     "nemotron-4-340b", "whisper-medium", "pixtral-12b",
+                     "rwkv6-1.6b"]
     with pytest.raises(KeyError):
-        get_config("gemma3-12b")
+        get_config("granite-moe-3b-a800m")
 
 
 def test_forward_train_equals_reference(models):
@@ -215,8 +217,8 @@ def _layer(params, cfg):
     return {k: w[0] for k, w in params["layers"].items()}
 
 
-@pytest.mark.parametrize("case", ["cross", "mla", "softcap", "int8",
-                                  "window_decode", "chunked_prefill"])
+@pytest.mark.parametrize("case", ["mla", "softcap", "int8",
+                                  "chunked_prefill"])
 def test_out_of_scope_attention_raises(models, case):
     """What the port's attention does not take raises on the CPU too,
     naming its ROADMAP item."""
@@ -227,21 +229,69 @@ def test_out_of_scope_attention_raises(models, case):
     cache = {"k": torch.zeros((1, 8, cfg.n_kv_heads, cfg.head_dim)),
              "v": torch.zeros((1, 8, cfg.n_kv_heads, cfg.head_dim))}
     kw = dict(positions=pos, window=0)
-    if case == "cross":
-        kw["cross_states"] = x
-    elif case == "mla":
+    if case == "mla":
         cfg = dataclasses.replace(cfg, mla=True)
     elif case == "softcap":
         cfg = dataclasses.replace(cfg, logit_softcap=30.0)
     elif case == "int8":
         kw.update(cache={"k_q": cache["k"], "v_q": cache["v"]}, cache_pos=0)
-    elif case == "window_decode":
-        x, kw = x[:, :1], dict(positions=pos[:, :1], window=4, cache=cache,
-                               cache_pos=5)
     else:
         kw.update(cache=cache, cache_pos=2)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
         attention_block(blk, x, cfg, **kw)
+
+
+@pytest.mark.parametrize("case", ["cross", "window_decode"])
+def test_former_out_of_scope_attention_equals_reference(models, case):
+    """Two cases that used to raise, now held to the reference's
+    ``attention_block``: cross-attention onto 5 states (3 queries through
+    the non-causal flash path, then 1 query through the decode path with
+    kv_len = 5; the query bias applies, the keys and values take none), and
+    a decode step at position 5 against a filled cache with a window of 4
+    (the cache rows before position 2 must not count)."""
+    from repro.models.attention import attention_block as ref_block
+    ref_cfg, cfg, tree, params = models
+    blk = _layer(params, cfg)
+    rblk = {k: jnp.asarray(w[0]) for k, w in tree["layers"].items()}
+    rng = np.random.default_rng(8)
+    if case == "cross":
+        e = rng.standard_normal((2, 5, cfg.d_model)).astype(np.float32)
+        for S in (3, 1):
+            x = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+            pos = np.tile(np.arange(S, dtype=np.int32), (2, 1))
+            want, _ = ref_block(rblk, jnp.asarray(x), ref_cfg,
+                                positions=jnp.asarray(pos), window=0,
+                                cross_states=jnp.asarray(e))
+            got, cache = attention_block(blk, torch.from_numpy(x), cfg,
+                                         positions=torch.from_numpy(pos),
+                                         window=0,
+                                         cross_states=torch.from_numpy(e))
+            assert cache is None
+            assert _rel(got, want) < REL_TOL, S
+        return
+    shape = (2, 8, cfg.n_kv_heads, cfg.head_dim)
+    ck, cv = (rng.standard_normal(shape).astype(np.float32)
+              for _ in range(2))
+    x = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+    pos = np.full((2, 1), 5, np.int32)
+    want, rcache = ref_block(rblk, jnp.asarray(x), ref_cfg,
+                             positions=jnp.asarray(pos), window=4,
+                             cache={"k": jnp.asarray(ck),
+                                    "v": jnp.asarray(cv)}, cache_pos=5)
+    cache = {"k": torch.from_numpy(ck.copy()),
+             "v": torch.from_numpy(cv.copy())}
+    got, cache = attention_block(blk, torch.from_numpy(x), cfg,
+                                 positions=torch.from_numpy(pos), window=4,
+                                 cache=cache, cache_pos=5)
+    assert _rel(got, want) < REL_TOL
+    np.testing.assert_allclose(cache["k"].numpy(), np.asarray(rcache["k"]),
+                               atol=1e-6, rtol=1e-6)
+    whole, _ = attention_block(blk, torch.from_numpy(x), cfg,
+                               positions=torch.from_numpy(pos), window=0,
+                               cache={"k": torch.from_numpy(ck.copy()),
+                                      "v": torch.from_numpy(cv.copy())},
+                               cache_pos=5)
+    assert _rel(whole, want) > 1e-3          # the window binds
 
 
 def test_other_architectures_raise():
