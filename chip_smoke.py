@@ -98,8 +98,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    route (G 4, 12, 16), and G 12 / 16 at hd 64, 128, 192, 256, fp32 and
    bf16, NaN in every cache row outside the window; flash on the CUDA-core
    route at hd 192 and 256 (causal, windowed, non-causal, Skv past Sq).
-   Then both kernels' device times at phase 18's shapes
-   (``DENSE_DECODE_SHAPES``, ``DENSE_PREFILL_SHAPES``) beside their bound,
+   Then both kernels' device times at phases 18's and 19's shapes
+   (``DENSE_DECODE_SHAPES``, ``DENSE_PREFILL_SHAPES``; MLA's with V
+   zero-padded to q / k's 192) beside their bound,
    the plain version's and SDPA's with the same mask.
 8. Serving at full width: qwen2.5-14b (48 layers, d 5120, bf16, random
    weights from seed 0 made on the card), 12 requests as
@@ -276,6 +277,27 @@ Phases (any failure exits non-zero, and no result line is printed):
    attention call also through its plain version (held within the bf16
    tolerance of phase 7), and the plain versions alone; the kernel run's
    logits within ``SERVE_LOGIT_TOL`` of the plain run's.
+19. The MoE architectures at full width in bf16 (random weights from seed 0
+   made on the card, one model alive at a time): (a) granite-moe-3b-a800m
+   (40 experts top-8, GQA at hd 64, G 3) through ``serve_real`` on phase
+   8's requests (stats ``REF_SERVE_STATS``, flash 32 launches a prefill all
+   on the tensor-core kernel, decode 32 an engine step), then its
+   teacher-forced request as in phase 18; (b) deepseek-v2-lite-16b (all 27
+   layers: MLA at q / k 192 with V zero-padded to 192, H = KV = 16, on both
+   kernels' CUDA-core routes; 64 experts top-6 plus 2 shared, the first
+   layer dense) teacher-forced as in phase 18, then an engine of 4 slots
+   at depths ``MOE_ENGINE_LENS`` for ``MOE_ENGINE_STEPS`` steps: each
+   slot's latents written to its depth and no further, each slot's logits
+   within ``SERVE_LOGIT_TOL`` of its own teacher-forced run.  Each model's
+   teacher-forced decode ``forward`` makes at most one host sync a MoE
+   layer (torch's sync debug mode).  (c) For each model the first MoE
+   layer, its dropless dispatch against ``moe_dense_formula`` (all E
+   experts by ``einsum``, the top-k-sparse gate) on a prefill's tokens and
+   on a 4-token decode batch: within ``BF16_REL`` of max |formula|, the aux
+   loss within 1e-5 relative, one host sync a call; its wall and device
+   busy time.  Printed: prefill ms, decode ms a step and new tokens a
+   second, each beside the weight-byte floors at 3.35 TB/s (the active
+   experts of one token; every expert).
 
 Then, as a measurement and not a check, on the main path's first rung
 (L=28, Np=64): torch.profiler over 2048 graphed per-event steps and 400
@@ -1731,14 +1753,21 @@ def phase_attention_vs_plain(dev):
     return flash, decode
 
 
-# phase 7b: the decode shapes of phase 18 (B, S, H, KV, hd, window):
-# gemma3-12b's local layers and nemotron-4-340b's layers, 4 slots
+# phase 7b: the decode shapes of phases 18 and 19 (B, S, H, KV, hd,
+# window), 4 slots: gemma3-12b's local layers, nemotron-4-340b's layers,
+# granite-moe-3b-a800m's, and deepseek-v2-lite-16b's MLA (q / k 192 = hd 128
+# + rope 64, V zero-padded to 192, H = KV)
 DENSE_DECODE_SHAPES = {"gemma3-12b": (4, 2048, 16, 8, 256, 1024),
-                       "nemotron-4-340b": (4, 1024, 96, 8, 192, 0)}
-# and their prefill shapes (Sq = Skv, H, KV, hd, window) in phase 18
+                       "nemotron-4-340b": (4, 1024, 96, 8, 192, 0),
+                       "granite-moe-3b-a800m": (4, 1024, 24, 8, 64, 0),
+                       "deepseek-v2-lite-16b mla": (4, 1024, 16, 16, 192,
+                                                    0)}
+# and their prefill shapes (Sq = Skv, H, KV, hd, window)
 DENSE_PREFILL_SHAPES = {"gemma3-12b local": (1100, 16, 8, 256, 1024),
                         "gemma3-12b global": (1100, 16, 8, 256, 0),
-                        "nemotron-4-340b": (256, 96, 8, 192, 0)}
+                        "nemotron-4-340b": (256, 96, 8, 192, 0),
+                        "granite-moe-3b-a800m": (256, 24, 8, 64, 0),
+                        "deepseek-v2-lite-16b mla": (256, 16, 16, 192, 0)}
 
 
 def windowed_lens(S, window, split_len, B):
@@ -1830,7 +1859,7 @@ def phase_attention_dense_archs(dev):
         f"|plain|): max |diff| window {errs['window']:.3e}, groups "
         f"{errs['groups']:.3e}, flash {errs['flash']:.3e}")
 
-    # times in bf16 at phase 18's shapes, beside the bound, the plain
+    # times in bf16 at phases 18's and 19's shapes, beside the bound, the plain
     # version and SDPA with the same mask (a yardstick only)
     F = torch.nn.functional
     bf = torch.bfloat16
@@ -1885,7 +1914,8 @@ def phase_attention_dense_archs(dev):
                                      library_ms=lib_ms, bound_ms=bound_ms,
                                      bound_by=bound_by)
         say(f"# 7b: flash_attention bf16 {name} Sq=Skv={Sq} H={H} KV={KV} "
-            f"hd={hd} window={window} (CUDA-core route): device time "
+            f"hd={hd} window={window} ({ops.flash_route(bf, hd)} route): "
+            f"device time "
             f"{ms:.6f} ms, plain {plain_ms:.6f} ms, sdpa {lib_ms:.6f} ms; "
             f"bound {bound_ms:.6f} ms by {bound_by}; "
             f"{4 * pairs * H * hd / ms / 1e9:.1f} TFLOP/s")
@@ -4323,7 +4353,8 @@ NEMOTRON_LAYERS = 4
 GEMMA_MAX_LEN = 2048
 DENSE_REQUESTS = {"gemma3-12b": (1100, 16), "nemotron-4-340b": (256, 8),
                   "pixtral-12b": (128, 8), "whisper-medium": (64, 8),
-                  "minitron-8b": (221, 8)}
+                  "minitron-8b": (221, 8), "granite-moe-3b-a800m": (221, 12),
+                  "deepseek-v2-lite-16b": (221, 12)}
 WHISPER_FRAMES = 1500    # whisper's 30 s window
 
 
@@ -4338,9 +4369,9 @@ def dense_config(arch):
     return cfg
 
 
-def dense_teacher_forced(cfg, params, dev, max_len, **kw):
-    """Phase 18's teacher-forced request of ``cfg`` (lengths from
-    ``DENSE_REQUESTS``), three times: through the kernels alone, timed
+def dense_teacher_forced(cfg, params, dev, max_len, tag="18", **kw):
+    """Phase 18's (and 19's: ``tag``) teacher-forced request of ``cfg``
+    (lengths from ``DENSE_REQUESTS``), three times: through the kernels alone, timed
     (prefill ms, decode ms a step) with the launch counts set to 0 just
     before and read just after; with every attention call also run through
     its plain version (each within ``ATTN_TOL`` bf16); and through the
@@ -4385,7 +4416,7 @@ def dense_teacher_forced(cfg, params, dev, max_len, **kw):
         fail(f"{cfg.name}: teacher-forced logits differ: {rel} (checked run "
              f"{rel_checked}) > {SERVE_LOGIT_TOL}")
     dec = np.array(times["decode"])
-    say(f"# 18 {cfg.name}: teacher-forced request (prompt {n_prompt}"
+    say(f"# {tag} {cfg.name}: teacher-forced request (prompt {n_prompt}"
         f"{', +' + str(kw['frontend_embeds'].shape[1]) + ' patches' if 'frontend_embeds' in kw else ''}"
         f"{', ' + str(kw['enc_embeds'].shape[1]) + ' encoder frames' if 'enc_embeds' in kw else ''}"
         f", {n_forced} decode steps): every attention call kernel == plain "
@@ -4394,19 +4425,20 @@ def dense_teacher_forced(cfg, params, dev, max_len, **kw):
         f"; max |diff| flash {max(calls['flash_attention']):.3e}, decode "
         f"{max(calls['decode_attention']):.3e}); logits kernel vs plain "
         f"{rel:.3e} of max |logit| {scale:.3f} (tolerance {SERVE_LOGIT_TOL})")
-    say(f"# 18 {cfg.name}: kernels alone: prefill {times['prefill'][0]:.1f} "
-        f"ms, decode median {np.median(dec):.2f} ms a step "
+    say(f"# {tag} {cfg.name}: kernels alone: prefill "
+        f"{times['prefill'][0]:.1f} ms, decode median {np.median(dec):.2f} ms a step "
         f"({dec.min():.2f}-{dec.max():.2f}), launches "
         f"{dict(sorted((k, v) for k, v in counts.items() if 'attention' in k))}")
-    return dict(prefill_ms=times["prefill"][0],
+    return dict(prefill_ms=times["prefill"][0], logits=kern,
                 decode_ms=float(np.median(dec)), logit_rel=rel,
                 launches=counts, kinds=kinds,
                 flash_err=max(calls["flash_attention"]),
                 decode_err=max(calls["decode_attention"]))
 
 
-def dense_model(cfg, dev):
-    """``init_params(cfg, seed=0)`` on the card, its size printed."""
+def dense_model(cfg, dev, tag="18"):
+    """``init_params(cfg, seed=0)`` on the card, its size printed (under
+    phase ``tag``)."""
     import torch
     from repro_torch.models.params import init_params, param_count
     torch.cuda.synchronize()
@@ -4416,7 +4448,7 @@ def dense_model(cfg, dev):
     torch.cuda.synchronize()
     n = param_count(params)
     gb = n * params["embed"].element_size() / 1e9
-    say(f"# 18 {cfg.name}: {cfg.n_layers} layers"
+    say(f"# {tag} {cfg.name}: {cfg.n_layers} layers"
         f"{f' + {cfg.n_enc_layers} encoder' if cfg.n_enc_layers else ''} "
         f"d={cfg.d_model} H={cfg.n_heads} KV={cfg.n_kv_heads} "
         f"hd={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab} {cfg.mlp_act}"
@@ -4578,6 +4610,330 @@ def phase_dense_archs(dev):
     free_model(params)
     say(f"# 18: phase 18 took {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# phase 19: the MoE architectures at full width; deepseek's engine depths
+MOE_ENGINE_LENS = (64, 300, 517, 1000)
+MOE_ENGINE_STEPS = 6
+MOE_DECODE_TOKENS = 4       # the MoE layer's decode batch (engine slots)
+
+
+def moe_dense_formula(cfg, blk, x, norm_topk):
+    """The reference's dense MoE mode written out in torch: every expert
+    for every token (``einsum`` over all E experts), weighted by the
+    top-k-sparse gate, plus the shared experts; and the Switch aux loss.
+    x (B, S, d) -> (out (B, S, d), aux).  The yardstick the dropless
+    dispatch is held to; never on the path."""
+    import torch
+    from repro_torch.models.moe import _act
+    B, S, d = x.shape
+    xf = x.reshape(-1, d)
+    E = cfg.n_experts
+    gates = torch.softmax(xf.float() @ blk["router"].float(), dim=-1)
+    w, ids = torch.topk(gates, cfg.top_k, dim=-1)
+    if norm_topk:
+        w = w / (w.sum(-1, keepdim=True) + 1e-9)
+    full = torch.zeros_like(gates).scatter_(1, ids, w)
+    up = torch.einsum("td,edf->tef", xf, blk["we_in"].to(x.dtype))
+    gate = torch.einsum("td,edf->tef", xf, blk["we_gate"].to(x.dtype)) \
+        if "we_gate" in blk else None
+    ye = torch.einsum("tef,efd->ted", _act(cfg, gate, up),
+                      blk["we_out"].to(x.dtype))
+    out = torch.einsum("ted,te->td", ye, full.to(x.dtype)).reshape(B, S, d)
+    frac = torch.nn.functional.one_hot(ids, E).float().sum((0, 1)) / \
+        ids.numel()
+    aux = E * torch.sum(frac * gates.mean(0))
+    if cfg.n_shared_experts:
+        sup = x @ blk["shared_w_in"].to(x.dtype)
+        sgate = x @ blk["shared_w_gate"].to(x.dtype) \
+            if "shared_w_gate" in blk else None
+        out = out + _act(cfg, sgate, sup) @ blk["shared_w_out"].to(x.dtype)
+    return out, aux
+
+
+def host_syncs(fn):
+    """(synchronizing CUDA operations during ``fn()``, its result), counted
+    by torch's sync debug mode (one warning each).  One uncounted call
+    runs first under the same mode: the first region a process runs in
+    that mode also meets a one-time sync of torch's own."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+            n0 = len(caught)
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught[n0:]), out
+
+
+def moe_layer_check(cfg, params, dev, n_prompt):
+    """Phase 19 (c): the first MoE layer of ``params`` at full width in
+    bf16, its dropless dispatch (``moe_block``) against
+    ``moe_dense_formula`` on a prefill's ``n_prompt`` tokens and on a
+    ``MOE_DECODE_TOKENS``-token decode batch: out within ``BF16_REL`` of
+    max |formula|, aux within 1e-5 relative; the host syncs of one call
+    (at most ``moe.HOST_SYNCS_PER_CALL``); the call's wall time and its
+    device busy time (torch.profiler)."""
+    import torch
+    from repro_torch.models import moe
+    blk = {k: w[0] for k, w in params["layers"].items()
+           if k.startswith(("router", "we_", "shared_"))}
+    norm_topk = cfg.name != "deepseek-v2-lite-16b"
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    rows = {}
+    for label, (B, S) in (("prefill", (1, n_prompt)),
+                          ("decode", (MOE_DECODE_TOKENS, 1))):
+        x = torch.randn((B, S, cfg.d_model), generator=g,
+                        device=dev).to(torch.bfloat16)
+        syncs, (got, aux) = host_syncs(
+            lambda: moe.moe_block(blk, x, cfg, norm_topk=norm_topk))
+        want, want_aux = moe_dense_formula(cfg, blk, x, norm_topk)
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        aux_rel = abs(float(aux) - float(want_aux)) / abs(float(want_aux))
+        if not bool(torch.isfinite(got.float()).all()) or \
+                err > BF16_REL * scale or not aux_rel <= 1e-5:
+            fail(f"{cfg.name}: MoE layer ({label}, {B}x{S} tokens) dropless "
+                 f"!= the dense formula: max |diff| {err} (max |formula| "
+                 f"{scale}, tolerance {BF16_REL} of it), aux {float(aux)} "
+                 f"vs {float(want_aux)}")
+        if syncs > moe.HOST_SYNCS_PER_CALL:
+            fail(f"{cfg.name}: one MoE layer call made {syncs} host syncs")
+        wall = time_ms(lambda: moe.moe_block(blk, x, cfg,
+                                             norm_topk=norm_topk), 10)
+        prof = profile_run(dev, f"19 {cfg.name} MoE layer, {label} "
+                           f"{B}x{S} tokens", lambda: moe.moe_block(
+                               blk, x, cfg, norm_topk=norm_topk), 1, "call")
+        n_experts = len(torch.unique(torch.topk(torch.softmax(
+            x.reshape(-1, cfg.d_model).float() @ blk["router"].float(), -1),
+            cfg.top_k, dim=-1)[1]))
+        rows[label] = dict(err=err, scale=scale, aux_rel=aux_rel,
+                           syncs=syncs, wall_ms=wall,
+                           busy_ms=prof.get("busy_us", float("nan")) / 1e3,
+                           experts=n_experts)
+        say(f"# 19 {cfg.name}: MoE layer ({label}, {B * S} tokens, "
+            f"{n_experts} of {cfg.n_experts} experts hit): dropless == dense "
+            f"formula, max |diff| {err:.3e} of max |formula| {scale:.3f} "
+            f"(tolerance {BF16_REL} of it), aux {float(aux):.6f} rel "
+            f"{aux_rel:.2e}; {syncs} host sync(s) a call; wall {wall:.3f} "
+            f"ms, device busy {rows[label]['busy_ms']:.3f} ms")
+    return rows
+
+
+def moe_floors(cfg, gb):
+    """Weight-byte floors of a decode step at 3.35 TB/s, ms: one token
+    (the active experts' weights only) and every expert read."""
+    active = cfg.active_param_count() * 2 / HBM_BYTES_PER_S * 1e3
+    return active, gb * 1e9 / HBM_BYTES_PER_S * 1e3
+
+
+def phase_moe_archs(dev):
+    """Phase 19: granite-moe-3b-a800m and deepseek-v2-lite-16b at full
+    width in bf16, one model alive at a time (see the module docstring).
+    Returns {arch: numbers}."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import ReplicaEngine
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) granite-moe-3b-a800m: serve_real, teacher-forced, one MoE layer
+    cfg = dense_config("granite-moe-3b-a800m")
+    params, gb = dense_model(cfg, dev, tag="19")
+    floor1, floor_all = moe_floors(cfg, gb)
+    reqs = serving_requests()
+    stats, wall, times, counts = timed_serve_real(cfg, params, reqs)
+    got = (stats.replica_seconds, stats.replicas_opened, stats.peak_replicas)
+    n_pre, n_dec = len(times["prefill"]), len(times["decode"])
+    new_tokens = sum(r.decode_len for r in reqs)
+    pre, dec = np.array(times["prefill"]), np.array(times["decode"])
+    say(f"# 19 {cfg.name}: serve_real of {len(reqs)} requests in {wall:.1f} "
+        f"s, {new_tokens / wall:.1f} new tokens/s; {n_pre} prefills, median "
+        f"{np.median(pre):.1f} ms; {n_dec} engine decode steps (4 slots), "
+        f"median {np.median(dec):.2f} ms (floors {floor1:.2f} at one token, "
+        f"{floor_all:.2f} with every expert read); stats {got}; launches "
+        f"flash {counts['flash_attention']} (sm90 "
+        f"{counts['flash_attention_sm90']}), decode "
+        f"{counts['decode_attention']}")
+    if got != REF_SERVE_STATS:
+        fail(f"{cfg.name}: placement stats {got} != REF_SERVE_STATS")
+    if not n_pre or counts["flash_attention"] != cfg.n_layers * n_pre or \
+            counts["flash_attention_sm90"] != counts["flash_attention"]:
+        fail(f"{cfg.name}: flash launches {counts['flash_attention']} (sm90 "
+             f"{counts['flash_attention_sm90']}) != {cfg.n_layers} x {n_pre}")
+    if not n_dec or counts["decode_attention"] != cfg.n_layers * n_dec:
+        fail(f"{cfg.name}: decode launches {counts['decode_attention']} != "
+             f"{cfg.n_layers} x {n_dec}")
+    tf = moe_teacher_forced(cfg, params, dev)
+    out[cfg.name] = dict(tf, gb=gb, floor_one_token_ms=floor1,
+                         floor_all_experts_ms=floor_all,
+                         serve_decode_ms=float(np.median(dec)),
+                         serve_prefill_ms=float(np.median(pre)),
+                         tokens_per_s=new_tokens / wall,
+                         serve_launches=counts,
+                         moe_layer=moe_layer_check(
+                             cfg, params, dev,
+                             DENSE_REQUESTS[cfg.name][0]))
+    free_model(params)
+
+    # (b) deepseek-v2-lite-16b: MLA at q/k 192, V padded; all 27 layers
+    cfg = dense_config("deepseek-v2-lite-16b")
+    params, gb = dense_model(cfg, dev, tag="19")
+    floor1, floor_all = moe_floors(cfg, gb)
+    tf = moe_teacher_forced(cfg, params, dev)
+    # an engine of 4 slots at different depths: per-slot latent writes,
+    # each slot's logits against its own teacher-forced run
+    rng = np.random.default_rng(11)
+    prompts = [list(rng.integers(2, cfg.vocab, n)) for n in MOE_ENGINE_LENS]
+    eng = ReplicaEngine(cfg, params, slots=len(prompts),
+                        max_len=SERVE_MAX_LEN, eos_id=-1)
+    logits = []
+    decode = eng._decode
+    eng._decode = lambda *a: (logits.append(decode(*a).float()),
+                              logits[-1])[1]
+    torch.cuda.synchronize()
+    ops.launches.clear()
+    for i, p in enumerate(prompts):
+        eng.admit(3000 + i, p, 64)
+    step_ms = []
+    for _ in range(MOE_ENGINE_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    eng_counts = collections.Counter(ops.launches)
+    if eng_counts["flash_attention"] != cfg.n_layers * len(prompts) or \
+            eng_counts["flash_attention_sm90"] or \
+            eng_counts["decode_attention"] != cfg.n_layers * MOE_ENGINE_STEPS:
+        fail(f"{cfg.name}: engine launches {dict(eng_counts)}")
+    depths = [int(p) for p in eng.pos]
+    lat = eng.cache["lat"]
+    for s, n in enumerate(depths):
+        written = lat[:, s, :n].abs().amax(-1) > 0
+        if not bool(written.all()) or bool(lat[:, s, n:].any()):
+            fail(f"{cfg.name}: slot {s} at depth {n}: latent rows written "
+                 f"{int(written.sum())} of {written.numel()}, rows past the "
+                 "depth not all zero")
+    worst = 0.0
+    for s, (rid, p) in enumerate(zip(range(3000, 3000 + len(prompts)),
+                                     prompts)):
+        seq = eng.seqs[rid].tokens
+        want = teacher_forced_logits(
+            cfg, params, p, seq[len(p):len(p) + MOE_ENGINE_STEPS], dev)
+        for j, step in enumerate(logits):
+            rel = float((step[s] - want[j + 1]).abs().max()) / \
+                float(want[j + 1].abs().max())
+            worst = max(worst, rel)
+    if not np.isfinite(worst) or worst > SERVE_LOGIT_TOL:
+        fail(f"{cfg.name}: engine logits against each slot's own run differ "
+             f"by {worst} > {SERVE_LOGIT_TOL}")
+    del eng, lat
+    say(f"# 19 {cfg.name}: engine of 4 slots at depths "
+        f"{list(MOE_ENGINE_LENS)} -> {depths}: decode median "
+        f"{np.median(step_ms):.2f} ms a step ({min(step_ms):.2f}-"
+        f"{max(step_ms):.2f}; floors {floor1:.2f} at one token, "
+        f"{floor_all:.2f} with every expert read), "
+        f"{len(prompts) * 1e3 / np.median(step_ms):.1f} new tokens/s; "
+        f"launches flash {eng_counts['flash_attention']}, decode "
+        f"{eng_counts['decode_attention']}; latents written per slot to its "
+        f"depth and no further; each slot's logits vs its own teacher-forced "
+        f"run {worst:.3e} of max |logit| (tolerance {SERVE_LOGIT_TOL})")
+    out[cfg.name] = dict(tf, gb=gb, floor_one_token_ms=floor1,
+                         floor_all_experts_ms=floor_all,
+                         engine_decode_ms=float(np.median(step_ms)),
+                         engine_launches=eng_counts,
+                         moe_layer=moe_layer_check(
+                             cfg, params, dev,
+                             DENSE_REQUESTS[cfg.name][0]))
+    free_model(params)
+    say(f"# 19: phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def moe_teacher_forced(cfg, params, dev):
+    """``dense_teacher_forced`` of an MoE model, its launches checked
+    (flash one a layer, on the tensor-core kernel for granite's hd 64 and
+    on the CUDA-core one for MLA's 192; decode one a layer a step), the
+    host syncs of one decode ``forward`` (one a MoE layer at most), and
+    (reported) the kernel run repeated and the routing differences between
+    the kernel and plain runs."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.attention import (decode_attention_ref,
+                                               flash_attention_ref)
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Runtime, forward, init_cache
+    tf = dense_teacher_forced(cfg, params, dev, SERVE_MAX_LEN, tag="19")
+    n_forced = DENSE_REQUESTS[cfg.name][1]
+    c = tf["launches"]
+    sm90 = cfg.n_layers if not cfg.mla else 0
+    if c["flash_attention"] != cfg.n_layers or \
+            c["flash_attention_sm90"] != sm90 or \
+            c["decode_attention"] != cfg.n_layers * n_forced:
+        fail(f"{cfg.name}: teacher-forced launches {dict(c)}: want flash "
+             f"{cfg.n_layers} (sm90 {sm90}), decode "
+             f"{cfg.n_layers * n_forced}")
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    cache = init_cache(cfg, 1, SERVE_MAX_LEN, device=dev)
+    toks = torch.tensor([list(np.random.default_rng(5).integers(
+        2, cfg.vocab, 64))], device=dev)
+    forward(params, cfg, Runtime(), toks, mode="prefill", cache=cache,
+            cache_pos=0)
+    tok = toks[:, :1].clone()
+    pos = torch.tensor([64], dtype=torch.int32, device=dev)
+    syncs, _ = host_syncs(lambda: forward(params, cfg, Runtime(), tok,
+                                          mode="decode", cache=cache,
+                                          cache_pos=pos))
+    del cache
+    if syncs > n_moe * moe.HOST_SYNCS_PER_CALL:
+        fail(f"{cfg.name}: a decode forward made {syncs} host syncs, more "
+             f"than one a MoE layer ({n_moe})")
+    say(f"# 19 {cfg.name}: a decode forward makes {syncs} host syncs "
+        f"({n_moe} MoE layers)")
+
+    # where the logits' drift comes from: the kernel run again (the same
+    # bits if the path is deterministic) and the plain run again, each
+    # recording every MoE layer's top-k experts
+    n_prompt, n_forced = DENSE_REQUESTS[cfg.name]
+    prompt = list(np.random.default_rng(7).integers(2, cfg.vocab, n_prompt))
+    forced = list(np.random.default_rng(99).integers(2, cfg.vocab,
+                                                     n_forced))
+
+    def routed(fns):
+        ids, top_k = [], moe._top_k
+        moe._top_k = lambda *a: (lambda r: (ids.append(r[1]), r)[1])(
+            top_k(*a))
+        restore = bound_attention(*fns)
+        try:
+            return teacher_forced_logits(cfg, params, prompt, forced,
+                                         dev), ids
+        finally:
+            moe._top_k = top_k
+            restore()
+    again, ids_kern = routed((ops.flash_attention, ops.decode_attention))
+    _, ids_plain = routed((flash_attention_ref, decode_attention_ref))
+    repeat = float((again - tf["logits"]).abs().max())
+    flips = sum(int((a.sort(-1)[0] != b.sort(-1)[0]).any(-1).sum())
+                for a, b in zip(ids_kern, ids_plain))
+    routes = sum(a.shape[0] for a in ids_kern)
+    say(f"# 19 {cfg.name}: the kernel run again: logits max |diff| "
+        f"{repeat:.3e} ({'bit for bit' if repeat == 0 else 'not equal'}); "
+        f"{flips} of {routes} tokens' top-{cfg.top_k} expert sets (all "
+        f"MoE layers, the request's calls) differ between the kernel and "
+        f"plain runs")
+    return dict(tf, decode_syncs=syncs, repeat_diff=repeat,
+                routing_flips=flips, routings=routes)
 
 
 def profile_run(dev, label, fn, units: int, unit: str) -> dict:
@@ -4795,6 +5151,7 @@ def main() -> None:
     stream_launches, stream_numbers = phase_stream(dev)
     api_launches, api_numbers = phase_api_serving(dev)
     dense = phase_dense_archs(dev)
+    moe = phase_moe_archs(dev)
     prof = phase_profile(dev)
     say(f"# total {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -4876,6 +5233,15 @@ def main() -> None:
                  for a, d in dense.items()},
              dense_archs_serve_launches=dense["minitron-8b"][
                  "serve_launches"]["flash_attention"],
+             moe_archs_launches={
+                 a: {"flash_attention": d["launches"]["flash_attention"],
+                     "sm90": d["launches"]["flash_attention_sm90"]}
+                 for a, d in moe.items()},
+             moe_serve_launches={
+                 "flash_attention": moe["granite-moe-3b-a800m"][
+                     "serve_launches"]["flash_attention"],
+                 "sm90": moe["granite-moe-3b-a800m"]["serve_launches"][
+                     "flash_attention_sm90"]},
              dense_shapes={name: row for (kind, name), row in
                            dense_rows.items() if kind == "flash"},
              **flash),
@@ -4889,6 +5255,13 @@ def main() -> None:
                  for a, d in dense.items()},
              dense_archs_serve_launches=dense["minitron-8b"][
                  "serve_launches"]["decode_attention"],
+             moe_archs_launches={
+                 a: d["launches"]["decode_attention"]
+                 for a, d in moe.items()},
+             moe_serve_launches=moe["granite-moe-3b-a800m"][
+                 "serve_launches"]["decode_attention"],
+             deepseek_engine_launches=moe["deepseek-v2-lite-16b"][
+                 "engine_launches"]["decode_attention"],
              gemma3_engine_launches={
                  "decode_attention": dense["gemma3-12b"]["engine_launches"][
                      "decode_attention"],

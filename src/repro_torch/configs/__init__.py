@@ -5,9 +5,10 @@ package's ``repro.configs``) and ``reduced()`` (a tiny configuration of the
 same family for CPU tests).  ``ARCHS`` lists only what the port supports,
 in the JAX package's order: the dense GQA decoders (gemma3-12b with its
 local / global windows, qwen2.5-14b, minitron-8b, nemotron-4-340b), the
-encoder-decoder whisper-medium, pixtral-12b with its stub patch prefix,
-and RWKV6 (rwkv6-1.6b).  The MoE, MLA and SSM architectures are ROADMAP
-Queue 1 item 8.
+MoE decoders granite-moe-3b-a800m and deepseek-v2-lite-16b (MLA, shared
+experts, a leading dense layer), the encoder-decoder whisper-medium,
+pixtral-12b with its stub patch prefix, and RWKV6 (rwkv6-1.6b).  Hymba's
+SSM heads are ROADMAP Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import importlib
 from ..models.config import ModelConfig
 
 ARCHS = ["gemma3-12b", "qwen2.5-14b", "minitron-8b", "nemotron-4-340b",
-         "whisper-medium", "pixtral-12b", "rwkv6-1.6b"]
+         "granite-moe-3b-a800m", "deepseek-v2-lite-16b", "whisper-medium",
+         "pixtral-12b", "rwkv6-1.6b"]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -9,8 +9,9 @@ Prints the replica-occupancy seconds of a simulated fleet for a few
 policies beside a round-robin baseline; with ``--real`` it also serves the
 first 12 requests (prompts cut to 16 tokens, decodes to 32) with real
 ``ReplicaEngine``s of the reduced configuration of ``--arch`` (one of
-``configs.ARCHS``: the dense GQA decoders, whisper-medium and pixtral-12b
-on text prompts alone, RWKV6), placed by the ``DVBPScheduler``.  Runs on
+``configs.ARCHS``: the dense GQA decoders, the MoE decoders (granite-moe,
+deepseek-v2-lite with MLA), whisper-medium and pixtral-12b on text prompts
+alone, RWKV6), placed by the ``DVBPScheduler``.  Runs on
 the card unless ``--device cpu``.
 """
 from __future__ import annotations

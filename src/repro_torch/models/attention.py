@@ -1,5 +1,7 @@
-"""GQA attention of the dense decoder: the port's ``repro.models.attention``
-(``rope``, ``_proj``, ``_rms``, ``_cache_update``, ``attention_block``).
+"""Attention of the decoders: the port's ``repro.models.attention``
+(``rope``, ``_proj``, ``_rms``, the cache update, ``attention_block`` for
+GQA, and ``mla_attention_block``, DeepSeek-V2's latent attention on the
+reference's path without absorption).
 
 Every attention call goes through a hand-written kernel (``kernels.ops``):
 
@@ -21,6 +23,10 @@ Every attention call goes through a hand-written kernel (``kernels.ops``):
   spread the ``Se`` keys over the card where a flash call with one query
   row would run ``H`` CTAs.
 
+MLA takes the first two cases with q and k of ``hd + r`` columns (the
+head's ``hd`` and the shared rope key's ``r``) and V zero-padded from
+``hd`` to the same width (see ``mla_attention_block``).
+
 These are the cases ``serving.engine`` and the encoder-decoder form, and
 the functions the JAX package's XLA path (``gqa_attention``) computes
 there.  Every other case raises ``NotImplementedError`` naming its ROADMAP
@@ -35,6 +41,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels.ops import decode_attention, flash_attention
 
@@ -70,22 +77,31 @@ def _rms(x, scale, eps):
     return (n * scale.to(torch.float32)).to(x.dtype)
 
 
-def _cache_update(ck, cv, k, v, cache_pos):
-    """Write the new K/V into the cache at ``cache_pos`` (an int, or a (B,)
-    tensor for continuous batching, where each slot sits at its own
-    depth), in place: the JAX package returns new arrays, the port saves
-    the copy of the whole cache each layer and step."""
-    S = k.shape[1]
+def _write_rows(c, u, cache_pos):
+    """Write ``u`` (B, S, ...) into the cache ``c`` (B, Smax, ...) at
+    ``cache_pos`` (an int, or a (B,) tensor for continuous batching, where
+    each slot sits at its own depth), in place: the JAX package returns new
+    arrays, the port saves the copy of the whole cache each layer and
+    step."""
+    S = u.shape[1]
     if not isinstance(cache_pos, torch.Tensor) or cache_pos.dim() == 0:
         p = int(cache_pos)
-        ck[:, p:p + S] = k
-        cv[:, p:p + S] = v
+        c[:, p:p + S] = u
         return
-    rows = torch.arange(ck.shape[0], device=ck.device)[:, None]
-    cols = cache_pos.to(ck.device).long()[:, None] + \
-        torch.arange(S, device=ck.device)[None, :]
-    ck[rows, cols] = k.to(ck.dtype)
-    cv[rows, cols] = v.to(cv.dtype)
+    rows = torch.arange(c.shape[0], device=c.device)[:, None]
+    cols = cache_pos.to(c.device).long()[:, None] + \
+        torch.arange(S, device=c.device)[None, :]
+    c[rows, cols] = u.to(c.dtype)
+
+
+def _decode_lens(B: int, cache_pos, device) -> torch.Tensor:
+    """(B,) int32 keys a decode step reads: its position plus one (a
+    scalar position is filled in on the card: no copy, no sync)."""
+    if not isinstance(cache_pos, torch.Tensor):
+        return torch.full((B,), int(cache_pos) + 1, dtype=torch.int32,
+                          device=device)
+    return (torch.zeros((B,), dtype=torch.int32, device=device)
+            + cache_pos.to(device) + 1).to(torch.int32)
 
 
 def _cross_attention(q, k, v):
@@ -109,8 +125,9 @@ def attention_block(blk, x, cfg, *, positions, window: int, cache=None,
     ``prefix`` picks the block's weights (``"x_"``: the decoder's cross
     projections).  As in the reference, the query bias applies only without
     a prefix and the cross keys and values take none."""
-    if cfg.mla:
-        raise NotImplementedError(f"MLA attention is {_ROADMAP}")
+    if cfg.mla and not prefix and cross_states is None:
+        raise ValueError(f"{cfg.name}: MLA self-attention is "
+                         "mla_attention_block")
     if cfg.logit_softcap > 0:
         raise NotImplementedError(f"attention logit softcap is {_ROADMAP}")
     if cache is not None and "k_q" in cache:
@@ -146,15 +163,78 @@ def attention_block(blk, x, cfg, *, positions, window: int, cache=None,
             f"{S} tokens against a cache at a nonzero position (chunked "
             f"prefill) is {_ROADMAP}")
     ck, cv = cache["k"], cache["v"]
-    _cache_update(ck, cv, k, v, cache_pos)
+    _write_rows(ck, k, cache_pos)
+    _write_rows(cv, v, cache_pos)
     if prefill:
         # the prompt from position 0: causal over the keys just written,
         # which are k and v themselves (ck[:, :S], cv[:, :S])
         out = flash_attention(q, k, v, causal=True, window=int(window))
     else:
-        kv_len = (torch.zeros((B,), dtype=torch.int32, device=x.device)
-                  + torch.as_tensor(cache_pos, device=x.device) + 1
-                  ).to(torch.int32)
-        out = decode_attention(q[:, 0], ck, cv, kv_len,
+        out = decode_attention(q[:, 0], ck, cv,
+                               _decode_lens(B, cache_pos, x.device),
                                window=int(window))[:, None]
     return _proj(out.reshape(B, S, H * hd), g("wo")), {"k": ck, "v": cv}
+
+
+def mla_attention_block(blk, x, cfg, *, positions, cache=None,
+                        cache_pos=None, absorb: bool = False) -> Tuple:
+    """DeepSeek-V2's Multi-head Latent Attention, the reference's path
+    without absorption.  x (B, S, d); cache None or {"lat": (B, Smax, lora
+    + r)}, the compressed latent ``[c_kv, k_rope]`` of each position,
+    written in place at ``cache_pos`` (an int, or a (B,) tensor of per-slot
+    depths); returns (out, the cache or None).
+
+    K and V are up-projected per head from the latent of every cached
+    position (the whole ``Smax`` on a decode step, as the reference does);
+    the key is ``[k_nope, k_rope]`` with the one rope key broadcast over the
+    heads.  The kernels take q, k and v of one head dim, so V's ``hd``
+    columns are padded with zeros to ``hd + r`` (through ``w_uv`` padded per
+    head) and the output's first ``hd`` columns kept: the zero columns add
+    nothing to the others.  The kernels' scale ``q.shape[-1] ** -0.5`` is
+    the reference's ``(hd + r) ** -0.5``.
+
+    ``absorb=True`` (the reference's absorbed decode: one latent kv head of
+    ``lora + r`` columns, past the kernels' 256) is ROADMAP Queue 1 item 8
+    and raises."""
+    if absorb:
+        raise NotImplementedError(f"absorbed MLA decode is {_ROADMAP}")
+    B, S, _ = x.shape
+    H, hd, r, lora = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim, \
+        cfg.kv_lora_rank
+    q = _proj(x, blk["wq"]).reshape(B, S, H, hd + r)
+    q_rope = rope(q[..., hd:], positions, cfg.rope_theta)
+    q_cat = torch.cat([q[..., :hd], q_rope], dim=-1)
+    c = _proj(x, blk["w_dkv"])                            # (B, S, lora + r)
+    c_kv = _rms(c[..., :lora], blk["kv_norm"], cfg.norm_eps)
+    k_rope = rope(c[..., lora:][:, :, None, :], positions, cfg.rope_theta)
+    lat = torch.cat([c_kv, k_rope[:, :, 0, :]], dim=-1)
+
+    prefill = cache is None or (not isinstance(cache_pos, torch.Tensor) and
+                                int(cache_pos) == 0)
+    if not prefill and S != 1:
+        raise NotImplementedError(
+            f"{S} tokens against a cache at a nonzero position (chunked "
+            f"prefill) is {_ROADMAP}")
+    if cache is not None:
+        _write_rows(cache["lat"], lat, cache_pos)
+        if not prefill:
+            lat = cache["lat"]      # every cached position, as the reference
+    wuk = blk["w_uk"].to(x.dtype)
+    wuv = F.pad(blk["w_uv"].to(x.dtype).reshape(lora, H, hd),
+                (0, r)).reshape(lora, H * (hd + r))
+    Sk = lat.shape[1]
+    c_all = lat[..., :lora]
+    k_nope = (c_all @ wuk).reshape(B, Sk, H, hd)
+    k_cat = torch.cat([k_nope, lat[..., None, lora:].expand(B, Sk, H, r)],
+                      dim=-1)
+    v = (c_all @ wuv).reshape(B, Sk, H, hd + r)
+    if prefill:
+        # the prompt from position 0: causal over the keys just computed,
+        # which are the cache's first S rows
+        out = flash_attention(q_cat, k_cat, v, causal=True)
+    else:
+        out = decode_attention(q_cat[:, 0], k_cat, v,
+                               _decode_lens(B, cache_pos, x.device))[:, None]
+    out = out[..., :hd].reshape(B, S, H * hd)
+    return _proj(out, blk["wo"]), cache
+

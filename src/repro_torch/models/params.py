@@ -1,16 +1,22 @@
-"""Parameter templates and random initialisation of the dense GQA decoder
-(with whisper's encoder and cross-attention) and of RWKV6: the port's copy
-of ``repro.models.params`` (``template``, ``stack_counts``, ``_finalize``,
-``init_params``) for the architectures ``configs.ARCHS`` lists.
+"""Parameter templates and random initialisation of the GQA and MLA
+decoders (dense MLPs or MoE, whisper's encoder and cross-attention) and of
+RWKV6: the port's copy of ``repro.models.params`` (``template``,
+``stack_counts``, ``_finalize``, ``init_params``) for the architectures
+``configs.ARCHS`` lists.
 
 The tree is the reference's: ``embed``, ``final_norm``, ``lm_head`` (unless
 tied) and ``layers``, a dict whose every entry carries a leading layer axis;
 an encoder-decoder adds ``enc_layers`` (stacked ``n_enc_layers`` deep) and
-``enc_norm``, and its decoder layers ``ln_x`` and ``x_wq`` .. ``x_wo``.
+``enc_norm``, and its decoder layers ``ln_x`` and ``x_wq`` .. ``x_wo``.  An
+MoE layer holds the ``router``, the experts' ``we_in`` / ``we_gate`` /
+``we_out`` stacked over experts and the shared experts' ``shared_*``; its
+first ``first_k_dense`` layers (deepseek) are the stack ``dense_layers``,
+with a dense MLP of ``dense_d_ff``.  An MLA layer holds ``wq`` of ``H * (hd
++ r)`` columns, ``w_dkv``, ``kv_norm``, ``w_uk``, ``w_uv`` and ``wo``.
 Initialisers and scales are the reference's too: ``normal`` times
-``scale / sqrt(fan_in)`` for a dense weight, ones for a norm and RWKV6's
-``gn_scale``, zeros for the QKV biases and for RWKV6's token-shift mixes,
-``decay_base`` and ``bonus_u``.  The numbers differ (a ``torch.Generator``
+``scale / sqrt(fan_in)`` for a dense weight (an expert's by its own fan
+in), ones for a norm and RWKV6's ``gn_scale``, zeros for the QKV biases
+and for RWKV6's token-shift mixes, ``decay_base`` and ``bonus_u``.  The numbers differ (a ``torch.Generator``
 is not a JAX key); ``params_from_reference`` carries the JAX package's own
 weights across.
 """
@@ -42,11 +48,11 @@ def _dense(fan_in: int, fan_out: int) -> ParamMeta:
 
 
 def _supported(cfg: ModelConfig) -> None:
-    if cfg.mla or cfg.ssm or cfg.n_experts:
+    if cfg.ssm:
         raise NotImplementedError(
-            f"{cfg.name}: the port's model stack runs the dense GQA decoder "
-            "(with a stub frontend or an encoder), and RWKV6 only; MoE, MLA "
-            "and SSM heads are ROADMAP Queue 1 item 8")
+            f"{cfg.name}: the port's model stack runs the GQA and MLA "
+            "decoders (dense or MoE, with a stub frontend or an encoder) and "
+            "RWKV6; SSM heads (hymba) are ROADMAP Queue 1 item 8")
 
 
 def _rwkv_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
@@ -68,8 +74,16 @@ def _rwkv_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
             "w_in": _dense(d, cfg.d_ff), "w_out": _dense(cfg.d_ff, d)}
 
 
-def _attention_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
+def _attention_block(cfg: ModelConfig,
+                     cross: bool = False) -> Dict[str, ParamMeta]:
     d = cfg.d_model
+    if cfg.mla and not cross:
+        lora, r = cfg.kv_lora_rank, cfg.rope_head_dim
+        return {"wq": _dense(d, cfg.n_heads * (cfg.head_dim + r)),
+                "w_dkv": _dense(d, lora + r), "kv_norm": _norm(lora),
+                "w_uk": _dense(lora, cfg.q_dim),
+                "w_uv": _dense(lora, cfg.q_dim),
+                "wo": _dense(cfg.q_dim, d)}
     blk = {"wq": _dense(d, cfg.q_dim), "wk": _dense(d, cfg.kv_dim),
            "wv": _dense(d, cfg.kv_dim), "wo": _dense(cfg.q_dim, d)}
     if cfg.qkv_bias:
@@ -79,28 +93,52 @@ def _attention_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
     return blk
 
 
-def _mlp_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
+def _mlp_block(cfg: ModelConfig, d_ff: int) -> Dict[str, ParamMeta]:
     d = cfg.d_model
-    blk = {"w_in": _dense(d, cfg.d_ff), "w_out": _dense(cfg.d_ff, d)}
+    blk = {"w_in": _dense(d, d_ff), "w_out": _dense(d_ff, d)}
     if cfg.mlp_act.endswith("_glu"):
-        blk["w_gate"] = _dense(d, cfg.d_ff)
+        blk["w_gate"] = _dense(d, d_ff)
     return blk
 
 
-def _decoder_layer(cfg: ModelConfig) -> Dict[str, ParamMeta]:
-    """Self-attention and MLP; with an encoder, also the cross-attention's
-    norm ``ln_x`` and its projections ``x_wq`` .. ``x_wo``."""
+def _moe_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
+    """The router, E experts' MLPs stacked over experts, and the shared
+    experts as one MLP of ``n_shared_experts * d_expert``."""
+    d, E, fe = cfg.d_model, cfg.n_experts, cfg.d_expert
+    s = 1.0 / math.sqrt(d)
+    blk = {"router": _dense(d, E),
+           "we_in": ParamMeta((E, d, fe), "normal", s),
+           "we_out": ParamMeta((E, fe, d), "normal", 1.0 / math.sqrt(fe))}
+    if cfg.mlp_act.endswith("_glu"):
+        blk["we_gate"] = ParamMeta((E, d, fe), "normal", s)
+    if cfg.n_shared_experts:
+        blk.update({f"shared_{k}": m for k, m in
+                    _mlp_block(cfg, cfg.n_shared_experts * fe).items()})
+    return blk
+
+
+def _decoder_layer(cfg: ModelConfig, moe: bool) -> Dict[str, ParamMeta]:
+    """Self-attention (GQA or MLA) and an MLP, or the MoE block where
+    ``moe``; a dense layer of an MoE configuration (deepseek's first) takes
+    ``dense_d_ff``.  With an encoder, also the cross-attention's norm
+    ``ln_x`` and its projections ``x_wq`` .. ``x_wo``."""
     blk = {"ln1": _norm(cfg.d_model), **_attention_block(cfg),
-           "ln2": _norm(cfg.d_model), **_mlp_block(cfg)}
+           "ln2": _norm(cfg.d_model)}
+    if moe:
+        blk.update(_moe_block(cfg))
+    else:
+        blk.update(_mlp_block(cfg, cfg.dense_d_ff if cfg.first_k_dense and
+                              cfg.n_experts else cfg.d_ff))
     if cfg.arch_kind == "encdec":
         blk["ln_x"] = _norm(cfg.d_model)
-        blk.update({f"x_{k}": m for k, m in _attention_block(cfg).items()})
+        blk.update({f"x_{k}": m for k, m in
+                    _attention_block(cfg, cross=True).items()})
     return blk
 
 
 def _encoder_layer(cfg: ModelConfig) -> Dict[str, ParamMeta]:
-    return {"ln1": _norm(cfg.d_model), **_attention_block(cfg),
-            "ln2": _norm(cfg.d_model), **_mlp_block(cfg)}
+    return {"ln1": _norm(cfg.d_model), **_attention_block(cfg, cross=True),
+            "ln2": _norm(cfg.d_model), **_mlp_block(cfg, cfg.d_ff)}
 
 
 def template(cfg: ModelConfig) -> Dict:
@@ -110,9 +148,12 @@ def template(cfg: ModelConfig) -> Dict:
     _supported(cfg)
     tpl = {"embed": ParamMeta((cfg.vocab, cfg.d_model), "normal", 1.0),
            "final_norm": _norm(cfg.d_model),
-           "layers": _rwkv_block(cfg) if cfg.rwkv else _decoder_layer(cfg)}
+           "layers": _rwkv_block(cfg) if cfg.rwkv else
+           _decoder_layer(cfg, moe=bool(cfg.n_experts))}
     if not cfg.tie_embeddings:
         tpl["lm_head"] = _dense(cfg.d_model, cfg.vocab)
+    if cfg.first_k_dense:
+        tpl["dense_layers"] = _decoder_layer(cfg, moe=False)
     if cfg.arch_kind == "encdec":
         tpl["enc_layers"] = _encoder_layer(cfg)
         tpl["enc_norm"] = _norm(cfg.d_model)
@@ -121,7 +162,9 @@ def template(cfg: ModelConfig) -> Dict:
 
 def stack_counts(cfg: ModelConfig) -> Dict[str, int]:
     """Depth of each stacked entry of the template."""
-    out = {"layers": cfg.n_layers}
+    out = {"layers": cfg.n_layers - cfg.first_k_dense}
+    if cfg.first_k_dense:
+        out["dense_layers"] = cfg.first_k_dense
     if cfg.arch_kind == "encdec":
         out["enc_layers"] = cfg.n_enc_layers
     return out

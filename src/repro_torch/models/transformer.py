@@ -1,9 +1,10 @@
 """The decoder's forward pass: the port's ``repro.models.transformer``
-(``Runtime``, ``mlp``, ``layer_windows``, the dense path of ``_std_layer``
-with its cross block, ``_rwkv_layer``, ``init_cache`` for the k/v cache
-and for RWKV6's recurrent state, and ``forward`` with pixtral's stub patch
-prefix and whisper's encoder) for the architectures ``configs.ARCHS``
-lists.
+(``Runtime``, ``mlp``, ``layer_windows``, ``_std_layer`` with GQA or MLA
+attention, an MLP or the MoE block and whisper's cross block,
+``_rwkv_layer``, ``init_cache`` for the k/v cache, MLA's latent cache and
+RWKV6's recurrent state, and ``forward`` with pixtral's stub patch prefix,
+whisper's encoder and deepseek's leading dense layers) for the
+architectures ``configs.ARCHS`` lists.
 
 Modes: "train" (causal, no cache, logits for every position), "prefill"
 (fills the cache from position 0 and keeps only the last position's
@@ -31,29 +32,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .attention import _proj, _rms, attention_block
+from .attention import _proj, _rms, attention_block, mla_attention_block
 from .config import ModelConfig
 from .linear_scan import chunked_linear_attention, linear_attention_step
+from .moe import _act, moe_block
 from .params import _dtype, _supported
 
 
 @dataclasses.dataclass(frozen=True)
 class Runtime:
     """Execution context threaded through the forward pass.  The reference
-    carries a device mesh, sharding rules and MoE / MLA switches in it; the
-    port runs the dense decoder on one card and needs none of them yet."""
+    also carries a device mesh, sharding rules and an MoE switch that only
+    a mesh reads; the port runs on one card, its MoE layers in the
+    reference's mesh-free (dense) mode.  ``mla_absorb``: the absorbed MLA
+    decode (ROADMAP Queue 1 item 8; True raises)."""
 
-
-def _act(cfg: ModelConfig, gate, up):
-    """The MLP activation (the reference's ``models.moe._act``).  GELU is
-    the tanh form, ``jax.nn.gelu``'s default, not PyTorch's erf default."""
-    if cfg.mlp_act == "silu_glu":
-        return F.silu(gate) * up
-    if cfg.mlp_act == "gelu_glu":
-        return F.gelu(gate, approximate="tanh") * up
-    if cfg.mlp_act == "relu2":
-        return torch.square(F.relu(up))
-    return F.gelu(up, approximate="tanh")
+    mla_absorb: bool = False
 
 
 def mlp(blk, x, cfg: ModelConfig):
@@ -70,12 +64,19 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 
 def _std_layer(blk, x, cfg, rt: Runtime, *, positions, window, cache,
                cache_pos, cross_kv=None):
-    """Attention + MLP layer of the dense decoder; with ``cross_kv`` (the
-    encoder's output) a cross-attention block between them."""
+    """Attention (GQA, or MLA where ``cfg.mla``) and an MLP, or the MoE
+    block where the layer has a router; with ``cross_kv`` (the encoder's
+    output) a cross-attention block between them.  Returns (x, the cache,
+    the layer's aux loss: 0 without MoE)."""
     xn = _rms(x, blk["ln1"], cfg.norm_eps)
-    attn, new_cache = attention_block(blk, xn, cfg, positions=positions,
-                                      window=window, cache=cache,
-                                      cache_pos=cache_pos)
+    if cfg.mla:
+        attn, new_cache = mla_attention_block(
+            blk, xn, cfg, positions=positions, cache=cache,
+            cache_pos=cache_pos, absorb=rt.mla_absorb)
+    else:
+        attn, new_cache = attention_block(blk, xn, cfg, positions=positions,
+                                          window=window, cache=cache,
+                                          cache_pos=cache_pos)
     x = x + attn
     if cross_kv is not None:
         xx = _rms(x, blk["ln_x"], cfg.norm_eps)
@@ -83,7 +84,13 @@ def _std_layer(blk, x, cfg, rt: Runtime, *, positions, window, cache,
                                 cross_states=cross_kv, prefix="x_")
         x = x + xo
     xn2 = _rms(x, blk["ln2"], cfg.norm_eps)
-    return x + mlp(blk, xn2, cfg), new_cache
+    if "router" in blk:
+        # the reference keys the unnormalised top-k on the full model's name
+        out, aux = moe_block(blk, xn2, cfg,
+                             norm_topk=cfg.name != "deepseek-v2-lite-16b")
+    else:
+        out, aux = mlp(blk, xn2, cfg), None
+    return x + out, new_cache, aux
 
 
 def _enc_layer(blk, h, cfg):
@@ -172,8 +179,10 @@ def _rwkv_layer(blk, x, cfg, *, cache, cache_pos):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> Dict:
     """Stacked (leading layer axis) decode cache, zeros, on ``device``:
-    k/v of (batch, max_len) positions, or RWKV6's fp32 (H, K, K) state and
-    its two token shifts a row."""
+    k/v of (batch, max_len) positions, MLA's latent ``lat`` of ``lora + r``
+    a position, or RWKV6's fp32 (H, K, K) state and its two token shifts a
+    row.  With leading dense layers (deepseek) the cache's first
+    ``first_k_dense`` rows are theirs."""
     from ..kernels.ops import resolve_device
     _supported(cfg)
     dev = resolve_device(device)
@@ -187,6 +196,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                                        device=dev),
                 "shift_f": torch.zeros((L, batch, cfg.d_model), dtype=dt,
                                        device=dev)}
+    if cfg.mla:
+        lat = cfg.kv_lora_rank + cfg.rope_head_dim
+        return {"lat": torch.zeros((L, batch, max_len, lat), dtype=dt,
+                                   device=dev)}
     if cfg.kv_cache_int8:
         raise NotImplementedError("the int8 KV cache is ROADMAP Queue 1 "
                                   "item 8")
@@ -200,7 +213,9 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens: torch.Tensor, *,
             cache_pos=None, frontend_embeds: Optional[torch.Tensor] = None,
             enc_embeds: Optional[torch.Tensor] = None):
     """tokens: (B, S) integer.  Returns (logits, cache or None, aux loss),
-    as the reference does (the aux loss is 0: no MoE here).
+    as the reference does (the aux loss is the sum of the MoE layers',
+    fp32; 0 without MoE).  Deepseek's ``dense_layers`` run before
+    ``layers``, layer ``i`` of the whole stack reading cache row ``i``.
 
     ``frontend_embeds`` (B, n_front, d): pixtral's stub patch embeddings,
     prepended to the tokens' (positions run over ``n_front + S``, a prefill
@@ -219,9 +234,12 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens: torch.Tensor, *,
     B, S = x.shape[:2]
     if cache_pos is None:
         cache_pos = 0
-    pos0 = torch.as_tensor(cache_pos, dtype=torch.int32, device=dev)
-    if pos0.dim() == 1:
-        pos0 = pos0[:, None]   # per-slot depths (continuous batching)
+    if isinstance(cache_pos, torch.Tensor):
+        pos0 = cache_pos.to(device=dev, dtype=torch.int32)
+        if pos0.dim() == 1:
+            pos0 = pos0[:, None]   # per-slot depths (continuous batching)
+    else:
+        pos0 = int(cache_pos)   # a scalar: no copy to the card, no sync
     positions = pos0 + torch.arange(S, dtype=torch.int32, device=dev)[None, :] \
         + torch.zeros((B, 1), dtype=torch.int32, device=dev)
     cross_kv = cache.pop("enc_out", None) if cache is not None else None
@@ -231,15 +249,20 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens: torch.Tensor, *,
             e = _enc_layer(_layer(params["enc_layers"], i, cdt), e, cfg)
         cross_kv = _rms(e, params["enc_norm"], cfg.norm_eps)
     windows = layer_windows(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    fkd = cfg.first_k_dense
     for i in range(cfg.n_layers):
-        blk = _layer(params["layers"], i, cdt)
+        blk = _layer(params["dense_layers"], i, cdt) if i < fkd else \
+            _layer(params["layers"], i - fkd, cdt)
         csl = None if cache is None else {k: c[i] for k, c in cache.items()}
         if cfg.rwkv:
             x = _rwkv_layer(blk, x, cfg, cache=csl, cache_pos=cache_pos)
         else:
-            x, _ = _std_layer(blk, x, cfg, rt, positions=positions,
-                              window=int(windows[i]), cache=csl,
-                              cache_pos=cache_pos, cross_kv=cross_kv)
+            x, _, aux = _std_layer(blk, x, cfg, rt, positions=positions,
+                                   window=int(windows[i]), cache=csl,
+                                   cache_pos=cache_pos, cross_kv=cross_kv)
+            if aux is not None:
+                aux_total = aux_total + aux
     if mode == "prefill":
         x = x[:, -1:]   # serving needs only the next token's logits
     x = _rms(x, params["final_norm"], cfg.norm_eps)
@@ -247,4 +270,4 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens: torch.Tensor, *,
     logits = x @ head.to(x.dtype)
     if cache is not None and cross_kv is not None:
         cache["enc_out"] = cross_kv
-    return logits, cache, torch.zeros((), dtype=torch.float32, device=dev)
+    return logits, cache, aux_total

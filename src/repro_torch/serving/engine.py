@@ -2,9 +2,10 @@
 port's ``repro.serving.engine``).
 
 One ``ReplicaEngine`` is one model replica on one card.  Fixed slot layout:
-the cache is (L, slots, ...) (the KV cache (L, slots, Smax, KV, hd), or
-RWKV6's recurrent state and token shifts); a request occupies one slot
-from admission to completion, ``admit`` prefills its prompt into that slot
+the cache is (L, slots, ...) (the KV cache (L, slots, Smax, KV, hd), MLA's
+latent (L, slots, Smax, lora + r), or RWKV6's recurrent state and token
+shifts); a request occupies one slot from admission to completion,
+``admit`` prefills its prompt into that slot
 (``flash_attention``, or RWKV6's ``rwkv6_chunked``, in every layer), and
 every ``step`` decodes one token for all slots (``decode_attention`` in
 every layer, or RWKV6's decode step; idle slots run masked, the standard

@@ -3,9 +3,10 @@
 the card (per event, blocked, consolidating; the serving front end's live
 carry and the scheduler's block select) against the replays on the CPU,
 and the legacy scorer against its plain version, bit for bit; the two
-attention kernels and the RWKV6 chunked kernel against their plain
-versions within the JAX kernel tests' tolerances, and the model and engine
-through them against the plain versions.
+attention kernels (at MLA's shapes too, V zero-padded) and the RWKV6
+chunked kernel against their plain versions within the JAX kernel tests'
+tolerances, the model and engine through them against the plain versions,
+and the dropless MoE dispatch against the all-experts formula.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips with a
 reason where ``torch.cuda.is_available()`` is false: the CUDA kernel has
@@ -882,13 +883,15 @@ def test_engine_on_card_equals_plain_attention(cuda):
 
 @pytest.mark.parametrize("arch", ["gemma3-12b", "minitron-8b",
                                   "nemotron-4-340b", "pixtral-12b",
-                                  "whisper-medium"])
+                                  "whisper-medium", "granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"])
 def test_dense_archs_on_card_equal_plain_attention(arch, cuda):
     """The reduced configurations in fp32 on the card (gemma3's window of
     8 binding on decode, pixtral's patch prefix, whisper's encoder and
-    cross calls): a prefill and four decode steps through the kernels equal
-    the same through the plain attention bound in their place, within 1e-4
-    of max |logit|."""
+    cross calls, granite's and deepseek's MoE layers, deepseek's latent
+    attention with V padded): a prefill and four decode steps through the
+    kernels equal the same through the plain attention bound in their
+    place, within 1e-4 of max |logit|."""
     import dataclasses
     from repro_torch.configs import get_reduced_config
     from repro_torch.kernels.attention import (decode_attention_ref,
@@ -941,6 +944,89 @@ def test_dense_archs_on_card_equal_plain_attention(arch, cuda):
         attention.decode_attention = ops.decode_attention
     rel = float((kern - plain).abs().max() / plain.abs().max())
     assert rel < 1e-4
+
+
+def _mla_inputs(seed, dev, dtype, q_shape, kv_shape, hd):
+    """q, k and v of MLA's width (hd + r), V's columns past ``hd`` zero as
+    ``mla_attention_block`` pads them."""
+    q, k, v = _attn_inputs(seed, dev, dtype, q_shape, kv_shape, kv_shape)
+    v[..., hd:] = 0
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_the_mla_shapes(dtype, cuda):
+    """deepseek-v2-lite-16b's prefill: q / k 192 wide (hd 128 + rope 64),
+    V zero-padded to 192, H = KV = 16, Sq = Skv = 256, causal, on the
+    CUDA-core route: == plain, and the padded columns of the output are
+    exactly zero."""
+    from repro_torch.kernels.attention import flash_attention_ref
+    q, k, v = _mla_inputs(3, cuda, dtype, (1, 256, 16, 192),
+                          (1, 256, 16, 192), 128)
+    n90 = ops.launches["flash_attention_sm90"]
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert ops.launches["flash_attention_sm90"] == n90
+    want = flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+    assert float(got[..., 128:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,hd,hd_v", [(16, 16, 192, 128),
+                                          (24, 8, 64, 64)])
+def test_decode_kernel_at_the_moe_shapes(H, KV, hd, hd_v, dtype, cuda):
+    """Decode at B 4 over a cache of 1024: deepseek's MLA (q / k 192, V
+    zero-padded past 128, G 1; the CUDA-core route) and granite's GQA (hd
+    64, G 3); kv_len at 1, a split's edge, 700 and S, NaN past it."""
+    from repro_torch.kernels.attention import decode_attention_ref
+    B, S = 4, 1024
+    q, k, v = _mla_inputs(H + hd, cuda, dtype, (B, H, hd), (B, S, KV, hd),
+                          hd_v)
+    split_len = ops.decode_splits(
+        B, KV, S,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)[1]
+    lens = [1, split_len, 700, S]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    for b, n in enumerate(lens):
+        k[b, n:], v[b, n:] = float("nan"), float("nan")
+    got = ops.decode_attention(q, k, v, kv_len)
+    want = decode_attention_ref(q, k, v, kv_len)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+    if hd_v < hd:
+        assert float(got[..., hd_v:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"])
+def test_moe_block_on_card_equals_the_dense_formula(arch, cuda):
+    """The dropless dispatch on the card (reduced, fp32, deepseek renamed
+    so its top-k weights stay unnormalised) against the all-experts
+    formula, on 40 tokens and on a 4-token decode batch, within 1e-5 of
+    max |formula|; one host sync a call."""
+    import dataclasses
+    from chip_smoke import host_syncs, moe_dense_formula
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32",
+                              name=arch)
+    params = init_params(cfg, seed=0, device=cuda)
+    blk = {k: w[0] for k, w in params["layers"].items()
+           if k.startswith(("router", "we_", "shared_"))}
+    norm_topk = arch != "deepseek-v2-lite-16b"
+    g = torch.Generator(device=cuda)
+    g.manual_seed(2)
+    for B, S in ((2, 20), (4, 1)):
+        x = torch.randn((B, S, cfg.d_model), generator=g, device=cuda)
+        syncs, (got, aux) = host_syncs(
+            lambda: moe.moe_block(blk, x, cfg, norm_topk=norm_topk))
+        want, want_aux = moe_dense_formula(cfg, blk, x, norm_topk)
+        assert syncs == moe.HOST_SYNCS_PER_CALL
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+        assert abs(float(aux) - float(want_aux)) <= 1e-5 * float(want_aux)
 
 
 def _rwkv_inputs(seed, dev, dtype, B, S, H, K, V):

@@ -121,10 +121,11 @@ def test_param_count_of_the_full_config_equals_the_reference():
     assert n == cfg.param_count() + extra
     assert 14.7e9 < n < 14.8e9
     assert ARCHS == ["gemma3-12b", "qwen2.5-14b", "minitron-8b",
-                     "nemotron-4-340b", "whisper-medium", "pixtral-12b",
+                     "nemotron-4-340b", "granite-moe-3b-a800m",
+                     "deepseek-v2-lite-16b", "whisper-medium", "pixtral-12b",
                      "rwkv6-1.6b"]
     with pytest.raises(KeyError):
-        get_config("granite-moe-3b-a800m")
+        get_config("hymba-1.5b")
 
 
 def test_forward_train_equals_reference(models):
@@ -217,8 +218,7 @@ def _layer(params, cfg):
     return {k: w[0] for k, w in params["layers"].items()}
 
 
-@pytest.mark.parametrize("case", ["mla", "softcap", "int8",
-                                  "chunked_prefill"])
+@pytest.mark.parametrize("case", ["softcap", "int8", "chunked_prefill"])
 def test_out_of_scope_attention_raises(models, case):
     """What the port's attention does not take raises on the CPU too,
     naming its ROADMAP item."""
@@ -229,9 +229,7 @@ def test_out_of_scope_attention_raises(models, case):
     cache = {"k": torch.zeros((1, 8, cfg.n_kv_heads, cfg.head_dim)),
              "v": torch.zeros((1, 8, cfg.n_kv_heads, cfg.head_dim))}
     kw = dict(positions=pos, window=0)
-    if case == "mla":
-        cfg = dataclasses.replace(cfg, mla=True)
-    elif case == "softcap":
+    if case == "softcap":
         cfg = dataclasses.replace(cfg, logit_softcap=30.0)
     elif case == "int8":
         kw.update(cache={"k_q": cache["k"], "v_q": cache["v"]}, cache_pos=0)
@@ -241,19 +239,52 @@ def test_out_of_scope_attention_raises(models, case):
         attention_block(blk, x, cfg, **kw)
 
 
-@pytest.mark.parametrize("case", ["cross", "window_decode"])
+@pytest.mark.parametrize("case", ["cross", "window_decode", "mla"])
 def test_former_out_of_scope_attention_equals_reference(models, case):
-    """Two cases that used to raise, now held to the reference's
-    ``attention_block``: cross-attention onto 5 states (3 queries through
-    the non-causal flash path, then 1 query through the decode path with
-    kv_len = 5; the query bias applies, the keys and values take none), and
-    a decode step at position 5 against a filled cache with a window of 4
-    (the cache rows before position 2 must not count)."""
+    """Three cases that used to raise, now held to the reference's
+    ``attention_block`` or ``mla_attention_block``: cross-attention onto 5
+    states (3 queries through the non-causal flash path, then 1 query
+    through the decode path with kv_len = 5; the query bias applies, the
+    keys and values take none), a decode step at position 5 against a
+    filled cache with a window of 4 (the cache rows before position 2 must
+    not count), and deepseek's latent attention (reduced): one token at
+    per-slot depths (5, 2) against a cache of random latents, the new
+    latents written at those depths."""
     from repro.models.attention import attention_block as ref_block
     ref_cfg, cfg, tree, params = models
     blk = _layer(params, cfg)
     rblk = {k: jnp.asarray(w[0]) for k, w in tree["layers"].items()}
     rng = np.random.default_rng(8)
+    if case == "mla":
+        from repro.models.attention import mla_attention_block as ref_mla
+        from repro_torch.models.attention import mla_attention_block
+        ref_cfg = dataclasses.replace(ref_reduced("deepseek-v2-lite-16b"),
+                                      dtype="float32")
+        cfg = dataclasses.replace(get_reduced_config("deepseek-v2-lite-16b"),
+                                  dtype="float32")
+        tree = jax.tree.map(np.asarray, ref_params.init_params(
+            jax.random.PRNGKey(1), ref_cfg, dtype=jnp.float32))
+        rblk = {k: jnp.asarray(w[0]) for k, w in tree["layers"].items()}
+        blk = {k: torch.from_numpy(np.array(w[0]))
+               for k, w in tree["layers"].items()}
+        lat = rng.standard_normal(
+            (2, 8, cfg.kv_lora_rank + cfg.rope_head_dim)).astype(np.float32)
+        x = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+        cpos = np.array([5, 2], np.int32)
+        want, rcache = ref_mla(rblk, jnp.asarray(x), ref_cfg,
+                               positions=jnp.asarray(cpos[:, None]),
+                               cache={"lat": jnp.asarray(lat)},
+                               cache_pos=jnp.asarray(cpos))
+        cache = {"lat": torch.from_numpy(lat.copy())}
+        got, cache = mla_attention_block(
+            blk, torch.from_numpy(x), cfg,
+            positions=torch.from_numpy(cpos[:, None]), cache=cache,
+            cache_pos=torch.from_numpy(cpos))
+        assert _rel(got, want) < REL_TOL
+        np.testing.assert_allclose(cache["lat"].numpy(),
+                                   np.asarray(rcache["lat"]), atol=1e-6,
+                                   rtol=1e-6)
+        return
     if case == "cross":
         e = rng.standard_normal((2, 5, cfg.d_model)).astype(np.float32)
         for S in (3, 1):
@@ -295,10 +326,13 @@ def test_former_out_of_scope_attention_equals_reference(models, case):
 
 
 def test_other_architectures_raise():
-    cfg = dataclasses.replace(get_reduced_config(ARCH), n_experts=4, top_k=2,
-                              d_expert=16)
+    """Hymba's SSM heads and the int8 KV cache are still to port."""
+    cfg = dataclasses.replace(get_reduced_config(ARCH), ssm=True,
+                              ssm_state=8)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
         P_.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        init_cache(cfg, 1, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
         init_cache(dataclasses.replace(get_reduced_config(ARCH),
                                        kv_cache_int8=True), 1, 4,
