@@ -16,7 +16,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    source, started together; build time printed), each kernel's registers,
    spills and static shared memory from ptxas (the attention kernels must
    not spill), the HGMMA count of the tensor-core flash kernel's SASS and
-   the HMMA count of the RWKV6 kernel's (``cuobjdump -sass``; 0 fails),
+   the HMMA count of each of the RWKV6 kernel's 8 instantiations (fp32 /
+   bf16 x K 64 / any x pre- / post-update; ``cuobjdump -sass``; 0 fails),
    and the attention, RWKV6 and replay warp kernels' dynamic shared
    memory.
 2. Select vs plain: the CUDA select against ``select_ref`` on the card, on
@@ -125,9 +126,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    at S in {16, 511, 2048}) and ``RWKV_CROSS_SHAPES`` (across the kernel's
    windows and column blocks): y and the final state within ``RWKV_TOL``
    atol and rtol, and the grid launched ((B * H, ceil(V / 16)), at least 4
-   CTAs a (b, h) at V 64); then its device time at the path's shapes in
-   bf16 with its grid and windows, beside its bound, the plain version's
-   and (``--parent``) the parent kernel's (no PyTorch call computes it).
+   CTAs a (b, h) at V 64); its post-update (SSD) variant from zeros and
+   from a carried initial state, and RWKV6 from a carried state, on
+   ``SSD_SHAPES`` (hymba's H 25 / K 16 / V 64 at S 221 and 1100, its
+   reduced chunk 8, a ragged S), each launch counted under its variant;
+   then its device time at the path's shapes in bf16 with its grid and
+   windows, beside its bound, the plain version's and (``--parent``) the
+   parent kernel's (no PyTorch call computes it), whose outputs must equal
+   the RWKV6 instantiation's bit for bit.
    (b) rwkv6-1.6b at full width (24 layers, d 2048, 32 heads of 64, d_ff
    7168, vocab 65 536, bf16, random weights from seed 0 made on the card)
    serving phase 8's 12 requests through ``serve_real``: the kernel must
@@ -152,8 +158,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    one launch an arrival, == the loop through the plain version.  Then its
    device time at d=5, linf for each N beside its byte bound, an empty
    kernel's launch (the floor below ~1 M bins), the plain version's and
-   (``--parent``) the parent's two-launch kernel's (no PyTorch call
-   computes it).
+   (``--parent``) the parent tree's kernel's (no PyTorch call computes
+   it).
 11. Consolidation.  (a) The megakernel with its MIGRATE branch ==
    ``replay_block_ref(migrate=True)`` on blocks opening with MIGRATE events
    (a migrant whose source bin closes, RCP/PPE migrants off the base bin),
@@ -298,6 +304,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    busy time.  Printed: prefill ms, decode ms a step and new tokens a
    second, each beside the weight-byte floors at 3.35 TB/s (the active
    experts of one token; every expert).
+20. Hymba-1.5b at full width and depth in bf16 (32 layers, d 1600, 25
+   query heads and 5 kv heads of 64 beside 25 SSD heads of state 16 in
+   every layer, windows of 1024 on the 28 local layers; random weights from
+   seed 0 made on the card): (a) ``serve_real`` on phase 8's requests
+   (stats ``REF_SERVE_STATS``; per prefill 32 flash launches, all on the
+   tensor-core kernel, and 32 of the chunked kernel's post-update
+   variant; per engine step 32 decode launches, 28 windowed); (b) a
+   teacher-forced request (prompt 1100, 16 decode steps: the window binds
+   at prefill and on decode) as in phase 18, every attention call and
+   every SSD call (``checked_scan``, ``RWKV_TOL``) also through its plain
+   version; (c) the same weights in fp32, the kernels' logits against the
+   plain versions' within ``FP32_LOGIT_TOL`` of max |logit|; (d) the SSD
+   variant's device time at ``SSD_TIMED_SHAPE`` in fp32 beside its bound
+   and the plain version's; (e) torch.profiler over engine decode steps
+   and one prefill (busy share, the SSD kernel's share of the prefill).
 
 Then, as a measurement and not a check, on the main path's first rung
 (L=28, Np=64): torch.profiler over 2048 graphed per-event steps and 400
@@ -387,6 +408,16 @@ RWKV_SHAPES = [(2, 64, 2, 16, 16, 16), (1, 48, 4, 32, 64, 16),
 RWKV_CROSS_SHAPES = [(2, 389, 3, 48, 40, 16), (2, 197, 3, 64, 40, 8),
                      (1, 389, 2, 64, 64, 16), (2, 133, 3, 20, 12, 16),
                      (1, 70, 2, 7, 5, 8)]
+# The chunked kernel's post-update (SSD) and carried-state variants: hymba's
+# heads (H 25, K = ssm_state 16, V = head_dim 64, chunk 16) at phase 20's
+# prompt lengths 221 and 1100, hymba-reduced's (H 4, K 4, V 16, chunk 8),
+# and a ragged S at B 2.  Each shape runs (post-update, bonus, initial
+# state) as the SSD from zeros and from a carried state, and RWKV6 from a
+# carried state (its chunked prefill).
+SSD_SHAPES = [(1, 221, 25, 16, 64, 16), (1, 1100, 25, 16, 64, 16),
+              (2, 40, 4, 4, 16, 8), (2, 37, 3, 16, 64, 16)]
+SSD_VARIANTS = ((True, False, False), (True, False, True),
+                (False, True, True))
 # Both attention versions compute in fp32 and round the result to bf16
 # once, so an element may round one bf16 ulp apart (at most 2^-7 of its
 # magnitude); a bf16 output may differ from the plain one by two such ulps
@@ -584,9 +615,12 @@ def parent_library(tree):
         fail(f"parent link failed: {res.stderr[-2000:]}")
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rwkv6_chunked_launch.argtypes = [p] * 7 + [i] * 8 + [p]
+    with open(os.path.join(csrc, "rwkv6_chunked.cu")) as f:
+        carried = "const void* s0" in f.read()   # the S0 / POST signature
+    lib.rwkv6_chunked_launch.argtypes = [p] * 8 + [i] * 9 + [p] if carried \
+        else [p] * 7 + [i] * 8 + [p]
     lib.fitscore_legacy_blocks.argtypes = [i]
-    lib.fitscore_legacy_launch.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.fitscore_legacy_launch.argtypes = [p] * 8 + [i] * 4 + [p]
     say(f"# parent: {', '.join(PARENT_SOURCES)} of {tree} built in "
         f"{time.perf_counter() - t0:.1f} s")
     return lib
@@ -643,8 +677,9 @@ def phase_build():
     say(f"# build: HMMA instructions in the rwkv6 kernel's SASS: {hmma}; "
         f"dynamic smem a CTA: bf16 {lib.rwkv6_chunked_smem_bytes(1)} B, "
         f"fp32 {lib.rwkv6_chunked_smem_bytes(0)} B")
-    if len(hmma) != 4 or not all(hmma.values()):
-        fail(f"the rwkv6 kernel has no HMMA instructions: {hmma}")
+    if len(hmma) != 8 or not all(hmma.values()):
+        fail(f"the rwkv6 kernel's 8 instantiations (type x K x POST) do "
+             f"not all have HMMA instructions: {hmma}")
     return card
 
 
@@ -2184,15 +2219,13 @@ def _rwkv_inputs(gen, dev, dtype, B, S, H, K, V):
     return r.to(dtype), k.to(dtype), v.to(dtype), lw, u
 
 
-def rwkv_bound(B, S, H, K, V, L, nbytes_el):
-    """The least time of one ``rwkv6_chunked`` call: bytes (r, k, v in
-    their type, logw and u fp32, read once; y and the state written once)
-    over the memory rate, against the fp32 operations its S rows need (the
-    pair terms of each row with the earlier rows of its chunk, the u-bonus,
-    the product with the carried state, the state update) at the fp32 peak:
-    the function computes in fp32 whatever its inputs' type."""
-    nbytes = nbytes_el * B * S * H * (2 * K + V) + \
-        4 * (B * S * H * (K + V) + H * K + B * H * K * V)
+def scan_bound(nbytes, B, S, H, K, V, L):
+    """The least time of one chunked scan that must move ``nbytes``: the
+    bytes over the memory rate, against the fp32 operations its S rows
+    need (the pair terms of each row with the earlier rows of its chunk,
+    the diagonal, the product with the carried state, the state update) at
+    the fp32 peak: the function computes in fp32 whatever its inputs'
+    type."""
     n_chunks = -(-S // L)
     rows = [min(L, S - c * L) for c in range(n_chunks)]
     pairs = sum(m * (m - 1) // 2 for m in rows)
@@ -2201,6 +2234,23 @@ def rwkv_bound(B, S, H, K, V, L, nbytes_el):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rwkv_bound(B, S, H, K, V, L, nbytes_el):
+    """``scan_bound`` of one RWKV6 ``rwkv6_chunked`` call: r, k, v in their
+    type, logw and u fp32, read once; y and the state written once."""
+    return scan_bound(nbytes_el * B * S * H * (2 * K + V) +
+                      4 * (B * S * H * (K + V) + H * K + B * H * K * V),
+                      B, S, H, K, V, L)
+
+
+def ssd_bound(B, S, H, K, V, L):
+    """``scan_bound`` of hymba's SSD from a zero state, counted from what
+    the function needs, not from the wrapper's widened inputs: C and x in
+    the model's bf16, k = B dt in fp32 and one fp32 decay a (s, h), read
+    once; y and the state written once in fp32."""
+    return scan_bound(B * S * H * (2 * K + 2 * V + 4 * K + 4 + 4 * V) +
+                      4 * B * H * K * V, B, S, H, K, V, L)
 
 
 def _rwkv_err(got, want, what):
@@ -2216,6 +2266,28 @@ def _rwkv_err(got, want, what):
     return err
 
 
+def checked_scan(errs):
+    """``ops.rwkv6_chunked`` wrapped so that each call also runs the plain
+    version on the same inputs (the kernel's output goes on): fails unless
+    y and the state are within ``RWKV_TOL`` of max |plain|; each call's
+    max |diff| / max |plain| goes to ``errs``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
+
+    def call(*a, **kw):
+        y, st = ops.rwkv6_chunked(*a, **kw)
+        want_y, want_st = rwkv6_chunked_ref(*a, **kw)
+        scale = max(float(want_y.abs().max()), float(want_st.abs().max()))
+        err = max(float((y - want_y).abs().max()),
+                  float((st - want_st).abs().max()))
+        if not (err <= RWKV_TOL * scale):
+            fail(f"rwkv6_chunked call {len(errs)}: max |diff| {err} > "
+                 f"{RWKV_TOL} x max |plain| {scale}")
+        errs.append(err / scale)
+        return y, st
+    return call
+
+
 def in_turns(new, old, reps: int):
     """Device times of two versions of one call in turns (old, new, new,
     old, each ``device_ms`` over ``reps`` calls): (new ms, old ms), each
@@ -2226,7 +2298,9 @@ def in_turns(new, old, reps: int):
 
 def parent_rwkv(parent, args, L):
     """A call of the parent tree's ``rwkv6_chunked_launch`` on ``args``
-    (uncounted), and its outputs."""
+    (RWKV6: pre-update, from zeros; uncounted), and its outputs.  The
+    launch's signature is read from its argtypes: with or without the S0
+    pointer and the POST flag."""
     import torch
     r, k, v, lw, u = args
     B, S, H, K = r.shape
@@ -2234,12 +2308,15 @@ def parent_rwkv(parent, args, L):
     y = torch.empty((B, S, H, V), dtype=torch.float32, device=r.device)
     st = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
+    carried = len(parent.rwkv6_chunked_launch.argtypes) == 18
 
     def call():
+        head = (r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+                u.data_ptr()) + ((None,) if carried else ())
+        flags = (int(r.dtype == torch.bfloat16),) + ((0,) if carried else ())
         err = parent.rwkv6_chunked_launch(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-            u.data_ptr(), y.data_ptr(), st.data_ptr(), B, S, H, K, V, L,
-            int(r.dtype == torch.bfloat16), r.device.index or 0, stream)
+            *head, y.data_ptr(), st.data_ptr(), B, S, H, K, V, L, *flags,
+            r.device.index or 0, stream)
         if err:
             fail(f"the parent rwkv6_chunked launch failed ({err})")
     return call, y, st
@@ -2277,6 +2354,45 @@ def phase_rwkv_vs_plain(dev, parent=None):
     say(f"# rwkv6_chunked == plain on {n_cases} cases (y and final state "
         f"within {RWKV_TOL} atol and rtol; {len(RWKV_CROSS_SHAPES)} shapes "
         f"a type across windows and column blocks): max |diff| {err:.3e}")
+    ssd_err, s0_err, n_var = 0.0, 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, H, K, V, L in SSD_SHAPES:
+            for post, bonus, carried in SSD_VARIANTS:
+                r, k, v, lw, u = _rwkv_inputs(gen, dev, dtype, B, S, H, K, V)
+                if post:   # one decay a head, broadcast over K (hymba's)
+                    lw = lw[..., :1].expand(B, S, H, K).contiguous()
+                kw = dict(chunk=L, post_update=post, initial_state=torch.randn(
+                    (B, H, K, V), generator=gen, device=dev) if carried
+                    else None)
+                n0 = collections.Counter(ops.launches)
+                y, st = ops.rwkv6_chunked(r, k, v, lw, u if bonus else None,
+                                          **kw)
+                want_y, want_st = rwkv6_chunked_ref(r, k, v, lw,
+                                                    u if bonus else None,
+                                                    **kw)
+                what = (f"rwkv6_chunked {'post' if post else 'pre'}-update"
+                        f"{' +u' if bonus else ''}{' +S0' if carried else ''}"
+                        f" {dtype} {(B, S, H, K, V)} chunk {L}")
+                e = max(_rwkv_err(y, want_y, what + " y"),
+                        _rwkv_err(st, want_st, what + " state"))
+                if post:
+                    ssd_err = max(ssd_err, e)
+                else:
+                    s0_err = max(s0_err, e)
+                moved = collections.Counter(ops.launches) - n0
+                if moved != +collections.Counter(
+                        {"rwkv6_chunked": 1, "rwkv6_chunked_post": int(post),
+                         "rwkv6_chunked_s0": int(carried)}):
+                    fail(f"{what}: launches counted {dict(moved)}")
+                if ops.last_rwkv_grid[:2] != (B * H, -(-V // 16)):
+                    fail(f"{what}: grid {ops.last_rwkv_grid}")
+                n_var += 1
+    torch.cuda.synchronize()
+    say(f"# rwkv6_chunked SSD and carried-state variants == plain on "
+        f"{n_var} cases ({len(SSD_SHAPES)} shapes x {len(SSD_VARIANTS)} "
+        f"variants x fp32 / bf16; y and final state within {RWKV_TOL} atol "
+        f"and rtol): max |diff| post-update {ssd_err:.3e}, pre-update from "
+        f"S0 {s0_err:.3e}")
     rows = {}
     for S in (16, 511, 2048):
         args = _rwkv_inputs(gen, dev, torch.bfloat16, 1, S, 32, 64, 64)
@@ -2293,6 +2409,9 @@ def phase_rwkv_vs_plain(dev, parent=None):
                                      100)
             parent_diff = max(float((py - y).abs().max()),
                               float((pst - st).abs().max()))
+            if parent_diff != 0.0:
+                fail(f"rwkv6_chunked S={S}: the RWKV6 instantiation differs "
+                     f"from the parent's by {parent_diff}")
         plain_ms = device_ms(lambda: rwkv6_chunked_ref(*args),
                              max(1, 400 // (3 * n_chunks + 20)))
         bound_ms, bound_by = rwkv_bound(1, S, 32, 64, 64, 16, 2)
@@ -2311,7 +2430,8 @@ def phase_rwkv_vs_plain(dev, parent=None):
             f"{vs_parent}; library call: none")
     return dict(rows[511], max_abs_err=err, grid=list(grid[:2]),
                 window=grid[2], ms_by_S={S: r["ms"] for S, r in rows.items()},
-                parent_ms_by_S={S: r["parent_ms"] for S, r in rows.items()})
+                parent_ms_by_S={S: r["parent_ms"] for S, r in rows.items()},
+                ssd_max_abs_err=ssd_err, s0_max_abs_err=s0_err)
 
 
 def phase_rwkv_serving(dev):
@@ -2373,20 +2493,7 @@ def phase_rwkv_serving(dev):
     # the same requests again, every kernel call also running the plain
     # version on its own inputs (the kernel's output goes on)
     errs = []
-
-    def checked(*a, **kw):
-        y, st = ops.rwkv6_chunked(*a, **kw)
-        want_y, want_st = rwkv6_chunked_ref(*a, **kw)
-        scale = max(float(want_y.abs().max()), float(want_st.abs().max()))
-        err = max(float((y - want_y).abs().max()),
-                  float((st - want_st).abs().max()))
-        if not (err <= RWKV_TOL * scale):
-            fail(f"rwkv6_chunked call {len(errs)} of the serving run: max "
-                 f"|diff| {err} > {RWKV_TOL} x max |plain| {scale}")
-        errs.append(err / scale)
-        return y, st
-
-    linear_scan.rwkv6_chunked = checked
+    linear_scan.rwkv6_chunked = checked_scan(errs)
     try:
         again = timed_serve_real(cfg, params, reqs)[0]
     finally:
@@ -2550,21 +2657,23 @@ def legacy_back_to_back(dev, n_streams: int, calls: int = 50) -> list:
 
 
 def parent_fitscore(parent, rem, alive, item, oseq):
-    """A call of the parent tree's two-launch ``fitscore_legacy_launch``
-    (l_inf; uncounted)."""
+    """A call of the parent tree's ``fitscore_legacy_launch`` (l_inf;
+    uncounted), the one-launch kernel with its merge counter."""
     import torch
     N, d = rem.shape
     scores = torch.empty(N, dtype=torch.float32, device=rem.device)
     best = torch.empty((), dtype=torch.int32, device=rem.device)
     partial = torch.empty(3 * parent.fitscore_legacy_blocks(N),
                           dtype=torch.int32, device=rem.device)
+    counter = torch.zeros(256, dtype=torch.int32, device=rem.device)
     stream = torch.cuda.current_stream(rem.device).cuda_stream
 
     def call():
         err = parent.fitscore_legacy_launch(
             rem.data_ptr(), alive.data_ptr(), item.data_ptr(),
             oseq.data_ptr(), scores.data_ptr(), partial.data_ptr(),
-            best.data_ptr(), N, d, 2, rem.device.index or 0, stream)
+            counter.data_ptr(), best.data_ptr(),
+            N, d, 2, rem.device.index or 0, stream)
         if err:
             fail(f"the parent fitscore launch failed ({err})")
     return call
@@ -2579,7 +2688,7 @@ def phase_legacy_fitscore(dev, parent=None):
     placing LEGACY_PLACEMENTS items into a 4096-bin pool through
     ``ops.fitscore``, against the same loop through the plain version; then
     its times beside the bound, an empty kernel's launch and, given the
-    parent tree's library, the parent's two-launch kernel in turns."""
+    parent tree's library, the parent's kernel in turns."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -2665,7 +2774,7 @@ def phase_legacy_fitscore(dev, parent=None):
         rows[N] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, parent_ms=parent_ms)
         vs_parent = "parent kernel: no tree given" if parent is None else \
-            f"parent (two launches) {parent_ms:.6f} ms in turns"
+            f"parent kernel {parent_ms:.6f} ms in turns"
         say(f"# fitscore N={N} d=5 linf: device time {ms:.6f} ms, plain "
             f"{plain_ms:.6f} ms; bound {bound_ms:.3e} ms by {bound_by} "
             f"({nbytes} B at 3.35 TB/s), an empty kernel's launch "
@@ -4354,7 +4463,7 @@ GEMMA_MAX_LEN = 2048
 DENSE_REQUESTS = {"gemma3-12b": (1100, 16), "nemotron-4-340b": (256, 8),
                   "pixtral-12b": (128, 8), "whisper-medium": (64, 8),
                   "minitron-8b": (221, 8), "granite-moe-3b-a800m": (221, 12),
-                  "deepseek-v2-lite-16b": (221, 12)}
+                  "deepseek-v2-lite-16b": (221, 12), "hymba-1.5b": (1100, 16)}
 WHISPER_FRAMES = 1500    # whisper's 30 s window
 
 
@@ -4369,19 +4478,37 @@ def dense_config(arch):
     return cfg
 
 
-def dense_teacher_forced(cfg, params, dev, max_len, tag="18", **kw):
-    """Phase 18's (and 19's: ``tag``) teacher-forced request of ``cfg``
-    (lengths from ``DENSE_REQUESTS``), three times: through the kernels alone, timed
-    (prefill ms, decode ms a step) with the launch counts set to 0 just
-    before and read just after; with every attention call also run through
-    its plain version (each within ``ATTN_TOL`` bf16); and through the
-    plain versions alone.  Fails unless the kernel run's logits are within
-    ``SERVE_LOGIT_TOL`` of max |logit| of the plain run's."""
+def bound_scan(fn):
+    """Bind ``fn`` as the model's chunked linear attention; returns a
+    function that puts the kernel's wrapper back."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import linear_scan
+    linear_scan.rwkv6_chunked = fn
+
+    def restore():
+        linear_scan.rwkv6_chunked = ops.rwkv6_chunked
+    return restore
+
+
+def dense_teacher_forced(cfg, params, dev, max_len, tag="18", ssd_errs=None,
+                         **kw):
+    """Phase 18's (and 19's and 20's: ``tag``) teacher-forced request of
+    ``cfg`` (lengths from ``DENSE_REQUESTS``), three times: through the
+    kernels alone, timed (prefill ms, decode ms a step) with the launch
+    counts set to 0 just before and read just after; with every attention
+    call also run through its plain version (each within ``ATTN_TOL``
+    bf16) and, given a list ``ssd_errs``, every chunked linear-attention
+    call too (``checked_scan``: within ``RWKV_TOL``; each call's error to
+    the list); and through the plain versions alone.  Fails unless the
+    kernel run's logits are within ``SERVE_LOGIT_TOL`` of max |logit| of
+    the plain run's."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.attention import (decode_attention_ref,
                                                flash_attention_ref)
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
+    scans = ssd_errs is not None
     n_prompt, n_forced = DENSE_REQUESTS[cfg.name]
     prompt = list(np.random.default_rng(7).integers(2, cfg.vocab, n_prompt))
     forced = list(np.random.default_rng(99).integers(2, cfg.vocab,
@@ -4397,17 +4524,23 @@ def dense_teacher_forced(cfg, params, dev, max_len, tag="18", **kw):
     kinds = collections.Counter()
     restore = bound_attention(*checked_attention(ATTN_TOL["bfloat16"], calls,
                                                  kinds))
+    restore_scan = bound_scan(checked_scan(ssd_errs)) if scans else None
     try:
         checked = teacher_forced_logits(cfg, params, prompt, forced, dev,
                                         max_len, **kw)
     finally:
         restore()
+        if scans:
+            restore_scan()
     restore = bound_attention(flash_attention_ref, decode_attention_ref)
+    restore_scan = bound_scan(rwkv6_chunked_ref) if scans else None
     try:
         plain = teacher_forced_logits(cfg, params, prompt, forced, dev,
                                       max_len, **kw)
     finally:
         restore()
+        if scans:
+            restore_scan()
     scale = float(plain.abs().max())
     rel = float((kern - plain).abs().max()) / scale
     rel_checked = float((checked - plain).abs().max()) / scale
@@ -4423,12 +4556,14 @@ def dense_teacher_forced(cfg, params, dev, max_len, tag="18", **kw):
         f"({len(calls['flash_attention'])} flash, "
         f"{len(calls['decode_attention'])} decode: {dict(sorted(kinds.items()))}"
         f"; max |diff| flash {max(calls['flash_attention']):.3e}, decode "
-        f"{max(calls['decode_attention']):.3e}); logits kernel vs plain "
+        f"{max(calls['decode_attention']):.3e}"
+        f"{f'; {len(ssd_errs)} chunked SSD calls, max |diff| / max |plain| {max(ssd_errs):.3e}' if scans and ssd_errs else ''}"
+        f"); logits kernel vs plain "
         f"{rel:.3e} of max |logit| {scale:.3f} (tolerance {SERVE_LOGIT_TOL})")
     say(f"# {tag} {cfg.name}: kernels alone: prefill "
         f"{times['prefill'][0]:.1f} ms, decode median {np.median(dec):.2f} ms a step "
         f"({dec.min():.2f}-{dec.max():.2f}), launches "
-        f"{dict(sorted((k, v) for k, v in counts.items() if 'attention' in k))}")
+        f"{dict(sorted((k, v) for k, v in counts.items() if 'attention' in k or 'rwkv' in k))}")
     return dict(prefill_ms=times["prefill"][0], logits=kern,
                 decode_ms=float(np.median(dec)), logit_rel=rel,
                 launches=counts, kinds=kinds,
@@ -4860,6 +4995,199 @@ def phase_moe_archs(dev):
     return out
 
 
+# phase 20: hymba-1.5b at full width
+HYMBA_MAX_LEN = 2048        # the teacher-forced request: 1100 + 16 tokens
+FP32_LOGIT_TOL = 1e-3       # kernel vs plain logits of an fp32 run
+SSD_TIMED_SHAPE = (1, 221, 25, 16, 64, 16)
+
+
+def fp32_copy(params):
+    import torch
+    return {k: ({kk: vv.to(torch.float32) for kk, vv in v.items()}
+                if isinstance(v, dict) else v.to(torch.float32))
+            for k, v in params.items()}
+
+
+def phase_hybrid(dev):
+    """Phase 20: hymba-1.5b at full width and depth in bf16 (random weights
+    from seed 0 made on the card; see the module docstring).  Returns its
+    numbers."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.attention import (decode_attention_ref,
+                                               flash_attention_ref)
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
+    from repro_torch.models.transformer import Runtime, forward, init_cache
+    from repro_torch.serving.engine import ReplicaEngine
+    t_phase = time.perf_counter()
+    cfg = dense_config("hymba-1.5b")
+    params, gb = dense_model(cfg, dev, tag="20")
+    L = cfg.n_layers
+    n_local = sum(not cfg.layer_is_global(i) for i in range(L))
+
+    # (a) serve_real on phase 8's requests: flash on the tensor-core
+    # kernel, the SSD on the chunked kernel's post-update variant, one
+    # launch each a layer a prefill; decode one launch a layer a step
+    reqs = serving_requests()
+    stats, wall, times, counts = timed_serve_real(cfg, params, reqs)
+    got = (stats.replica_seconds, stats.replicas_opened, stats.peak_replicas)
+    n_pre, n_dec = len(times["prefill"]), len(times["decode"])
+    new_tokens = sum(r.decode_len for r in reqs)
+    pre, dec = np.array(times["prefill"]), np.array(times["decode"])
+    floor = gb * 1e9 / HBM_BYTES_PER_S * 1e3
+    say(f"# 20 {cfg.name}: serve_real of {len(reqs)} requests in {wall:.1f} "
+        f"s, {new_tokens / wall:.1f} new tokens/s; {n_pre} prefills, median "
+        f"{np.median(pre):.1f} ms; {n_dec} engine decode steps (4 slots), "
+        f"median {np.median(dec):.2f} ms (floor {floor:.2f}); stats {got}; "
+        f"launches flash {counts['flash_attention']} (sm90 "
+        f"{counts['flash_attention_sm90']}), decode "
+        f"{counts['decode_attention']} (windowed "
+        f"{counts['decode_attention_window']}), rwkv6_chunked "
+        f"{counts['rwkv6_chunked']} (post-update "
+        f"{counts['rwkv6_chunked_post']}, from a carried state "
+        f"{counts['rwkv6_chunked_s0']})")
+    if got != REF_SERVE_STATS:
+        fail(f"{cfg.name}: placement stats {got} != REF_SERVE_STATS")
+    if not n_pre or counts["flash_attention"] != L * n_pre or \
+            counts["flash_attention_sm90"] != counts["flash_attention"]:
+        fail(f"{cfg.name}: flash launches {counts['flash_attention']} (sm90 "
+             f"{counts['flash_attention_sm90']}) != {L} x {n_pre}")
+    if not n_dec or counts["decode_attention"] != L * n_dec or \
+            counts["decode_attention_window"] != n_local * n_dec:
+        fail(f"{cfg.name}: decode launches {counts['decode_attention']} "
+             f"(windowed {counts['decode_attention_window']}) != {L} "
+             f"({n_local}) x {n_dec}")
+    if counts["rwkv6_chunked"] != L * n_pre or \
+            counts["rwkv6_chunked_post"] != L * n_pre or \
+            counts["rwkv6_chunked_s0"]:
+        fail(f"{cfg.name}: rwkv6_chunked launches {counts['rwkv6_chunked']}"
+             f" (post {counts['rwkv6_chunked_post']}, s0 "
+             f"{counts['rwkv6_chunked_s0']}) != {L} x {n_pre}")
+
+    # (b) a teacher-forced request whose 1100-token prompt and 16 decode
+    # steps make the 28 local layers' window of 1024 bind; every attention
+    # and every SSD call checked against its plain version
+    ssd_errs = []
+    tf = dense_teacher_forced(cfg, params, dev, HYMBA_MAX_LEN, tag="20",
+                              ssd_errs=ssd_errs)
+    n_forced = DENSE_REQUESTS[cfg.name][1]
+    want = {"flash windowed": n_local, "flash causal": L - n_local,
+            "decode windowed": n_local * n_forced,
+            "decode full": (L - n_local) * n_forced}
+    if dict(tf["kinds"]) != want:
+        fail(f"{cfg.name}: attention calls {dict(tf['kinds'])} != {want}")
+    if len(ssd_errs) != L or tf["launches"]["rwkv6_chunked_post"] != L:
+        fail(f"{cfg.name}: {len(ssd_errs)} SSD calls checked, "
+             f"{tf['launches']['rwkv6_chunked_post']} launched, want {L}")
+
+    # (c) the same weights in fp32: the kernels' logits against the plain
+    # versions' within FP32_LOGIT_TOL (no bf16 rounding to part them)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = fp32_copy(params)
+    n_prompt, _ = DENSE_REQUESTS[cfg.name]
+    prompt = list(np.random.default_rng(7).integers(2, cfg.vocab, n_prompt))
+    forced = list(np.random.default_rng(99).integers(2, cfg.vocab,
+                                                     n_forced))
+    torch.cuda.synchronize()
+    ops.launches.clear()
+    kern32 = teacher_forced_logits(cfg32, p32, prompt, forced, dev,
+                                   HYMBA_MAX_LEN)
+    torch.cuda.synchronize()
+    counts32 = collections.Counter(ops.launches)
+    restore = bound_attention(flash_attention_ref, decode_attention_ref)
+    restore_scan = bound_scan(rwkv6_chunked_ref)
+    try:
+        plain32 = teacher_forced_logits(cfg32, p32, prompt, forced, dev,
+                                        HYMBA_MAX_LEN)
+    finally:
+        restore()
+        restore_scan()
+    free_model(p32)
+    scale32 = float(plain32.abs().max())
+    rel32 = float((kern32 - plain32).abs().max()) / scale32
+    rel_bf16 = float((tf["logits"] - kern32).abs().max()) / scale32
+    say(f"# 20 {cfg.name}: fp32 run of the same weights (flash "
+        f"{counts32['flash_attention']} on the CUDA-core route, sm90 "
+        f"{counts32['flash_attention_sm90']}; decode "
+        f"{counts32['decode_attention']}; SSD {counts32['rwkv6_chunked_post']}"
+        f"): kernels vs plain {rel32:.3e} of max |logit| {scale32:.3f} "
+        f"(tolerance {FP32_LOGIT_TOL}); the bf16 kernel run vs the fp32 one "
+        f"{rel_bf16:.3e}")
+    if not np.isfinite(rel32) or rel32 > FP32_LOGIT_TOL or \
+            counts32["rwkv6_chunked_post"] != L or \
+            counts32["flash_attention_sm90"]:
+        fail(f"{cfg.name}: fp32 kernels vs plain {rel32} > {FP32_LOGIT_TOL} "
+             f"(launches {dict(counts32)})")
+
+    # (d) the SSD variant's device time at a serving prefill's shape, fp32
+    # (the path's type: C and x are widened beside k = B dt)
+    B, S, H, K, V, Lc = SSD_TIMED_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    r, k, v, lw, _ = _rwkv_inputs(gen, dev, torch.float32, B, S, H, K, V)
+    lw = lw[..., :1].expand(B, S, H, K).contiguous()
+
+    def ssd():
+        return ops.rwkv6_chunked(r, k, v, lw, chunk=Lc, post_update=True)
+    y, st = ssd()
+    want_y, want_st = rwkv6_chunked_ref(r, k, v, lw, chunk=Lc,
+                                        post_update=True)
+    ssd_err = max(_rwkv_err(y, want_y, "timed SSD y"),
+                  _rwkv_err(st, want_st, "timed SSD state"))
+    ssd_ms = device_ms(ssd, 100)
+    plain_ms = device_ms(lambda: rwkv6_chunked_ref(
+        r, k, v, lw, chunk=Lc, post_update=True), 20)
+    bound_ms, bound_by = ssd_bound(B, S, H, K, V, Lc)
+    say(f"# 20 rwkv6_chunked post-update fp32 B={B} S={S} H={H} K={K} "
+        f"V={V} chunk {Lc}: device time {ssd_ms:.6f} ms, plain "
+        f"{plain_ms:.6f} ms; bound {bound_ms:.6f} ms by {bound_by}; max "
+        f"|diff| {ssd_err:.3e}; {counts['rwkv6_chunked_post']} launches on "
+        f"the serving path; library call: none")
+
+    # (e) an engine's decode steps and one prefill under the profiler
+    rng = np.random.default_rng(13)
+    eng = ReplicaEngine(cfg, params, slots=SERVE_SLOTS,
+                        max_len=SERVE_MAX_LEN, eos_id=-1)
+    for i in range(SERVE_SLOTS):
+        eng.admit(4000 + i, list(rng.integers(2, cfg.vocab, 128 + 64 * i)),
+                  SERVE_MAX_LEN)
+    dec_prof = profile_run(dev, f"20 {cfg.name} engine decode, "
+                           f"{SERVE_SLOTS} slots busy, 8 steps",
+                           lambda: [eng.step() for _ in range(8)], 8, "step")
+    del eng
+    sub = init_cache(cfg, 1, SERVE_MAX_LEN, device=dev)
+    toks = torch.tensor([list(rng.integers(2, cfg.vocab, S))],
+                        dtype=torch.int64, device=dev)
+    pre_prof = profile_run(dev, f"20 {cfg.name} prefill of {S} tokens",
+                           lambda: forward(params, cfg, Runtime(), toks,
+                                           mode="prefill", cache=sub,
+                                           cache_pos=0), 1, "prefill")
+    ssd_share = None
+    if pre_prof:
+        ssd_us = sum(us for name, us in pre_prof["by_name"].items()
+                     if "rwkv6_chunked_kernel" in name)
+        ssd_share = 100 * ssd_us / pre_prof["busy_us"]
+        say(f"# 20 {cfg.name} prefill: the SSD kernel {ssd_us:.2f} us of "
+            f"the prefill's {pre_prof['busy_us']:.1f} us of device time "
+            f"({ssd_share:.2f} %)")
+    del sub
+    free_model(params)
+    say(f"# 20: phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(gb=gb, launches=counts["rwkv6_chunked_post"],
+                serve_launches=counts, serve_prefill_ms=float(np.median(pre)),
+                serve_decode_ms=float(np.median(dec)),
+                tokens_per_s=new_tokens / wall, tf_logit_rel=tf["logit_rel"],
+                tf_prefill_ms=tf["prefill_ms"], tf_decode_ms=tf["decode_ms"],
+                tf_ssd_err=max(ssd_errs), fp32_logit_rel=rel32,
+                ssd_ms=ssd_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, ssd_err=ssd_err,
+                decode_busy_share=dec_prof.get("share"),
+                prefill_busy_share=pre_prof.get("share"),
+                prefill_ssd_share=ssd_share)
+
+
 def moe_teacher_forced(cfg, params, dev):
     """``dense_teacher_forced`` of an MoE model, its launches checked
     (flash one a layer, on the tensor-core kernel for granite's hd 64 and
@@ -5152,6 +5480,7 @@ def main() -> None:
     api_launches, api_numbers = phase_api_serving(dev)
     dense = phase_dense_archs(dev)
     moe = phase_moe_archs(dev)
+    hymba = phase_hybrid(dev)
     prof = phase_profile(dev)
     say(f"# total {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -5242,6 +5571,10 @@ def main() -> None:
                      "serve_launches"]["flash_attention"],
                  "sm90": moe["granite-moe-3b-a800m"]["serve_launches"][
                      "flash_attention_sm90"]},
+             hymba_serve_launches={
+                 "flash_attention": hymba["serve_launches"][
+                     "flash_attention"],
+                 "sm90": hymba["serve_launches"]["flash_attention_sm90"]},
              dense_shapes={name: row for (kind, name), row in
                            dense_rows.items() if kind == "flash"},
              **flash),
@@ -5260,6 +5593,11 @@ def main() -> None:
                  for a, d in moe.items()},
              moe_serve_launches=moe["granite-moe-3b-a800m"][
                  "serve_launches"]["decode_attention"],
+             hymba_serve_launches={
+                 "decode_attention": hymba["serve_launches"][
+                     "decode_attention"],
+                 "windowed": hymba["serve_launches"][
+                     "decode_attention_window"]},
              deepseek_engine_launches=moe["deepseek-v2-lite-16b"][
                  "engine_launches"]["decode_attention"],
              gemma3_engine_launches={
@@ -5274,6 +5612,22 @@ def main() -> None:
              source="src/repro_torch/kernels/csrc/rwkv6_chunked.cu",
              replaces="src/repro/kernels/rwkv6_scan.py:69",
              launches=rwkv_launches, **rwkv),
+        dict(name="rwkv6_chunked_post", route="cuda",
+             source="src/repro_torch/kernels/csrc/rwkv6_chunked.cu "
+                    "(POST = true)",
+             replaces="src/repro/kernels/rwkv6_scan.py:69",
+             computes="the SSD of src/repro/models/linear_scan.py:32 "
+                      "(XLA in the JAX package), hymba-1.5b's heads",
+             shape=list(SSD_TIMED_SHAPE), dtype="float32",
+             launches=hymba["launches"], max_abs_err=max(
+                 rwkv["ssd_max_abs_err"], hymba["ssd_err"]),
+             ms=hymba["ssd_ms"], plain_ms=hymba["plain_ms"],
+             bound_ms=hymba["bound_ms"], bound_by=hymba["bound_by"],
+             library_ms=None, serve_launches=hymba["serve_launches"][
+                 "rwkv6_chunked"],
+             decode_busy_share=hymba["decode_busy_share"],
+             prefill_busy_share=hymba["prefill_busy_share"],
+             prefill_ssd_share=hymba["prefill_ssd_share"]),
         dict(name="fitscore", route="cuda",
              source="src/repro_torch/kernels/csrc/fitscore.cu",
              replaces="src/repro/kernels/fitscore.py:154",

@@ -74,9 +74,10 @@ def stamped_source(src: str) -> str:
                       "const Src<T>& s, int ci,\n"
                       "                                               int "
                       "n_chunks, int w0,", 1)
-    src = src.replace("chunk_products<T, KF>(slot, us, s, ci, n_chunks, ",
-                      "chunk_products<T, KF>(slot, us, s, ci, n_chunks, w0, ",
-                      1)
+    src = src.replace("chunk_products<T, KF, POST>(slot, us, s, ci, "
+                      "n_chunks, ",
+                      "chunk_products<T, KF, POST>(slot, us, s, ci, "
+                      "n_chunks, w0, ", 1)
     return src + ('\nextern "C" int rwkv6_clocks(long long* out) {\n'
                   "  return (int)cudaMemcpyFromSymbol(out, rwkv6::g_clk, "
                   "sizeof(rwkv6::g_clk));\n}\n")
@@ -105,7 +106,7 @@ def main() -> None:
         raise SystemExit(res.stdout[-3000:] + res.stderr[-3000:])
     lib = ctypes.CDLL(lib_path)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rwkv6_chunked_launch.argtypes = [p] * 7 + [i] * 8 + [p]
+    lib.rwkv6_chunked_launch.argtypes = [p] * 8 + [i] * 9 + [p]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)

@@ -8,8 +8,9 @@ legacy scorer,
 ``fitscore.cu``, the attention kernels,
 ``flash_attention_sm90.cu`` (tensor cores, bf16 at hd 64 / 128),
 ``flash_attention.cu`` (CUDA cores, every other call) and
-``decode_attention.cu``, and RWKV6's
-chunked linear attention, ``rwkv6_chunked.cu``) for Hopper
+``decode_attention.cu``, and the
+chunked linear attention of RWKV6 and of hymba's SSD heads,
+``rwkv6_chunked.cu``) for Hopper
 (``sm_90a``), one compiler process per source, all started together, and
 links the objects into one shared library with a plain C interface, which
 ``ctypes`` loads.  The library is named by a hash of its sources and flags
@@ -154,7 +155,7 @@ def library() -> ctypes.CDLL:
     lib.decode_attention_launch.restype = i
     lib.decode_attention_smem_bytes.argtypes = [i] * 4
     lib.decode_attention_smem_bytes.restype = i
-    lib.rwkv6_chunked_launch.argtypes = [p] * 7 + [i] * 8 + [p]
+    lib.rwkv6_chunked_launch.argtypes = [p] * 8 + [i] * 9 + [p]
     lib.rwkv6_chunked_launch.restype = i
     for fn in (lib.rwkv6_chunked_window, lib.rwkv6_chunked_col_block):
         fn.argtypes, fn.restype = [], i

@@ -1,21 +1,32 @@
-// RWKV6 chunked linear attention from a zero state, for Hopper (sm_90a).
+// Chunked linear attention (RWKV6, and the SSD heads of a hybrid model) for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/rwkv6_scan.py::rwkv6_chunked
-// (kernel body _kernel).  r, k (B, S, H, K) and v (B, S, H, V) in fp32 or
-// bf16, logw (B, S, H, K) fp32 and u (H, K) fp32, the model's layout read
-// directly (no transposes).  Per (batch row b, head h), from S = 0:
+// (kernel body _kernel), and computes the SSD case of the JAX package's
+// models/linear_scan.py::chunked_linear_attention (which that package runs
+// in XLA).  r, k (B, S, H, K) and v (B, S, H, V) in fp32 or bf16, logw (B,
+// S, H, K) fp32, u (H, K) fp32 or none, and S0 (B, H, K, V) fp32 or none,
+// the model's layout read directly (no transposes).  Per (batch row b, head
+// h), from the state S0 (zeros without one):
 //
-//   y_t = r_t . (S_{t-1} + diag(u) k_t v_t^T),
 //   S_t = diag(exp(clip(logw_t, -4, 0))) S_{t-1} + k_t v_t^T,
+//   RWKV6 (POST = false):  y_t = r_t . (S_{t-1} + diag(u) k_t v_t^T),
+//   SSD (POST = true):     y_t = r_t . S_t   (+ r_t . diag(u) k_t v_t^T),
 //
 // in chunks of L steps, the Pallas kernel's chunk-factorized form: with cum
-// the inclusive cumsum of the clipped log-decay over the chunk, cum_exc =
-// cum - logw and tot = cum[L - 1],
+// the inclusive cumsum of the clipped log-decay over the chunk, the query
+// side's lq = cum - logw (before the update) or cum (after it) and tot =
+// cum[L - 1],
 //
-//   A[i][j] = sum_c r[i][c] e^{cum_exc[i][c]} k[j][c] e^{-cum[j][c]}, j < i
-//   A[i][i] = sum_c r[i][c] u[c] k[i][c]                    (the u-bonus)
-//   y       = A v + (r e^{cum_exc}) S_{n-1}
+//   A[i][j] = sum_c r[i][c] e^{lq[i][c]} k[j][c] e^{-cum[j][c]}, j < i
+//   A[i][i] = sum_c r[i][c] d[c] k[i][c]     (d = u, or 1 + u with POST)
+//   y       = A v + (r e^{lq}) S_{n-1}
 //   S_n     = e^{tot} S_{n-1} + U_n,  U_n = (k e^{tot - cum})^T v
+//
+// The two variants differ in two places: which running product of the
+// decays scales r, and the diagonal's weight (the step's own k v^T, whose
+// decay e^{cum_i} e^{-cum_i} is exactly 1, enters as the exact r . k, not
+// as the product of the two rounded factors); a missing u is a zero u.
 //
 // y (B, S, H, V) and the final state (B, H, K, V) are fp32.  Rows past S
 // (the tail of the last chunk) are identity rows: they load as r = k = v =
@@ -42,11 +53,11 @@
 //     named barriers only.  Per chunk: the running product of the rows'
 //     decays gives e^{cum} (one exponential a row; e^{cum_exc} is the
 //     previous row's), two channels a lane with the rows split between
-//     the half-warps (joined by one shuffle); r e^{cum_exc}, k e^{-cum}
-//     and e^{tot} go to shared memory, the bonus r u k is summed over the
+//     the half-warps (joined by one shuffle); r e^{lq}, k e^{-cum} and
+//     e^{tot} go to shared memory, the diagonal r d k is summed over the
 //     channels through a transpose in shared memory; then A over each
-//     warp's channels (the two partials summed, the bonus on the
-//     diagonal), A v for each warp's 8 columns (kept in registers) and U_n
+//     warp's channels (the two partials summed, r d k on the diagonal),
+//     A v for each warp's 8 columns (kept in registers) and U_n
 //     = (k e^{-cum} e^{tot})^T v for each warp's channels (to the slot's
 //     state tile).
 //   * __syncthreads; then each thread owns fixed (c, 2 columns) entries of
@@ -311,7 +322,7 @@ __device__ __forceinline__ void load_part(uint8_t* slot, const Maps* maps,
 // `yacc`: rows g, g + 8 of columns 8 hf + 2 t, + 1).  The loads of chunk
 // ci + kWin into the slot (r, logw and k) are issued once their tiles are
 // consumed.
-template <typename T, int KF>
+template <typename T, int KF, bool POST>
 __device__ __forceinline__ void chunk_products(uint8_t* slot, const float* us,
                                                const Src<T>& s, int ci,
                                                int n_chunks, int pair, int hf,
@@ -337,10 +348,10 @@ __device__ __forceinline__ void chunk_products(uint8_t* slot, const float* us,
   //    and rows 8-15 in lanes 16-31: e^{cum} is the running product of the
   //    rows' decays, so e^{cum_exc} is the previous row's and one
   //    exponential a row serves both; the second half's products take the
-  //    first half's total by a shuffle.  Then r e^{cum_exc}, k e^{-cum},
-  //    e^{tot}, and the bonus terms r u k of each row, summed over the
-  //    lane's two channels and transposed through this warp's half of the
-  //    state tile (free until U_n is written; rows 18 floats apart, so the
+  //    first half's total by a shuffle.  Then r e^{lq} (e^{cum} with
+  //    POST), k e^{-cum}, e^{tot}, and the diagonal terms r d k of each
+  //    row, summed over the lane's two channels and transposed through
+  //    this warp's half of the state tile (free until U_n is written; rows 18 floats apart, so the
   //    two halves' rows fall in distinct banks)
   float* bt = su + hf * kL * 32;   // [row][18]
   {
@@ -363,8 +374,9 @@ __device__ __forceinline__ void chunk_products(uint8_t* slot, const float* us,
       const int i = 8 * rh + m;
       const float2 rv = to_f32x2(rs + i * kMaxKV + c);
       const float2 kv = to_f32x2(kst + i * kMaxKV + c);
+      const float2 eq = POST ? ep[m + 1] : ep[m];   // e^{lq} / f
       *reinterpret_cast<float2*>(rd + i * kTS + c) = make_float2(
-          rv.x * (f.x * ep[m].x), rv.y * (f.y * ep[m].y));
+          rv.x * (f.x * eq.x), rv.y * (f.y * eq.y));
       *reinterpret_cast<float2*>(ki + i * kTS + c) =
           make_float2(__fdividef(kv.x, f.x * ep[m + 1].x),
                       __fdividef(kv.y, f.y * ep[m + 1].y));
@@ -389,7 +401,7 @@ __device__ __forceinline__ void chunk_products(uint8_t* slot, const float* us,
   if (ci + kWin < n_chunks)
     load_part(slot, maps, s, (ci + kWin) * s.L, hf, lane);
 
-  // 2. the pair matrix (r e^{cum_exc}) (k e^{-cum})^T over this warp's
+  // 2. the pair matrix (r e^{lq}) (k e^{-cum})^T over this warp's
   //    channels (k-steps 4 hf .. 4 hf + 3), both column tiles; warp 1's
   //    partial goes through the A tile to warp 0, which adds it and stores
   //    A: below the diagonal, the bonus on it, zeros above
@@ -559,13 +571,15 @@ __device__ __forceinline__ void chunk_output(uint8_t* slot, const Src<T>& s,
   }
 }
 
-// KF: compile-time K (64) or 0 for K given at run time.
-template <typename T, int KF>
+// KF: compile-time K (64) or 0 for K given at run time; POST: the SSD's
+// post-update output.  u and s0 may be null (a zero bonus, a zero state).
+template <typename T, int KF, bool POST>
 __global__ void __launch_bounds__(kThreads, 1)
 rwkv6_chunked_kernel(const __grid_constant__ Maps tm,
                      const T* __restrict__ r, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ logw,
-                     const float* __restrict__ u, float* __restrict__ y,
+                     const float* __restrict__ u,
+                     const float* __restrict__ s0, float* __restrict__ y,
                      float* __restrict__ state_out, int S, int H, int K_,
                      int V, int L, int use_maps) {
   using SL = Slot<T>;
@@ -586,8 +600,10 @@ rwkv6_chunked_kernel(const __grid_constant__ Maps tm,
     reinterpret_cast<float4*>(smem)[x] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
   if (tid < kWin) mbar_init(smem_u32(smem + tid * SL::bytes + SL::bar), 1);
-  if (tid < kMaxKV) us[tid] = tid < K ? u[static_cast<size_t>(h) * K + tid]
-                                      : 0.f;
+  if (tid < kMaxKV) {   // the diagonal's weight d
+    const float uc = tid < K && u ? u[static_cast<size_t>(h) * K + tid] : 0.f;
+    us[tid] = tid < K && POST ? uc + 1.f : uc;
+  }
   asm volatile("fence.mbarrier_init.release.cluster;\n"
                "fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();
@@ -596,16 +612,22 @@ rwkv6_chunked_kernel(const __grid_constant__ Maps tm,
     if (hf == 1) load_part(slot, maps, s, pair * L, 2, lane);
   }
 
-  // the state entries this thread carries: row sc, columns sq, sq + 1
+  // the state entries this thread carries: row sc, columns sq, sq + 1,
+  // from S0 where there is one
   const int sc = tid >> 3, sq = (tid & 7) * 2;
   float2 st = make_float2(0.f, 0.f);
+  if (s0 != nullptr && sc < K) {
+    const float* si = s0 + (static_cast<size_t>(bh) * K + sc) * V + s.col0;
+    if (s.col0 + sq < V) st.x = si[sq];
+    if (s.col0 + sq + 1 < V) st.y = si[sq + 1];
+  }
   float yacc[4];
   for (int w0 = 0; w0 < n_chunks; w0 += kWin) {
     const int ci = w0 + pair, n_valid = min(kWin, n_chunks - w0);
     const bool mine = ci < n_chunks;
     if (mine)
-      chunk_products<T, KF>(slot, us, s, ci, n_chunks, pair, hf, lane, maps,
-                            yacc);
+      chunk_products<T, KF, POST>(slot, us, s, ci, n_chunks, pair, hf, lane,
+                                  maps, yacc);
     __syncthreads();
     if (mine && hf == 1 && ci + kWin < n_chunks)   // v is consumed now
       load_part(slot, maps, s, (ci + kWin) * L, 2, lane);
@@ -663,12 +685,13 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int n,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T, int KF>
+template <typename T, int KF, bool POST>
 cudaError_t launch(const Maps& maps, int use_maps, const void* r,
                    const void* k, const void* v, const void* logw,
-                   const void* u, void* y, void* state, int B, int S, int H,
-                   int K, int V, int L, int device, cudaStream_t stream) {
-  auto kern = rwkv6_chunked_kernel<T, KF>;
+                   const void* u, const void* s0, void* y, void* state,
+                   int B, int S, int H, int K, int V, int L, int device,
+                   cudaStream_t stream) {
+  auto kern = rwkv6_chunked_kernel<T, KF, POST>;
   static std::atomic<bool> smem_set[kMaxCards];
   constexpr int bytes = smem_bytes<T>();
   if (device < 0 || device >= kMaxCards) return cudaErrorInvalidDevice;
@@ -682,16 +705,17 @@ cudaError_t launch(const Maps& maps, int use_maps, const void* r,
   kern<<<grid, kThreads, bytes, stream>>>(
       maps, static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(logw),
-      static_cast<const float*>(u), static_cast<float*>(y),
-      static_cast<float*>(state), S, H, K, V, L, use_maps);
+      static_cast<const float*>(u), static_cast<const float*>(s0),
+      static_cast<float*>(y), static_cast<float*>(state), S, H, K, V, L,
+      use_maps);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool POST>
 cudaError_t launch_sizes(const void* r, const void* k, const void* v,
-                         const void* logw, const void* u, void* y,
-                         void* state, int B, int S, int H, int K, int V,
-                         int L, int device, cudaStream_t stream) {
+                         const void* logw, const void* u, const void* s0,
+                         void* y, void* state, int B, int S, int H, int K,
+                         int V, int L, int device, cudaStream_t stream) {
   // TMA needs 16-byte aligned tensors whose rows are 16-byte multiples;
   // other inputs take the plain loads
   const auto al = [](const void* p) {
@@ -708,10 +732,22 @@ cudaError_t launch_sizes(const void* r, const void* k, const void* v,
         make_map<T>(&maps.v, v, B, S, H, V, kVB, L)))
     return cudaErrorInvalidValue;
   if (K == kMaxKV)
-    return launch<T, kMaxKV>(maps, use_maps, r, k, v, logw, u, y, state, B,
-                             S, H, K, V, L, device, stream);
-  return launch<T, 0>(maps, use_maps, r, k, v, logw, u, y, state, B, S, H, K,
-                      V, L, device, stream);
+    return launch<T, kMaxKV, POST>(maps, use_maps, r, k, v, logw, u, s0, y,
+                                   state, B, S, H, K, V, L, device, stream);
+  return launch<T, 0, POST>(maps, use_maps, r, k, v, logw, u, s0, y, state,
+                            B, S, H, K, V, L, device, stream);
+}
+
+template <typename T>
+cudaError_t launch_variant(const void* r, const void* k, const void* v,
+                           const void* logw, const void* u, const void* s0,
+                           void* y, void* state, int B, int S, int H, int K,
+                           int V, int L, int post, int device,
+                           cudaStream_t stream) {
+  return post ? launch_sizes<T, true>(r, k, v, logw, u, s0, y, state, B, S,
+                                      H, K, V, L, device, stream)
+              : launch_sizes<T, false>(r, k, v, logw, u, s0, y, state, B, S,
+                                       H, K, V, L, device, stream);
 }
 
 }  // namespace rwkv6
@@ -727,15 +763,17 @@ int rwkv6_chunked_smem_bytes(int bf16) {
               : rwkv6::smem_bytes<float>();
 }
 
-// Launches the RWKV6 chunked kernel on `stream` of card `device`; `bf16`
-// selects the type of r, k and v (0: fp32).  The caller guarantees
-// contiguous tensors, 1 <= K, V <= 64, 1 <= L <= 16, B * H >= 1.  Returns
-// the cudaError_t of the launch (0 on success; cudaErrorInvalidValue if a
-// tensor map cannot be encoded).
+// Launches the chunked kernel on `stream` of card `device`; `bf16` selects
+// the type of r, k and v (0: fp32), `post` the SSD's post-update output (0:
+// RWKV6's pre-update one); u (the bonus) and s0 (the initial state) may be
+// null.  The caller guarantees contiguous tensors, 1 <= K, V <= 64, 1 <= L
+// <= 16, B * H >= 1.  Returns the cudaError_t of the launch (0 on success;
+// cudaErrorInvalidValue if a tensor map cannot be encoded).
 int rwkv6_chunked_launch(const void* r, const void* k, const void* v,
-                         const void* logw, const void* u, void* y,
-                         void* state, int B, int S, int H, int K, int V,
-                         int L, int bf16, int device, void* stream) {
+                         const void* logw, const void* u, const void* s0,
+                         void* y, void* state, int B, int S, int H, int K,
+                         int V, int L, int bf16, int post, int device,
+                         void* stream) {
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
@@ -744,10 +782,12 @@ int rwkv6_chunked_launch(const void* r, const void* k, const void* v,
       L > rwkv6::kL || B < 1 || H < 1 || S < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = bf16 ? rwkv6::launch_sizes<__nv_bfloat16>(r, k, v, logw, u, y, state,
-                                                  B, S, H, K, V, L, device, s)
-             : rwkv6::launch_sizes<float>(r, k, v, logw, u, y, state, B, S,
-                                          H, K, V, L, device, s);
+  err = bf16 ? rwkv6::launch_variant<__nv_bfloat16>(
+                   r, k, v, logw, u, s0, y, state, B, S, H, K, V, L, post,
+                   device, s)
+             : rwkv6::launch_variant<float>(r, k, v, logw, u, s0, y, state,
+                                            B, S, H, K, V, L, post, device,
+                                            s);
   return static_cast<int>(err);
 }
 

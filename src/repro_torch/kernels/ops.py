@@ -11,8 +11,9 @@ single-pool scorer (``fitscore``, ``csrc/fitscore.cu``), the attention
 kernels of the model stack (``flash_attention``:
 ``csrc/flash_attention_sm90.cu`` on the tensor cores for bf16 at hd 64 or
 128, ``csrc/flash_attention.cu`` otherwise, see ``flash_route``;
-``decode_attention``, ``csrc/decode_attention.cu``) and RWKV6's chunked
-linear attention (``rwkv6_chunked``, ``csrc/rwkv6_chunked.cu``).
+``decode_attention``, ``csrc/decode_attention.cu``) and the chunked
+linear attention of RWKV6 and of hymba's SSD heads (``rwkv6_chunked``,
+``csrc/rwkv6_chunked.cu``).
 
 A wrapper takes its kernel's plain PyTorch version only because the tensors
 it was given lie on the CPU.  For CUDA tensors it checks them, launches the
@@ -26,7 +27,9 @@ also under its route (``fitscore_replay_block_warp`` or
 ``fitscore_replay_block_global``) and, launched for the serving front end
 or the scheduler, under ``fitscore_replay_dispatch_T{T}`` or
 ``fitscore_select_block``; flash attention's calls through its
-tensor-core kernel also under ``flash_attention_sm90``.
+tensor-core kernel also under ``flash_attention_sm90``; the chunked
+kernel's post-update (SSD) launches also under ``rwkv6_chunked_post`` and
+its launches from a carried state under ``rwkv6_chunked_s0``.
 """
 from __future__ import annotations
 
@@ -717,18 +720,24 @@ def decode_attention(q, k, v, kv_len, *, window: int = 0):
 last_rwkv_grid: tuple = (0, 0, 0)
 
 
-def rwkv6_chunked(r, k, v, logw, u, *, chunk: int = 16):
-    """RWKV6 chunked linear attention from a zero state: r, k, logw (B, S,
-    H, K); v (B, S, H, V); u (H, K) -> (y (B, S, H, V) fp32, final state
-    (B, H, K, V) fp32), see ``rwkv6_chunked_ref``.  The CUDA kernel
-    ``csrc/rwkv6_chunked.cu`` for CUDA tensors (r, k, v of one type, fp32
-    or bf16; logw and u fp32; contiguous; K, V <= 64; chunk <= 16): one
-    CTA per (row, head, 16 state columns), walking the sequence in windows
-    of 8 chunks (the grid launched is kept in ``last_rwkv_grid``); the
-    plain version for CPU ones.  Any S: the kernel reads the rows past S
-    as identity rows, the padding of ``rwkv6_chunked_ref``."""
+def rwkv6_chunked(r, k, v, logw, u=None, *, chunk: int = 16,
+                  post_update: bool = False, initial_state=None):
+    """Chunked linear attention: r, k, logw (B, S, H, K); v (B, S, H, V);
+    u (H, K) or None (no bonus); ``post_update`` False (RWKV6: y_t reads
+    S_{t-1}, plus the bonus) or True (the SSD: y_t reads S_t);
+    ``initial_state`` (B, H, K, V) fp32 or None (zeros) -> (y (B, S, H, V)
+    fp32, final state (B, H, K, V) fp32), see ``rwkv6_chunked_ref``.  The
+    CUDA kernel ``csrc/rwkv6_chunked.cu`` for CUDA tensors (r, k, v of one
+    type, fp32 or bf16; logw, u and the initial state fp32; contiguous; K,
+    V <= 64; chunk <= 16): one CTA per (row, head, 16 state columns),
+    walking the sequence in windows of 8 chunks (the grid launched is kept
+    in ``last_rwkv_grid``); the plain version for CPU ones.  Any S: the
+    kernel reads the rows past S as identity rows, the padding of
+    ``rwkv6_chunked_ref``."""
     if r.device.type == "cpu":
-        return rwkv6_chunked_ref(r, k, v, logw, u, chunk=chunk)
+        return rwkv6_chunked_ref(r, k, v, logw, u, chunk=chunk,
+                                 post_update=post_update,
+                                 initial_state=initial_state)
     name = "rwkv6_chunked"
     dev = r.device
     if dev.type != "cuda":
@@ -749,7 +758,10 @@ def rwkv6_chunked(r, k, v, logw, u, *, chunk: int = 16):
     _check("k", k, (B, S, H, K), r.dtype, dev, name)
     _check("v", v, (B, S, H, V), r.dtype, dev, name)
     _check("logw", logw, (B, S, H, K), f32, dev, name)
-    _check("u", u, (H, K), f32, dev, name)
+    if u is not None:
+        _check("u", u, (H, K), f32, dev, name)
+    if initial_state is not None:
+        _check("initial_state", initial_state, (B, H, K, V), f32, dev, name)
     y = torch.empty((B, S, H, V), dtype=f32, device=dev)
     state = torch.empty((B, H, K, V), dtype=f32, device=dev)
     if B * H == 0:
@@ -758,9 +770,12 @@ def rwkv6_chunked(r, k, v, logw, u, *, chunk: int = 16):
     lib = library()
     err = lib.rwkv6_chunked_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-        u.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, H, K, V,
+        None if u is None else u.data_ptr(),
+        None if initial_state is None else initial_state.data_ptr(),
+        y.data_ptr(), state.data_ptr(), B, S, H, K, V,
         max(1, min(chunk, S)), int(r.dtype == torch.bfloat16),
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        int(post_update), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("rwkv6_chunked launch failed: "
                            f"{lib.fitscore_error_string(err).decode()}")
@@ -768,4 +783,8 @@ def rwkv6_chunked(r, k, v, logw, u, *, chunk: int = 16):
     last_rwkv_grid = (B * H, -(-V // lib.rwkv6_chunked_col_block()),
                       lib.rwkv6_chunked_window())
     launches[name] += 1
+    if post_update:
+        launches[name + "_post"] += 1
+    if initial_state is not None:
+        launches[name + "_s0"] += 1
     return y, state

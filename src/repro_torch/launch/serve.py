@@ -11,8 +11,8 @@ first 12 requests (prompts cut to 16 tokens, decodes to 32) with real
 ``ReplicaEngine``s of the reduced configuration of ``--arch`` (one of
 ``configs.ARCHS``: the dense GQA decoders, the MoE decoders (granite-moe,
 deepseek-v2-lite with MLA), whisper-medium and pixtral-12b on text prompts
-alone, RWKV6), placed by the ``DVBPScheduler``.  Runs on
-the card unless ``--device cpu``.
+alone, RWKV6, hymba's attention and SSD heads), placed by the
+``DVBPScheduler``.  Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 

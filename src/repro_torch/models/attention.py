@@ -94,6 +94,12 @@ def _write_rows(c, u, cache_pos):
     c[rows, cols] = u.to(c.dtype)
 
 
+def _is_prefill(cache_pos) -> bool:
+    """A scalar position 0: the engine's prefill, which starts its slot
+    afresh (the rule of every layer kind: attention, SSM, RWKV6)."""
+    return not isinstance(cache_pos, torch.Tensor) and int(cache_pos) == 0
+
+
 def _decode_lens(B: int, cache_pos, device) -> torch.Tensor:
     """(B,) int32 keys a decode step reads: its position plus one (a
     scalar position is filled in on the card: no copy, no sync)."""
@@ -157,7 +163,7 @@ def attention_block(blk, x, cfg, *, positions, window: int, cache=None,
         return _proj(flash_attention(q, k, v, causal=True,
                                      window=int(window)).reshape(B, S, H * hd),
                      g("wo")), None
-    prefill = not isinstance(cache_pos, torch.Tensor) and int(cache_pos) == 0
+    prefill = _is_prefill(cache_pos)
     if not prefill and S != 1:
         raise NotImplementedError(
             f"{S} tokens against a cache at a nonzero position (chunked "
@@ -209,8 +215,7 @@ def mla_attention_block(blk, x, cfg, *, positions, cache=None,
     k_rope = rope(c[..., lora:][:, :, None, :], positions, cfg.rope_theta)
     lat = torch.cat([c_kv, k_rope[:, :, 0, :]], dim=-1)
 
-    prefill = cache is None or (not isinstance(cache_pos, torch.Tensor) and
-                                int(cache_pos) == 0)
+    prefill = cache is None or _is_prefill(cache_pos)
     if not prefill and S != 1:
         raise NotImplementedError(
             f"{S} tokens against a cache at a nonzero position (chunked "

@@ -2,11 +2,10 @@
 the JAX package (dense GQA decoders, mixed local/global attention, QKV
 bias, MoE, MLA, encoder-decoder, RWKV6, hybrid SSM).  The port's copy of
 ``repro.models.config.ModelConfig``, field for field, so a configuration
-means the same in both packages.  The port's model stack runs the GQA
-decoders (mixed local / global windows, QKV bias, a stub frontend, an
-encoder-decoder), MoE with MLA, and RWKV6 (``configs.ARCHS``); the SSM
-fields are kept so that ``param_count`` and the configuration's meaning
-stay the reference's.
+means the same in both packages.  The port's model stack runs every
+architecture of ``configs.ARCHS``: the GQA decoders (mixed local / global
+windows, QKV bias, a stub frontend, an encoder-decoder), MoE with MLA,
+RWKV6, and hymba's SSD heads beside its attention.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Parameter templates and random initialisation of the GQA and MLA
-decoders (dense MLPs or MoE, whisper's encoder and cross-attention) and of
-RWKV6: the port's copy of ``repro.models.params`` (``template``,
-``stack_counts``, ``_finalize``, ``init_params``) for the architectures
-``configs.ARCHS`` lists.
+decoders (dense MLPs or MoE, whisper's encoder and cross-attention, hymba's
+SSD branch) and of RWKV6: the port's copy of ``repro.models.params``
+(``template``, ``stack_counts``, ``_finalize``, ``init_params``) for the
+architectures ``configs.ARCHS`` lists.
 
 The tree is the reference's: ``embed``, ``final_norm``, ``lm_head`` (unless
 tied) and ``layers``, a dict whose every entry carries a leading layer axis;
@@ -12,11 +12,15 @@ MoE layer holds the ``router``, the experts' ``we_in`` / ``we_gate`` /
 ``we_out`` stacked over experts and the shared experts' ``shared_*``; its
 first ``first_k_dense`` layers (deepseek) are the stack ``dense_layers``,
 with a dense MLP of ``dense_d_ff``.  An MLA layer holds ``wq`` of ``H * (hd
-+ r)`` columns, ``w_dkv``, ``kv_norm``, ``w_uk``, ``w_uv`` and ``wo``.
++ r)`` columns, ``w_dkv``, ``kv_norm``, ``w_uk``, ``w_uv`` and ``wo``.  A
+hybrid layer (hymba) adds the SSD branch: ``ws_in``, ``ws_dt``,
+``dt_bias``, ``ws_B``, ``ws_C``, ``A_log``, ``ssm_D``, ``ssm_norm`` and
+``ws_out``.
 Initialisers and scales are the reference's too: ``normal`` times
 ``scale / sqrt(fan_in)`` for a dense weight (an expert's by its own fan
-in), ones for a norm and RWKV6's ``gn_scale``, zeros for the QKV biases
-and for RWKV6's token-shift mixes, ``decay_base`` and ``bonus_u``.  The numbers differ (a ``torch.Generator``
+in), ones for a norm, RWKV6's ``gn_scale`` and the SSD's ``ssm_D``, zeros for
+the QKV biases, RWKV6's token-shift mixes, ``decay_base`` and ``bonus_u``,
+and the SSD's ``dt_bias`` and ``A_log``.  The numbers differ (a ``torch.Generator``
 is not a JAX key); ``params_from_reference`` carries the JAX package's own
 weights across.
 """
@@ -47,14 +51,6 @@ def _dense(fan_in: int, fan_out: int) -> ParamMeta:
     return ParamMeta((fan_in, fan_out), "normal", 1.0 / math.sqrt(fan_in))
 
 
-def _supported(cfg: ModelConfig) -> None:
-    if cfg.ssm:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's model stack runs the GQA and MLA "
-            "decoders (dense or MoE, with a stub frontend or an encoder) and "
-            "RWKV6; SSM heads (hymba) are ROADMAP Queue 1 item 8")
-
-
 def _rwkv_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
     """RWKV6's layer: static token-shift mixes, the r/k/v/g projections,
     the data-dependent decay as a rank-64 LoRA over ``decay_base``, the
@@ -72,6 +68,19 @@ def _rwkv_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
             "wo": _dense(a, d), "ln2": _norm(d),
             "mix_f": ParamMeta((d,), "zeros"),
             "w_in": _dense(d, cfg.d_ff), "w_out": _dense(cfg.d_ff, d)}
+
+
+def _ssm_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
+    """The SSD branch (hymba's mamba heads, state N): the input, step,
+    B and C projections, the step's bias, the per-head decay rate's log,
+    the skip ``D``, the branch's norm and its output projection."""
+    d, H, N, P = cfg.d_model, cfg.n_heads, cfg.ssm_state, cfg.head_dim
+    return {"ws_in": _dense(d, H * P), "ws_dt": _dense(d, H),
+            "dt_bias": ParamMeta((H,), "zeros"),
+            "ws_B": _dense(d, H * N), "ws_C": _dense(d, H * N),
+            "A_log": ParamMeta((H,), "zeros"),
+            "ssm_D": ParamMeta((H,), "ones"),
+            "ssm_norm": _norm(H * P), "ws_out": _dense(H * P, d)}
 
 
 def _attention_block(cfg: ModelConfig,
@@ -120,8 +129,9 @@ def _moe_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
 def _decoder_layer(cfg: ModelConfig, moe: bool) -> Dict[str, ParamMeta]:
     """Self-attention (GQA or MLA) and an MLP, or the MoE block where
     ``moe``; a dense layer of an MoE configuration (deepseek's first) takes
-    ``dense_d_ff``.  With an encoder, also the cross-attention's norm
-    ``ln_x`` and its projections ``x_wq`` .. ``x_wo``."""
+    ``dense_d_ff``.  With SSM heads, the SSD branch; with an encoder, the
+    cross-attention's norm ``ln_x`` and its projections ``x_wq`` ..
+    ``x_wo``."""
     blk = {"ln1": _norm(cfg.d_model), **_attention_block(cfg),
            "ln2": _norm(cfg.d_model)}
     if moe:
@@ -129,6 +139,8 @@ def _decoder_layer(cfg: ModelConfig, moe: bool) -> Dict[str, ParamMeta]:
     else:
         blk.update(_mlp_block(cfg, cfg.dense_d_ff if cfg.first_k_dense and
                               cfg.n_experts else cfg.d_ff))
+    if cfg.ssm:
+        blk.update(_ssm_block(cfg))
     if cfg.arch_kind == "encdec":
         blk["ln_x"] = _norm(cfg.d_model)
         blk.update({f"x_{k}": m for k, m in
@@ -145,7 +157,6 @@ def template(cfg: ModelConfig) -> Dict:
     """The parameter template.  The layer dicts are *unstacked*; each entry
     of ``stack_counts(cfg)`` gets a leading axis of that many layers
     (``_finalize``)."""
-    _supported(cfg)
     tpl = {"embed": ParamMeta((cfg.vocab, cfg.d_model), "normal", 1.0),
            "final_norm": _norm(cfg.d_model),
            "layers": _rwkv_block(cfg) if cfg.rwkv else

@@ -1,10 +1,11 @@
 """The decoder's forward pass: the port's ``repro.models.transformer``
 (``Runtime``, ``mlp``, ``layer_windows``, ``_std_layer`` with GQA or MLA
-attention, an MLP or the MoE block and whisper's cross block,
-``_rwkv_layer``, ``init_cache`` for the k/v cache, MLA's latent cache and
-RWKV6's recurrent state, and ``forward`` with pixtral's stub patch prefix,
-whisper's encoder and deepseek's leading dense layers) for the
-architectures ``configs.ARCHS`` lists.
+attention, hymba's SSD branch beside it (``_ssm_branch``), an MLP or the
+MoE block and whisper's cross block, ``_rwkv_layer``, ``init_cache`` for
+the k/v cache, MLA's latent cache, RWKV6's recurrent state and hymba's SSM
+state, and ``forward`` with pixtral's stub patch prefix, whisper's encoder
+and deepseek's leading dense layers) for the architectures
+``configs.ARCHS`` lists.
 
 Modes: "train" (causal, no cache, logits for every position), "prefill"
 (fills the cache from position 0 and keeps only the last position's
@@ -16,12 +17,15 @@ place of ``lax.scan``.  The cache is written in place and returned.
 The reference's dtype sequence is kept: embeddings and each layer's
 matrices in ``cfg.dtype``, the norms and ``rope`` in fp32 and cast back.
 
-One difference from the reference, on RWKV6: a prefill from position 0
-starts from a zero recurrent state and zero token shifts, whatever the
-cache holds.  The reference starts it from the state in the cache, so a
-request prefilled into a reused engine slot continues its previous
-occupant's state (ROADMAP Queue 3); its Pallas kernel has no initial state
-and starts from zeros, as the port does.
+One difference from the reference, on RWKV6 and on hymba's SSD heads: a
+prefill from position 0 starts from a zero recurrent state (and RWKV6 from
+zero token shifts), whatever the cache holds.  The reference starts it from
+the state in the cache, so a request prefilled into a reused engine slot
+continues its previous occupant's state (ROADMAP Queue 3).  More tokens
+than one at a nonzero position (a chunked prefill) carry the cache's state
+on RWKV6, as the reference does, its token shifts restarting from zeros
+as the reference's do; on the attention layers it raises (ROADMAP Queue 1
+item 8).
 """
 from __future__ import annotations
 
@@ -32,11 +36,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .attention import _proj, _rms, attention_block, mla_attention_block
+from .attention import (_is_prefill, _proj, _rms, attention_block,
+                        mla_attention_block)
 from .config import ModelConfig
 from .linear_scan import chunked_linear_attention, linear_attention_step
 from .moe import _act, moe_block
-from .params import _dtype, _supported
+from .params import _dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,12 +67,52 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
                      for i in range(cfg.n_layers)], np.int32)
 
 
+def _ssm_branch(blk, xn, cfg, *, cache, cache_pos):
+    """Hymba's SSD heads on the layer's normed input: the softplus step
+    ``dt``, the decay ``A dt`` (``A = -exp(A_log)``, one a head, broadcast
+    over the state's N channels), ``k = B dt``, the post-update chunked
+    recurrence read by C (the kernel's SSD variant), the ``D`` skip, the
+    branch's norm and ``ws_out``.  With a cache: a prefill (``cache_pos``
+    0) starts from a zero state, one token elsewhere takes the decode step
+    against the cache's state (as does a one-token prompt, from zeros), and
+    the cache's ``"ssm"`` is overwritten in place."""
+    B, S, _ = xn.shape
+    H, N, P = cfg.n_heads, cfg.ssm_state, cfg.head_dim
+    f32 = torch.float32
+    xp = _proj(xn, blk["ws_in"]).reshape(B, S, H, P)
+    dt = F.softplus(_proj(xn, blk["ws_dt"]).to(f32) +
+                    blk["dt_bias"].to(f32))                      # (B, S, H)
+    Bm = _proj(xn, blk["ws_B"]).reshape(B, S, H, N)
+    Cm = _proj(xn, blk["ws_C"]).reshape(B, S, H, N)
+    A = -torch.exp(blk["A_log"].to(f32))                         # (H,)
+    logw = (dt * A)[..., None].expand(B, S, H, N).contiguous()
+    k = Bm.to(f32) * dt[..., None]
+    fresh = cache is None or _is_prefill(cache_pos)
+    if cache is not None and S == 1:
+        state0 = torch.zeros_like(cache["ssm"]) if fresh else cache["ssm"]
+        y, state = linear_attention_step(Cm[:, 0], k[:, 0], xp[:, 0],
+                                         logw[:, 0], state0,
+                                         post_update=True)
+        y = y[:, None]
+    else:
+        y, state = chunked_linear_attention(
+            Cm, k, xp, logw, post_update=True, chunk=cfg.scan_chunk,
+            initial_state=None if fresh else cache["ssm"])
+    y = y + blk["ssm_D"].to(f32)[:, None] * xp.to(f32)
+    y = _rms(y.reshape(B, S, H * P).to(xn.dtype), blk["ssm_norm"],
+             cfg.norm_eps)
+    if cache is not None:
+        cache["ssm"].copy_(state)
+    return _proj(y, blk["ws_out"])
+
+
 def _std_layer(blk, x, cfg, rt: Runtime, *, positions, window, cache,
                cache_pos, cross_kv=None):
-    """Attention (GQA, or MLA where ``cfg.mla``) and an MLP, or the MoE
-    block where the layer has a router; with ``cross_kv`` (the encoder's
-    output) a cross-attention block between them.  Returns (x, the cache,
-    the layer's aux loss: 0 without MoE)."""
+    """Attention (GQA, or MLA where ``cfg.mla``), mean-combined with the
+    SSD branch where ``cfg.ssm`` (hymba's parallel heads), and an MLP, or
+    the MoE block where the layer has a router; with ``cross_kv`` (the
+    encoder's output) a cross-attention block between them.  Returns (x,
+    the cache, the layer's aux loss: 0 without MoE)."""
     xn = _rms(x, blk["ln1"], cfg.norm_eps)
     if cfg.mla:
         attn, new_cache = mla_attention_block(
@@ -77,6 +122,9 @@ def _std_layer(blk, x, cfg, rt: Runtime, *, positions, window, cache,
         attn, new_cache = attention_block(blk, xn, cfg, positions=positions,
                                           window=window, cache=cache,
                                           cache_pos=cache_pos)
+    if cfg.ssm:
+        attn = (attn + _ssm_branch(blk, xn, cfg, cache=cache,
+                                   cache_pos=cache_pos)) * 0.5
     x = x + attn
     if cross_kv is not None:
         xx = _rms(x, blk["ln_x"], cfg.norm_eps)
@@ -123,16 +171,14 @@ def _rwkv_layer(blk, x, cfg, *, cache, cache_pos):
     step against the cached state) and relu^2 channel mix, each with its
     token shift.  With a cache: ``cache_pos`` 0 (a prefill) starts from a
     zero state and zero shifts, through the kernel for any S; one token at
-    a nonzero position (scalar or per row) takes the decode step; the
-    cache's state and shifts are overwritten in place."""
+    a nonzero position (scalar or per row) takes the decode step; more
+    tokens there (a chunked prefill) run the kernel from the cache's state,
+    their shifts restarting from zeros as the reference's do; the cache's
+    state and shifts are overwritten in place."""
     B, S, _ = x.shape
     H, K = cfg.n_heads, cfg.head_dim
-    step = cache is not None and (isinstance(cache_pos, torch.Tensor) or
-                                  int(cache_pos) != 0)
-    if step and S != 1:
-        raise NotImplementedError(
-            f"{S} tokens against a cache at a nonzero position (chunked "
-            f"prefill) is ROADMAP Queue 1 item 8")
+    carried = cache is not None and not _is_prefill(cache_pos)
+    step = carried and S == 1
     xn = _rms(x, blk["ln1"], cfg.norm_eps)
     prev = cache["shift_a"][:, None, :].to(xn.dtype) if step else \
         _shifted(xn)
@@ -153,8 +199,9 @@ def _rwkv_layer(blk, x, cfg, *, cache, cache_pos):
                                          logw[:, 0], cache["state"], u=u)
         y = y[:, None]
     else:
-        y, state = chunked_linear_attention(r, k, v, logw, u=u,
-                                            chunk=cfg.scan_chunk)
+        y, state = chunked_linear_attention(
+            r, k, v, logw, u=u, chunk=cfg.scan_chunk,
+            initial_state=cache["state"] if carried else None)
     # per-head group norm in fp32
     y32 = y.reshape(B, S, H, K).float()
     y = (y32 * torch.rsqrt((y32 * y32).mean(-1, keepdim=True)
@@ -179,12 +226,12 @@ def _rwkv_layer(blk, x, cfg, *, cache, cache_pos):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> Dict:
     """Stacked (leading layer axis) decode cache, zeros, on ``device``:
-    k/v of (batch, max_len) positions, MLA's latent ``lat`` of ``lora + r``
-    a position, or RWKV6's fp32 (H, K, K) state and its two token shifts a
+    k/v of (batch, max_len) positions (with SSM heads also their fp32 (H,
+    N, hd) state ``"ssm"`` a row), MLA's latent ``lat`` of ``lora + r`` a
+    position, or RWKV6's fp32 (H, K, K) state and its two token shifts a
     row.  With leading dense layers (deepseek) the cache's first
     ``first_k_dense`` rows are theirs."""
     from ..kernels.ops import resolve_device
-    _supported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg, dtype)
     L = cfg.n_layers
@@ -204,8 +251,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
         raise NotImplementedError("the int8 KV cache is ROADMAP Queue 1 "
                                   "item 8")
     shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
+             "v": torch.zeros(shape, dtype=dt, device=dev)}
+    if cfg.ssm:
+        cache["ssm"] = torch.zeros((L, batch, cfg.n_heads, cfg.ssm_state,
+                                    cfg.head_dim), dtype=torch.float32,
+                                   device=dev)
+    return cache
 
 
 def forward(params, cfg: ModelConfig, rt: Runtime, tokens: torch.Tensor, *,
@@ -225,7 +277,6 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens: torch.Tensor, *,
     encoder's output is kept in it as ``"enc_out"``: a decode step without
     ``enc_embeds`` takes it from there (recomputing each layer's cross K/V
     from it, as the reference does) and puts it back."""
-    _supported(cfg)
     dev = tokens.device
     cdt = _dtype(cfg, None)
     x = params["embed"].to(cdt)[tokens]

@@ -2,17 +2,20 @@
 port's ``repro.serving.engine``).
 
 One ``ReplicaEngine`` is one model replica on one card.  Fixed slot layout:
-the cache is (L, slots, ...) (the KV cache (L, slots, Smax, KV, hd), MLA's
-latent (L, slots, Smax, lora + r), or RWKV6's recurrent state and token
-shifts); a request occupies one slot from admission to completion,
-``admit`` prefills its prompt into that slot
-(``flash_attention``, or RWKV6's ``rwkv6_chunked``, in every layer), and
-every ``step`` decodes one token for all slots (``decode_attention`` in
-every layer, or RWKV6's decode step; idle slots run masked, the standard
+the cache is (L, slots, ...) (the KV cache (L, slots, Smax, KV, hd), with
+hymba's SSD heads also their state (L, slots, H, N, hd); MLA's latent (L,
+slots, Smax, lora + r); or RWKV6's recurrent state and token shifts); a
+request occupies one slot from admission to completion, ``admit``
+prefills its prompt into that slot (``flash_attention``, and hymba's SSD
+heads through ``rwkv6_chunked``'s post-update variant, or RWKV6's
+``rwkv6_chunked``, in every layer), and every ``step`` decodes one token
+for all slots (``decode_attention`` in every layer, beside the SSD's decode
+step, or RWKV6's decode step; idle slots run masked, the standard
 continuous-batching schedule).  Greedy decoding.
 
 A prefill starts its slot afresh: RWKV6's layers overwrite the slot's state
-and shifts from a zero start (``models.transformer._rwkv_layer``), where the
+and shifts, and hymba's SSD heads its SSM state, from a zero start
+(``models.transformer._rwkv_layer``, ``_ssm_branch``), where the
 reference's engine continues the previous occupant's state (ROADMAP Queue
 3).
 """

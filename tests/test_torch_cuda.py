@@ -1107,6 +1107,110 @@ def test_rwkv6_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ops.rwkv6_chunked(r, k, v, lw, u, chunk=32)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("post,bonus,carried", [
+    (True, False, False), (True, False, True), (False, True, True),
+    (True, True, True), (False, False, False)])
+@pytest.mark.parametrize("B,S,H,K,V,chunk", [
+    (1, 221, 25, 16, 64, 16), (2, 37, 3, 16, 64, 16), (2, 40, 4, 4, 16, 8),
+    (1, 300, 2, 64, 64, 16), (2, 133, 3, 20, 12, 16), (1, 70, 2, 7, 5, 8)])
+def test_rwkv6_kernel_ssd_and_initial_state_equal_plain(
+        B, S, H, K, V, chunk, post, bonus, carried, dtype, cuda):
+    """The post-update (SSD) variant and a carried initial state, with and
+    without the bonus, within 1e-4 atol and rtol: hymba's heads (H 25, K
+    16, V 64) and its reduced configuration's (chunk 8), ragged S, K 64,
+    a half column block and plain loads (K 7, V 5).  The post-update cases
+    take one decay a head, broadcast over K, as hymba's do.  Each launch
+    counts under its variant."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
+    r, k, v, lw, u = _rwkv_inputs(S + K, cuda, dtype, B, S, H, K, V)
+    if post:
+        lw = lw[..., :1].expand(B, S, H, K).contiguous()
+    g = torch.Generator(device=cuda)
+    g.manual_seed(S)
+    kw = dict(chunk=chunk, post_update=post, initial_state=torch.randn(
+        (B, H, K, V), generator=g, device=cuda) if carried else None)
+    n0 = dict(ops.launches)
+    y, st = ops.rwkv6_chunked(r, k, v, lw, u if bonus else None, **kw)
+    for name, want in (("rwkv6_chunked", 1), ("rwkv6_chunked_post", post),
+                       ("rwkv6_chunked_s0", carried)):
+        assert ops.launches[name] == n0.get(name, 0) + int(want), name
+    want_y, want_st = rwkv6_chunked_ref(r, k, v, lw, u if bonus else None,
+                                        **kw)
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(st, want_st, atol=1e-4, rtol=1e-4)
+
+
+def test_rwkv6_kernel_refuses_a_bad_initial_state(cuda):
+    r, k, v, lw, u = _rwkv_inputs(0, cuda, torch.float32, 1, 16, 2, 8, 8)
+    with pytest.raises(ValueError, match="initial_state must be"):
+        ops.rwkv6_chunked(r, k, v, lw, u,
+                          initial_state=torch.zeros((1, 2, 8, 7),
+                                                    device=cuda))
+    with pytest.raises(ValueError, match="initial_state must be"):
+        ops.rwkv6_chunked(r, k, v, lw, u, initial_state=torch.zeros(
+            (1, 2, 8, 8), device=cuda, dtype=torch.bfloat16))
+
+
+def test_hymba_engine_on_card_equals_plain_kernels(cuda):
+    """The reduced hymba in fp32 on the card, ``A_log`` and ``dt_bias``
+    drawn nonzero: an engine's logits through the kernels (flash, decode
+    and the chunked kernel's post-update variant) equal those through the
+    plain versions bound in their place, within 1e-4 of max |logit|; a
+    request prefilled into a reused slot gives a fresh engine's logits."""
+    import dataclasses
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels.attention import (decode_attention_ref,
+                                               flash_attention_ref)
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
+    from repro_torch.models import attention, linear_scan
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import ReplicaEngine
+    cfg = dataclasses.replace(get_reduced_config("hymba-1.5b"),
+                              dtype="float32")
+    params = init_params(cfg, seed=0, device=cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    for name in ("A_log", "dt_bias"):
+        params["layers"][name].normal_(0, 0.5, generator=g)
+
+    def run():
+        eng = ReplicaEngine(cfg, params, slots=4, max_len=64, eos_id=-1)
+        out = []
+        for name in ("_prefill", "_decode"):
+            setattr(eng, name, (lambda f: lambda *a: (
+                out.append(f(*a)), out[-1])[1])(getattr(eng, name)))
+        eng.admit(1, [5, 6, 7, 8, 9], 6)
+        eng.step()
+        eng.admit(2, list(range(10, 40)), 5)
+        while eng.n_active:
+            eng.step()
+        eng.admit(3, list(range(40, 60)), 1)   # slot 0 again
+        fresh = ReplicaEngine(cfg, params, slots=4, max_len=64, eos_id=-1)
+        fresh_out = []
+        fresh._prefill = (lambda f: lambda *a: (
+            fresh_out.append(f(*a)), fresh_out[-1])[1])(fresh._prefill)
+        fresh.admit(3, list(range(40, 60)), 1)
+        assert torch.equal(out[-1], fresh_out[-1])
+        return torch.cat([o.reshape(-1) for o in out])
+
+    ops.launches.clear()
+    kern = run()
+    assert ops.launches["rwkv6_chunked_post"] == 4 * cfg.n_layers
+    assert ops.launches["flash_attention"] == 4 * cfg.n_layers
+    linear_scan.rwkv6_chunked = rwkv6_chunked_ref
+    attention.flash_attention = flash_attention_ref
+    attention.decode_attention = decode_attention_ref
+    try:
+        plain = run()
+    finally:
+        linear_scan.rwkv6_chunked = ops.rwkv6_chunked
+        attention.flash_attention = ops.flash_attention
+        attention.decode_attention = ops.decode_attention
+    rel = float((kern - plain).abs().max() / plain.abs().max())
+    assert rel < 1e-4
+
+
 def test_rwkv_engine_on_card_equals_plain_kernel(cuda):
     """The reduced rwkv6 model in fp32 on the card, its mixes, decay base
     and bonus drawn nonzero: an engine's logits through the kernel equal

@@ -105,7 +105,7 @@ def test_configs_equal_the_reference():
     assert ARCHS == ["gemma3-12b", "qwen2.5-14b", "minitron-8b",
                      "nemotron-4-340b", "granite-moe-3b-a800m",
                      "deepseek-v2-lite-16b", "whisper-medium", "pixtral-12b",
-                     "rwkv6-1.6b"]
+                     "rwkv6-1.6b", "hymba-1.5b"]
     for arch in DENSE:
         for port, ref in ((get_config(arch), ref_get_config(arch)),
                           (get_reduced_config(arch), ref_reduced(arch))):

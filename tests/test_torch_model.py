@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as REF_ARCHS
 from repro.configs import get_config as ref_get_config
 from repro.configs import get_reduced_config as ref_reduced
 from repro.models import params as ref_params
@@ -120,12 +121,14 @@ def test_param_count_of_the_full_config_equals_the_reference():
         cfg.d_model
     assert n == cfg.param_count() + extra
     assert 14.7e9 < n < 14.8e9
-    assert ARCHS == ["gemma3-12b", "qwen2.5-14b", "minitron-8b",
-                     "nemotron-4-340b", "granite-moe-3b-a800m",
-                     "deepseek-v2-lite-16b", "whisper-medium", "pixtral-12b",
-                     "rwkv6-1.6b"]
+    assert ARCHS == REF_ARCHS == [
+        "gemma3-12b", "qwen2.5-14b", "minitron-8b", "nemotron-4-340b",
+        "granite-moe-3b-a800m", "deepseek-v2-lite-16b", "whisper-medium",
+        "pixtral-12b", "rwkv6-1.6b", "hymba-1.5b"]
+    assert get_config("hymba-1.5b").param_count() == \
+        ref_get_config("hymba-1.5b").param_count()
     with pytest.raises(KeyError):
-        get_config("hymba-1.5b")
+        get_config("hymba-3b")
 
 
 def test_forward_train_equals_reference(models):
@@ -326,13 +329,20 @@ def test_former_out_of_scope_attention_equals_reference(models, case):
 
 
 def test_other_architectures_raise():
-    """Hymba's SSM heads and the int8 KV cache are still to port."""
+    """SSM heads beside the attention (hymba's, here on qwen's reduced
+    configuration) now build: the reference's template and cache.  The
+    int8 KV cache is still to port."""
+    from repro.models.transformer import init_cache as ref_cache
     cfg = dataclasses.replace(get_reduced_config(ARCH), ssm=True,
                               ssm_state=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        P_.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        init_cache(cfg, 1, 4, device="cpu")
+    ref_cfg = dataclasses.replace(ref_reduced(ARCH), ssm=True, ssm_state=8)
+    p = P_.init_params(cfg, device="cpu")
+    ref = ref_params.init_params(jax.random.PRNGKey(0), ref_cfg)
+    assert {k: tuple(v.shape) for k, v in p["layers"].items()} == \
+        {k: tuple(v.shape) for k, v in ref["layers"].items()}
+    cache = init_cache(cfg, 1, 4, device="cpu")
+    assert {k: tuple(v.shape) for k, v in cache.items()} == \
+        {k: tuple(v.shape) for k, v in ref_cache(ref_cfg, 1, 4).items()}
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
         init_cache(dataclasses.replace(get_reduced_config(ARCH),
                                        kv_cache_int8=True), 1, 4,
@@ -518,8 +528,25 @@ def test_rwkv_time_mix_runs_through_the_kernel_wrapper(rwkv_models,
 
 
 def test_rwkv_chunked_prefill_raises(rwkv_models):
-    _, cfg, _, params = rwkv_models
+    """Named when the port refused it: a chunked prefill now equals the
+    reference's.  4 tokens from position 0, then 3 more at position 4
+    (both inside one chunk of the reduced ``scan_chunk`` 8), the state
+    carried into the kernel and the token shifts restarting from zeros, as
+    the reference's do; logits, state and shifts."""
+    ref_cfg, cfg, tree, params = rwkv_models
+    rng = np.random.default_rng(6)
+    rcache = ref_init_cache(ref_cfg, 1, 8, dtype=jnp.float32)
     cache = init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        forward(params, cfg, Runtime(), torch.zeros((1, 3), dtype=torch.int64),
-                mode="prefill", cache=cache, cache_pos=4)
+    for pos, S in ((0, 4), (4, 3)):
+        toks = rng.integers(0, cfg.vocab, (1, S))
+        want, rcache, _ = ref_forward(tree, ref_cfg, RefRuntime(),
+                                      jnp.asarray(toks), mode="prefill",
+                                      cache=rcache, cache_pos=pos)
+        got, cache, _ = forward(params, cfg, Runtime(),
+                                torch.from_numpy(toks), mode="prefill",
+                                cache=cache, cache_pos=pos)
+        assert _rel(got, want) < REL_TOL, pos
+        for k in cache:
+            np.testing.assert_allclose(cache[k].numpy(),
+                                       np.asarray(rcache[k]), atol=1e-4,
+                                       rtol=1e-4)

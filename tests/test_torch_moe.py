@@ -111,16 +111,16 @@ def _norm_topk(cfg):
 
 
 def test_configs_equal_the_reference():
-    """``ARCHS`` is the reference's list without hymba, in its order; the
-    MoE configurations (full and reduced) are the reference's field for
+    """``ARCHS`` is the reference's list, in its order; the MoE
+    configurations (full and reduced) are the reference's field for
     field."""
-    assert ARCHS == [a for a in REF_ARCHS if a != "hymba-1.5b"]
+    assert ARCHS == REF_ARCHS
     for arch in (GRANITE, DEEPSEEK):
         for port, ref in ((get_config(arch), ref_get_config(arch)),
                           (get_reduced_config(arch), ref_reduced(arch))):
             assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     with pytest.raises(KeyError):
-        get_config("hymba-1.5b")
+        get_config("granite-moe-1b")
 
 
 def test_params_from_reference_carries_every_leaf(model):

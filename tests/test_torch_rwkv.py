@@ -292,16 +292,31 @@ def test_chunked_linear_attention_equals_reference(S, chunk):
 
 @pytest.mark.parametrize("case", ["ssd", "initial_state", "no_bonus"])
 def test_chunked_linear_attention_refuses_what_the_port_does_not_run(case):
-    t = [torch.from_numpy(a) for a in _inputs(1, 16, 2, 8, 8)]
-    kw = {"u": t[4]}
+    """Named when the port refused them: the three cases, now held to the
+    JAX package's XLA path (through ``ops.rwkv6_chunked``, the plain
+    version on the CPU): the SSD's post-update output without a bonus,
+    RWKV6 from a random carried state, and RWKV6 without its bonus; ragged
+    S 37, chunk 16."""
+    arrs = _inputs(2, 37, 2, 16, 16, seed=11)
+    s0 = np.random.default_rng(12).standard_normal((2, 2, 16, 16)).astype(
+        np.float32)
+    kw = {"u": arrs[4]}
     if case == "ssd":
-        kw["post_update"] = True
+        kw = {"post_update": True}
     elif case == "initial_state":
-        kw["initial_state"] = torch.zeros((1, 2, 8, 8))
+        kw["initial_state"] = s0
     else:
         kw = {}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        linear_scan.chunked_linear_attention(*t[:4], **kw)
+    j = [jnp.asarray(a) for a in arrs[:4]]
+    want_y, want_s = ref_scan.chunked_linear_attention(
+        *j, chunk=16, **{k: jnp.asarray(v) if isinstance(v, np.ndarray)
+                         else v for k, v in kw.items()})
+    t = [torch.from_numpy(a) for a in arrs[:4]]
+    y, st = linear_scan.chunked_linear_attention(
+        *t, chunk=16, **{k: torch.from_numpy(v) if isinstance(v, np.ndarray)
+                         else v for k, v in kw.items()})
+    _close(y, want_y)
+    _close(st, want_s)
 
 
 def test_reference_tree_makes_the_zero_initialised_leaves_live():
