@@ -103,14 +103,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    (``DENSE_DECODE_SHAPES``, ``DENSE_PREFILL_SHAPES``; MLA's with V
    zero-padded to q / k's 192) beside their bound,
    the plain version's and SDPA's with the same mask.
-8. Serving at full width: qwen2.5-14b (48 layers, d 5120, bf16, random
-   weights from seed 0 made on the card), 12 requests as
+8. Serving at full width: qwen2.5-14b (24 of its 48 layers, as
+   ``SERVE_LAYERS`` cuts it; d 5120, bf16, random weights from seed 0
+   made on the card), 12 requests as
    ``repro_torch.launch.serve --real`` draws them (prompts 32-511 tokens,
    decodes capped at 64) through ``serve_real(..., "greedy", slots=4,
    max_len=1024)``: the DVBP scheduler places them on replicas, real
    ``ReplicaEngine``s prefill and decode them.  Flash attention must have
-   launched 48 times per prefill, every call through the tensor-core
-   kernel, and decode attention 48 times per engine decode step; the
+   launched once a layer per prefill, every call through the tensor-core
+   kernel, and decode attention once a layer per engine decode step; the
    placement stats must equal ``REF_SERVE_STATS``.  One
    request is teacher-forced (prefill and 8 decode steps) with every
    attention call running both the kernel and the plain version on the
@@ -134,12 +135,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    windows, beside its bound, the plain version's and (``--parent``) the
    parent kernel's (no PyTorch call computes it), whose outputs must equal
    the RWKV6 instantiation's bit for bit.
-   (b) rwkv6-1.6b at full width (24 layers, d 2048, 32 heads of 64, d_ff
-   7168, vocab 65 536, bf16, random weights from seed 0 made on the card)
-   serving phase 8's 12 requests through ``serve_real``: the kernel must
-   have launched 24 times per prefill (288) and the attention kernels never,
-   the stats must equal ``REF_SERVE_STATS``; the same requests served again
-   with every one of the 288 kernel calls also running the plain version on
+   (b) rwkv6-1.6b at full width (12 of its 24 layers, as ``SERVE_LAYERS``
+   cuts it; d 2048, 32 heads of 64, d_ff 7168, vocab 65 536, bf16, random
+   weights from seed 0 made on the card) serving phase 8's 12 requests
+   through ``serve_real``: the kernel must have launched once a layer per
+   prefill (144) and the attention kernels never, the stats must equal
+   ``REF_SERVE_STATS``; the same requests served again with every one of
+   the 144 kernel calls also running the plain version on
    its own inputs, within ``RWKV_TOL`` of max |plain|; one request
    teacher-forced (prefill and 8 decode steps) with the kernel and with the
    plain version bound in its place, logits within ``SERVE_LOGIT_TOL``;
@@ -179,7 +181,7 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 12. The replay against the port's own oracle: 8 fp32-exact instances
    (1/64-grid sizes, integer times; ``ORACLE_ITEMS`` items, d
-   ``ORACLE_D``), clairvoyant and power-of-two noise, 16 lanes of 3000
+   ``ORACLE_D``), clairvoyant and power-of-two noise, 16 lanes of 1200
    events.  For all 21 policies ``run_batch`` per event with
    ``trace_level=1`` (the CUDA select in CUDA graphs of event windows) and
    blocked (the megakernel) must equal ``core.run(inst,
@@ -266,16 +268,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``replay_block_ref``, and its device time a block at L=1 beside its
    bound.
 
-18. The other dense architectures at full width in bf16 (random weights
-   from seed 0 made on the card, one model alive at a time): (a)
-   minitron-8b through ``serve_real`` on phase 8's requests (stats
-   ``REF_SERVE_STATS``, flash 32 launches a prefill all on the tensor-core
-   kernel, decode 32 an engine step); (b) gemma3-12b (max_len
-   ``GEMMA_MAX_LEN``), a request whose 1100-token prompt and 16 decode
-   steps make the 40 local layers' window of 1024 bind, windowed and full
-   calls counted apart, and an engine of 4 slots at depths on both sides
-   of 1024; (c) nemotron-4-340b at its full widths, its depth cut to
-   ``NEMOTRON_LAYERS`` (G = 12, hd 192); (d) pixtral-12b with 256 stub
+18. The other dense architectures at full width in bf16, all but
+   whisper-medium's depths cut to ``SERVE_LAYERS`` (random weights from
+   seed 0 made on the card, one model alive at a time): (a) minitron-8b
+   (16 of its 32 layers) through ``serve_real`` on phase 8's requests
+   (stats ``REF_SERVE_STATS``, flash 16 launches a prefill all on the
+   tensor-core kernel, decode 16 an engine step); (b) gemma3-12b (24 of
+   its 48 layers; max_len ``GEMMA_MAX_LEN``), a request whose 1100-token
+   prompt and 16 decode steps make the 20 local layers' window of 1024
+   bind, windowed and full calls counted apart, and an engine of 4 slots
+   at depths on both sides of 1024; (c) nemotron-4-340b at its full
+   widths, 4 of its 96 layers (G = 12, hd 192); (d) pixtral-12b (20 of its
+   40 layers) with 256 stub
    patch embeddings before its prompt; (e) whisper-medium over 1500 stub
    encoder frames, its decode steps cross-attending to the stashed
    ``enc_out``.  Each model's teacher-forced request (``DENSE_REQUESTS``)
@@ -283,15 +287,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    attention call also through its plain version (held within the bf16
    tolerance of phase 7), and the plain versions alone; the kernel run's
    logits within ``SERVE_LOGIT_TOL`` of the plain run's.
-19. The MoE architectures at full width in bf16 (random weights from seed 0
-   made on the card, one model alive at a time): (a) granite-moe-3b-a800m
-   (40 experts top-8, GQA at hd 64, G 3) through ``serve_real`` on phase
-   8's requests (stats ``REF_SERVE_STATS``, flash 32 launches a prefill all
-   on the tensor-core kernel, decode 32 an engine step), then its
-   teacher-forced request as in phase 18; (b) deepseek-v2-lite-16b (all 27
-   layers: MLA at q / k 192 with V zero-padded to 192, H = KV = 16, on both
-   kernels' CUDA-core routes; 64 experts top-6 plus 2 shared, the first
-   layer dense) teacher-forced as in phase 18, then an engine of 4 slots
+19. The MoE architectures at full width in bf16, their depths cut to
+   ``SERVE_LAYERS`` (random weights from seed 0 made on the card, one model
+   alive at a time): (a) granite-moe-3b-a800m (16 of its 32 layers; 40
+   experts top-8, GQA at hd 64, G 3) through ``serve_real`` on phase 8's
+   requests (stats ``REF_SERVE_STATS``, flash 16 launches a prefill all on
+   the tensor-core kernel, decode 16 an engine step), then its
+   teacher-forced request as in phase 18; (b) deepseek-v2-lite-16b (14 of
+   its 27 layers: MLA at q / k 192 with V zero-padded to 192, H = KV =
+   16, on both kernels' CUDA-core routes; 64 experts top-6 plus 2 shared,
+   the first layer dense) teacher-forced as in phase 18, then an engine of 4 slots
    at depths ``MOE_ENGINE_LENS`` for ``MOE_ENGINE_STEPS`` steps: each
    slot's latents written to its depth and no further, each slot's logits
    within ``SERVE_LOGIT_TOL`` of its own teacher-forced run.  Each model's
@@ -304,13 +309,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    busy time.  Printed: prefill ms, decode ms a step and new tokens a
    second, each beside the weight-byte floors at 3.35 TB/s (the active
    experts of one token; every expert).
-20. Hymba-1.5b at full width and depth in bf16 (32 layers, d 1600, 25
-   query heads and 5 kv heads of 64 beside 25 SSD heads of state 16 in
-   every layer, windows of 1024 on the 28 local layers; random weights from
-   seed 0 made on the card): (a) ``serve_real`` on phase 8's requests
-   (stats ``REF_SERVE_STATS``; per prefill 32 flash launches, all on the
-   tensor-core kernel, and 32 of the chunked kernel's post-update
-   variant; per engine step 32 decode launches, 28 windowed); (b) a
+20. Hymba-1.5b at full width in bf16, its depth cut to ``SERVE_LAYERS``
+   (16 of its 32 layers, d 1600, 25 query heads and 5 kv heads of 64
+   beside 25 SSD heads of state 16 in every layer, windows of 1024 on the
+   14 local layers; random weights from seed 0 made on the card): (a)
+   ``serve_real`` on phase 8's requests (stats ``REF_SERVE_STATS``; per
+   prefill 16 flash launches, all on the tensor-core kernel, and 16 of the
+   chunked kernel's post-update variant; per engine step 16 decode
+   launches, 14 windowed); (b) a
    teacher-forced request (prompt 1100, 16 decode steps: the window binds
    at prefill and on decode) as in phase 18, every attention call and
    every SSD call (``checked_scan``, ``RWKV_TOL``) also through its plain
@@ -319,6 +325,30 @@ Phases (any failure exits non-zero, and no result line is printed):
    variant's device time at ``SSD_TIMED_SHAPE`` in fp32 beside its bound
    and the plain version's; (e) torch.profiler over engine decode steps
    and one prefill (busy share, the SSD kernel's share of the prefill).
+21. Training.  (a) Gradients through the kernels' autograd Functions
+   (``ops.flash_attention`` and ``ops.rwkv6_chunked`` on inputs that
+   require grad: the kernel forward, counted; the backward torch ops)
+   against autograd of the plain versions on the same inputs, within
+   ``TRAIN_GRAD_TOL`` of max |plain grad| per input: flash on the
+   tensor-core route at qwen's (1, 511, 40 / 8, 128) causal and hymba's
+   (1, 1100, 25 / 5, 64) at window 1024, on the CUDA-core route in fp32;
+   RWKV6 at (1, 511, 32, 64) with ``u``, the SSD at (1, 221, 25, 16, 64)
+   from zeros and from a carried state.  (b) The reference's own command,
+   ``launch.train.main`` on reduced qwen2.5-14b for 20 steps (finite
+   losses, the last below the first; flash launched twice a layer a step,
+   the forward and remat's recompute), and an exact resume: 6 steps
+   straight against 3, a save, a fresh ``build``, a restore and 3 more,
+   every parameter and state leaf equal bit for bit.  (c) hymba-1.5b at
+   full width and depth trained for 4 steps of 2 x 1100 tokens (bf16
+   compute on fp32 master weights, remat on, the window of 1024 binding):
+   seconds a step, tokens/s, peak device memory, launches a step (64
+   flash on the tensor-core kernel, 64 SSD); one step under
+   torch.profiler (busy share, the kernels' time) beside the backward's
+   torch ops timed alone.  (d) hymba's loss and every gradient leaf with
+   the kernels against the plain versions bound in their place: fp32
+   compute at 256 tokens, each leaf within ``FP32_LOGIT_TOL`` of its max
+   |g|; bf16 at 1100, the loss within ``TRAIN_LOSS_REL`` and each leaf's
+   cosine at least ``TRAIN_COSINE``.
 
 Then, as a measurement and not a check, on the main path's first rung
 (L=28, Np=64): torch.profiler over 2048 graphed per-event steps and 400
@@ -381,8 +411,8 @@ SERVE_REQUESTS, SERVE_DECODE_CAP, SERVE_SLOTS, SERVE_MAX_LEN = 12, 64, 4, 1024
 # |logit|.  Each layer's attention output is held to the plain version's on
 # the same inputs (phase 8's per-call check); the logits compare two runs
 # whose bf16 activations part once any layer's output rounds one ulp apart,
-# and that drift passes through the rest of the 48 layers: 2.265e-02 in a
-# measured run on the H100.  The per-call check is the tight one.
+# and that drift passes through the rest of the layers: 2.265e-02 in a
+# measured run on the H100 at qwen2.5-14b's 48.  The per-call check is the tight one.
 SERVE_LOGIT_TOL = 5e-2
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM memory rate
@@ -588,7 +618,11 @@ def parent_library(tree):
     """``PARENT_SOURCES`` of the tree at ``tree`` (a ``git archive`` of an
     earlier commit) built with the port's flags into a library of their own
     under the build directory (its C symbols are the port's names, so it is
-    loaded apart), or None without a tree."""
+    loaded apart), or None without a tree.  Built with
+    ``-fno-gnu-unique``: a template's static (the launch's "dynamic shared
+    memory set" flag) would otherwise be one object in the process, shared
+    with the port's library wherever the two instantiations have one name,
+    and the parent's kernel would launch without its attribute."""
     import ctypes
     from repro_torch.kernels import _build
     if not tree:
@@ -601,8 +635,9 @@ def parent_library(tree):
     for src in PARENT_SOURCES:
         objs.append(os.path.join(out, src + ".o"))
         procs.append(subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, *_build.SOURCES[src], "-I", csrc,
-             "-c", "-o", objs[-1], os.path.join(csrc, src)],
+            [nvcc, *_build.NVCC_FLAGS, *_build.SOURCES[src],
+             "-Xcompiler=-fno-gnu-unique", "-I", csrc, "-c", "-o", objs[-1],
+             os.path.join(csrc, src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     for src, proc in zip(PARENT_SOURCES, procs):
         report = proc.communicate()[0]
@@ -615,10 +650,7 @@ def parent_library(tree):
         fail(f"parent link failed: {res.stderr[-2000:]}")
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
-    with open(os.path.join(csrc, "rwkv6_chunked.cu")) as f:
-        carried = "const void* s0" in f.read()   # the S0 / POST signature
-    lib.rwkv6_chunked_launch.argtypes = [p] * 8 + [i] * 9 + [p] if carried \
-        else [p] * 7 + [i] * 8 + [p]
+    lib.rwkv6_chunked_launch.argtypes = [p] * 8 + [i] * 9 + [p]
     lib.fitscore_legacy_blocks.argtypes = [i]
     lib.fitscore_legacy_launch.argtypes = [p] * 8 + [i] * 4 + [p]
     say(f"# parent: {', '.join(PARENT_SOURCES)} of {tree} built in "
@@ -2092,13 +2124,12 @@ def phase_serving(dev):
     docstring, phase 8).  Returns the two attention kernels' launches."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels.attention import (decode_attention_ref,
                                                flash_attention_ref)
     from repro_torch.models.params import init_params, param_count
     from repro_torch.models.transformer import Runtime, forward, init_cache
     from repro_torch.serving.engine import ReplicaEngine
-    cfg = get_config("qwen2.5-14b")
+    cfg = dense_config("qwen2.5-14b")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2298,9 +2329,7 @@ def in_turns(new, old, reps: int):
 
 def parent_rwkv(parent, args, L):
     """A call of the parent tree's ``rwkv6_chunked_launch`` on ``args``
-    (RWKV6: pre-update, from zeros; uncounted), and its outputs.  The
-    launch's signature is read from its argtypes: with or without the S0
-    pointer and the POST flag."""
+    (RWKV6: pre-update, from zeros; uncounted), and its outputs."""
     import torch
     r, k, v, lw, u = args
     B, S, H, K = r.shape
@@ -2308,15 +2337,13 @@ def parent_rwkv(parent, args, L):
     y = torch.empty((B, S, H, V), dtype=torch.float32, device=r.device)
     st = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    carried = len(parent.rwkv6_chunked_launch.argtypes) == 18
 
     def call():
-        head = (r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-                u.data_ptr()) + ((None,) if carried else ())
-        flags = (int(r.dtype == torch.bfloat16),) + ((0,) if carried else ())
         err = parent.rwkv6_chunked_launch(
-            *head, y.data_ptr(), st.data_ptr(), B, S, H, K, V, L, *flags,
-            r.device.index or 0, stream)
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+            u.data_ptr(), None, y.data_ptr(), st.data_ptr(), B, S, H, K, V,
+            L, int(r.dtype == torch.bfloat16), 0, r.device.index or 0,
+            stream)
         if err:
             fail(f"the parent rwkv6_chunked launch failed ({err})")
     return call, y, st
@@ -2439,14 +2466,13 @@ def phase_rwkv_serving(dev):
     the module docstring).  Returns the kernel's launches."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
     from repro_torch.models import linear_scan
     from repro_torch.models.params import init_params, param_count
     from repro_torch.models.transformer import Runtime, forward, init_cache
     from repro_torch.serving.engine import ReplicaEngine
-    cfg = get_config("rwkv6-1.6b")
+    cfg = dense_config("rwkv6-1.6b")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3172,10 +3198,10 @@ def phase_consolidation_main_path(dev, base_records, n_items: int = 5000):
 # ------------------------------------ phases 12-14: oracle, zoo, obs
 
 # Phase 12: 8 fp32-exact instances of ORACLE_ITEMS items in ORACLE_D dims,
-# two prediction rows each (16 lanes of 3000 events); the consolidation
+# two prediction rows each (16 lanes of 1200 events); the consolidation
 # scenario and its policies (one of each kernel family, and ppe).
 ORACLE_SEEDS = tuple(range(1, 9))
-ORACLE_ITEMS = 1500
+ORACLE_ITEMS = 600
 ORACLE_D = 5
 ORACLE_CONS = "underload:t0.25:e32"
 ORACLE_CONS_POLICIES = ("first_fit", "cbd", "hybrid", "rcp", "la_binary",
@@ -4038,7 +4064,7 @@ def phase_stream(dev, cells=STREAM_CELLS, chunk=STREAM_CHUNK,
     src = synthetic_source(n, seed=seed)
     walls = collections.defaultdict(list)
     results = {}
-    for depth in (0, 1, 1, 0) * 3:
+    for depth in (0, 1, 1, 0) * 2:
         _sync(dev)
         t0 = time.perf_counter()
         r = replay_stream(src, "first_fit", chunk_events=chunk,
@@ -4055,7 +4081,7 @@ def phase_stream(dev, cells=STREAM_CELLS, chunk=STREAM_CHUNK,
     out["pool_growths"] = grew
     say(f"# phase 16: a pool of 16 rows grew {grew:g} times to "
         f"{res.item_rows}, == in memory; {n} items first_fit blocked, "
-        f"prefetch 0 / 1 (six turns each, alternating; best / median): "
+        f"prefetch 0 / 1 (four turns each, alternating; best / median): "
         f"{out['prefetch_s'][0]:.3f} / {out['prefetch_s'][1]:.3f} s, "
         f"{out['prefetch_median_s'][0]:.3f} / "
         f"{out['prefetch_median_s'][1]:.3f} s, "
@@ -4455,10 +4481,15 @@ def phase_api_serving(dev, n_zoo: int = ZOO_REQUESTS):
     return launches, out
 
 
-# phase 18: nemotron-4-340b's depth on one card (its 96 layers are ~680 GB
-# in bf16), gemma3-12b's cache (its window of 1024 must bind), and the
-# teacher-forced requests' lengths (prompt, decode steps)
-NEMOTRON_LAYERS = 4
+# phases 8, 9b and 18-20: the depths cut (nemotron-4-340b's 96 layers are
+# ~680 GB in bf16; the others named are cut to about half, to keep the
+# whole script inside its time limit: their widths, and every check, stay),
+# gemma3-12b's cache (its window of 1024 must bind), and the teacher-forced
+# requests' lengths (prompt, decode steps)
+SERVE_LAYERS = {"qwen2.5-14b": 24, "rwkv6-1.6b": 12,
+                "nemotron-4-340b": 4, "minitron-8b": 16, "gemma3-12b": 24,
+                "pixtral-12b": 20, "granite-moe-3b-a800m": 16,
+                "deepseek-v2-lite-16b": 14, "hymba-1.5b": 16}
 GEMMA_MAX_LEN = 2048
 DENSE_REQUESTS = {"gemma3-12b": (1100, 16), "nemotron-4-340b": (256, 8),
                   "pixtral-12b": (128, 8), "whisper-medium": (64, 8),
@@ -4468,13 +4499,13 @@ WHISPER_FRAMES = 1500    # whisper's 30 s window
 
 
 def dense_config(arch):
-    """Phase 18's configuration of ``arch``: the full one, nemotron's depth
-    cut to ``NEMOTRON_LAYERS``."""
+    """Phases 8, 9b and 18-20's configuration of ``arch``: the full one,
+    its depth cut to ``SERVE_LAYERS[arch]`` where that names it."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    if arch == "nemotron-4-340b":
-        cfg = dataclasses.replace(cfg, n_layers=NEMOTRON_LAYERS)
+    if arch in SERVE_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS[arch])
     return cfg
 
 
@@ -4603,9 +4634,10 @@ def free_model(params):
 
 
 def phase_dense_archs(dev):
-    """Phase 18: minitron-8b, gemma3-12b, nemotron-4-340b (depth cut),
-    pixtral-12b and whisper-medium at full width in bf16, one model alive
-    at a time (see the module docstring).  Returns {arch: numbers}."""
+    """Phase 18: minitron-8b, gemma3-12b, nemotron-4-340b, pixtral-12b and
+    whisper-medium at full width in bf16 (depths cut to ``SERVE_LAYERS``),
+    one model alive at a time (see the module docstring).  Returns {arch:
+    numbers}."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -4920,7 +4952,7 @@ def phase_moe_archs(dev):
                              DENSE_REQUESTS[cfg.name][0]))
     free_model(params)
 
-    # (b) deepseek-v2-lite-16b: MLA at q/k 192, V padded; all 27 layers
+    # (b) deepseek-v2-lite-16b: MLA at q/k 192, V padded
     cfg = dense_config("deepseek-v2-lite-16b")
     params, gb = dense_model(cfg, dev, tag="19")
     floor1, floor_all = moe_floors(cfg, gb)
@@ -5009,7 +5041,8 @@ def fp32_copy(params):
 
 
 def phase_hybrid(dev):
-    """Phase 20: hymba-1.5b at full width and depth in bf16 (random weights
+    """Phase 20: hymba-1.5b at full width in bf16, its depth cut to
+    ``SERVE_LAYERS`` (random weights
     from seed 0 made on the card; see the module docstring).  Returns its
     numbers."""
     import dataclasses
@@ -5067,7 +5100,7 @@ def phase_hybrid(dev):
              f"{counts['rwkv6_chunked_s0']}) != {L} x {n_pre}")
 
     # (b) a teacher-forced request whose 1100-token prompt and 16 decode
-    # steps make the 28 local layers' window of 1024 bind; every attention
+    # steps make the local layers' window of 1024 bind; every attention
     # and every SSD call checked against its plain version
     ssd_errs = []
     tf = dense_teacher_forced(cfg, params, dev, HYMBA_MAX_LEN, tag="20",
@@ -5186,6 +5219,390 @@ def phase_hybrid(dev):
                 decode_busy_share=dec_prof.get("share"),
                 prefill_busy_share=pre_prof.get("share"),
                 prefill_ssd_share=ssd_share)
+
+
+# Phase 21, training: the kernels' autograd Functions, the reference's own
+# training command on a reduced configuration, hymba-1.5b trained at full
+# width, and its gradients through the kernels against the plain versions.
+TRAIN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# (label, dtype, q shape, k / v shape, causal, window): the tensor-core
+# route at qwen2.5-14b's and hymba-1.5b's (windowed) prefill shapes, the
+# CUDA-core route in fp32
+TRAIN_FLASH_CASES = (
+    ("sm90", "bfloat16", (1, 511, 40, 128), (1, 511, 8, 128), True, 0),
+    ("sm90 windowed", "bfloat16", (1, 1100, 25, 64), (1, 1100, 5, 64), True,
+     1024),
+    ("simt", "float32", (1, 300, 8, 64), (1, 300, 2, 64), True, 0))
+# (label, dtype, (B, S, H, K, V), chunk, bonus u, post-update, carried
+# state): RWKV6 at rwkv6-1.6b's prefill shape, hymba's SSD from zeros and
+# from a carried state
+TRAIN_SCAN_CASES = (
+    ("rwkv6", "bfloat16", (1, 511, 32, 64, 64), 16, True, False, False),
+    ("ssd", "float32", (1, 221, 25, 16, 64), 16, False, True, False),
+    ("ssd carried", "float32", (1, 221, 25, 16, 64), 16, False, True, True))
+TRAIN_REDUCED = ("--arch", "qwen2.5-14b", "--reduced", "--steps", "20",
+                 "--batch", "8", "--seq", "128", "--log-every", "1",
+                 "--device", "cuda")
+TRAIN_RESUME_STEPS = (3, 6)        # save after 3 of 6 steps
+TRAIN_HYMBA = ("--arch", "hymba-1.5b", "--steps", "4", "--batch", "2",
+               "--seq", "1100", "--log-every", "1", "--device", "cuda")
+TRAIN_FP32_SEQ = 256               # the fp32 gradient check's tokens a row
+TRAIN_LOSS_REL = 1e-2              # bf16 loss, kernels vs plain
+TRAIN_COSINE = 0.99                # bf16 gradient leaves, kernels vs plain
+
+
+def _grad_err(got, want, tol, what):
+    """max |got - want| over max |want| (fp32); fails above ``tol`` or when
+    not finite."""
+    import torch
+    got, want = got.to(torch.float32), want.to(torch.float32)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / max(scale, 1e-30)
+    if not (err <= tol):
+        fail(f"{what}: gradient {err:.3e} of max |plain| {scale:.3e} > {tol}")
+    return err
+
+
+def train_function_checks(dev):
+    """Phase 21 (a): gradients through ``ops.flash_attention`` and
+    ``ops.rwkv6_chunked`` (their autograd Functions: the kernel forward,
+    counted) against autograd of the plain versions on the same inputs and
+    upstream gradients, within ``TRAIN_GRAD_TOL`` of max |plain grad| per
+    input; the flash case at qwen's shape timed forward + backward beside
+    the plain version's.  Returns the numbers."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.attention import flash_attention_ref
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    out = {"flash": {}, "scan": {}}
+    for label, dtn, qs, ks, causal, window in TRAIN_FLASH_CASES:
+        dt = getattr(torch, dtn)
+        q, k, v = _attention_inputs(gen, dev, dt, qs, ks)
+        do = torch.randn(qs, generator=gen, device=dev).to(dt)
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = collections.Counter(ops.launches)
+        o = ops.flash_attention(*ins, causal=causal, window=window)
+        n = collections.Counter(ops.launches) - before
+        route = ops.flash_route(dt, qs[-1])
+        want_n = {"flash_attention": 1, **({"flash_attention_sm90": 1}
+                                           if route == "sm90" else {})}
+        if o.grad_fn is None or dict(n) != want_n or not label.startswith(
+                route):
+            fail(f"21 flash {label}: grad_fn {o.grad_fn}, launches "
+                 f"{dict(n)} (want {want_n}), route {route}")
+        got = torch.autograd.grad(o, ins, do)
+        ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(flash_attention_ref(
+            *ref_ins, causal=causal, window=window), ref_ins, do)
+        errs = [_grad_err(a, b, TRAIN_GRAD_TOL[dtn],
+                          f"21 flash {label} d{name}")
+                for a, b, name in zip(got, want, "qkv")]
+        row = {"dq": errs[0], "dk": errs[1], "dv": errs[2]}
+        if label == "sm90":
+            def fwd_bwd(fn, ts):
+                return lambda: torch.autograd.grad(
+                    fn(*ts, causal=causal, window=window), ts, do)
+            row["fwd_bwd_ms"] = device_ms(fwd_bwd(ops.flash_attention, ins),
+                                          10)
+            row["plain_fwd_bwd_ms"] = device_ms(
+                fwd_bwd(flash_attention_ref, ref_ins), 10)
+        out["flash"][label] = row
+        say(f"# 21 flash {label} ({dtn}, q {qs}, kv {ks}, causal {causal}, "
+            f"window {window}): launches {dict(n)}; |grad - plain| / max "
+            f"|plain|: dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e}"
+            f" (tol {TRAIN_GRAD_TOL[dtn]})" +
+            (f"; forward + backward {row['fwd_bwd_ms']:.6f} ms device, "
+             f"plain {row['plain_fwd_bwd_ms']:.6f} ms" if "fwd_bwd_ms" in row
+             else ""))
+    for label, dtn, (B, S, H, K, V), chunk, bonus, post, carried in \
+            TRAIN_SCAN_CASES:
+        dt = getattr(torch, dtn)
+        r, k, v, lw, u = _rwkv_inputs(gen, dev, dt, B, S, H, K, V)
+        if post:    # the SSD: one decay a (s, h) over K
+            lw = lw[..., :1].expand(B, S, H, K).contiguous()
+        s0 = torch.randn((B, H, K, V), generator=gen, device=dev) \
+            if carried else None
+        gy = torch.randn((B, S, H, V), generator=gen, device=dev)
+        base = [r, k, v, lw, u if bonus else None, s0]
+        ins = [None if t is None else t.clone().requires_grad_()
+               for t in base]
+        before = collections.Counter(ops.launches)
+        y, _ = ops.rwkv6_chunked(*ins[:5], chunk=chunk, post_update=post,
+                                 initial_state=ins[5])
+        n = collections.Counter(ops.launches) - before
+        want_n = {"rwkv6_chunked": 1, **({"rwkv6_chunked_post": 1}
+                                         if post else {}),
+                  **({"rwkv6_chunked_s0": 1} if carried else {})}
+        if y.grad_fn is None or dict(n) != want_n:
+            fail(f"21 scan {label}: grad_fn {y.grad_fn}, launches {dict(n)}"
+                 f" (want {want_n})")
+        live = [t for t in ins if t is not None]
+        got = torch.autograd.grad(y, live, gy)
+        ref_ins = [None if t is None else t.clone().requires_grad_()
+                   for t in base]
+        yr, _ = rwkv6_chunked_ref(*ref_ins[:5], chunk=chunk,
+                                  post_update=post, initial_state=ref_ins[5])
+        want = torch.autograd.grad(yr, [t for t in ref_ins if t is not None],
+                                   gy)
+        names = [nm for nm, t in zip(("r", "k", "v", "logw", "u", "s0"), ins)
+                 if t is not None]
+        errs = {nm: _grad_err(a, b, TRAIN_GRAD_TOL[dtn],
+                              f"21 scan {label} d{nm}")
+                for a, b, nm in zip(got, want, names)}
+        out["scan"][label] = errs
+        say(f"# 21 rwkv6_chunked {label} ({dtn}, B={B} S={S} H={H} K={K} "
+            f"V={V}, chunk {chunk}): launches {dict(n)}; |grad - plain| / "
+            f"max |plain|: " + ", ".join(f"d{nm} {e:.3e}"
+                                         for nm, e in errs.items()))
+    return out
+
+
+def loss_and_grads(params, cfg, batch):
+    """(loss, gradient leaves in ``train.tree.leaves`` order) of
+    ``loss_fn`` on the fp32 master ``params`` at ``cfg``'s compute type."""
+    import torch
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.train.train_step import loss_fn
+    from repro_torch.train.tree import leaves
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    loss, _ = loss_fn(params, cfg, Runtime(), batch)
+    grads = torch.autograd.grad(loss, flat)
+    return float(loss.detach()), grads
+
+
+def phase_training(dev):
+    """Phase 21: training (see the module docstring).  Returns its
+    numbers."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.attention import (decode_attention_ref,
+                                               flash_attention_ref)
+    from repro_torch.kernels.autograd import flash_attention_bwd
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
+    from repro_torch.launch import train as T
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.tree import leaf_names, leaves
+    t_phase = time.perf_counter()
+    out = {"functions": train_function_checks(dev)}
+
+    say(f"# 21 (a) took {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) the reference's own command at a reduced size, then an exact
+    # resume across a checkpoint and a fresh build
+    torch.cuda.synchronize()
+    ops.launches.clear()
+    logged = T.main(list(TRAIN_REDUCED))
+    torch.cuda.synchronize()
+    counts = collections.Counter(ops.launches)
+    cfg_r = T.get_reduced_config("qwen2.5-14b")
+    losses = [m["loss"] for _, m in logged]
+    n_steps = int(TRAIN_REDUCED[TRAIN_REDUCED.index("--steps") + 1])
+    want_flash = 2 * cfg_r.n_layers * n_steps   # forward + remat recompute
+    say(f"# 21 {' '.join(TRAIN_REDUCED)}: losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} over {len(losses)} steps in "
+        f"{logged[-1][1]['seconds']:.1f} s; launches {dict(counts)}")
+    if len(losses) != n_steps or not np.all(np.isfinite(losses)) or \
+            not losses[-1] < losses[0]:
+        fail(f"21 reduced training: losses {losses}")
+    if counts["flash_attention"] != want_flash:
+        fail(f"21 reduced training: {counts['flash_attention']} flash "
+             f"launches, want {want_flash} (2 x {cfg_r.n_layers} layers x "
+             f"{n_steps} steps)")
+    out["reduced"] = {"losses": losses, "launches": dict(counts),
+                      "seconds": logged[-1][1]["seconds"]}
+    cut, total = TRAIN_RESUME_STEPS
+
+    def fresh():
+        return T.build("qwen2.5-14b", True, 8, 128, 1, 3e-3, total, "cuda")
+
+    def run(state, steps):
+        cfg, d, step_fn, params, opt_state, stream = state
+        for s in steps:
+            params, opt_state, _ = step_fn(params, opt_state,
+                                           T.to_device(stream.batch(s), d))
+        return params, opt_state
+
+    straight = run(fresh(), range(total))
+    first = run(fresh(), range(cut))
+    with tempfile.TemporaryDirectory() as root:
+        ck = CheckpointManager(root, keep=2, async_save=True)
+        ck.save(cut, first)
+        ck.wait()
+        state = fresh()
+        start, (p, o) = ck.restore((state[3], state[4]))
+    resumed = run(state[:3] + (p, o, state[5]), range(start, total))
+    same = [torch.equal(a, b) for a, b in zip(leaves(straight),
+                                              leaves(resumed))]
+    say(f"# 21 resume: {total} steps straight against {cut}, a save, a "
+        f"fresh build, a restore at step {start} and {total - start} more: "
+        f"{sum(same)} of {len(same)} leaves equal bit for bit")
+    if start != cut or not all(same):
+        fail(f"21 resume: restored at {start}, {same.count(False)} leaves "
+             "differ")
+    del straight, first, resumed, state, p, o
+    say(f"# 21 (a, b) took {time.perf_counter() - t_phase:.1f} s")
+
+    # (c) hymba-1.5b at full width: bf16 compute on fp32 master weights,
+    # remat on, 2 x 1100 tokens a step (the window of 1024 binds)
+    cfg = T.get_config("hymba-1.5b")
+    L = cfg.n_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.launches.clear()
+    logged = T.main(list(TRAIN_HYMBA))
+    torch.cuda.synchronize()
+    counts = collections.Counter(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_steps = len(logged)
+    batch, seq = (int(TRAIN_HYMBA[TRAIN_HYMBA.index(f) + 1])
+                  for f in ("--batch", "--seq"))
+    secs = [m["seconds"] for _, m in logged]
+    step_s = float(np.median(np.diff(secs)))
+    per_step = {k: v / n_steps for k, v in counts.items()}
+    losses = [m["loss"] for _, m in logged]
+    say(f"# 21 {cfg.name} training ({' '.join(TRAIN_HYMBA)}): losses "
+        f"{[round(x, 4) for x in losses]}; first step {secs[0]:.2f} s, then "
+        f"{step_s:.3f} s a step (median), {batch * seq / step_s:.0f} "
+        f"tokens/s; peak device memory {peak_gb:.2f} GB; launches a step "
+        f"{per_step}")
+    if not np.all(np.isfinite(losses)) or n_steps != 4:
+        fail(f"21 {cfg.name}: losses {losses}")
+    for name in ("flash_attention_sm90", "rwkv6_chunked_post"):
+        if counts[name] != 2 * L * n_steps:
+            fail(f"21 {cfg.name}: {counts[name]} {name} launches, want "
+                 f"{2 * L * n_steps} (forward + remat recompute, {L} layers "
+                 f"x {n_steps} steps)")
+    if counts["flash_attention"] != counts["flash_attention_sm90"]:
+        fail(f"21 {cfg.name}: flash calls off the tensor-core route "
+             f"{dict(counts)}")
+
+    say(f"# 21 (a-c) took {time.perf_counter() - t_phase:.1f} s")
+    # one step under the profiler; the backward's torch ops timed alone
+    cfg, d, step_fn, params, opt_state, stream = T.build(
+        "hymba-1.5b", False, batch, seq, 1, 3e-3, 4, "cuda")
+    b0 = T.to_device(stream.batch(0), d)
+    prof = profile_run(dev, f"21 {cfg.name} train step ({batch} x {seq})",
+                       lambda: step_fn(params, opt_state, b0), 1, "step")
+    # None where the profiler saw no device kernels: not measured
+    kern_ms = {k: sum(us for name, us in prof["by_name"].items()
+                      if k in name) / 1e3 if prof else None
+               for k in ("flash_sm90_kernel", "rwkv6_chunked_kernel")}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _attention_inputs(gen, dev, torch.bfloat16, (batch, seq, H, hd),
+                                (batch, seq, KV, hd))
+    n_local = sum(not cfg.layer_is_global(i) for i in range(L))
+    r, kk, vv, lw, _ = _rwkv_inputs(gen, dev, torch.float32, batch, seq, H,
+                                    cfg.ssm_state, hd)
+    lw = lw[..., :1].expand_as(r).contiguous()
+    sins = [t.requires_grad_() for t in (r, kk, vv, lw)]
+    gy = torch.randn((batch, seq, H, hd), generator=gen, device=dev)
+    # attention's ~35 kernels a layer queue faster than they run: CUDA
+    # events; the SSD's ~800 small ones do not: the profiler's busy time
+    attn_bwd_ms = sum(n * device_ms(lambda: flash_attention_bwd(
+        q, k, v, q, q, causal=True, window=w), 3)
+        for n, w in ((n_local, cfg.window), (L - n_local, 0)))
+    ssd_bwd = profile_run(dev, f"21 {cfg.name} backward of one layer's SSD "
+                          "(torch ops)", lambda: torch.autograd.grad(
+                              rwkv6_chunked_ref(*sins, chunk=cfg.scan_chunk,
+                                                post_update=True)[0], sins,
+                              gy), 1, "call")
+    scan_bwd_ms = L * ssd_bwd["busy_us"] / 1e3 if ssd_bwd else None
+    busy_ms = prof["busy_us"] / 1e3 if prof else None
+
+    def ms(x, digits):
+        return "not measured" if x is None else f"{x:.{digits}f} ms"
+    say(f"# 21 {cfg.name} train step: device busy "
+        + (f"{busy_ms:.1f} ms of {prof['wall_us'] / 1e3:.1f} ms "
+           f"({prof['share']:.1f} %)" if prof else "not measured")
+        + f"; the kernels' forward launches: flash sm90 "
+        f"{ms(kern_ms['flash_sm90_kernel'], 2)}, the SSD "
+        f"{ms(kern_ms['rwkv6_chunked_kernel'], 2)}; the backward's torch "
+        f"ops, device time alone at the step's shapes: attention "
+        f"{attn_bwd_ms:.1f} ms ({n_local} windowed + {L - n_local} causal "
+        f"layers; CUDA events), the SSD's recompute and autograd "
+        f"{ms(scan_bwd_ms, 1)} ({L} layers"
+        + (f", {ssd_bwd['kernels']:.0f} kernels a layer" if ssd_bwd else "")
+        + "; profiler)")
+    del q, k, v, r, kk, vv, lw, sins, gy, opt_state
+    torch.cuda.empty_cache()
+
+    say(f"# 21 (a-c) and the profiles took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # (d) one loss-and-gradient with the kernels against one with the
+    # plain versions bound in their place: fp32 compute at TRAIN_FP32_SEQ,
+    # then bf16 at the step's 1100 tokens
+    names = leaf_names(params)
+    grad_checks = {}
+    for dtn, seq_d in (("float32", TRAIN_FP32_SEQ), ("bfloat16", seq)):
+        c = dataclasses.replace(cfg, dtype=dtn)
+        bt = T.to_device(TokenStream(cfg.vocab, seq_d, 1).batch(0), d)
+        ops.launches.clear()
+        lk, gk = loss_and_grads(params, c, bt)
+        torch.cuda.synchronize()
+        nk = collections.Counter(ops.launches)
+        restore = bound_attention(flash_attention_ref, decode_attention_ref)
+        restore_scan = bound_scan(rwkv6_chunked_ref)
+        try:
+            lp, gp = loss_and_grads(params, c, bt)
+        finally:
+            restore()
+            restore_scan()
+        if nk["rwkv6_chunked_post"] != 2 * L or \
+                nk["flash_attention"] != 2 * L:
+            fail(f"21 {dtn} gradients: launches {dict(nk)}, want {2 * L} "
+                 "flash and SSD")
+        rels, coss = [], []
+        for name, a, b in zip(names, gk, gp):
+            a, b = a.to(torch.float32), b.to(torch.float32)
+            scale = float(b.abs().max())
+            rels.append(float((a - b).abs().max()) / max(scale, 1e-30))
+            na, nb = float(a.norm()), float(b.norm())
+            coss.append(1.0 if na == nb == 0 else
+                        float((a * b).sum()) / max(na * nb, 1e-30))
+        worst = int(np.argmax(rels))
+        low = int(np.argmin(coss))
+        loss_rel = abs(lk - lp) / abs(lp)
+        grad_checks[dtn] = {"loss": lk, "plain_loss": lp,
+                            "loss_rel": loss_rel,
+                            "max_leaf_rel": rels[worst],
+                            "max_leaf": names[worst],
+                            "min_cosine": coss[low],
+                            "min_cosine_leaf": names[low],
+                            "launches": dict(nk)}
+        say(f"# 21 {cfg.name} {dtn} loss and gradient at 1 x {seq_d} "
+            f"tokens, kernels vs plain: loss {lk:.6f} / {lp:.6f} (rel "
+            f"{loss_rel:.3e}); worst leaf {names[worst]} {rels[worst]:.3e} "
+            f"of its max |g|; lowest cosine {coss[low]:.6f} "
+            f"({names[low]}); launches {dict(nk)}")
+        if dtn == "float32" and not rels[worst] <= FP32_LOGIT_TOL:
+            fail(f"21 fp32 gradients: {names[worst]} {rels[worst]} > "
+                 f"{FP32_LOGIT_TOL} of its max |g|")
+        if dtn == "bfloat16" and not (loss_rel <= TRAIN_LOSS_REL and
+                                      coss[low] >= TRAIN_COSINE):
+            fail(f"21 bf16 gradients: loss rel {loss_rel}, cosine "
+                 f"{coss[low]} ({names[low]})")
+        del gk, gp
+    free_model(params)
+    out.update(hymba={
+        "losses": losses, "step_s": step_s, "first_step_s": secs[0],
+        "tokens_per_s": batch * seq / step_s, "peak_gb": peak_gb,
+        "launches_per_step": per_step, "busy_share": prof.get("share"),
+        "busy_ms": busy_ms, "flash_fwd_ms": kern_ms["flash_sm90_kernel"],
+        "ssd_fwd_ms": kern_ms["rwkv6_chunked_kernel"],
+        "attn_bwd_ms": attn_bwd_ms, "scan_bwd_ms": scan_bwd_ms},
+        grads=grad_checks)
+    say(f"# 21: phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def moe_teacher_forced(cfg, params, dev):
@@ -5428,6 +5845,19 @@ def phase_profile(dev, n_items: int = 5000, steps: int = 2048,
     return out
 
 
+def phase_clock():
+    """A function that prints the seconds since its previous call (since
+    it was made, the first time) beside a phase's name: the script's wall
+    split by phase."""
+    last = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        say(f"# time: {name} {now - last[0]:.1f} s")
+        last[0] = now
+    return lap
+
+
 def main() -> None:
     try:
         import torch
@@ -5450,38 +5880,68 @@ def main() -> None:
         fail(f"the port is not importable from {ROOT}/src: {e}")
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    lap = phase_clock()
     card = phase_build()
+    lap("phase_build")
     say(f"# torch {torch.__version__} cuda {torch.version.cuda} on {card}")
     parent = parent_library(parent_tree)
     sel = phase_kernel_vs_plain(dev)
+    lap("phase_kernel_vs_plain")
     mk_err = phase_megakernel_vs_plain(dev)
+    lap("phase_megakernel_vs_plain")
     mk = time_megakernel(dev)
+    lap("time_megakernel")
     phase_headline(dev)
+    lap("phase_headline")
     phase_category_headline(dev)
+    lap("phase_category_headline")
     sel_launches, records, eps, graphs, graph_walls = phase_main_path(dev)
+    lap("phase_main_path")
     mk_launches, mk_routes, blocked_records = phase_blocked_main_path(
         dev, records, eps)
+    lap("phase_blocked_main_path")
     flash, decode = phase_attention_vs_plain(dev)
+    lap("phase_attention_vs_plain")
     dense_rows = phase_attention_dense_archs(dev)
+    lap("phase_attention_dense_archs")
     attn_launches = phase_serving(dev)
+    lap("phase_serving")
     rwkv = phase_rwkv_vs_plain(dev, parent)
+    lap("phase_rwkv_vs_plain")
     rwkv_launches = phase_rwkv_serving(dev)
+    lap("phase_rwkv_serving")
     legacy_launches, legacy = phase_legacy_fitscore(dev, parent)
+    lap("phase_legacy_fitscore")
     phase_migrate_vs_plain(dev)
+    lap("phase_migrate_vs_plain")
     phase_frontier(dev)
+    lap("phase_frontier")
     mig_launches, mig_ms, mig_mid = phase_consolidation_main_path(
         dev, blocked_records)
+    lap("phase_consolidation_main_path")
     oracle_launches, oracle_cons_launches = phase_oracle(dev)
+    lap("phase_oracle")
     zoo_launches = phase_scheduler_zoo(dev)
+    lap("phase_scheduler_zoo")
     resilience_guard("phases 1-13")    # phase 14 resets the counters
     obs_launches, trace_steps = phase_obs(dev)
+    lap("phase_obs")
     res_launches, res_numbers = phase_resilience(dev)
+    lap("phase_resilience")
     stream_launches, stream_numbers = phase_stream(dev)
+    lap("phase_stream")
     api_launches, api_numbers = phase_api_serving(dev)
+    lap("phase_api_serving")
     dense = phase_dense_archs(dev)
+    lap("phase_dense_archs")
     moe = phase_moe_archs(dev)
+    lap("phase_moe_archs")
     hymba = phase_hybrid(dev)
+    lap("phase_hybrid")
+    train = phase_training(dev)
+    lap("phase_training")
     prof = phase_profile(dev)
+    lap("phase_profile")
     say(f"# total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [
@@ -5575,6 +6035,11 @@ def main() -> None:
                  "flash_attention": hymba["serve_launches"][
                      "flash_attention"],
                  "sm90": hymba["serve_launches"]["flash_attention_sm90"]},
+             train_reduced_launches=train["reduced"]["launches"].get(
+                 "flash_attention", 0),
+             train_hymba_launches_a_step=train["hymba"][
+                 "launches_per_step"].get("flash_attention_sm90", 0),
+             train_grad_err=train["functions"]["flash"],
              dense_shapes={name: row for (kind, name), row in
                            dense_rows.items() if kind == "flash"},
              **flash),
@@ -5627,7 +6092,11 @@ def main() -> None:
                  "rwkv6_chunked"],
              decode_busy_share=hymba["decode_busy_share"],
              prefill_busy_share=hymba["prefill_busy_share"],
-             prefill_ssd_share=hymba["prefill_ssd_share"]),
+             prefill_ssd_share=hymba["prefill_ssd_share"],
+             train_hymba_launches_a_step=train["hymba"][
+                 "launches_per_step"].get("rwkv6_chunked_post", 0),
+             train_grad_err=train["functions"]["scan"],
+             train_hymba=train["hymba"], train_grads=train["grads"]),
         dict(name="fitscore", route="cuda",
              source="src/repro_torch/kernels/csrc/fitscore.cu",
              replaces="src/repro/kernels/fitscore.py:154",

@@ -22,24 +22,23 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        scale=None):
-    """q (B, Sq, H, hd); k, v (B, Skv, KV, hd) -> (B, Sq, H, hd) in q's
-    type.  Query head h reads kv head ``h // (H // KV)``; the causal mask is
-    top-left aligned (``kpos <= qpos``, both from 0); ``window > 0`` masks
-    ``qpos - kpos >= window``."""
-    B, Sq, H, hd = q.shape
-    Skv, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    scale = hd ** -0.5 if scale is None else scale
-    f32 = torch.float32
-    qg = q.to(f32).reshape(B, Sq, KV, G, hd).permute(0, 2, 3, 1, 4)
-    kt = k.to(f32).permute(0, 2, 1, 3)[:, :, None]      # (B, KV, 1, Skv, hd)
-    vt = v.to(f32).permute(0, 2, 1, 3)[:, :, None]
+def heads(t: torch.Tensor, KV: int) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, KV, G, S, hd) in fp32: query head h is row
+    ``h % G`` of kv head ``h // G``."""
+    B, S, H, hd = t.shape
+    return t.to(torch.float32).reshape(B, S, KV, H // KV, hd).permute(
+        0, 2, 3, 1, 4)
+
+
+def flash_probs(qg, kt, *, causal: bool, window: int, scale: float):
+    """The softmax of ``flash_attention_ref`` before its division: qg (B,
+    KV, G, Sq, hd) and kt (B, KV, 1, Skv, hd) in fp32 -> (p, its row sums
+    clamped from 0), p zero where the mask drops a key."""
+    Sq, Skv = qg.shape[-2], kt.shape[-2]
     s = (qg @ kt.transpose(-1, -2)) * scale             # (B, KV, G, Sq, Skv)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Skv, device=q.device)[None, :]
-    valid = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    qpos = torch.arange(Sq, device=qg.device)[:, None]
+    kpos = torch.arange(Skv, device=qg.device)[None, :]
+    valid = torch.ones((Sq, Skv), dtype=torch.bool, device=qg.device)
     if causal:
         valid &= kpos <= qpos
     if window > 0:
@@ -47,7 +46,24 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     s = torch.where(valid, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), 0.0)
-    o = (p @ vt) / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    return p, torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        scale=None):
+    """q (B, Sq, H, hd); k, v (B, Skv, KV, hd) -> (B, Sq, H, hd) in q's
+    type.  Query head h reads kv head ``h // (H // KV)``; the causal mask is
+    top-left aligned (``kpos <= qpos``, both from 0); ``window > 0`` masks
+    ``qpos - kpos >= window``."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    scale = hd ** -0.5 if scale is None else scale
+    f32 = torch.float32
+    kt = k.to(f32).permute(0, 2, 1, 3)[:, :, None]      # (B, KV, 1, Skv, hd)
+    vt = v.to(f32).permute(0, 2, 1, 3)[:, :, None]
+    p, denom = flash_probs(heads(q, KV), kt, causal=causal, window=window,
+                           scale=scale)
+    o = (p @ vt) / denom
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 

@@ -561,16 +561,35 @@ def flash_route(dtype, hd: int) -> str:
         hd in FLASH_SM90_HEAD_DIMS else "simt"
 
 
+def _needs_grad(*ts) -> bool:
+    """Grad mode is on and an input requires grad: a kernel call must then
+    go through its ``torch.autograd.Function`` (``kernels.autograd``),
+    since autograd cannot see the output a launch fills."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Blockwise GQA attention forward: q (B, Sq, H, hd), k/v (B, Skv, KV,
     hd) -> (B, Sq, H, hd) in q's type (see ``flash_attention_ref``).  On
     CUDA tensors (fp32 or bf16, contiguous, hd <= 256) one of two CUDA
     kernels, as ``flash_route`` picks; every call counts under
     ``launches["flash_attention"]``, the tensor-core kernel's also under
-    ``launches["flash_attention_sm90"]``.  The plain version for CPU
-    tensors."""
+    ``launches["flash_attention_sm90"]``.  With grad mode on and an input
+    that requires grad, the launch runs inside
+    ``autograd.FlashAttention``, whose backward is torch ops.  The plain
+    version for CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if _needs_grad(q, k, v):
+        from .autograd import FlashAttention
+        return FlashAttention.apply(q, k, v, causal, window)
+    return flash_launch(q, k, v, causal=causal, window=window)
+
+
+def flash_launch(q, k, v, *, causal: bool = True, window: int = 0):
+    """The launch of ``flash_attention``'s kernel (checks, route, count),
+    invisible to autograd."""
     name = "flash_attention"
     _check_attention(name, q, k, v, 4)
     B, Sq, H, hd = q.shape
@@ -733,11 +752,25 @@ def rwkv6_chunked(r, k, v, logw, u=None, *, chunk: int = 16,
     walking the sequence in windows of 8 chunks (the grid launched is kept
     in ``last_rwkv_grid``); the plain version for CPU ones.  Any S: the
     kernel reads the rows past S as identity rows, the padding of
-    ``rwkv6_chunked_ref``."""
+    ``rwkv6_chunked_ref``.  With grad mode on and an input that requires
+    grad, the launch runs inside ``autograd.ChunkedScan``, whose backward
+    is autograd over the plain version recomputed."""
     if r.device.type == "cpu":
         return rwkv6_chunked_ref(r, k, v, logw, u, chunk=chunk,
                                  post_update=post_update,
                                  initial_state=initial_state)
+    if _needs_grad(r, k, v, logw, u, initial_state):
+        from .autograd import ChunkedScan
+        return ChunkedScan.apply(r, k, v, logw, u, initial_state, chunk,
+                                 post_update)
+    return rwkv6_launch(r, k, v, logw, u, chunk=chunk,
+                        post_update=post_update, initial_state=initial_state)
+
+
+def rwkv6_launch(r, k, v, logw, u=None, *, chunk: int = 16,
+                 post_update: bool = False, initial_state=None):
+    """The launch of ``rwkv6_chunked``'s kernel (checks, grid, counts),
+    invisible to autograd."""
     name = "rwkv6_chunked"
     dev = r.device
     if dev.type != "cuda":

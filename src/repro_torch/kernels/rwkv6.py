@@ -80,9 +80,13 @@ def rwkv6_chunked_ref(r, k, v, logw, u=None, *, chunk: int = 16,
     state = torch.zeros((B, H, K, V), dtype=f32, device=r.device) \
         if initial_state is None else initial_state.to(f32)
     cross = []
-    for n in range(N):   # the state carried across chunks
-        cross.append(r_dec[:, :, n] @ state)
-        state = decay[:, :, n] * state + upd[:, :, n]
+    # the state carried across chunks (``unbind``: one stack in autograd's
+    # backward where per-chunk indexing would add a zero-filled whole a
+    # chunk)
+    for r_n, decay_n, upd_n in zip(r_dec.unbind(2), decay.unbind(2),
+                                   upd.unbind(2)):
+        cross.append(r_n @ state)
+        state = decay_n * state + upd_n
     if N:
         y = y + torch.stack(cross, dim=2)
     y = y.permute(0, 2, 3, 1, 4).reshape(B, N * L, H, V)[:, :S]

@@ -12,7 +12,11 @@ Modes: "train" (causal, no cache, logits for every position), "prefill"
 logits), "decode" (one token per row against the cache, ``cache_pos`` a
 scalar or a (B,) vector of per-row depths).  The layers are stacked along
 a leading axis as in the reference; a Python loop over them takes the
-place of ``lax.scan``.  The cache is written in place and returned.
+place of ``lax.scan``.  The cache is written in place and returned.  A
+training forward (mode "train", grad on) with ``cfg.remat`` runs each
+layer under ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+of its scan body: a layer's activations and compute-type weights are
+recomputed in the backward, its kernels launched again.
 
 The reference's dtype sequence is kept: embeddings and each layer's
 matrices in ``cfg.dtype``, the norms and ``rope`` in fp32 and cast back.
@@ -35,6 +39,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (_is_prefill, _proj, _rms, attention_block,
                         mla_attention_block)
@@ -294,26 +299,42 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens: torch.Tensor, *,
     positions = pos0 + torch.arange(S, dtype=torch.int32, device=dev)[None, :] \
         + torch.zeros((B, 1), dtype=torch.int32, device=dev)
     cross_kv = cache.pop("enc_out", None) if cache is not None else None
+    remat = cfg.remat and mode == "train" and cache is None and \
+        torch.is_grad_enabled()
+
+    def run(fn, *args):
+        """One layer, under activation checkpointing where ``remat``."""
+        if remat:
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(*args)
+
     if cfg.arch_kind == "encdec" and enc_embeds is not None:
         e = enc_embeds.to(x.dtype)
         for i in range(cfg.n_enc_layers):
-            e = _enc_layer(_layer(params["enc_layers"], i, cdt), e, cfg)
+            e = run(lambda h, i=i: _enc_layer(
+                _layer(params["enc_layers"], i, cdt), h, cfg), e)
         cross_kv = _rms(e, params["enc_norm"], cfg.norm_eps)
     windows = layer_windows(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     fkd = cfg.first_k_dense
-    for i in range(cfg.n_layers):
+
+    def layer(h, i, ckv):
         blk = _layer(params["dense_layers"], i, cdt) if i < fkd else \
             _layer(params["layers"], i - fkd, cdt)
         csl = None if cache is None else {k: c[i] for k, c in cache.items()}
         if cfg.rwkv:
-            x = _rwkv_layer(blk, x, cfg, cache=csl, cache_pos=cache_pos)
-        else:
-            x, _, aux = _std_layer(blk, x, cfg, rt, positions=positions,
-                                   window=int(windows[i]), cache=csl,
-                                   cache_pos=cache_pos, cross_kv=cross_kv)
-            if aux is not None:
-                aux_total = aux_total + aux
+            return _rwkv_layer(blk, h, cfg, cache=csl,
+                               cache_pos=cache_pos), None
+        h, _, aux = _std_layer(blk, h, cfg, rt, positions=positions,
+                               window=int(windows[i]), cache=csl,
+                               cache_pos=cache_pos, cross_kv=ckv)
+        return h, aux
+
+    for i in range(cfg.n_layers):
+        x, aux = run(layer, x, i, cross_kv)
+        if aux is not None:
+            aux_total = aux_total + aux
     if mode == "prefill":
         x = x[:, -1:]   # serving needs only the next token's logits
     x = _rms(x, params["final_norm"], cfg.norm_eps)

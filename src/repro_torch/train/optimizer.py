@@ -1,0 +1,213 @@
+"""AdamW with optionally int8-quantized moments (per-row absmax scales): the
+port's ``repro.train.optimizer`` (``OptConfig``, ``schedule``, ``_quant``,
+``_dequant``, ``init_opt_state``, ``global_norm``, ``adamw_update``), and
+``opt_state_from_reference``, which carries the reference's state across.
+
+The 8-bit option cuts the optimizer state from 8 to 2 bytes a parameter.
+The reference's arithmetic is kept in fp32 tensors: the warm-up and cosine
+terms, ``b1 ** step`` and the bias corrections are never Python floats, so
+the learning rate and the update round as the reference's do.  The
+gradient norm sums over the leaves in the reference's order (sorted dict
+keys, ``train.tree.leaves``).
+
+The update runs in place on the parameters and the state (the reference
+donates their buffers to its jitted step), a layer-stacked leaf one layer
+at a time, so its fp32 transients are one layer's, as the reference's
+``lax.map`` over the stack axis bounds them.  The reference's
+``opt_state_pspecs`` (PartitionSpecs of a device mesh) has no counterpart
+on one card.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from .tree import leaves
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    state_dtype: str = "float32"      # float32 | int8
+    warmup_steps: int = 100
+    total_steps: int = 10000
+
+
+def _inv(c: float) -> float:
+    """1 / c rounded to fp32: a division by a constant ``x / c`` is ``x *
+    _inv(c)`` in the reference's jitted step (XLA's rewrite), an ulp apart
+    from the division at some ``x``."""
+    return float(torch.tensor(1.0) / torch.tensor(float(c)))
+
+
+def schedule(opt: OptConfig, step) -> torch.Tensor:
+    """Linear warmup + cosine decay at ``step`` (an int32 tensor or an
+    int), an fp32 scalar tensor."""
+    step = torch.as_tensor(step, dtype=torch.int32)
+    warm = torch.clamp_max(step * _inv(max(opt.warmup_steps, 1)), 1.0)
+    frac = torch.clamp((step - opt.warmup_steps)
+                       * _inv(max(opt.total_steps - opt.warmup_steps, 1)),
+                       0.0, 1.0)
+    return opt.lr * warm * 0.5 * (1.0 + torch.cos(math.pi * frac))
+
+
+# ---------------------------------------------------------- int8 quantization
+
+_INV_127 = _inv(127)
+
+
+def _quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (last-axis) absmax int8 quantization; ``torch.round`` rounds
+    half to even, as ``jnp.round`` does.  ``absmax / 127`` is taken as the
+    reference's jitted step computes it (``_inv``)."""
+    absmax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    scale = torch.where(absmax > 0, absmax * _INV_127, 1.0)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.float32)
+
+
+def _dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def _zeros_state(p: torch.Tensor, opt: OptConfig):
+    if opt.state_dtype == "int8":
+        return {"q": torch.zeros(p.shape, dtype=torch.int8, device=p.device),
+                "s": torch.zeros(p.shape[:-1] + (1,), dtype=torch.float32,
+                                 device=p.device)}
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def _state_tree(params, opt: OptConfig):
+    if isinstance(params, dict):
+        return {k: _state_tree(v, opt) for k, v in params.items()}
+    return _zeros_state(params, opt)
+
+
+def init_opt_state(params, opt: OptConfig) -> Dict[str, Any]:
+    """Zero moments shaped like ``params`` (fp32, or int8 ``q`` with fp32
+    per-row scales ``s``) on the parameters' device, and the step, an int32
+    scalar."""
+    dev = leaves(params)[0].device
+    return {"m": _state_tree(params, opt), "v": _state_tree(params, opt),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def opt_state_from_reference(tree, params) -> Dict[str, Any]:
+    """The JAX package's AdamW state (``init_opt_state`` / ``adamw_update``
+    output, leaves as numpy arrays: fp32 moments or int8 ``q`` with fp32
+    ``s``, an int32 ``step``) as the port's, on the device of ``params``
+    (the port's tree it belongs to, e.g. from ``params_from_reference``).
+    Keys, shapes or dtypes that do not fit ``params`` raise."""
+    dev = leaves(params)[0].device
+
+    def leaf(a, shape, dtype):
+        t = torch.from_numpy(np.array(a))
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"reference state leaf {t.dtype} "
+                             f"{tuple(t.shape)}, want {dtype} {tuple(shape)}")
+        return t.to(dev)
+
+    def moment(m, p):
+        if isinstance(p, dict):
+            if set(m) != set(p):
+                raise ValueError(f"reference state keys {sorted(m)}, the "
+                                 f"parameters' {sorted(p)}")
+            return {k: moment(m[k], p[k]) for k in p}
+        if isinstance(m, dict):
+            if set(m) != {"q", "s"}:
+                raise ValueError(f"an int8 moment has keys {sorted(m)}")
+            return {"q": leaf(m["q"], p.shape, torch.int8),
+                    "s": leaf(m["s"], p.shape[:-1] + (1,), torch.float32)}
+        return leaf(m, p.shape, torch.float32)
+
+    return {"m": moment(tree["m"], params), "v": moment(tree["v"], params),
+            "step": leaf(tree["step"], (), torch.int32)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, each leaf summed whole and
+    the leaves added in the reference's leaf order, as the reference
+    does."""
+    total = None
+    for x in leaves(tree):
+        sq = torch.sum(torch.square(x.to(torch.float32)))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def _read(s, opt: OptConfig) -> torch.Tensor:
+    return _dequant(s["q"], s["s"]) if opt.state_dtype == "int8" else s
+
+
+def _write(dst, x: torch.Tensor, opt: OptConfig) -> None:
+    if opt.state_dtype == "int8":
+        q, s = _quant(x)
+        dst["q"].copy_(q)
+        dst["s"].copy_(s)
+    else:
+        dst.copy_(x)
+
+
+def _index(s, i: int):
+    return {k: v[i] for k, v in s.items()} if isinstance(s, dict) else s[i]
+
+
+def _update(p, g, m, v, opt: OptConfig, clip, lr, bc1, bc2,
+            decay: float) -> None:
+    g = g.to(torch.float32) * clip
+    m32, v32 = _read(m, opt), _read(v, opt)
+    m32 = opt.b1 * m32 + (1 - opt.b1) * g
+    v32 = opt.b2 * v32 + (1 - opt.b2) * g * g
+    upd = (m32 / bc1) / (torch.sqrt(v32 / bc2) + opt.eps)
+    p32 = p.to(torch.float32)
+    new_p = p32 - lr * (upd + decay * p32)
+    p.copy_(new_p.to(p.dtype))
+    _write(m, m32, opt)
+    _write(v, v32, opt)
+
+
+def _walk(p, g, m, v, fn) -> None:
+    if isinstance(p, dict):
+        for k in sorted(p):
+            _walk(p[k], g[k], m[k], v[k], fn)
+    else:
+        fn(p, g, m, v)
+
+
+@torch.no_grad()
+def adamw_update(params, grads, state, opt: OptConfig):
+    """One AdamW step, in place on ``params`` and ``state``.  Returns
+    (params, state, metrics), the same objects updated, as the reference
+    returns its new ones; ``metrics`` holds the fp32 ``grad_norm`` and
+    ``lr``."""
+    step = state["step"] + 1
+    gnorm = global_norm(grads)
+    clip = torch.clamp_max(opt.grad_clip / (gnorm + 1e-9), 1.0)
+    lr = schedule(opt, step).to(gnorm.device)
+    step_f = step.to(torch.float32)
+    bc1 = 1.0 - opt.b1 ** step_f
+    bc2 = 1.0 - opt.b2 ** step_f
+
+    def leaf(p, g, m, v):
+        decay = opt.weight_decay if p.dim() >= 2 else 0.0
+        if p.dim() >= 3:
+            # layer-stacked weights: one layer's fp32 transients at a time
+            for i in range(p.shape[0]):
+                _update(p[i], g[i], _index(m, i), _index(v, i), opt, clip,
+                        lr, bc1, bc2, decay)
+        else:
+            _update(p, g, m, v, opt, clip, lr, bc1, bc2, decay)
+
+    _walk(params, grads, state["m"], state["v"], leaf)
+    state["step"] = step
+    return params, state, {"grad_norm": gnorm, "lr": lr}

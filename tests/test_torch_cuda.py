@@ -1323,3 +1323,125 @@ def test_select_block_on_card_equals_host(policy, kwargs, cuda):
     assert drive_scheduler(sched, reqs) == want
     assert ops.launches["fitscore_select_block"] - n0 == len(reqs)
     assert sched.last_select_backend == "cuda_block"
+
+
+# ------------------------------------------------------------ training path
+
+TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _grad_rel(got, want):
+    return float((got.float() - want.float()).abs().max()) / \
+        float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,H,KV,hd,causal,window", [
+    (37, 4, 2, 64, True, 0), (70, 6, 2, 64, True, 16),
+    (33, 8, 2, 128, False, 0), (65, 5, 1, 16, True, 8)])
+def test_flash_gradients_through_the_kernel_equal_plain(
+        Sq, H, KV, hd, causal, window, dtype, cuda):
+    """On inputs that require grad the wrapper takes ``FlashAttention``:
+    the kernel forward (counted), an output with a grad_fn, and gradients
+    within 1e-4 (fp32) / 2e-2 (bf16) of max |plain grad| of autograd
+    through ``flash_attention_ref``."""
+    from repro_torch.kernels.attention import flash_attention_ref
+    g = torch.Generator(device=cuda)
+    g.manual_seed(Sq)
+    base = [torch.randn((2, Sq, n, hd), generator=g, device=cuda).to(dtype)
+            for n in (H, KV, KV)]
+    do = torch.randn((2, Sq, H, hd), generator=g, device=cuda).to(dtype)
+    ins = [t.clone().requires_grad_() for t in base]
+    n0 = ops.launches["flash_attention"]
+    out = ops.flash_attention(*ins, causal=causal, window=window)
+    assert ops.launches["flash_attention"] == n0 + 1
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, ins, do)
+    ref = [t.clone().requires_grad_() for t in base]
+    want = torch.autograd.grad(flash_attention_ref(
+        *ref, causal=causal, window=window), ref, do)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        assert _grad_rel(a, b) <= TRAIN_TOL[dtype]
+    with torch.no_grad():
+        assert ops.flash_attention(*ins, causal=causal,
+                                   window=window).grad_fn is None
+
+
+@pytest.mark.parametrize("post,bonus,carried,dtype", [
+    (False, True, False, torch.bfloat16), (False, True, True, torch.float32),
+    (True, False, False, torch.float32), (True, False, True, torch.float32)])
+def test_scan_gradients_through_the_kernel_equal_plain(post, bonus, carried,
+                                                       dtype, cuda):
+    """``ChunkedScan``: the kernel forward (counted under its variant),
+    gradients of y and of the final state equal to autograd through
+    ``rwkv6_chunked_ref`` within 1e-4 of max |plain grad|."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
+    B, S, H, K, V = 2, 77, 3, 16, 64
+    g = torch.Generator(device=cuda)
+    g.manual_seed(S)
+    r, k, v = (torch.randn((B, S, H, n), generator=g, device=cuda).to(dtype)
+               for n in (K, K, V))
+    lw = -torch.exp(torch.randn((B, S, H, K), generator=g, device=cuda))
+    u = 0.1 * torch.randn((H, K), generator=g, device=cuda) if bonus \
+        else None
+    s0 = torch.randn((B, H, K, V), generator=g, device=cuda) if carried \
+        else None
+    gy = torch.randn((B, S, H, V), generator=g, device=cuda)
+    gs = torch.randn((B, H, K, V), generator=g, device=cuda)
+    base = [r, k, v, lw, u, s0]
+
+    def leaves_of(ts):
+        return [t for t in ts if t is not None]
+
+    ins = [None if t is None else t.clone().requires_grad_() for t in base]
+    n0 = ops.launches["rwkv6_chunked_post" if post else "rwkv6_chunked"]
+    y, st = ops.rwkv6_chunked(*ins[:5], chunk=16, post_update=post,
+                              initial_state=ins[5])
+    assert ops.launches["rwkv6_chunked_post" if post else
+                        "rwkv6_chunked"] == n0 + 1
+    got = torch.autograd.grad((y, st), leaves_of(ins), (gy, gs))
+    ref = [None if t is None else t.clone().requires_grad_() for t in base]
+    want = torch.autograd.grad(rwkv6_chunked_ref(
+        *ref[:5], chunk=16, post_update=post, initial_state=ref[5]),
+        leaves_of(ref), (gy, gs))
+    for a, b in zip(got, want):
+        assert _grad_rel(a, b) <= 1e-4
+
+
+def test_train_step_on_the_card_equals_the_cpu(cuda):
+    """One ``make_train_step`` step of a tiny dense model (the JAX
+    package's own training test's configuration, fp32) on the card and on
+    the CPU from the same weights: the flash kernel launched twice a layer
+    (the forward and remat's recompute), loss and gradient norm within
+    1e-5, every parameter within 2e-5."""
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.tree import leaves, unflatten
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
+                      n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
+                      vocab=512, dtype="float32", attn_q_chunk=64)
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    batch = TokenStream(cfg.vocab, 32, 8).batch(0)
+    cpu_params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    outs = {}
+    for dev in ("cpu", cuda):
+        params = unflatten(cpu_params, [p.to(dev, copy=True)
+                                        for p in leaves(cpu_params)])
+        step = make_train_step(cfg, Runtime(), opt)
+        n0 = ops.launches["flash_attention"]
+        params, _, m = step(params, init_opt_state(params, opt),
+                            {k: torch.from_numpy(v).to(dev)
+                             for k, v in batch.items()})
+        if dev == cuda:
+            assert ops.launches["flash_attention"] - n0 == 2 * cfg.n_layers
+        outs[str(dev)] = (params, {k: float(v) for k, v in m.items()})
+    (pc, mc), (pg, mg) = outs["cpu"], outs[str(cuda)]
+    for key in ("loss", "grad_norm"):
+        assert mg[key] == pytest.approx(mc[key], rel=1e-5)
+    for a, b in zip(leaves(pg), leaves(pc)):
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= 2e-5
