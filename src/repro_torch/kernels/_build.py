@@ -7,8 +7,9 @@ pools of up to 256 slots) and ``replay_block.cu`` (larger pools), the
 legacy scorer,
 ``fitscore.cu``, the attention kernels,
 ``flash_attention_sm90.cu`` (tensor cores, bf16 at hd 64 / 128),
-``flash_attention.cu`` (CUDA cores, every other call) and
-``decode_attention.cu``, and the
+``flash_attention.cu`` (CUDA cores, every other call),
+``decode_attention.cu`` and ``latent_attention.cu`` (the absorbed MLA's
+attention over its latent rows), and the
 chunked linear attention of RWKV6 and of hymba's SSD heads,
 ``rwkv6_chunked.cu``) for Hopper
 (``sm_90a``), one compiler process per source, all started together, and
@@ -49,7 +50,7 @@ SOURCES = {"select.cu": ("--fmad=false",),
            "replay_block.cu": ("--fmad=false",),
            "fitscore.cu": ("--fmad=false",),
            "flash_attention_sm90.cu": (), "flash_attention.cu": (),
-           "decode_attention.cu": (),
+           "decode_attention.cu": (), "latent_attention.cu": (),
            "rwkv6_chunked.cu": ()}
 HEADERS = ("fitscore_common.cuh", "replay_common.cuh", "warp_select.cuh",
            "tma_common.cuh")
@@ -142,19 +143,24 @@ def library() -> ctypes.CDLL:
     lib.fitscore_legacy_launch.restype = i
     lib.fitscore_empty_launch.argtypes = [i, p]
     lib.fitscore_empty_launch.restype = i
-    lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 6 + [f] + \
+    lib.flash_attention_launch.argtypes = [p] * 8 + [i] * 6 + [f] * 2 + \
         [i] * 4 + [p]
     lib.flash_attention_launch.restype = i
-    lib.flash_attention_sm90_launch.argtypes = [p] * 4 + [i] * 6 + [f] + \
-        [i] * 3 + [p]
+    lib.flash_attention_sm90_launch.argtypes = [p] * 6 + [i] * 6 + \
+        [f] * 2 + [i] * 3 + [p]
     lib.flash_attention_sm90_launch.restype = i
     lib.flash_attention_sm90_smem_bytes.argtypes = [i]
     lib.flash_attention_sm90_smem_bytes.restype = i
-    lib.decode_attention_launch.argtypes = [p] * 8 + [i] * 5 + [f] + \
+    lib.decode_attention_launch.argtypes = [p] * 10 + [i] * 5 + [f] * 2 + \
         [i] * 5 + [p]
     lib.decode_attention_launch.restype = i
     lib.decode_attention_smem_bytes.argtypes = [i] * 4
     lib.decode_attention_smem_bytes.restype = i
+    lib.latent_attention_launch.argtypes = [p] * 8 + [i] * 6 + [f] + \
+        [i] * 4 + [p]
+    lib.latent_attention_launch.restype = i
+    lib.latent_attention_smem_bytes.argtypes = [i] * 2
+    lib.latent_attention_smem_bytes.restype = i
     lib.rwkv6_chunked_launch.argtypes = [p] * 8 + [i] * 9 + [p]
     lib.rwkv6_chunked_launch.restype = i
     for fn in (lib.rwkv6_chunked_window, lib.rwkv6_chunked_col_block):

@@ -12,8 +12,18 @@
 // and 0 without.  The other positions are masked: they get p = 0 and their
 // K and V rows are never read, so a row with no valid position gives
 // zeros, as the Pallas kernel does at kv_len = 0.  Scores (q . k) * scale,
-// the running max, denominator and accumulator are fp32 for both input
-// types; out = acc / max(l, 1e-30) in q's type.
+// with softcap > 0 then tanh(s * (1 / softcap)) * softcap (the reference's
+// gqa_attention), the running max, denominator and accumulator are fp32
+// for both input types; out = acc / max(l, 1e-30) in q's type.
+//
+// An int8 cache (the reference's kv_cache_int8: k and v int8, k_scale and
+// v_scale (B, S, KV) fp32, one a position and kv head) is read as int8:
+// the chunk loader dequantizes each element as the reference's dequant_kv
+// rounds it, (float) q * scale rounded to q's type, and stages it in
+// shared memory in that type (bf16 for the tensor-core route), so the
+// products run as they do on a bf16 / fp32 cache, one launch a call and no
+// dequantized copy of the cache.  Its loads are plain (8 bytes a thread),
+// not cp.async: a chunk's conversion waits for its bytes.
 //
 // What bounds it: the cache.  Each valid K and V row is read once and
 // carries 2 * G * hd multiply-adds, G = 5 on the serving path: about 2.5
@@ -58,6 +68,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace attn_decode {
 
@@ -190,6 +202,50 @@ __device__ __forceinline__ void load_rows(uint8_t* dst, const T* src,
   }
 }
 
+// The int8 cache's rows pos0 .. pos0 + cnt - 1 into shared memory rows of
+// `pitch` bytes in T: each element (float) q * scale (the row's scale, at
+// sc[pos * KV]) rounded to T, as dequant_kv rounds it; 8 elements a thread
+// where the rows and the pointer allow (vec8), else one.
+template <typename T>
+__device__ __forceinline__ void load_rows_q8(uint8_t* dst,
+                                             const int8_t* src,
+                                             const float* sc, int pos0,
+                                             int cnt, size_t row, int KV,
+                                             int hd, int pitch, int vec8) {
+  const int w = vec8 ? 8 : 1, nv = hd / w;
+  for (int x = threadIdx.x; x < cnt * nv; x += kThreads) {
+    const int r = x / nv, c = x - r * nv;
+    const size_t pos = static_cast<size_t>(pos0 + r);
+    const float s = sc[pos * KV];
+    T* d = reinterpret_cast<T*>(dst + r * pitch) + c * w;
+    if (vec8) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(src + pos * row +
+                                                        c * 8);
+      const int8_t* b8 = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        from_f32(static_cast<float>(b8[e]) * s, d + e);
+    } else {
+      from_f32(static_cast<float>(src[pos * row + c]) * s, d);
+    }
+  }
+}
+
+// A chunk of K or V rows into shared memory in T: cp.async of a T cache
+// (copy_bytes: 16, 8, 4 or 0), or the int8 cache's dequantizing loader
+// (copy_bytes: 8 for its vector loads, else 0).
+template <typename T, typename KT>
+__device__ __forceinline__ void load_kv(uint8_t* dst, const KT* src,
+                                        const float* sc, int pos0, int cnt,
+                                        size_t row, int KV, int hd,
+                                        int pitch, int copy_bytes) {
+  if constexpr (std::is_same<KT, int8_t>::value)
+    load_rows_q8<T>(dst, src, sc, pos0, cnt, row, KV, hd, pitch,
+                    copy_bytes == 8);
+  else
+    load_rows(dst, src, pos0, cnt, row, hd, pitch, copy_bytes);
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
@@ -268,13 +324,16 @@ __device__ __forceinline__ void finish(Acc acc_at, const float* Ms,
 // (kThreads, 1): the ring of a chunk of 32 or 64 rows of up to 1040 bytes
 // holds one CTA an SM at the large head dims, so ptxas may use registers
 // past the 128 that would keep four CTAs resident, rather than spill
-template <typename T, int CH>
+// KT: the cache's type, T or int8_t (an int8 cache with k_scale, v_scale)
+template <typename T, typename KT, int CH>
 __global__ void __launch_bounds__(kThreads, 1)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ kv_len,
-              T* __restrict__ out, float* __restrict__ part_acc,
-              float* __restrict__ part_ml, int* __restrict__ counter, int S,
-              int H, int KV, int hd, float scale, int window, int split_len,
+decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
+              const KT* __restrict__ v, const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale,
+              const int* __restrict__ kv_len, T* __restrict__ out,
+              float* __restrict__ part_acc, float* __restrict__ part_ml,
+              int* __restrict__ counter, int S, int H, int KV, int hd,
+              float scale, float softcap, int window, int split_len,
               int copy_bytes) {
   constexpr int kVec = Vec<T>::kN;
   constexpr int kGS = kThreads / CH;             // row sets of the scoring
@@ -299,13 +358,18 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   split_range(kv_len[b], S, window, split, split_len, s0, s1);
   const size_t row = static_cast<size_t>(KV) * hd;   // elements a position
   const T* qb = q + (static_cast<size_t>(b) * H + kvh * G) * hd;
-  const T* kb = k + static_cast<size_t>(b) * S * row + kvh * hd;
-  const T* vb = v + static_cast<size_t>(b) * S * row + kvh * hd;
+  const KT* kb = k + static_cast<size_t>(b) * S * row + kvh * hd;
+  const KT* vb = v + static_cast<size_t>(b) * S * row + kvh * hd;
+  const size_t sbase = static_cast<size_t>(b) * S * KV + kvh;
+  const float* ksb = k_scale ? k_scale + sbase : nullptr;
+  const float* vsb = v_scale ? v_scale + sbase : nullptr;
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
 
   if (s0 < s1) {   // the first chunk into buffer 0
-    load_rows(smem, kb, s0, min(CH, s1 - s0), row, hd, pitch, copy_bytes);
-    load_rows(smem + 2 * CH * pitch, vb, s0, min(CH, s1 - s0), row, hd,
-              pitch, copy_bytes);
+    load_kv<T>(smem, kb, ksb, s0, min(CH, s1 - s0), row, KV, hd, pitch,
+               copy_bytes);
+    load_kv<T>(smem + 2 * CH * pitch, vb, vsb, s0, min(CH, s1 - s0), row,
+               KV, hd, pitch, copy_bytes);
   }
   cp_async_commit();
   for (int x = tid; x < G * hdp; x += kThreads) {
@@ -340,10 +404,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();   // chunk c0 visible; the other buffer's readers done
     if (c0 + CH < s1) {
       const int nxt = min(CH, s1 - c0 - CH);
-      load_rows(smem + (buf ^ 1) * CH * pitch, kb, c0 + CH, nxt, row, hd,
-                pitch, copy_bytes);
-      load_rows(smem + (2 + (buf ^ 1)) * CH * pitch, vb, c0 + CH, nxt, row,
-                hd, pitch, copy_bytes);
+      load_kv<T>(smem + (buf ^ 1) * CH * pitch, kb, ksb, c0 + CH, nxt, row,
+                 KV, hd, pitch, copy_bytes);
+      load_kv<T>(smem + (2 + (buf ^ 1)) * CH * pitch, vb, vsb, c0 + CH, nxt,
+                 row, KV, hd, pitch, copy_bytes);
       cp_async_commit();
     }
     const uint8_t* Kc = smem + buf * CH * pitch;
@@ -381,7 +445,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int t = 0; t < kGT; ++t) {
           const int g = gp + gs + t * kGS;
-          if (g < G) Ss[g * CH + js] = dot[t] * scale;
+          float sc = dot[t] * scale;
+          if (softcap > 0.f) sc = tanhf(sc * inv_cap) * softcap;
+          if (g < G) Ss[g * CH + js] = sc;
         }
       }
     }
@@ -568,17 +634,20 @@ struct RowSoftmax {
 };
 
 // NK bounds hd / 16 (4 or 8): it sizes the q fragments and accumulators.
-// HI: G > 8, rows 8-15 of the tile live.
-template <int NK, bool HI>
+// HI: G > 8, rows 8-15 of the tile live.  KT: the cache's type, bf16 or
+// int8_t (an int8 cache with k_scale, v_scale, staged as bf16).
+template <int NK, bool HI, typename KT>
 __global__ void __launch_bounds__(kThreads)
 decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
+                  const KT* __restrict__ k, const KT* __restrict__ v,
+                  const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale,
                   const int* __restrict__ kv_len,
                   __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
                   float* __restrict__ part_ml, int* __restrict__ counter,
-                  int S, int H, int KV, int hd, float scale, int window,
-                  int split_len, int copy_bytes) {
+                  int S, int H, int KV, int hd, float scale, float softcap,
+                  int window, int split_len, int copy_bytes) {
+  using bf = __nv_bfloat16;
   constexpr int CH = kMmaChunk;
   constexpr int kRows = HI ? 2 : 1;   // query rows a thread: g (and g + 8)
   extern __shared__ __align__(16) uint8_t smem[];
@@ -597,8 +666,12 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   split_range(kv_len[b], S, window, split, split_len, s0, s1);
   const int n_chunks = s1 > s0 ? (s1 - s0 + CH - 1) / CH : 0;
   const size_t row = static_cast<size_t>(KV) * hd;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * S * row + kvh * hd;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * S * row + kvh * hd;
+  const KT* kb = k + static_cast<size_t>(b) * S * row + kvh * hd;
+  const KT* vb = v + static_cast<size_t>(b) * S * row + kvh * hd;
+  const size_t sbase = static_cast<size_t>(b) * S * KV + kvh;
+  const float* ksb = k_scale ? k_scale + sbase : nullptr;
+  const float* vsb = v_scale ? v_scale + sbase : nullptr;
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
   auto stage_k = [&](int st) { return smem + (2 * st) * CH * pitch; };
   auto stage_v = [&](int st) { return smem + (2 * st + 1) * CH * pitch; };
 
@@ -610,8 +683,10 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int c = 0; c < kMmaStages - 1; ++c) {
     if (c < n_chunks) {
       const int pos = s0 + c * CH, cnt = min(CH, s1 - pos);
-      load_rows(stage_k(c), kb, pos, cnt, row, hd, pitch, copy_bytes);
-      load_rows(stage_v(c), vb, pos, cnt, row, hd, pitch, copy_bytes);
+      load_kv<bf>(stage_k(c), kb, ksb, pos, cnt, row, KV, hd, pitch,
+                  copy_bytes);
+      load_kv<bf>(stage_v(c), vb, vsb, pos, cnt, row, KV, hd, pitch,
+                  copy_bytes);
     }
     cp_async_commit();
   }
@@ -652,10 +727,10 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const int c = it + kMmaStages - 1;
       if (c < n_chunks) {
         const int pos = s0 + c * CH, cnt = min(CH, s1 - pos);
-        load_rows(stage_k(c % kMmaStages), kb, pos, cnt, row, hd, pitch,
-                  copy_bytes);
-        load_rows(stage_v(c % kMmaStages), vb, pos, cnt, row, hd, pitch,
-                  copy_bytes);
+        load_kv<bf>(stage_k(c % kMmaStages), kb, ksb, pos, cnt, row, KV, hd,
+                    pitch, copy_bytes);
+        load_kv<bf>(stage_v(c % kMmaStages), vb, vsb, pos, cnt, row, KV, hd,
+                    pitch, copy_bytes);
       }
       cp_async_commit();
     }
@@ -690,7 +765,9 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const bool ok = p0 + 8 * nt + 2 * t + e < cnt;
-          p[r][2 * nt + e] = ok ? sc[nt][2 * r + e] * scale : -INFINITY;
+          float x = sc[nt][2 * r + e] * scale;
+          if (softcap > 0.f) x = tanhf(x * inv_cap) * softcap;
+          p[r][2 * nt + e] = ok ? x : -INFINITY;
         }
       alpha[r] = sm[r].update(p[r]);
     }
@@ -783,6 +860,14 @@ inline int copy_width(const void* k, const void* v, int row_bytes) {
   return 0;
 }
 
+// the int8 loader's width: 8 where the rows and both pointers allow it
+inline int q8_width(const void* k, const void* v, int hd) {
+  return hd % 8 == 0 && reinterpret_cast<uintptr_t>(k) % 8 == 0 &&
+                 reinterpret_cast<uintptr_t>(v) % 8 == 0
+             ? 8
+             : 0;
+}
+
 template <typename K>
 cudaError_t set_smem(K kern, int smem) {
   return cudaFuncSetAttribute(
@@ -798,46 +883,57 @@ int smem_for(int bf16, int G, int hd, int n_split) {
                            : smem_bytes(G, hd, bf16 ? 2 : 4, n_split);
 }
 
-template <typename T>
-cudaError_t launch_core(const void* q, const void* k, const void* v,
-                        const void* kv_len, void* out, float* part_acc,
-                        float* part_ml, int* counter, int B, int S, int H,
-                        int KV, int hd, float scale, int window,
-                        int n_split, int split_len, cudaStream_t stream) {
-  const int smem = smem_bytes(H / KV, hd, sizeof(T), n_split);
-  const int cb = copy_width(k, v, hd * static_cast<int>(sizeof(T)));
-  auto kern = geometry(hd, sizeof(T)).chunk == 64 ? decode_kernel<T, 64>
-                                                  : decode_kernel<T, 32>;
+struct Args {
+  const void *q, *k, *v;
+  const float *k_scale, *v_scale;
+  const int* kv_len;
+  void* out;
+  float* part_acc;
+  float* part_ml;
+  int* counter;
+  int B, S, H, KV, hd;
+  float scale, softcap;
+  int window, n_split, split_len;
+};
+
+template <typename T, typename KT>
+cudaError_t launch_core(const Args& a, cudaStream_t stream) {
+  const int smem = smem_bytes(a.H / a.KV, a.hd, sizeof(T), a.n_split);
+  const int cb = std::is_same<KT, int8_t>::value
+                     ? q8_width(a.k, a.v, a.hd)
+                     : copy_width(a.k, a.v, a.hd * static_cast<int>(sizeof(T)));
+  auto kern = geometry(a.hd, sizeof(T)).chunk == 64
+                  ? decode_kernel<T, KT, 64>
+                  : decode_kernel<T, KT, 32>;
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(n_split, KV, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(kv_len),
-      static_cast<T*>(out), part_acc, part_ml, counter, S, H, KV, hd, scale,
-      window, split_len, cb);
+  kern<<<dim3(a.n_split, a.KV, a.B), kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KT*>(a.k),
+      static_cast<const KT*>(a.v), a.k_scale, a.v_scale, a.kv_len,
+      static_cast<T*>(a.out), a.part_acc, a.part_ml, a.counter, a.S, a.H,
+      a.KV, a.hd, a.scale, a.softcap, a.window, a.split_len, cb);
   return cudaGetLastError();
 }
 
-cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       const void* kv_len, void* out, float* part_acc,
-                       float* part_ml, int* counter, int B, int S, int H,
-                       int KV, int hd, float scale, int window,
-                       int n_split, int split_len, cudaStream_t stream) {
-  const int smem = mma_smem_bytes(H / KV, hd, n_split);
-  const int cb = copy_width(k, v, hd * 2);
-  const bool hi = H / KV > 8;
-  auto kern = hd <= 64 ? (hi ? decode_mma_kernel<4, true>
-                             : decode_mma_kernel<4, false>)
-                       : (hi ? decode_mma_kernel<8, true>
-                             : decode_mma_kernel<8, false>);
+template <typename KT>
+cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
+  const int smem = mma_smem_bytes(a.H / a.KV, a.hd, a.n_split);
+  const int cb = std::is_same<KT, int8_t>::value
+                     ? q8_width(a.k, a.v, a.hd)
+                     : copy_width(a.k, a.v, a.hd * 2);
+  const bool hi = a.H / a.KV > 8;
+  auto kern = a.hd <= 64 ? (hi ? decode_mma_kernel<4, true, KT>
+                               : decode_mma_kernel<4, false, KT>)
+                         : (hi ? decode_mma_kernel<8, true, KT>
+                               : decode_mma_kernel<8, false, KT>);
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
   using bf = __nv_bfloat16;
-  kern<<<dim3(n_split, KV, B), kThreads, smem, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), static_cast<const int*>(kv_len),
-      static_cast<bf*>(out), part_acc, part_ml, counter, S, H, KV, hd, scale,
-      window, split_len, cb);
+  kern<<<dim3(a.n_split, a.KV, a.B), kThreads, smem, stream>>>(
+      static_cast<const bf*>(a.q), static_cast<const KT*>(a.k),
+      static_cast<const KT*>(a.v), a.k_scale, a.v_scale, a.kv_len,
+      static_cast<bf*>(a.out), a.part_acc, a.part_ml, a.counter, a.S, a.H,
+      a.KV, a.hd, a.scale, a.softcap, a.window, a.split_len, cb);
   return cudaGetLastError();
 }
 
@@ -846,44 +942,49 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 extern "C" {
 
 // Launches decode attention on `stream` of card `device`; `bf16` selects
-// the input type (0: fp32); `window` > 0 reads only the last `window`
-// positions before kv_len (0: all).  The caller guarantees 1 <= hd <= 256,
-// H % KV == 0, 1 <= H / KV <= 16, contiguous tensors, n_split * split_len
-// >= S and, when n_split > 1, scratch of B * KV * n_split * G * hd floats
-// (part_acc) and of B * KV * n_split * G * 2 (part_ml) and B * KV zeroed
-// int32 counters.  One kernel launch.  Returns the cudaError_t of the
-// launch (0 on success).
+// q's type (0: fp32); k_scale and v_scale non-null make k and v an int8
+// cache; `window` > 0 reads only the last `window` positions before kv_len
+// (0: all); softcap > 0 caps the scores (0: none).  The caller guarantees
+// 1 <= hd <= 256, H % KV == 0, 1 <= H / KV <= 16, contiguous tensors,
+// n_split * split_len >= S and, when n_split > 1, scratch of B * KV *
+// n_split * G * hd floats (part_acc) and of B * KV * n_split * G * 2
+// (part_ml) and B * KV zeroed int32 counters.  One kernel launch.  Returns
+// the cudaError_t of the launch (0 on success).
 int decode_attention_launch(const void* q, const void* k, const void* v,
+                            const void* k_scale, const void* v_scale,
                             const void* kv_len, void* out, void* part_acc,
                             void* part_ml, void* counter, int B, int S, int H,
-                            int KV, int hd, float scale, int window,
-                            int n_split, int split_len, int bf16, int device,
-                            void* stream) {
+                            int KV, int hd, float scale, float softcap,
+                            int window, int n_split, int split_len, int bf16,
+                            int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (hd < 1 || hd > 256 || KV < 1 || H % KV ||
       H / KV > attn_decode::kGMax || window < 0 || n_split < 1 ||
-      split_len < 1 ||
+      split_len < 1 || softcap < 0.f ||
+      (k_scale == nullptr) != (v_scale == nullptr) ||
       static_cast<long long>(n_split) * split_len < S ||
       (n_split > 1 && (!part_acc || !part_ml || !counter)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const attn_decode::Args a{
+      q, k, v, static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(kv_len),
+      out, static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+      static_cast<int*>(counter), B, S, H, KV, hd, scale, softcap, window,
+      n_split, split_len};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pa = static_cast<float*>(part_acc);
-  float* pm = static_cast<float*>(part_ml);
-  int* cnt = static_cast<int*>(counter);
+  const bool int8 = k_scale != nullptr;
+  using bf = __nv_bfloat16;
   cudaError_t err;
   if (attn_decode::use_mma(bf16, hd))
-    err = attn_decode::launch_mma(q, k, v, kv_len, out, pa, pm, cnt, B, S, H,
-                                  KV, hd, scale, window, n_split, split_len,
-                                  s);
+    err = int8 ? attn_decode::launch_mma<int8_t>(a, s)
+               : attn_decode::launch_mma<bf>(a, s);
   else if (bf16)
-    err = attn_decode::launch_core<__nv_bfloat16>(
-        q, k, v, kv_len, out, pa, pm, cnt, B, S, H, KV, hd, scale, window,
-        n_split, split_len, s);
+    err = int8 ? attn_decode::launch_core<bf, int8_t>(a, s)
+               : attn_decode::launch_core<bf, bf>(a, s);
   else
-    err = attn_decode::launch_core<float>(q, k, v, kv_len, out, pa, pm, cnt,
-                                          B, S, H, KV, hd, scale, window,
-                                          n_split, split_len, s);
+    err = int8 ? attn_decode::launch_core<float, int8_t>(a, s)
+               : attn_decode::launch_core<float, float>(a, s);
   return static_cast<int>(err);
 }
 

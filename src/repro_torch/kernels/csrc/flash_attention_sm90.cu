@@ -6,11 +6,15 @@
 // (kernels/ops.py::flash_attention) routes fp32 and other head dims to the
 // CUDA-core kernel of flash_attention.cu.  Semantics are that kernel's: q
 // (B, Sq, H, hd), k and v (B, Skv, KV, hd), out (B, Sq, H, hd), the JAX
-// package's layout; query head h reads kv head h / G; scores (q . k) *
-// scale; a score is masked where kpos >= Skv, where causal and kpos > qpos
-// (top-left aligned) and where window > 0 and qpos - kpos >= window; a
-// masked position gets p = 0; out = acc / max(l, 1e-30), so a row with no
-// valid key gives zeros.
+// package's layout; query head h reads kv head h / G; query i of row b at
+// qpos = q_offset[b] + i (0 + i without q_offset), key j at j; scores (q .
+// k) * scale, then with softcap > 0 tanh(s * (1 / softcap)) * softcap; a
+// score is masked where kpos >= min(kv_len[b], Skv) (Skv without kv_len),
+// where causal and kpos > qpos and where window > 0 and qpos - kpos >=
+// window; a masked position gets p = 0; out = acc / max(l, 1e-30), so a
+// row with no valid key gives zeros.  The V rows of a tile past the key
+// bound (a cache's rows, which may hold anything) are zeroed in shared
+// memory before the P . V product reads them.
 //
 // What bounds it: operations above a few hundred rows (2 * 2 * valid pairs
 // * H * hd at the 989 TFLOP/s bf16 tensor-core rate), bytes below.  The
@@ -35,6 +39,9 @@
 //   O += P . V (wgmma m64nHDk16, V from shared memory MN-major, i.e. with
 //   the transpose flag).  This rounding is the one numeric difference from
 //   the plain version, which keeps p in fp32: about 2^-9 of each p.
+// - At an offset (a chunked prefill) the tile range, the skipping and the
+//   masks move with the row's offset and key bound; the tensor maps still
+//   span the whole cache (Skv rows).
 // - out = acc / max(l, 1e-30) in fp32, rounded to bf16 and stored from
 //   registers; rows >= Sq are not written.
 //
@@ -114,6 +121,13 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// zero 16 bytes of shared memory
+__device__ __forceinline__ void st_zero16(uint32_t addr) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};" ::"r"(addr),
+               "r"(0)
+               : "memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -220,8 +234,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
+                  const int* __restrict__ q_offset,
+                  const int* __restrict__ kv_len,
                   __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
-                  int KV, float scale_log2, int causal, int window) {
+                  int KV, float scale, float softcap, int causal,
+                  int window) {
   using L = Layout<HD>;
   constexpr int kChunks = HD / kBox;
   extern __shared__ uint8_t smem_raw[];
@@ -236,10 +253,14 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tile = gridDim.z - 1 - blockIdx.z;       // longest tiles first
   const int q0 = tile * kBM;
   const int kvh = h / (H / KV);
-  // the keys any row of this tile can see, in whole tiles from kt0
-  const int q_last = min(q0 + kBM, Sq) - 1;
-  const int k_end = causal ? min(Skv, q_last + 1) : Skv;
-  const int kt0 = window > 0 ? (max(0, q0 - window + 1) / kBN) * kBN : 0;
+  const int off = q_offset ? q_offset[b] : 0;
+  const int klen = kv_len ? max(0, min(kv_len[b], Skv)) : Skv;
+  // the keys any row of this tile can see (positions), in whole tiles
+  // from kt0
+  const int q_last = off + min(q0 + kBM, Sq) - 1;
+  const int k_end = causal ? min(klen, q_last + 1) : klen;
+  const int kt0 =
+      window > 0 ? (max(0, off + q0 - window + 1) / kBN) * kBN : 0;
   const int n_tiles = k_end > kt0 ? (k_end - kt0 + kBN - 1) / kBN : 0;
 
   if (threadIdx.x == 0) {
@@ -276,13 +297,20 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   // ---- consumers: warpgroup wg owns rows q0 + 64 wg .. + 63; this thread
-  // holds rows r0 and r0 + 8 of them, columns 8 n + 2 (lane % 4) + {0, 1}
+  // holds rows r0 and r1 = r0 + 8 of them (at positions qp0, qp1),
+  // columns 8 n + 2 (lane % 4) + {0, 1}
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
-  const int wg_first = q0 + 64 * wg, wg_last = wg_first + 63;
-  const int r0 = wg_first + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+  const int wg_first = off + q0 + 64 * wg, wg_last = wg_first + 63;
+  const int r0 = q0 + 64 * wg + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
   const int r1 = r0 + 8;
+  const int qp0 = off + r0, qp1 = off + r1;
   const int cq = 2 * (lane % 4);
+  // the exponent's factor: the scale folded in, or with a softcap log2(e)
+  // on the capped scores
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float scale_log2 = softcap > 0.f ? kLog2e : scale * kLog2e;
+  const float cap_scale = softcap > 0.f ? scale * (1.f / softcap) : 0.f;
 
   float o[HD / 2];
 #pragma unroll
@@ -318,16 +346,21 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_commit();
     wgmma_wait0();
     fence_regs(s);
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i)
+        s[i] = tanhf(s[i] * cap_scale) * softcap;
+    }
 
-    // masks, only where the tile straddles the ragged end, the diagonal or
+    // masks, only where the tile straddles the key bound, the diagonal or
     // the window's edge for some row of this warpgroup
-    if (k0 + kBN > Skv || (causal && k0 + kBN - 1 > wg_first) ||
+    if (k0 + kBN > klen || (causal && k0 + kBN - 1 > wg_first) ||
         (window > 0 && wg_last - k0 >= window)) {
 #pragma unroll
       for (int i = 0; i < kBN / 2; ++i) {
         const int kpos = k0 + 8 * (i / 4) + cq + (i & 1);
-        const int qpos = (i & 2) ? r1 : r0;
-        const bool ok = kpos < Skv && (!causal || kpos <= qpos) &&
+        const int qpos = (i & 2) ? qp1 : qp0;
+        const bool ok = kpos < klen && (!causal || kpos <= qpos) &&
                         (window <= 0 || qpos - kpos < window);
         if (!ok) s[i] = -INFINITY;
       }
@@ -380,6 +413,20 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     // O += P V over kBN / 16 steps of 16 keys
     mbar_wait(bar_v(st), par);
+    if (k0 + kBN > klen && klen < Skv) {
+      // V rows past the key bound (inside the cache) may hold anything:
+      // zero them (whole 128-byte rows of each box, whatever the swizzle),
+      // so that p = 0 meets 0.  Both warpgroups write the same zeros; the
+      // stage is refilled only after both have released it.
+      const int first = max(0, klen - k0), units = kChunks * 8;
+      const uint32_t sv = sV + st * L::kKVTile;
+      for (int x = threadIdx.x % 128; x < (kBN - first) * units; x += 128) {
+        const int row = first + x / units, c = (x % units) / 8, u = x % 8;
+        st_zero16(sv + c * L::kKVBox + row * 128 + u * 16);
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    }
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
@@ -451,7 +498,8 @@ constexpr int kMaxCards = 64;
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Skv, int H, int KV, float scale,
+                   const int* q_offset, const int* kv_len, int B, int Sq,
+                   int Skv, int H, int KV, float scale, float softcap,
                    int causal, int window, int device, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, B, Sq, H, HD, kBM) ||
@@ -470,8 +518,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   }
   const dim3 grid(H, B, (Sq + kBM - 1) / kBM);
   kern<<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), Sq, Skv, H, KV,
-      scale * 1.4426950408889634f, causal, window);
+      mq, mk, mv, q_offset, kv_len, static_cast<__nv_bfloat16*>(out), Sq,
+      Skv, H, KV, scale, softcap, causal, window);
   return cudaGetLastError();
 }
 
@@ -479,29 +527,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
-// Launches the tensor-core flash attention on `stream` of card `device`.
-// The caller guarantees bf16 tensors, hd in {64, 128}, H % KV == 0,
-// Sq, Skv >= 1, contiguous tensors with 16-byte aligned pointers.  Returns
+// Launches the tensor-core flash attention on `stream` of card `device`;
+// q_offset and kv_len are (B,) int32 or null (0 and Skv).  The caller
+// guarantees bf16 tensors, hd in {64, 128}, H % KV == 0, Sq, Skv >= 1,
+// contiguous tensors with 16-byte aligned pointers.  Returns
 // the cudaError_t of the launch (0 on success; cudaErrorInvalidValue if a
 // tensor map cannot be encoded, cudaErrorMisalignedAddress for a pointer
 // that is not 16-byte aligned).
 int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
-                                void* out, int B, int Sq, int Skv, int H,
-                                int KV, int hd, float scale, int causal,
-                                int window, int device, void* stream) {
+                                void* out, const void* q_offset,
+                                const void* kv_len, int B, int Sq, int Skv,
+                                int H, int KV, int hd, float scale,
+                                float softcap, int causal, int window,
+                                int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  if ((hd != 64 && hd != 128) || KV < 1 || H % KV || Sq < 1 || Skv < 1)
+  if ((hd != 64 && hd != 128) || KV < 1 || H % KV || Sq < 1 || Skv < 1 ||
+      softcap < 0.f)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int* off = static_cast<const int*>(q_offset);
+  const int* len = static_cast<const int*>(kv_len);
   for (const void* p : {q, k, v, static_cast<const void*>(out)})
     if (reinterpret_cast<uintptr_t>(p) % 16)
       return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      hd == 64 ? attn90::launch<64>(q, k, v, out, B, Sq, Skv, H, KV, scale,
-                                    causal, window, device, s)
-               : attn90::launch<128>(q, k, v, out, B, Sq, Skv, H, KV, scale,
-                                     causal, window, device, s);
+      hd == 64 ? attn90::launch<64>(q, k, v, out, off, len, B, Sq, Skv, H,
+                                    KV, scale, softcap, causal, window,
+                                    device, s)
+               : attn90::launch<128>(q, k, v, out, off, len, B, Sq, Skv, H,
+                                     KV, scale, softcap, causal, window,
+                                     device, s);
   return static_cast<int>(err);
 }
 

@@ -11,9 +11,11 @@ single-pool scorer (``fitscore``, ``csrc/fitscore.cu``), the attention
 kernels of the model stack (``flash_attention``:
 ``csrc/flash_attention_sm90.cu`` on the tensor cores for bf16 at hd 64 or
 128, ``csrc/flash_attention.cu`` otherwise, see ``flash_route``;
-``decode_attention``, ``csrc/decode_attention.cu``) and the chunked
-linear attention of RWKV6 and of hymba's SSD heads (``rwkv6_chunked``,
-``csrc/rwkv6_chunked.cu``).
+``decode_attention``, ``csrc/decode_attention.cu``; both with query
+offsets or key bounds, the softcap and an int8 cache as the reference's
+XLA path takes them; ``latent_attention``, the absorbed MLA's,
+``csrc/latent_attention.cu``) and the chunked linear attention of RWKV6
+and of hymba's SSD heads (``rwkv6_chunked``, ``csrc/rwkv6_chunked.cu``).
 
 A wrapper takes its kernel's plain PyTorch version only because the tensors
 it was given lie on the CPU.  For CUDA tensors it checks them, launches the
@@ -27,7 +29,10 @@ also under its route (``fitscore_replay_block_warp`` or
 ``fitscore_replay_block_global``) and, launched for the serving front end
 or the scheduler, under ``fitscore_replay_dispatch_T{T}`` or
 ``fitscore_select_block``; flash attention's calls through its
-tensor-core kernel also under ``flash_attention_sm90``; the chunked
+tensor-core kernel also under ``flash_attention_sm90``, the attention
+kernels' calls at an offset, with a softcap or over an int8 cache also
+under ``_offset``, ``_softcap`` or ``_int8`` after the kernel's name; the
+chunked
 kernel's post-update (SSD) launches also under ``rwkv6_chunked_post`` and
 its launches from a carried state under ``rwkv6_chunked_s0``.
 """
@@ -40,7 +45,8 @@ import torch
 
 from ..resilience import faults
 from . import fitscore as fk
-from .attention import decode_attention_ref, flash_attention_ref
+from .attention import (decode_attention_ref, flash_attention_ref,
+                        latent_attention_ref)
 from .fitscore import (DPAD, KCAT, REPLAY_EV_F, REPLAY_EV_I, policy_code,
                        replay_block_ref, replay_carry_names, select_ref)
 from .legacy import NORMS, fitscore_ref
@@ -516,9 +522,11 @@ def fitscore(remaining, alive, item, open_seq=None, *, norm: str = "linf"):
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check_attention(kernel, q, k, v, q_dims):
+def _check_attention(kernel, q, k, v, q_dims, k_scale=None, v_scale=None):
     """The shared checks of the two attention wrappers: one card, one
-    dtype (fp32 or bf16), contiguous, GQA head counts, hd <= 256."""
+    dtype (fp32 or bf16), contiguous, GQA head counts, hd <= 256.  With
+    ``k_scale`` / ``v_scale``, k and v are an int8 cache with fp32 scales
+    of shape (B, S, KV, 1)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{kernel}: no kernel for {dev}")
@@ -528,12 +536,21 @@ def _check_attention(kernel, q, k, v, q_dims):
     if q.dim() != q_dims or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"{kernel}: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != dev or t.dtype != q.dtype or not t.is_contiguous():
+    int8 = k_scale is not None
+    if int8 != (v_scale is not None):
+        raise ValueError(f"{kernel}: an int8 cache takes k_scale and "
+                         "v_scale")
+    kv_dtype = torch.int8 if int8 else q.dtype
+    for name, t, dt in (("q", q, q.dtype), ("k", k, kv_dtype),
+                        ("v", v, kv_dtype)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(
-                f"{kernel}: {name} must be a contiguous {q.dtype} tensor on "
+                f"{kernel}: {name} must be a contiguous {dt} tensor on "
                 f"{dev}; got {t.dtype} on {t.device} (contiguous="
                 f"{t.is_contiguous()})")
+    if int8:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            _check(name, t, (*k.shape[:3], 1), torch.float32, dev, kernel)
     H, hd = q.shape[-2], q.shape[-1]
     KV = k.shape[2]
     if k.shape[0] != q.shape[0] or k.shape[3] != hd or not 1 <= hd <= 256 \
@@ -543,21 +560,43 @@ def _check_attention(kernel, q, k, v, q_dims):
                          "dim, hd <= 256 and H a multiple of KV")
 
 
+def _rows_i32(name, kernel, x, B: int, dev):
+    """A per-row int argument (an offset or a key bound) as the kernel reads
+    it: None stays None (a null pointer: the kernel's default), an int or a
+    0-d / (B,) tensor becomes a (B,) int32 tensor on ``dev``, filled or
+    converted on the card (no sync)."""
+    if x is None:
+        return None
+    if not isinstance(x, torch.Tensor):
+        return torch.full((B,), int(x), dtype=torch.int32, device=dev)
+    if x.dim() > 1 or (x.dim() == 1 and x.shape[0] != B):
+        raise ValueError(f"{kernel}: {name} must be an int or a ({B},) "
+                         f"tensor, got shape {tuple(x.shape)}")
+    return x.to(device=dev, dtype=torch.int32).expand(B).contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 # head dims the tensor-core flash kernel takes (bf16 only)
 FLASH_SM90_HEAD_DIMS = (64, 128)
 
 
-def flash_route(dtype, hd: int) -> str:
+def flash_route(dtype, hd: int, int8: bool = False) -> str:
     """The kernel that serves a ``flash_attention`` call on the card,
-    decided before the launch from the call's dtype and head dim alone:
-    "sm90", the tensor-core kernel (``csrc/flash_attention_sm90.cu``), for
-    bf16 at hd 64 or 128; "simt", the CUDA-core kernel
-    (``csrc/flash_attention.cu``), for every other call (fp32, which TF32
-    products would hold to no better than ~1e-3, and the other head dims).
-    The tensor-core kernel reads q, k, v through TMA, which needs 16-byte
-    aligned tensors: the wrapper raises for a call on that route whose
-    tensors are not."""
-    return "sm90" if dtype == torch.bfloat16 and \
+    decided before the launch from the call's dtype, head dim and cache
+    type alone: "sm90", the tensor-core kernel
+    (``csrc/flash_attention_sm90.cu``), for bf16 at hd 64 or 128 over a
+    bf16 k / v; "simt", the CUDA-core kernel (``csrc/flash_attention.cu``),
+    for every other call (fp32, which TF32 products would hold to no better
+    than ~1e-3, the other head dims, and an int8 cache, which the
+    tensor-core kernel's TMA loads of bf16 tiles do not read: its calls
+    also count under ``flash_attention_int8``).  Offsets, key bounds and
+    the softcap take either route.  The tensor-core kernel reads q, k, v
+    through TMA, which needs 16-byte aligned tensors: the wrapper raises
+    for a call on that route whose tensors are not."""
+    return "sm90" if dtype == torch.bfloat16 and not int8 and \
         hd in FLASH_SM90_HEAD_DIMS else "simt"
 
 
@@ -569,29 +608,54 @@ def _needs_grad(*ts) -> bool:
         t is not None and t.requires_grad for t in ts)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def _forward_only(kernel, **cache_args):
+    """Offsets, key bounds and int8 caches come from a cache, which
+    training never has: they take no gradient."""
+    given = [k for k, x in cache_args.items() if x is not None]
+    if given:
+        raise ValueError(f"{kernel}: {', '.join(given)} take no gradient "
+                         "(a cache's calls are forward only)")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset=None, kv_len=None, softcap: float = 0.0,
+                    k_scale=None, v_scale=None):
     """Blockwise GQA attention forward: q (B, Sq, H, hd), k/v (B, Skv, KV,
-    hd) -> (B, Sq, H, hd) in q's type (see ``flash_attention_ref``).  On
-    CUDA tensors (fp32 or bf16, contiguous, hd <= 256) one of two CUDA
-    kernels, as ``flash_route`` picks; every call counts under
+    hd) -> (B, Sq, H, hd) in q's type (see ``flash_attention_ref``): query
+    ``i`` of row ``b`` at ``q_offset[b] + i`` (an int or (B,); None: 0),
+    keys below ``kv_len[b]`` (None: all ``Skv``), ``softcap`` (0: none),
+    and with ``k_scale`` / ``v_scale`` k and v an int8 cache.  On CUDA
+    tensors (fp32 or bf16, contiguous, hd <= 256) one of two CUDA kernels,
+    as ``flash_route`` picks; every call counts under
     ``launches["flash_attention"]``, the tensor-core kernel's also under
-    ``launches["flash_attention_sm90"]``.  With grad mode on and an input
-    that requires grad, the launch runs inside
-    ``autograd.FlashAttention``, whose backward is torch ops.  The plain
-    version for CPU tensors."""
+    ``launches["flash_attention_sm90"]``, a call with an offset or a key
+    bound also under ``flash_attention_offset``, with a softcap under
+    ``flash_attention_softcap``, over an int8 cache under
+    ``flash_attention_int8``.  With grad mode on and an input that requires
+    grad, the launch runs inside ``autograd.FlashAttention``, whose
+    backward is torch ops (no offsets, key bounds or int8 there).  The
+    plain version for CPU tensors."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len,
+              softcap=softcap, k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, **kw)
     if _needs_grad(q, k, v):
+        _forward_only("flash_attention", q_offset=q_offset, kv_len=kv_len,
+                      k_scale=k_scale)
         from .autograd import FlashAttention
-        return FlashAttention.apply(q, k, v, causal, window)
-    return flash_launch(q, k, v, causal=causal, window=window)
+        return FlashAttention.apply(q, k, v, causal, window, softcap)
+    return flash_launch(q, k, v, **kw)
 
 
-def flash_launch(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_launch(q, k, v, *, causal: bool = True, window: int = 0,
+                 q_offset=None, kv_len=None, softcap: float = 0.0,
+                 k_scale=None, v_scale=None):
     """The launch of ``flash_attention``'s kernel (checks, route, count),
     invisible to autograd."""
     name = "flash_attention"
-    _check_attention(name, q, k, v, 4)
+    _check_attention(name, q, k, v, 4, k_scale, v_scale)
+    if softcap < 0 or window < 0:
+        raise ValueError(f"{name}: softcap {softcap}, window {window}")
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -601,21 +665,25 @@ def flash_launch(q, k, v, *, causal: bool = True, window: int = 0):
     lib = library()
     dev = q.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if flash_route(q.dtype, hd) == "sm90":
+    int8 = k_scale is not None
+    off = _rows_i32("q_offset", name, q_offset, B, dev)
+    bound = _rows_i32("kv_len", name, kv_len, B, dev)
+    common = (_ptr(off), _ptr(bound), B, Sq, Skv, H, KV, hd, hd ** -0.5,
+              float(softcap), int(causal), int(window))
+    if flash_route(q.dtype, hd, int8) == "sm90":
         kernel = "flash_attention_sm90"
         if any(t.data_ptr() % 16 for t in (q, k, v)):
             raise ValueError(f"{name}: bf16 q, k, v at hd {hd} must be "
                              "16-byte aligned (the tensor-core kernel reads "
                              "them through TMA)")
         err = lib.flash_attention_sm90_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-            Skv, H, KV, hd, hd ** -0.5, int(causal), int(window),
-            dev.index or 0, stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *common, dev.index or 0, stream)
     else:
         kernel = name
         err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-            Skv, H, KV, hd, hd ** -0.5, int(causal), int(window),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _ptr(k_scale), _ptr(v_scale), *common,
             int(q.dtype == torch.bfloat16), dev.index or 0, stream)
     if err:
         raise RuntimeError(f"{kernel} launch failed: "
@@ -623,6 +691,12 @@ def flash_launch(q, k, v, *, causal: bool = True, window: int = 0):
     launches[name] += 1
     if kernel != name:
         launches[kernel] += 1
+    if off is not None or bound is not None:
+        launches[name + "_offset"] += 1
+    if softcap:
+        launches[name + "_softcap"] += 1
+    if int8:
+        launches[name + "_int8"] += 1
     return out
 
 
@@ -636,7 +710,9 @@ def decode_splits(B: int, KV: int, S: int, n_sm: int = 132) -> tuple:
     put about two CTAs on each of ``n_sm`` SMs, none shorter than
     ``DECODE_SPLIT_MIN`` positions, split_len a multiple of it and no split
     starting at or past ``S``.  From the shapes alone, so the wrapper needs
-    no sync to read ``kv_len``; splits past a row's ``kv_len`` are empty."""
+    no sync to read ``kv_len``; splits past a row's ``kv_len`` are empty.
+    ``latent_attention`` splits its keys the same way, with one query
+    position of one row in the place of a (row, kv head)."""
     if S <= DECODE_SPLIT_MIN:
         return 1, DECODE_SPLIT_MIN
     want = -(-2 * n_sm // max(1, B * KV))
@@ -653,11 +729,13 @@ def _sm_count(device: torch.device) -> int:
 
 # (n_split, split_len) of the last decode_attention launch
 last_decode_grid: tuple = (0, 0)
+# (n_split, split_len) of the last latent_attention launch
+last_latent_grid: tuple = (0, 0)
 
 # (kernel, device index, stream) -> int32 counters of a last-CTA merge
-# (decode attention's, the legacy scorer's), zero between launches (the
-# merging CTA resets its own); one set a kernel and stream, so launches that
-# share a set run in order
+# (decode attention's, the latent kernel's, the legacy scorer's), zero
+# between launches (the merging CTA resets its own); one set a kernel and
+# stream, so launches that share a set run in order
 _counters: dict = {}
 
 
@@ -676,32 +754,38 @@ def _stream_counter(kernel: str, dev: torch.device, stream: int,
 DECODE_G_MAX = 16
 
 
-def decode_attention(q, k, v, kv_len, *, window: int = 0):
+def decode_attention(q, k, v, kv_len, *, window: int = 0,
+                     softcap: float = 0.0, k_scale=None, v_scale=None):
     """Single-token GQA decode over a KV cache: q (B, H, hd), k/v (B, S,
     KV, hd), kv_len (B,) int32, ``window`` 0 (none) or the number of
-    positions before ``kv_len`` a row reads -> (B, H, hd) in q's type (see
-    ``decode_attention_ref``).  The CUDA kernel
-    ``csrc/decode_attention.cu`` for CUDA tensors (fp32 or bf16,
+    positions before ``kv_len`` a row reads, ``softcap`` (0: none), and
+    with ``k_scale`` / ``v_scale`` (B, S, KV, 1) fp32 k and v an int8 cache
+    -> (B, H, hd) in q's type (see ``decode_attention_ref``).  The CUDA
+    kernel ``csrc/decode_attention.cu`` for CUDA tensors (fp32 or bf16,
     contiguous, hd <= 256, at most ``DECODE_G_MAX`` query heads per kv
     head): one launch a call, the cache split as ``decode_splits`` says (the
     grid launched is kept in ``last_decode_grid``; a split wholly before a
     row's window reads nothing), the splits' partials in fp32 scratch
-    merged by the last CTA of each (row, kv head).  Every launch counts
-    under ``launches["decode_attention"]``, a windowed one also under
-    ``launches["decode_attention_window"]``.  The plain version for CPU
-    ones."""
+    merged by the last CTA of each (row, kv head); an int8 cache is read
+    as int8 and dequantized in the kernel.  Every launch counts under
+    ``launches["decode_attention"]``, a windowed one also under
+    ``launches["decode_attention_window"]``, one with a softcap under
+    ``decode_attention_softcap``, one over an int8 cache under
+    ``decode_attention_int8``.  The plain version for CPU ones."""
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, kv_len, window=window)
+        return decode_attention_ref(q, k, v, kv_len, window=window,
+                                    softcap=softcap, k_scale=k_scale,
+                                    v_scale=v_scale)
     name = "decode_attention"
-    _check_attention(name, q, k, v, 3)
+    _check_attention(name, q, k, v, 3, k_scale, v_scale)
     B, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
     if G > DECODE_G_MAX:
         raise ValueError(f"{name}: {G} query heads per kv head; the "
                          f"kernel takes at most {DECODE_G_MAX}")
-    if window < 0:
-        raise ValueError(f"{name}: window {window} < 0")
+    if window < 0 or softcap < 0:
+        raise ValueError(f"{name}: window {window}, softcap {softcap}")
     _check("kv_len", kv_len, (B,), torch.int32, q.device, name)
     out = torch.empty_like(q)
     if B == 0:
@@ -719,10 +803,11 @@ def decode_attention(q, k, v, kv_len, *, window: int = 0):
         part_ml = scratch[B * KV * n_split * G * hd:].data_ptr()
         counter = _stream_counter(name, dev, stream, B * KV).data_ptr()
     err = lib.decode_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), part_acc, part_ml, counter, B, S, H, KV, hd,
-        hd ** -0.5, int(window), n_split, split_len,
-        int(q.dtype == torch.bfloat16), dev.index or 0, stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), kv_len.data_ptr(), out.data_ptr(), part_acc, part_ml,
+        counter, B, S, H, KV, hd, hd ** -0.5, float(softcap), int(window),
+        n_split, split_len, int(q.dtype == torch.bfloat16), dev.index or 0,
+        stream)
     if err:
         raise RuntimeError("decode_attention launch failed: "
                            f"{lib.fitscore_error_string(err).decode()}")
@@ -731,6 +816,101 @@ def decode_attention(q, k, v, kv_len, *, window: int = 0):
     launches[name] += 1
     if window:
         launches[name + "_window"] += 1
+    if softcap:
+        launches[name + "_softcap"] += 1
+    if k_scale is not None:
+        launches[name + "_int8"] += 1
+    return out
+
+
+# the latent kernel's bounds (kHMax, kDMax, kDvMax in
+# csrc/latent_attention.cu): query heads, latent columns, value columns
+LATENT_H_MAX = 16
+LATENT_D_MAX = 576
+LATENT_DV_MAX = 512
+
+
+def latent_attention(q, lat, kv_len=None, *, q_offset=None, hd_v: int,
+                     scale: float):
+    """The absorbed MLA's attention: q (B, Sq, H, D), lat (B, Sk, D) (K the
+    whole latent row, V its first ``hd_v`` columns), causal at
+    ``q_offset`` (an int or (B,); None: 0), keys below ``kv_len`` (an int
+    or (B,); None: all ``Sk``), ``scale`` the caller's -> (B, Sq, H, hd_v)
+    in q's type (see ``latent_attention_ref``).  The CUDA kernel
+    ``csrc/latent_attention.cu`` for CUDA tensors (fp32 or bf16,
+    contiguous, H <= ``LATENT_H_MAX``, D <= ``LATENT_D_MAX``, hd_v <=
+    ``LATENT_DV_MAX``): one launch a call, a CTA per (key split, query
+    position, row) holding all H heads, so each latent row is read once a
+    query position for both products; the keys split as ``decode_splits``
+    says for ``B * Sq`` rows (kept in ``last_latent_grid``), the splits
+    merged by the last CTA.  Every launch counts under
+    ``launches["latent_attention"]``.  With grad mode on and an input that
+    requires grad, the launch runs inside ``autograd.LatentAttention``
+    (no offsets or key bounds there).  The plain version for CPU
+    tensors."""
+    if q.device.type == "cpu":
+        return latent_attention_ref(q, lat, kv_len, q_offset=q_offset,
+                                    hd_v=hd_v, scale=scale)
+    if _needs_grad(q, lat):
+        _forward_only("latent_attention", q_offset=q_offset, kv_len=kv_len)
+        from .autograd import LatentAttention
+        return LatentAttention.apply(q, lat, hd_v, scale)
+    return latent_launch(q, lat, kv_len, q_offset=q_offset, hd_v=hd_v,
+                         scale=scale)
+
+
+def latent_launch(q, lat, kv_len=None, *, q_offset=None, hd_v: int,
+                  scale: float):
+    """The launch of ``latent_attention``'s kernel (checks, splits,
+    count), invisible to autograd."""
+    name = "latent_attention"
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {dev}")
+    if q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{name}: q must be float32 or bfloat16, got "
+                         f"{q.dtype}")
+    if q.dim() != 4 or lat.dim() != 3:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, lat "
+                         f"{tuple(lat.shape)}")
+    B, Sq, H, D = q.shape
+    Sk = lat.shape[1]
+    if not (1 <= H <= LATENT_H_MAX and 1 <= D <= LATENT_D_MAX and
+            1 <= hd_v <= min(D, LATENT_DV_MAX)):
+        raise ValueError(f"{name}: H={H}, D={D}, hd_v={hd_v}; the kernel "
+                         f"takes H <= {LATENT_H_MAX}, "
+                         f"D <= {LATENT_D_MAX}, hd_v <= min(D, "
+                         f"{LATENT_DV_MAX})")
+    _check("q", q, (B, Sq, H, D), q.dtype, dev, name)
+    _check("lat", lat, (B, Sk, D), q.dtype, dev, name)
+    out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=dev)
+    if B * Sq == 0:
+        return out
+    from ._build import library
+    lib = library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    off = _rows_i32("q_offset", name, q_offset, B, dev)
+    bound = _rows_i32("kv_len", name, kv_len, B, dev)
+    n_split, split_len = decode_splits(B * Sq, 1, max(Sk, 1), _sm_count(dev))
+    part_acc = part_ml = counter = None
+    if n_split > 1:
+        rows = B * Sq * n_split * H
+        scratch = torch.empty(rows * (hd_v + 2), dtype=torch.float32,
+                              device=dev)
+        part_acc = scratch.data_ptr()
+        part_ml = scratch[rows * hd_v:].data_ptr()
+        counter = _stream_counter(name, dev, stream, B * Sq).data_ptr()
+    err = lib.latent_attention_launch(
+        q.data_ptr(), lat.data_ptr(), _ptr(off), _ptr(bound), out.data_ptr(),
+        part_acc, part_ml, counter, B, Sq, Sk, H, D, hd_v, float(scale),
+        n_split, split_len, int(q.dtype == torch.bfloat16),
+        dev.index or 0, stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.fitscore_error_string(err).decode()}")
+    global last_latent_grid
+    last_latent_grid = (n_split, split_len)
+    launches[name] += 1
     return out
 
 

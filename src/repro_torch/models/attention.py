@@ -1,19 +1,29 @@
 """Attention of the decoders: the port's ``repro.models.attention``
-(``rope``, ``_proj``, ``_rms``, the cache update, ``attention_block`` for
-GQA, and ``mla_attention_block``, DeepSeek-V2's latent attention on the
-reference's path without absorption).
+(``rope``, ``_proj``, ``_rms``, the cache update, ``quant_kv`` for the int8
+cache (from ``kernels.attention``), ``attention_block`` for GQA, and
+``mla_attention_block``,
+DeepSeek-V2's latent attention, with and without absorption).
 
 Every attention call goes through a hand-written kernel (``kernels.ops``):
 
 - no cache (a training-style forward), or the engine's prefill
-  (``cache_pos == 0``, the prompt's keys written from position 0): causal
-  attention of the ``S`` new positions over themselves, which is
-  ``flash_attention(q, k, v, causal=True, window=window)``;
-- one new token against the cache (``S == 1``, ``cache_pos`` a scalar or a
-  (B,) vector of per-slot depths): ``kv_len = cache_pos + 1`` and no causal
-  mask is needed, which is ``decode_attention(q[:, 0], ck, cv, kv_len,
-  window=window)``: the layer's window keeps the keys at positions
-  ``>= kv_len - window``, the reference's ``q_pos - k_pos < window``;
+  (``cache_pos == 0`` into a bf16 / fp32 cache, the prompt's keys written
+  from position 0): causal attention of the ``S`` new positions over
+  themselves, which is ``flash_attention(q, k, v, causal=True,
+  window=window)``;
+- one new token against the cache (``S == 1`` at a nonzero
+  ``cache_pos``, a scalar or a (B,) vector of per-slot depths): ``kv_len =
+  cache_pos + 1`` and no causal mask is needed, which is
+  ``decode_attention(q[:, 0], ck, cv, kv_len, window=window)``: the
+  layer's window keeps the keys at positions ``>= kv_len - window``, the
+  reference's ``q_pos - k_pos < window``;
+- every other call with a cache: ``S > 1`` tokens at a nonzero position
+  (a chunked prefill, at a scalar or a per-slot ``cache_pos``), and any
+  prefill into an int8 cache (the reference attends over the dequantized
+  cache rows, not over the fresh k and v): the new rows are written at
+  ``cache_pos``, then ``flash_attention(q, ck, cv, q_offset=cache_pos,
+  kv_len=cache_pos + S, window=window)``, query ``i`` at ``cache_pos + i``
+  over the cache's keys, causal;
 - cross-attention onto ``cross_states`` (whisper's decoder onto the
   encoder's output, and its encoder's bidirectional self-attention, which
   the reference writes as cross-attention onto the layer's own normed
@@ -23,29 +33,36 @@ Every attention call goes through a hand-written kernel (``kernels.ops``):
   spread the ``Se`` keys over the card where a flash call with one query
   row would run ``H`` CTAs.
 
-MLA takes the first two cases with q and k of ``hd + r`` columns (the
-head's ``hd`` and the shared rope key's ``r``) and V zero-padded from
-``hd`` to the same width (see ``mla_attention_block``).
+An int8 cache (``cfg.kv_cache_int8``: ``k_q`` / ``v_q`` int8 with fp32
+scales ``k_s`` / ``v_s`` a (position, kv head)) is written through
+``quant_kv`` and read by the kernels as int8, each element dequantized in
+the kernel as the reference's ``dequant_kv`` rounds it.  The blocks apply
+no ``cfg.logit_softcap``, as the reference's pass none to its
+``gqa_attention``; the flash and decode kernels take the cap as an
+argument (``softcap``), as ``gqa_attention`` does.
 
-These are the cases ``serving.engine`` and the encoder-decoder form, and
-the functions the JAX package's XLA path (``gqa_attention``) computes
-there.  Every other case raises ``NotImplementedError`` naming its ROADMAP
-item, on the CPU too, so nothing runs quietly outside the kernels on the
-card.
+MLA without absorption takes the first three cases with q and k of ``hd +
+r`` columns (the head's ``hd`` and the shared rope key's ``r``) and V
+zero-padded from ``hd`` to the same width; with absorption
+(``Runtime(mla_absorb=True)``) every mode is ``latent_attention`` over the
+latent rows (see ``mla_attention_block``).
+
+These are the cases ``serving.engine``, the encoder-decoder form and the
+reference's ``forward`` form, and the functions the JAX package's XLA path
+(``gqa_attention``) computes there.
 
 The reference's dtype sequence is kept: projections in the activations'
 type, ``rope`` and ``_rms`` in fp32 and cast back.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels.ops import decode_attention, flash_attention
-
-_ROADMAP = "ROADMAP Queue 1 item 8"
+from ..kernels.attention import quant_kv
+from ..kernels.ops import decode_attention, flash_attention, latent_attention
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -100,14 +117,15 @@ def _is_prefill(cache_pos) -> bool:
     return not isinstance(cache_pos, torch.Tensor) and int(cache_pos) == 0
 
 
-def _decode_lens(B: int, cache_pos, device) -> torch.Tensor:
-    """(B,) int32 keys a decode step reads: its position plus one (a
-    scalar position is filled in on the card: no copy, no sync)."""
+def _cache_lens(B: int, S: int, cache_pos, device) -> torch.Tensor:
+    """(B,) int32 keys a call of ``S`` new tokens at ``cache_pos`` reads:
+    its position plus ``S`` (a scalar position is filled in on the card:
+    no copy, no sync)."""
     if not isinstance(cache_pos, torch.Tensor):
-        return torch.full((B,), int(cache_pos) + 1, dtype=torch.int32,
+        return torch.full((B,), int(cache_pos) + S, dtype=torch.int32,
                           device=device)
     return (torch.zeros((B,), dtype=torch.int32, device=device)
-            + cache_pos.to(device) + 1).to(torch.int32)
+            + cache_pos.to(device) + S).to(torch.int32)
 
 
 def _cross_attention(q, k, v):
@@ -125,8 +143,10 @@ def attention_block(blk, x, cfg, *, positions, window: int, cache=None,
                     cache_pos=None, cross_states=None,
                     prefix: str = "") -> Tuple:
     """Standard GQA attention of one layer, or cross-attention onto
-    ``cross_states`` (B, Se, d).  x (B, S, d); cache None or a dict {"k",
-    "v"} of (B, Smax, KV, hd), written in place; returns (out, the cache or
+    ``cross_states`` (B, Se, d).  x (B, S, d); cache None, a dict {"k",
+    "v"} of (B, Smax, KV, hd), or an int8 one {"k_q", "v_q", "k_s", "v_s"}
+    (the scales (B, Smax, KV, 1)), written in place at ``cache_pos`` (an
+    int, or a (B,) tensor of per-slot depths); returns (out, the cache or
     None).  ``window`` is the layer's window (0: full attention);
     ``prefix`` picks the block's weights (``"x_"``: the decoder's cross
     projections).  As in the reference, the query bias applies only without
@@ -134,10 +154,6 @@ def attention_block(blk, x, cfg, *, positions, window: int, cache=None,
     if cfg.mla and not prefix and cross_states is None:
         raise ValueError(f"{cfg.name}: MLA self-attention is "
                          "mla_attention_block")
-    if cfg.logit_softcap > 0:
-        raise NotImplementedError(f"attention logit softcap is {_ROADMAP}")
-    if cache is not None and "k_q" in cache:
-        raise NotImplementedError(f"the int8 KV cache is {_ROADMAP}")
     B, S, _ = x.shape
     H, KVh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bias = cfg.qkv_bias
@@ -158,72 +174,93 @@ def attention_block(blk, x, cfg, *, positions, window: int, cache=None,
     v = _proj(x, g("wv"), g("bv") if bias else None).reshape(B, S, KVh, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    window = int(window)
 
     if cache is None:
-        return _proj(flash_attention(q, k, v, causal=True,
-                                     window=int(window)).reshape(B, S, H * hd),
-                     g("wo")), None
-    prefill = _is_prefill(cache_pos)
-    if not prefill and S != 1:
-        raise NotImplementedError(
-            f"{S} tokens against a cache at a nonzero position (chunked "
-            f"prefill) is {_ROADMAP}")
-    ck, cv = cache["k"], cache["v"]
-    _write_rows(ck, k, cache_pos)
-    _write_rows(cv, v, cache_pos)
-    if prefill:
+        return _proj(flash_attention(q, k, v, causal=True, window=window
+                                     ).reshape(B, S, H * hd), g("wo")), None
+    if "k_q" in cache:
+        ck, cv = cache["k_q"], cache["v_q"]
+        (kq, ks), (vq, vs) = quant_kv(k), quant_kv(v)
+        for name, u in (("k_q", kq), ("k_s", ks), ("v_q", vq), ("v_s", vs)):
+            _write_rows(cache[name], u, cache_pos)
+        kv = dict(k_scale=cache["k_s"], v_scale=cache["v_s"])
+    else:
+        ck, cv = cache["k"], cache["v"]
+        _write_rows(ck, k, cache_pos)
+        _write_rows(cv, v, cache_pos)
+        kv = {}
+    if _is_prefill(cache_pos) and not kv:
         # the prompt from position 0: causal over the keys just written,
         # which are k and v themselves (ck[:, :S], cv[:, :S])
-        out = flash_attention(q, k, v, causal=True, window=int(window))
-    else:
+        out = flash_attention(q, k, v, causal=True, window=window)
+    elif S == 1 and not _is_prefill(cache_pos):
         out = decode_attention(q[:, 0], ck, cv,
-                               _decode_lens(B, cache_pos, x.device),
-                               window=int(window))[:, None]
-    return _proj(out.reshape(B, S, H * hd), g("wo")), {"k": ck, "v": cv}
+                               _cache_lens(B, 1, cache_pos, x.device),
+                               window=window, **kv)[:, None]
+    else:
+        out = flash_attention(q, ck, cv, causal=True, window=window,
+                              q_offset=cache_pos,
+                              kv_len=_cache_lens(B, S, cache_pos, x.device),
+                              **kv)
+    return _proj(out.reshape(B, S, H * hd), g("wo")), cache
 
 
 def mla_attention_block(blk, x, cfg, *, positions, cache=None,
                         cache_pos=None, absorb: bool = False) -> Tuple:
-    """DeepSeek-V2's Multi-head Latent Attention, the reference's path
-    without absorption.  x (B, S, d); cache None or {"lat": (B, Smax, lora
-    + r)}, the compressed latent ``[c_kv, k_rope]`` of each position,
-    written in place at ``cache_pos`` (an int, or a (B,) tensor of per-slot
-    depths); returns (out, the cache or None).
+    """DeepSeek-V2's Multi-head Latent Attention.  x (B, S, d); cache None
+    or {"lat": (B, Smax, lora + r)}, the compressed latent ``[c_kv,
+    k_rope]`` of each position, written in place at ``cache_pos`` (an int,
+    or a (B,) tensor of per-slot depths); returns (out, the cache or
+    None).
 
-    K and V are up-projected per head from the latent of every cached
-    position (the whole ``Smax`` on a decode step, as the reference does);
-    the key is ``[k_nope, k_rope]`` with the one rope key broadcast over the
-    heads.  The kernels take q, k and v of one head dim, so V's ``hd``
-    columns are padded with zeros to ``hd + r`` (through ``w_uv`` padded per
-    head) and the output's first ``hd`` columns kept: the zero columns add
-    nothing to the others.  The kernels' scale ``q.shape[-1] ** -0.5`` is
-    the reference's ``(hd + r) ** -0.5``.
+    Without absorption (the reference's default) K and V are up-projected
+    per head from the latent of every position the call reads (the whole
+    ``Smax`` with a cache past a prefill, as the reference does); the key
+    is ``[k_nope, k_rope]`` with the one rope key broadcast over the heads.
+    The kernels take q, k and v of one head dim, so V's ``hd`` columns are
+    padded with zeros to ``hd + r`` (through ``w_uv`` padded per head) and
+    the output's first ``hd`` columns kept: the zero columns add nothing to
+    the others.  The kernels' scale ``q.shape[-1] ** -0.5`` is the
+    reference's ``(hd + r) ** -0.5``.
 
-    ``absorb=True`` (the reference's absorbed decode: one latent kv head of
-    ``lora + r`` columns, past the kernels' 256) is ROADMAP Queue 1 item 8
-    and raises."""
-    if absorb:
-        raise NotImplementedError(f"absorbed MLA decode is {_ROADMAP}")
+    With ``absorb=True`` (``Runtime(mla_absorb=True)``, every mode) the
+    queries are absorbed through ``W_UK``: ``[q_nope W_UK^T, q_rope]`` of
+    ``lora + r`` columns attends over the latent rows themselves, one kv
+    head shared by all ``H`` heads, V the latent's first ``lora`` columns
+    (``latent_attention``, scale ``(hd + r) ** -0.5``), and ``W_UV`` is
+    applied to the attended latent: no per-position up-projection."""
     B, S, _ = x.shape
     H, hd, r, lora = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim, \
         cfg.kv_lora_rank
     q = _proj(x, blk["wq"]).reshape(B, S, H, hd + r)
+    q_nope = q[..., :hd]
     q_rope = rope(q[..., hd:], positions, cfg.rope_theta)
-    q_cat = torch.cat([q[..., :hd], q_rope], dim=-1)
     c = _proj(x, blk["w_dkv"])                            # (B, S, lora + r)
     c_kv = _rms(c[..., :lora], blk["kv_norm"], cfg.norm_eps)
     k_rope = rope(c[..., lora:][:, :, None, :], positions, cfg.rope_theta)
     lat = torch.cat([c_kv, k_rope[:, :, 0, :]], dim=-1)
 
+    # a prefill from 0 reads the latents just computed (the cache's first S
+    # rows); any other call with a cache reads the cache, bounded
     prefill = cache is None or _is_prefill(cache_pos)
-    if not prefill and S != 1:
-        raise NotImplementedError(
-            f"{S} tokens against a cache at a nonzero position (chunked "
-            f"prefill) is {_ROADMAP}")
     if cache is not None:
         _write_rows(cache["lat"], lat, cache_pos)
         if not prefill:
             lat = cache["lat"]      # every cached position, as the reference
+    at = {} if prefill else dict(
+        q_offset=cache_pos, kv_len=_cache_lens(B, S, cache_pos, x.device))
+    if absorb:
+        wuk = blk["w_uk"].to(x.dtype).reshape(lora, H, hd)
+        wuv = blk["w_uv"].to(x.dtype).reshape(lora, H, hd)
+        q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope, wuk)
+        q_cat = torch.cat([q_lat, q_rope], dim=-1)        # (B, S, H, lora + r)
+        ctx = latent_attention(q_cat, lat, at.get("kv_len"),
+                               q_offset=at.get("q_offset"), hd_v=lora,
+                               scale=(hd + r) ** -0.5)
+        out = torch.einsum("bqhl,lhd->bqhd", ctx, wuv).reshape(B, S, H * hd)
+        return _proj(out, blk["wo"]), cache
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
     wuk = blk["w_uk"].to(x.dtype)
     wuv = F.pad(blk["w_uv"].to(x.dtype).reshape(lora, H, hd),
                 (0, r)).reshape(lora, H * (hd + r))
@@ -233,13 +270,9 @@ def mla_attention_block(blk, x, cfg, *, positions, cache=None,
     k_cat = torch.cat([k_nope, lat[..., None, lora:].expand(B, Sk, H, r)],
                       dim=-1)
     v = (c_all @ wuv).reshape(B, Sk, H, hd + r)
-    if prefill:
-        # the prompt from position 0: causal over the keys just computed,
-        # which are the cache's first S rows
-        out = flash_attention(q_cat, k_cat, v, causal=True)
+    if S == 1 and not prefill:
+        out = decode_attention(q_cat[:, 0], k_cat, v, at["kv_len"])[:, None]
     else:
-        out = decode_attention(q_cat[:, 0], k_cat, v,
-                               _decode_lens(B, cache_pos, x.device))[:, None]
+        out = flash_attention(q_cat, k_cat, v, causal=True, **at)
     out = out[..., :hd].reshape(B, S, H * hd)
     return _proj(out, blk["wo"]), cache
-

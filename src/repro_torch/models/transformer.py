@@ -27,9 +27,9 @@ zero token shifts), whatever the cache holds.  The reference starts it from
 the state in the cache, so a request prefilled into a reused engine slot
 continues its previous occupant's state (ROADMAP Queue 3).  More tokens
 than one at a nonzero position (a chunked prefill) carry the cache's state
-on RWKV6, as the reference does, its token shifts restarting from zeros
-as the reference's do; on the attention layers it raises (ROADMAP Queue 1
-item 8).
+on RWKV6 and on hymba's SSD heads, as the reference does, RWKV6's token
+shifts restarting from zeros as the reference's do; the attention layers
+attend from that position over the cache (``models.attention``).
 """
 from __future__ import annotations
 
@@ -54,8 +54,10 @@ class Runtime:
     """Execution context threaded through the forward pass.  The reference
     also carries a device mesh, sharding rules and an MoE switch that only
     a mesh reads; the port runs on one card, its MoE layers in the
-    reference's mesh-free (dense) mode.  ``mla_absorb``: the absorbed MLA
-    decode (ROADMAP Queue 1 item 8; True raises)."""
+    reference's mesh-free (dense) mode.  ``mla_absorb``: MLA's attention
+    in the latent space (``mla_attention_block(absorb=True)``, in every
+    mode: train, prefill, chunked prefill and decode), as the reference's
+    flag runs it."""
 
     mla_absorb: bool = False
 
@@ -231,11 +233,15 @@ def _rwkv_layer(blk, x, cfg, *, cache, cache_pos):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> Dict:
     """Stacked (leading layer axis) decode cache, zeros, on ``device``:
-    k/v of (batch, max_len) positions (with SSM heads also their fp32 (H,
-    N, hd) state ``"ssm"`` a row), MLA's latent ``lat`` of ``lora + r`` a
-    position, or RWKV6's fp32 (H, K, K) state and its two token shifts a
-    row.  With leading dense layers (deepseek) the cache's first
-    ``first_k_dense`` rows are theirs."""
+    k/v of (batch, max_len) positions, or with ``cfg.kv_cache_int8`` their
+    int8 ``k_q`` / ``v_q`` and fp32 scales ``k_s`` / ``v_s`` of one a
+    (position, kv head), filled with ones as the reference's are (with SSM
+    heads also their fp32 (H, N, hd) state ``"ssm"`` a row); MLA's latent
+    ``lat`` of ``lora + r`` a position, in the compute type whatever
+    ``kv_cache_int8`` says (the reference's MLA branch comes first); or
+    RWKV6's fp32 (H, K, K) state and its two token shifts a row.  With
+    leading dense layers (deepseek) the cache's first ``first_k_dense``
+    rows are theirs."""
     from ..kernels.ops import resolve_device
     dev = resolve_device(device)
     dt = _dtype(cfg, dtype)
@@ -252,12 +258,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
         lat = cfg.kv_lora_rank + cfg.rope_head_dim
         return {"lat": torch.zeros((L, batch, max_len, lat), dtype=dt,
                                    device=dev)}
-    if cfg.kv_cache_int8:
-        raise NotImplementedError("the int8 KV cache is ROADMAP Queue 1 "
-                                  "item 8")
     shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
-             "v": torch.zeros(shape, dtype=dt, device=dev)}
+    if cfg.kv_cache_int8:
+        i8, f32 = torch.int8, torch.float32
+        cache = {"k_q": torch.zeros(shape, dtype=i8, device=dev),
+                 "v_q": torch.zeros(shape, dtype=i8, device=dev),
+                 "k_s": torch.ones(shape[:-1] + (1,), dtype=f32, device=dev),
+                 "v_s": torch.ones(shape[:-1] + (1,), dtype=f32, device=dev)}
+    else:
+        cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                 "v": torch.zeros(shape, dtype=dt, device=dev)}
     if cfg.ssm:
         cache["ssm"] = torch.zeros((L, batch, cfg.n_heads, cfg.ssm_state,
                                     cfg.head_dim), dtype=torch.float32,

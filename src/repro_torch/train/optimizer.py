@@ -3,7 +3,11 @@ port's ``repro.train.optimizer`` (``OptConfig``, ``schedule``, ``_quant``,
 ``_dequant``, ``init_opt_state``, ``global_norm``, ``adamw_update``), and
 ``opt_state_from_reference``, which carries the reference's state across.
 
-The 8-bit option cuts the optimizer state from 8 to 2 bytes a parameter.
+The 8-bit option cuts the optimizer state from 8 to 2 bytes a parameter;
+``_quant`` is the KV cache's ``kernels.attention.quant_kv``, the
+reference's two quantizers being one function.  A division by a constant
+is a product with its fp32 reciprocal (``_inv``, ``inv_f32``), as the
+reference's jitted step computes it.
 The reference's arithmetic is kept in fp32 tensors: the warm-up and cosine
 terms, ``b1 ** step`` and the bias corrections are never Python floats, so
 the learning rate and the update round as the reference's do.  The
@@ -21,11 +25,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from ..kernels.attention import inv_f32 as _inv
+from ..kernels.attention import quant_kv as _quant
 from .tree import leaves
 
 
@@ -42,13 +48,6 @@ class OptConfig:
     total_steps: int = 10000
 
 
-def _inv(c: float) -> float:
-    """1 / c rounded to fp32: a division by a constant ``x / c`` is ``x *
-    _inv(c)`` in the reference's jitted step (XLA's rewrite), an ulp apart
-    from the division at some ``x``."""
-    return float(torch.tensor(1.0) / torch.tensor(float(c)))
-
-
 def schedule(opt: OptConfig, step) -> torch.Tensor:
     """Linear warmup + cosine decay at ``step`` (an int32 tensor or an
     int), an fp32 scalar tensor."""
@@ -61,19 +60,6 @@ def schedule(opt: OptConfig, step) -> torch.Tensor:
 
 
 # ---------------------------------------------------------- int8 quantization
-
-_INV_127 = _inv(127)
-
-
-def _quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row (last-axis) absmax int8 quantization; ``torch.round`` rounds
-    half to even, as ``jnp.round`` does.  ``absmax / 127`` is taken as the
-    reference's jitted step computes it (``_inv``)."""
-    absmax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
-    scale = torch.where(absmax > 0, absmax * _INV_127, 1.0)
-    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
-    return q, scale.to(torch.float32)
-
 
 def _dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale

@@ -15,6 +15,7 @@ on the card's machine:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import collections
 import os
 import sys
 
@@ -1445,3 +1446,316 @@ def test_train_step_on_the_card_equals_the_cpu(cuda):
         assert mg[key] == pytest.approx(mc[key], rel=1e-5)
     for a, b in zip(leaves(pg), leaves(pc)):
         assert float((a.detach().cpu() - b.detach()).abs().max()) <= 2e-5
+
+
+# ------------------------------------------------- the attention module's rest
+
+def _cache_with_nan(k, v, lens):
+    """NaN in the cache rows past each row's key bound: never read."""
+    for b, n in enumerate(lens):
+        k[b, n:], v[b, n:] = float("nan"), float("nan")
+
+
+def _counts():
+    return dict(ops.launches)
+
+
+def _since(before):
+    """The launches counted since ``before`` (a ``_counts()``)."""
+    return collections.Counter({k: v - before.get(k, 0)
+                                for k, v in ops.launches.items()})
+
+
+def _int8_cache(k, v):
+    """An int8 cache of k and v (the model's ``quant_kv``) with its
+    scales."""
+    from repro_torch.models.attention import quant_kv
+    (kq, ks), (vq, vs) = quant_kv(k), quant_kv(v)
+    return kq, vq, dict(k_scale=ks, v_scale=vs)
+
+
+# (B, Sq, Smax, H, KV, hd): the tensor-core route's head dims and the
+# CUDA-core route's (hd 32 and gemma3's 256)
+OFFSET_SHAPES = [(3, 70, 300, 10, 2, 64), (2, 129, 400, 8, 2, 128),
+                 (2, 37, 100, 6, 2, 32), (2, 40, 200, 4, 2, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Smax,H,KV,hd", OFFSET_SHAPES)
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (48, 0.0), (0, 50.0),
+                                            (48, 5.0)])
+def test_flash_at_an_offset_equals_plain(B, Sq, Smax, H, KV, hd, window,
+                                         softcap, dtype, cuda):
+    """A chunked prefill: queries at a scalar offset and at per-row
+    offsets over a cache of Smax rows bounded by ``kv_len = offset + Sq``
+    (NaN past it), with and without a window and a softcap, on the route
+    ``flash_route`` names; == the plain version, counted under
+    ``flash_attention_offset`` (and ``_softcap``)."""
+    from repro_torch.kernels.attention import flash_attention_ref
+    q, k, v = _attn_inputs(Sq + hd, cuda, dtype, (B, Sq, H, hd),
+                           (B, Smax, KV, hd), (B, Smax, KV, hd))
+    offs = [Smax - Sq - 7 * b for b in range(B)]
+    for q_offset in (offs[0], torch.tensor(offs, dtype=torch.int32,
+                                           device=cuda)):
+        per_row = isinstance(q_offset, torch.Tensor)
+        lens = [o + Sq for o in (offs if per_row else [offs[0]] * B)]
+        kk, vv = k.clone(), v.clone()
+        _cache_with_nan(kk, vv, lens)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        n0 = _counts()
+        got = ops.flash_attention(q, kk, vv, window=window,
+                                  q_offset=q_offset, kv_len=kv_len,
+                                  softcap=softcap)
+        d = _since(n0)
+        assert d["flash_attention"] == d["flash_attention_offset"] == 1
+        assert d["flash_attention_sm90"] == int(
+            ops.flash_route(dtype, hd) == "sm90")
+        assert d["flash_attention_softcap"] == int(softcap > 0)
+        want = flash_attention_ref(q, kk, vv, window=window,
+                                   q_offset=q_offset, kv_len=kv_len,
+                                   softcap=softcap)
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("offset,window,softcap", [(0, 0, 0.0),
+                                                   (90, 0, 0.0),
+                                                   (90, 32, 30.0)])
+def test_flash_over_an_int8_cache_equals_plain(hd, offset, window, softcap,
+                                               dtype, cuda):
+    """An int8 cache (``quant_kv``'s rows, NaN scales past the bound): the
+    CUDA-core route whatever the dtype and head dim, counted under
+    ``flash_attention_int8``; == the plain version over the dequantized
+    rows."""
+    from repro_torch.kernels.attention import flash_attention_ref
+    B, Sq, Smax, H, KV = 2, 60, 256, 8, 2
+    q, k, v = _attn_inputs(hd + offset, cuda, dtype, (B, Sq, H, hd),
+                           (B, Smax, KV, hd), (B, Smax, KV, hd))
+    kq, vq, sc = _int8_cache(k, v)
+    sc["k_scale"][:, offset + Sq:] = float("nan")
+    sc["v_scale"][:, offset + Sq:] = float("nan")
+    assert ops.flash_route(dtype, hd, int8=True) == "simt"
+    n0 = _counts()
+    kw = dict(window=window, q_offset=offset, kv_len=offset + Sq,
+              softcap=softcap, **sc)
+    got = ops.flash_attention(q, kq, vq, **kw)
+    d = _since(n0)
+    assert d["flash_attention"] == d["flash_attention_int8"] == 1
+    assert d.get("flash_attention_sm90", 0) == 0
+    want = flash_attention_ref(q, kq, vq, **kw)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,hd,S", [(4, 40, 8, 128, 1024),
+                                         (3, 10, 2, 64, 300),
+                                         (4, 16, 8, 256, 700),
+                                         (2, 6, 2, 100, 77)])
+@pytest.mark.parametrize("int8,softcap,window", [
+    (False, 50.0, 0), (True, 0.0, 0), (True, 50.0, 0), (True, 0.0, 64)])
+def test_decode_softcap_and_int8_equal_plain(B, H, KV, hd, S, int8, softcap,
+                                             window, dtype, cuda):
+    """Decode with a softcap and over an int8 cache (the tensor-core route
+    for bf16 at hd <= 128, the CUDA-core one else; hd 100 takes the int8
+    loader's one-byte path): == the plain version, NaN past kv_len never
+    read, one launch counted under ``decode_attention_int8`` /
+    ``_softcap``."""
+    from repro_torch.kernels.attention import decode_attention_ref
+    q, k, v = _attn_inputs(S + hd, cuda, dtype, (B, H, hd), (B, S, KV, hd),
+                           (B, S, KV, hd))
+    lens = [S, 1, S // 2, 13][:B]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kw = dict(window=window, softcap=softcap)
+    if int8:
+        k, v, sc = _int8_cache(k, v)
+        for b, n in enumerate(lens):
+            sc["k_scale"][b, n:] = float("nan")
+            sc["v_scale"][b, n:] = float("nan")
+        kw.update(sc)
+    else:
+        _cache_with_nan(k, v, lens)
+    n0 = _counts()
+    got = ops.decode_attention(q, k, v, kv_len, **kw)
+    d = _since(n0)
+    assert d["decode_attention"] == 1
+    assert d.get("decode_attention_int8", 0) == int(int8)
+    assert d.get("decode_attention_softcap", 0) == int(softcap > 0)
+    want = decode_attention_ref(q, k, v, kv_len, **kw)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+
+
+# (B, Sq, Sk, H, D, Dv, offsets, kv_len): deepseek's decode at per-slot
+# depths, its prefill from 0 and a chunk at an offset; reduced widths
+LATENT_CASES = [
+    (4, 1, 1024, 16, 576, 512, [63, 64, 700, 1023], [64, 65, 701, 1024]),
+    (1, 128, 221, 16, 576, 512, [0], None),
+    (1, 93, 1024, 16, 576, 512, [128], [221]),
+    (2, 37, 64, 4, 48, 32, [0, 20], [37, 57]),
+    (3, 1, 50, 5, 40, 40, [9, 0, 49], [10, 1, 50])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(LATENT_CASES)))
+def test_latent_kernel_equals_plain(case, dtype, cuda):
+    """The absorbed MLA's kernel: one launch, == ``latent_attention_ref``
+    (NaN latent rows past the bound never read), the scale the caller's."""
+    from repro_torch.kernels.attention import latent_attention_ref
+    B, Sq, Sk, H, D, Dv, offs, lens = LATENT_CASES[case]
+    q, lat = _attn_inputs(case + 1, cuda, dtype, (B, Sq, H, D), (B, Sk, D))
+    off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    kv_len = None
+    if lens is not None:
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        for b, n in enumerate(lens):
+            lat[b, n:] = float("nan")
+    kw = dict(q_offset=off, hd_v=Dv, scale=192 ** -0.5)
+    n0 = ops.launches["latent_attention"]
+    got = ops.latent_attention(q, lat, kv_len, **kw)
+    assert ops.launches["latent_attention"] == n0 + 1
+    want = latent_attention_ref(q, lat, kv_len, **kw)
+    assert tuple(got.shape) == (B, Sq, H, Dv)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+
+
+def test_latent_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, lat = _attn_inputs(0, cuda, torch.float32, (1, 4, 17, 64), (1, 8, 64))
+    with pytest.raises(ValueError, match="H <= 16"):
+        ops.latent_attention(q, lat, hd_v=32, scale=0.1)
+    q, lat = _attn_inputs(0, cuda, torch.float32, (1, 4, 4, 600), (1, 8, 600))
+    with pytest.raises(ValueError, match="D <= 576"):
+        ops.latent_attention(q, lat, hd_v=32, scale=0.1)
+    q, lat = _attn_inputs(0, cuda, torch.float32, (1, 4, 4, 64), (1, 8, 64))
+    with pytest.raises(ValueError, match="lat must be"):
+        ops.latent_attention(q, lat.to(torch.bfloat16), hd_v=32, scale=0.1)
+    with pytest.raises(ValueError, match="take no gradient"):
+        ops.latent_attention(q.requires_grad_(), lat, 8, q_offset=1,
+                             hd_v=32, scale=0.1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,H,KV,hd,window", [(37, 4, 2, 64, 0),
+                                               (70, 6, 2, 128, 16),
+                                               (33, 4, 1, 32, 0)])
+def test_softcap_gradients_through_the_kernel_equal_plain(
+        Sq, H, KV, hd, window, dtype, cuda):
+    """``FlashAttention`` with a softcap of 5 (binding on these scores):
+    the kernel forward and gradients within 1e-4 (fp32) / 2e-2 (bf16) of
+    max |plain grad| of autograd through ``flash_attention_ref``."""
+    from repro_torch.kernels.attention import flash_attention_ref
+    g = torch.Generator(device=cuda)
+    g.manual_seed(Sq)
+    base = [(2.0 * torch.randn((2, Sq, n, hd), generator=g,
+                               device=cuda)).to(dtype) for n in (H, KV, KV)]
+    do = torch.randn((2, Sq, H, hd), generator=g, device=cuda).to(dtype)
+    ins = [t.clone().requires_grad_() for t in base]
+    n0 = ops.launches["flash_attention_softcap"]
+    out = ops.flash_attention(*ins, window=window, softcap=5.0)
+    assert ops.launches["flash_attention_softcap"] == n0 + 1
+    got = torch.autograd.grad(out, ins, do)
+    ref = [t.clone().requires_grad_() for t in base]
+    want = torch.autograd.grad(flash_attention_ref(
+        *ref, window=window, softcap=5.0), ref, do)
+    for a, b in zip(got, want):
+        assert _grad_rel(a, b) <= TRAIN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,H,D,Dv", [(37, 4, 48, 32), (64, 16, 576, 512)])
+def test_latent_gradients_through_the_kernel_equal_plain(Sq, H, D, Dv, dtype,
+                                                         cuda):
+    """``LatentAttention``: the kernel forward (counted) and the gradients
+    of q and the latent (its K and V parts gathered) within 1e-4 (fp32) /
+    2e-2 (bf16) of max |plain grad|."""
+    from repro_torch.kernels.attention import latent_attention_ref
+    q, lat = _attn_inputs(Sq + D, cuda, dtype, (2, Sq, H, D), (2, Sq, D))
+    do = _attn_inputs(1, cuda, dtype, (2, Sq, H, Dv))[0]
+    kw = dict(hd_v=Dv, scale=192 ** -0.5)
+    ins = [t.clone().requires_grad_() for t in (q, lat)]
+    n0 = ops.launches["latent_attention"]
+    out = ops.latent_attention(*ins, **kw)
+    assert ops.launches["latent_attention"] == n0 + 1
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, ins, do)
+    ref = [t.clone().requires_grad_() for t in (q, lat)]
+    want = torch.autograd.grad(latent_attention_ref(*ref, **kw), ref, do)
+    for a, b in zip(got, want):
+        assert _grad_rel(a, b) <= TRAIN_TOL[dtype]
+
+
+@pytest.mark.parametrize("arch,change", [
+    ("qwen2.5-14b", "int8"), ("qwen2.5-14b", "softcap"),
+    ("gemma3-12b", "int8"), ("hymba-1.5b", "none"),
+    ("deepseek-v2-lite-16b", "absorb"), ("deepseek-v2-lite-16b", "none")])
+def test_chunked_prefill_on_card_equals_plain_attention(arch, change, cuda):
+    """The reduced configurations in fp32 on the card: a prompt prefilled
+    in two chunks (the second at a scalar offset), then a chunk at per-slot
+    offsets and two decode steps, through the kernels and through the plain
+    versions bound in their place: logits within 1e-4 of max |logit|, the
+    kernels' launches counted.  The blocks apply no ``logit_softcap``, as
+    the reference's pass none: no call takes a cap."""
+    import dataclasses
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels.attention import (decode_attention_ref,
+                                               flash_attention_ref,
+                                               latent_attention_ref)
+    from repro_torch.models import attention
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import Runtime, forward, init_cache
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32")
+    if change == "int8":
+        cfg = dataclasses.replace(cfg, kv_cache_int8=True)
+    if change == "softcap":
+        cfg = dataclasses.replace(cfg, logit_softcap=2.0)
+    rt = Runtime(mla_absorb=change == "absorb")
+    params = init_params(cfg, seed=0, device=cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (2, 30), generator=g, device=cuda)
+
+    def run():
+        cache = init_cache(cfg, 2, 40, device=cuda)
+        outs = [forward(params, cfg, rt, toks[:, :17], mode="prefill",
+                        cache=cache, cache_pos=0)[0][:, -1],
+                forward(params, cfg, rt, toks[:, 17:25], mode="prefill",
+                        cache=cache, cache_pos=17)[0][:, -1]]
+        pos = torch.tensor([25, 25], dtype=torch.int32, device=cuda)
+        outs.append(forward(params, cfg, rt, toks[:, 25:28], mode="prefill",
+                            cache=cache, cache_pos=pos)[0][:, -1])
+        for i in range(2):
+            pos = torch.tensor([28 + i, 28 + i], dtype=torch.int32,
+                               device=cuda)
+            outs.append(forward(params, cfg, rt, toks[:, 28 + i:29 + i],
+                                mode="decode", cache=cache,
+                                cache_pos=pos)[0][:, 0])
+        return torch.stack(outs)
+
+    ops.launches.clear()
+    kern = run()
+    L = cfg.n_layers
+    if change == "absorb":
+        assert ops.launches["latent_attention"] == 5 * L
+    else:
+        assert ops.launches["flash_attention"] >= 3 * L
+        assert ops.launches["flash_attention_offset"] >= 2 * L
+    assert ops.launches["flash_attention_softcap"] == 0
+    assert ops.launches["decode_attention_softcap"] == 0
+    saved = (attention.flash_attention, attention.decode_attention,
+             attention.latent_attention)
+    attention.flash_attention = flash_attention_ref
+    attention.decode_attention = decode_attention_ref
+    attention.latent_attention = latent_attention_ref
+    try:
+        plain = run()
+    finally:
+        (attention.flash_attention, attention.decode_attention,
+         attention.latent_attention) = saved
+    rel = float((kern - plain).abs().max() / plain.abs().max())
+    assert rel < 1e-4

@@ -438,14 +438,28 @@ def test_one_token_prompt_takes_the_step_from_zeros(model):
 
 
 def test_chunked_prefill_raises(model):
-    """More tokens at a nonzero position would need flash attention at a
-    query offset: ROADMAP Queue 1 item 8."""
-    _, cfg, _, params = model
+    """More tokens at a nonzero position (a chunked prefill): a prompt of 4
+    prefilled from 0, then 3 tokens at position 4 (the attention over the
+    cache from that offset, the SSD heads from the cache's state) and 2 at
+    per-slot position 7, equal the reference's calls within 1e-4 of max
+    |logit|; the SSM state as the reference leaves it."""
+    ref_cfg, cfg, tree, params = model
+    toks = np.random.default_rng(9).integers(0, cfg.vocab, (1, 9))
     cache = tf.init_cache(cfg, 1, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        tf.forward(params, cfg, tf.Runtime(),
-                   torch.zeros((1, 3), dtype=torch.int64), mode="prefill",
-                   cache=cache, cache_pos=4)
+    rcache = ref_tf.init_cache(ref_cfg, 1, 16, dtype=jnp.float32)
+    for a, b, pos in ((0, 4, 0), (4, 7, 4), (7, 9, [7])):
+        want, rcache, _ = ref_run(tree, ref_cfg, toks[:, a:b],
+                                  mode="prefill", cache=rcache,
+                                  cache_pos=jnp.asarray(pos, jnp.int32))
+        got, cache, _ = tf.forward(
+            params, cfg, tf.Runtime(), torch.from_numpy(toks[:, a:b]),
+            mode="prefill", cache=cache,
+            cache_pos=pos if isinstance(pos, int) else
+            torch.tensor(pos, dtype=torch.int32))
+        assert _rel(got, want) < REL_TOL, (a, b)
+    np.testing.assert_allclose(cache["ssm"].numpy(),
+                               np.asarray(rcache["ssm"]), atol=1e-5,
+                               rtol=1e-5)
 
 
 # ------------------------------------------------------------- serving

@@ -223,23 +223,49 @@ def _layer(params, cfg):
 
 @pytest.mark.parametrize("case", ["softcap", "int8", "chunked_prefill"])
 def test_out_of_scope_attention_raises(models, case):
-    """What the port's attention does not take raises on the CPU too,
-    naming its ROADMAP item."""
-    _, cfg, _, params = models
+    """Three cases of the attention module held to the reference's
+    ``attention_block`` within 1e-4 of max |out|: ``logit_softcap`` 30 in
+    both configurations (neither block applies the field), three tokens prefilled from position 0 into an int8 cache
+    (read back dequantized) and three tokens at position 2 of a filled
+    cache (a chunked prefill); the caches as written."""
+    from repro.models import attention as ref_attention
+    ref_cfg, cfg, tree, params = models
     blk = _layer(params, cfg)
-    x = torch.zeros((1, 3, cfg.d_model))
-    pos = torch.arange(3)[None]
-    cache = {"k": torch.zeros((1, 8, cfg.n_kv_heads, cfg.head_dim)),
-             "v": torch.zeros((1, 8, cfg.n_kv_heads, cfg.head_dim))}
-    kw = dict(positions=pos, window=0)
+    rblk = {k: jnp.asarray(w[0]) for k, w in tree["layers"].items()}
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((1, 3, cfg.d_model)).astype(np.float32)
+    shape = (1, 8, cfg.n_kv_heads, cfg.head_dim)
+    cache, pos0 = None, 0
     if case == "softcap":
         cfg = dataclasses.replace(cfg, logit_softcap=30.0)
+        ref_cfg = dataclasses.replace(ref_cfg, logit_softcap=30.0)
     elif case == "int8":
-        kw.update(cache={"k_q": cache["k"], "v_q": cache["v"]}, cache_pos=0)
+        cache = {"k_q": np.zeros(shape, np.int8),
+                 "v_q": np.zeros(shape, np.int8),
+                 "k_s": np.ones(shape[:-1] + (1,), np.float32),
+                 "v_s": np.ones(shape[:-1] + (1,), np.float32)}
     else:
-        kw.update(cache=cache, cache_pos=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        attention_block(blk, x, cfg, **kw)
+        cache = {n: rng.standard_normal(shape).astype(np.float32)
+                 for n in ("k", "v")}
+        pos0 = 2
+    pos = (pos0 + np.arange(3, dtype=np.int32))[None]
+    kw = dict(window=0, cache_pos=pos0) if cache is not None else \
+        dict(window=0)
+    want, rcache = ref_attention.attention_block(
+        rblk, jnp.asarray(x), ref_cfg, positions=jnp.asarray(pos),
+        cache=None if cache is None else
+        {k: jnp.asarray(v) for k, v in cache.items()}, **kw)
+    got, new = attention_block(
+        blk, torch.from_numpy(x), cfg, positions=torch.from_numpy(pos),
+        cache=None if cache is None else
+        {k: torch.from_numpy(v.copy()) for k, v in cache.items()}, **kw)
+    assert _rel(got, want) < REL_TOL
+    if cache is not None:
+        for k, v in rcache.items():
+            np.testing.assert_allclose(new[k].numpy().astype(np.float32),
+                                       np.asarray(v).astype(np.float32),
+                                       atol=1.0 if k.endswith("_q") else 1e-6,
+                                       rtol=1e-6)
 
 
 @pytest.mark.parametrize("case", ["cross", "window_decode", "mla"])
@@ -330,8 +356,9 @@ def test_former_out_of_scope_attention_equals_reference(models, case):
 
 def test_other_architectures_raise():
     """SSM heads beside the attention (hymba's, here on qwen's reduced
-    configuration) now build: the reference's template and cache.  The
-    int8 KV cache is still to port."""
+    configuration) build: the reference's template and cache.  The int8
+    KV cache is the reference's: int8 ``k_q`` / ``v_q`` and fp32 ``k_s`` / ``v_s`` filled
+    with ones."""
     from repro.models.transformer import init_cache as ref_cache
     cfg = dataclasses.replace(get_reduced_config(ARCH), ssm=True,
                               ssm_state=8)
@@ -343,10 +370,15 @@ def test_other_architectures_raise():
     cache = init_cache(cfg, 1, 4, device="cpu")
     assert {k: tuple(v.shape) for k, v in cache.items()} == \
         {k: tuple(v.shape) for k, v in ref_cache(ref_cfg, 1, 4).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        init_cache(dataclasses.replace(get_reduced_config(ARCH),
-                                       kv_cache_int8=True), 1, 4,
-                   device="cpu")
+    int8 = init_cache(dataclasses.replace(get_reduced_config(ARCH),
+                                          kv_cache_int8=True), 1, 4,
+                      device="cpu")
+    want = ref_cache(dataclasses.replace(ref_reduced(ARCH),
+                                         kv_cache_int8=True), 1, 4)
+    assert set(int8) == set(want) == {"k_q", "v_q", "k_s", "v_s"}
+    for k, w in want.items():
+        assert int8[k].numpy().dtype == np.asarray(w).dtype
+        assert np.array_equal(int8[k].numpy(), np.asarray(w))
 
 
 # ---------------------------------------------------------------- RWKV6

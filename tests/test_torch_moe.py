@@ -83,10 +83,9 @@ def _configs(arch, rename):
     return ref_cfg, cfg
 
 
-@pytest.fixture(scope="module", params=CASES, ids=_ids)
-def model(request):
+def _pair(arch, rename):
     """(reference config, port config, reference tree, port params)."""
-    ref_cfg, cfg = _configs(*request.param)
+    ref_cfg, cfg = _configs(arch, rename)
     tree = jax.tree.map(np.asarray, jax.jit(
         ref_params.init_params, static_argnums=(1, 2))(
             jax.random.PRNGKey(0), ref_cfg, jnp.float32))
@@ -98,6 +97,11 @@ def model(request):
                     v.shape)).astype(np.float32)
     return ref_cfg, cfg, tree, P_.params_from_reference(tree, cfg,
                                                         device="cpu")
+
+
+@pytest.fixture(scope="module", params=CASES, ids=_ids)
+def model(request):
+    return _pair(*request.param)
 
 
 def _moe_params(tree, layer=0):
@@ -346,16 +350,30 @@ def _deepseek_port():
 
 
 def test_absorbed_mla_raises_naming_its_roadmap_item():
-    cfg, params = _deepseek_port()
-    blk = {k: w[0] for k, w in params["layers"].items()}
-    x = torch.zeros((1, 1, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        attention.mla_attention_block(blk, x, cfg,
-                                      positions=torch.zeros((1, 1)),
-                                      absorb=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        forward(params, cfg, Runtime(mla_absorb=True),
-                torch.zeros((1, 3), dtype=torch.int64))
+    """The absorbed MLA: ``mla_attention_block(absorb=True)``
+    at a prefill equals the reference's within 1e-4 of max |out|, and
+    ``forward`` under ``Runtime(mla_absorb=True)`` the reference's under
+    ``Runtime(mesh=None, mla_absorb=True)`` (logits within 1e-4, aux loss
+    within 1e-5)."""
+    ref_cfg, cfg, tree, params = _pair(DEEPSEEK, False)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((1, 5, cfg.d_model)).astype(np.float32)
+    pos = np.arange(5, dtype=np.int32)[None]
+    rblk = {k: jnp.asarray(w[0]) for k, w in tree["layers"].items()}
+    want, _ = ref_mla(rblk, jnp.asarray(x), ref_cfg,
+                      positions=jnp.asarray(pos), absorb=True)
+    got, _ = attention.mla_attention_block(
+        {k: w[0] for k, w in params["layers"].items()}, torch.from_numpy(x),
+        cfg, positions=torch.from_numpy(pos), absorb=True)
+    assert _rel(got, want) < REL_TOL
+    toks = rng.integers(0, cfg.vocab, (1, 6))
+    want, _, want_aux = jax.jit(lambda t, k: ref_forward(
+        t, ref_cfg, RefRuntime(mesh=None, mla_absorb=True), k))(
+            tree, jnp.asarray(toks))
+    got, _, aux = forward(params, cfg, Runtime(mla_absorb=True),
+                          torch.from_numpy(toks))
+    assert _rel(got, want) < REL_TOL
+    assert float(aux) == pytest.approx(float(want_aux), rel=AUX_TOL)
 
 
 def test_forward_train_equals_reference(model):
