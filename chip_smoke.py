@@ -3,9 +3,10 @@
     python3 chip_smoke.py [--parent TREE]
 
 ``--parent TREE`` (a ``git archive`` of an earlier commit, unpacked) also
-builds that tree's ``rwkv6_chunked.cu`` and ``fitscore.cu`` into a library
-of their own and times them in turns with the port's kernels on the same
-inputs (phases 9a and 10).  Float32 matrix products run in full float32
+builds that tree's ``rwkv6_chunked.cu``, ``fitscore.cu``,
+``flash_attention.cu`` and ``decode_attention.cu`` into a library of their
+own and times them in turns with the port's kernels on the same inputs
+(phases 7b, 9a and 10).  Float32 matrix products run in full float32
 (``allow_tf32`` off, precision "highest"), so the plain versions the
 kernels are held to are not themselves TF32; phases 9a and 10 check it.
 
@@ -75,8 +76,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    Then ppe_modified x lognormal:1.0 x seed 0 per event at full size must
    equal its blocked records.
 7. Attention kernels vs plain: the CUDA flash kernels (tensor cores for
-   bf16 at hd 64 / 128, CUDA cores otherwise: ``ops.flash_route``, checked
-   per call) and the decode kernel against ``flash_attention_ref`` /
+   bf16 at hd 64 / 128 / 192 / 256, CUDA cores otherwise:
+   ``ops.flash_route``, checked per call) and the decode kernel (bf16 on
+   its tensor-core route: ``ops.decode_route``, checked per call) against
+   ``flash_attention_ref`` /
    ``decode_attention_ref`` on the card, fp32 and bf16, on the JAX
    package's kernel-test shapes (causal / window cases (T, 0), (T, 32),
    (F, 0), (F, 16)), the tensor-core kernel's tile edges (Sq = Skv in {1,
@@ -95,23 +98,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    (7b) The decode kernel's window and its up to 16 query heads a kv
    head: windows 1, 64 and 1024 with kv_len before, at and past the window
    and the window's start on a split's edge and inside a split, at
-   gemma3-12b's and nemotron-4-340b's decode shapes and on the tensor-core
-   route (G 4, 12, 16), and G 12 / 16 at hd 64, 128, 192, 256, fp32 and
-   bf16, NaN in every cache row outside the window; flash on the CUDA-core
-   route at hd 192 and 256 (causal, windowed, non-causal, Skv past Sq).
-   Then both kernels' device times at phases 18's and 19's shapes
-   (``DENSE_DECODE_SHAPES``, ``DENSE_PREFILL_SHAPES``; MLA's with V
-   zero-padded to q / k's 192) beside their bound,
-   the plain version's and SDPA's with the same mask.
+   gemma3-12b's and nemotron-4-340b's decode shapes (G 4, 12, 16), and G
+   12 / 16 at hd 64, 128, 192, 256, fp32 and bf16, NaN in every cache row
+   outside the window, bf16 on the tensor-core route; flash at hd 192 and
+   256 (causal, windowed, non-causal, Skv past Sq, Sq 1), bf16 on the
+   tensor-core kernel and fp32 on the CUDA-core one, and over an int8
+   cache at an offset on the CUDA-core one.  Then both kernels' device
+   times at phases 18's and 19's shapes (``DENSE_DECODE_SHAPES``,
+   ``DENSE_PREFILL_SHAPES``; MLA's with V zero-padded to q / k's 192),
+   with the route, beside the CUDA-core kernels the tensor-core routes
+   replaced (in turns: flash's from ``flash_attention.cu`` launched raw,
+   decode's from the parent tree's library under ``--parent``), their
+   bound, the plain version's and SDPA's with the same mask.
    (7c) The rest of the attention module at full-width shapes, fp32 and
    bf16, NaN past every key bound: flash at per-row query offsets with
    per-row key bounds (``OFFSET_FLASH_SHAPES``: qwen2.5-14b's 256 queries
    at offsets 768 / 640 / 384 / 0 over a cache of 1024 on the tensor-core
    route in bf16 and the CUDA-core one in fp32; gemma3-12b's hd 256 with
-   its window of 1024, 512 queries at offset 1024), each with and without
-   a softcap of ``SOFTCAP``; decode over an int8 cache (``quant_kv``'s
-   rows; ``INT8_DECODE_SHAPES``: qwen's on the tensor-core route, gemma3's
-   windowed hd 256 on the CUDA-core one) with and without the softcap; the
+   its window of 1024, 512 queries at offset 1024, likewise), each with
+   and without a softcap of ``SOFTCAP``; decode over an int8 cache
+   (``quant_kv``'s rows; ``INT8_DECODE_SHAPES``: qwen's and gemma3's
+   windowed hd 256, bf16 on the tensor-core route) with and without the
+   softcap; the
    latent kernel at deepseek-v2-lite-16b's widths (H 16, D 576, V 512): a
    decode step at 4 slots' depths and a 221-token prompt as chunks of 128
    and 93.  Each against its plain version
@@ -322,7 +330,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    the tensor-core kernel, decode 16 an engine step), then its
    teacher-forced request as in phase 18; (b) deepseek-v2-lite-16b (14 of
    its 27 layers: MLA at q / k 192 with V zero-padded to 192, H = KV =
-   16, on both kernels' CUDA-core routes; 64 experts top-6 plus 2 shared,
+   16, on both kernels' tensor-core routes; 64 experts top-6 plus 2 shared,
    the first layer dense) teacher-forced as in phase 18, then an engine of 4 slots
    at depths ``MOE_ENGINE_LENS`` for ``MOE_ENGINE_STEPS`` steps: each
    slot's latents written to its depth and no further, each slot's logits
@@ -617,22 +625,26 @@ def ptxas_by_kernel(report: str) -> dict:
     return out
 
 
-def sass_instruction_counts(path: str, opcode: str) -> dict:
-    """{mangled kernel name: count of ``opcode`` in its SASS} from
-    ``cuobjdump -sass`` of the built library."""
+def sass_instruction_counts(path: str, *opcodes: str) -> dict:
+    """{opcode: {mangled kernel name: count of ``opcode`` in its SASS}} for
+    each of ``opcodes``, from one ``cuobjdump -sass`` of the built
+    library."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     res = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
                          text=True, timeout=300)
     if res.returncode:
         fail(f"cuobjdump -sass failed: {res.stderr.strip()[:500]}")
-    out, name = {}, None
+    out, name = {op: {} for op in opcodes}, None
     for line in res.stdout.splitlines():
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
-            out.setdefault(name, 0)
-        elif name and opcode in line:
-            out[name] += 1
+            for op in opcodes:
+                out[op].setdefault(name, 0)
+        elif name:
+            for op in opcodes:
+                if op in line:
+                    out[op][name] += 1
     return out
 
 
@@ -649,7 +661,8 @@ def check_fp32_precision():
 
 
 # the parent tree's kernels (``--parent TREE``), timed beside the port's
-PARENT_SOURCES = ("rwkv6_chunked.cu", "fitscore.cu")
+PARENT_SOURCES = ("rwkv6_chunked.cu", "fitscore.cu", "flash_attention.cu",
+                  "decode_attention.cu")
 
 
 def parent_library(tree):
@@ -691,13 +704,19 @@ def parent_library(tree):
     lib.rwkv6_chunked_launch.argtypes = [p] * 8 + [i] * 9 + [p]
     lib.fitscore_legacy_blocks.argtypes = [i]
     lib.fitscore_legacy_launch.argtypes = [p] * 8 + [i] * 4 + [p]
+    f = ctypes.c_float
+    lib.flash_attention_launch.argtypes = [p] * 8 + [i] * 6 + [f] * 2 + \
+        [i] * 4 + [p]
+    lib.decode_attention_launch.argtypes = [p] * 10 + [i] * 5 + [f] * 2 + \
+        [i] * 5 + [p]
     say(f"# parent: {', '.join(PARENT_SOURCES)} of {tree} built in "
         f"{time.perf_counter() - t0:.1f} s")
     return lib
 
 
 def phase_build():
-    from repro_torch.kernels import _build
+    import torch
+    from repro_torch.kernels import _build, ops
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -721,17 +740,21 @@ def phase_build():
             f"{r['spill']} bytes spilled, {r['smem']} bytes static smem")
         if r["spill"] and any(k in name for k in NO_SPILL_KERNELS):
             fail(f"{name} spills {r['spill']} bytes")
-    hgmma = {n: c for n, c in sass_instruction_counts(path, "HGMMA").items()
+    sass = sass_instruction_counts(path, "HGMMA", "HMMA")
+    hgmma = {n: c for n, c in sass["HGMMA"].items()
              if "flash_sm90_kernel" in n}
     say(f"# build: HGMMA instructions in the sm90 flash kernel's SASS: "
         f"{hgmma}; dynamic smem a CTA: flash sm90 "
         f"{lib.flash_attention_sm90_smem_bytes(64)} B (hd 64), "
-        f"{lib.flash_attention_sm90_smem_bytes(128)} B (hd 128); decode "
-        f"(G 5, hd 128, 8 splits) bf16 "
+        f"{lib.flash_attention_sm90_smem_bytes(128)} B (hd 128), "
+        f"{lib.flash_attention_sm90_smem_bytes(192)} B (hd 192), "
+        f"{lib.flash_attention_sm90_smem_bytes(256)} B (hd 256); decode "
+        f"(G 5, hd 128, 8 splits) bf16 (mma) "
         f"{lib.decode_attention_smem_bytes(5, 128, 1, 8)} B, fp32 "
         f"{lib.decode_attention_smem_bytes(5, 128, 0, 8)} B, (G 12, hd "
-        f"192, 8 splits) bf16 {lib.decode_attention_smem_bytes(12, 192, 1, 8)}"
-        f" B, (G 2, hd 256) bf16 {lib.decode_attention_smem_bytes(2, 256, 1, 8)}"
+        f"192, 8 splits) bf16 (mma) "
+        f"{lib.decode_attention_smem_bytes(12, 192, 1, 8)} B, (G 2, hd 256) "
+        f"bf16 (mma) {lib.decode_attention_smem_bytes(2, 256, 1, 8)}"
         f" B, (G 16, hd 256) fp32 "
         f"{lib.decode_attention_smem_bytes(16, 256, 0, 8)} B; latent (D "
         f"576, 16 splits) {lib.latent_attention_smem_bytes(576, 16)} B; "
@@ -742,9 +765,26 @@ def phase_build():
         f"{lib.fitscore_replay_block_warp_smem_bytes(3, 64, 256, 8192)} B, "
         f"at Np 256 "
         f"{lib.fitscore_replay_block_warp_smem_bytes(3, 256, 256, 8192)} B")
-    if len(hgmma) != 2 or not all(hgmma.values()):
-        fail(f"the sm90 flash kernel has no HGMMA instructions: {hgmma}")
-    hmma = {n: c for n, c in sass_instruction_counts(path, "HMMA").items()
+    hds = ops.FLASH_SM90_HEAD_DIMS
+    if len(hgmma) != len(hds) or not all(hgmma.values()):
+        fail(f"the sm90 flash kernel's {len(hds)} instantiations (hd "
+             f"{hds}) do not all have HGMMA instructions: {hgmma}")
+    smem_cap = 232448       # the dynamic shared memory a CTA may have
+    for hd in hds:
+        if lib.flash_attention_sm90_smem_bytes(hd) > smem_cap:
+            fail(f"the sm90 flash kernel at hd {hd} asks "
+                 f"{lib.flash_attention_sm90_smem_bytes(hd)} B of shared "
+                 f"memory, over the {smem_cap} B a CTA may have")
+    # two decode CTAs an SM on the tensor-core route, as ops.decode_splits
+    # sizes the grid (each CTA also holds 1 KB the system reserves)
+    props = torch.cuda.get_device_properties(0)
+    sm_smem = props.shared_memory_per_multiprocessor
+    for G, hd in ((2, 256), (12, 192), (16, 256), (5, 128)):
+        b = lib.decode_attention_smem_bytes(G, hd, 1, 8)
+        if 2 * (b + 1024) > sm_smem:
+            fail(f"decode (mma) at G {G}, hd {hd}: {b} B a CTA, two do not "
+                 f"fit the SM's {sm_smem} B")
+    hmma = {n: c for n, c in sass["HMMA"].items()
             if "rwkv6_chunked_kernel" in n}
     say(f"# build: HMMA instructions in the rwkv6 kernel's SASS: {hmma}; "
         f"dynamic smem a CTA: bf16 {lib.rwkv6_chunked_smem_bytes(1)} B, "
@@ -1729,7 +1769,7 @@ def phase_attention_vs_plain(dev):
                    (6, 10, 2, 64, 700), (6, 16, 2, 256, 333)]
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     errs = {"flash_attention": 0.0, "decode_attention": 0.0}
-    n_cases = n_sm90 = 0
+    n_cases = n_sm90 = n_mma = 0
     for dtype_name, tol in ATTN_TOL.items():
         dtype = getattr(torch, dtype_name)
         for B, Sq, Skv, H, KV, hd in flash_shapes:
@@ -1770,7 +1810,12 @@ def phase_attention_vs_plain(dev):
             for b in range(B):          # never read: NaN must not leak
                 k[b, int(kv_len[b]):] = float("nan")
                 v[b, int(kv_len[b]):] = float("nan")
+            nm = ops.launches["decode_attention_mma"]
             got = ops.decode_attention(q, k, v, kv_len)
+            if (ops.launches["decode_attention_mma"] - nm == 1) != \
+                    (ops.decode_route(dtype, hd) == "mma"):
+                fail(f"decode {dtype} hd={hd} took the wrong route")
+            n_mma += ops.launches["decode_attention_mma"] - nm
             if edge and ops.last_decode_grid != (n_split, split):
                 fail(f"decode {(B, H, KV, hd, S)}: launched "
                      f"{ops.last_decode_grid}, the edges are at "
@@ -1783,7 +1828,8 @@ def phase_attention_vs_plain(dev):
             n_cases += 1
     torch.cuda.synchronize()
     say(f"# attention kernels == plain on {n_cases} cases ({n_sm90} flash "
-        f"calls on the tensor-core kernel; fp32 within 2e-5, bf16 within "
+        f"calls on the tensor-core kernel, {n_mma} decode calls on the "
+        f"tensor-core route; fp32 within 2e-5, bf16 within "
         f"2e-2 and {BF16_REL} of max |plain|): max |diff| flash "
         f"{errs['flash_attention']:.3e}, decode "
         f"{errs['decode_attention']:.3e}")
@@ -1893,15 +1939,67 @@ def decode_valid_rows(kv_len, S, window):
                for n in kv_len)
 
 
-def phase_attention_dense_archs(dev):
-    """Phase 7b: the decode kernel's window and its G <= 16 against
-    ``decode_attention_ref``, flash's CUDA-core route at hd 192 and 256,
-    then both kernels' times at phase 18's decode and prefill shapes (see
-    the module docstring).  Returns {(kind, name): row of numbers}."""
+def cuda_core_flash(lib, q, k, v, window):
+    """A causal call of the CUDA-core flash kernel (``lib``'s raw
+    ``flash_attention_launch``: the port's or the parent tree's; uncounted)
+    on bf16 q, k, v, and its output."""
+    import torch
+    B, Sq, H, hd = q.shape
+    out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+            None, None, None, B, Sq, k.shape[1], H, k.shape[2], hd,
+            hd ** -0.5, 0.0, 1, window, 1, q.device.index or 0,
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+    def call():
+        if lib.flash_attention_launch(*args):
+            fail("the CUDA-core flash launch failed")
+    return call, out
+
+
+def parent_decode(parent, q, k, v, kv_len, window):
+    """A call of the parent tree's ``decode_attention_launch`` (its route
+    for bf16 at q's hd; uncounted), split as ``ops.decode_splits`` says with
+    its own scratch and counters, and its output."""
     import torch
     from repro_torch.kernels import ops
+    dev = q.device
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    n_split, split_len = ops.decode_splits(
+        B, KV, S, torch.cuda.get_device_properties(dev).multi_processor_count)
+    out = torch.empty_like(q)
+    scratch = torch.empty(B * KV * n_split * G * (hd + 2),
+                          dtype=torch.float32, device=dev)
+    counter = torch.zeros(B * KV, dtype=torch.int32, device=dev)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
+            kv_len.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            scratch[B * KV * n_split * G * hd:].data_ptr(),
+            counter.data_ptr(), B, S, H, KV, hd, hd ** -0.5, 0.0, window,
+            n_split, split_len, 1, dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    def call():
+        if parent.decode_attention_launch(*args):
+            fail("the parent decode_attention launch failed")
+    return call, out
+
+
+def phase_attention_dense_archs(dev, parent=None):
+    """Phase 7b: the decode kernel's window and its G <= 16 against
+    ``decode_attention_ref``, flash at hd 192 and 256 (bf16 on the
+    tensor-core kernel, fp32 and an int8 cache on the CUDA-core one), each
+    call's route checked, then both kernels' times at phase 18's and 19's
+    decode and prefill shapes beside the CUDA-core kernels they replace (in
+    turns; decode's from the parent tree's library, given one) (see the
+    module docstring).  Returns {(kind, name): row of numbers}."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._build import library
     from repro_torch.kernels.attention import (decode_attention_ref,
                                                flash_attention_ref)
+    from repro_torch.models.attention import quant_kv
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
@@ -1930,15 +2028,25 @@ def phase_attention_dense_archs(dev):
                     kk[b, n:], vv[b, n:] = float("nan"), float("nan")
                     kk[b, :max(0, n - window) if window else 0] = float("nan")
                     vv[b, :max(0, n - window) if window else 0] = float("nan")
+                nm = ops.launches["decode_attention_mma"]
                 got = ops.decode_attention(q, kk, vv, kv_len, window=window)
+                mma = ops.launches["decode_attention_mma"] - nm
+                if mma != (dtype == torch.bfloat16) or \
+                        (ops.decode_route(dtype, hd) == "mma") != bool(mma):
+                    fail(f"7b decode {dtype_name} hd={hd}: {mma} launches on "
+                         f"the tensor-core route, want "
+                         f"{int(dtype == torch.bfloat16)}")
                 want = decode_attention_ref(q, kk, vv, kv_len, window=window)
                 key = "window" if window else "groups"
                 errs[key] = max(errs[key], _allclose_err(
                     got, want, tol, f"decode {dtype_name} "
                     f"{(B, S, H, KV, hd)} window {window} kv_len {lens}"))
                 n_cases += 1
+        # flash at hd 192 / 256: bf16 on the tensor-core kernel, fp32 not
+        want_sm90 = int(dtype == torch.bfloat16)
         for B, Sq, H, KV, hd in ((1, 300, 16, 8, 256), (2, 129, 24, 2, 192),
-                                 (1, 256, 96, 8, 192), (1, 64, 4, 4, 256)):
+                                 (1, 256, 96, 8, 192), (1, 64, 4, 4, 256),
+                                 (2, 1, 24, 2, 192)):
             for Skv in (Sq, 3 * Sq + 7):
                 q, k, v = _attention_inputs(gen, dev, dtype, (B, Sq, H, hd),
                                             (B, Skv, KV, hd))
@@ -1948,8 +2056,13 @@ def phase_attention_dense_archs(dev):
                     n90 = ops.launches["flash_attention_sm90"]
                     got = ops.flash_attention(q, k, v, causal=causal,
                                               window=window)
-                    if ops.launches["flash_attention_sm90"] != n90:
-                        fail(f"flash hd={hd} took the tensor-core kernel")
+                    sm90 = ops.launches["flash_attention_sm90"] - n90
+                    if sm90 != want_sm90 or \
+                            (ops.flash_route(dtype, hd) == "sm90") != \
+                            bool(want_sm90):
+                        fail(f"7b flash {dtype_name} hd={hd}: {sm90} "
+                             f"launches on the tensor-core kernel, want "
+                             f"{want_sm90}")
                     want = flash_attention_ref(q, k, v, causal=causal,
                                                window=window)
                     errs["flash"] = max(errs["flash"], _allclose_err(
@@ -1957,19 +2070,42 @@ def phase_attention_dense_archs(dev):
                         f"{(B, Sq, Skv, H, KV, hd)} causal={causal} "
                         f"window={window}"))
                     n_cases += 1
+        # over an int8 cache at an offset: the CUDA-core kernel either way
+        for hd in (192, 256):
+            q, k, v = _attention_inputs(gen, dev, dtype, (1, 96, 8, hd),
+                                        (1, 300, 4, hd))
+            (kq, ks), (vq, vs) = quant_kv(k), quant_kv(v)
+            ks[:, 196:], vs[:, 196:] = float("nan"), float("nan")
+            kw = dict(window=64, q_offset=100, kv_len=196, k_scale=ks,
+                      v_scale=vs)
+            n0 = collections.Counter(ops.launches)
+            got = ops.flash_attention(q, kq, vq, **kw)
+            n = collections.Counter(ops.launches) - n0
+            if n["flash_attention_int8"] != 1 or n["flash_attention_sm90"]:
+                fail(f"7b flash int8 {dtype_name} hd={hd}: launches "
+                     f"{dict(n)}, want one int8 call, none on the "
+                     "tensor-core kernel")
+            errs["flash"] = max(errs["flash"], _allclose_err(
+                got, flash_attention_ref(q, kq, vq, **kw), tol,
+                f"flash int8 {dtype_name} hd={hd}"))
+            n_cases += 1
     torch.cuda.synchronize()
     say(f"# 7b: decode with a window (1 / 64 / 1024, kv_len before, at and "
         f"past it, its start on a split's edge and inside a split) and "
-        f"with 12 and 16 query heads a kv head, flash on the CUDA-core "
-        f"route at hd 192 / 256 (causal, windowed, non-causal): {n_cases} "
+        f"with 12 and 16 query heads a kv head (bf16 on the tensor-core "
+        f"route), flash at hd 192 / 256 (causal, windowed, non-causal, Sq "
+        f"1; bf16 on the tensor-core kernel, fp32 and an int8 cache on the "
+        f"CUDA-core one): {n_cases} "
         f"cases == plain (fp32 2e-5, bf16 2e-2 and {BF16_REL} of max "
         f"|plain|): max |diff| window {errs['window']:.3e}, groups "
         f"{errs['groups']:.3e}, flash {errs['flash']:.3e}")
 
-    # times in bf16 at phases 18's and 19's shapes, beside the bound, the plain
-    # version and SDPA with the same mask (a yardstick only)
+    # times in bf16 at phases 18's and 19's shapes, beside the CUDA-core
+    # kernels the routes replaced (in turns), the bound, the plain version
+    # and SDPA with the same mask (a yardstick only)
     F = torch.nn.functional
     bf = torch.bfloat16
+    lib = library()
     rows = {}
     for name, (B, S, H, KV, hd, window) in DENSE_DECODE_SHAPES.items():
         q, k, v = _attention_inputs(gen, dev, bf, (B, H, hd), (B, S, KV, hd))
@@ -1981,8 +2117,14 @@ def phase_attention_dense_archs(dev):
             mask &= pos >= kv_len[:, None] - window
         qt, kt, vt = q[:, :, None], k.transpose(1, 2).contiguous(), \
             v.transpose(1, 2).contiguous()
-        ms = device_ms(lambda: ops.decode_attention(q, k, v, kv_len,
-                                                    window=window), 200)
+        new = lambda: ops.decode_attention(q, k, v, kv_len, window=window)
+        old_ms = old_diff = None
+        if parent is None:
+            ms = device_ms(new, 200)
+        else:
+            old, old_out = parent_decode(parent, q, k, v, kv_len, window)
+            ms, old_ms = in_turns(new, old, 200)
+            old_diff = float((old_out.float() - new().float()).abs().max())
         plain_ms = device_ms(lambda: decode_attention_ref(
             q, k, v, kv_len, window=window), 10)
         lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
@@ -1992,14 +2134,19 @@ def phase_attention_dense_archs(dev):
         bound_ms, bound_by = attention_bound(
             "decode", (B, H, KV, hd, B, n_valid), 2, n_valid)
         n_split, split = ops.last_decode_grid
+        route = ops.decode_route(bf, hd)
         rows[("decode", name)] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-            bound_by=bound_by, n_split=n_split)
+            ms=ms, route=route, parent_ms=old_ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+            n_split=n_split)
+        vs_old = "the parent tree's kernel: no tree given" if old_ms is None \
+            else (f"the parent tree's kernel {old_ms:.6f} ms in turns "
+                  f"(max |new - parent| {old_diff:.3e})")
         say(f"# 7b: decode_attention bf16 {name} B={B} S={S} H={H} KV={KV} "
             f"hd={hd} window={window} ({n_valid} valid rows): device time "
-            f"{ms:.6f} ms, plain {plain_ms:.6f} ms, sdpa {lib_ms:.6f} ms; "
-            f"bound {bound_ms:.6f} ms by {bound_by}; {n_split} splits of "
-            f"{split}")
+            f"{ms:.6f} ms ({route} route; {vs_old}), plain {plain_ms:.6f} "
+            f"ms, sdpa {lib_ms:.6f} ms; bound {bound_ms:.6f} ms by "
+            f"{bound_by}; {n_split} splits of {split}")
     for name, (Sq, H, KV, hd, window) in DENSE_PREFILL_SHAPES.items():
         q, k, v = _attention_inputs(gen, dev, bf, (1, Sq, H, hd),
                                     (1, Sq, KV, hd))
@@ -2008,8 +2155,13 @@ def phase_attention_dense_archs(dev):
         if window:
             mask &= qpos[:, None] - qpos[None, :] < window
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        ms = device_ms(lambda: ops.flash_attention(q, k, v, causal=True,
-                                                   window=window), 20)
+        # the CUDA-core kernel: the parent tree's given one, else the
+        # port's (the same source, flash_attention.cu, launched raw)
+        old, old_out = cuda_core_flash(parent or lib, q, k, v, window)
+        ms, old_ms = in_turns(lambda: ops.flash_attention(
+            q, k, v, causal=True, window=window), old, 20)
+        old_diff = float((old_out.float() - ops.flash_attention(
+            q, k, v, causal=True, window=window).float()).abs().max())
         plain_ms = device_ms(lambda: flash_attention_ref(
             q, k, v, causal=True, window=window), 3)
         lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
@@ -2017,14 +2169,17 @@ def phase_attention_dense_archs(dev):
         pairs = int(mask.sum())
         bound_ms, bound_by = attention_bound(
             "flash", (1, H, KV, hd, Sq, Sq), 2, pairs)
-        rows[("flash", name)] = dict(ms=ms, plain_ms=plain_ms,
-                                     library_ms=lib_ms, bound_ms=bound_ms,
-                                     bound_by=bound_by)
+        route = ops.flash_route(bf, hd)
+        rows[("flash", name)] = dict(ms=ms, route=route, simt_ms=old_ms,
+                                     plain_ms=plain_ms, library_ms=lib_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by)
         say(f"# 7b: flash_attention bf16 {name} Sq=Skv={Sq} H={H} KV={KV} "
-            f"hd={hd} window={window} ({ops.flash_route(bf, hd)} route): "
-            f"device time "
-            f"{ms:.6f} ms, plain {plain_ms:.6f} ms, sdpa {lib_ms:.6f} ms; "
-            f"bound {bound_ms:.6f} ms by {bound_by}; "
+            f"hd={hd} window={window}: device time {ms:.6f} ms ({route} "
+            f"route; the CUDA-core kernel "
+            f"{'of the parent tree' if parent else '(flash_attention.cu)'} "
+            f"{old_ms:.6f} ms in turns, max |new - old| {old_diff:.3e}), "
+            f"plain {plain_ms:.6f} ms, sdpa {lib_ms:.6f} ms; bound "
+            f"{bound_ms:.6f} ms by {bound_by}; "
             f"{4 * pairs * H * hd / ms / 1e9:.1f} TFLOP/s")
     say(f"# 7b: phase 7b took {time.perf_counter() - t_phase:.1f} s")
     return rows
@@ -2567,12 +2722,14 @@ def int8_cache_request(cfg, params, dev):
     out = chunked_request(cfg8, params, dev, None, "8c", {
         "flash_attention": L * n_chunks, "flash_attention_int8": L * n_chunks,
         "flash_attention_sm90": 0, "decode_attention": L * CHUNKED_DECODE,
-        "decode_attention_int8": L * CHUNKED_DECODE})
+        "decode_attention_int8": L * CHUNKED_DECODE,
+        "decode_attention_mma": L * CHUNKED_DECODE})
     bf16 = chunked_request(cfgb, params, dev, None, "8c", {
         "flash_attention": L * n_chunks,
         "flash_attention_sm90": L * n_chunks,
         "flash_attention_offset": L * (n_chunks - 1),
-        "decode_attention": L * CHUNKED_DECODE})
+        "decode_attention": L * CHUNKED_DECODE,
+        "decode_attention_mma": L * CHUNKED_DECODE})
     out.update(bf16_decode_ms=bf16["decode_ms"],
                bf16_prefill_ms=bf16["prefill_ms"],
                cache_bytes=cache_bytes(cfg8, dev),
@@ -2613,8 +2770,10 @@ def absorbed_mla_request(cfg, params, dev):
     naive = chunked_request(cfg, params, dev, Runtime(), "19c", {
         "latent_attention": 0,
         "flash_attention": L * len(CHUNKED_PROMPT[1]),
+        "flash_attention_sm90": L * len(CHUNKED_PROMPT[1]),
         "flash_attention_offset": L * (len(CHUNKED_PROMPT[1]) - 1),
-        "decode_attention": L * CHUNKED_DECODE})
+        "decode_attention": L * CHUNKED_DECODE,
+        "decode_attention_mma": L * CHUNKED_DECODE})
     # the two paths are one function (equal within 1e-6 in fp32 on the CPU:
     # tests/test_torch_attention_ext.py) but round bf16 at other places:
     # held as the kernels are held to the plain run
@@ -2689,7 +2848,8 @@ def phase_serving(dev):
     stats, wall, times, counts = timed_serve_real(cfg, params, reqs)
     launches = {k: counts[k] for k in ("flash_attention",
                                        "flash_attention_sm90",
-                                       "decode_attention")}
+                                       "decode_attention",
+                                       "decode_attention_mma")}
     n_pre, n_dec = len(times["prefill"]), len(times["decode"])
     got = (stats.replica_seconds, stats.replicas_opened, stats.peak_replicas)
     new_tokens = sum(r.decode_len for r in reqs)
@@ -2716,8 +2876,11 @@ def phase_serving(dev):
         fail(f"{launches['flash_attention_sm90']} of "
              f"{launches['flash_attention']} flash calls went through the "
              "tensor-core kernel")
-    if launches["decode_attention"] != cfg.n_layers * n_dec or not n_dec:
-        fail(f"decode_attention launches {launches['decode_attention']} != "
+    if launches["decode_attention"] != cfg.n_layers * n_dec or not n_dec \
+            or launches["decode_attention_mma"] != \
+            launches["decode_attention"]:
+        fail(f"decode_attention launches {launches['decode_attention']} "
+             f"(tensor-core route {launches['decode_attention_mma']}) != "
              f"{cfg.n_layers} x {n_dec} decode steps")
     if got != REF_SERVE_STATS:
         fail(f"placement stats {got} != REF_SERVE_STATS {REF_SERVE_STATS}")
@@ -5094,6 +5257,12 @@ def dense_teacher_forced(cfg, params, dev, max_len, tag="18", ssd_errs=None,
                                  times=times, **kw)
     torch.cuda.synchronize()
     counts = collections.Counter(ops.launches)
+    # bf16 at every architecture's head dim: the tensor-core routes only
+    if cfg.dtype == "bfloat16" and (
+            counts["flash_attention_sm90"] != counts["flash_attention"] or
+            counts["decode_attention_mma"] != counts["decode_attention"]):
+        fail(f"{tag} {cfg.name}: an attention call off its tensor-core "
+             f"route: launches {dict(counts)}")
     calls = {"flash_attention": [], "decode_attention": []}
     kinds = collections.Counter()
     restore = bound_attention(*checked_attention(ATTN_TOL["bfloat16"], calls,
@@ -5271,7 +5440,8 @@ def phase_dense_archs(dev):
         fail(f"{cfg.name}: engine depths {depths} do not straddle "
              f"{cfg.window}")
     if eng_counts["decode_attention_window"] != 8 * n_local or \
-            eng_counts["decode_attention"] != 8 * cfg.n_layers:
+            eng_counts["decode_attention"] != 8 * cfg.n_layers or \
+            eng_counts["decode_attention_mma"] != 8 * cfg.n_layers:
         fail(f"{cfg.name}: engine decode launches {dict(eng_counts)}")
     say(f"# 18 {cfg.name}: engine of 4 slots at depths {list(lens)} -> "
         f"{depths}: decode median {np.median(step_ms):.2f} ms a step "
@@ -5523,8 +5693,12 @@ def phase_moe_archs(dev):
         step_ms.append((time.perf_counter() - t) * 1e3)
     eng_counts = collections.Counter(ops.launches)
     if eng_counts["flash_attention"] != cfg.n_layers * len(prompts) or \
-            eng_counts["flash_attention_sm90"] or \
-            eng_counts["decode_attention"] != cfg.n_layers * MOE_ENGINE_STEPS:
+            eng_counts["flash_attention_sm90"] != \
+            eng_counts["flash_attention"] or \
+            eng_counts["decode_attention"] != \
+            cfg.n_layers * MOE_ENGINE_STEPS or \
+            eng_counts["decode_attention_mma"] != \
+            eng_counts["decode_attention"]:
         fail(f"{cfg.name}: engine launches {dict(eng_counts)}")
     depths = [int(p) for p in eng.pos]
     lat = eng.cache["lat"]
@@ -6151,8 +6325,8 @@ def phase_training(dev):
 
 def moe_teacher_forced(cfg, params, dev):
     """``dense_teacher_forced`` of an MoE model, its launches checked
-    (flash one a layer, on the tensor-core kernel for granite's hd 64 and
-    on the CUDA-core one for MLA's 192; decode one a layer a step), the
+    (flash one a layer, on the tensor-core kernel at granite's hd 64 and
+    MLA's 192; decode one a layer a step), the
     host syncs of one decode ``forward`` (one a MoE layer at most), and
     (reported) the kernel run repeated and the routing differences between
     the kernel and plain runs."""
@@ -6166,7 +6340,7 @@ def moe_teacher_forced(cfg, params, dev):
     tf = dense_teacher_forced(cfg, params, dev, SERVE_MAX_LEN, tag="19")
     n_forced = DENSE_REQUESTS[cfg.name][1]
     c = tf["launches"]
-    sm90 = cfg.n_layers if not cfg.mla else 0
+    sm90 = cfg.n_layers
     if c["flash_attention"] != cfg.n_layers or \
             c["flash_attention_sm90"] != sm90 or \
             c["decode_attention"] != cfg.n_layers * n_forced:
@@ -6446,7 +6620,7 @@ def main() -> None:
     lap("phase_blocked_main_path")
     flash, decode = phase_attention_vs_plain(dev)
     lap("phase_attention_vs_plain")
-    dense_rows = phase_attention_dense_archs(dev)
+    dense_rows = phase_attention_dense_archs(dev, parent)
     lap("phase_attention_dense_archs")
     rest = phase_attention_rest(dev)
     lap("phase_attention_rest")
@@ -6560,6 +6734,10 @@ def main() -> None:
              source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu + "
                     "src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:68",
+             routes={"sm90": "flash_attention_sm90.cu (TMA, wgmma): bf16 "
+                             "at hd 64 / 128 / 192 / 256 (sm90_launches)",
+                     "simt": "flash_attention.cu (CUDA cores): fp32, "
+                             "other hd, an int8 cache"},
              launches=attn_launches["flash_attention"],
              sm90_launches=attn_launches["flash_attention_sm90"],
              dense_archs_launches={
@@ -6601,15 +6779,22 @@ def main() -> None:
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:55",
+             routes={"mma": "decode_mma_kernel (mma.sync): bf16 at hd <= "
+                            "256, 32-position chunks above hd 128 "
+                            "(mma_launches)",
+                     "simt": "decode_kernel (CUDA cores): fp32"},
              launches=attn_launches["decode_attention"],
+             mma_launches=attn_launches["decode_attention_mma"],
              dense_archs_launches={
                  a: {"decode_attention": d["launches"]["decode_attention"],
+                     "mma": d["launches"]["decode_attention_mma"],
                      "windowed": d["launches"]["decode_attention_window"]}
                  for a, d in dense.items()},
              dense_archs_serve_launches=dense["minitron-8b"][
                  "serve_launches"]["decode_attention"],
              moe_archs_launches={
-                 a: d["launches"]["decode_attention"]
+                 a: {"decode_attention": d["launches"]["decode_attention"],
+                     "mma": d["launches"]["decode_attention_mma"]}
                  for a, d in moe.items()},
              moe_serve_launches=moe["granite-moe-3b-a800m"][
                  "serve_launches"]["decode_attention"],

@@ -6,9 +6,10 @@ event-blocked replay megakernel, ``replay_block_sm90.cu`` (one warp a lane,
 pools of up to 256 slots) and ``replay_block.cu`` (larger pools), the
 legacy scorer,
 ``fitscore.cu``, the attention kernels,
-``flash_attention_sm90.cu`` (tensor cores, bf16 at hd 64 / 128),
-``flash_attention.cu`` (CUDA cores, every other call),
-``decode_attention.cu`` and ``latent_attention.cu`` (the absorbed MLA's
+``flash_attention_sm90.cu`` (tensor cores, bf16 at hd 64 / 128 / 192 /
+256), ``flash_attention.cu`` (CUDA cores, every other call),
+``decode_attention.cu`` (bf16 on the tensor cores, fp32 on the CUDA
+cores) and ``latent_attention.cu`` (the absorbed MLA's
 attention over its latent rows), and the
 chunked linear attention of RWKV6 and of hymba's SSD heads,
 ``rwkv6_chunked.cu``) for Hopper

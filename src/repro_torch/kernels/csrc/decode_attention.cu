@@ -43,11 +43,12 @@
 //   at or before lo, copies nothing and writes an empty partial (m =
 //   NEG_INF, l = 0); a split that straddles lo starts its walk at lo, so
 //   its chunks hold only valid rows and need no window mask.
-// - bf16 at hd <= 128 (the serving path): decode_mma_kernel, both products
-//   on the tensor cores by mma.sync (see its note), a ring of 3 chunks of
-//   64 positions.
-// - fp32, and bf16 at larger hd: decode_kernel on the CUDA cores in fp32,
-//   two buffers of 64 positions (32 for rows over 528 bytes).  Per chunk a
+// - bf16 (the serving path; the wrapper's ops.decode_route names it and
+//   passes it as `mma`): decode_mma_kernel, both products on the tensor
+//   cores by mma.sync (see its note), a ring of 3 chunks of 64 positions
+//   (32 above hd 128, so that two CTAs still fit an SM).
+// - fp32: decode_kernel on the CUDA cores in fp32, two buffers of 64
+//   positions (32 for rows over 528 bytes).  Per chunk a
 //   thread a position scores it against the G query rows (held in shared
 //   memory in fp32); one max / sum reduction a query row for the whole
 //   chunk (a warp a row); then P . V, thread (row set, position group, 16
@@ -86,9 +87,6 @@ struct Vec {                       // elements of T in 16 bytes
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void from_f32(float x, float* out) { *out = x; }
 __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* out) {
   *out = __float2bfloat16(x);
@@ -100,14 +98,6 @@ __device__ __forceinline__ void unpack(const uint4& r, float (&f)[4]) {
   f[1] = __uint_as_float(r.y);
   f[2] = __uint_as_float(r.z);
   f[3] = __uint_as_float(r.w);
-}
-__device__ __forceinline__ void unpack(const uint4& r, float (&f)[8]) {
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
 }
 
 // How a split lays a chunk out, for hd and the element size (host and
@@ -309,14 +299,38 @@ __device__ __forceinline__ void finish(Acc acc_at, const float* Ms,
     den[tid] = fmaxf(d, 1e-30f);
   }
   __syncthreads();
-  for (int x = tid; x < G * hd; x += kThreads) {
-    const int g = x / hd;
-    float num = 0.f;
+  // four outputs of one query row a thread where hd allows (16-byte loads,
+  // eight splits' loads in flight): at G 12 the merge reads 8 x 2304
+  // partials, which one load at a time kept waiting on the L2
+  if (hd % 4 == 0) {
+    for (int x = 4 * tid; x < G * hd; x += 4 * kThreads) {
+      const int g = x / hd;
+      float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+      for (int s = 0; s < n_split; ++s) {
+        const float4 a = __ldcg(reinterpret_cast<const float4*>(
+            qa + static_cast<size_t>(s) * G * hd + x));
+        const float ws = w[s * G + g];
+        num.x = fmaf(a.x, ws, num.x);
+        num.y = fmaf(a.y, ws, num.y);
+        num.z = fmaf(a.z, ws, num.z);
+        num.w = fmaf(a.w, ws, num.w);
+      }
+      from_f32(num.x / den[g], &ob[x]);
+      from_f32(num.y / den[g], &ob[x + 1]);
+      from_f32(num.z / den[g], &ob[x + 2]);
+      from_f32(num.w / den[g], &ob[x + 3]);
+    }
+  } else {
+    for (int x = tid; x < G * hd; x += kThreads) {
+      const int g = x / hd;
+      float num = 0.f;
 #pragma unroll 4
-    for (int s = 0; s < n_split; ++s)
-      num = fmaf(__ldcg(qa + static_cast<size_t>(s) * G * hd + x),
-                 w[s * G + g], num);
-    from_f32(num / den[g], &ob[x]);
+      for (int s = 0; s < n_split; ++s)
+        num = fmaf(__ldcg(qa + static_cast<size_t>(s) * G * hd + x),
+                   w[s * G + g], num);
+      from_f32(num / den[g], &ob[x]);
+    }
   }
   if (tid == 0) counter[bh] = 0;
 }
@@ -324,7 +338,8 @@ __device__ __forceinline__ void finish(Acc acc_at, const float* Ms,
 // (kThreads, 1): the ring of a chunk of 32 or 64 rows of up to 1040 bytes
 // holds one CTA an SM at the large head dims, so ptxas may use registers
 // past the 128 that would keep four CTAs resident, rather than spill
-// KT: the cache's type, T or int8_t (an int8 cache with k_scale, v_scale)
+// T: float (bf16 calls take decode_mma_kernel); KT: the cache's type, T or
+// int8_t (an int8 cache with k_scale, v_scale)
 template <typename T, typename KT, int CH>
 __global__ void __launch_bounds__(kThreads, 1)
 decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
@@ -540,7 +555,7 @@ decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
       counter, b, kvh, split, n_split, H, KV, hd);
 }
 
-// ---- bf16 at hd <= 128: both products on the tensor cores (mma.sync)
+// ---- bf16: both products on the tensor cores (mma.sync)
 //
 // A warp takes 16 positions of each 64-position chunk and keeps its own
 // running softmax.  S^T is never formed: scores = Q (the G query rows,
@@ -554,20 +569,33 @@ decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
 // statistics are not carried.  K and V come through a ring of kMmaStages
 // chunks of cp.async; the four warps' softmaxes are merged at the end of
 // the split.
+//
+// Above hd 128 (HALVES) a ring of 64-position chunks would hold one CTA an
+// SM (202 752 B at hd 256), where ops.decode_splits sizes the grid for
+// two.  There a chunk is 32 positions (101 376 B at hd 256, 76 800 at
+// 192): warps w and w + 2 score the same 16 positions (the Q . K^T
+// products twice, cheap beside the bytes) and carry the same softmax, and
+// each takes half of hd's 16-dim tiles in P . V, so a thread holds hd / 4
+// accumulators a query row, not hd / 2.  The merge weighs each half of
+// hd by its two warps.
 
 constexpr int kMmaStages = 3;
 constexpr int kMmaChunk = 64;      // positions a chunk, 16 a warp
+constexpr int kMmaChunkHalves = 32;   // above hd 128: 16 a warp pair
 constexpr float kLog2e = 1.4426950408889634f;
 
 __host__ __device__ inline int mma_hdp(int hd) { return (hd + 15) / 16 * 16; }
 __host__ __device__ inline int mma_pitch(int hd) {
   return mma_hdp(hd) * 2 + 16;
 }
+__host__ __device__ inline int mma_chunk(int hd) {
+  return hd > 128 ? kMmaChunkHalves : kMmaChunk;
+}
 
 // the ring; then the warps' partials (acc, m, l and the merge factor, a
 // query row each); then the merge's weights
 __host__ __device__ inline int mma_region_bytes(int G, int hd, int n_split) {
-  return max3(kMmaStages * 2 * kMmaChunk * mma_pitch(hd),
+  return max3(kMmaStages * 2 * mma_chunk(hd) * mma_pitch(hd),
               kWarps * kGMax * (mma_hdp(hd) + 3) * 4, (n_split + 1) * G * 4);
 }
 
@@ -633,7 +661,8 @@ struct RowSoftmax {
   }
 };
 
-// NK bounds hd / 16 (4 or 8): it sizes the q fragments and accumulators.
+// NK bounds hd / 16 (4, 8, 12 or 16): it sizes the q fragments and
+// accumulators; above 8 the warps take halves of hd (HALVES, see above).
 // HI: G > 8, rows 8-15 of the tile live.  KT: the cache's type, bf16 or
 // int8_t (an int8 cache with k_scale, v_scale, staged as bf16).
 template <int NK, bool HI, typename KT>
@@ -648,7 +677,9 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   int S, int H, int KV, int hd, float scale, float softcap,
                   int window, int split_len, int copy_bytes) {
   using bf = __nv_bfloat16;
-  constexpr int CH = kMmaChunk;
+  constexpr bool kHalves = NK > 8;    // hd > 128, as mma_chunk(hd) decides
+  constexpr int CH = kHalves ? kMmaChunkHalves : kMmaChunk;
+  constexpr int ND = kHalves ? NK / 2 : NK;   // 16-dim tiles of P . V a warp
   constexpr int kRows = HI ? 2 : 1;   // query rows a thread: g (and g + 8)
   extern __shared__ __align__(16) uint8_t smem[];
   const int G = H / KV;
@@ -710,15 +741,17 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
           qa[r][kk][h2] = lo | (hi << 16);
         }
   }
-  // o[i][0..1]: row g, dims 8 i + 2t, + 1; o[i][2..3]: row g + 8
-  float o[2 * NK][4];
+  // this warp's 16 positions of a chunk and its first 16-dim tile of P . V
+  const int p0 = 16 * (kHalves ? warp & 1 : warp);
+  const int dt0 = kHalves ? (warp >> 1) * ND : 0;
+  // o[i][0..1]: row g, dims 16 dt0 + 8 i + 2t, + 1; o[i][2..3]: row g + 8
+  float o[2 * ND][4];
 #pragma unroll
-  for (int i = 0; i < 2 * NK; ++i)
+  for (int i = 0; i < 2 * ND; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
   RowSoftmax sm[kRows];
 
-  const int p0 = 16 * warp;
   for (int it = 0; it < n_chunks; ++it) {
     const int st = it % kMmaStages;
     cp_async_wait<kMmaStages - 2>();
@@ -776,7 +809,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const uint32_t a1 = HI ? pack_bf16(p[kRows - 1][0], p[kRows - 1][1]) : 0u;
     const uint32_t a3 = HI ? pack_bf16(p[kRows - 1][2], p[kRows - 1][3]) : 0u;
 #pragma unroll
-    for (int i = 0; i < 2 * NK; ++i) {
+    for (int i = 0; i < 2 * ND; ++i) {
       o[i][0] *= alpha[0];
       o[i][1] *= alpha[0];
       if (HI) {
@@ -789,12 +822,12 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const uint32_t va = smem_u32(Vc + (p0 + (lane & 7) + 8 * (mi & 1)) *
                                           pitch + 16 * (mi >> 1));
 #pragma unroll
-    for (int dt = 0; dt < NK; ++dt) {
-      if (dt < nk) {
+    for (int j = 0; j < ND; ++j) {
+      if (dt0 + j < nk) {
         uint32_t r0, r1, r2, r3;
-        ldsm_x4_trans(va + 32 * dt, r0, r1, r2, r3);
-        mma_16816(o[2 * dt], a0, a1, a2, a3, r0, r1);
-        mma_16816(o[2 * dt + 1], a0, a1, a2, a3, r2, r3);
+        ldsm_x4_trans(va + 32 * (dt0 + j), r0, r1, r2, r3);
+        mma_16816(o[2 * j], a0, a1, a2, a3, r0, r1);
+        mma_16816(o[2 * j + 1], a0, a1, a2, a3, r2, r3);
       }
     }
   }
@@ -805,7 +838,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     sm[r].l += __shfl_xor_sync(0xffffffffu, sm[r].l, 2);
   }
 
-  // merge the four warps: warp w's acc, m, l and factor of each row
+  // merge the four warps: warp w's acc (its dims), m, l and factor of each
+  // row; with kHalves warps w and w + 2 carry the same m and l
   __syncthreads();   // the ring's last readers are done
   float* Wo = reinterpret_cast<float*>(smem);        // [kWarps][kGMax][hdp]
   float* Wm = Wo + kWarps * kGMax * hdp;             // [kWarps][kGMax]
@@ -814,10 +848,10 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int gr = g + 8 * r;
-    float* wo = Wo + (warp * kGMax + gr) * hdp + 2 * t;
+    float* wo = Wo + (warp * kGMax + gr) * hdp + 16 * dt0 + 2 * t;
 #pragma unroll
-    for (int i = 0; i < 2 * NK; ++i)
-      if (8 * i < hdp) *reinterpret_cast<float2*>(wo + 8 * i) =
+    for (int i = 0; i < 2 * ND; ++i)
+      if (16 * dt0 + 8 * i < hdp) *reinterpret_cast<float2*>(wo + 8 * i) =
           make_float2(o[i][2 * r], o[i][2 * r + 1]);
     if (t == 0) {
       Wm[warp * kGMax + gr] = sm[r].m == -INFINITY ? kNegInf : sm[r].m;
@@ -832,7 +866,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int w = 0; w < kWarps; ++w) {
       const float f = expf(Wm[w * kGMax + tid] - mx);
       Wf[w * kGMax + tid] = f;
-      den = fmaf(Wl[w * kGMax + tid], f, den);
+      if (!kHalves || w < 2) den = fmaf(Wl[w * kGMax + tid], f, den);
     }
     Ms[tid] = mx;
     Ls[tid] = den;
@@ -842,9 +876,18 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       [&](int x) {
         const int gg = x / hd, d = x - gg * hd;
         float sum = 0.f;
+        if constexpr (kHalves) {   // dim d's half: warps 2 (d / 16 ND) + 0, 1
+          const int w0 = 2 * (d / (16 * ND));
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w)
-          sum = fmaf(Wo[(w * kGMax + gg) * hdp + d], Wf[w * kGMax + gg], sum);
+          for (int w = w0; w < w0 + 2; ++w)
+            sum = fmaf(Wo[(w * kGMax + gg) * hdp + d], Wf[w * kGMax + gg],
+                       sum);
+        } else {
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w)
+            sum = fmaf(Wo[(w * kGMax + gg) * hdp + d], Wf[w * kGMax + gg],
+                       sum);
+        }
         return sum;
       },
       Ms, Ls, last, Wo, out, part_acc, part_ml, counter, b, kvh, split,
@@ -874,13 +917,8 @@ cudaError_t set_smem(K kern, int smem) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// bf16 at hd <= 128 on the tensor cores; fp32, and bf16 at larger hd, on the
-// CUDA cores
-bool use_mma(int bf16, int hd) { return bf16 && hd <= 128; }
-
-int smem_for(int bf16, int G, int hd, int n_split) {
-  return use_mma(bf16, hd) ? mma_smem_bytes(G, hd, n_split)
-                           : smem_bytes(G, hd, bf16 ? 2 : 4, n_split);
+int smem_for(int mma, int G, int hd, int n_split) {
+  return mma ? mma_smem_bytes(G, hd, n_split) : smem_bytes(G, hd, 4, n_split);
 }
 
 struct Args {
@@ -922,10 +960,14 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
                      ? q8_width(a.k, a.v, a.hd)
                      : copy_width(a.k, a.v, a.hd * 2);
   const bool hi = a.H / a.KV > 8;
-  auto kern = a.hd <= 64 ? (hi ? decode_mma_kernel<4, true, KT>
-                               : decode_mma_kernel<4, false, KT>)
-                         : (hi ? decode_mma_kernel<8, true, KT>
-                               : decode_mma_kernel<8, false, KT>);
+  auto kern = a.hd <= 64    ? (hi ? decode_mma_kernel<4, true, KT>
+                                  : decode_mma_kernel<4, false, KT>)
+              : a.hd <= 128 ? (hi ? decode_mma_kernel<8, true, KT>
+                                  : decode_mma_kernel<8, false, KT>)
+              : a.hd <= 192 ? (hi ? decode_mma_kernel<12, true, KT>
+                                  : decode_mma_kernel<12, false, KT>)
+                            : (hi ? decode_mma_kernel<16, true, KT>
+                                  : decode_mma_kernel<16, false, KT>);
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
   using bf = __nv_bfloat16;
@@ -941,8 +983,10 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
 
 extern "C" {
 
-// Launches decode attention on `stream` of card `device`; `bf16` selects
-// q's type (0: fp32); k_scale and v_scale non-null make k and v an int8
+// Launches decode attention on `stream` of card `device`; `mma` names the
+// route ops.decode_route decided: 1, bf16 q on the tensor cores
+// (decode_mma_kernel); 0, fp32 q on the CUDA cores (decode_kernel).
+// k_scale and v_scale non-null make k and v an int8
 // cache; `window` > 0 reads only the last `window` positions before kv_len
 // (0: all); softcap > 0 caps the scores (0: none).  The caller guarantees
 // 1 <= hd <= 256, H % KV == 0, 1 <= H / KV <= 16, contiguous tensors,
@@ -955,7 +999,7 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* kv_len, void* out, void* part_acc,
                             void* part_ml, void* counter, int B, int S, int H,
                             int KV, int hd, float scale, float softcap,
-                            int window, int n_split, int split_len, int bf16,
+                            int window, int n_split, int split_len, int mma,
                             int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -976,12 +1020,9 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
   const bool int8 = k_scale != nullptr;
   using bf = __nv_bfloat16;
   cudaError_t err;
-  if (attn_decode::use_mma(bf16, hd))
+  if (mma)
     err = int8 ? attn_decode::launch_mma<int8_t>(a, s)
                : attn_decode::launch_mma<bf>(a, s);
-  else if (bf16)
-    err = int8 ? attn_decode::launch_core<bf, int8_t>(a, s)
-               : attn_decode::launch_core<bf, bf>(a, s);
   else
     err = int8 ? attn_decode::launch_core<float, int8_t>(a, s)
                : attn_decode::launch_core<float, float>(a, s);
@@ -989,9 +1030,9 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
 }
 
 // Dynamic shared memory of one CTA for G query heads a kv head at head dim
-// hd and n_split splits; `bf16` selects the input type (0: fp32).
-int decode_attention_smem_bytes(int G, int hd, int bf16, int n_split) {
-  return attn_decode::smem_for(bf16, G, hd, n_split);
+// hd and n_split splits on the route `mma` names (as for the launch).
+int decode_attention_smem_bytes(int G, int hd, int mma, int n_split) {
+  return attn_decode::smem_for(mma, G, hd, n_split);
 }
 
 }  // extern "C"

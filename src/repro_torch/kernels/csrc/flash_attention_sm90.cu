@@ -1,5 +1,5 @@
 // Blockwise (flash) GQA attention forward on Hopper's tensor cores, for bf16
-// inputs with head dim 64 or 128 (sm_90a: TMA, mbarrier, wgmma).
+// inputs with head dim 64, 128, 192 or 256 (sm_90a: TMA, mbarrier, wgmma).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (kernel body _kernel) for the calls it takes; the wrapper
@@ -23,22 +23,28 @@
 // - One CTA per (128-row Q tile, q head, batch row); the grid's slowest
 //   axis is the tile, longest (last) tiles first, so causal work is
 //   balanced.  Consumer warpgroups 0 and 1 own 64 query rows each; warp 8
-//   is the producer.
+//   is the producer (above hd 128 warpgroup 2, which gives its registers
+//   to the consumers by setmaxnreg: 24 a thread against their 240).
 // - The producer loads Q once and K, V tiles of 64 keys into a ring of
-//   kStages stages with TMA (128-byte swizzle, full / empty mbarrier
-//   pairs).  The tensor maps are 4-D (hd, heads, S, B), so TMA zero-fills
-//   the rows past Sq or Skv of each batch row and never reads the next
-//   one's.
+//   kStages stages (three; two at hd 256, where three would not fit the
+//   227 KB a CTA may have) with TMA (128-byte swizzle, full / empty
+//   mbarrier pairs).  The tensor maps are 4-D (hd, heads, S, B), so TMA
+//   zero-fills the rows past Sq or Skv of each batch row and never reads
+//   the next one's.
 // - S = Q . K^T by wgmma m64n64k16 (Q and K from shared memory, K-major),
-//   fp32 accumulators.  The online softmax runs on the accumulator
-//   fragment in registers (row max and sum across the 4 threads of a row
-//   by shuffles, exp2 with the scale folded in); per-element masks only on
-//   tiles that straddle the diagonal, the window's edge or the ragged end;
-//   a warpgroup skips the tiles its rows cannot see.
+//   hd / 16 steps, fp32 accumulators.  The online softmax runs on the
+//   accumulator fragment in registers (row max and sum across the 4
+//   threads of a row by shuffles, exp2 with the scale folded in);
+//   per-element masks only on tiles that straddle the diagonal, the
+//   window's edge or the ragged end; a warpgroup skips the tiles its rows
+//   cannot see.
 // - P is rounded to bf16 in registers and is the register A operand of
 //   O += P . V (wgmma m64nHDk16, V from shared memory MN-major, i.e. with
-//   the transpose flag).  This rounding is the one numeric difference from
-//   the plain version, which keeps p in fp32: about 2^-9 of each p.
+//   the transpose flag; hd / 64 boxes of 64 columns a wgmma).  This
+//   rounding is the one numeric difference from the plain version, which
+//   keeps p in fp32: about 2^-9 of each p.  A consumer thread holds hd / 2
+//   fp32 accumulators (128 at hd 256) beside the 32 of S and the 16 of P:
+//   ptxas must report no spill.
 // - At an offset (a chunked prefill) the tile range, the skipping and the
 //   masks move with the row's offset and key bound; the tensor maps still
 //   span the whole cache (Skv rows).
@@ -67,17 +73,24 @@ using namespace tma;
 
 constexpr int kBM = 128;                   // query rows a CTA
 constexpr int kBN = 64;                    // keys a tile
-constexpr int kStages = 3;
 constexpr int kConsumers = 256;            // two warpgroups of 64 rows
-constexpr int kThreads = kConsumers + 32;  // and one producer warp
 constexpr int kBox = 64;                   // bf16 columns of one 128 B row
 
 // Dynamic shared memory, from a 1024-byte aligned base (the 128-byte
 // swizzle repeats every 8 rows of 128 bytes): Q (hd / 64 boxes of kBM
 // rows), then kStages K tiles and kStages V tiles (hd / 64 boxes of kBN
-// rows each), then the mbarriers.
+// rows each), then the mbarriers: 192 KB at hd 192 (three stages) and at
+// hd 256 (two).
 template <int HD>
 struct Layout {
+  static_assert(HD % kBox == 0 && HD <= 256, "hd: 64, 128, 192 or 256");
+  static constexpr int kStages = HD > 192 ? 2 : 3;
+  // Above hd 128 the producer is a whole warpgroup, so that setmaxnreg can
+  // move registers to the consumers (ptxas budgets a wgmma kernel's
+  // registers by warpgroup: 168 a thread at three, where hd 256 spills).
+  static constexpr bool kWide = HD > 128;
+  static constexpr int kThreads = kConsumers + (kWide ? 128 : 32);
+  static constexpr int kProducerRegs = 24, kConsumerRegs = 240;
   static constexpr int kQBox = kBM * 128;             // bytes of a Q box
   static constexpr int kKVBox = kBN * 128;            // of a K or V box
   static constexpr int kKVTile = kKVBox * (HD / kBox);
@@ -229,8 +242,120 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 192, fp32) += A (64 x 16, bf16 registers) . B (16 x 192, smem,
+// MN-major: the transpose flag set).
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 256, fp32) += A (64 x 16, bf16 registers) . B (16 x 256, smem,
+// MN-major: the transpose flag set).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Layout<HD>::kThreads, 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
@@ -240,6 +365,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                   int KV, float scale, float softcap, int causal,
                   int window) {
   using L = Layout<HD>;
+  constexpr int kStages = L::kStages;
   constexpr int kChunks = HD / kBox;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -276,6 +402,9 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (threadIdx.x >= kConsumers) {
     // ---- producer: one thread issues every TMA load
+    if constexpr (L::kWide)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+                       L::kProducerRegs));
     if (threadIdx.x != kConsumers) return;
     mbar_expect_tx(bar_q, kBM * HD * 2);
     for (int c = 0; c < kChunks; ++c)
@@ -296,6 +425,9 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     return;
   }
 
+  if constexpr (L::kWide)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+                     L::kConsumerRegs));
   // ---- consumers: warpgroup wg owns rows q0 + 64 wg .. + 63; this thread
   // holds rows r0 and r1 = r0 + 8 of them (at positions qp0, qp1),
   // columns 8 n + 2 (lane % 4) + {0, 1}
@@ -435,8 +567,12 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                                      L::kKVBox, 1024);
       if constexpr (HD == 64)
         wgmma_rs_n64(o, pa[kk], vd);
-      else
+      else if constexpr (HD == 128)
         wgmma_rs_n128(o, pa[kk], vd);
+      else if constexpr (HD == 192)
+        wgmma_rs_n192(o, pa[kk], vd);
+      else
+        wgmma_rs_n256(o, pa[kk], vd);
     }
     wgmma_commit();
     wgmma_wait0();
@@ -517,7 +653,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     smem_set[device].store(true, std::memory_order_release);
   }
   const dim3 grid(H, B, (Sq + kBM - 1) / kBM);
-  kern<<<grid, kThreads, smem, stream>>>(
+  kern<<<grid, Layout<HD>::kThreads, smem, stream>>>(
       mq, mk, mv, q_offset, kv_len, static_cast<__nv_bfloat16*>(out), Sq,
       Skv, H, KV, scale, softcap, causal, window);
   return cudaGetLastError();
@@ -529,7 +665,7 @@ extern "C" {
 
 // Launches the tensor-core flash attention on `stream` of card `device`;
 // q_offset and kv_len are (B,) int32 or null (0 and Skv).  The caller
-// guarantees bf16 tensors, hd in {64, 128}, H % KV == 0, Sq, Skv >= 1,
+// guarantees bf16 tensors, H % KV == 0, Sq, Skv >= 1,
 // contiguous tensors with 16-byte aligned pointers.  Returns
 // the cudaError_t of the launch (0 on success; cudaErrorInvalidValue if a
 // tensor map cannot be encoded, cudaErrorMisalignedAddress for a pointer
@@ -542,8 +678,8 @@ int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
                                 int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  if ((hd != 64 && hd != 128) || KV < 1 || H % KV || Sq < 1 || Skv < 1 ||
-      softcap < 0.f)
+  if ((hd != 64 && hd != 128 && hd != 192 && hd != 256) || KV < 1 ||
+      H % KV || Sq < 1 || Skv < 1 || softcap < 0.f)
     return static_cast<int>(cudaErrorInvalidValue);
   const int* off = static_cast<const int*>(q_offset);
   const int* len = static_cast<const int*>(kv_len);
@@ -551,19 +687,22 @@ int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
     if (reinterpret_cast<uintptr_t>(p) % 16)
       return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      hd == 64 ? attn90::launch<64>(q, k, v, out, off, len, B, Sq, Skv, H,
-                                    KV, scale, softcap, causal, window,
-                                    device, s)
-               : attn90::launch<128>(q, k, v, out, off, len, B, Sq, Skv, H,
-                                     KV, scale, softcap, causal, window,
-                                     device, s);
-  return static_cast<int>(err);
+  auto launch = hd == 64    ? attn90::launch<64>
+                : hd == 128 ? attn90::launch<128>
+                : hd == 192 ? attn90::launch<192>
+                            : attn90::launch<256>;
+  return static_cast<int>(launch(q, k, v, out, off, len, B, Sq, Skv, H, KV,
+                                 scale, softcap, causal, window, device, s));
 }
 
-// Dynamic shared memory of one CTA at head dim hd (64 or 128).
+// Dynamic shared memory of one CTA at head dim hd (64, 128, 192 or 256;
+// 0 for any other).
 int flash_attention_sm90_smem_bytes(int hd) {
-  return hd == 64 ? attn90::Layout<64>::kBytes : attn90::Layout<128>::kBytes;
+  return hd == 64    ? attn90::Layout<64>::kBytes
+         : hd == 128 ? attn90::Layout<128>::kBytes
+         : hd == 192 ? attn90::Layout<192>::kBytes
+         : hd == 256 ? attn90::Layout<256>::kBytes
+                     : 0;
 }
 
 }  // extern "C"

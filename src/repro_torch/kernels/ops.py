@@ -9,9 +9,10 @@ front end's live carry; ``fitscore_select_block``, one scheduler decision
 at T=1), the legacy
 single-pool scorer (``fitscore``, ``csrc/fitscore.cu``), the attention
 kernels of the model stack (``flash_attention``:
-``csrc/flash_attention_sm90.cu`` on the tensor cores for bf16 at hd 64 or
-128, ``csrc/flash_attention.cu`` otherwise, see ``flash_route``;
-``decode_attention``, ``csrc/decode_attention.cu``; both with query
+``csrc/flash_attention_sm90.cu`` on the tensor cores for bf16 at hd 64,
+128, 192 or 256, ``csrc/flash_attention.cu`` otherwise, see
+``flash_route``; ``decode_attention``, ``csrc/decode_attention.cu``, bf16
+on its tensor-core route, see ``decode_route``; both with query
 offsets or key bounds, the softcap and an int8 cache as the reference's
 XLA path takes them; ``latent_attention``, the absorbed MLA's,
 ``csrc/latent_attention.cu``) and the chunked linear attention of RWKV6
@@ -29,7 +30,8 @@ also under its route (``fitscore_replay_block_warp`` or
 ``fitscore_replay_block_global``) and, launched for the serving front end
 or the scheduler, under ``fitscore_replay_dispatch_T{T}`` or
 ``fitscore_select_block``; flash attention's calls through its
-tensor-core kernel also under ``flash_attention_sm90``, the attention
+tensor-core kernel also under ``flash_attention_sm90``, decode
+attention's under ``decode_attention_mma``, the attention
 kernels' calls at an offset, with a softcap or over an int8 cache also
 under ``_offset``, ``_softcap`` or ``_int8`` after the kernel's name; the
 chunked
@@ -580,19 +582,19 @@ def _ptr(t):
 
 
 # head dims the tensor-core flash kernel takes (bf16 only)
-FLASH_SM90_HEAD_DIMS = (64, 128)
+FLASH_SM90_HEAD_DIMS = (64, 128, 192, 256)
 
 
 def flash_route(dtype, hd: int, int8: bool = False) -> str:
     """The kernel that serves a ``flash_attention`` call on the card,
     decided before the launch from the call's dtype, head dim and cache
     type alone: "sm90", the tensor-core kernel
-    (``csrc/flash_attention_sm90.cu``), for bf16 at hd 64 or 128 over a
-    bf16 k / v; "simt", the CUDA-core kernel (``csrc/flash_attention.cu``),
-    for every other call (fp32, which TF32 products would hold to no better
-    than ~1e-3, the other head dims, and an int8 cache, which the
-    tensor-core kernel's TMA loads of bf16 tiles do not read: its calls
-    also count under ``flash_attention_int8``).  Offsets, key bounds and
+    (``csrc/flash_attention_sm90.cu``), for bf16 at hd 64, 128, 192 or 256
+    over a bf16 k / v; "simt", the CUDA-core kernel
+    (``csrc/flash_attention.cu``), for every other call (fp32, which TF32
+    products would hold to no better than ~1e-3, the other head dims, and
+    an int8 cache, which the tensor-core kernel's TMA loads of bf16 tiles
+    do not read: its calls also count under ``flash_attention_int8``).  Offsets, key bounds and
     the softcap take either route.  The tensor-core kernel reads q, k, v
     through TMA, which needs 16-byte aligned tensors: the wrapper raises
     for a call on that route whose tensors are not."""
@@ -626,7 +628,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     keys below ``kv_len[b]`` (None: all ``Skv``), ``softcap`` (0: none),
     and with ``k_scale`` / ``v_scale`` k and v an int8 cache.  On CUDA
     tensors (fp32 or bf16, contiguous, hd <= 256) one of two CUDA kernels,
-    as ``flash_route`` picks; every call counts under
+    as ``flash_route`` picks (bf16 at hd 64 / 128 / 192 / 256 the
+    tensor-core one); every call counts under
     ``launches["flash_attention"]``, the tensor-core kernel's also under
     ``launches["flash_attention_sm90"]``, a call with an offset or a key
     bound also under ``flash_attention_offset``, with a softcap under
@@ -754,6 +757,18 @@ def _stream_counter(kernel: str, dev: torch.device, stream: int,
 DECODE_G_MAX = 16
 
 
+def decode_route(dtype, hd: int) -> str:
+    """The route of ``csrc/decode_attention.cu`` that serves a
+    ``decode_attention`` call on the card, decided here and passed to the
+    launch (the C side follows it): "mma", ``decode_mma_kernel``, both
+    products on the tensor cores by ``mma.sync``, for a bf16 q at any hd
+    the kernel takes (1-256; above 128 in 32-position chunks, so that two
+    CTAs still fit an SM), over a bf16 or an int8 cache (staged as bf16);
+    "simt", ``decode_kernel`` on the CUDA cores, for fp32, which TF32
+    products would hold to no better than ~1e-3."""
+    return "mma" if dtype == torch.bfloat16 and 1 <= hd <= 256 else "simt"
+
+
 def decode_attention(q, k, v, kv_len, *, window: int = 0,
                      softcap: float = 0.0, k_scale=None, v_scale=None):
     """Single-token GQA decode over a KV cache: q (B, H, hd), k/v (B, S,
@@ -763,12 +778,14 @@ def decode_attention(q, k, v, kv_len, *, window: int = 0,
     -> (B, H, hd) in q's type (see ``decode_attention_ref``).  The CUDA
     kernel ``csrc/decode_attention.cu`` for CUDA tensors (fp32 or bf16,
     contiguous, hd <= 256, at most ``DECODE_G_MAX`` query heads per kv
-    head): one launch a call, the cache split as ``decode_splits`` says (the
-    grid launched is kept in ``last_decode_grid``; a split wholly before a
-    row's window reads nothing), the splits' partials in fp32 scratch
-    merged by the last CTA of each (row, kv head); an int8 cache is read
-    as int8 and dequantized in the kernel.  Every launch counts under
-    ``launches["decode_attention"]``, a windowed one also under
+    head): one launch a call on the route ``decode_route`` names, the
+    cache split as ``decode_splits`` says (the grid launched is kept in
+    ``last_decode_grid``; a split wholly before a row's window reads
+    nothing), the splits' partials in fp32 scratch merged by the last CTA
+    of each (row, kv head); an int8 cache is read as int8 and dequantized
+    in the kernel.  Every launch counts under
+    ``launches["decode_attention"]``, one on the tensor-core route also
+    under ``decode_attention_mma``, a windowed one also under
     ``launches["decode_attention_window"]``, one with a softcap under
     ``decode_attention_softcap``, one over an int8 cache under
     ``decode_attention_int8``.  The plain version for CPU ones."""
@@ -802,18 +819,20 @@ def decode_attention(q, k, v, kv_len, *, window: int = 0,
         part_acc = scratch.data_ptr()
         part_ml = scratch[B * KV * n_split * G * hd:].data_ptr()
         counter = _stream_counter(name, dev, stream, B * KV).data_ptr()
+    mma = decode_route(q.dtype, hd) == "mma"
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), kv_len.data_ptr(), out.data_ptr(), part_acc, part_ml,
         counter, B, S, H, KV, hd, hd ** -0.5, float(softcap), int(window),
-        n_split, split_len, int(q.dtype == torch.bfloat16), dev.index or 0,
-        stream)
+        n_split, split_len, int(mma), dev.index or 0, stream)
     if err:
         raise RuntimeError("decode_attention launch failed: "
                            f"{lib.fitscore_error_string(err).decode()}")
     global last_decode_grid
     last_decode_grid = (n_split, split_len)
     launches[name] += 1
+    if mma:
+        launches[name + "_mma"] += 1
     if window:
         launches[name + "_window"] += 1
     if softcap:

@@ -163,11 +163,33 @@ def test_wrappers_refuse_a_device_without_a_kernel(kernel):
     (torch.bfloat16, 96, "simt"), (torch.float32, 64, "simt"),
     (torch.float32, 128, "simt"), (torch.bfloat16, 16, "simt"),
     (torch.bfloat16, 32, "simt"), (torch.bfloat16, 200, "simt"),
-    (torch.bfloat16, 256, "simt")])
+    (torch.bfloat16, 256, "sm90"), (torch.bfloat16, 192, "sm90"),
+    (torch.float32, 192, "simt"), (torch.float32, 256, "simt")])
 def test_flash_route_is_decided_by_dtype_and_head_dim(dtype, hd, route):
-    """bf16 at hd 64 or 128 takes the tensor-core kernel; fp32 and every
-    other head dim keep the CUDA-core kernel."""
+    """bf16 at hd 64, 128, 192 or 256 takes the tensor-core kernel; fp32
+    and every other head dim keep the CUDA-core kernel."""
     assert ops.flash_route(dtype, hd) == route
+
+
+@pytest.mark.parametrize("hd", [64, 128, 192, 256])
+def test_flash_route_keeps_an_int8_cache_on_the_cuda_cores(hd):
+    """An int8 cache takes the CUDA-core kernel at every head dim, the
+    tensor-core ones included: the tensor-core kernel reads bf16 tiles."""
+    assert ops.flash_route(torch.bfloat16, hd, int8=True) == "simt"
+    assert ops.flash_route(torch.float32, hd, int8=True) == "simt"
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 1, "mma"), (torch.bfloat16, 64, "mma"),
+    (torch.bfloat16, 100, "mma"), (torch.bfloat16, 128, "mma"),
+    (torch.bfloat16, 192, "mma"), (torch.bfloat16, 200, "mma"),
+    (torch.bfloat16, 256, "mma"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt"), (torch.float32, 192, "simt"),
+    (torch.float32, 256, "simt")])
+def test_decode_route_is_decided_by_dtype_and_head_dim(dtype, hd, route):
+    """bf16 at every head dim the decode kernel takes (1-256) runs on the
+    tensor cores (``mma.sync``); fp32 keeps the CUDA-core kernel."""
+    assert ops.decode_route(dtype, hd) == route
 
 
 # (B, KV, S) -> (n_split, split_len) at the serving path's shapes
@@ -305,6 +327,87 @@ def test_decode_window_split_and_merge_equal_the_plain_version(
         tol = TOL[dtype]
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
+
+
+def decode_halves(q, k, v, kv_len, window=0):
+    """The tensor-core decode kernel's arithmetic above hd 128 (one split),
+    with plain torch ops: 32-position chunks from the window's start; warp
+    w = 2 dh + ph keeps a running softmax over positions 16 ph .. + 15 of
+    each chunk, rounds its p to q's type for P . V and accumulates only
+    the dims of 16-dim tiles [dh ND, dh ND + ND) (ND = half of hd's tiles
+    in its bound of 12 or 16); the merge takes the max over all four warps,
+    the denominator from warps 0 and 1 (2 and 3 repeat them) and each dim
+    from the two warps of its half."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    nd = (12 if hd <= 192 else 16) // 2
+    f32 = torch.float32
+    out = torch.zeros((B, H, hd))
+    for b in range(B):
+        n = min(int(kv_len[b]), S)
+        lo = max(0, n - window) if window else 0
+        for h in range(KV):
+            qg = q[b, h * G:(h + 1) * G].to(f32)
+            kt, vt = k[b, :, h].to(f32), v[b, :, h].to(f32)
+            m = torch.full((4, G), float("-inf"))
+            l = torch.zeros((4, G))
+            acc = torch.zeros((4, G, hd))
+            for c0 in range(lo, n, 32):
+                for w in range(4):
+                    ph, dh = w & 1, w >> 1
+                    p0, p1 = c0 + 16 * ph, min(c0 + 16 * ph + 16, n)
+                    if p0 >= p1:
+                        continue
+                    sc = (qg @ kt[p0:p1].T) * hd ** -0.5
+                    mx = torch.maximum(m[w], sc.amax(-1))
+                    alpha = torch.exp(m[w] - mx)
+                    p = torch.exp(sc - mx[:, None])
+                    l[w] = l[w] * alpha + p.sum(-1)
+                    d0, d1 = 16 * nd * dh, min(16 * nd * (dh + 1), hd)
+                    acc[w] *= alpha[:, None]
+                    acc[w, :, d0:d1] += p.to(q.dtype).to(f32) @ vt[p0:p1,
+                                                                   d0:d1]
+                    m[w] = mx
+            mm = m.clamp_min(NEG_INF)
+            f = torch.exp(mm - mm.amax(0))
+            den = torch.clamp_min((l[:2] * f[:2]).sum(0), 1e-30)
+            o = torch.zeros((G, hd))
+            for dh in range(2):
+                d0, d1 = 16 * nd * dh, min(16 * nd * (dh + 1), hd)
+                o[:, d0:d1] = (acc[2 * dh:2 * dh + 2, :, d0:d1] *
+                               f[2 * dh:2 * dh + 2, :, None]).sum(0)
+            out[b, h * G:(h + 1) * G] = o / den[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("B,H,KV,hd,S,window", [
+    (3, 12, 1, 192, 100, 0), (2, 6, 2, 200, 77, 0), (3, 4, 2, 256, 130, 40),
+    (2, 16, 1, 144, 65, 0)])
+def test_decode_halves_equal_the_plain_version(B, H, KV, hd, S, window):
+    """The tensor-core decode route's split of hd between warp pairs
+    (above hd 128) against ``decode_attention_ref`` in bf16, kv_len at 1,
+    33, a chunk's edge and S, NaN past kv_len and before the window: each
+    half of hd merged from its own two warps, the denominator counted
+    once."""
+    rng = np.random.default_rng(hd + S)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        torch.bfloat16) for s in ((B, H, hd), (B, S, KV, hd),
+                                  (B, S, KV, hd)))
+    kv_len = torch.tensor([1, 33, 64, S][-B:], dtype=torch.int32)
+    for b in range(B):
+        n = int(kv_len[b])
+        k[b, n:], v[b, n:] = float("nan"), float("nan")
+        if window:
+            k[b, :max(0, n - window)] = float("nan")
+            v[b, :max(0, n - window)] = float("nan")
+    got = decode_halves(q, k, v, kv_len, window)
+    want = decode_attention_ref(q, k, v, kv_len, window=window)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[
+        "bfloat16"], rtol=TOL["bfloat16"])
+    assert float((got.float() - want.float()).abs().max()) <= \
+        2.0 ** -6 * float(want.float().abs().max())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -647,9 +647,20 @@ def _attn_inputs(seed, dev, dtype, *shapes):
             for s in shapes]
 
 
+def _assert_attn_close(got, want, dtype):
+    """Within ``ATTN_TOL`` (atol and rtol) and, for bf16, within 2^-6 of
+    max |plain|."""
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+    if dtype == torch.bfloat16:
+        assert float((got.float() - want.float()).abs().max()) <= \
+            2.0 ** -6 * float(want.float().abs().max())
+
+
 # both dtypes on both routes' head dims, then the tensor-core route's
 # cases: lengths around its 64-key and 128-row tiles, keys beyond the
-# queries, two batch rows; G = 5 as on the serving path
+# queries, two batch rows; G = 5 as on the serving path; at hd 192 and 256
+# G = 12 (nemotron-4-340b's) and G = 2 (gemma3-12b's), Sq = 1 too
 FLASH_CASES = [
     (dtype, *shape) for dtype in (torch.float32, torch.bfloat16)
     for shape in ((2, 128, 128, 4, 2, 64), (2, 100, 100, 2, 1, 32),
@@ -658,18 +669,22 @@ FLASH_CASES = [
                   (1, 33, 33, 3, 1, 200))] + [
     (torch.bfloat16, *shape, hd) for hd in (64, 128)
     for shape in [(1, s, s, 10, 2) for s in (1, 63, 64, 65, 127, 129, 511)]
-    + [(1, 64, 192, 4, 2), (2, 129, 129, 10, 2)]]
+    + [(1, 64, 192, 4, 2), (2, 129, 129, 10, 2)]] + [
+    (torch.bfloat16, *shape, hd) for hd in (192, 256)
+    for shape in [(1, 1, 1, 24, 2), (2, 1, 70, 24, 2), (1, 65, 65, 24, 2),
+                  (1, 130, 130, 24, 2), (2, 77, 300, 24, 2),
+                  (1, 300, 300, 16, 8)]]
 
 
 @pytest.mark.parametrize("dtype,B,Sq,Skv,H,KV,hd", FLASH_CASES)
 def test_flash_kernel_equals_plain(B, Sq, Skv, H, KV, hd, dtype, cuda):
     """Each call takes the kernel ``flash_route`` names (bf16 at hd 64 /
-    128 the tensor-core one, every other call the CUDA-core one) and
-    equals the plain version; bf16 also within 2^-6 of max |plain|."""
+    128 / 192 / 256 the tensor-core one, every other call the CUDA-core
+    one) and equals the plain version; bf16 also within 2^-6 of max
+    |plain|."""
     from repro_torch.kernels.attention import flash_attention_ref
     q, k, v = _attn_inputs(Sq + H, cuda, dtype, (B, Sq, H, hd),
                            (B, Skv, KV, hd), (B, Skv, KV, hd))
-    tol = ATTN_TOL[dtype]
     sm90 = int(ops.flash_route(dtype, hd) == "sm90")
     for causal, window in ((True, 0), (True, 32), (False, 0), (False, 16)):
         n0, n90 = ops.launches["flash_attention"], \
@@ -679,11 +694,7 @@ def test_flash_kernel_equals_plain(B, Sq, Skv, H, KV, hd, dtype, cuda):
         assert ops.launches["flash_attention_sm90"] == n90 + sm90
         want = flash_attention_ref(q, k, v, causal=causal, window=window)
         assert got.dtype == dtype
-        torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                   rtol=tol)
-        if dtype == torch.bfloat16:
-            assert float((got.float() - want.float()).abs().max()) <= \
-                2.0 ** -6 * float(want.float().abs().max())
+        _assert_attn_close(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -698,9 +709,11 @@ def test_decode_kernel_equals_plain(B, H, KV, hd, S, dtype, cuda):
                           device=cuda)
     k[1:, S // 2:] = float("nan")      # past kv_len of rows 1..: unread
     v[1:, S // 2:] = float("nan")
-    n0 = ops.launches["decode_attention"]
+    n0 = _counts()
     got = ops.decode_attention(q, k, v, kv_len)
-    assert ops.launches["decode_attention"] == n0 + 1
+    d = _since(n0)
+    assert d["decode_attention"] == 1
+    assert d["decode_attention_mma"] == int(dtype == torch.bfloat16)
     want = decode_attention_ref(q, k, v, kv_len)
     assert float(got[1].abs().max()) == 0.0
     torch.testing.assert_close(got.float(), want.float(),
@@ -761,11 +774,11 @@ def test_decode_kernel_window_equals_plain(B, H, KV, hd, S, window, dtype,
         k[b, n:], v[b, n:] = float("nan"), float("nan")
         k[b, :max(0, n - window)] = float("nan")
         v[b, :max(0, n - window)] = float("nan")
-    n0, nw = ops.launches["decode_attention"], \
-        ops.launches["decode_attention_window"]
+    n0 = _counts()
     got = ops.decode_attention(q, k, v, kv_len, window=window)
-    assert ops.launches["decode_attention"] == n0 + 1
-    assert ops.launches["decode_attention_window"] == nw + 1
+    d = _since(n0)
+    assert d["decode_attention"] == d["decode_attention_window"] == 1
+    assert d["decode_attention_mma"] == int(dtype == torch.bfloat16)
     want = decode_attention_ref(q, k, v, kv_len, window=window)
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(),
@@ -778,8 +791,8 @@ def test_decode_kernel_window_equals_plain(B, H, KV, hd, S, window, dtype,
 @pytest.mark.parametrize("G", [9, 12, 16])
 @pytest.mark.parametrize("hd", [64, 128, 192, 256])
 def test_decode_kernel_up_to_16_query_heads(G, hd, dtype, cuda):
-    """More than 8 query heads a kv head: the tensor-core route (bf16, hd
-    <= 128) carries the tile's rows 8-15, the CUDA-core route two row sets
+    """More than 8 query heads a kv head: the tensor-core route (bf16)
+    carries the tile's rows 8-15, the CUDA-core route (fp32) two row sets
     of 8; kv_len at 0, 1, a split's edge and S."""
     from repro_torch.kernels.attention import decode_attention_ref
     B, KV, S = 4, 2, 777
@@ -789,11 +802,68 @@ def test_decode_kernel_up_to_16_query_heads(G, hd, dtype, cuda):
     kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
     for b, n in enumerate(lens):
         k[b, n:], v[b, n:] = float("nan"), float("nan")
+    n0 = _counts()
     got = ops.decode_attention(q, k, v, kv_len)
+    assert _since(n0)["decode_attention_mma"] == int(dtype == torch.bfloat16)
     want = decode_attention_ref(q, k, v, kv_len)
     assert float(got[0].abs().max()) == 0.0
     torch.testing.assert_close(got.float(), want.float(),
                                atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+
+
+# (B, H, KV, hd, S, window, int8, softcap): the tensor-core decode route
+# above hd 128 (warps split hd in halves, 32-position chunks): nemotron's
+# hd 192 at G 12 and 16, hd 200 (halves of 8 and 5 tiles of 16), gemma3's
+# windowed hd 256 at G 2, over bf16 and int8 caches, with a softcap
+DECODE_WIDE_CASES = [(4, 96, 8, 192, 1024, 0, False, 0.0),
+                     (4, 32, 2, 192, 777, 0, False, 0.0),
+                     (3, 6, 2, 200, 333, 0, False, 0.0),
+                     (4, 16, 8, 256, 2048, 1024, False, 0.0),
+                     (4, 16, 8, 256, 700, 0, True, 0.0),
+                     (4, 16, 8, 256, 2048, 1024, True, 50.0),
+                     (4, 24, 2, 256, 500, 0, False, 50.0)]
+
+
+@pytest.mark.parametrize("case", range(len(DECODE_WIDE_CASES)))
+def test_decode_tensor_core_route_at_hd_192_and_256(case, cuda):
+    """bf16 decode above hd 128 on the tensor-core route, counted under
+    ``decode_attention_mma``: kv_len at 1, a split's edge, one past it and
+    S (NaN past it, and before the window), == the plain version within
+    ``ATTN_TOL`` and 2^-6 of max |plain|; the merge's counters are left at
+    zero, so the same call again gives the same bits."""
+    from repro_torch.kernels.attention import decode_attention_ref
+    B, H, KV, hd, S, window, int8, softcap = DECODE_WIDE_CASES[case]
+    dtype = torch.bfloat16
+    assert ops.decode_route(dtype, hd) == "mma"
+    split_len = ops.decode_splits(
+        B, KV, S,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)[1]
+    q, k, v = _attn_inputs(S + hd + case, cuda, dtype, (B, H, hd),
+                           (B, S, KV, hd), (B, S, KV, hd))
+    lens = [1, split_len, split_len + 1, S][:B]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kw = dict(window=window, softcap=softcap)
+    if int8:
+        k, v, sc = _int8_cache(k, v)
+        for b, n in enumerate(lens):
+            sc["k_scale"][b, n:] = float("nan")
+            sc["v_scale"][b, n:] = float("nan")
+        kw.update(sc)
+    else:
+        for b, n in enumerate(lens):
+            k[b, n:], v[b, n:] = float("nan"), float("nan")
+            if window:
+                k[b, :max(0, n - window)] = float("nan")
+                v[b, :max(0, n - window)] = float("nan")
+    n0 = _counts()
+    got = ops.decode_attention(q, k, v, kv_len, **kw)
+    d = _since(n0)
+    assert d["decode_attention"] == d["decode_attention_mma"] == 1
+    assert d.get("decode_attention_int8", 0) == int(int8)
+    want = decode_attention_ref(q, k, v, kv_len, **kw)
+    assert bool(torch.isfinite(got).all())
+    _assert_attn_close(got, want, dtype)
+    assert torch.equal(ops.decode_attention(q, k, v, kv_len, **kw), got)
 
 
 def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -958,15 +1028,16 @@ def _mla_inputs(seed, dev, dtype, q_shape, kv_shape, hd):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_at_the_mla_shapes(dtype, cuda):
     """deepseek-v2-lite-16b's prefill: q / k 192 wide (hd 128 + rope 64),
-    V zero-padded to 192, H = KV = 16, Sq = Skv = 256, causal, on the
-    CUDA-core route: == plain, and the padded columns of the output are
-    exactly zero."""
+    V zero-padded to 192, H = KV = 16, Sq = Skv = 256, causal, bf16 on the
+    tensor-core route and fp32 on the CUDA-core one: == plain, and the
+    padded columns of the output are exactly zero."""
     from repro_torch.kernels.attention import flash_attention_ref
     q, k, v = _mla_inputs(3, cuda, dtype, (1, 256, 16, 192),
                           (1, 256, 16, 192), 128)
     n90 = ops.launches["flash_attention_sm90"]
     got = ops.flash_attention(q, k, v, causal=True)
-    assert ops.launches["flash_attention_sm90"] == n90
+    assert ops.launches["flash_attention_sm90"] == \
+        n90 + int(dtype == torch.bfloat16)
     want = flash_attention_ref(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(),
                                atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
@@ -978,8 +1049,9 @@ def test_flash_kernel_at_the_mla_shapes(dtype, cuda):
                                           (24, 8, 64, 64)])
 def test_decode_kernel_at_the_moe_shapes(H, KV, hd, hd_v, dtype, cuda):
     """Decode at B 4 over a cache of 1024: deepseek's MLA (q / k 192, V
-    zero-padded past 128, G 1; the CUDA-core route) and granite's GQA (hd
-    64, G 3); kv_len at 1, a split's edge, 700 and S, NaN past it."""
+    zero-padded past 128, G 1) and granite's GQA (hd 64, G 3), bf16 on the
+    tensor-core route; kv_len at 1, a split's edge, 700 and S, NaN past
+    it."""
     from repro_torch.kernels.attention import decode_attention_ref
     B, S = 4, 1024
     q, k, v = _mla_inputs(H + hd, cuda, dtype, (B, H, hd), (B, S, KV, hd),
@@ -991,7 +1063,9 @@ def test_decode_kernel_at_the_moe_shapes(H, KV, hd, hd_v, dtype, cuda):
     kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
     for b, n in enumerate(lens):
         k[b, n:], v[b, n:] = float("nan"), float("nan")
+    n0 = _counts()
     got = ops.decode_attention(q, k, v, kv_len)
+    assert _since(n0)["decode_attention_mma"] == int(dtype == torch.bfloat16)
     want = decode_attention_ref(q, k, v, kv_len)
     torch.testing.assert_close(got.float(), want.float(),
                                atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
@@ -1474,10 +1548,12 @@ def _int8_cache(k, v):
     return kq, vq, dict(k_scale=ks, v_scale=vs)
 
 
-# (B, Sq, Smax, H, KV, hd): the tensor-core route's head dims and the
-# CUDA-core route's (hd 32 and gemma3's 256)
+# (B, Sq, Smax, H, KV, hd): the tensor-core route's head dims (gemma3's
+# 256 and nemotron's 192 with G 12 among them) and the CUDA-core route's
+# (hd 32)
 OFFSET_SHAPES = [(3, 70, 300, 10, 2, 64), (2, 129, 400, 8, 2, 128),
-                 (2, 37, 100, 6, 2, 32), (2, 40, 200, 4, 2, 256)]
+                 (2, 37, 100, 6, 2, 32), (2, 40, 200, 4, 2, 256),
+                 (2, 70, 333, 24, 2, 192), (1, 130, 500, 16, 8, 256)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1520,7 +1596,7 @@ def test_flash_at_an_offset_equals_plain(B, Sq, Smax, H, KV, hd, window,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 128, 192, 256])
 @pytest.mark.parametrize("offset,window,softcap", [(0, 0, 0.0),
                                                    (90, 0, 0.0),
                                                    (90, 32, 30.0)])
@@ -1560,10 +1636,10 @@ def test_flash_over_an_int8_cache_equals_plain(hd, offset, window, softcap,
 def test_decode_softcap_and_int8_equal_plain(B, H, KV, hd, S, int8, softcap,
                                              window, dtype, cuda):
     """Decode with a softcap and over an int8 cache (the tensor-core route
-    for bf16 at hd <= 128, the CUDA-core one else; hd 100 takes the int8
-    loader's one-byte path): == the plain version, NaN past kv_len never
-    read, one launch counted under ``decode_attention_int8`` /
-    ``_softcap``."""
+    for bf16, the CUDA-core one for fp32; hd 100 takes the int8 loader's
+    one-byte path): == the plain version, NaN past kv_len never read, one
+    launch counted under ``decode_attention_int8`` / ``_softcap`` (and
+    ``_mma`` for bf16)."""
     from repro_torch.kernels.attention import decode_attention_ref
     q, k, v = _attn_inputs(S + hd, cuda, dtype, (B, H, hd), (B, S, KV, hd),
                            (B, S, KV, hd))
@@ -1582,6 +1658,7 @@ def test_decode_softcap_and_int8_equal_plain(B, H, KV, hd, S, int8, softcap,
     got = ops.decode_attention(q, k, v, kv_len, **kw)
     d = _since(n0)
     assert d["decode_attention"] == 1
+    assert d.get("decode_attention_mma", 0) == int(dtype == torch.bfloat16)
     assert d.get("decode_attention_int8", 0) == int(int8)
     assert d.get("decode_attention_softcap", 0) == int(softcap > 0)
     want = decode_attention_ref(q, k, v, kv_len, **kw)
