@@ -4,15 +4,17 @@
 
 ``--parent TREE`` (a ``git archive`` of an earlier commit, unpacked) also
 builds that tree's ``rwkv6_chunked.cu``, ``fitscore.cu``,
-``flash_attention.cu`` and ``decode_attention.cu`` into a library of their
-own and times them in turns with the port's kernels on the same inputs
-(phases 7b, 9a and 10).  Float32 matrix products run in full float32
+``flash_attention.cu``, ``flash_attention_sm90.cu``, ``decode_attention.cu``
+and ``latent_attention.cu`` into a library of their own and times them in
+turns with the port's kernels on the same inputs (phases 7b, 7c, 9a and
+10; 7b also holds the tensor-core flash kernel's outputs equal bit for bit
+to the parent's).  Float32 matrix products run in full float32
 (``allow_tf32`` off, precision "highest"), so the plain versions the
 kernels are held to are not themselves TF32; phases 9a and 10 check it.
 
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. Device and build: the card's name and power limit, then the port's nine
+1. Device and build: the card's name and power limit, then the port's ten
    kernel sources built from ``src/repro_torch/kernels/csrc`` (one nvcc per
    source, started together; build time printed), each kernel's registers,
    spills and static shared memory from ptxas (the attention kernels must
@@ -109,7 +111,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    with the route, beside the CUDA-core kernels the tensor-core routes
    replaced (in turns: flash's from ``flash_attention.cu`` launched raw,
    decode's from the parent tree's library under ``--parent``), their
-   bound, the plain version's and SDPA's with the same mask.
+   bound, the plain version's and SDPA's with the same mask; under
+   ``--parent`` the tensor-core flash kernel's outputs at the prefill
+   shapes equal the parent tree's bit for bit.
    (7c) The rest of the attention module at full-width shapes, fp32 and
    bf16, NaN past every key bound: flash at per-row query offsets with
    per-row key bounds (``OFFSET_FLASH_SHAPES``: qwen2.5-14b's 256 queries
@@ -122,12 +126,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    softcap; the
    latent kernel at deepseek-v2-lite-16b's widths (H 16, D 576, V 512): a
    decode step at 4 slots' depths and a 221-token prompt as chunks of 128
-   and 93.  Each against its plain version
+   and 93, every bf16 call on the tensor-core route
+   (``latent_attention_tc``) and every fp32 call on the CUDA-core one.
+   Each against its plain version
    within ``ATTN_TOL``, then timed in bf16 beside its bound, the plain
    version's time, the CUDA-core flash kernel's on the same inputs, the
    same decode over a bf16 cache, and SDPA's where SDPA computes the same
    function (the backend that ran is printed; none takes the softcap or
-   an int8 cache).
+   an int8 cache); the latent kernel with its route, grid, ptxas's
+   registers and spill and its dynamic shared memory, and under
+   ``--parent`` the parent tree's CUDA-core latent kernel in turns.
 8. Serving at full width: qwen2.5-14b (24 of its 48 layers, as
    ``SERVE_LAYERS`` cuts it; d 5120, bf16, random weights from seed 0
    made on the card), 12 requests as
@@ -347,7 +355,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    (19c) deepseek-v2-lite-16b absorbed (``Runtime(mla_absorb=True)``) at
    the first ``ABSORB_LAYERS`` of its layers: phase 8c's chunked request,
    every attention call through the latent kernel (launches counted from
-   0: one a layer a chunk and a step, no flash or decode), each held to
+   0: one a layer a chunk and a step, all on the tensor-core route, no
+   flash or decode), each held to
    ``latent_attention_ref`` and the logits to the plain run's within
    ``SERVE_LOGIT_TOL``; the same request on the non-absorbed kernel path
    (its second chunk flash at an offset), its logits within
@@ -594,9 +603,13 @@ def device_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+# {mangled kernel name: ptxas's registers, spill, static smem} of the last
+# phase_build
+PTXAS: dict = {}
+
 # kernels whose ptxas report must show no spills (mangled-name parts)
 NO_SPILL_KERNELS = ("flash_sm90_kernel", "decode_kernel", "decode_mma_kernel",
-                    "latent_kernel", "flash_kernel")
+                    "latent_kernel", "latent_sm90_kernel", "flash_kernel")
 
 
 def ptxas_by_kernel(report: str) -> dict:
@@ -662,7 +675,8 @@ def check_fp32_precision():
 
 # the parent tree's kernels (``--parent TREE``), timed beside the port's
 PARENT_SOURCES = ("rwkv6_chunked.cu", "fitscore.cu", "flash_attention.cu",
-                  "decode_attention.cu")
+                  "flash_attention_sm90.cu", "decode_attention.cu",
+                  "latent_attention.cu")
 
 
 def parent_library(tree):
@@ -709,6 +723,10 @@ def parent_library(tree):
         [i] * 4 + [p]
     lib.decode_attention_launch.argtypes = [p] * 10 + [i] * 5 + [f] * 2 + \
         [i] * 5 + [p]
+    lib.flash_attention_sm90_launch.argtypes = [p] * 6 + [i] * 6 + \
+        [f] * 2 + [i] * 3 + [p]
+    lib.latent_attention_launch.argtypes = [p] * 8 + [i] * 6 + [f] + \
+        [i] * 4 + [p]
     say(f"# parent: {', '.join(PARENT_SOURCES)} of {tree} built in "
         f"{time.perf_counter() - t0:.1f} s")
     return lib
@@ -735,7 +753,8 @@ def phase_build():
         with open(os.path.join(_build.CSRC, name), "rb") as f:
             digests[name] = hashlib.sha256(f.read()).hexdigest()[:16]
     say(f"# build: sources sha256 {digests}")
-    for name, r in ptxas_by_kernel(report).items():
+    PTXAS.update(ptxas_by_kernel(report))
+    for name, r in PTXAS.items():
         say(f"#   {name[:72]}: {r['registers']} registers, "
             f"{r['spill']} bytes spilled, {r['smem']} bytes static smem")
         if r["spill"] and any(k in name for k in NO_SPILL_KERNELS):
@@ -757,7 +776,10 @@ def phase_build():
         f"bf16 (mma) {lib.decode_attention_smem_bytes(2, 256, 1, 8)}"
         f" B, (G 16, hd 256) fp32 "
         f"{lib.decode_attention_smem_bytes(16, 256, 0, 8)} B; latent (D "
-        f"576, 16 splits) {lib.latent_attention_smem_bytes(576, 16)} B; "
+        f"576, 16 splits) {lib.latent_attention_smem_bytes(576, 16)} B, "
+        f"its tensor-core route {lib.latent_attention_tc_smem_bytes()} B "
+        f"(clusters of 2 / 4 / 8 CTAs the card holds at once: "
+        f"{ops._latent_clusters(torch.device('cuda', 0))}); "
         f"replay warp "
         f"kernel (T 256, 8192 item rows) score at Np 64 "
         f"{lib.fitscore_replay_block_warp_smem_bytes(0, 64, 256, 8192)} B, "
@@ -775,6 +797,10 @@ def phase_build():
             fail(f"the sm90 flash kernel at hd {hd} asks "
                  f"{lib.flash_attention_sm90_smem_bytes(hd)} B of shared "
                  f"memory, over the {smem_cap} B a CTA may have")
+    if lib.latent_attention_tc_smem_bytes() > smem_cap:
+        fail(f"the tensor-core latent kernel asks "
+             f"{lib.latent_attention_tc_smem_bytes()} B of shared memory, "
+             f"over the {smem_cap} B a CTA may have")
     # two decode CTAs an SM on the tensor-core route, as ops.decode_splits
     # sizes the grid (each CTA also holds 1 KB the system reserves)
     props = torch.cuda.get_device_properties(0)
@@ -1986,6 +2012,52 @@ def parent_decode(parent, q, k, v, kv_len, window):
     return call, out
 
 
+def parent_flash_sm90(parent, q, k, v, window):
+    """A causal call of the parent tree's ``flash_attention_sm90_launch``
+    on bf16 q, k, v (uncounted), and its output."""
+    import torch
+    B, Sq, H, hd = q.shape
+    out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+            None, B, Sq, k.shape[1], H, k.shape[2], hd, hd ** -0.5, 0.0, 1,
+            window, q.device.index or 0,
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+    def call():
+        if parent.flash_attention_sm90_launch(*args):
+            fail("the parent flash_attention_sm90 launch failed")
+    return call, out
+
+
+def parent_latent(parent, q, lat, kv_len, q_offset, hd_v, scale):
+    """A call of the parent tree's ``latent_attention_launch`` (its
+    CUDA-core kernel, bf16; uncounted), split as the parent's wrapper
+    split it (``ops.decode_splits`` for B * Sq rows) with its own scratch
+    and counters, and its output."""
+    import torch
+    from repro_torch.kernels import ops
+    dev = q.device
+    B, Sq, H, D = q.shape
+    Sk = lat.shape[1]
+    n_split, split_len = ops.decode_splits(
+        B * Sq, 1, Sk, torch.cuda.get_device_properties(dev)
+        .multi_processor_count)
+    out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=dev)
+    rows = B * Sq * n_split * H
+    scratch = torch.empty(rows * (hd_v + 2), dtype=torch.float32, device=dev)
+    counter = torch.zeros(B * Sq, dtype=torch.int32, device=dev)
+    args = (q.data_ptr(), lat.data_ptr(), q_offset.data_ptr(),
+            kv_len.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            scratch[rows * hd_v:].data_ptr(), counter.data_ptr(), B, Sq, Sk,
+            H, D, hd_v, scale, n_split, split_len, 1, dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    def call():
+        if parent.latent_attention_launch(*args):
+            fail("the parent latent_attention launch failed")
+    return call, out
+
+
 def phase_attention_dense_archs(dev, parent=None):
     """Phase 7b: the decode kernel's window and its G <= 16 against
     ``decode_attention_ref``, flash at hd 192 and 256 (bf16 on the
@@ -2160,8 +2232,19 @@ def phase_attention_dense_archs(dev, parent=None):
         old, old_out = cuda_core_flash(parent or lib, q, k, v, window)
         ms, old_ms = in_turns(lambda: ops.flash_attention(
             q, k, v, causal=True, window=window), old, 20)
-        old_diff = float((old_out.float() - ops.flash_attention(
-            q, k, v, causal=True, window=window).float()).abs().max())
+        new_out = ops.flash_attention(q, k, v, causal=True, window=window)
+        old_diff = float((old_out.float() - new_out.float()).abs().max())
+        same = "no parent tree"
+        if parent is not None and ops.flash_route(bf, hd) == "sm90":
+            # the wgmma helpers moved to a header: the same outputs, bit
+            # for bit, as the parent tree's kernel
+            call, out90 = parent_flash_sm90(parent, q, k, v, window)
+            call()
+            if not torch.equal(out90, new_out):
+                fail(f"7b {name}: the sm90 flash output differs from the "
+                     f"parent tree's by "
+                     f"{float((out90.float() - new_out.float()).abs().max())}")
+            same = "equal bit for bit to the parent tree's sm90 kernel"
         plain_ms = device_ms(lambda: flash_attention_ref(
             q, k, v, causal=True, window=window), 3)
         lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
@@ -2177,8 +2260,8 @@ def phase_attention_dense_archs(dev, parent=None):
             f"hd={hd} window={window}: device time {ms:.6f} ms ({route} "
             f"route; the CUDA-core kernel "
             f"{'of the parent tree' if parent else '(flash_attention.cu)'} "
-            f"{old_ms:.6f} ms in turns, max |new - old| {old_diff:.3e}), "
-            f"plain {plain_ms:.6f} ms, sdpa {lib_ms:.6f} ms; bound "
+            f"{old_ms:.6f} ms in turns, max |new - old| {old_diff:.3e}; "
+            f"{same}), plain {plain_ms:.6f} ms, sdpa {lib_ms:.6f} ms; bound "
             f"{bound_ms:.6f} ms by {bound_by}; "
             f"{4 * pairs * H * hd / ms / 1e9:.1f} TFLOP/s")
     say(f"# 7b: phase 7b took {time.perf_counter() - t_phase:.1f} s")
@@ -2236,12 +2319,14 @@ def bytes_ops_bound(nbytes, nops, peak):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_attention_rest(dev):
+def phase_attention_rest(dev, parent=None):
     """Phase 7c: flash at a query offset with per-row key bounds (both
-    routes), the softcap, decode over an int8 cache and the latent kernel,
-    each against its plain version at full-width shapes, then timed beside
-    its bound, the plain version and SDPA where SDPA computes the same
-    function.  Returns {name: row of numbers}."""
+    routes), the softcap, decode over an int8 cache and the latent kernel
+    (each bf16 call on its tensor-core route), each against its plain
+    version at full-width shapes, then timed beside its bound, the plain
+    version and SDPA where SDPA computes the same function, the latent
+    kernel also beside the parent tree's CUDA-core one given its library.
+    Returns {name: row of numbers}."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels._build import library
@@ -2383,7 +2468,8 @@ def phase_attention_rest(dev):
                 f"int8 cache); bound {bound_ms:.6f} ms by {bound_by}")
 
     # the latent kernel: deepseek's decode at per-slot depths, and its
-    # 221-token prefill in two chunks
+    # 221-token prefill in two chunks; bf16 on the tensor-core route, fp32
+    # on the CUDA cores
     H, D, Dv = LATENT_H, LATENT_D, LATENT_DV
     B, Smax, lens = LATENT_DECODE
     n_prompt, chunks = LATENT_PREFILL
@@ -2406,11 +2492,20 @@ def phase_attention_rest(dev):
                       hd_v=Dv, scale=LATENT_SCALE)
             kv_len = torch.tensor(ls, dtype=torch.int32, device=dev)
             n0 = ops.launches["latent_attention"]
+            tc0 = ops.launches["latent_attention_tc"]
             got = ops.latent_attention(q, lat, kv_len, **kw)
             if ops.launches["latent_attention"] != n0 + 1:
                 fail(f"7c {name}: not one launch")
+            tc = ops.launches["latent_attention_tc"] - tc0
+            if tc != int(dtype == bf):
+                fail(f"7c {name} {dtype_name}: {tc} launches on the "
+                     f"tensor-core route (route {ops.last_latent_grid[0]})")
             check("latent", got, latent_attention_ref(q, lat, kv_len, **kw),
                   tol, f"7c {name} {dtype_name}")
+    tc_regs = [r for n, r in PTXAS.items() if "latent_sm90_kernel" in n]
+    regs = tc_regs[0]["registers"] if tc_regs else None
+    spill = tc_regs[0]["spill"] if tc_regs else None
+    smem = lib.latent_attention_tc_smem_bytes()
     for name, (b_, sq, sk, offs, ls) in cases.items():
         q, lat = _attention_inputs(gen, dev, bf, (b_, sq, H, D),
                                    (b_, sk, D))[:2]
@@ -2424,24 +2519,38 @@ def phase_attention_rest(dev):
         bound_ms, bound_by = bytes_ops_bound(
             2 * (b_ * sq * H * (D + Dv) + sum(ls) * D) + 8 * b_,
             2 * pairs * H * (D + Dv), BF16_OPS_PER_S)
-        ms = device_ms(lambda: ops.latent_attention(q, lat, kv_len, **kw),
-                       50)
+        new = lambda: ops.latent_attention(q, lat, kv_len, **kw)
+        old_ms = None
+        if parent is None:
+            ms = device_ms(new, 50)
+        else:
+            old, old_out = parent_latent(parent, q, lat, kv_len, off, Dv,
+                                         LATENT_SCALE)
+            ms, old_ms = in_turns(new, old, 50)
+            old_diff = float((old_out.float() - new().float()).abs().max())
+        route, n_split, ctas = ops.last_latent_grid
         plain_ms = device_ms(lambda: latent_attention_ref(q, lat, kv_len,
                                                           **kw), 5)
         lib_ms, backend = sdpa_timed(
             50, q.transpose(1, 2), lat[:, None].expand(b_, H, sk, D),
             lat[:, None, :, :Dv].expand(b_, H, sk, Dv), attn_mask=mask,
             scale=LATENT_SCALE)
-        n_split, split = ops.last_latent_grid
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           sdpa_backend=backend, bound_ms=bound_ms,
-                          bound_by=bound_by, n_split=n_split)
+                          bound_by=bound_by, latent_route=route,
+                          n_split=n_split, ctas=ctas, parent_ms=old_ms,
+                          registers=regs, spill=spill, smem=smem)
+        vs_old = "the parent tree's kernel: no tree given" if old_ms is None \
+            else (f"the parent tree's CUDA-core kernel {old_ms:.6f} ms in "
+                  f"turns (max |new - parent| {old_diff:.3e})")
         say(f"# 7c: {name} bf16 B={b_} Sq={sq} offsets {offs} kv_len {ls} "
             f"H={H} D={D} Dv={Dv} ({pairs} valid pairs): device time "
-            f"{ms:.6f} ms, plain {plain_ms:.6f} ms, sdpa "
+            f"{ms:.6f} ms ({route} route: {n_split} splits, {ctas} CTAs in "
+            f"clusters of {n_split}, {regs} registers, {spill} B spilled, "
+            f"{smem} B of dynamic shared memory a CTA; {vs_old}), plain "
+            f"{plain_ms:.6f} ms, sdpa "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.6f} ms ({backend})'}; "
-            f"bound {bound_ms:.6f} ms by {bound_by}; {n_split} splits of "
-            f"{split} ({n_split * b_ * sq} CTAs)")
+            f"bound {bound_ms:.6f} ms by {bound_by}")
     torch.cuda.synchronize()
     say(f"# 7c: {n_cases} cases == plain (fp32 2e-5, bf16 2e-2 and "
         f"{BF16_REL} of max |plain|; NaN past every key bound): max |diff| "
@@ -2766,6 +2875,7 @@ def absorbed_mla_request(cfg, params, dev):
     n_calls = len(CHUNKED_PROMPT[1]) + CHUNKED_DECODE
     out = chunked_request(cfg, params, dev, Runtime(mla_absorb=True), "19c",
                           {"latent_attention": L * n_calls,
+                           "latent_attention_tc": L * n_calls,
                            "flash_attention": 0, "decode_attention": 0})
     naive = chunked_request(cfg, params, dev, Runtime(), "19c", {
         "latent_attention": 0,
@@ -6622,7 +6732,7 @@ def main() -> None:
     lap("phase_attention_vs_plain")
     dense_rows = phase_attention_dense_archs(dev, parent)
     lap("phase_attention_dense_archs")
-    rest = phase_attention_rest(dev)
+    rest = phase_attention_rest(dev, parent)
     lap("phase_attention_rest")
     attn_launches, int8 = phase_serving(dev)
     lap("phase_serving")
@@ -6822,11 +6932,19 @@ def main() -> None:
              bf16_cache_bytes=int8["bf16_cache_bytes"],
              **decode),
         dict(name="latent_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/latent_attention.cu",
+             source="src/repro_torch/kernels/csrc/latent_attention_sm90.cu "
+                    "(bf16, tensor cores) + "
+                    "src/repro_torch/kernels/csrc/latent_attention.cu "
+                    "(fp32, CUDA cores)",
              replaces="none: the reference computes it in XLA "
                       "(src/repro/models/attention.py:313)",
+             routes={"tc": "latent_sm90_kernel, bf16 (ms, parent_ms: the "
+                           "parent tree's CUDA-core kernel in turns)",
+                     "simt": "latent_kernel, fp32"},
              launches=moe["deepseek-v2-lite-16b"]["absorbed"]["launches"][
                  "latent_attention"],
+             launches_tc=moe["deepseek-v2-lite-16b"]["absorbed"]["launches"][
+                 "latent_attention_tc"],
              max_abs_err=max(rest["max_abs_err"]["latent"],
                              moe["deepseek-v2-lite-16b"]["absorbed"][
                                  "errs"].get("latent_attention", 0.0)),

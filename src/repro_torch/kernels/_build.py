@@ -9,8 +9,9 @@ legacy scorer,
 ``flash_attention_sm90.cu`` (tensor cores, bf16 at hd 64 / 128 / 192 /
 256), ``flash_attention.cu`` (CUDA cores, every other call),
 ``decode_attention.cu`` (bf16 on the tensor cores, fp32 on the CUDA
-cores) and ``latent_attention.cu`` (the absorbed MLA's
-attention over its latent rows), and the
+cores), ``latent_attention_sm90.cu`` (the absorbed MLA's attention over
+its latent rows on the tensor cores, bf16) and ``latent_attention.cu`` (the
+same on the CUDA cores, every other call), and the
 chunked linear attention of RWKV6 and of hymba's SSD heads,
 ``rwkv6_chunked.cu``) for Hopper
 (``sm_90a``), one compiler process per source, all started together, and
@@ -27,10 +28,12 @@ scorer's plain version does); the select's l2 norm's FMA chain is written
 out with ``fmaf`` in the source.  The attention and RWKV6
 kernels are held to a tolerance, not bit for bit, and keep contraction on.
 
-``flash_attention_sm90.cu`` and ``rwkv6_chunked.cu`` encode their TMA
-tensor maps with the driver's ``cuTensorMapEncodeTiled``, which they reach
-through the runtime's ``cudaGetDriverEntryPoint`` (``tma_common.cuh``): the
-library links no ``libcuda``.
+``flash_attention_sm90.cu``, ``latent_attention_sm90.cu`` and
+``rwkv6_chunked.cu`` encode their TMA tensor maps with the driver's
+``cuTensorMapEncodeTiled``, which they reach through the runtime's
+``cudaGetDriverEntryPoint`` (``tma_common.cuh``): the library links no
+``libcuda``.  The two tensor-core attention kernels share their ``wgmma``
+helpers (``wgmma_common.cuh``).
 """
 from __future__ import annotations
 
@@ -51,10 +54,10 @@ SOURCES = {"select.cu": ("--fmad=false",),
            "replay_block.cu": ("--fmad=false",),
            "fitscore.cu": ("--fmad=false",),
            "flash_attention_sm90.cu": (), "flash_attention.cu": (),
-           "decode_attention.cu": (), "latent_attention.cu": (),
-           "rwkv6_chunked.cu": ()}
+           "decode_attention.cu": (), "latent_attention_sm90.cu": (),
+           "latent_attention.cu": (), "rwkv6_chunked.cu": ()}
 HEADERS = ("fitscore_common.cuh", "replay_common.cuh", "warp_select.cuh",
-           "tma_common.cuh")
+           "tma_common.cuh", "wgmma_common.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
@@ -162,6 +165,13 @@ def library() -> ctypes.CDLL:
     lib.latent_attention_launch.restype = i
     lib.latent_attention_smem_bytes.argtypes = [i] * 2
     lib.latent_attention_smem_bytes.restype = i
+    lib.latent_attention_tc_launch.argtypes = [p] * 5 + [i] * 6 + [f] + \
+        [i] * 2 + [p]
+    lib.latent_attention_tc_launch.restype = i
+    lib.latent_attention_tc_smem_bytes.argtypes = []
+    lib.latent_attention_tc_smem_bytes.restype = i
+    lib.latent_attention_tc_max_clusters.argtypes = [i] * 2
+    lib.latent_attention_tc_max_clusters.restype = i
     lib.rwkv6_chunked_launch.argtypes = [p] * 8 + [i] * 9 + [p]
     lib.rwkv6_chunked_launch.restype = i
     for fn in (lib.rwkv6_chunked_window, lib.rwkv6_chunked_col_block):

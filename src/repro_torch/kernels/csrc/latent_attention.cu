@@ -1,44 +1,29 @@
-// The absorbed MLA's attention over the latent cache (DeepSeek-V2), for
-// Hopper (sm_90a).
+// The absorbed MLA's attention over the latent cache (DeepSeek-V2) on the
+// CUDA cores, for fp32 and for the bf16 shapes the tensor-core kernel does
+// not take (kernels/ops.py::latent_route "simt"; bf16 with D and Dv
+// multiples of 8 runs latent_attention_sm90.cu, whose header says what
+// bounds this attention on the card).  Replaces no Pallas kernel: the
+// reference computes it in XLA (repro/models/attention.py:313).
 //
-// Replaces no Pallas kernel: the reference computes it in XLA
-// (repro/models/attention.py::mla_attention_block with absorb=True, its
-// gqa_attention call at :313), and the port's rule is that every attention
-// call goes through a hand-written kernel.  q (B, Sq, H, D): the queries
-// absorbed through W_UK, then their rope part (D = lora + r = 576 at
-// deepseek-v2-lite-16b's width, H = 16); lat (B, Sk, D): one latent row a
-// position, the one kv head every query head reads, K the whole row and V
-// its first Dv columns (Dv = lora = 512); out (B, Sq, H, Dv) in q's type.
-// Query i of row b sits at qpos = q_offset[b] + i (0 + i without
-// q_offset) and reads the keys j <= qpos with j < min(kv_len[b], Sk) (Sk
-// without kv_len): causal at the offset, which covers a prefill from 0, a
-// chunked prefill and a decode step (Sq = 1) alike.  Scores (q . k) *
-// scale (the caller's: the reference passes (hd + r) ** -0.5, not
-// D ** -0.5); the running max, denominator and accumulator in fp32 for fp32 and bf16
-// inputs; out = acc / max(l, 1e-30), so a query with no key gives zeros.
+// Semantics: q (B, Sq, H, D), lat (B, Sk, D), K the whole latent row and V
+// its first Dv columns, out (B, Sq, H, Dv) in q's type; query i of row b at
+// qpos = q_offset[b] + i reads the keys j <= qpos with j < min(kv_len[b],
+// Sk); scores (q . k) * scale (the caller's); max, denominator and
+// accumulator in fp32; out = acc / max(l, 1e-30).
 //
-// What bounds it: the latent bytes at decode.  Each latent row (1152 bytes
-// in bf16) carries H * (D + Dv) multiply-adds for one query position:
-// about 15 operations a byte at H = 16, below the card's balance, so the
-// rows a decode step reads bound it.  At a prefill of S positions each
-// row is read by up to S query positions and the operations bound it.
-//
-// Design (simple and right first, on the CUDA cores): one CTA of 256
-// threads per (key split, query position, batch row) holds all H heads of
-// that position, so a latent row it reads serves both products of every
-// head.  The keys [0, min(kv_len, qpos + 1)) are split as the decode kernel
-// splits its cache (kernels/ops.py::decode_splits, with B * Sq rows): a
-// decode step at 4 slots over 1024 positions runs 16 splits of 64.  A
-// split walks its keys in chunks of 32 rows staged in shared memory in
-// fp32 (row pitch D + 1 words against bank conflicts); per chunk each
-// thread scores one key against two heads, one warp per two heads updates
-// the running max and denominator, and each thread accumulates two of the
-// Dv columns for all H heads, reading V from the same staged rows.  Each
-// split writes its partial (m, l, acc) in fp32 to scratch the wrapper
-// allocates, and the last CTA of a (row, query position) to finish (an
-// atomic counter, reset by that CTA) merges them, so a call is one launch;
-// with one split the CTA writes the output directly.  Tensor cores
-// (mma / wgmma over the 16 heads as one tile) are later work.
+// Design: one CTA of 256 threads per (key split, query position, batch row)
+// holds all H heads of that position.  The keys [0, min(kv_len, qpos + 1))
+// are split as the decode kernel splits its cache (kernels/ops.py::
+// decode_splits, with B * Sq rows).  A split walks its keys in chunks of 32
+// rows staged in shared memory in fp32 (row pitch D + 1 words against bank
+// conflicts); per chunk each thread scores one key against two heads, one
+// warp per two heads updates the running max and denominator, and each
+// thread accumulates two of the Dv columns for all H heads, reading V from
+// the same staged rows.  Each split writes its partial (m, l, acc) in fp32
+// to scratch the wrapper allocates, and the last CTA of a (row, query
+// position) to finish (an atomic counter, reset by that CTA) merges them,
+// so a call is one launch; with one split the CTA writes the output
+// directly.
 //
 // Launched through a plain C interface (ctypes), on the caller's stream; it
 // allocates nothing and does not synchronise.  The counters must be zero

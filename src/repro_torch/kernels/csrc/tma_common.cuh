@@ -1,9 +1,10 @@
 // Hopper's Tensor Memory Accelerator (TMA) and mbarrier helpers, shared by
 // the kernels that load their tiles with it (flash_attention_sm90.cu,
-// rwkv6_chunked.cu): shared-memory addresses, an mbarrier's init, arrive,
-// expected transaction bytes and wait, the load of one box of a 4-D tensor
-// map, and the driver's cuTensorMapEncodeTiled, reached through the
-// runtime's cudaGetDriverEntryPoint so that the library links no libcuda.
+// latent_attention_sm90.cu, rwkv6_chunked.cu): shared-memory addresses, an
+// mbarrier's init, arrive, expected transaction bytes and wait, the load of
+// one box of a 3-D or a 4-D tensor map, and the driver's
+// cuTensorMapEncodeTiled, reached through the runtime's
+// cudaGetDriverEntryPoint so that the library links no libcuda.
 #pragma once
 
 #include <cuda.h>
@@ -46,6 +47,19 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// One box of a 3-D tensor map into shared memory; completion is reported
+// to `bar` as transaction bytes.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
 }
 
 // One box of a 4-D tensor map into shared memory; completion is reported

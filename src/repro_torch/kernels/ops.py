@@ -714,8 +714,8 @@ def decode_splits(B: int, KV: int, S: int, n_sm: int = 132) -> tuple:
     ``DECODE_SPLIT_MIN`` positions, split_len a multiple of it and no split
     starting at or past ``S``.  From the shapes alone, so the wrapper needs
     no sync to read ``kv_len``; splits past a row's ``kv_len`` are empty.
-    ``latent_attention`` splits its keys the same way, with one query
-    position of one row in the place of a (row, kv head)."""
+    ``latent_attention``'s CUDA-core route splits its keys the same way,
+    with one query position of one row in the place of a (row, kv head)."""
     if S <= DECODE_SPLIT_MIN:
         return 1, DECODE_SPLIT_MIN
     want = -(-2 * n_sm // max(1, B * KV))
@@ -732,8 +732,8 @@ def _sm_count(device: torch.device) -> int:
 
 # (n_split, split_len) of the last decode_attention launch
 last_decode_grid: tuple = (0, 0)
-# (n_split, split_len) of the last latent_attention launch
-last_latent_grid: tuple = (0, 0)
+# (route, n_split, CTAs) of the last latent_attention launch
+last_latent_grid: tuple = ("", 0, 0)
 
 # (kernel, device index, stream) -> int32 counters of a last-CTA merge
 # (decode attention's, the latent kernel's, the legacy scorer's), zero
@@ -842,11 +842,96 @@ def decode_attention(q, k, v, kv_len, *, window: int = 0,
     return out
 
 
-# the latent kernel's bounds (kHMax, kDMax, kDvMax in
-# csrc/latent_attention.cu): query heads, latent columns, value columns
+# the latent kernels' bounds (kHMax, kDMax, kDvMax in
+# csrc/latent_attention.cu and csrc/latent_attention_sm90.cu): query heads,
+# latent columns, value columns
 LATENT_H_MAX = 16
 LATENT_D_MAX = 576
 LATENT_DV_MAX = 512
+# rows of the tensor-core kernel's tile (kBM): 64 // H query positions x
+# all H heads; and keys a tile of its ring (kBN)
+LATENT_TILE_ROWS = 64
+LATENT_KEY_TILE = 64
+# a tile whose visible keys span fewer 64-key tiles than this is not split:
+# a merge costs more than the key tile it saves (measured: PERF.md)
+LATENT_SPLIT_FROM_TILES = 3
+# splits a tile the tensor-core latent kernel takes at most: one thread
+# block cluster holds a tile's splits (kMaxSplit, a cluster's portable
+# size)
+LATENT_SPLIT_MAX = 8
+
+
+def latent_route(dtype, H: int, D: int, hd_v: int) -> str:
+    """The kernel that serves a ``latent_attention`` call on the card,
+    decided here and passed to the launch: "tc", ``latent_sm90_kernel`` of
+    ``csrc/latent_attention_sm90.cu``, both products on the tensor cores by
+    ``wgmma``, for bf16 with D and ``hd_v`` multiples of 8 (TMA row pitches
+    are multiples of 16 bytes); "simt", ``latent_kernel`` of
+    ``csrc/latent_attention.cu`` on the CUDA cores, for fp32 (TF32 products
+    would hold it to no better than ~1e-3) and every other shape."""
+    return ("tc" if dtype == torch.bfloat16 and D % 8 == 0 and hd_v % 8 == 0
+            else "simt")
+
+
+def latent_tiles(Sq: int, H: int) -> int:
+    """Tiles of the tensor-core latent kernel a batch row: each holds
+    ``LATENT_TILE_ROWS // H`` consecutive query positions x all H heads."""
+    return -(-Sq // (LATENT_TILE_ROWS // H))
+
+
+def latent_splits(B: int, n_tiles: int, Sk: int, n_sm: int = 132,
+                  clusters=None) -> int:
+    """How many parts the tensor-core latent kernel splits each tile's
+    visible keys into: a grid of (n_split, n_tiles, B) CTAs in clusters of
+    (n_split, 1, 1), one CTA an SM (each takes 222 KB of shared memory).
+    ``clusters`` maps a cluster size to how many such clusters the card
+    holds at once (a cluster's CTAs share a GPC; default ``n_sm //
+    size``).  The largest power of two up to ``LATENT_SPLIT_MAX`` and the
+    key tiles of the cache capacity ``Sk`` whose clusters all fit one wave,
+    none below ``LATENT_SPLIT_FROM_TILES`` key tiles; then as few as take
+    the same longest split, so that at full capacity no split is empty.
+    From the shapes alone: the visible keys (``kv_len``, ``q_offset``) live
+    on the card, which splits them (``latent_split_range``)."""
+    kt = -(-Sk // LATENT_KEY_TILE)
+    if kt < LATENT_SPLIT_FROM_TILES:
+        return 1
+    slots = clusters or {}
+    n = 1
+    while 2 * n <= min(LATENT_SPLIT_MAX, kt) and \
+            B * n_tiles <= slots.get(2 * n, n_sm // (2 * n)):
+        n *= 2
+    return -(-kt // -(-kt // n))
+
+
+@functools.lru_cache(maxsize=None)
+def _latent_clusters(device: torch.device) -> dict:
+    """{cluster size: clusters of that many tensor-core latent CTAs the
+    card holds at once (0: none fits)}, asked of the runtime once a
+    card."""
+    from ._build import library
+    lib = library()
+    out = {}
+    for n in (2, 4, 8):
+        got = lib.latent_attention_tc_max_clusters(n, device.index or 0)
+        if got < 0:
+            raise RuntimeError(f"latent_attention: clusters of {n} CTAs: "
+                               f"{lib.fitscore_error_string(-got).decode()}")
+        out[n] = got
+    return out
+
+
+def latent_split_range(visible: int, n_split: int, split: int) -> tuple:
+    """The keys [start, end) that split ``split`` of the tensor-core latent
+    kernel reads of a tile that sees the keys [0, visible): the visible key
+    tiles (of ``LATENT_KEY_TILE``) in ``n_split`` parts of ceil(tiles /
+    n_split) tiles each, so only splits past the visible keys are empty
+    (start == end == visible).  The kernel computes the same on the card."""
+    n_kt = -(-visible // LATENT_KEY_TILE)
+    per = -(-n_kt // n_split)
+    kt0 = min(split * per, n_kt)
+    kt1 = min(kt0 + per, n_kt)
+    return (min(kt0 * LATENT_KEY_TILE, visible),
+            min(kt1 * LATENT_KEY_TILE, visible))
 
 
 def latent_attention(q, lat, kv_len=None, *, q_offset=None, hd_v: int,
@@ -855,18 +940,21 @@ def latent_attention(q, lat, kv_len=None, *, q_offset=None, hd_v: int,
     whole latent row, V its first ``hd_v`` columns), causal at
     ``q_offset`` (an int or (B,); None: 0), keys below ``kv_len`` (an int
     or (B,); None: all ``Sk``), ``scale`` the caller's -> (B, Sq, H, hd_v)
-    in q's type (see ``latent_attention_ref``).  The CUDA kernel
-    ``csrc/latent_attention.cu`` for CUDA tensors (fp32 or bf16,
-    contiguous, H <= ``LATENT_H_MAX``, D <= ``LATENT_D_MAX``, hd_v <=
-    ``LATENT_DV_MAX``): one launch a call, a CTA per (key split, query
-    position, row) holding all H heads, so each latent row is read once a
-    query position for both products; the keys split as ``decode_splits``
-    says for ``B * Sq`` rows (kept in ``last_latent_grid``), the splits
-    merged by the last CTA.  Every launch counts under
-    ``launches["latent_attention"]``.  With grad mode on and an input that
-    requires grad, the launch runs inside ``autograd.LatentAttention``
-    (no offsets or key bounds there).  The plain version for CPU
-    tensors."""
+    in q's type (see ``latent_attention_ref``).  For CUDA tensors (fp32 or
+    bf16, contiguous, H <= ``LATENT_H_MAX``, D <= ``LATENT_D_MAX``, hd_v <=
+    ``LATENT_DV_MAX``) one launch a call on the route ``latent_route``
+    names: "tc" (``csrc/latent_attention_sm90.cu``) a CTA per (key split,
+    tile of ``64 // H`` query positions x H heads, row), the tiles' visible
+    keys split on the card into ``latent_splits`` parts, one thread block
+    cluster a tile merging its splits in shared memory; "simt"
+    (``csrc/latent_attention.cu``) a CTA per (key split, query position,
+    row), the keys split as ``decode_splits`` says for ``B * Sq`` rows and
+    merged by the last CTA from fp32 scratch.  (route, n_split, CTAs) of
+    the launch is kept in ``last_latent_grid``.  Every launch counts under
+    ``launches["latent_attention"]``, one on the tensor-core route also
+    under ``latent_attention_tc``.  With grad mode on and an input that
+    requires grad, the launch runs inside ``autograd.LatentAttention`` (no
+    offsets or key bounds there).  The plain version for CPU tensors."""
     if q.device.type == "cpu":
         return latent_attention_ref(q, lat, kv_len, q_offset=q_offset,
                                     hd_v=hd_v, scale=scale)
@@ -880,8 +968,8 @@ def latent_attention(q, lat, kv_len=None, *, q_offset=None, hd_v: int,
 
 def latent_launch(q, lat, kv_len=None, *, q_offset=None, hd_v: int,
                   scale: float):
-    """The launch of ``latent_attention``'s kernel (checks, splits,
-    count), invisible to autograd."""
+    """The launch of ``latent_attention``'s kernel (checks, route, splits,
+    counts), invisible to autograd."""
     name = "latent_attention"
     dev = q.device
     if dev.type != "cuda":
@@ -910,26 +998,45 @@ def latent_launch(q, lat, kv_len=None, *, q_offset=None, hd_v: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     off = _rows_i32("q_offset", name, q_offset, B, dev)
     bound = _rows_i32("kv_len", name, kv_len, B, dev)
-    n_split, split_len = decode_splits(B * Sq, 1, max(Sk, 1), _sm_count(dev))
-    part_acc = part_ml = counter = None
-    if n_split > 1:
-        rows = B * Sq * n_split * H
-        scratch = torch.empty(rows * (hd_v + 2), dtype=torch.float32,
-                              device=dev)
-        part_acc = scratch.data_ptr()
-        part_ml = scratch[rows * hd_v:].data_ptr()
-        counter = _stream_counter(name, dev, stream, B * Sq).data_ptr()
-    err = lib.latent_attention_launch(
-        q.data_ptr(), lat.data_ptr(), _ptr(off), _ptr(bound), out.data_ptr(),
-        part_acc, part_ml, counter, B, Sq, Sk, H, D, hd_v, float(scale),
-        n_split, split_len, int(q.dtype == torch.bfloat16),
-        dev.index or 0, stream)
+    route = latent_route(q.dtype, H, D, hd_v)
+    if route == "tc":
+        if Sk == 0 or q.data_ptr() % 16 or lat.data_ptr() % 16:
+            raise ValueError(f"{name}: bf16 q and lat must be 16-byte "
+                             "aligned and Sk >= 1 (the tensor-core kernel "
+                             "reads them through TMA)")
+        n_tiles = latent_tiles(Sq, H)
+        n_split = latent_splits(B, n_tiles, Sk, _sm_count(dev),
+                                _latent_clusters(dev))
+        err = lib.latent_attention_tc_launch(
+            q.data_ptr(), lat.data_ptr(), _ptr(off), _ptr(bound),
+            out.data_ptr(), B, Sq, Sk, H, D, hd_v, float(scale), n_split,
+            dev.index or 0, stream)
+        ctas = n_split * n_tiles * B
+    else:
+        part_acc = part_ml = counter = None
+        n_split, split_len = decode_splits(B * Sq, 1, max(Sk, 1),
+                                           _sm_count(dev))
+        if n_split > 1:
+            rows = B * Sq * n_split * H
+            scratch = torch.empty(rows * (hd_v + 2), dtype=torch.float32,
+                                  device=dev)
+            part_acc = scratch.data_ptr()
+            part_ml = scratch[rows * hd_v:].data_ptr()
+            counter = _stream_counter(name, dev, stream, B * Sq).data_ptr()
+        err = lib.latent_attention_launch(
+            q.data_ptr(), lat.data_ptr(), _ptr(off), _ptr(bound),
+            out.data_ptr(), part_acc, part_ml, counter, B, Sq, Sk, H, D,
+            hd_v, float(scale), n_split, split_len,
+            int(q.dtype == torch.bfloat16), dev.index or 0, stream)
+        ctas = n_split * Sq * B
     if err:
-        raise RuntimeError(f"{name} launch failed: "
+        raise RuntimeError(f"{name} ({route}) launch failed: "
                            f"{lib.fitscore_error_string(err).decode()}")
     global last_latent_grid
-    last_latent_grid = (n_split, split_len)
+    last_latent_grid = (route, n_split, ctas)
     launches[name] += 1
+    if route == "tc":
+        launches[name + "_tc"] += 1
     return out
 
 

@@ -1668,38 +1668,77 @@ def test_decode_softcap_and_int8_equal_plain(B, H, KV, hd, S, int8, softcap,
 
 
 # (B, Sq, Sk, H, D, Dv, offsets, kv_len): deepseek's decode at per-slot
-# depths, its prefill from 0 and a chunk at an offset; reduced widths
+# depths (one slot's keys in one split of eight, a key tile straddling
+# kv_len), its prefill from 0 and a chunk at an offset (93 queries: not a
+# multiple of the tensor-core tile's 4 positions); reduced widths at H 4
+# and H 5 (a tile not filled by whole positions); H 5 at three per-row
+# offsets (a row that sees one key, a tile straddling kv_len and Sk);
+# kv_len below a key tile; a decode step whose splits but one hold no
+# visible key; a row with no key at all
 LATENT_CASES = [
     (4, 1, 1024, 16, 576, 512, [63, 64, 700, 1023], [64, 65, 701, 1024]),
     (1, 128, 221, 16, 576, 512, [0], None),
     (1, 93, 1024, 16, 576, 512, [128], [221]),
     (2, 37, 64, 4, 48, 32, [0, 20], [37, 57]),
-    (3, 1, 50, 5, 40, 40, [9, 0, 49], [10, 1, 50])]
+    (3, 1, 50, 5, 40, 40, [9, 0, 49], [10, 1, 50]),
+    (3, 13, 150, 5, 40, 40, [9, 0, 120], [22, 1, 133]),
+    (2, 8, 200, 16, 64, 64, [10, 30], [12, 20]),
+    (2, 1, 2048, 16, 576, 512, [0, 2047], [1, 2048]),
+    (2, 4, 64, 8, 32, 16, [0, 5], [0, 9])]
+
+
+def _latent_case(case, dev, dtype):
+    B, Sq, Sk, H, D, Dv, offs, lens = LATENT_CASES[case]
+    q, lat = _attn_inputs(case + 1, dev, dtype, (B, Sq, H, D), (B, Sk, D))
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    kv_len = None
+    if lens is not None:
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for b, n in enumerate(lens):
+            lat[b, n:] = float("nan")
+    return q, lat, kv_len, dict(q_offset=off, hd_v=Dv, scale=192 ** -0.5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", range(len(LATENT_CASES)))
 def test_latent_kernel_equals_plain(case, dtype, cuda):
-    """The absorbed MLA's kernel: one launch, == ``latent_attention_ref``
+    """The absorbed MLA's kernel: one launch on the route
+    ``ops.latent_route`` names (bf16: the tensor-core kernel, counted as
+    ``latent_attention_tc``; fp32: the CUDA cores), == ``latent_attention_ref``
     (NaN latent rows past the bound never read), the scale the caller's."""
     from repro_torch.kernels.attention import latent_attention_ref
-    B, Sq, Sk, H, D, Dv, offs, lens = LATENT_CASES[case]
-    q, lat = _attn_inputs(case + 1, cuda, dtype, (B, Sq, H, D), (B, Sk, D))
-    off = torch.tensor(offs, dtype=torch.int32, device=cuda)
-    kv_len = None
-    if lens is not None:
-        kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
-        for b, n in enumerate(lens):
-            lat[b, n:] = float("nan")
-    kw = dict(q_offset=off, hd_v=Dv, scale=192 ** -0.5)
+    q, lat, kv_len, kw = _latent_case(case, cuda, dtype)
+    B, Sq, H, _ = q.shape
     n0 = ops.launches["latent_attention"]
+    tc0 = ops.launches["latent_attention_tc"]
     got = ops.latent_attention(q, lat, kv_len, **kw)
     assert ops.launches["latent_attention"] == n0 + 1
+    tc = dtype == torch.bfloat16
+    assert ops.launches["latent_attention_tc"] == tc0 + tc
+    assert ops.last_latent_grid[0] == ("tc" if tc else "simt")
     want = latent_attention_ref(q, lat, kv_len, **kw)
-    assert tuple(got.shape) == (B, Sq, H, Dv)
+    assert tuple(got.shape) == (B, Sq, H, kw["hd_v"])
     assert bool(torch.isfinite(got).all())
-    torch.testing.assert_close(got.float(), want.float(),
-                               atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+    _assert_attn_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 5, 8])
+@pytest.mark.parametrize("case", [0, 2, 5, 7])
+def test_latent_tc_kernel_at_forced_splits_equals_plain(case, n_split, cuda,
+                                                        monkeypatch):
+    """The tensor-core kernel with ``ops.latent_splits`` replaced: one
+    split (no merge), and 2, 5 and 8 parts of each tile's visible keys
+    (clusters of that many CTAs), many of them empty, merged across the
+    cluster; the call runs twice."""
+    from repro_torch.kernels.attention import latent_attention_ref
+    q, lat, kv_len, kw = _latent_case(case, cuda, torch.bfloat16)
+    monkeypatch.setattr(ops, "latent_splits", lambda *a: n_split)
+    want = latent_attention_ref(q, lat, kv_len, **kw)
+    for _ in range(2):
+        got = ops.latent_attention(q, lat, kv_len, **kw)
+        assert ops.last_latent_grid[:2] == ("tc", n_split)
+        assert bool(torch.isfinite(got).all())
+        _assert_attn_close(got, want, torch.bfloat16)
 
 
 def test_latent_wrapper_rejects_what_the_kernel_does_not_take(cuda):
