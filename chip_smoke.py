@@ -403,6 +403,30 @@ Phases (any failure exits non-zero, and no result line is printed):
    compute at 256 tokens, each leaf within ``FP32_LOGIT_TOL`` of its max
    |g|; bf16 at 1100, the loss within ``TRAIN_LOSS_REL`` and each leaf's
    cosine at least ``TRAIN_COSINE``.
+22. Hosts, lanes and elastic resume.  (a) ``run_sweep(host_index=i,
+   host_count=2)`` for i = 0, 1 against one store: phase 4's grid per
+   event (the select in its CUDA graphs; the merged records total
+   ``REF_USAGE_28x4``; a single-process ``run_sweep`` into a store of its
+   own) and phase 6's 28 x 5000 blocked sweep of all 21 policies (the
+   merged records == phase 6's; phase 6's records saved once as the
+   single-process store): the hosts' groups disjoint, their union the
+   grid's, the merged store's results and checksum the single-process
+   store's.  (b) ``python -m repro_torch sweep --hosts 2`` on phase 4's
+   grid in a subprocess, started first and run beside (a) and (c): both
+   workers exit 0 on the already-built library, the store equals (a)'s
+   single-process one.  (c) ``run_batch(shard="always")`` against
+   ``shard="never"`` with ``runner.lane_devices`` bound to the card
+   repeated ``LANE_DEVICES`` times: phase 4's grid per event, the 28 x
+   5000 grid blocked for all 21 policies, 1 and 2 lanes over
+   ``PAD_DEVICES`` (pad > L), usage, bins, overflow and pools bit for bit;
+   ``LANE_FAULT`` steps ``sharded -> single`` once with the same results.
+   (d) ``ElasticTrainer`` on reduced qwen2.5-14b in fp32 at 8 x 128: 20
+   steps straight; a run failing at 13 (checkpoints every 5); re-attached
+   on the card at step 10 (its last loss within ``ELASTIC_TOL``, flash
+   launched twice a layer a step) and on the CPU (within
+   ``ELASTIC_CPU_REL``).  (e) ``compress_allreduce`` on a one-rank gloo
+   group over hymba-1.5b's leaves (the stacks cut to ``COMPRESS_LAYERS``):
+   the card's reduced gradients and errors equal the CPU's bit for bit.
 
 Then, as a measurement and not a check, on the main path's first rung
 (L=28, Np=64): torch.profiler over 2048 graphed per-event steps and 400
@@ -6433,6 +6457,436 @@ def phase_training(dev):
     return out
 
 
+# Phase 22: the grid split across hosts, the lane split across devices,
+# elastic training and gradient compression.  The lane split runs on
+# LANE_DEVICES "devices", the card repeated (``runner.lane_devices`` bound
+# in place; one card here), and the PAD case on PAD_DEVICES over 1-2 lanes.
+LANE_DEVICES, PAD_DEVICES = 3, 5
+LANE_FAULT = ("sweep.scan:xla:1:2", {"resilience.degrade_blocked_perevent": 1,
+                                     "resilience.degrade_sharded_single": 1})
+# Elastic training: reduced qwen2.5-14b at 8 x 128 in fp32 (so that the
+# card and the CPU can be held to the train step's fp32 limit), 20 steps,
+# checkpoints every 5, a failure at step 13, the resume at 10.
+ELASTIC_STEPS, ELASTIC_EVERY, ELASTIC_FAIL = 20, 5, 13
+ELASTIC_TOL = 1e-6         # the resumed run's last loss: tests/test_train.py
+ELASTIC_CPU_REL = 1e-5     # the train step's fp32 loss limit, card vs CPU
+# gradient compression over hymba-1.5b's leaves, its layer stacks cut to
+# COMPRESS_LAYERS of 32 (the CPU computation it is held to costs ~2 s per
+# 1e8 elements on 8 cores)
+COMPRESS_LAYERS = 2
+
+
+def elastic_parts(dtype: str = "float32", batch: int = 8, seq: int = 128,
+                  steps: int = ELASTIC_STEPS, arch: str = "qwen2.5-14b"):
+    """(make_state, make_step, batch_fn) of an ``ElasticTrainer`` on
+    ``arch``'s reduced configuration in ``dtype`` compute: fp32 master
+    weights from ``init_params`` (seed 0) on the attached device, AdamW as
+    ``launch.train.build`` sets it, the ``TokenStream`` of ``batch`` x
+    ``seq``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import params as P_
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype=dtype)
+    opt = OptConfig(lr=3e-3, warmup_steps=max(steps // 20, 5),
+                    total_steps=steps)
+
+    def make_state(device):
+        p = P_.init_params(cfg, seed=0, device=device, dtype=torch.float32)
+        return (p, init_opt_state(p, opt))
+
+    def make_step(device):
+        fn = make_train_step(cfg, Runtime(), opt)
+
+        def step(state, b):
+            p, o, m = fn(*state, b)
+            return (p, o), m
+        return step, None
+
+    return make_state, make_step, TokenStream(cfg.vocab, seq, batch).batch
+
+
+def compress_inputs(dev, layers: int = COMPRESS_LAYERS, seed: int = 0):
+    """Gradients (1e-3 x normal) and carried errors (1e-5 x normal) of
+    hymba-1.5b's parameter leaves, the layer stacks cut to ``layers``, made
+    on ``dev`` from ``seed``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import params as P_
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=layers)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def tree(scale):
+        return P_._finalize(cfg, lambda m, n: scale * torch.randn(
+            ((n,) + m.shape) if n else m.shape, generator=gen, device=dev))
+    return tree(1e-3), tree(1e-5)
+
+
+def _store_blob(store) -> tuple:
+    """(results, checksum) of a store's one sweep file."""
+    files = [f for f in os.listdir(store)
+             if f.startswith("sweep_") and f.endswith(".json")]
+    if len(files) != 1:
+        fail(f"store {store}: {files}")
+    with open(os.path.join(store, files[0])) as f:
+        blob = json.load(f)
+    return blob["results"], blob["checksum"]
+
+
+def phase_hosts_lanes_elastic(dev, blocked_records, n_items: int = 5000):
+    """Phase 22 (see the module docstring).  ``blocked_records``: phase 6's
+    records of the 28 x ``n_items`` blocked sweep.  Returns its numbers and
+    its launches."""
+    import shutil
+    import signal
+    import threading
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import obs
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import _build, ops
+    from repro_torch.resilience import faults
+    from repro_torch.sweep import (PredModel, SuiteSpec, SweepSpec,
+                                   SweepStore, pack_instances, run_batch,
+                                   run_sweep, runner)
+    from repro_torch.sweep.grid import _built_suite
+    from repro_torch.train.elastic import ElasticConfig, ElasticTrainer
+    from repro_torch.train.grad_compress import compress_allreduce
+    from repro_torch.train.tree import leaves, unflatten
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_hosts_")
+    launches, out = collections.Counter(), {}
+
+    def counted(fn):
+        """fn() with the card synchronized after it: (result, seconds, its
+        launches), the launches added to the phase's."""
+        ops.launches.clear()
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        got = collections.Counter(ops.launches)
+        launches.update(got)
+        return res, time.perf_counter() - t0, got
+
+    head = SweepSpec(suites=(SuiteSpec("azure", 28, 250, 11),),
+                     policies=HEADLINE_POLICIES)
+    full = SweepSpec(suites=(SuiteSpec("azure", 28, n_items),),
+                     policies=torchsim.SCAN_POLICIES,
+                     predictions=(PredModel("clairvoyant"),
+                                  PredModel("lognormal", 1.0)), seeds=(0, 1))
+
+    # (b) first, in the background: the launcher's three processes start
+    # beside (a) and (c) (a process takes ~9 s to import torch here)
+    lib = _build.library_path()
+    built = (sorted(os.listdir(_build.BUILD_DIR)), os.stat(lib).st_mtime_ns)
+    launcher_store = os.path.join(root, "launcher")
+    cmd = [sys.executable, "-m", "repro_torch", "sweep", "--hosts", "2",
+           "--device", dev.type, "--suites", "azure", "--n-instances", "28",
+           "--n-items", "250", "--suite-seed", "11", "--policies",
+           ",".join(HEADLINE_POLICIES), "--store", launcher_store]
+    err = open(os.path.join(root, "launcher.err"), "w+")
+    t_b0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=_port_env(), stdout=subprocess.PIPE,
+                            stderr=err, text=True, start_new_session=True)
+    lines = []     # (time read, line) of the launcher's stdout, then EOF
+
+    def read():
+        lines.extend((time.perf_counter(), line) for line in proc.stdout)
+        lines.append((time.perf_counter(), ""))
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        # (a) host slices in this process against one store each grid
+        groups_run = {}
+        for tag, spec, T, kernel in (
+                ("28x250 per event", head, 0, "fitscore_select"),
+                (f"28x{n_items} blocked", full, BLOCK_EVENTS,
+                 "fitscore_replay_block")):
+            split, solo = (os.path.join(root, f"{w}{T}")
+                           for w in ("split", "solo"))
+            ran = ([], [], [])     # the groups each host, one process ran
+            _, t_split, n = counted(lambda: [
+                run_sweep(spec, store=SweepStore(split), device=dev,
+                          block_events=T, host_index=i, host_count=2,
+                          progress=ran[i].append) for i in (0, 1)])
+            if T == 0:
+                # the single-process store: run_sweep into a store of its
+                # own
+                single, t_solo, _ = counted(lambda: run_sweep(
+                    spec, store=SweepStore(solo), device=dev,
+                    progress=ran[2].append))
+                groups = [{m.split(" B=")[0] for m in r
+                           if m.startswith("run ")} for r in ran]
+            else:
+                # phase 6 is the single-process run_sweep of this spec:
+                # its records, saved as that run's last save writes them
+                single, t_solo = blocked_records, 0.0
+                SweepStore(solo).save(spec, single, group_records=single)
+                groups = [{m.split(" B=")[0] for m in r
+                           if m.startswith("run ")} for r in ran[:2]]
+                groups.append({f"run  {r['suite']}/{r['policy']}/"
+                               f"{r['pred']}" for r in single.values()})
+            merged = SweepStore(split).load(spec)
+            if not groups[0] or not groups[1] or groups[0] & groups[1] or \
+                    groups[0] | groups[1] != groups[2] or merged != single:
+                fail(f"22 {tag}: hosts ran {len(groups[0])} + "
+                     f"{len(groups[1])} groups, "
+                     f"{len(groups[0] & groups[1])} shared, of "
+                     f"{len(groups[2])}; merged == single process: "
+                     f"{merged == single}")
+            if _store_blob(split) != _store_blob(solo):
+                fail(f"22 {tag}: the merged store's results / checksum != "
+                     "the single-process store's")
+            graphed = n["replay_step_graph"] if T == 0 else 0
+            if not n[kernel] or (T == 0) != bool(graphed) or \
+                    (T and n["fitscore_select"]):
+                fail(f"22 {tag}: launches {dict(n)}")
+            if T == 0:
+                total = sum(r["usage_time"] for r in merged.values())
+                check = f"total usage {total:.2f}"
+                if f"{total:.0f}" != str(REF_USAGE_28x4):
+                    fail(f"22 {tag}: total usage {total:.0f} != "
+                         f"REF_USAGE_28x4 {REF_USAGE_28x4}")
+            else:
+                check = "== phase 6's records"
+            groups_run[T] = solo
+            out[f"split {tag}"] = dict(records=len(merged), split_s=t_split,
+                                       single_s=t_solo, launches=dict(n))
+            say(f"# 22 (a) {tag}: hosts 0 / 1 of 2 ran {len(groups[0])} + "
+                f"{len(groups[1])} groups (disjoint, union complete) in "
+                f"{t_split:.2f} s"
+                + (f" against {t_solo:.2f} s in one process" if T == 0
+                   else "") + f"; merged {check}; the store's results and "
+                "checksum == the single-process store's; "
+                f"{n[kernel]} {kernel} launches"
+                + (f" ({graphed} graph replays)" if T == 0 else ""))
+        lane_walls, t_fault = phase_22_lanes(dev, head, full, n_items,
+                                             counted)
+        out["lanes"] = dict(lane_walls)
+
+        # (b) the launcher's end: both workers, then the merge
+        rc = proc.wait(timeout=600)
+        reader.join()
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        err.seek(0)
+        err_text = err.read()
+        err.close()
+    text = "".join(line for _, line in lines)
+    t_end = lines[-1][0]
+    heads = [t for t, line in lines if line.startswith("# sweep ")]
+    t_merge = next((t for t, line in lines if line.startswith("# sweep ")
+                    and " host " not in line), None)
+    if rc or t_merge is None or len(heads) != 3:
+        fail(f"22 (b) launcher rc {rc}: {text[-1500:]} {err_text[-1500:]}")
+    if _store_blob(launcher_store) != _store_blob(groups_run[0]):
+        fail("22 (b) the launcher's store != the single-process store")
+    if (sorted(os.listdir(_build.BUILD_DIR)),
+            os.stat(lib).st_mtime_ns) != built:
+        fail("22 (b) the workers rebuilt the kernel library")
+    cached = text.count("(cached)")
+    out["launcher"] = dict(first_worker_s=heads[0] - t_b0,
+                           workers_s=t_merge - t_b0, merge_s=t_end - t_merge)
+    say(f"# 22 (b) `python -m repro_torch sweep --hosts 2 --device "
+        f"{dev.type}` (28 x 250), beside (a) and (c): both workers exited 0 "
+        f"on the built library ({os.path.basename(lib)}, untouched); the "
+        f"first worker's header after {heads[0] - t_b0:.1f} s, the merge's "
+        f"after {t_merge - t_b0:.1f} s, which read {cached} cached groups "
+        f"in {t_end - t_merge:.1f} s; the store's results and checksum == "
+        "the single-process store's")
+
+    # (d) elastic: a straight run, a failure, resumes on the card and CPU
+    parts = elastic_parts()
+    walls = {}
+
+    def trainer(where, device):
+        t = ElasticTrainer(*parts, os.path.join(root, where),
+                           ElasticConfig(ckpt_every=ELASTIC_EVERY))
+        t.attach(device)
+        return t
+
+    a = trainer("a", dev)
+    loss_a, walls["A"], _ = counted(lambda: float(a.run(ELASTIC_STEPS)[
+        "loss"]))
+    b = trainer("b", dev)
+
+    def failing():
+        try:
+            b.run(ELASTIC_STEPS, fail_at=ELASTIC_FAIL)
+        except RuntimeError as e:
+            return "simulated node failure" in str(e)
+        return False
+    fired, walls["B"], _ = counted(failing)
+    if not fired:
+        fail("22 (d) the simulated failure did not fire")
+    shutil.copytree(os.path.join(root, "b"), os.path.join(root, "b3"))
+    b2 = trainer("b", dev)
+    start = b2.step
+    loss_b2, walls["B2"], nb2 = counted(lambda: float(b2.run(
+        ELASTIC_STEPS - start)["loss"]))
+    bits = [torch.equal(x, y) for x, y in zip(leaves(a.state),
+                                              leaves(b2.state))]
+    b3 = trainer("b3", "cpu")
+    start_b3 = b3.step
+    t0 = time.perf_counter()
+    loss_b3 = float(b3.run(ELASTIC_STEPS - start_b3)["loss"])
+    walls["B3"] = time.perf_counter() - t0
+    # the forward and remat's recompute, a layer a step
+    want_flash = 2 * get_reduced_config("qwen2.5-14b").n_layers * \
+        (ELASTIC_STEPS - start)
+    rel_cpu = abs(loss_b3 - loss_a) / abs(loss_a)
+    out["elastic"] = dict(loss_a=loss_a, loss_b2=loss_b2, loss_b3=loss_b3,
+                          resume_step=start, bit_for_bit=loss_b2 == loss_a,
+                          leaves_equal=f"{sum(bits)}/{len(bits)}",
+                          cpu_rel=rel_cpu, walls=walls,
+                          flash_launches=nb2["flash_attention"])
+    say(f"# 22 (d) elastic, reduced qwen2.5-14b fp32 8 x 128: A "
+        f"{ELASTIC_STEPS} steps (loss {loss_a:.9f}, {walls['A']:.2f} s); B "
+        f"failed at {ELASTIC_FAIL} ({walls['B']:.2f} s); B2 re-attached on "
+        f"the card at step {start}: loss {loss_b2:.9f} ("
+        + ("bit for bit" if loss_b2 == loss_a else
+           f"|diff| {abs(loss_b2 - loss_a):.3e}")
+        + f"; {sum(bits)} of {len(bits)} state leaves equal bit for bit; "
+        f"{nb2['flash_attention']} flash launches, {walls['B2']:.2f} s); B3 "
+        f"re-attached on the CPU at step {start_b3}: loss {loss_b3:.9f} "
+        f"(rel {rel_cpu:.3e}, {walls['B3']:.2f} s)")
+    if start != ELASTIC_EVERY * (ELASTIC_FAIL // ELASTIC_EVERY) or \
+            start_b3 != start or not abs(loss_b2 - loss_a) <= ELASTIC_TOL:
+        fail(f"22 (d) resume at {start} / {start_b3}: loss {loss_b2} "
+             f"against {loss_a}")
+    if nb2["flash_attention"] != want_flash:
+        fail(f"22 (d) {nb2['flash_attention']} flash launches, want "
+             f"{want_flash}")
+    if not rel_cpu <= ELASTIC_CPU_REL:
+        fail(f"22 (d) the CPU resume: loss {loss_b3} against {loss_a} "
+             f"(rel {rel_cpu})")
+    del a, b, b2, b3
+
+    # (e) gradient compression at world size 1: the card against the CPU
+    g, e = compress_inputs(dev)
+    elems = sum(x.numel() for x in leaves(g))
+    dist.init_process_group("gloo", init_method=f"file://{root}/pg", rank=0,
+                            world_size=1)
+    try:
+        compress_allreduce(g, e)                     # warm-up
+        reps = []
+        for _ in range(3):
+            res, secs, _ = counted(lambda: compress_allreduce(g, e))
+            reps.append(secs)
+        host = [unflatten(t, [x.cpu() for x in leaves(t)]) for t in (g, e)]
+        t0 = time.perf_counter()
+        want = compress_allreduce(*host)
+        t_cpu = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    for got_t, want_t, what in zip(res, want, ("reduced", "errors")):
+        for x, y in zip(leaves(got_t), leaves(want_t)):
+            if not torch.equal(x.cpu(), y):
+                fail(f"22 (e) {what}: the card != the CPU")
+    ms = 1e3 * statistics.median(reps)
+    out["compress"] = dict(ms=ms, cpu_ms=1e3 * t_cpu, elements=elems,
+                           bytes=16 * elems, layers=COMPRESS_LAYERS)
+    say(f"# 22 (e) compress_allreduce (gloo, world 1) over hymba-1.5b's "
+        f"{len(leaves(g))} leaves at {COMPRESS_LAYERS} of 32 layers "
+        f"({elems} elements, {16 * elems / 1e9:.2f} GB read and written): "
+        f"{ms:.1f} ms on the card (median of 3), {1e3 * t_cpu:.0f} ms on "
+        "the CPU; reduced gradients and errors equal bit for bit")
+    del g, e, res, host, want
+    shutil.rmtree(root, ignore_errors=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["launches"] = dict(launches)
+    say(f"# 22: phase 22 took {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {dict(launches)}")
+    return out
+
+
+def phase_22_lanes(dev, head, full, n_items, counted):
+    """Phase 22 (c): ``run_batch(shard="always")`` over ``LANE_DEVICES``
+    "devices" (the card repeated, bound as ``runner.lane_devices``) against
+    ``shard="never"``, bit for bit, then the ladder's ``sharded -> single``
+    rung under ``LANE_FAULT``.  Returns (the walls, the fault run's)."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import torchsim
+    from repro_torch.resilience import faults
+    from repro_torch.sweep import pack_instances, run_batch, runner
+    from repro_torch.sweep.grid import _built_suite
+    card = torch.device(dev.type, dev.index or 0)
+    real = runner.lane_devices
+    walls = collections.defaultdict(float)
+
+    def same(a, b, what):
+        for f in ("usage_time", "n_bins_opened", "overflowed", "max_bins"):
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                fail(f"22 (c) {what}: {f} split != unsplit")
+
+    def split_vs_whole(batch, policy, ndev, T, what, **kw):
+        runner.lane_devices = lambda d: [card] * ndev
+        whole, tw, _ = counted(lambda: run_batch(
+            batch, policy, device=dev, block_events=T, shard="never", **kw))
+        split, ts, _ = counted(lambda: run_batch(
+            batch, policy, device=dev, block_events=T, shard="always", **kw))
+        walls[f"{what} unsplit"] += tw
+        walls[f"{what} split"] += ts
+        same(split, whole, f"{what} {policy} T={T}")
+
+    plan, want = LANE_FAULT
+    try:
+        _, _, hb = _built_suite(head.suites[0])
+        for p in HEADLINE_POLICIES:
+            split_vs_whole(hb, p, LANE_DEVICES, 0, "28x250 per event",
+                           max_bins=64)
+        _, _, fb = _built_suite(full.suites[0])
+        for p in torchsim.SCAN_POLICIES:
+            split_vs_whole(fb, p, LANE_DEVICES, BLOCK_EVENTS,
+                           f"28x{n_items} blocked")
+        insts = head.suites[0].build()
+        for n_lanes in (1, 2):
+            pb = pack_instances(insts[:n_lanes])
+            for T in (0, BLOCK_EVENTS):
+                split_vs_whole(pb, "best_fit_l2", PAD_DEVICES, T,
+                               f"{n_lanes} lane(s) over {PAD_DEVICES}",
+                               max_bins=64)
+        runner.lane_devices = lambda d: [card] * LANE_DEVICES
+        base = run_batch(hb, "best_fit_l2", max_bins=64, device=dev,
+                         block_events=BLOCK_EVENTS, shard="never")
+        before = obs.counters()
+        with faults.injected(plan):
+            got, t_fault, _ = counted(lambda: run_batch(
+                hb, "best_fit_l2", max_bins=64, device=dev,
+                block_events=BLOCK_EVENTS, shard="always"))
+        moved = {k: v for k, v in obs.counter_deltas(before).items()
+                 if k.startswith("resilience.")
+                 and not k.startswith("resilience.fault_")}
+        if moved != want:
+            fail(f"22 (c) {plan}: counters moved {moved}, want {want}")
+        same(got, base, f"under {plan}")
+    finally:
+        runner.lane_devices = real
+    say(f"# 22 (c) lanes split over {LANE_DEVICES} devices (the card x "
+        f"{LANE_DEVICES}) == unsplit bit for bit (usage, bins, overflow, "
+        f"pool): 28x250 per event x {len(HEADLINE_POLICIES)} policies, "
+        f"28x{n_items} blocked x {len(torchsim.SCAN_POLICIES)}, 1 and 2 "
+        f"lanes over {PAD_DEVICES} (pad > L) per event and blocked; walls "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; under {plan}: {', '.join(f'{k} +{v}' for k, v in want.items())}"
+        f", results unchanged ({t_fault:.2f} s)")
+    return walls, t_fault
+
+
 def moe_teacher_forced(cfg, params, dev):
     """``dense_teacher_forced`` of an MoE model, its launches checked
     (flash one a layer, on the tensor-core kernel at granite's hd 64 and
@@ -6770,6 +7224,8 @@ def main() -> None:
     lap("phase_hybrid")
     train = phase_training(dev)
     lap("phase_training")
+    hosts = phase_hosts_lanes_elastic(dev, blocked_records)
+    lap("phase_hosts_lanes_elastic")
     prof = phase_profile(dev)
     lap("phase_profile")
     say(f"# total {time.perf_counter() - t_start:.1f} s")
@@ -6799,6 +7255,8 @@ def main() -> None:
                  "fitscore_select", 0),
              stream_phase_launches=stream_launches.get(
                  "fitscore_select", 0),
+             hosts_phase_launches=hosts["launches"].get(
+                 "fitscore_select", 0),
              segment_warm_capture_share=res_numbers["segments"][
                  "per_event_warm_capture_share"],
              **trace_steps, **sel),
@@ -6818,6 +7276,8 @@ def main() -> None:
              resilience_phase_launches=res_launches.get(
                  "fitscore_replay_block", 0),
              stream_phase_launches=stream_launches.get(
+                 "fitscore_replay_block", 0),
+             hosts_phase_launches=hosts["launches"].get(
                  "fitscore_replay_block", 0),
              stream_chunk_ms={
                  str(n): stream_numbers[n]["first_fit_blocked"]["chunk_ms"]
@@ -6874,6 +7334,8 @@ def main() -> None:
              train_hymba_launches_a_step=train["hymba"][
                  "launches_per_step"].get("flash_attention_sm90", 0),
              train_grad_err=train["functions"]["flash"],
+             elastic_phase_launches=hosts["launches"].get(
+                 "flash_attention", 0),
              dense_shapes={name: row for (kind, name), row in
                            dense_rows.items() if kind == "flash"},
              offset_shapes={k: v for k, v in rest.items()

@@ -198,14 +198,15 @@ class Experiment:
             force: bool = False, progress=None, device="cuda",
             block_events: int = 0, trace_level: int = 0,
             checkpoint_dir: Optional[str] = None,
-            checkpoint_every: int = 2048) -> Results:
+            checkpoint_every: int = 2048, shard: str = "auto") -> Results:
         """Run (or resolve from the store) every cell of the grid.
 
         ``store``: a ``SweepStore``, a directory path, or None (no
-        persistence).  ``device`` / ``block_events`` pick where the replay
-        runs (the card unless the caller passes "cpu") and its event-block
-        size exactly as in ``run_batch`` - execution arguments, never part
-        of the cached identity.  ``trace_level`` >= 1 replays every cell with per-event
+        persistence).  ``device`` / ``block_events`` / ``shard`` pick where
+        the replay runs (the card unless the caller passes "cpu"), its
+        event-block size and its lane split across local devices exactly
+        as in ``run_batch`` - execution arguments, never part of the
+        cached identity.  ``trace_level`` >= 1 replays every cell with per-event
         decision traces captured into ``Results.traces`` (cells recompute
         even when cached - the trace only exists by replaying).
 
@@ -229,7 +230,8 @@ class Experiment:
                                     block_events=block_events,
                                     trace_level=trace_level, traces=traces,
                                     checkpoint_dir=checkpoint_dir,
-                                    checkpoint_every=checkpoint_every)
+                                    checkpoint_every=checkpoint_every,
+                                    shard=shard)
                 # run_sweep returns everything the shared store file holds
                 # for these suites; Results only reports THIS experiment's
                 # cells - exactly the requested (pred, consolidation)

@@ -10,9 +10,12 @@ Two layers, composed by ``run_ladder``:
   * When the failure is an injected one (``faults.InjectedFault``),
     execution moves down the ladder of equivalent plans: ``blocked`` (the
     warp or global megakernel) -> ``perevent`` (the graphed select) ->
-    ``cpu`` (the plain-torch replay on the CPU).  Every rung replays the
-    same decisions bit for bit, so degrading trades time, never results.
-    Each step is counted as ``resilience.degrade_blocked_perevent`` or
+    ``cpu`` (the plain-torch replay on the CPU); a replay whose lanes are
+    split across several devices (``_sharded``) drops the split before it
+    leaves the card.  Every rung replays the same decisions bit for bit,
+    so degrading trades time, never results.  Each step is counted as
+    ``resilience.degrade_blocked_perevent``,
+    ``resilience.degrade_sharded_single`` or
     ``resilience.degrade_cuda_cpu``.
 
 The classifier is stricter than the reference's, on purpose, so that no
@@ -96,27 +99,35 @@ class Rung:
     label: str
     device: str
     block_events: int
+    ndev: int = 1
 
 
-def rung_label(device: str, block_events: int) -> str:
+def rung_label(device: str, block_events: int, ndev: int = 1) -> str:
     if block_events and block_events > 1:
-        return "blocked"
-    return "perevent" if torch.device(device).type == "cuda" else "cpu"
+        lab = "blocked"
+    else:
+        lab = "perevent" if torch.device(device).type == "cuda" else "cpu"
+    return lab + ("_sharded" if ndev > 1 else "")
 
 
-def replay_rungs(device, block_events: int) -> List[Rung]:
-    """The ladder for one replay dispatch on ``device``, degrading one
-    axis a rung: the event-blocked megakernel first (keep the device),
-    then the device itself (the CPU's plain-torch replay is the floor).
-    Only an injected fault steps down (``is_degradable``), so a card's
-    ``cpu`` rung serves under a fault plan and never otherwise."""
+def replay_rungs(device, block_events: int, ndev: int = 1) -> List[Rung]:
+    """The ladder for one replay dispatch on ``device`` with its lanes
+    split across ``ndev`` devices, degrading one axis a rung: the
+    event-blocked megakernel first (keep the device), then the lane split
+    (one device), then the device itself (the CPU's plain-torch replay is
+    the floor).  Only an injected fault steps down (``is_degradable``), so
+    a card's ``cpu`` rung serves under a fault plan and never otherwise."""
     dev = str(torch.device(device))
-    T = int(block_events or 0)
-    cfgs = [(dev, T)]
+    T, nd = int(block_events or 0), int(ndev)
+    cfgs = [(dev, T, nd)]
     if T > 1:
-        cfgs.append((dev, 0))
+        T = 0
+        cfgs.append((dev, T, nd))
+    if nd > 1:
+        nd = 1
+        cfgs.append((dev, T, nd))
     if torch.device(dev).type != "cpu":
-        cfgs.append(("cpu", 0))
+        cfgs.append(("cpu", 0, 1))
     return [Rung(rung_label(*c), *c) for c in cfgs]
 
 
@@ -124,6 +135,8 @@ def transition_name(a: Rung, b: Rung) -> Tuple[str, str]:
     """(from, to) labels for the one axis a ladder step degrades."""
     if (a.block_events or 0) > 1 and not (b.block_events or 0) > 1:
         return ("blocked", "perevent")
+    if a.ndev != b.ndev:
+        return ("sharded", "single")
     return (torch.device(a.device).type, torch.device(b.device).type)
 
 

@@ -16,11 +16,18 @@ warning.
     # with the same arguments resumes mid-scan, with the same store
     PYTHONPATH=src python -m repro_torch sweep --resume \
         --checkpoint-every 2048
+    # two processes, each a slice of the grid, one store; then the merged
+    # summary (the store equals a single-process run's)
+    PYTHONPATH=src python -m repro_torch sweep --hosts 2 --store DIR
+    # each replay's lanes split across every local card
+    PYTHONPATH=src python -m repro_torch sweep --shard always
 """
 from __future__ import annotations
 
 import argparse
 import os
+import subprocess
+import sys
 
 from ..consolidate import ConsolidationSpec
 from ..core.torchsim import SCAN_POLICIES
@@ -89,7 +96,55 @@ def main(argv=None, prog: str = "python -m repro_torch sweep") -> None:
                          "segments; a rerun resumes from the last snapshot")
     ap.add_argument("--checkpoint-every", type=int, default=2048,
                     help="events between checkpoint snapshots")
+    ap.add_argument("--shard", default="auto",
+                    choices=["auto", "never", "always"],
+                    help="split each replay's lanes across the local "
+                         "devices (auto: when there are several)")
+    ap.add_argument("--hosts", type=int, default=0,
+                    help="launch N worker processes, each running a 1/N "
+                         "slice of the (suite, pred, policy, "
+                         "consolidation) grid against the shared store "
+                         "(journal-merged; the final records equal a "
+                         "single-process run)")
+    ap.add_argument("--host-index", type=int, default=None,
+                    help="run only this host's grid slice (normally set "
+                         "by --hosts, or via REPRO_HOST_INDEX)")
+    ap.add_argument("--host-count", type=int, default=None,
+                    help="total hosts sharing the grid (with "
+                         "--host-index, or via REPRO_HOST_COUNT)")
     args = ap.parse_args(argv)
+
+    if args.hosts and args.hosts > 1:
+        # one process a slice, the slice given by the environment; the
+        # store's journal and lock merge their groups
+        if args.no_store:
+            raise SystemExit("--hosts needs a store to merge results into")
+        base, skip = [], False
+        for a in (argv if argv is not None else sys.argv[1:]):
+            if skip:
+                skip = False
+            elif a == "--hosts":
+                skip = True
+            elif not a.startswith("--hosts="):
+                base.append(a)
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch", "sweep"] + base,
+            env=dict(os.environ, REPRO_HOST_INDEX=str(i),
+                     REPRO_HOST_COUNT=str(args.hosts)))
+            for i in range(args.hosts)]
+        rcs = [p.wait() for p in procs]
+        if any(rcs):
+            raise SystemExit(f"worker processes failed: rc={rcs}")
+        # every group is in the store now: the grid again, as store reads
+        # (the workers already honoured --force on their slices)
+        args = ap.parse_args(base)
+        args.force = False
+
+    host_index = args.host_index if args.host_index is not None else \
+        int(os.environ.get("REPRO_HOST_INDEX", "0"))
+    host_count = args.host_count if args.host_count is not None else \
+        (int(os.environ["REPRO_HOST_COUNT"])
+         if "REPRO_HOST_COUNT" in os.environ else None)
 
     policies = SCAN_POLICIES if args.policies == "all" else \
         tuple(args.policies.split(","))
@@ -109,13 +164,16 @@ def main(argv=None, prog: str = "python -m repro_torch sweep") -> None:
     ckpt_dir = args.checkpoint_dir
     if args.resume and ckpt_dir is None:
         ckpt_dir = os.path.join(args.store, "checkpoints")
-    print(f"# sweep {spec.spec_hash()} -> "
+    who = f" host {host_index}/{host_count}" if host_count else ""
+    print(f"# sweep {spec.spec_hash()}{who} -> "
           f"{store.path(spec) if store else '(not stored)'}")
     records = run_sweep(spec, store=store, force=args.force,
                         progress=lambda m: print(f"# {m}", flush=True),
                         device=args.device, block_events=args.block_events,
                         checkpoint_dir=ckpt_dir,
-                        checkpoint_every=args.checkpoint_every)
+                        checkpoint_every=args.checkpoint_every,
+                        shard=args.shard, host_index=host_index,
+                        host_count=host_count)
 
     print(f"{'policy':<18} {'pred':<14} {'n':>4} {'mean':>8} {'median':>8} "
           f"{'q1':>8} {'q3':>8}")

@@ -204,11 +204,14 @@ def run_sweep(spec: SweepSpec, store=None, force: bool = False,
               progress=None, device="cuda", block_events: int = 0,
               trace_level: int = 0, traces: Optional[Dict] = None,
               checkpoint_dir: Optional[str] = None,
-              checkpoint_every: int = 2048) -> Dict[str, Dict]:
+              checkpoint_every: int = 2048, shard: str = "auto",
+              host_index: Optional[int] = None,
+              host_count: Optional[int] = None) -> Dict[str, Dict]:
     """Expand and run the grid on ``device``; returns {result_key: record}.
-    ``block_events`` > 1 replays through the event-blocked megakernel: an
-    execution argument, so records and store files are the same for any
-    value.
+    ``block_events`` > 1 replays through the event-blocked megakernel and
+    ``shard`` splits each replay's lanes across the local devices
+    (``runner.run_batch``): execution arguments, so records and store files
+    are the same for any value.
 
     ``trace_level`` >= 1 also captures each replay's per-event decision
     series (``obs.ReplayTrace``): pass a dict as ``traces`` and it is
@@ -222,6 +225,15 @@ def run_sweep(spec: SweepSpec, store=None, force: bool = False,
     continues mid-scan bit for bit; the store's group journal already
     makes whole finished groups resumable.  Each group crosses the fault
     seam ``sweep.group``.
+
+    ``host_index`` / ``host_count`` split the grid across processes: every
+    host numbers the same (suite, pred, policy, consolidation) cell
+    sequence - globally, before the cache check - and runs only the cells
+    with ``cell_no % host_count == host_index``, journaling its groups into
+    the shared store as a single process would (``SweepStore`` merges
+    under its lock), so N partial runs leave exactly the single-process
+    store.  ``python -m repro_torch sweep --hosts N`` starts N such
+    processes.
 
     record: usage_time, lower_bound, ratio, n_bins_opened, overflowed,
     max_bins, suite, instance, policy, pred, seed - the reference's schema;
@@ -238,12 +250,17 @@ def run_sweep(spec: SweepSpec, store=None, force: bool = False,
     ckpt = None if checkpoint_dir is None else \
         ReplayCheckpointer(checkpoint_dir, every_events=checkpoint_every)
     say = progress or (lambda *_: None)
+    if host_count is not None:
+        host_count = int(host_count)
+        host_index = int(host_index or 0)
+        assert 0 <= host_index < host_count, (host_index, host_count)
     records: Dict[str, Dict] = {}
     if store is not None and not force:
         with obs.span("store.load", spec=spec.suites_hash()):
             records.update(store.load(spec))
         obs.counter_add("store.load")
 
+    cell_no = -1   # the global cell counter: the same on every host
     for suite in spec.suites:
         insts = lbs = batch = None   # built lazily: cached suites stay free
         for pred in spec.predictions:
@@ -251,6 +268,10 @@ def run_sweep(spec: SweepSpec, store=None, force: bool = False,
             todo = []
             for p in spec.policies:
                 for cons in spec.consolidations:
+                    cell_no += 1
+                    if host_count is not None and \
+                            cell_no % host_count != host_index:
+                        continue
                     if not trace_level and _group_cached(
                             records, suite, p, pred, seeds, cons):
                         say(f"skip {suite.label()}/{_cell_label(p, cons)}/"
@@ -279,7 +300,8 @@ def run_sweep(spec: SweepSpec, store=None, force: bool = False,
                                 block_events=block_events,
                                 trace_level=trace_level,
                                 consolidate=cons if cons.enabled else None,
-                                checkpoint=ckpt, checkpoint_key=ckpt_key)
+                                checkpoint=ckpt, checkpoint_key=ckpt_key,
+                                shard=shard)
                 if traces is not None and res.trace is not None:
                     S = len(seeds)
                     for bi, inst in enumerate(insts):

@@ -1,5 +1,5 @@
 """Batched DVBP replay: one lane-batched replay per (grid, policy);
-counterpart of ``repro.sweep.runner`` on a single device.
+counterpart of ``repro.sweep.runner``.
 
 ``run_batch`` flattens the (B, S) grid of instances x prediction-seed rows
 to L = B*S lanes (lane = b*S + s, b-major: the store's records depend on
@@ -10,14 +10,27 @@ event-blocked megakernel, T events per launch; it never changes a result.
 Each replay dispatch crosses the fault seam ``sweep.scan`` and runs
 behind the resilience ladder (``resilience.guard``): an OOM is retried on
 the same plan; an injected fault degrades the plan blocked -> per event
--> the CPU, with the same results.  Only injected faults degrade: a real
-OOM whose retries are spent, a CUDA launch or runtime error, a build
-failure or a bug raises.  ``checkpoint`` replays in checkpointed segments instead
+-> one device (from a lane split) -> the CPU, with the same results.
+Only injected faults degrade: a real OOM whose retries are spent, a CUDA
+launch or runtime error, a build failure or a bug raises.  ``checkpoint``
+replays in checkpointed segments instead
 (``resilience.checkpointed_replay``), so a killed run resumes bit for bit.
+
+Lane split: with more than one local device (``lane_devices``: the CUDA
+devices of the host, one CPU device on a ``cpu`` run), the L lanes are
+padded to a multiple of the device count by repeating whole copies of the
+lane axis (wrapping around when there are fewer lanes than padding) and
+each device replays its contiguous shard through the single-device path;
+the shards are all launched before any is read back, the outputs are
+gathered in lane order and the padding dropped.  Lanes never interact, so
+the split changes no result.  ``shard="never"`` keeps one device,
+``"always"`` refuses a host of one.  Trace-level, checkpointed and
+consolidating replays stay on one device, as in the reference.
 
 Overflow handling mirrors ``torchsim.simulate(auto_grow=True)`` lane-wise:
 any instance whose slot pool overflowed (in any seed row) is re-run with
-``max_bins`` doubled, rung after rung, up to ``max_bins_cap``.
+``max_bins`` doubled, rung after rung, up to ``max_bins_cap``; each rung
+re-pads and re-splits the surviving lanes.
 
 ``consolidate`` (an enabled ``ConsolidationSpec``) replays through the
 chunked consolidating driver (``consolidate.consolidated_replay``) on the
@@ -33,10 +46,12 @@ counters have nothing to count here (no compiled traces).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .. import obs
 from ..consolidate import ConsolidationSpec, consolidated_replay
@@ -60,21 +75,67 @@ def _flatten_lanes(sizes, times, kinds, items, pdeps, dmask, arrivals,
             rep(rdeps), rep(n_items))
 
 
-def _dispatch(sub, *, policy: str, max_bins: int, device,
+def lane_devices(device) -> List[torch.device]:
+    """The local devices a replay on ``device`` may split its lanes across:
+    every CUDA device of the host for a card, the one CPU device for a
+    ``cpu`` run."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def _on(dev: torch.device):
+    """``dev`` as the current CUDA device (the kernels launch on its
+    current stream); nothing for the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else \
+        contextlib.nullcontext()
+
+
+def _sharded_replay(sub, devices, **kw):
+    """``_replay_batch`` of the L flat lanes of ``sub`` split across
+    ``devices``: L padded to a multiple of their count with whole copies of
+    the lane axis (wrapping around when the padding exceeds L), one
+    contiguous shard a device, every shard launched before any is read
+    back; returns (usage, opened, overflow) of the L lanes on the host."""
+    ndev = len(devices)
+    L = sub[1].shape[0]
+    total = L + (-L) % ndev
+    if total > L:
+        reps = -(-total // L)
+        sub = tuple(np.concatenate([a] * reps, axis=0)[:total] for a in sub)
+    per = total // ndev
+    outs = []
+    for i, dev in enumerate(devices):
+        with _on(dev):
+            outs.append(_replay_batch(
+                *(a[i * per:(i + 1) * per] for a in sub), device=dev, **kw))
+    return tuple(np.concatenate([o[k].cpu().numpy() for o in outs])[:L]
+                 for k in (0, 1, 3))
+
+
+def _dispatch(sub, *, policy: str, max_bins: int, device, devices,
               block_events: int, trace_level: int):
     """One replay dispatch behind the resilience ladder
     (``guard.replay_rungs``): an OOM retries on the same plan, an injected
-    fault moves down blocked -> per event -> the CPU, each rung with the
-    same decisions.  The results are read to the host inside
+    fault moves down blocked -> per event -> one device -> the CPU, each
+    rung with the same decisions.  ``devices`` are the lane split's (one
+    for a single-device replay).  The results are read to the host inside
     the ladder, so a failure at execution surfaces there."""
-    rungs = guard.replay_rungs(device, 0 if trace_level else block_events)
+    ndev = 1 if trace_level else len(devices)
+    rungs = guard.replay_rungs(device, 0 if trace_level else block_events,
+                               ndev)
 
     def attempt(rung):
         faults.fire("sweep.scan")
-        out = _replay_batch(*sub, policy=policy, max_bins=max_bins,
-                            device=rung.device,
-                            block_events=rung.block_events,
-                            trace_level=trace_level)
+        kw = dict(policy=policy, max_bins=max_bins,
+                  block_events=rung.block_events)
+        if rung.ndev > 1:
+            u, o, ov = _sharded_replay(sub, devices[:rung.ndev], **kw)
+            return u, o, None, ov
+        out = _replay_batch(*sub, device=rung.device,
+                            trace_level=trace_level, **kw)
         # placements stay on the device: the sweep reads usage, bins and
         # overflow only
         host = tuple(None if k == 2 else v.cpu().numpy()
@@ -124,18 +185,23 @@ def run_batch(batch: InstanceBatch, policy: str,
               consolidate: Optional[ConsolidationSpec] = None,
               trace_level: int = 0,
               checkpoint: Optional[ReplayCheckpointer] = None,
-              checkpoint_key: str = "") -> BatchRunResult:
+              checkpoint_key: str = "", shard: str = "auto"
+              ) -> BatchRunResult:
     """Replay every lane of ``batch`` under ``policy`` (any
     ``SCAN_POLICIES`` name).
 
     ``pdeps``: (B, S, n_max) predicted departure times (see
     ``batching.pad_predictions``); defaults to the real departures.
     ``device``: where the replay runs ("cuda" unless the caller asks for
-    "cpu").  ``block_events`` > 1 replays whole blocks of that many events
-    per megakernel launch; the rungs of the overflow ladder rerun the
-    overflowing lanes from a fresh carry either way.  ``consolidate`` (an
-    enabled ``ConsolidationSpec``; None for the plain replay) interleaves
-    the consolidation planner and its MIGRATE chunks with the replay.
+    "cpu").  ``shard``: "auto" splits the lanes across ``lane_devices``
+    when there is more than one, "never" keeps one device, "always"
+    raises unless there are several.  ``block_events`` > 1 replays whole
+    blocks of that many events per megakernel launch; the rungs of the
+    overflow ladder rerun the overflowing lanes from a fresh carry either
+    way.  Both are execution arguments: they change no result.
+    ``consolidate`` (an enabled ``ConsolidationSpec``; None for the plain
+    replay) interleaves the consolidation planner and its MIGRATE chunks
+    with the replay.
 
     ``trace_level`` >= 1 also returns the per-event decision series as
     ``result.trace`` (level >= 2 adds the per-slot alive mask).  Tracing
@@ -151,7 +217,14 @@ def run_batch(batch: InstanceBatch, policy: str,
     with the same results; a real failure raises."""
     if not known_policy(policy):
         raise KeyError(f"{policy!r} is not a scan policy")
+    if shard not in ("auto", "never", "always"):
+        raise ValueError(f"shard={shard!r}: auto, never or always")
     dev = resolve_device(device)
+    devices = [] if shard == "never" else lane_devices(dev)
+    if shard == "always" and len(devices) < 2:
+        raise ValueError("shard='always' requires multiple local devices")
+    if len(devices) < 2:
+        devices = [dev]
     if pdeps is None:
         pdeps = instances_pdeps(batch)
     B, S, _ = pdeps.shape
@@ -203,7 +276,8 @@ def run_batch(batch: InstanceBatch, policy: str,
                         key=f"{checkpoint_key or policy}-mb{mb}")
                 else:
                     out = _dispatch(sub, policy=policy, max_bins=mb,
-                                    device=dev, block_events=block_events,
+                                    device=dev, devices=devices,
+                                    block_events=block_events,
                                     trace_level=trace_level)
                     u, o, _placements, ov = out[:4]
                     if trace_level:
@@ -245,8 +319,10 @@ def run_batch(batch: InstanceBatch, policy: str,
 def run_grid(batch: InstanceBatch, policies: Sequence[str],
              pdeps: Optional[np.ndarray] = None, max_bins: int = 64,
              max_bins_cap: int = MAX_BINS_CAP, device="cuda",
-             block_events: int = 0) -> Dict[str, BatchRunResult]:
+             block_events: int = 0,
+             shard: str = "auto") -> Dict[str, BatchRunResult]:
     """One batched run per policy over the same instance batch."""
     return {p: run_batch(batch, p, pdeps, max_bins, max_bins_cap,
-                         device=device, block_events=block_events)
+                         device=device, block_events=block_events,
+                         shard=shard)
             for p in policies}

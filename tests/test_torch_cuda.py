@@ -6,7 +6,9 @@ and the legacy scorer against its plain version, bit for bit; the two
 attention kernels (at MLA's shapes too, V zero-padded) and the RWKV6
 chunked kernel against their plain versions within the JAX kernel tests'
 tolerances, the model and engine through them against the plain versions,
-and the dropless MoE dispatch against the all-experts formula.
+the dropless MoE dispatch against the all-experts formula, elastic
+training resumed on the card and across the card and the CPU, and the
+gradient compression on the card against the CPU.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips with a
 reason where ``torch.cuda.is_available()`` is false: the CUDA kernel has
@@ -1520,6 +1522,87 @@ def test_train_step_on_the_card_equals_the_cpu(cuda):
         assert mg[key] == pytest.approx(mc[key], rel=1e-5)
     for a, b in zip(leaves(pg), leaves(pc)):
         assert float((a.detach().cpu() - b.detach()).abs().max()) <= 2e-5
+
+
+def _elastic_run(parts, root, device, resume_device=None):
+    """An ``ElasticTrainer`` on ``device`` failing at step 13 (checkpoints
+    every 5), then one re-attached to its checkpoints on
+    ``resume_device``: (the resumed first step, its last loss)."""
+    from repro_torch.train.elastic import ElasticConfig, ElasticTrainer
+    b = ElasticTrainer(*parts, root, ElasticConfig(ckpt_every=5))
+    b.attach(device)
+    with pytest.raises(RuntimeError, match="simulated node failure at 13"):
+        b.run(20, fail_at=13)
+    b2 = ElasticTrainer(*parts, root, ElasticConfig(ckpt_every=5))
+    b2.attach(resume_device or device)
+    start = b2.step
+    return start, float(b2.run(20 - start)["loss"])
+
+
+def _elastic_straight(parts, root, device):
+    from repro_torch.train.elastic import ElasticConfig, ElasticTrainer
+    a = ElasticTrainer(*parts, root, ElasticConfig(ckpt_every=5))
+    a.attach(device)
+    return float(a.run(20)["loss"])
+
+
+def test_elastic_resume_on_the_card(cuda, tmp_path):
+    """Reduced qwen2.5-14b in fp32 (4 x 32 tokens) on the card: a run that
+    fails at step 13 and a trainer re-attached to its step-10 checkpoint end
+    within 1e-6 of 20 straight steps (the JAX package's limit), flash
+    launched twice a layer a resumed step."""
+    from chip_smoke import elastic_parts
+    from repro_torch.configs import get_reduced_config
+    parts = elastic_parts(batch=4, seq=32)
+    want = _elastic_straight(parts, str(tmp_path / "a"), cuda)
+    n0 = ops.launches["flash_attention"]
+    start, got = _elastic_run(parts, str(tmp_path / "b"), cuda)
+    L = get_reduced_config("qwen2.5-14b").n_layers
+    assert start == 10
+    assert ops.launches["flash_attention"] - n0 == 2 * L * (13 + 10)
+    assert got == pytest.approx(want, abs=1e-6)
+
+
+@pytest.mark.parametrize("fail_on,resume_on", [("cuda", "cpu"),
+                                               ("cpu", "cuda")])
+def test_elastic_resume_across_card_and_cpu(cuda, tmp_path, fail_on,
+                                            resume_on):
+    """A run that fails on one device resumes from its step-10 checkpoint on
+    the other: its last loss within 1e-5 relative (the train step's fp32
+    limit) of 20 straight steps on the first device."""
+    from chip_smoke import elastic_parts
+    parts = elastic_parts(batch=4, seq=32)
+    want = _elastic_straight(parts, str(tmp_path / "a"), fail_on)
+    start, got = _elastic_run(parts, str(tmp_path / "b"), fail_on,
+                              resume_on)
+    assert start == 10
+    assert got == pytest.approx(want, rel=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compress_allreduce_on_the_card_equals_the_cpu(cuda, tmp_path,
+                                                       dtype):
+    """``compress_allreduce`` on a one-rank gloo group over hymba-1.5b's
+    leaves (one layer of its stacks): the reduced gradients and the new
+    errors on the card equal the CPU's bit for bit."""
+    import torch.distributed as dist
+    from chip_smoke import compress_inputs
+    from repro_torch.train.grad_compress import compress_allreduce
+    from repro_torch.train.tree import leaves, unflatten
+    g, e = compress_inputs(cuda, layers=1)
+    g = unflatten(g, [x.to(dtype) for x in leaves(g)])
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        got = compress_allreduce(g, e)
+        want = compress_allreduce(*(unflatten(t, [x.cpu() for x in
+                                                  leaves(t)])
+                                    for t in (g, e)))
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(leaves(got), leaves(want)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b)
 
 
 # ------------------------------------------------- the attention module's rest
