@@ -136,7 +136,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    an int8 cache); the latent kernel with its route, grid, ptxas's
    registers and spill and its dynamic shared memory, and under
    ``--parent`` the parent tree's CUDA-core latent kernel in turns.
-8. Serving at full width: qwen2.5-14b (24 of its 48 layers, as
+8. Serving at full width: qwen2.5-14b (12 of its 48 layers, as
    ``SERVE_LAYERS`` cuts it; d 5120, bf16, random weights from seed 0
    made on the card), 12 requests as
    ``repro_torch.launch.serve --real`` draws them (prompts 32-511 tokens,
@@ -178,7 +178,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    windows, beside its bound, the plain version's and (``--parent``) the
    parent kernel's (no PyTorch call computes it), whose outputs must equal
    the RWKV6 instantiation's bit for bit.
-   (b) rwkv6-1.6b at full width (12 of its 24 layers, as ``SERVE_LAYERS``
+   (b) rwkv6-1.6b at full width (6 of its 24 layers, as ``SERVE_LAYERS``
    cuts it; d 2048, 32 heads of 64, d_ff 7168, vocab 65 536, bf16, random
    weights from seed 0 made on the card) serving phase 8's 12 requests
    through ``serve_real``: the kernel must have launched once a layer per
@@ -218,7 +218,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``PER_EVENT_POLICIES`` per event == blocked; migrations, usage against
    phase 6, the wall time split into replay, planner and copies, the
    CUDA events around the path's MIGRATE chunk calls (the host's launch
-   gaps included), and each scan's middle MIGRATE chunk replayed five times
+   gaps included), and each scan's middle MIGRATE chunk replayed twice
    on each route's kernel (equal to the path's; device time, side by
    side).
 
@@ -314,14 +314,14 @@ Phases (any failure exits non-zero, and no result line is printed):
 18. The other dense architectures at full width in bf16, all but
    whisper-medium's depths cut to ``SERVE_LAYERS`` (random weights from
    seed 0 made on the card, one model alive at a time): (a) minitron-8b
-   (16 of its 32 layers) through ``serve_real`` on phase 8's requests
-   (stats ``REF_SERVE_STATS``, flash 16 launches a prefill all on the
-   tensor-core kernel, decode 16 an engine step); (b) gemma3-12b (24 of
+   (8 of its 32 layers) through ``serve_real`` on phase 8's requests
+   (stats ``REF_SERVE_STATS``, flash 8 launches a prefill all on the
+   tensor-core kernel, decode 8 an engine step); (b) gemma3-12b (12 of
    its 48 layers; max_len ``GEMMA_MAX_LEN``), a request whose 1100-token
-   prompt and 16 decode steps make the 20 local layers' window of 1024
+   prompt and 16 decode steps make the 10 local layers' window of 1024
    bind, windowed and full calls counted apart, and an engine of 4 slots
    at depths on both sides of 1024; (c) nemotron-4-340b at its full
-   widths, 4 of its 96 layers (G = 12, hd 192); (d) pixtral-12b (20 of its
+   widths, 4 of its 96 layers (G = 12, hd 192); (d) pixtral-12b (10 of its
    40 layers) with 256 stub
    patch embeddings before its prompt; (e) whisper-medium over 1500 stub
    encoder frames, its decode steps cross-attending to the stashed
@@ -332,11 +332,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    logits within ``SERVE_LOGIT_TOL`` of the plain run's.
 19. The MoE architectures at full width in bf16, their depths cut to
    ``SERVE_LAYERS`` (random weights from seed 0 made on the card, one model
-   alive at a time): (a) granite-moe-3b-a800m (16 of its 32 layers; 40
+   alive at a time): (a) granite-moe-3b-a800m (8 of its 32 layers; 40
    experts top-8, GQA at hd 64, G 3) through ``serve_real`` on phase 8's
-   requests (stats ``REF_SERVE_STATS``, flash 16 launches a prefill all on
-   the tensor-core kernel, decode 16 an engine step), then its
-   teacher-forced request as in phase 18; (b) deepseek-v2-lite-16b (14 of
+   requests (stats ``REF_SERVE_STATS``, flash 8 launches a prefill all on
+   the tensor-core kernel, decode 8 an engine step), then its
+   teacher-forced request as in phase 18; (b) deepseek-v2-lite-16b (7 of
    its 27 layers: MLA at q / k 192 with V zero-padded to 192, H = KV =
    16, on both kernels' tensor-core routes; 64 experts top-6 plus 2 shared,
    the first layer dense) teacher-forced as in phase 18, then an engine of 4 slots
@@ -364,7 +364,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    4 slots at ``MOE_ENGINE_LENS`` decoding absorbed and not, ms a step
    (reported).
 20. Hymba-1.5b at full width in bf16, its depth cut to ``SERVE_LAYERS``
-   (16 of its 32 layers, d 1600, 25 query heads and 5 kv heads of 64
+   (8 of its 32 layers, d 1600, 25 query heads and 5 kv heads of 64
    beside 25 SSD heads of state 16 in every layer, windows of 1024 on the
    14 local layers; random weights from seed 0 made on the card): (a)
    ``serve_real`` on phase 8's requests (stats ``REF_SERVE_STATS``; per
@@ -427,6 +427,30 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``ELASTIC_CPU_REL``).  (e) ``compress_allreduce`` on a one-rank gloo
    group over hymba-1.5b's leaves (the stacks cut to ``COMPRESS_LAYERS``):
    the card's reduced gradients and errors equal the CPU's bit for bit.
+23. Sharded models (``models.sharding``): two ranks on card 0 over gloo,
+   this script rank 0 and ``python3 chip_smoke.py --tp-rank 1`` rank 1,
+   each against the single-process run of the same function on the card,
+   made first (its numbers kept on the host, the card freed).  (a) Serving
+   on a (1, 2) mesh: qwen2.5-14b at full width and ``TP_LAYERS`` layers in
+   bf16, one teacher-forced request (prompt ``TP_PROMPT``, a prefill into
+   the sharded cache, ``TP_DECODE`` decode steps), its logits within
+   ``SERVE_LOGIT_TOL`` of max |logit|; an fp32 copy at ``TP_FP32_LAYERS``
+   layers within ``FP32_LOGIT_TOL``, and again with sequence parallelism
+   on the prefill (prompt ``TP_SP_PROMPT``, which splits evenly); and
+   deepseek-v2-lite-16b's absorbed MLA, fp32, ``TP_FP32_LAYERS`` layers,
+   the latent kernel on 8 heads a rank, within ``FP32_LOGIT_TOL``.  (b)
+   granite-moe-3b-a800m at full width, ``TP_LAYERS`` layers, fp32, on a
+   (1, 2) mesh (expert parallel: 40 experts, 20 a rank), and (c)
+   qwen2.5-14b at ``TP_FP32_LAYERS`` layers, fp32, on a (2, 1) mesh with
+   FSDP: one training step of ``TP_TRAIN`` tokens against the
+   single-process step with the capacity path (the (1, 1) mesh's), the
+   loss within ``TP_LOSS_REL``, the gradient norm within ``TP_GNORM_REL``
+   and every gradient leaf, gathered whole, within ``TP_GRAD_TOL`` of its
+   max |g|.  Each rank's peak memory and the decode step's and training
+   step's ms are printed, not checked: two ranks on one card over gloo
+   measure no speedup.  With two cards or more, (a)'s bf16 request runs
+   again over NCCL, a rank a card.  The launch counts are rank 0's over
+   the sharded runs: flash, decode and latent must each have launched.
 
 Then, as a measurement and not a check, on the main path's first rung
 (L=28, Np=64): torch.profiler over 2048 graphed per-event steps and 400
@@ -2611,7 +2635,8 @@ def teacher_forced_logits(cfg, params, prompt, forced, dev,
     import torch
     from repro_torch.models.transformer import Runtime, forward, init_cache
     rt = rt or Runtime()
-    cache = init_cache(cfg, 1, max_len, device=dev)
+    cache = init_cache(cfg, 1, max_len, device=dev, mesh=rt.mesh,
+                       rules=rt.rules)
     chunks = chunks or (len(prompt),)
     if sum(chunks) != len(prompt):
         fail(f"chunks {chunks} do not cover a prompt of {len(prompt)}")
@@ -3939,14 +3964,14 @@ def phase_consolidation_main_path(dev, base_records, n_items: int = 5000):
                 blocks = [(a[0][:, :, o:o + T], a[1][:, :, o:o + T],
                            a[2][:, o:o + T])
                           for o in range(0, a[2].shape[1], T)]
-                # the same chunk on each route's kernel, five times each
+                # the same chunk on each route's kernel, twice each
                 Np = before["loads"].shape[1]
                 routes = tuple(r for r in ("warp", "global")
                                if r == "global" or
                                Np <= ops.REPLAY_WARP_MAX_SLOTS)
                 ms, final = time_routes(
                     lambda: {n: v.clone() for n, v in before.items()},
-                    blocks, a[3], dict(kw, migrate=True), routes, reps=5,
+                    blocks, a[3], dict(kw, migrate=True), routes, reps=2,
                     spin_cycles=50_000_000)
                 for r, t in ms.items():
                     mig_route_ms[r].append(t)
@@ -4022,7 +4047,7 @@ def phase_consolidation_main_path(dev, base_records, n_items: int = 5000):
         f"CUDA events around the path's MIGRATE chunk calls "
         f"{float(np.median(times)):.6f} ms a launch (median of "
         f"{len(times)} chunks; the host's launch gaps included); each "
-        f"scan's middle MIGRATE chunk again, five times on each route's "
+        f"scan's middle MIGRATE chunk again, twice on each route's "
         f"kernel, launches queued behind a spin (device time): "
         + ", ".join(f"{r} median {float(np.median(v)):.6f} ms a launch "
                     f"({len(v)} chunks)" for r, v in mig_route_ms.items())
@@ -5322,14 +5347,15 @@ def phase_api_serving(dev, n_zoo: int = ZOO_REQUESTS):
 
 
 # phases 8, 9b and 18-20: the depths cut (nemotron-4-340b's 96 layers are
-# ~680 GB in bf16; the others named are cut to about half, to keep the
-# whole script inside its time limit: their widths, and every check, stay),
-# gemma3-12b's cache (its window of 1024 must bind), and the teacher-forced
-# requests' lengths (prompt, decode steps)
-SERVE_LAYERS = {"qwen2.5-14b": 24, "rwkv6-1.6b": 12,
-                "nemotron-4-340b": 4, "minitron-8b": 16, "gemma3-12b": 24,
-                "pixtral-12b": 20, "granite-moe-3b-a800m": 16,
-                "deepseek-v2-lite-16b": 14, "hymba-1.5b": 16}
+# ~680 GB in bf16; the others named are cut to about a quarter, to keep
+# the whole script, phase 23 included, inside its time limit: their
+# widths, and every check, stay), gemma3-12b's cache (its window of 1024
+# must bind), and the teacher-forced requests' lengths (prompt, decode
+# steps)
+SERVE_LAYERS = {"qwen2.5-14b": 12, "rwkv6-1.6b": 6,
+                "nemotron-4-340b": 4, "minitron-8b": 8, "gemma3-12b": 12,
+                "pixtral-12b": 10, "granite-moe-3b-a800m": 8,
+                "deepseek-v2-lite-16b": 7, "hymba-1.5b": 8}
 GEMMA_MAX_LEN = 2048
 DENSE_REQUESTS = {"gemma3-12b": (1100, 16), "nemotron-4-340b": (256, 8),
                   "pixtral-12b": (128, 8), "whisper-medium": (64, 8),
@@ -6963,6 +6989,330 @@ def moe_teacher_forced(cfg, params, dev):
                 routing_flips=flips, routings=routes)
 
 
+# ---------------------------------------------------------------- phase 23
+# Sharded models.  Two ranks share card 0 over gloo (NCCL refuses two ranks
+# a card): this script is rank 0 and ``python3 chip_smoke.py --tp-rank 1
+# BACKEND STORE`` rank 1.
+TP_LAYERS = 8                # (a) qwen2.5-14b's depth and (b) granite's
+TP_FP32_LAYERS = 2           # (a)'s fp32 copies and deepseek, (c)'s qwen
+TP_PROMPT, TP_DECODE = 221, 12
+TP_SP_PROMPT = 222           # sequence parallelism: the prompt splits evenly
+TP_MLA_DECODE = 4
+TP_TRAIN = (2, 256)          # (b) and (c): batch x sequence
+TP_LOSS_REL = 1e-6
+TP_GNORM_REL = 1e-5
+TP_GRAD_TOL = TRAIN_GRAD_TOL["float32"]
+TP_TIMEOUT = 300             # seconds a collective waits for the other rank
+
+
+def tp_serve_cases():
+    """(a): (name, cfg, rules kwargs, Runtime kwargs, prompt, decode steps,
+    logit tolerance) of each teacher-forced request on the (1, 2) mesh."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    qwen = dataclasses.replace(get_config("qwen2.5-14b"), n_layers=TP_LAYERS)
+    q32 = dataclasses.replace(qwen, n_layers=TP_FP32_LAYERS, dtype="float32")
+    mla = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              n_layers=TP_FP32_LAYERS, dtype="float32")
+    return [("qwen2.5-14b bf16", qwen, {}, {}, TP_PROMPT, TP_DECODE,
+             SERVE_LOGIT_TOL),
+            ("qwen2.5-14b fp32", q32, {}, {}, TP_PROMPT, TP_DECODE,
+             FP32_LOGIT_TOL),
+            ("qwen2.5-14b fp32 seq-parallel prefill", q32,
+             {"seq_parallel": True}, {}, TP_SP_PROMPT, TP_DECODE,
+             FP32_LOGIT_TOL),
+            ("deepseek-v2-lite-16b fp32 absorbed", mla, {},
+             {"mla_absorb": True}, TP_PROMPT, TP_MLA_DECODE, FP32_LOGIT_TOL)]
+
+
+def tp_train_cases():
+    """(b) and (c): (name, cfg, mesh shape, rules kwargs)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    granite = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                                  n_layers=TP_LAYERS, dtype="float32")
+    qwen = dataclasses.replace(get_config("qwen2.5-14b"),
+                               n_layers=TP_FP32_LAYERS, dtype="float32")
+    return [("(b) granite-moe-3b-a800m expert-parallel", granite, (1, 2), {}),
+            ("(c) qwen2.5-14b FSDP", qwen, (2, 1), {"fsdp": True})]
+
+
+def _tp_params(cfg, dev, rt, dtype=None):
+    """``init_params(cfg, seed=0)`` on the card, as ``rt``'s mesh's shards
+    (the whole tree freed) where it has one, and their placements."""
+    import torch
+    import torch.distributed  # noqa: F401
+    from repro_torch.models.params import init_params
+    from repro_torch.models.sharding import shard_tree, tree_placements
+    params = init_params(cfg, seed=0, device=dev, dtype=dtype)
+    pl = None
+    if rt.mesh is not None:
+        pl = tree_placements(cfg, rt.mesh, rt.rules)
+        params = shard_tree(params, pl, rt.mesh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    if rt.mesh is not None:
+        torch.distributed.barrier()     # the ranks start the clock together
+    return params, pl
+
+
+def tp_serve(cfg, dev, rt, n_prompt, n_forced):
+    """The teacher-forced logits (host fp32) of one request of ``cfg``
+    under ``rt``, its prefill's ms and its decode steps' median ms."""
+    import numpy as np
+    import torch
+    params, _ = _tp_params(cfg, dev, rt)
+    prompt = list(np.random.default_rng(7).integers(2, cfg.vocab, n_prompt))
+    forced = list(np.random.default_rng(99).integers(2, cfg.vocab,
+                                                     n_forced))
+    times = collections.defaultdict(list)
+    logits = teacher_forced_logits(cfg, params, prompt, forced, dev,
+                                   n_prompt + n_forced + 8, times=times,
+                                   rt=rt).cpu()
+    del params
+    torch.cuda.empty_cache()
+    return logits, times["prefill"][0], float(np.median(times["decode"]))
+
+
+def tp_train(cfg, dev, rt, ref=None):
+    """One training step of ``cfg`` under ``rt``: fp32 master weights
+    (``init_params`` seed 0), the token stream's batch 0 of ``TP_TRAIN``,
+    the gradients (``make_grad_step``) and AdamW as ``launch.train`` sets
+    it.  Returns the loss, the gradient norm, the gradients' and the
+    update's ms; without a mesh also the gradient leaves on the host;
+    under one, each leaf gathered whole and, given ``ref`` (the
+    single-process leaves), the largest max |diff| / max |g|."""
+    import torch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.sharding import gather_tree, paired
+    from repro_torch.train.optimizer import (OptConfig, adamw_update,
+                                             global_norm, init_opt_state)
+    from repro_torch.train.train_step import make_grad_step
+    from repro_torch.train.tree import leaves
+    params, pl = _tp_params(cfg, dev, rt, torch.float32)
+    B, S = TP_TRAIN
+    batch = to_device(TokenStream(cfg.vocab, S, B).batch(0), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, loss, _ = make_grad_step(cfg, rt)(params, batch)
+    gnorm = global_norm(grads, pl, rt.mesh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    opt = OptConfig(lr=3e-3, warmup_steps=5, total_steps=10)
+    state = init_opt_state(params, opt)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    adamw_update(params, grads, state, opt, placements=pl, mesh=rt.mesh)
+    torch.cuda.synchronize()
+    out = dict(loss=float(loss), grad_norm=float(gnorm),
+               grad_ms=1e3 * (t1 - t0),
+               update_ms=1e3 * (time.perf_counter() - t2))
+    del state
+    if rt.mesh is None:
+        out["grads"] = [g.detach().cpu() for g in leaves(grads)]
+    else:
+        errs = []
+        pairs = paired(grads, pl)
+        for i, (g, p) in enumerate(pairs):
+            full = gather_tree(g, p, rt.mesh)
+            if ref is not None:
+                want = ref[i].to(dev)
+                errs.append(float((full - want).abs().max()) /
+                            max(float(want.abs().max()), 1e-30))
+            del full
+        out["grad_err"] = max(errs) if errs else None
+    del params, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_work(dev, backend, refs=None):
+    """Both ranks' part of phase 23, in one order (their collectives
+    pair up): (a)'s requests on the (1, 2) mesh, then (b) and (c) (gloo
+    only).  Rank 0 passes ``refs`` (the single-process runs) and gets the
+    checks' readings; every rank gets its own times, peak memory and
+    launch counts, counted from 0 here."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.models.transformer import Runtime
+    meshes = {}
+
+    def mesh_of(shape):
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"), "cuda")
+        return meshes[shape]
+
+    out = {"serve": {}, "train": {}}
+    torch.cuda.synchronize()
+    ops.launches.clear()
+    cases = tp_serve_cases()
+    for name, cfg, rules, kw, n_prompt, n_forced, tol in \
+            cases[:1] if backend == "nccl" else cases:
+        rt = Runtime(mesh=mesh_of((1, 2)), rules=ShardingRules(**rules),
+                     **kw)
+        torch.cuda.reset_peak_memory_stats()
+        logits, pre_ms, dec_ms = tp_serve(cfg, dev, rt, n_prompt, n_forced)
+        row = dict(prefill_ms=pre_ms, decode_ms=dec_ms,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if refs is not None:
+            want = refs["serve"][name][0]
+            row["logit_rel"] = float((logits - want).abs().max()) / \
+                float(want.abs().max())
+            row["tol"] = tol
+            row["finite"] = bool(torch.isfinite(logits).all())
+        out["serve"][name] = row
+    if backend == "gloo":
+        for name, cfg, shape, rules in tp_train_cases():
+            rt = Runtime(mesh=mesh_of(shape), rules=ShardingRules(**rules))
+            torch.cuda.reset_peak_memory_stats()
+            row = tp_train(cfg, dev, rt, None if refs is None else
+                           refs["train"][name]["grads"])
+            row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            out["train"][name] = row
+    torch.cuda.synchronize()
+    out["launches"] = dict(ops.launches)
+    return out
+
+
+def tp_helper(argv) -> None:
+    """Rank 1 of phase 23 (``--tp-rank 1 BACKEND STORE``): join, run
+    ``tp_rank_work``, hand rank 0 its numbers, leave."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import join
+    rank, backend, store = int(argv[0]), argv[1], argv[2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    # a process's first torch.utils.checkpoint call imports torch._dynamo,
+    # 12-15 s on an H100 machine (scripts/capacity_step_profile.py): paid
+    # here, while rank 0 makes the single-process runs
+    import torch._dynamo  # noqa: F401
+    join(rank, 2, f"file://{store}", backend=backend, device="cuda",
+         timeout=TP_TIMEOUT)
+    try:
+        mine = tp_rank_work(torch.device("cuda", torch.cuda.current_device()),
+                            backend)
+        dist.all_gather_object([None, None], mine)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(dev):
+    """Phase 23 (see the module docstring).  Returns its numbers."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import join
+    from repro_torch.models.transformer import Runtime
+    t_phase = time.perf_counter()
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2
+                           else [])
+    roots = {b: tempfile.mkdtemp(prefix="chip_smoke_tp_") for b in backends}
+
+    def start_helper(backend):
+        """Rank 1: it imports and then waits for rank 0 to join."""
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-rank", "1",
+             backend, f"{roots[backend]}/pg"], env=dict(os.environ))
+
+    helper = start_helper(backends[0])
+    # the single-process runs first, kept on the host, the card freed
+    refs = {"serve": {}, "train": {}}
+    try:
+        for name, cfg, _, kw, n_prompt, n_forced, _ in tp_serve_cases():
+            refs["serve"][name] = tp_serve(cfg, dev, Runtime(
+                moe_impl="capacity", **kw), n_prompt, n_forced)
+        for name, cfg, _, _ in tp_train_cases():
+            refs["train"][name] = tp_train(cfg, dev,
+                                           Runtime(moe_impl="capacity"))
+    except BaseException:
+        helper.kill()
+        helper.wait()
+        raise
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    say(f"# 23 single-process runs took {time.perf_counter() - t_phase:.1f}"
+        " s")
+    out = {"backends": backends, "runs": {}}
+    problems = []
+    for i, backend in enumerate(backends):
+        root = roots[backend]
+        if i:
+            helper = start_helper(backend)
+        try:
+            join(0, 2, f"file://{root}/pg", backend=backend, device="cuda",
+                 timeout=TP_TIMEOUT)
+            try:
+                mine = tp_rank_work(dev, backend, refs)
+                ranks = [None, None]
+                dist.all_gather_object(ranks, mine)
+            finally:
+                dist.destroy_process_group()
+            helper.wait(timeout=TP_TIMEOUT)
+        finally:
+            if helper.poll() is None:
+                helper.kill()
+                helper.wait()
+            shutil.rmtree(root, ignore_errors=True)
+        if helper.returncode != 0:
+            fail(f"23 ({backend}): rank 1 exited {helper.returncode}")
+        out["runs"][backend] = ranks
+        for name, row in ranks[0]["serve"].items():
+            if not row["finite"] or not row["logit_rel"] <= row["tol"]:
+                problems.append(f"(a) {name} over {backend}: logits "
+                                f"{row['logit_rel']} of max |logit| > "
+                                f"{row['tol']}")
+            say(f"# 23 (a) {name} ({backend}, ranks on cards "
+                f"{'0, 0' if backend == 'gloo' else '0, 1'}): logits "
+                f"{row['logit_rel']:.3e} of max |logit| from the single "
+                f"process (tolerance {row['tol']}); prefill "
+                f"{row['prefill_ms']:.1f} ms, decode {row['decode_ms']:.2f} "
+                f"ms a step (single process "
+                f"{refs['serve'][name][1]:.1f} / "
+                f"{refs['serve'][name][2]:.2f}); peak "
+                f"{row['peak_gb']:.2f} / {ranks[1]['serve'][name]['peak_gb']:.2f}"
+                " GB on ranks 0 / 1")
+        for name, row in ranks[0]["train"].items():
+            ref = refs["train"][name]
+            loss_rel = abs(row["loss"] - ref["loss"]) / abs(ref["loss"])
+            gn_rel = abs(row["grad_norm"] - ref["grad_norm"]) / \
+                ref["grad_norm"]
+            if not (loss_rel <= TP_LOSS_REL and gn_rel <= TP_GNORM_REL and
+                    row["grad_err"] <= TP_GRAD_TOL):
+                problems.append(f"{name}: loss {row['loss']} / {ref['loss']}"
+                                f" ({loss_rel}), grad norm {gn_rel}, "
+                                f"gradient leaves {row['grad_err']}")
+            row.update(loss_rel=loss_rel, grad_norm_rel=gn_rel)
+            say(f"# 23 {name}: loss {row['loss']:.6f} (single process "
+                f"{ref['loss']:.6f}, rel {loss_rel:.2e}), grad norm rel "
+                f"{gn_rel:.2e}, gradient leaves max |diff| / max |g| "
+                f"{row['grad_err']:.2e}; gradients {row['grad_ms']:.0f} ms + "
+                f"AdamW {row['update_ms']:.0f} ms a step (single process "
+                f"{ref['grad_ms']:.0f} + {ref['update_ms']:.0f}); peak "
+                f"{row['peak_gb']:.2f} / "
+                f"{ranks[1]['train'][name]['peak_gb']:.2f} GB on ranks 0 / 1")
+    if problems:
+        fail("23: " + "; ".join(problems))
+    counts = out["runs"]["gloo"][0]["launches"]
+    for kernel in ("flash_attention", "decode_attention",
+                   "latent_attention"):
+        if not counts.get(kernel):
+            fail(f"23: {kernel} never launched on rank 0: {counts}")
+    out["launches"] = counts
+    for r in refs["train"].values():
+        r.pop("grads")
+    out["single"] = {"serve": {k: v[1:] for k, v in refs["serve"].items()},
+                     "train": refs["train"]}
+    say(f"# 23: two ranks on one card over gloo measure no speedup: the "
+        f"times are reported, not compared.  Rank 0's launches {counts}; "
+        f"phase 23 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def profile_run(dev, label, fn, units: int, unit: str) -> dict:
     """Device busy time against wall time of ``fn`` under torch.profiler,
     per ``unit``: {"wall_us", "busy_us", "share" (%), "kernels", "by_name"
@@ -7147,6 +7497,9 @@ def main() -> None:
         fail(f"torch is not importable: {e}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a card")
+    if len(sys.argv) == 5 and sys.argv[1] == "--tp-rank":
+        tp_helper(sys.argv[2:])     # phase 23's rank 1
+        return
     parent_tree = None
     if len(sys.argv) == 3 and sys.argv[1] == "--parent":
         parent_tree = os.path.abspath(sys.argv[2])
@@ -7226,9 +7579,15 @@ def main() -> None:
     lap("phase_training")
     hosts = phase_hosts_lanes_elastic(dev, blocked_records)
     lap("phase_hosts_lanes_elastic")
+    tp = phase_sharded(dev)
+    lap("phase_sharded")
     prof = phase_profile(dev)
     lap("phase_profile")
     say(f"# total {time.perf_counter() - t_start:.1f} s")
+    say("# 23 sharded: " + json.dumps({k: tp[k] for k in ("backends",
+                                                          "single")}))
+    for backend, ranks in tp["runs"].items():
+        say(f"# 23 sharded ({backend}): " + json.dumps(ranks))
     print(card)
     print(json.dumps({"kernels": [
         dict(name="fitscore_select", route="cuda",
@@ -7336,6 +7695,7 @@ def main() -> None:
              train_grad_err=train["functions"]["flash"],
              elastic_phase_launches=hosts["launches"].get(
                  "flash_attention", 0),
+             tp_phase_launches=tp["launches"].get("flash_attention", 0),
              dense_shapes={name: row for (kind, name), row in
                            dense_rows.items() if kind == "flash"},
              offset_shapes={k: v for k, v in rest.items()
@@ -7377,6 +7737,7 @@ def main() -> None:
                      "decode_attention_window"]},
              deepseek_engine_launches=moe["deepseek-v2-lite-16b"][
                  "engine_launches"]["decode_attention"],
+             tp_phase_launches=tp["launches"].get("decode_attention", 0),
              gemma3_engine_launches={
                  "decode_attention": dense["gemma3-12b"]["engine_launches"][
                      "decode_attention"],
@@ -7424,7 +7785,8 @@ def main() -> None:
              naive_engine_decode_ms=moe["deepseek-v2-lite-16b"]["absorbed"][
                  "naive_engine_decode_ms"],
              logits_vs_naive=moe["deepseek-v2-lite-16b"]["absorbed"][
-                 "vs_naive_rel"]),
+                 "vs_naive_rel"],
+             tp_phase_launches=tp["launches"].get("latent_attention", 0)),
         dict(name="rwkv6_chunked", route="cuda",
              source="src/repro_torch/kernels/csrc/rwkv6_chunked.cu",
              replaces="src/repro/kernels/rwkv6_scan.py:69",

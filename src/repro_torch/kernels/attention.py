@@ -42,14 +42,18 @@ def inv_f32(c: float) -> float:
 _INV_127 = inv_f32(127)
 
 
-def quant_kv(x: torch.Tensor):
+def quant_kv(x: torch.Tensor, row_max=None):
     """Per-row (last-axis) absmax int8 quantization (the reference's
     ``quant_kv``, and its optimizer's ``_quant``): ``torch.round`` rounds
     half to even, as ``jnp.round`` does, and ``absmax / 127`` is taken as
     the reference's jitted code computes it (``absmax * inv_f32(127)``).
-    Returns (int8 values, fp32 scales of one a row)."""
+    ``row_max``, where given, maps the rows' absmax to the one the scale
+    takes (the optimizer's max across the shards of a row).  Returns (int8
+    values, fp32 scales of one a row)."""
     x32 = x.to(torch.float32)
     absmax = torch.amax(torch.abs(x32), dim=-1, keepdim=True)
+    if row_max is not None:
+        absmax = row_max(absmax)
     scale = torch.where(absmax > 0, absmax * _INV_127, 1.0)
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale.to(torch.float32)

@@ -53,6 +53,9 @@ reference's ``forward`` form, and the functions the JAX package's XLA path
 
 The reference's dtype sequence is kept: projections in the activations'
 type, ``rope`` and ``_rms`` in fp32 and cast back.
+
+Under a model axis (``sharding.TensorParallel``) each block computes its
+rank's heads and the kernels take the local shapes, nothing else changed.
 """
 from __future__ import annotations
 
@@ -63,6 +66,7 @@ import torch.nn.functional as F
 
 from ..kernels.attention import quant_kv
 from ..kernels.ops import decode_attention, flash_attention, latent_attention
+from .sharding import LOCAL, TensorParallel
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -139,9 +143,31 @@ def _cross_attention(q, k, v):
     return flash_attention(q, k, v, causal=False)
 
 
+def kv_heads_for(H: int, KV: int, H_loc: int, r: int) -> list:
+    """The kv heads model rank ``r``'s query heads ``[r * H_loc, (r + 1) *
+    H_loc)`` read, in the order a GQA call over them takes: each once where
+    the local query heads fall into groups of one size (``H_loc`` a multiple
+    of the group ``H // KV``, or within one group), else one for each local
+    query head (a group of 1).  The kv weights stay whole in this case (the
+    kv heads do not divide the model axis); a rank's cache holds these."""
+    G = H // KV
+    need = [h // G for h in range(r * H_loc, (r + 1) * H_loc)]
+    if H_loc % G == 0 or G % H_loc == 0:
+        return sorted(set(need))
+    return need
+
+
+def _head_cols(w: torch.Tensor, heads, hd: int) -> torch.Tensor:
+    """The columns of heads ``heads`` (of ``hd`` each) of ``w``'s last
+    dim, in that order."""
+    idx = (torch.as_tensor(heads, device=w.device)[:, None] * hd +
+           torch.arange(hd, device=w.device)[None, :]).reshape(-1)
+    return w.index_select(-1, idx)
+
+
 def attention_block(blk, x, cfg, *, positions, window: int, cache=None,
-                    cache_pos=None, cross_states=None,
-                    prefix: str = "") -> Tuple:
+                    cache_pos=None, cross_states=None, prefix: str = "",
+                    tp: TensorParallel = LOCAL) -> Tuple:
     """Standard GQA attention of one layer, or cross-attention onto
     ``cross_states`` (B, Se, d).  x (B, S, d); cache None, a dict {"k",
     "v"} of (B, Smax, KV, hd), or an int8 one {"k_q", "v_q", "k_s", "v_s"}
@@ -150,7 +176,16 @@ def attention_block(blk, x, cfg, *, positions, window: int, cache=None,
     None).  ``window`` is the layer's window (0: full attention);
     ``prefix`` picks the block's weights (``"x_"``: the decoder's cross
     projections).  As in the reference, the query bias applies only without
-    a prefix and the cross keys and values take none."""
+    a prefix and the cross keys and values take none.
+
+    Under a model axis (``tp``) the block runs on the query heads of its
+    weights' shard (``wq``'s columns, ``H / model`` heads) and on the kv
+    heads they read: the shard of ``wk`` / ``wv`` where the kv heads divide
+    the model axis, else those ``kv_heads_for`` picks from the whole
+    weights; the cache holds those kv heads.  ``wo`` is row-parallel, its
+    partial products all-reduced.  A shard of ``wq`` that does not hold
+    whole heads reaches the block gathered, and every rank computes all
+    heads."""
     if cfg.mla and not prefix and cross_states is None:
         raise ValueError(f"{cfg.name}: MLA self-attention is "
                          "mla_attention_block")
@@ -161,7 +196,10 @@ def attention_block(blk, x, cfg, *, positions, window: int, cache=None,
     def g(name):
         return blk[prefix + name]
 
-    q = _proj(x, g("wq"), g("bq") if bias and not prefix else None
+    H = g("wq").shape[-1] // hd              # this rank's query heads
+    split = H < cfg.n_heads
+    xq = tp.enter(x) if split else x
+    q = _proj(xq, g("wq"), g("bq") if bias and not prefix else None
               ).reshape(B, S, H, hd)
     if cross_states is not None:
         e = cross_states.to(x.dtype)
@@ -170,15 +208,28 @@ def attention_block(blk, x, cfg, *, positions, window: int, cache=None,
         v = _proj(e, g("wv")).reshape(B, Se, KVh, hd)
         out = _cross_attention(q, k, v)
         return _proj(out.reshape(B, S, H * hd), g("wo")), None
-    k = _proj(x, g("wk"), g("bk") if bias else None).reshape(B, S, KVh, hd)
-    v = _proj(x, g("wv"), g("bv") if bias else None).reshape(B, S, KVh, hd)
+    wk, wv = g("wk"), g("wv")
+    bk, bv = (g("bk"), g("bv")) if bias else (None, None)
+    if split and wk.shape[-1] == KVh * hd:
+        # whole kv weights: the kv heads this rank's query heads read
+        heads = kv_heads_for(cfg.n_heads, KVh, H, tp.r)
+        wk, wv = (_head_cols(tp.enter(w), heads, hd) for w in (wk, wv))
+        if bias:
+            bk, bv = (_head_cols(tp.enter(b), heads, hd) for b in (bk, bv))
+    KVh = wk.shape[-1] // hd
+    k = _proj(xq, wk, bk).reshape(B, S, KVh, hd)
+    v = _proj(xq, wv, bv).reshape(B, S, KVh, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     window = int(window)
 
+    def out_proj(o):
+        y = _proj(o.reshape(B, S, H * hd), g("wo"))
+        return tp.reduce(y) if split else y
+
     if cache is None:
-        return _proj(flash_attention(q, k, v, causal=True, window=window
-                                     ).reshape(B, S, H * hd), g("wo")), None
+        return out_proj(flash_attention(q, k, v, causal=True,
+                                        window=window)), None
     if "k_q" in cache:
         ck, cv = cache["k_q"], cache["v_q"]
         (kq, ks), (vq, vs) = quant_kv(k), quant_kv(v)
@@ -203,11 +254,12 @@ def attention_block(blk, x, cfg, *, positions, window: int, cache=None,
                               q_offset=cache_pos,
                               kv_len=_cache_lens(B, S, cache_pos, x.device),
                               **kv)
-    return _proj(out.reshape(B, S, H * hd), g("wo")), cache
+    return out_proj(out), cache
 
 
 def mla_attention_block(blk, x, cfg, *, positions, cache=None,
-                        cache_pos=None, absorb: bool = False) -> Tuple:
+                        cache_pos=None, absorb: bool = False,
+                        tp: TensorParallel = LOCAL) -> Tuple:
     """DeepSeek-V2's Multi-head Latent Attention.  x (B, S, d); cache None
     or {"lat": (B, Smax, lora + r)}, the compressed latent ``[c_kv,
     k_rope]`` of each position, written in place at ``cache_pos`` (an int,
@@ -229,11 +281,19 @@ def mla_attention_block(blk, x, cfg, *, positions, cache=None,
     ``lora + r`` columns attends over the latent rows themselves, one kv
     head shared by all ``H`` heads, V the latent's first ``lora`` columns
     (``latent_attention``, scale ``(hd + r) ** -0.5``), and ``W_UV`` is
-    applied to the attended latent: no per-position up-projection."""
+    applied to the attended latent: no per-position up-projection.
+
+    Under a model axis (``tp``) the per-head projections (``wq``, ``w_uk``,
+    ``w_uv``) are the shard of this rank's heads and ``wo`` is
+    row-parallel, its partial products all-reduced; ``w_dkv`` and the
+    latent (and its cache) stay whole on every rank, absorbed or not."""
     B, S, _ = x.shape
     H, hd, r, lora = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim, \
         cfg.kv_lora_rank
-    q = _proj(x, blk["wq"]).reshape(B, S, H, hd + r)
+    H = blk["w_uk"].shape[-1] // hd           # this rank's heads
+    split = H < cfg.n_heads
+    q = _proj(tp.enter(x) if split else x, blk["wq"]).reshape(B, S, H,
+                                                              hd + r)
     q_nope = q[..., :hd]
     q_rope = rope(q[..., hd:], positions, cfg.rope_theta)
     c = _proj(x, blk["w_dkv"])                            # (B, S, lora + r)
@@ -248,6 +308,8 @@ def mla_attention_block(blk, x, cfg, *, positions, cache=None,
         _write_rows(cache["lat"], lat, cache_pos)
         if not prefill:
             lat = cache["lat"]      # every cached position, as the reference
+    if split:
+        lat = tp.enter(lat)
     at = {} if prefill else dict(
         q_offset=cache_pos, kv_len=_cache_lens(B, S, cache_pos, x.device))
     if absorb:
@@ -259,7 +321,8 @@ def mla_attention_block(blk, x, cfg, *, positions, cache=None,
                                q_offset=at.get("q_offset"), hd_v=lora,
                                scale=(hd + r) ** -0.5)
         out = torch.einsum("bqhl,lhd->bqhd", ctx, wuv).reshape(B, S, H * hd)
-        return _proj(out, blk["wo"]), cache
+        y = _proj(out, blk["wo"])
+        return (tp.reduce(y) if split else y), cache
     q_cat = torch.cat([q_nope, q_rope], dim=-1)
     wuk = blk["w_uk"].to(x.dtype)
     wuv = F.pad(blk["w_uv"].to(x.dtype).reshape(lora, H, hd),
@@ -275,4 +338,5 @@ def mla_attention_block(blk, x, cfg, *, positions, cache=None,
     else:
         out = flash_attention(q_cat, k_cat, v, causal=True, **at)
     out = out[..., :hd].reshape(B, S, H * hd)
-    return _proj(out, blk["wo"]), cache
+    y = _proj(out, blk["wo"])
+    return (tp.reduce(y) if split else y), cache

@@ -5,11 +5,14 @@ bias, MoE, MLA, encoder-decoder, RWKV6, hybrid SSM).  The port's copy of
 means the same in both packages.  The port's model stack runs every
 architecture of ``configs.ARCHS``: the GQA decoders (mixed local / global
 windows, QKV bias, a stub frontend, an encoder-decoder), MoE with MLA,
-RWKV6, and hymba's SSD heads beside its attention.
+RWKV6, and hymba's SSD heads beside its attention.  ``ShapeConfig``,
+``SHAPES`` and ``shapes_for`` are the reference's input-shape cells, which
+``launch.specs.make_rules`` reads.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,3 +144,36 @@ class ModelConfig:
         inactive = (self.n_experts - self.top_k) * per_expert * \
             (self.n_layers - self.first_k_dense)
         return int(self.param_count() - inactive)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned (input-shape) cell: the reference's, which its
+    ``launch/specs.py`` sizes the sharding rules by."""
+
+    name: str                    # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# long_500k only for the sub-quadratic architectures
+LONG_CONTEXT_ARCHS = ("rwkv6-1.6b", "hymba-1.5b", "gemma3-12b")
+
+
+def shapes_for(arch_name: str) -> Tuple[str, ...]:
+    base = ("train_4k", "prefill_32k", "decode_32k")
+    if arch_name in LONG_CONTEXT_ARCHS:
+        return base + ("long_500k",)
+    return base

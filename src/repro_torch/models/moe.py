@@ -4,7 +4,7 @@
 
 Two semantics, as in the reference:
 
-- ``impl="dense"`` (and ``"auto"``: the port has no mesh): the reference's
+- ``impl="dense"`` (and ``"auto"`` without a mesh): the reference's
   ``mesh=None`` mode, which its serving engine runs.  The reference computes
   every expert for every token and weights them by a top-k-sparse gate; the
   port computes the same function as a dropless dispatch: the T*k (token,
@@ -12,11 +12,24 @@ Two semantics, as in the reference:
   contiguous rows, and the gate-weighted rows put back in token order and
   summed over each token's k in fp32.  No capacity limit.  The two sum the
   same k nonzero terms in another order.
-- ``impl="capacity"``: the reference's shard_map path on a one-device mesh
-  (expert parallel, all E experts local).  Each expert takes at most ``C``
-  rows (``_capacity``); a (token, slot) pair's rank within its expert is
-  its place in the token-major order of the top-k ids, and pairs ranked at
-  or past ``C`` are dropped.
+- ``impl="capacity"`` (and ``"auto"`` under a mesh): the reference's
+  shard_map path.  Each expert takes at most ``C`` rows (``_capacity``); a
+  (token, slot) pair's rank within its expert is its place in the
+  token-major order of the top-k ids, and pairs ranked at or past ``C``
+  are dropped.
+
+Under a mesh ``x`` is this rank's data shard of the batch, and the
+capacity path runs on its tokens alone (``C = _capacity(T_local, ...)``),
+as the reference's shard_map does.  Where the experts divide the model
+axis the weights hold this rank's ``E / model`` experts (expert parallel:
+the rank takes its experts' slice of the dispatch tables); else the
+experts' hidden dim is split (``we_in`` / ``we_gate`` columns, ``we_out``
+rows).  Either way the partial outputs are all-reduced over "model".  The
+aux loss is data shard 0's on every rank, as the reference's
+``out_specs=P()`` returns it; its gradient, as the reference's, is the
+mean over the data shards of each shard's own (``sharding.TensorParallel.
+shard0``).  The dense mode under a mesh gathers the experts and takes the
+aux loss over the whole batch, as the reference's GSPMD dense mode does.
 
 The dropless dispatch reads each expert's row count on the host: one
 ``tolist()`` a call (``HOST_SYNCS_PER_CALL``), so that each expert's
@@ -24,12 +37,13 @@ product runs over exactly its rows.  The capacity path needs none.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from .sharding import LOCAL, ShardingRules, TensorParallel
 
 # host syncs of one dropless ``moe_block`` call (the experts' row counts)
 HOST_SYNCS_PER_CALL = 1
@@ -45,6 +59,21 @@ def _act(cfg: ModelConfig, gate, up):
     if cfg.mlp_act == "relu2":
         return torch.square(F.relu(up))
     return F.gelu(up, approximate="tanh")
+
+
+def mlp(blk, x, cfg: ModelConfig, tp: TensorParallel = LOCAL,
+        prefix: str = ""):
+    """The MLP ``act(x w_gate, x w_in) w_out`` of ``blk[prefix + ...]``;
+    column-parallel ``w_in`` / ``w_gate`` and row-parallel ``w_out``, the
+    partial products all-reduced, where ``tp`` keeps their hidden dim
+    split."""
+    split = tp.kept(prefix + "w_in")
+    xi = tp.enter(x) if split else x
+    up = xi @ blk[prefix + "w_in"].to(x.dtype)
+    gate = xi @ blk[prefix + "w_gate"].to(x.dtype) \
+        if prefix + "w_gate" in blk else None
+    y = _act(cfg, gate, up) @ blk[prefix + "w_out"].to(x.dtype)
+    return tp.reduce(y) if split else y
 
 
 def router_probs(x, router_w):
@@ -150,34 +179,67 @@ def _dropless(cfg: ModelConfig, blk, x, w, ids):
     return yt.view(T, k, d).sum(1).to(x.dtype)
 
 
-def moe_block(blk, x, cfg: ModelConfig, norm_topk: bool = True,
-              impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+def _global_aux(gates, ids, E: int, tp: TensorParallel):
+    """``aux_losses`` over every data shard's tokens (the dense mode under
+    a mesh)."""
+    counts = tp.reduce_data(_expert_counts(ids.reshape(-1), E).float())
+    probs = tp.reduce_data(gates.sum(0))
+    n = tp.n_data
+    return E * torch.sum(counts / (ids.numel() * n) *
+                         (probs / (gates.shape[0] * n)))
+
+
+def moe_block(blk, x, cfg: ModelConfig, mesh=None,
+              data_axes: Tuple[str, ...] = ("data",), norm_topk: bool = True,
+              impl: str = "auto", tp: Optional[TensorParallel] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d), aux loss, an fp32 scalar).  ``impl``
-    "auto" or "dense": the dropless dispatch (the reference's dense mode);
-    "capacity": the capacity path (the reference's one-device mesh).  The
-    shared experts, where the configuration has them, are one MLP of width
+    "dense", or "auto" with no mesh: the dropless dispatch (the reference's
+    dense mode); "capacity", or "auto" under a mesh: the capacity path.
+    Under ``mesh`` (its batch over ``data_axes``) ``x`` and ``out`` are
+    this rank's data shard and ``blk`` holds its shards of the weights;
+    ``tp``, the forward's plan where the layer passes it.  The shared
+    experts, where the configuration has them, are one MLP of width
     ``n_shared_experts * d_expert`` added to every token."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
+    if tp is None:
+        tp = LOCAL if mesh is None else TensorParallel(
+            cfg, mesh, ShardingRules(data_axes=tuple(data_axes)))
     xf = x.reshape(-1, d)
     T = xf.shape[0]
     gates, _ = router_probs(xf, blk["router"])
-    if impl in ("auto", "dense"):
+    if impl == "dense" or (impl == "auto" and not tp.on):
         w, ids = _top_k(gates, k, norm_topk)
-        out = _dropless(cfg, blk, xf, w, ids)
-    elif impl == "capacity":
+        full = dict(blk)
+        for name, dim in (("we_in", 2), ("we_gate", 2), ("we_out", 1)):
+            if name in blk:
+                w_e = tp.gather(blk[name], 0, "model") \
+                    if blk[name].shape[0] < E else blk[name]
+                full[name] = tp.gather(w_e, dim, "model") \
+                    if w_e.shape[dim] < cfg.d_expert else w_e
+        out = _dropless(cfg, full, xf, w, ids)
+        aux = _global_aux(gates, ids, E, tp) if tp.on else \
+            aux_losses(gates, ids, E)
+    elif impl in ("auto", "capacity"):
         C = _capacity(T, k, E, cfg.capacity_factor)
-        xe, table, wtable = _dispatch_local(xf, gates, k, C, norm_topk)
+        ep = blk["we_in"].shape[0] < E
+        split = ep or blk["we_in"].shape[-1] < cfg.d_expert
+        xm, gm = (tp.enter(xf), tp.enter(gates)) if split else (xf, gates)
+        xe, table, wtable = _dispatch_local(xm, gm, k, C, norm_topk)
+        if ep:    # this rank's experts' slice of the dispatch tables
+            n = blk["we_in"].shape[0]
+            own = slice(tp.r * n, (tp.r + 1) * n)
+            xe, table, wtable = xe[own], table[own], wtable[own]
         out = _combine_local(_expert_ffn(cfg, blk, xe), table, wtable, T, d)
+        if split:
+            out = tp.reduce(out)
         ids = torch.topk(gates, k, dim=-1, sorted=True)[1]
+        aux = tp.shard0(aux_losses(gates, ids, E))
     else:
         raise ValueError(f"moe_block: impl {impl!r} is not auto, dense or "
                          "capacity")
-    aux = aux_losses(gates, ids, E)
     out = out.reshape(B, S, d)
     if cfg.n_shared_experts:
-        up = x @ blk["shared_w_in"].to(x.dtype)
-        gate = x @ blk["shared_w_gate"].to(x.dtype) \
-            if "shared_w_gate" in blk else None
-        out = out + _act(cfg, gate, up) @ blk["shared_w_out"].to(x.dtype)
+        out = out + mlp(blk, x, cfg, tp, prefix="shared_")
     return out, aux

@@ -20,7 +20,10 @@ Initialisers and scales are the reference's too: ``normal`` times
 ``scale / sqrt(fan_in)`` for a dense weight (an expert's by its own fan
 in), ones for a norm, RWKV6's ``gn_scale`` and the SSD's ``ssm_D``, zeros for
 the QKV biases, RWKV6's token-shift mixes, ``decay_base`` and ``bonus_u``,
-and the SSD's ``dt_bias`` and ``A_log``.  The numbers differ (a ``torch.Generator``
+and the SSD's ``dt_bias`` and ``A_log``.  Each leaf names its dims' logical axes
+as the reference's does (``vocab``, ``embed``, ``heads``, ``kv_heads``,
+``mlp``, ``expert``, ``kv_lora`` or None; ``logical_axes`` adds
+``layers`` on a stacked leaf).  The numbers differ (a ``torch.Generator``
 is not a JAX key); ``params_from_reference`` carries the JAX package's own
 weights across.
 """
@@ -36,19 +39,29 @@ import torch
 from .config import ModelConfig
 
 
+Axes = Tuple[Optional[str], ...]
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamMeta:
     shape: Tuple[int, ...]
+    axes: Axes                 # logical axis names, len == len(shape)
     init: str = "normal"       # normal | zeros | ones
     scale: float = 1.0         # stddev multiplier for "normal"
 
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} has {len(self.shape)} "
+                             f"dims, axes {self.axes} name {len(self.axes)}")
+
 
 def _norm(d: int) -> ParamMeta:
-    return ParamMeta((d,), "ones")
+    return ParamMeta((d,), (None,), "ones")
 
 
-def _dense(fan_in: int, fan_out: int) -> ParamMeta:
-    return ParamMeta((fan_in, fan_out), "normal", 1.0 / math.sqrt(fan_in))
+def _dense(fan_in: int, fan_out: int, axes: Axes) -> ParamMeta:
+    return ParamMeta((fan_in, fan_out), axes, "normal",
+                     1.0 / math.sqrt(fan_in))
 
 
 def _rwkv_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
@@ -57,17 +70,20 @@ def _rwkv_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
     bonus ``u``, the per-head group norm's scale, and a relu^2 MLP with no
     gate."""
     d, a = cfg.d_model, cfg.q_dim
+    EH, HE = ("embed", "heads"), ("heads", "embed")
     return {"ln1": _norm(d),
-            **{f"mix_{n}": ParamMeta((d,), "zeros") for n in "rkvgw"},
-            "w_r": _dense(d, a), "w_k": _dense(d, a), "w_v": _dense(d, a),
-            "w_g": _dense(d, a),
-            "decay_a": _dense(d, 64), "decay_b": _dense(64, a),
-            "decay_base": ParamMeta((a,), "zeros"),
-            "bonus_u": ParamMeta((a,), "zeros"),
-            "gn_scale": ParamMeta((a,), "ones"),
-            "wo": _dense(a, d), "ln2": _norm(d),
-            "mix_f": ParamMeta((d,), "zeros"),
-            "w_in": _dense(d, cfg.d_ff), "w_out": _dense(cfg.d_ff, d)}
+            **{f"mix_{n}": ParamMeta((d,), (None,), "zeros")
+               for n in "rkvgw"},
+            "w_r": _dense(d, a, EH), "w_k": _dense(d, a, EH),
+            "w_v": _dense(d, a, EH), "w_g": _dense(d, a, EH),
+            "decay_a": _dense(d, 64, ("embed", None)),
+            "decay_b": _dense(64, a, (None, "heads")),
+            "decay_base": ParamMeta((a,), ("heads",), "zeros"),
+            "bonus_u": ParamMeta((a,), ("heads",), "zeros"),
+            "gn_scale": ParamMeta((a,), ("heads",), "ones"),
+            "wo": _dense(a, d, HE), "ln2": _norm(d),
+            "mix_f": ParamMeta((d,), (None,), "zeros"),
+            **_mlp_block(cfg, cfg.d_ff)}
 
 
 def _ssm_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
@@ -75,38 +91,44 @@ def _ssm_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
     B and C projections, the step's bias, the per-head decay rate's log,
     the skip ``D``, the branch's norm and its output projection."""
     d, H, N, P = cfg.d_model, cfg.n_heads, cfg.ssm_state, cfg.head_dim
-    return {"ws_in": _dense(d, H * P), "ws_dt": _dense(d, H),
-            "dt_bias": ParamMeta((H,), "zeros"),
-            "ws_B": _dense(d, H * N), "ws_C": _dense(d, H * N),
-            "A_log": ParamMeta((H,), "zeros"),
-            "ssm_D": ParamMeta((H,), "ones"),
-            "ssm_norm": _norm(H * P), "ws_out": _dense(H * P, d)}
+    EH = ("embed", "heads")
+    return {"ws_in": _dense(d, H * P, EH), "ws_dt": _dense(d, H, EH),
+            "dt_bias": ParamMeta((H,), ("heads",), "zeros"),
+            "ws_B": _dense(d, H * N, EH), "ws_C": _dense(d, H * N, EH),
+            "A_log": ParamMeta((H,), ("heads",), "zeros"),
+            "ssm_D": ParamMeta((H,), ("heads",), "ones"),
+            "ssm_norm": _norm(H * P),
+            "ws_out": _dense(H * P, d, ("heads", "embed"))}
 
 
 def _attention_block(cfg: ModelConfig,
                      cross: bool = False) -> Dict[str, ParamMeta]:
     d = cfg.d_model
+    EH, HE = ("embed", "heads"), ("heads", "embed")
     if cfg.mla and not cross:
         lora, r = cfg.kv_lora_rank, cfg.rope_head_dim
-        return {"wq": _dense(d, cfg.n_heads * (cfg.head_dim + r)),
-                "w_dkv": _dense(d, lora + r), "kv_norm": _norm(lora),
-                "w_uk": _dense(lora, cfg.q_dim),
-                "w_uv": _dense(lora, cfg.q_dim),
-                "wo": _dense(cfg.q_dim, d)}
-    blk = {"wq": _dense(d, cfg.q_dim), "wk": _dense(d, cfg.kv_dim),
-           "wv": _dense(d, cfg.kv_dim), "wo": _dense(cfg.q_dim, d)}
+        return {"wq": _dense(d, cfg.n_heads * (cfg.head_dim + r), EH),
+                "w_dkv": _dense(d, lora + r, ("embed", None)),
+                "kv_norm": _norm(lora),
+                "w_uk": _dense(lora, cfg.q_dim, ("kv_lora", "heads")),
+                "w_uv": _dense(lora, cfg.q_dim, ("kv_lora", "heads")),
+                "wo": _dense(cfg.q_dim, d, HE)}
+    EK = ("embed", "kv_heads")
+    blk = {"wq": _dense(d, cfg.q_dim, EH), "wk": _dense(d, cfg.kv_dim, EK),
+           "wv": _dense(d, cfg.kv_dim, EK), "wo": _dense(cfg.q_dim, d, HE)}
     if cfg.qkv_bias:
-        blk["bq"] = ParamMeta((cfg.q_dim,), "zeros")
-        blk["bk"] = ParamMeta((cfg.kv_dim,), "zeros")
-        blk["bv"] = ParamMeta((cfg.kv_dim,), "zeros")
+        blk["bq"] = ParamMeta((cfg.q_dim,), ("heads",), "zeros")
+        blk["bk"] = ParamMeta((cfg.kv_dim,), ("kv_heads",), "zeros")
+        blk["bv"] = ParamMeta((cfg.kv_dim,), ("kv_heads",), "zeros")
     return blk
 
 
 def _mlp_block(cfg: ModelConfig, d_ff: int) -> Dict[str, ParamMeta]:
     d = cfg.d_model
-    blk = {"w_in": _dense(d, d_ff), "w_out": _dense(d_ff, d)}
+    blk = {"w_in": _dense(d, d_ff, ("embed", "mlp")),
+           "w_out": _dense(d_ff, d, ("mlp", "embed"))}
     if cfg.mlp_act.endswith("_glu"):
-        blk["w_gate"] = _dense(d, d_ff)
+        blk["w_gate"] = _dense(d, d_ff, ("embed", "mlp"))
     return blk
 
 
@@ -115,11 +137,13 @@ def _moe_block(cfg: ModelConfig) -> Dict[str, ParamMeta]:
     experts as one MLP of ``n_shared_experts * d_expert``."""
     d, E, fe = cfg.d_model, cfg.n_experts, cfg.d_expert
     s = 1.0 / math.sqrt(d)
-    blk = {"router": _dense(d, E),
-           "we_in": ParamMeta((E, d, fe), "normal", s),
-           "we_out": ParamMeta((E, fe, d), "normal", 1.0 / math.sqrt(fe))}
+    EEM = ("expert", "embed", "mlp")
+    blk = {"router": _dense(d, E, ("embed", None)),
+           "we_in": ParamMeta((E, d, fe), EEM, "normal", s),
+           "we_out": ParamMeta((E, fe, d), ("expert", "mlp", "embed"),
+                               "normal", 1.0 / math.sqrt(fe))}
     if cfg.mlp_act.endswith("_glu"):
-        blk["we_gate"] = ParamMeta((E, d, fe), "normal", s)
+        blk["we_gate"] = ParamMeta((E, d, fe), EEM, "normal", s)
     if cfg.n_shared_experts:
         blk.update({f"shared_{k}": m for k, m in
                     _mlp_block(cfg, cfg.n_shared_experts * fe).items()})
@@ -157,12 +181,13 @@ def template(cfg: ModelConfig) -> Dict:
     """The parameter template.  The layer dicts are *unstacked*; each entry
     of ``stack_counts(cfg)`` gets a leading axis of that many layers
     (``_finalize``)."""
-    tpl = {"embed": ParamMeta((cfg.vocab, cfg.d_model), "normal", 1.0),
+    tpl = {"embed": ParamMeta((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                             "normal", 1.0),
            "final_norm": _norm(cfg.d_model),
            "layers": _rwkv_block(cfg) if cfg.rwkv else
            _decoder_layer(cfg, moe=bool(cfg.n_experts))}
     if not cfg.tie_embeddings:
-        tpl["lm_head"] = _dense(cfg.d_model, cfg.vocab)
+        tpl["lm_head"] = _dense(cfg.d_model, cfg.vocab, ("embed", "vocab"))
     if cfg.first_k_dense:
         tpl["dense_layers"] = _decoder_layer(cfg, moe=False)
     if cfg.arch_kind == "encdec":
@@ -193,6 +218,14 @@ def _finalize(cfg: ModelConfig, leaf_fn) -> Dict:
         else:
             out[key] = leaf_fn(sub, None)
     return out
+
+
+def logical_axes(cfg: ModelConfig) -> Dict:
+    """Each leaf's logical axis names, ``"layers"`` first on a stacked
+    leaf: the names ``models.sharding.tree_placements`` maps onto mesh
+    axes."""
+    return _finalize(cfg, lambda m, n: (("layers",) + m.axes) if n
+                     else m.axes)
 
 
 def _dtype(cfg: ModelConfig, dtype) -> torch.dtype:

@@ -21,6 +21,13 @@ recomputed in the backward, its kernels launched again.
 The reference's dtype sequence is kept: embeddings and each layer's
 matrices in ``cfg.dtype``, the norms and ``rope`` in fp32 and cast back.
 
+Under a mesh (``Runtime(mesh=, rules=)``, ``models.sharding``) each rank
+holds its shards of the parameters and of the cache and runs its data
+shard of the batch: a vocab-parallel embedding and head, column- and
+row-parallel MLPs and attention on the rank's heads, the MoE block on its
+experts, FSDP weights gathered a layer at a time, and under sequence
+parallelism the residual stream split along the sequence between blocks.
+
 One difference from the reference, on RWKV6 and on hymba's SSD heads: a
 prefill from position 0 starts from a zero recurrent state (and RWKV6 from
 zero token shifts), whatever the cache holds.  The reference starts it from
@@ -42,30 +49,44 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .attention import (_is_prefill, _proj, _rms, attention_block,
-                        mla_attention_block)
+                        kv_heads_for, mla_attention_block)
 from .config import ModelConfig
 from .linear_scan import chunked_linear_attention, linear_attention_step
-from .moe import _act, moe_block
+from .moe import _act, mlp, moe_block  # noqa: F401  (_act: read from here)
 from .params import _dtype
+from .sharding import LOCAL, ShardingRules, TensorParallel
 
 
 @dataclasses.dataclass(frozen=True)
 class Runtime:
-    """Execution context threaded through the forward pass.  The reference
-    also carries a device mesh, sharding rules and an MoE switch that only
-    a mesh reads; the port runs on one card, its MoE layers in the
-    reference's mesh-free (dense) mode.  ``mla_absorb``: MLA's attention
-    in the latent space (``mla_attention_block(absorb=True)``, in every
-    mode: train, prefill, chunked prefill and decode), as the reference's
-    flag runs it."""
+    """Execution context threaded through the forward pass, the
+    reference's.  ``mesh``: None (one rank), or a ``DeviceMesh`` of
+    ("data", "model") or ("pod", "data", "model") axes over which
+    ``forward`` runs on local shards (``models.sharding``), laid out by
+    ``rules``.  ``mla_absorb``: MLA's attention in the latent space
+    (``mla_attention_block(absorb=True)``, in every mode: train, prefill,
+    chunked prefill and decode), as the reference's flag runs it.
+    ``moe_impl``: "auto" (the capacity path under a mesh, the dropless
+    dispatch without) or "dense" (dropless)."""
 
+    mesh: Optional[object] = None
+    rules: ShardingRules = dataclasses.field(default_factory=ShardingRules)
     mla_absorb: bool = False
+    moe_impl: str = "auto"
+
+    @property
+    def data_axes(self):
+        return self.rules.data_axes
 
 
-def mlp(blk, x, cfg: ModelConfig):
-    up = x @ blk["w_in"].to(x.dtype)
-    gate = x @ blk["w_gate"].to(x.dtype) if "w_gate" in blk else None
-    return _act(cfg, gate, up) @ blk["w_out"].to(x.dtype)
+def tensor_parallel(cfg: ModelConfig, rt: Runtime,
+                    seq: int = 0) -> TensorParallel:
+    """The plan of a call of ``seq`` positions under ``rt``'s mesh
+    (``LOCAL`` without one).  Raises for an architecture whose blocks take
+    no model axis yet, under a model axis."""
+    if rt.mesh is None:
+        return LOCAL
+    return TensorParallel(cfg, rt.mesh, rt.rules, seq=seq)
 
 
 def layer_windows(cfg: ModelConfig) -> np.ndarray:
@@ -114,38 +135,42 @@ def _ssm_branch(blk, xn, cfg, *, cache, cache_pos):
 
 
 def _std_layer(blk, x, cfg, rt: Runtime, *, positions, window, cache,
-               cache_pos, cross_kv=None):
+               cache_pos, cross_kv=None, tp: TensorParallel = LOCAL):
     """Attention (GQA, or MLA where ``cfg.mla``), mean-combined with the
     SSD branch where ``cfg.ssm`` (hymba's parallel heads), and an MLP, or
     the MoE block where the layer has a router; with ``cross_kv`` (the
     encoder's output) a cross-attention block between them.  Returns (x,
-    the cache, the layer's aux loss: 0 without MoE)."""
-    xn = _rms(x, blk["ln1"], cfg.norm_eps)
+    the cache, the layer's aux loss: 0 without MoE).  Under sequence
+    parallelism (``tp.sp``) ``x`` is this rank's slice of the sequence:
+    each block reads it gathered and its output is split again."""
+    xn = _rms(tp.seq_gather(x), blk["ln1"], cfg.norm_eps)
     if cfg.mla:
         attn, new_cache = mla_attention_block(
             blk, xn, cfg, positions=positions, cache=cache,
-            cache_pos=cache_pos, absorb=rt.mla_absorb)
+            cache_pos=cache_pos, absorb=rt.mla_absorb, tp=tp)
     else:
         attn, new_cache = attention_block(blk, xn, cfg, positions=positions,
                                           window=window, cache=cache,
-                                          cache_pos=cache_pos)
+                                          cache_pos=cache_pos, tp=tp)
     if cfg.ssm:
         attn = (attn + _ssm_branch(blk, xn, cfg, cache=cache,
                                    cache_pos=cache_pos)) * 0.5
-    x = x + attn
+    x = x + tp.seq_split(attn)
     if cross_kv is not None:
         xx = _rms(x, blk["ln_x"], cfg.norm_eps)
         xo, _ = attention_block(blk, xx, cfg, positions=positions, window=0,
                                 cross_states=cross_kv, prefix="x_")
         x = x + xo
-    xn2 = _rms(x, blk["ln2"], cfg.norm_eps)
+    xn2 = _rms(tp.seq_gather(x), blk["ln2"], cfg.norm_eps)
     if "router" in blk:
         # the reference keys the unnormalised top-k on the full model's name
-        out, aux = moe_block(blk, xn2, cfg,
-                             norm_topk=cfg.name != "deepseek-v2-lite-16b")
+        out, aux = moe_block(blk, xn2, cfg, mesh=rt.mesh,
+                             data_axes=rt.data_axes,
+                             norm_topk=cfg.name != "deepseek-v2-lite-16b",
+                             impl=rt.moe_impl, tp=tp)
     else:
-        out, aux = mlp(blk, xn2, cfg), None
-    return x + out, new_cache, aux
+        out, aux = mlp(blk, xn2, cfg, tp), None
+    return x + tp.seq_split(out), new_cache, aux
 
 
 def _enc_layer(blk, h, cfg):
@@ -160,11 +185,14 @@ def _enc_layer(blk, h, cfg):
     return h + mlp(blk, _rms(h, blk["ln2"], cfg.norm_eps), cfg)
 
 
-def _layer(stack, i, cdt):
-    """Layer ``i`` of a stacked dict, its matrices in the compute type, as
-    the reference's scan body casts its layer slice."""
-    return {k: (w[i].to(cdt) if w.dim() >= 3 and w.is_floating_point()
-                else w[i]) for k, w in stack.items()}
+def _layer(stack, i, cdt, tp: TensorParallel = LOCAL, name="layers"):
+    """Layer ``i`` of the stacked dict ``stack`` (the parameters'
+    ``name``), its matrices in the compute type, as the reference's scan
+    body casts its layer slice; each leaf then as its block computes on
+    it (``TensorParallel.weight``: FSDP shards gathered after the cast)."""
+    return {k: tp.weight(w[i].to(cdt) if w.dim() >= 3 and
+                         w.is_floating_point() else w[i], name, k, drop=1)
+            for k, w in stack.items()}
 
 
 def _shifted(x):
@@ -231,7 +259,8 @@ def _rwkv_layer(blk, x, cfg, *, cache, cache_pos):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device="cuda") -> Dict:
+               device="cuda", mesh=None,
+               rules: Optional[ShardingRules] = None) -> Dict:
     """Stacked (leading layer axis) decode cache, zeros, on ``device``:
     k/v of (batch, max_len) positions, or with ``cfg.kv_cache_int8`` their
     int8 ``k_q`` / ``v_q`` and fp32 scales ``k_s`` / ``v_s`` of one a
@@ -241,11 +270,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     ``kv_cache_int8`` says (the reference's MLA branch comes first); or
     RWKV6's fp32 (H, K, K) state and its two token shifts a row.  With
     leading dense layers (deepseek) the cache's first ``first_k_dense``
-    rows are theirs."""
+    rows are theirs.
+
+    Under ``mesh`` (laid out by ``rules``): this rank's cache, the rows of
+    its data shard of ``batch`` and the kv heads its query heads read
+    (``attention.kv_heads_for``; all of them where its weights hold every
+    head).  The latent and the recurrent states stay whole a row
+    (``launch.specs.cache_placements``)."""
     from ..kernels.ops import resolve_device
     dev = resolve_device(device)
     dt = _dtype(cfg, dtype)
     L = cfg.n_layers
+    KV = cfg.n_kv_heads
+    if mesh is not None:
+        tp = TensorParallel(cfg, mesh, rules or ShardingRules())
+        if batch % tp.n_data:
+            raise ValueError(f"a batch of {batch} does not split over "
+                             f"{tp.n_data} data shards")
+        batch //= tp.n_data
+        if tp.m > 1 and cfg.n_heads % tp.m == 0:
+            KV = len(kv_heads_for(cfg.n_heads, KV, cfg.n_heads // tp.m,
+                                  tp.r))
     if cfg.rwkv:
         hd = cfg.head_dim
         return {"state": torch.zeros((L, batch, cfg.n_heads, hd, hd),
@@ -258,7 +303,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
         lat = cfg.kv_lora_rank + cfg.rope_head_dim
         return {"lat": torch.zeros((L, batch, max_len, lat), dtype=dt,
                                    device=dev)}
-    shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (L, batch, max_len, KV, cfg.head_dim)
     if cfg.kv_cache_int8:
         i8, f32 = torch.int8, torch.float32
         cache = {"k_q": torch.zeros(shape, dtype=i8, device=dev),
@@ -273,6 +318,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                                     cfg.head_dim), dtype=torch.float32,
                                    device=dev)
     return cache
+
+
+def _embed(table, tokens, cfg: ModelConfig, tp: TensorParallel):
+    """The rows of ``tokens``; from a vocab shard (this rank's
+    ``table.shape[0]`` rows), the rows it holds, zeros elsewhere, summed
+    over the model axis."""
+    V = table.shape[0]
+    if V == cfg.vocab:
+        return table[tokens]
+    idx = tokens.long() - tp.r * V
+    own = ((idx >= 0) & (idx < V)).to(table.dtype)
+    return tp.reduce(table[idx.clamp(0, V - 1)] * own[..., None])
 
 
 def forward(params, cfg: ModelConfig, rt: Runtime, tokens: torch.Tensor, *,
@@ -291,13 +348,44 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens: torch.Tensor, *,
     and every decoder layer cross-attends to the result.  With a cache the
     encoder's output is kept in it as ``"enc_out"``: a decode step without
     ``enc_embeds`` takes it from there (recomputing each layer's cross K/V
-    from it, as the reference does) and puts it back."""
+    from it, as the reference does) and puts it back.
+
+    Under ``rt.mesh`` ``params`` and ``cache`` are this rank's shards
+    (``sharding.shard_tree``, ``init_cache(mesh=)``) and the inputs the
+    whole batch (``cache_pos`` a scalar or (B,)): each rank runs its data
+    shard's rows, and the logits come back whole, vocab and batch gathered,
+    on every rank."""
+    S = tokens.shape[1] + (0 if frontend_embeds is None
+                           else frontend_embeds.shape[1])
+    tp = tensor_parallel(cfg, rt, S)
+    if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1:
+        cache_pos = tp.split_batch(cache_pos)
+    logits, cache, aux = forward_local(
+        params, cfg, rt, tp.split_batch(tokens), mode=mode, cache=cache,
+        cache_pos=cache_pos, frontend_embeds=tp.split_batch(frontend_embeds),
+        enc_embeds=tp.split_batch(enc_embeds), tp=tp)
+    if logits.shape[-1] < cfg.vocab:
+        logits = tp.gather(logits, logits.dim() - 1, "model")
+    return tp.gather(logits, 0, tp.data), cache, aux
+
+
+def forward_local(params, cfg: ModelConfig, rt: Runtime,
+                  tokens: torch.Tensor, *, mode: str = "train",
+                  cache: Optional[Dict] = None, cache_pos=None,
+                  frontend_embeds: Optional[torch.Tensor] = None,
+                  enc_embeds: Optional[torch.Tensor] = None,
+                  tp: TensorParallel = LOCAL):
+    """``forward`` on this rank's data shard of the inputs: (logits of the
+    shard, the cache, aux loss), the logits this rank's vocab shard where
+    the head is vocab-parallel (``train_step.loss_fn`` takes the cross
+    entropy across the shards)."""
     dev = tokens.device
     cdt = _dtype(cfg, None)
-    x = params["embed"].to(cdt)[tokens]
+    x = _embed(tp.weight(params["embed"].to(cdt), "embed"), tokens, cfg, tp)
     if frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     B, S = x.shape[:2]
+    x = tp.seq_split(x)
     if cache_pos is None:
         cache_pos = 0
     if isinstance(cache_pos, torch.Tensor):
@@ -323,32 +411,38 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens: torch.Tensor, *,
         e = enc_embeds.to(x.dtype)
         for i in range(cfg.n_enc_layers):
             e = run(lambda h, i=i: _enc_layer(
-                _layer(params["enc_layers"], i, cdt), h, cfg), e)
-        cross_kv = _rms(e, params["enc_norm"], cfg.norm_eps)
+                _layer(params["enc_layers"], i, cdt, tp, "enc_layers"), h,
+                cfg), e)
+        cross_kv = _rms(e, tp.weight(params["enc_norm"], "enc_norm"),
+                        cfg.norm_eps)
     windows = layer_windows(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     fkd = cfg.first_k_dense
 
     def layer(h, i, ckv):
-        blk = _layer(params["dense_layers"], i, cdt) if i < fkd else \
-            _layer(params["layers"], i - fkd, cdt)
+        blk = _layer(params["dense_layers"], i, cdt, tp, "dense_layers") \
+            if i < fkd else _layer(params["layers"], i - fkd, cdt, tp)
         csl = None if cache is None else {k: c[i] for k, c in cache.items()}
         if cfg.rwkv:
             return _rwkv_layer(blk, h, cfg, cache=csl,
                                cache_pos=cache_pos), None
         h, _, aux = _std_layer(blk, h, cfg, rt, positions=positions,
                                window=int(windows[i]), cache=csl,
-                               cache_pos=cache_pos, cross_kv=ckv)
+                               cache_pos=cache_pos, cross_kv=ckv, tp=tp)
         return h, aux
 
     for i in range(cfg.n_layers):
         x, aux = run(layer, x, i, cross_kv)
         if aux is not None:
             aux_total = aux_total + aux
+    x = tp.seq_gather(x)
     if mode == "prefill":
         x = x[:, -1:]   # serving needs only the next token's logits
-    x = _rms(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    x = _rms(x, tp.weight(params["final_norm"], "final_norm"), cfg.norm_eps)
+    head = tp.weight(params["embed"], "embed").T if cfg.tie_embeddings \
+        else tp.weight(params["lm_head"], "lm_head")
+    if head.shape[-1] < cfg.vocab:     # vocab-parallel: this rank's columns
+        x = tp.enter(x)
     logits = x @ head.to(x.dtype)
     if cache is not None and cross_kv is not None:
         cache["enc_out"] = cross_kv

@@ -16,6 +16,12 @@ the latest checkpoint; ``restore`` loads the newest complete step.  Async
 mode copies the state to the host, then hands it to a writer thread, so
 the train loop never waits on the disk and may go on updating its tensors
 in place.
+
+Over a mesh (``CheckpointManager(mesh=)``, the leaves each rank's shards
+laid out by ``placements``) every rank calls ``save``: the shards are
+gathered and rank 0 writes the files above, unchanged, so a checkpoint of
+a sharded run restores whole, in either package.  ``restore`` reads the
+whole leaves on every rank and keeps each rank's shard.
 """
 from __future__ import annotations
 
@@ -28,19 +34,33 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.sharding import gather_tree, local_slice, paired
 from .tree import leaf_names, leaves, unflatten
 
 
 class CheckpointManager:
-    def __init__(self, root: str, keep: int = 3, async_save: bool = True):
+    def __init__(self, root: str, keep: int = 3, async_save: bool = True,
+                 mesh=None):
         self.root = root
         self.keep = keep
         self.async_save = async_save
+        self.mesh = mesh
         self._thread: Optional[threading.Thread] = None
         os.makedirs(root, exist_ok=True)
 
+    def _writes(self) -> bool:
+        import torch.distributed as dist
+        return self.mesh is None or dist.get_rank() == 0
+
     # ------------------------------------------------------------------ save
-    def save(self, step: int, state) -> None:
+    def save(self, step: int, state, placements=None) -> None:
+        """Write ``state`` as step ``step``; over the mesh, ``placements``
+        (a tree like ``state``) lays out its shards, and every rank
+        calls."""
+        if placements is not None:
+            state = gather_tree(state, placements, self.mesh)
+        if not self._writes():
+            return
         # device -> host copies happen here, so the caller can keep training
         host = [x.detach().to("cpu", copy=True).numpy() for x in
                 leaves(state)]
@@ -93,19 +113,25 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like, step: Optional[int] = None) -> Tuple[int, Any]:
+    def restore(self, like, step: Optional[int] = None,
+                placements=None) -> Tuple[int, Any]:
         """Restore into the structure of ``like`` (a tree of tensors): each
         leaf a new tensor of ``like``'s leaf's shape and dtype on its
-        device."""
+        device.  With ``placements`` the leaves of ``like`` are this rank's
+        shards over the mesh, and each gets its slice of the whole leaf."""
         step = self.latest_step() if step is None else step
         assert step is not None, "no checkpoint found"
         path = os.path.join(self.root, f"step_{step:010d}")
         data = np.load(os.path.join(path, "arrays.npz"))
         flat = leaves(like)
+        pls = [p for _, p in paired(like, placements)] \
+            if placements is not None else [()] * len(flat)
         assert len(data.files) == len(flat), "checkpoint/tree mismatch"
         out = []
-        for i, x in enumerate(flat):
+        for i, (x, pl) in enumerate(zip(flat, pls)):
             a = torch.from_numpy(np.array(data[f"leaf_{i}"]))
+            if pl:
+                a = local_slice(a, pl, self.mesh).contiguous()
             if tuple(a.shape) != tuple(x.shape) or a.dtype != x.dtype:
                 raise ValueError(f"leaf {i}: checkpoint {a.dtype} "
                                  f"{tuple(a.shape)}, the tree wants "

@@ -23,14 +23,18 @@ from .optimizer import _quant
 from .tree import leaves, unflatten
 
 
-def compress_allreduce(grads, errors, group=None):
-    """All-reduce ``grads`` over ``group`` (the default group when None)
-    with int8 error feedback.
+def compress_allreduce(grads, errors, group=None, mesh=None):
+    """All-reduce ``grads`` over ``group`` (the default group when None),
+    or over the "pod" axis of ``mesh`` (a ("pod", "data", "model")
+    ``DeviceMesh``, as the reference's ``compress_psum_pod`` reduces over
+    "pod" only), with int8 error feedback.
 
     ``grads`` / ``errors``: trees (``train.tree``) of tensors of the same
     structure, the errors float32, carried in the train state and zeros at
     the start.  Returns (the reduced grads, each in its gradient's dtype;
     the new errors)."""
+    if mesh is not None:
+        group = mesh.get_group("pod")
     world = dist.get_world_size(group)
     inv = inv_f32(world)    # the reference's jitted ``psum / npod``
 

@@ -17,9 +17,15 @@ keys, ``train.tree.leaves``).
 The update runs in place on the parameters and the state (the reference
 donates their buffers to its jitted step), a layer-stacked leaf one layer
 at a time, so its fp32 transients are one layer's, as the reference's
-``lax.map`` over the stack axis bounds them.  The reference's
-``opt_state_pspecs`` (PartitionSpecs of a device mesh) has no counterpart
-on one card.
+``lax.map`` over the stack axis bounds them.
+
+Under a mesh the leaves are this rank's shards (``placements``, from
+``models.sharding.tree_placements``): AdamW is elementwise; the gradient
+norm sums every shard once (each leaf's squares all-reduced over the axes
+that shard it, a replicated leaf counted once); an int8 moment's per-row
+absmax spans the shards of its last dim (an all-reduce max over the axis
+that shards it), as the reference's scale, placed ``(*spec[:-1], None)``,
+does.  ``opt_state_placements`` is the reference's ``opt_state_pspecs``.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ import torch
 
 from ..kernels.attention import inv_f32 as _inv
 from ..kernels.attention import quant_kv as _quant
+from ..models.sharding import all_reduce_max, all_reduce_sum, axes_of, \
+    axis_sizes, paired
 from .tree import leaves
 
 
@@ -120,13 +128,25 @@ def opt_state_from_reference(tree, params) -> Dict[str, Any]:
             "step": leaf(tree["step"], (), torch.int32)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, placements=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, each leaf summed whole and
     the leaves added in the reference's leaf order, as the reference
-    does."""
-    total = None
-    for x in leaves(tree):
+    does.  With ``placements`` (the leaves this rank's shards over
+    ``mesh``) the leaves sharded over the same axes are summed together
+    and all-reduced over those axes once."""
+    pairs = paired(tree, placements) if placements is not None else \
+        [(x, ()) for x in leaves(tree)]
+    sizes = axis_sizes(mesh) if mesh is not None else {}
+    groups = {}
+    for x, pl in pairs:
         sq = torch.sum(torch.square(x.to(torch.float32)))
+        axes = tuple(sorted({a for ax in pl for a in axes_of(ax)
+                             if sizes.get(a, 1) > 1}))
+        groups[axes] = sq if axes not in groups else groups[axes] + sq
+    total = None
+    for axes, sq in groups.items():
+        if axes:
+            sq = all_reduce_sum(sq, mesh, axes)
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -135,9 +155,12 @@ def _read(s, opt: OptConfig) -> torch.Tensor:
     return _dequant(s["q"], s["s"]) if opt.state_dtype == "int8" else s
 
 
-def _write(dst, x: torch.Tensor, opt: OptConfig) -> None:
+def _write(dst, x: torch.Tensor, opt: OptConfig, mesh=None, ax=None) -> None:
+    """``x`` into the moment ``dst``; int8 rows take their absmax over the
+    shards of the last dim along ``ax`` (the axis that shards it)."""
     if opt.state_dtype == "int8":
-        q, s = _quant(x)
+        q, s = _quant(x, None if ax is None else
+                      lambda a: all_reduce_max(a, mesh, ax))
         dst["q"].copy_(q)
         dst["s"].copy_(s)
     else:
@@ -149,7 +172,7 @@ def _index(s, i: int):
 
 
 def _update(p, g, m, v, opt: OptConfig, clip, lr, bc1, bc2,
-            decay: float) -> None:
+            decay: float, mesh=None, ax=None) -> None:
     g = g.to(torch.float32) * clip
     m32, v32 = _read(m, opt), _read(v, opt)
     m32 = opt.b1 * m32 + (1 - opt.b1) * g
@@ -158,42 +181,61 @@ def _update(p, g, m, v, opt: OptConfig, clip, lr, bc1, bc2,
     p32 = p.to(torch.float32)
     new_p = p32 - lr * (upd + decay * p32)
     p.copy_(new_p.to(p.dtype))
-    _write(m, m32, opt)
-    _write(v, v32, opt)
+    _write(m, m32, opt, mesh, ax)
+    _write(v, v32, opt, mesh, ax)
 
 
-def _walk(p, g, m, v, fn) -> None:
+def _walk(p, g, m, v, pl, fn) -> None:
     if isinstance(p, dict):
         for k in sorted(p):
-            _walk(p[k], g[k], m[k], v[k], fn)
+            _walk(p[k], g[k], m[k], v[k], None if pl is None else pl[k], fn)
     else:
-        fn(p, g, m, v)
+        fn(p, g, m, v, pl)
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, opt: OptConfig):
+def adamw_update(params, grads, state, opt: OptConfig, placements=None,
+                 mesh=None):
     """One AdamW step, in place on ``params`` and ``state``.  Returns
     (params, state, metrics), the same objects updated, as the reference
     returns its new ones; ``metrics`` holds the fp32 ``grad_norm`` and
-    ``lr``."""
+    ``lr``.  With ``placements`` and ``mesh``, the leaves are this rank's
+    shards (see the module's docstring)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, placements, mesh)
     clip = torch.clamp_max(opt.grad_clip / (gnorm + 1e-9), 1.0)
     lr = schedule(opt, step).to(gnorm.device)
     step_f = step.to(torch.float32)
     bc1 = 1.0 - opt.b1 ** step_f
     bc2 = 1.0 - opt.b2 ** step_f
 
-    def leaf(p, g, m, v):
+    def leaf(p, g, m, v, pl):
         decay = opt.weight_decay if p.dim() >= 2 else 0.0
+        ax = pl[-1] if pl and mesh is not None else None   # the last dim's
         if p.dim() >= 3:
             # layer-stacked weights: one layer's fp32 transients at a time
             for i in range(p.shape[0]):
                 _update(p[i], g[i], _index(m, i), _index(v, i), opt, clip,
-                        lr, bc1, bc2, decay)
+                        lr, bc1, bc2, decay, mesh, ax)
         else:
-            _update(p, g, m, v, opt, clip, lr, bc1, bc2, decay)
+            _update(p, g, m, v, opt, clip, lr, bc1, bc2, decay, mesh, ax)
 
-    _walk(params, grads, state["m"], state["v"], leaf)
+    _walk(params, grads, state["m"], state["v"], placements, leaf)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def opt_state_placements(param_placements, opt: OptConfig):
+    """Optimizer-state placements mirroring the parameters': the
+    reference's ``opt_state_pspecs`` (an int8 moment's per-row scale whole
+    along the last dim)."""
+    def leaf(pl):
+        if opt.state_dtype == "int8":
+            return {"q": pl, "s": tuple(pl[:-1]) + (None,) if pl else pl}
+        return pl
+
+    def walk(t):
+        return {k: walk(v) for k, v in t.items()} if isinstance(t, dict) \
+            else leaf(t)
+    return {"m": walk(param_placements), "v": walk(param_placements),
+            "step": ()}

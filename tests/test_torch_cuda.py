@@ -1605,6 +1605,85 @@ def test_compress_allreduce_on_the_card_equals_the_cpu(cuda, tmp_path,
         assert torch.equal(a.cpu(), b)
 
 
+_TP_RANK = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_reduced_config
+from repro_torch.launch.mesh import join, make_mesh
+from repro_torch.models import params as P_
+from repro_torch.models.sharding import (ShardingRules, shard_tree,
+                                         tree_placements)
+from repro_torch.models.transformer import Runtime, forward, init_cache
+rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+join(rank, 2, store, backend="gloo", device="cuda", timeout=120)
+try:
+    mesh = make_mesh((1, 2), ("data", "model"), "cuda")
+    cfg = get_reduced_config("qwen2.5-14b")
+    rt = Runtime(mesh=mesh, rules=ShardingRules())
+    params = shard_tree(P_.init_params(cfg, seed=0, device="cuda"),
+                        tree_placements(cfg, mesh, rt.rules), mesh)
+    toks = torch.from_numpy(np.load(out + ".tokens.npy")).cuda()
+    cache = init_cache(cfg, toks.shape[0], toks.shape[1], device="cuda",
+                       mesh=mesh, rules=rt.rules)
+    logits = forward(params, cfg, rt, toks, mode="prefill", cache=cache,
+                     cache_pos=0)[0]
+    if rank == 0:
+        np.save(out + ".logits.npy", logits.float().cpu().numpy())
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def test_tp_prefill_over_gloo_on_one_card_equals_one_rank(cuda, tmp_path):
+    """Two gloo ranks on one card run reduced qwen2.5-14b's prefill on a
+    (1, 2) mesh (the sharded cache, the kernels on each rank's heads): its
+    logits equal the one-rank run's on the card within 2e-2 of max
+    |logit| (bf16, the kernels' tolerance)."""
+    import subprocess
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import params as P_
+    from repro_torch.models.transformer import Runtime, forward, init_cache
+    cfg = get_reduced_config("qwen2.5-14b")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 37))
+    base = str(tmp_path / "run")
+    np.save(base + ".tokens.npy", toks)
+    root = os.path.join(os.path.dirname(__file__), "..")
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo",
+               PYTHONPATH=os.path.join(root, "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", _TP_RANK, str(r),
+                               f"file://{tmp_path}/pg", base], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in (0, 1)]
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-3000:]
+    got = torch.from_numpy(np.load(base + ".logits.npy"))
+    params = P_.init_params(cfg, seed=0, device=cuda)
+    t = torch.from_numpy(toks).to(cuda)
+    want = forward(params, cfg, Runtime(), t, mode="prefill",
+                   cache=init_cache(cfg, 2, 37, device=cuda),
+                   cache_pos=0)[0].float().cpu()
+    assert float((got - want).abs().max() / want.abs().max()) < 2e-2
+
+
+def test_nccl_refuses_two_ranks_on_one_card(cuda, monkeypatch):
+    """``join`` with NCCL where a host's ranks outnumber its cards raises,
+    naming the gloo way out, before any group exists; it never swaps in
+    gloo itself."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import join
+    monkeypatch.setenv("LOCAL_WORLD_SIZE",
+                       str(torch.cuda.device_count() + 1))
+    with pytest.raises(ValueError, match="NCCL refuses two ranks on one "
+                                         "card.*backend='gloo'"):
+        join(0, 2, "file:///nonexistent/pg", backend="nccl")
+    assert not dist.is_initialized()
+
+
 # ------------------------------------------------- the attention module's rest
 
 def _cache_with_nan(k, v, lens):
@@ -1767,7 +1846,11 @@ LATENT_CASES = [
     (3, 13, 150, 5, 40, 40, [9, 0, 120], [22, 1, 133]),
     (2, 8, 200, 16, 64, 64, [10, 30], [12, 20]),
     (2, 1, 2048, 16, 576, 512, [0, 2047], [1, 2048]),
-    (2, 4, 64, 8, 32, 16, [0, 5], [0, 9])]
+    (2, 4, 64, 8, 32, 16, [0, 5], [0, 9]),
+    # deepseek's 16 heads split over 2 and 4 model ranks: 8 and 16
+    # positions a tile
+    (4, 1, 1024, 8, 576, 512, [63, 64, 700, 1023], [64, 65, 701, 1024]),
+    (1, 93, 1024, 4, 576, 512, [128], [221])]
 
 
 def _latent_case(case, dev, dtype):

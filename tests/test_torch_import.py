@@ -53,11 +53,15 @@ def test_import_loads_no_jax_and_no_reference():
                                     "repro_torch.api",
                                     "repro_torch.serving.dispatch",
                                     "repro_torch.serving.admission",
-                                    "repro_torch.serving.traffic"])
+                                    "repro_torch.serving.traffic",
+                                    "repro_torch.models.sharding",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.specs",
+                                    "repro_torch.launch.train"])
 def test_entry_module_alone_loads_no_jax(module):
-    """Each of the consolidation, kernel, experiment-API and online-serving
-    entry modules, imported alone in a fresh interpreter, loads neither JAX
-    nor the JAX package."""
+    """Each of the consolidation, kernel, experiment-API, online-serving
+    and sharding entry modules, imported alone in a fresh interpreter,
+    loads neither JAX nor the JAX package."""
     code = (f"import {module}, sys\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"

@@ -333,13 +333,14 @@ def test_launch_train_refuses_a_missing_card():
 
 
 def test_granite_first_step_follows_the_dense_mode():
-    """The port trains MoE layers in the reference's mesh-free (dense)
-    mode.  Reduced granite-moe-3b-a800m's first-step loss (bf16, the
-    token stream's batch 0 at 8 x 128) equals the reference's mesh-free
-    loss within 1e-3 relative; the reference's host-mesh path (its
-    ``launch/train.py``; here on a mesh of automatic axes) takes the
-    capacity dispatch, which drops pairs, and lands more than 5e-3 away
-    (ROADMAP, "Where the port differs from the reference on purpose")."""
+    """Without a mesh (``Runtime()``) the port trains MoE layers in the
+    reference's mesh-free (dense) mode.  Reduced granite-moe-3b-a800m's
+    first-step loss (bf16, the token stream's batch 0 at 8 x 128) equals
+    the reference's mesh-free loss within 1e-3 relative; the reference's
+    host-mesh path (its ``launch/train.py``; here on a mesh of automatic
+    axes) takes the capacity dispatch, which drops pairs, and lands more
+    than 5e-3 away.  The port's ``launch/train.py`` trains on a mesh too
+    (``test_launch_train_follows_the_reference_host_mesh``)."""
     arch = "granite-moe-3b-a800m"
     ref_cfg, cfg = ref_reduced(arch), get_reduced_config(arch)
     tree = jax.jit(ref_params.init_params, static_argnums=(1, 2))(
@@ -362,6 +363,43 @@ def test_granite_first_step_follows_the_dense_mode():
                                    _torch_batch(b))[0])
     assert port == pytest.approx(dense, rel=1e-3)
     assert abs(capacity - dense) > 5e-3 * abs(dense)
+
+
+def test_launch_train_follows_the_reference_host_mesh(monkeypatch, capsys):
+    """``launch.train.main`` on reduced granite-moe-3b-a800m (the CPU: a
+    (1, 1) mesh, as the reference's launcher builds its host mesh) takes
+    the capacity path: its first-step loss, from the reference's weights,
+    equals the reference's ``make_train_step`` under a (1, 1) mesh of
+    automatic axes within 1e-2 relative (the file's bf16 limit), and lies
+    nearer it than the mesh-free (dense) loss."""
+    arch = "granite-moe-3b-a800m"
+    ref_cfg = ref_reduced(arch)
+    tree = jax.jit(ref_params.init_params, static_argnums=(1, 2))(
+        jax.random.PRNGKey(0), ref_cfg, jnp.float32)
+    ropt = ref_opt.OptConfig(lr=3e-3, warmup_steps=5, total_steps=1)
+    b = {k: jnp.asarray(v) for k, v in
+         RefStream(ref_cfg.vocab, 128, 8).batch(0).items()}
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto))
+    rt = RefRuntime(mesh=mesh, rules=ShardingRules(fsdp=False,
+                                                   data_axes=("data",)))
+    with mesh:
+        _, _, m = jax.jit(ref_step.make_train_step(ref_cfg, rt, ropt))(
+            tree, ref_opt.init_opt_state(tree, ropt), b)
+    capacity = float(m["loss"])
+    dense = float(jax.jit(lambda p, x: ref_step.loss_fn(
+        p, ref_cfg, RefRuntime(), x)[0])(tree, b))
+
+    def init_params(cfg, *, seed, device, dtype):
+        return P_.params_from_reference(jax.tree.map(np.asarray, tree), cfg,
+                                        device=device, dtype=dtype)
+    monkeypatch.setattr(launch_train.P_, "init_params", init_params)
+    logged = launch_train.main(["--arch", arch, "--reduced", "--steps", "1",
+                                "--device", "cpu"])
+    port = logged[0][1]["loss"]
+    assert port == pytest.approx(capacity, rel=MAIN_LOSS_REL)
+    assert abs(port - capacity) < abs(port - dense)
+    assert capsys.readouterr().out.splitlines()[-1] == "done"
 
 
 # -------------------------------------------- the kernels' autograd Functions
