@@ -136,7 +136,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    an int8 cache); the latent kernel with its route, grid, ptxas's
    registers and spill and its dynamic shared memory, and under
    ``--parent`` the parent tree's CUDA-core latent kernel in turns.
-8. Serving at full width: qwen2.5-14b (12 of its 48 layers, as
+8. Serving at full width: qwen2.5-14b (6 of its 48 layers, as
    ``SERVE_LAYERS`` cuts it; d 5120, bf16, random weights from seed 0
    made on the card), 12 requests as
    ``repro_torch.launch.serve --real`` draws them (prompts 32-511 tokens,
@@ -178,7 +178,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    windows, beside its bound, the plain version's and (``--parent``) the
    parent kernel's (no PyTorch call computes it), whose outputs must equal
    the RWKV6 instantiation's bit for bit.
-   (b) rwkv6-1.6b at full width (6 of its 24 layers, as ``SERVE_LAYERS``
+   (b) rwkv6-1.6b at full width (3 of its 24 layers, as ``SERVE_LAYERS``
    cuts it; d 2048, 32 heads of 64, d_ff 7168, vocab 65 536, bf16, random
    weights from seed 0 made on the card) serving phase 8's 12 requests
    through ``serve_real``: the kernel must have launched once a layer per
@@ -314,14 +314,14 @@ Phases (any failure exits non-zero, and no result line is printed):
 18. The other dense architectures at full width in bf16, all but
    whisper-medium's depths cut to ``SERVE_LAYERS`` (random weights from
    seed 0 made on the card, one model alive at a time): (a) minitron-8b
-   (8 of its 32 layers) through ``serve_real`` on phase 8's requests
-   (stats ``REF_SERVE_STATS``, flash 8 launches a prefill all on the
-   tensor-core kernel, decode 8 an engine step); (b) gemma3-12b (12 of
+   (4 of its 32 layers) through ``serve_real`` on phase 8's requests
+   (stats ``REF_SERVE_STATS``, flash 4 launches a prefill all on the
+   tensor-core kernel, decode 4 an engine step); (b) gemma3-12b (6 of
    its 48 layers; max_len ``GEMMA_MAX_LEN``), a request whose 1100-token
-   prompt and 16 decode steps make the 10 local layers' window of 1024
+   prompt and 16 decode steps make the 5 local layers' window of 1024
    bind, windowed and full calls counted apart, and an engine of 4 slots
    at depths on both sides of 1024; (c) nemotron-4-340b at its full
-   widths, 4 of its 96 layers (G = 12, hd 192); (d) pixtral-12b (10 of its
+   widths, 4 of its 96 layers (G = 12, hd 192); (d) pixtral-12b (5 of its
    40 layers) with 256 stub
    patch embeddings before its prompt; (e) whisper-medium over 1500 stub
    encoder frames, its decode steps cross-attending to the stashed
@@ -332,11 +332,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    logits within ``SERVE_LOGIT_TOL`` of the plain run's.
 19. The MoE architectures at full width in bf16, their depths cut to
    ``SERVE_LAYERS`` (random weights from seed 0 made on the card, one model
-   alive at a time): (a) granite-moe-3b-a800m (8 of its 32 layers; 40
+   alive at a time): (a) granite-moe-3b-a800m (4 of its 32 layers; 40
    experts top-8, GQA at hd 64, G 3) through ``serve_real`` on phase 8's
-   requests (stats ``REF_SERVE_STATS``, flash 8 launches a prefill all on
-   the tensor-core kernel, decode 8 an engine step), then its
-   teacher-forced request as in phase 18; (b) deepseek-v2-lite-16b (7 of
+   requests (stats ``REF_SERVE_STATS``, flash 4 launches a prefill all on
+   the tensor-core kernel, decode 4 an engine step), then its
+   teacher-forced request as in phase 18; (b) deepseek-v2-lite-16b (4 of
    its 27 layers: MLA at q / k 192 with V zero-padded to 192, H = KV =
    16, on both kernels' tensor-core routes; 64 experts top-6 plus 2 shared,
    the first layer dense) teacher-forced as in phase 18, then an engine of 4 slots
@@ -446,11 +446,27 @@ Phases (any failure exits non-zero, and no result line is printed):
    single-process step with the capacity path (the (1, 1) mesh's), the
    loss within ``TP_LOSS_REL``, the gradient norm within ``TP_GNORM_REL``
    and every gradient leaf, gathered whole, within ``TP_GRAD_TOL`` of its
-   max |g|.  Each rank's peak memory and the decode step's and training
-   step's ms are printed, not checked: two ranks on one card over gloo
-   measure no speedup.  With two cards or more, (a)'s bf16 request runs
-   again over NCCL, a rank a card.  The launch counts are rank 0's over
-   the sharded runs: flash, decode and latent must each have launched.
+   max |g|. (d) rwkv6-1.6b, whisper-medium and hymba-1.5b at full width
+   on the (1, 2) mesh, ``TP_ARCH_LAYERS`` layers (whisper's
+   encoder too) in bf16 within ``SERVE_LOGIT_TOL`` and an fp32 copy of each
+   at ``TP_FP32_LAYERS`` within ``FP32_LOGIT_TOL``, one teacher-forced
+   request each (whisper's ``DENSE_REQUESTS`` one over ``WHISPER_FRAMES``
+   stub frames, as phase 18 feeds them; the others ``TP_PROMPT`` and
+   ``TP_DECODE``): RWKV6's time mix and recurrent state on 16 of its 32
+   heads a rank, whisper's encoder, decoder and cross-attention on 8 of 16,
+   hymba-1.5b's 25 heads (attention and SSD) whole on each rank, its MLP
+   split. (e) rwkv6-1.6b at ``TP_FP32_LAYERS`` layers, fp32, on the (1, 2)
+   mesh: one training step as in (b), its mixes, decay base, bonus and
+   group-norm scales drawn around their constants (``rwkv_live``). Each
+   rank's peak memory and the decode step's and training step's ms are
+   printed, not checked: two ranks on one card over gloo measure no
+   speedup. With two cards or more, (a)'s
+   bf16 request runs again over NCCL, a rank a card. The launch counts are
+   rank 0's over the sharded runs: flash, decode, latent and both variants
+   of rwkv6_chunked must each have launched, rank 0's RWKV6 prefill scan on
+   16 heads and hymba's on 25. Then ``rwkv6_chunked`` at that rank's shape
+   (B 1, S ``TP_PROMPT``, H 16, K = V = 64, bf16) and at H 32 against its
+   plain version, its device time beside its bound and the plain version's.
 
 Then, as a measurement and not a check, on the main path's first rung
 (L=28, Np=64): torch.profiler over 2048 graphed per-event steps and 400
@@ -2778,9 +2794,10 @@ def bound_attention(flash, decode, latent=None):
 # phase 8c: qwen2.5-14b with an int8 KV cache at full width, its depth cut
 # to INT8_LAYERS of phase 8's weights; phase 19c: deepseek-v2-lite-16b
 # absorbed at ABSORB_LAYERS of phase 19's; each a teacher-forced request
-# whose prompt is prefilled in two chunks, then CHUNKED_DECODE steps
-INT8_LAYERS = 8
-ABSORB_LAYERS = 6
+# whose prompt is prefilled in two chunks, then CHUNKED_DECODE steps (each
+# at most its phase's depth, SERVE_LAYERS' qwen2.5-14b / deepseek)
+INT8_LAYERS = 6
+ABSORB_LAYERS = 4
 CHUNKED_PROMPT = (221, (128, 93))
 CHUNKED_DECODE = 12
 
@@ -5347,15 +5364,15 @@ def phase_api_serving(dev, n_zoo: int = ZOO_REQUESTS):
 
 
 # phases 8, 9b and 18-20: the depths cut (nemotron-4-340b's 96 layers are
-# ~680 GB in bf16; the others named are cut to about a quarter, to keep
+# ~680 GB in bf16; the others named are cut to an eighth or so, to keep
 # the whole script, phase 23 included, inside its time limit: their
-# widths, and every check, stay), gemma3-12b's cache (its window of 1024
-# must bind), and the teacher-forced requests' lengths (prompt, decode
-# steps)
-SERVE_LAYERS = {"qwen2.5-14b": 12, "rwkv6-1.6b": 6,
-                "nemotron-4-340b": 4, "minitron-8b": 8, "gemma3-12b": 12,
-                "pixtral-12b": 10, "granite-moe-3b-a800m": 8,
-                "deepseek-v2-lite-16b": 7, "hymba-1.5b": 8}
+# widths, and every check, stay; hymba-1.5b keeps 8, its first global
+# layer the eighth), gemma3-12b's cache (its window of 1024 must bind),
+# and the teacher-forced requests' lengths (prompt, decode steps)
+SERVE_LAYERS = {"qwen2.5-14b": 6, "rwkv6-1.6b": 3,
+                "nemotron-4-340b": 4, "minitron-8b": 4, "gemma3-12b": 6,
+                "pixtral-12b": 5, "granite-moe-3b-a800m": 4,
+                "deepseek-v2-lite-16b": 4, "hymba-1.5b": 8}
 GEMMA_MAX_LEN = 2048
 DENSE_REQUESTS = {"gemma3-12b": (1100, 16), "nemotron-4-340b": (256, 8),
                   "pixtral-12b": (128, 8), "whisper-medium": (64, 8),
@@ -6994,7 +7011,9 @@ def moe_teacher_forced(cfg, params, dev):
 # a card): this script is rank 0 and ``python3 chip_smoke.py --tp-rank 1
 # BACKEND STORE`` rank 1.
 TP_LAYERS = 8                # (a) qwen2.5-14b's depth and (b) granite's
-TP_FP32_LAYERS = 2           # (a)'s fp32 copies and deepseek, (c)'s qwen
+TP_FP32_LAYERS = 2           # (a)'s fp32 copies and deepseek, (c)'s qwen,
+                             # (d)'s fp32 copies, (e)'s rwkv6
+TP_ARCH_LAYERS = 4           # (d): rwkv6, whisper (encoder and decoder), hymba
 TP_PROMPT, TP_DECODE = 221, 12
 TP_SP_PROMPT = 222           # sequence parallelism: the prompt splits evenly
 TP_MLA_DECODE = 4
@@ -7006,45 +7025,89 @@ TP_TIMEOUT = 300             # seconds a collective waits for the other rank
 
 
 def tp_serve_cases():
-    """(a): (name, cfg, rules kwargs, Runtime kwargs, prompt, decode steps,
-    logit tolerance) of each teacher-forced request on the (1, 2) mesh."""
+    """(a) and (d): (name, cfg, rules kwargs, Runtime kwargs, prompt,
+    decode steps, logit tolerance) of each teacher-forced request on the
+    (1, 2) mesh."""
     import dataclasses
     from repro_torch.configs import get_config
     qwen = dataclasses.replace(get_config("qwen2.5-14b"), n_layers=TP_LAYERS)
     q32 = dataclasses.replace(qwen, n_layers=TP_FP32_LAYERS, dtype="float32")
     mla = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
                               n_layers=TP_FP32_LAYERS, dtype="float32")
-    return [("qwen2.5-14b bf16", qwen, {}, {}, TP_PROMPT, TP_DECODE,
-             SERVE_LOGIT_TOL),
-            ("qwen2.5-14b fp32", q32, {}, {}, TP_PROMPT, TP_DECODE,
-             FP32_LOGIT_TOL),
-            ("qwen2.5-14b fp32 seq-parallel prefill", q32,
-             {"seq_parallel": True}, {}, TP_SP_PROMPT, TP_DECODE,
-             FP32_LOGIT_TOL),
-            ("deepseek-v2-lite-16b fp32 absorbed", mla, {},
-             {"mla_absorb": True}, TP_PROMPT, TP_MLA_DECODE, FP32_LOGIT_TOL)]
+    cases = [("qwen2.5-14b bf16", qwen, {}, {}, TP_PROMPT, TP_DECODE,
+              SERVE_LOGIT_TOL),
+             ("qwen2.5-14b fp32", q32, {}, {}, TP_PROMPT, TP_DECODE,
+              FP32_LOGIT_TOL),
+             ("qwen2.5-14b fp32 seq-parallel prefill", q32,
+              {"seq_parallel": True}, {}, TP_SP_PROMPT, TP_DECODE,
+              FP32_LOGIT_TOL),
+             ("deepseek-v2-lite-16b fp32 absorbed", mla, {},
+              {"mla_absorb": True}, TP_PROMPT, TP_MLA_DECODE,
+              FP32_LOGIT_TOL)]
+    for arch in ("rwkv6-1.6b", "whisper-medium", "hymba-1.5b"):
+        cut = dict(n_layers=TP_ARCH_LAYERS)
+        if arch == "whisper-medium":
+            cut["n_enc_layers"] = TP_ARCH_LAYERS
+            n_prompt, n_forced = DENSE_REQUESTS[arch]
+        else:
+            n_prompt, n_forced = TP_PROMPT, TP_DECODE
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        f32 = dataclasses.replace(cfg, dtype="float32", **{
+            k: TP_FP32_LAYERS for k in cut})
+        cases += [(f"(d) {arch} bf16", cfg, {}, {}, n_prompt, n_forced,
+                   SERVE_LOGIT_TOL),
+                  (f"(d) {arch} fp32", f32, {}, {}, n_prompt, n_forced,
+                   FP32_LOGIT_TOL)]
+    return cases
 
 
 def tp_train_cases():
-    """(b) and (c): (name, cfg, mesh shape, rules kwargs)."""
+    """(b), (c) and (e): (name, cfg, mesh shape, rules kwargs)."""
     import dataclasses
     from repro_torch.configs import get_config
     granite = dataclasses.replace(get_config("granite-moe-3b-a800m"),
                                   n_layers=TP_LAYERS, dtype="float32")
     qwen = dataclasses.replace(get_config("qwen2.5-14b"),
                                n_layers=TP_FP32_LAYERS, dtype="float32")
+    rwkv = dataclasses.replace(get_config("rwkv6-1.6b"),
+                               n_layers=TP_FP32_LAYERS, dtype="float32")
     return [("(b) granite-moe-3b-a800m expert-parallel", granite, (1, 2), {}),
-            ("(c) qwen2.5-14b FSDP", qwen, (2, 1), {"fsdp": True})]
+            ("(c) qwen2.5-14b FSDP", qwen, (2, 1), {"fsdp": True}),
+            ("(e) rwkv6-1.6b time mix on the rank's heads", rwkv, (1, 2),
+             {})]
 
 
-def _tp_params(cfg, dev, rt, dtype=None):
-    """``init_params(cfg, seed=0)`` on the card, as ``rt``'s mesh's shards
-    (the whole tree freed) where it has one, and their placements."""
+def rwkv_live(params, dev):
+    """RWKV6's layer constants drawn around their values on the card (seed
+    5), as ``tests/tp_cases.numpy_params`` draws them: the mixes 0.1
+    normal, ``gn_scale`` 1 + 0.1 normal, ``decay_base`` and ``bonus_u``
+    0.5 normal.  At init the bonus is zero, and a head's first position,
+    whose state is zero, then gives its group norm nothing but rounding to
+    scale, which the gradients carry (PERF.md, PR 32)."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    lay = params["layers"]
+    with torch.no_grad():
+        for name in sorted(lay):
+            if name.startswith("mix_") or name in ("decay_base", "bonus_u",
+                                                   "gn_scale"):
+                spread = 0.5 if name in ("decay_base", "bonus_u") else 0.1
+                lay[name].add_(spread * torch.randn(
+                    lay[name].shape, generator=g, device=dev))
+
+
+def _tp_params(cfg, dev, rt, dtype=None, live=False):
+    """``init_params(cfg, seed=0)`` on the card (RWKV6's constants drawn by
+    ``rwkv_live`` if ``live``), as ``rt``'s mesh's shards (the whole tree
+    freed) where it has one, and their placements."""
     import torch
     import torch.distributed  # noqa: F401
     from repro_torch.models.params import init_params
     from repro_torch.models.sharding import shard_tree, tree_placements
     params = init_params(cfg, seed=0, device=dev, dtype=dtype)
+    if live:
+        rwkv_live(params, dev)
     pl = None
     if rt.mesh is not None:
         pl = tree_placements(cfg, rt.mesh, rt.rules)
@@ -7058,17 +7121,28 @@ def _tp_params(cfg, dev, rt, dtype=None):
 
 def tp_serve(cfg, dev, rt, n_prompt, n_forced):
     """The teacher-forced logits (host fp32) of one request of ``cfg``
-    under ``rt``, its prefill's ms and its decode steps' median ms."""
+    under ``rt``, its prefill's ms and its decode steps' median ms.
+    whisper-medium's prefill reads ``WHISPER_FRAMES`` stub encoder frames
+    (0.1 normal from seed 3, in the model's type), as phase 18 feeds
+    them."""
     import numpy as np
     import torch
+    from repro_torch.models.params import _dtype
     params, _ = _tp_params(cfg, dev, rt)
     prompt = list(np.random.default_rng(7).integers(2, cfg.vocab, n_prompt))
     forced = list(np.random.default_rng(99).integers(2, cfg.vocab,
                                                      n_forced))
+    kw = {}
+    if cfg.arch_kind == "encdec":
+        g = torch.Generator(device=dev)
+        g.manual_seed(3)
+        kw["enc_embeds"] = (0.1 * torch.randn(
+            (1, WHISPER_FRAMES, cfg.d_model), generator=g,
+            device=dev)).to(_dtype(cfg, None))
     times = collections.defaultdict(list)
     logits = teacher_forced_logits(cfg, params, prompt, forced, dev,
                                    n_prompt + n_forced + 8, times=times,
-                                   rt=rt).cpu()
+                                   rt=rt, **kw).cpu()
     del params
     torch.cuda.empty_cache()
     return logits, times["prefill"][0], float(np.median(times["decode"]))
@@ -7076,8 +7150,9 @@ def tp_serve(cfg, dev, rt, n_prompt, n_forced):
 
 def tp_train(cfg, dev, rt, ref=None):
     """One training step of ``cfg`` under ``rt``: fp32 master weights
-    (``init_params`` seed 0), the token stream's batch 0 of ``TP_TRAIN``,
-    the gradients (``make_grad_step``) and AdamW as ``launch.train`` sets
+    (``init_params`` seed 0; RWKV6's constants by ``rwkv_live``), the
+    token stream's batch 0 of ``TP_TRAIN``, the gradients
+    (``make_grad_step``) and AdamW as ``launch.train`` sets
     it.  Returns the loss, the gradient norm, the gradients' and the
     update's ms; without a mesh also the gradient leaves on the host;
     under one, each leaf gathered whole and, given ``ref`` (the
@@ -7090,7 +7165,7 @@ def tp_train(cfg, dev, rt, ref=None):
                                              global_norm, init_opt_state)
     from repro_torch.train.train_step import make_grad_step
     from repro_torch.train.tree import leaves
-    params, pl = _tp_params(cfg, dev, rt, torch.float32)
+    params, pl = _tp_params(cfg, dev, rt, torch.float32, live=cfg.rwkv)
     B, S = TP_TRAIN
     batch = to_device(TokenStream(cfg.vocab, S, B).batch(0), dev)
     torch.cuda.synchronize()
@@ -7157,6 +7232,8 @@ def tp_rank_work(dev, backend, refs=None):
         logits, pre_ms, dec_ms = tp_serve(cfg, dev, rt, n_prompt, n_forced)
         row = dict(prefill_ms=pre_ms, decode_ms=dec_ms,
                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if cfg.rwkv or cfg.ssm:    # the prefill's scan: (B * H, ...) CTAs
+            row["rwkv_grid"] = list(ops.last_rwkv_grid)
         if refs is not None:
             want = refs["serve"][name][0]
             row["logit_rel"] = float((logits - want).abs().max()) / \
@@ -7174,6 +7251,44 @@ def tp_rank_work(dev, backend, refs=None):
             out["train"][name] = row
     torch.cuda.synchronize()
     out["launches"] = dict(ops.launches)
+    return out
+
+
+def tp_rwkv_timing(dev):
+    """``rwkv6_chunked`` at (d)'s rwkv6-1.6b prefill on rank 0 (B 1, S
+    ``TP_PROMPT``, H 16 of 32, K = V = 64, chunk 16, bf16) and at the whole
+    model's H 32, on inputs of phase 9a's distributions: held to the plain
+    version, its device time beside ``rwkv_bound`` and the plain version's.
+    These launches are not counted.  Returns {H: numbers}."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    counted = collections.Counter(ops.launches)
+    out = {}
+    n_chunks = -(-TP_PROMPT // 16)
+    for H in (16, 32):
+        args = _rwkv_inputs(gen, dev, torch.bfloat16, 1, TP_PROMPT, H, 64, 64)
+        y, st = ops.rwkv6_chunked(*args)
+        grid = ops.last_rwkv_grid
+        want_y, want_st = rwkv6_chunked_ref(*args)
+        what = f"23 rwkv6_chunked bf16 B=1 S={TP_PROMPT} H={H} K=V=64"
+        err = max(_rwkv_err(y, want_y, what + " y"),
+                  _rwkv_err(st, want_st, what + " state"))
+        ms = device_ms(lambda: ops.rwkv6_chunked(*args), 100)
+        plain_ms = device_ms(lambda: rwkv6_chunked_ref(*args),
+                             max(1, 400 // (3 * n_chunks + 20)))
+        bound_ms, bound_by = rwkv_bound(1, TP_PROMPT, H, 64, 64, 16, 2)
+        out[H] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, library_ms=None, max_abs_err=err,
+                      grid=list(grid[:2]))
+        say(f"# {what} chunk 16: grid {grid[0]} x {grid[1]} CTAs; device "
+            f"time {ms:.6f} ms, plain {plain_ms:.6f} ms; bound "
+            f"{bound_ms:.6f} ms by {bound_by}; max |diff| {err:.3e}; "
+            "library call: none")
+    ops.launches.clear()
+    ops.launches.update(counted)
     return out
 
 
@@ -7262,11 +7377,12 @@ def phase_sharded(dev):
             fail(f"23 ({backend}): rank 1 exited {helper.returncode}")
         out["runs"][backend] = ranks
         for name, row in ranks[0]["serve"].items():
+            label = name if name.startswith("(") else f"(a) {name}"
             if not row["finite"] or not row["logit_rel"] <= row["tol"]:
-                problems.append(f"(a) {name} over {backend}: logits "
+                problems.append(f"{label} over {backend}: logits "
                                 f"{row['logit_rel']} of max |logit| > "
                                 f"{row['tol']}")
-            say(f"# 23 (a) {name} ({backend}, ranks on cards "
+            say(f"# 23 {label} ({backend}, ranks on cards "
                 f"{'0, 0' if backend == 'gloo' else '0, 1'}): logits "
                 f"{row['logit_rel']:.3e} of max |logit| from the single "
                 f"process (tolerance {row['tol']}); prefill "
@@ -7299,10 +7415,18 @@ def phase_sharded(dev):
         fail("23: " + "; ".join(problems))
     counts = out["runs"]["gloo"][0]["launches"]
     for kernel in ("flash_attention", "decode_attention",
-                   "latent_attention"):
+                   "latent_attention", "rwkv6_chunked", "rwkv6_chunked_post"):
         if not counts.get(kernel):
             fail(f"23: {kernel} never launched on rank 0: {counts}")
     out["launches"] = counts
+    serve0 = out["runs"]["gloo"][0]["serve"]
+    for name, cfg, *_ in tp_serve_cases():
+        if cfg.rwkv or cfg.ssm:    # (d): the rank's heads where they split
+            heads = cfg.n_heads // 2 if cfg.n_heads % 2 == 0 else cfg.n_heads
+            if serve0[name]["rwkv_grid"][0] != heads:
+                fail(f"23 {name}: rank 0's scan ran on a grid of "
+                     f"{serve0[name]['rwkv_grid']} CTAs, not {heads} heads")
+    out["rwkv_rank_shape"] = tp_rwkv_timing(dev)
     for r in refs["train"].values():
         r.pop("grads")
     out["single"] = {"serve": {k: v[1:] for k, v in refs["serve"].items()},
@@ -7790,7 +7914,10 @@ def main() -> None:
         dict(name="rwkv6_chunked", route="cuda",
              source="src/repro_torch/kernels/csrc/rwkv6_chunked.cu",
              replaces="src/repro/kernels/rwkv6_scan.py:69",
-             launches=rwkv_launches, **rwkv),
+             launches=rwkv_launches,
+             tp_phase_launches=tp["launches"].get("rwkv6_chunked", 0),
+             tp_rank_shape={f"H{H}": r for H, r in
+                            tp["rwkv_rank_shape"].items()}, **rwkv),
         dict(name="rwkv6_chunked_post", route="cuda",
              source="src/repro_torch/kernels/csrc/rwkv6_chunked.cu "
                     "(POST = true)",
@@ -7810,7 +7937,8 @@ def main() -> None:
              train_hymba_launches_a_step=train["hymba"][
                  "launches_per_step"].get("rwkv6_chunked_post", 0),
              train_grad_err=train["functions"]["scan"],
-             train_hymba=train["hymba"], train_grads=train["grads"]),
+             train_hymba=train["hymba"], train_grads=train["grads"],
+             tp_phase_launches=tp["launches"].get("rwkv6_chunked_post", 0)),
         dict(name="fitscore", route="cuda",
              source="src/repro_torch/kernels/csrc/fitscore.cu",
              replaces="src/repro/kernels/fitscore.py:154",

@@ -13,6 +13,9 @@ over the data axes where it divides, the kv heads over "model" where
 stay whole in the weights but the query heads are split, each rank's cache
 holds the kv heads its query heads read (``models.attention.kv_heads_for``),
 which is no partition of the whole cache and is marked ``"select"``.
+RWKV6's and the SSD's recurrent states go over "model" on their heads
+where ``n_heads`` divides it, as the reference's ``cache_specs`` puts
+them.
 """
 from __future__ import annotations
 
@@ -68,16 +71,14 @@ def cache_placements(cfg: ModelConfig, batch: int, mesh,
         n_data *= sizes[a]
     b_ax = rules.data_axes if batch % n_data == 0 else None
     m = sizes["model"]
-    if cfg.n_heads % m:
-        kv_ax = None
-    else:
-        kv_ax = "model" if cfg.n_kv_heads % m == 0 else "select"
+    h_ax = None if cfg.n_heads % m else "model"
+    kv_ax = h_ax and ("model" if cfg.n_kv_heads % m == 0 else "select")
     out = {}
     for name in ("k", "v", "k_q", "v_q", "k_s", "v_s"):
         out[name] = (None, b_ax, None, kv_ax, None)
     out["lat"] = (None, b_ax, None, None)
     for name in ("state", "ssm"):
-        out[name] = (None, b_ax, None, None, None)
+        out[name] = (None, b_ax, h_ax, None, None)
     for name in ("shift_a", "shift_f"):
         out[name] = (None, b_ax, None)
     out["enc_out"] = (b_ax, None, None)

@@ -183,9 +183,11 @@ def attention_block(blk, x, cfg, *, positions, window: int, cache=None,
     heads they read: the shard of ``wk`` / ``wv`` where the kv heads divide
     the model axis, else those ``kv_heads_for`` picks from the whole
     weights; the cache holds those kv heads.  ``wo`` is row-parallel, its
-    partial products all-reduced.  A shard of ``wq`` that does not hold
-    whole heads reaches the block gathered, and every rank computes all
-    heads."""
+    partial products all-reduced.  Cross-attention (whisper's encoder and
+    its decoder's cross block) splits the same way, every rank projecting
+    the whole ``cross_states`` onto its kv heads.  A shard of ``wq`` that
+    does not hold whole heads reaches the block gathered, and every rank
+    computes all heads."""
     if cfg.mla and not prefix and cross_states is None:
         raise ValueError(f"{cfg.name}: MLA self-attention is "
                          "mla_attention_block")
@@ -201,31 +203,34 @@ def attention_block(blk, x, cfg, *, positions, window: int, cache=None,
     xq = tp.enter(x) if split else x
     q = _proj(xq, g("wq"), g("bq") if bias and not prefix else None
               ).reshape(B, S, H, hd)
-    if cross_states is not None:
-        e = cross_states.to(x.dtype)
-        Se = e.shape[1]
-        k = _proj(e, g("wk")).reshape(B, Se, KVh, hd)
-        v = _proj(e, g("wv")).reshape(B, Se, KVh, hd)
-        out = _cross_attention(q, k, v)
-        return _proj(out.reshape(B, S, H * hd), g("wo")), None
     wk, wv = g("wk"), g("wv")
-    bk, bv = (g("bk"), g("bv")) if bias else (None, None)
+    bk, bv = (g("bk"), g("bv")) if bias and cross_states is None \
+        else (None, None)
     if split and wk.shape[-1] == KVh * hd:
         # whole kv weights: the kv heads this rank's query heads read
         heads = kv_heads_for(cfg.n_heads, KVh, H, tp.r)
         wk, wv = (_head_cols(tp.enter(w), heads, hd) for w in (wk, wv))
-        if bias:
+        if bk is not None:
             bk, bv = (_head_cols(tp.enter(b), heads, hd) for b in (bk, bv))
     KVh = wk.shape[-1] // hd
+
+    def out_proj(o):
+        y = _proj(o.reshape(B, S, H * hd), g("wo"))
+        return tp.reduce(y) if split else y
+
+    if cross_states is not None:
+        # every rank reads the whole states for its own heads
+        e = cross_states.to(x.dtype)
+        e = tp.enter(e) if split else e
+        Se = e.shape[1]
+        k = _proj(e, wk).reshape(B, Se, KVh, hd)
+        v = _proj(e, wv).reshape(B, Se, KVh, hd)
+        return out_proj(_cross_attention(q, k, v)), None
     k = _proj(xq, wk, bk).reshape(B, S, KVh, hd)
     v = _proj(xq, wv, bv).reshape(B, S, KVh, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     window = int(window)
-
-    def out_proj(o):
-        y = _proj(o.reshape(B, S, H * hd), g("wo"))
-        return tp.reduce(y) if split else y
 
     if cache is None:
         return out_proj(flash_attention(q, k, v, causal=True,

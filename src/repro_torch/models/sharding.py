@@ -27,9 +27,11 @@ conjugate operators, each an autograd Function:
 
 - ``enter`` (identity forward, all-reduce over "model" backward) on a
   replicated tensor that the ranks go on to use in different ways (a
-  column-parallel product, a slice of the experts);
+  column-parallel product, a slice of the experts or of a norm's scale);
 - ``reduce`` (all-reduce forward, identity backward) on partial sums (a
   row-parallel product, the experts' combine, a vocab-parallel lookup);
+  ``enter(reduce(.))`` on a partial sum that each rank then uses on its
+  own columns (the SSD norm's sum of squares over the heads);
 - ``gather`` of a sharded weight before use: over the data axes (FSDP),
   with a reduce-scatter of its gradient; over "model" where the ranks then
   compute alike (a leaf of ``heads`` whose shard does not hold whole
@@ -359,12 +361,6 @@ def _model_local(cfg: ModelConfig, model_n: int) -> frozenset:
 _logical_axes = functools.lru_cache(maxsize=None)(P_.logical_axes)
 
 
-def tensor_parallel_blocks(cfg: ModelConfig) -> bool:
-    """Whether ``cfg``'s blocks run under a model axis: not yet RWKV6,
-    the SSD heads (hymba) or the encoder-decoder (whisper)."""
-    return not (cfg.rwkv or cfg.ssm or cfg.arch_kind == "encdec")
-
-
 class TensorParallel:
     """One forward call's mesh, plan and conjugate operators.  With no mesh
     (``LOCAL``) every operator is the identity."""
@@ -378,10 +374,6 @@ class TensorParallel:
         self.r = coord(mesh, "model")[0] if self.m > 1 else 0
         self.data = self.rules.data_axes
         self.n_data = _size(sizes, self.data) if mesh is not None else 1
-        if self.m > 1 and cfg is not None and not tensor_parallel_blocks(cfg):
-            raise ValueError(
-                f"{cfg.name} runs under data-only meshes (N, 1): its blocks "
-                f"under a model axis of {self.m} are ROADMAP Queue 1 item 9")
         # sequence parallelism where the call's sequence splits evenly
         self.sp = (self.rules.seq_parallel and self.m > 1 and seq > 1
                    and seq % self.m == 0)
@@ -391,9 +383,10 @@ class TensorParallel:
         self.local_axes = _model_local(cfg, self.m) if self.m > 1 \
             else frozenset()
         # the layer leaves the blocks take as model shards (a name means
-        # the same leaf in every stack)
+        # the same leaf in every stack: whisper's encoder and decoder
+        # attention and MLP leaves share their names and placements)
         self.kept_names = frozenset(
-            name for stack in ("layers", "dense_layers")
+            name for stack in ("layers", "dense_layers", "enc_layers")
             if self.m > 1 and stack in self.pl
             for name, pl in self.pl[stack].items()
             if any(ax == "model" and lg in self.local_axes

@@ -24,9 +24,11 @@ matrices in ``cfg.dtype``, the norms and ``rope`` in fp32 and cast back.
 Under a mesh (``Runtime(mesh=, rules=)``, ``models.sharding``) each rank
 holds its shards of the parameters and of the cache and runs its data
 shard of the batch: a vocab-parallel embedding and head, column- and
-row-parallel MLPs and attention on the rank's heads, the MoE block on its
-experts, FSDP weights gathered a layer at a time, and under sequence
-parallelism the residual stream split along the sequence between blocks.
+row-parallel MLPs and attention on the rank's heads (whisper's encoder and
+cross-attention too), RWKV6's time mix and hymba's SSD heads on the rank's
+heads with their recurrent states, the MoE block on its experts, FSDP
+weights gathered a layer at a time, and under sequence parallelism the
+residual stream split along the sequence between blocks.
 
 One difference from the reference, on RWKV6 and on hymba's SSD heads: a
 prefill from position 0 starts from a zero recurrent state (and RWKV6 from
@@ -82,8 +84,7 @@ class Runtime:
 def tensor_parallel(cfg: ModelConfig, rt: Runtime,
                     seq: int = 0) -> TensorParallel:
     """The plan of a call of ``seq`` positions under ``rt``'s mesh
-    (``LOCAL`` without one).  Raises for an architecture whose blocks take
-    no model axis yet, under a model axis."""
+    (``LOCAL`` without one)."""
     if rt.mesh is None:
         return LOCAL
     return TensorParallel(cfg, rt.mesh, rt.rules, seq=seq)
@@ -95,7 +96,8 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
                      for i in range(cfg.n_layers)], np.int32)
 
 
-def _ssm_branch(blk, xn, cfg, *, cache, cache_pos):
+def _ssm_branch(blk, xn, cfg, *, cache, cache_pos,
+                tp: TensorParallel = LOCAL):
     """Hymba's SSD heads on the layer's normed input: the softplus step
     ``dt``, the decay ``A dt`` (``A = -exp(A_log)``, one a head, broadcast
     over the state's N channels), ``k = B dt``, the post-update chunked
@@ -103,15 +105,26 @@ def _ssm_branch(blk, xn, cfg, *, cache, cache_pos):
     branch's norm and ``ws_out``.  With a cache: a prefill (``cache_pos``
     0) starts from a zero state, one token elsewhere takes the decode step
     against the cache's state (as does a one-token prompt, from zeros), and
-    the cache's ``"ssm"`` is overwritten in place."""
+    the cache's ``"ssm"`` is overwritten in place.
+
+    Under a model axis whose size divides the heads (``tp``) the branch
+    runs on the rank's heads (the shards of its head leaves; the cache's
+    ``"ssm"`` holds those heads), the norm's RMS over all ``H * P``
+    channels from the ranks' sums of squares all-reduced, and ``ws_out``
+    row-parallel, its partial products all-reduced.  Where the heads do
+    not divide it the leaves reach the branch whole and every rank runs all
+    heads."""
     B, S, _ = xn.shape
-    H, N, P = cfg.n_heads, cfg.ssm_state, cfg.head_dim
+    N, P = cfg.ssm_state, cfg.head_dim
+    H = blk["ws_dt"].shape[-1]                 # this rank's heads
+    split = H < cfg.n_heads
     f32 = torch.float32
-    xp = _proj(xn, blk["ws_in"]).reshape(B, S, H, P)
-    dt = F.softplus(_proj(xn, blk["ws_dt"]).to(f32) +
+    xi = tp.enter(xn) if split else xn
+    xp = _proj(xi, blk["ws_in"]).reshape(B, S, H, P)
+    dt = F.softplus(_proj(xi, blk["ws_dt"]).to(f32) +
                     blk["dt_bias"].to(f32))                      # (B, S, H)
-    Bm = _proj(xn, blk["ws_B"]).reshape(B, S, H, N)
-    Cm = _proj(xn, blk["ws_C"]).reshape(B, S, H, N)
+    Bm = _proj(xi, blk["ws_B"]).reshape(B, S, H, N)
+    Cm = _proj(xi, blk["ws_C"]).reshape(B, S, H, N)
     A = -torch.exp(blk["A_log"].to(f32))                         # (H,)
     logw = (dt * A)[..., None].expand(B, S, H, N).contiguous()
     k = Bm.to(f32) * dt[..., None]
@@ -127,11 +140,22 @@ def _ssm_branch(blk, xn, cfg, *, cache, cache_pos):
             Cm, k, xp, logw, post_update=True, chunk=cfg.scan_chunk,
             initial_state=None if fresh else cache["ssm"])
     y = y + blk["ssm_D"].to(f32)[:, None] * xp.to(f32)
-    y = _rms(y.reshape(B, S, H * P).to(xn.dtype), blk["ssm_norm"],
-             cfg.norm_eps)
+    y = y.reshape(B, S, H * P).to(xn.dtype)
     if cache is not None:
         cache["ssm"].copy_(state)
-    return _proj(y, blk["ws_out"])
+    # the norm's mean square over all H * P channels: split, from every
+    # rank's sum; each rank uses the sum on its own channels, so its
+    # gradient sums over "model" too
+    y32 = y.to(f32)
+    ss = (y32 * y32).sum(-1, keepdim=True)
+    scale = blk["ssm_norm"]
+    if split:
+        ss = tp.enter(tp.reduce(ss))
+        scale = tp.enter(scale).narrow(0, tp.r * H * P, H * P)
+    y = (y32 * torch.rsqrt(ss / (cfg.n_heads * P) + cfg.norm_eps)
+         * scale.to(f32)).to(xn.dtype)
+    out = _proj(y, blk["ws_out"])
+    return tp.reduce(out) if split else out
 
 
 def _std_layer(blk, x, cfg, rt: Runtime, *, positions, window, cache,
@@ -154,13 +178,13 @@ def _std_layer(blk, x, cfg, rt: Runtime, *, positions, window, cache,
                                           cache_pos=cache_pos, tp=tp)
     if cfg.ssm:
         attn = (attn + _ssm_branch(blk, xn, cfg, cache=cache,
-                                   cache_pos=cache_pos)) * 0.5
+                                   cache_pos=cache_pos, tp=tp)) * 0.5
     x = x + tp.seq_split(attn)
     if cross_kv is not None:
-        xx = _rms(x, blk["ln_x"], cfg.norm_eps)
+        xx = _rms(tp.seq_gather(x), blk["ln_x"], cfg.norm_eps)
         xo, _ = attention_block(blk, xx, cfg, positions=positions, window=0,
-                                cross_states=cross_kv, prefix="x_")
-        x = x + xo
+                                cross_states=cross_kv, prefix="x_", tp=tp)
+        x = x + tp.seq_split(xo)
     xn2 = _rms(tp.seq_gather(x), blk["ln2"], cfg.norm_eps)
     if "router" in blk:
         # the reference keys the unnormalised top-k on the full model's name
@@ -173,16 +197,17 @@ def _std_layer(blk, x, cfg, rt: Runtime, *, positions, window, cache,
     return x + tp.seq_split(out), new_cache, aux
 
 
-def _enc_layer(blk, h, cfg):
+def _enc_layer(blk, h, cfg, tp: TensorParallel = LOCAL):
     """Whisper's encoder layer: bidirectional self-attention, written as
     cross-attention onto the layer's own normed input (the reference's
     form; the positional signal comes from the stub frontend), then the
-    MLP."""
+    MLP; under a model axis each on the rank's heads and hidden columns,
+    the whole frame sequence on every rank."""
     hn = _rms(h, blk["ln1"], cfg.norm_eps)
     a, _ = attention_block(blk, hn, cfg, positions=None, window=0,
-                           cross_states=hn)
+                           cross_states=hn, tp=tp)
     h = h + a
-    return h + mlp(blk, _rms(h, blk["ln2"], cfg.norm_eps), cfg)
+    return h + mlp(blk, _rms(h, blk["ln2"], cfg.norm_eps), cfg, tp)
 
 
 def _layer(stack, i, cdt, tp: TensorParallel = LOCAL, name="layers"):
@@ -201,7 +226,8 @@ def _shifted(x):
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
-def _rwkv_layer(blk, x, cfg, *, cache, cache_pos):
+def _rwkv_layer(blk, x, cfg, *, cache, cache_pos,
+                tp: TensorParallel = LOCAL):
     """RWKV6 time mix (the chunked kernel over the sequence, or one decode
     step against the cached state) and relu^2 channel mix, each with its
     token shift.  With a cache: ``cache_pos`` 0 (a prefill) starts from a
@@ -209,23 +235,40 @@ def _rwkv_layer(blk, x, cfg, *, cache, cache_pos):
     a nonzero position (scalar or per row) takes the decode step; more
     tokens there (a chunked prefill) run the kernel from the cache's state,
     their shifts restarting from zeros as the reference's do; the cache's
-    state and shifts are overwritten in place."""
-    B, S, _ = x.shape
-    H, K = cfg.n_heads, cfg.head_dim
+    state and shifts are overwritten in place.
+
+    Under a model axis whose size divides the heads (``tp``) the time mix
+    runs on the rank's heads: ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` and
+    ``decay_b`` column-parallel, ``decay_base``, ``bonus_u`` and
+    ``gn_scale`` the rank's slices, the cache's state those heads', and
+    ``wo`` row-parallel, its partial products all-reduced; the channel mix
+    is the MLP's split.  The token shifts, ``decay_a`` and its ``tanh``
+    stay whole on every rank.  Under sequence parallelism each mix reads
+    the sequence gathered (a shift sees the previous rank's last token)
+    and its output is split again."""
+    B = x.shape[0]
+    K = cfg.head_dim
+    H = blk["w_r"].shape[-1] // K              # this rank's heads
+    split = H < cfg.n_heads
+    xn = _rms(tp.seq_gather(x), blk["ln1"], cfg.norm_eps)
+    S = xn.shape[1]
     carried = cache is not None and not _is_prefill(cache_pos)
     step = carried and S == 1
-    xn = _rms(x, blk["ln1"], cfg.norm_eps)
     prev = cache["shift_a"][:, None, :].to(xn.dtype) if step else \
         _shifted(xn)
 
     def lerp(m):
         return xn + (prev - xn) * blk[m].to(xn.dtype)
 
-    r = _proj(lerp("mix_r"), blk["w_r"]).reshape(B, S, H, K)
-    k = _proj(lerp("mix_k"), blk["w_k"]).reshape(B, S, H, K)
-    v = _proj(lerp("mix_v"), blk["w_v"]).reshape(B, S, H, K)
-    g = F.silu(_proj(lerp("mix_g"), blk["w_g"]))
-    dec = torch.tanh(_proj(lerp("mix_w"), blk["decay_a"])) @ \
+    def cols(t):
+        """``t`` as the input of a product on the rank's columns."""
+        return tp.enter(t) if split else t
+
+    r = _proj(cols(lerp("mix_r")), blk["w_r"]).reshape(B, S, H, K)
+    k = _proj(cols(lerp("mix_k")), blk["w_k"]).reshape(B, S, H, K)
+    v = _proj(cols(lerp("mix_v")), blk["w_v"]).reshape(B, S, H, K)
+    g = F.silu(_proj(cols(lerp("mix_g")), blk["w_g"]))
+    dec = cols(torch.tanh(_proj(lerp("mix_w"), blk["decay_a"]))) @ \
         blk["decay_b"].to(xn.dtype) + blk["decay_base"].to(xn.dtype)
     logw = -torch.exp(dec.float()).reshape(B, S, H, K)
     u = blk["bonus_u"].reshape(H, K)
@@ -242,15 +285,15 @@ def _rwkv_layer(blk, x, cfg, *, cache, cache_pos):
     y = (y32 * torch.rsqrt((y32 * y32).mean(-1, keepdim=True)
                            + cfg.norm_eps)).reshape(B, S, H * K)
     y = y * blk["gn_scale"].float()
-    x = x + _proj(y.to(x.dtype) * g, blk["wo"])
+    out = _proj(y.to(x.dtype) * g, blk["wo"])
+    x = x + tp.seq_split(tp.reduce(out) if split else out)
 
-    # channel mix with token shift
-    xn2 = _rms(x, blk["ln2"], cfg.norm_eps)
+    # channel mix with token shift: relu^2, no gate (``mlp``'s split)
+    xn2 = _rms(tp.seq_gather(x), blk["ln2"], cfg.norm_eps)
     prev2 = cache["shift_f"][:, None, :].to(xn2.dtype) if step else \
         _shifted(xn2)
     xf = xn2 + (prev2 - xn2) * blk["mix_f"].to(xn2.dtype)
-    h = torch.square(F.relu(xf @ blk["w_in"].to(xf.dtype)))
-    x = x + h @ blk["w_out"].to(xf.dtype)
+    x = x + tp.seq_split(mlp(blk, xf, cfg, tp))
     if cache is not None:
         cache["state"].copy_(state)
         cache["shift_a"].copy_(xn[:, -1])
@@ -275,13 +318,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     Under ``mesh`` (laid out by ``rules``): this rank's cache, the rows of
     its data shard of ``batch`` and the kv heads its query heads read
     (``attention.kv_heads_for``; all of them where its weights hold every
-    head).  The latent and the recurrent states stay whole a row
+    head), and RWKV6's and the SSD's recurrent states of its heads where
+    the model axis divides ``n_heads`` (whole where it does not).  The
+    latent and the token shifts stay whole a row
     (``launch.specs.cache_placements``)."""
     from ..kernels.ops import resolve_device
     dev = resolve_device(device)
     dt = _dtype(cfg, dtype)
     L = cfg.n_layers
-    KV = cfg.n_kv_heads
+    H, KV = cfg.n_heads, cfg.n_kv_heads
     if mesh is not None:
         tp = TensorParallel(cfg, mesh, rules or ShardingRules())
         if batch % tp.n_data:
@@ -289,11 +334,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                              f"{tp.n_data} data shards")
         batch //= tp.n_data
         if tp.m > 1 and cfg.n_heads % tp.m == 0:
-            KV = len(kv_heads_for(cfg.n_heads, KV, cfg.n_heads // tp.m,
-                                  tp.r))
+            H //= tp.m
+            KV = len(kv_heads_for(cfg.n_heads, KV, H, tp.r))
     if cfg.rwkv:
         hd = cfg.head_dim
-        return {"state": torch.zeros((L, batch, cfg.n_heads, hd, hd),
+        return {"state": torch.zeros((L, batch, H, hd, hd),
                                      dtype=torch.float32, device=dev),
                 "shift_a": torch.zeros((L, batch, cfg.d_model), dtype=dt,
                                        device=dev),
@@ -314,7 +359,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
         cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
                  "v": torch.zeros(shape, dtype=dt, device=dev)}
     if cfg.ssm:
-        cache["ssm"] = torch.zeros((L, batch, cfg.n_heads, cfg.ssm_state,
+        cache["ssm"] = torch.zeros((L, batch, H, cfg.ssm_state,
                                     cfg.head_dim), dtype=torch.float32,
                                    device=dev)
     return cache
@@ -412,7 +457,7 @@ def forward_local(params, cfg: ModelConfig, rt: Runtime,
         for i in range(cfg.n_enc_layers):
             e = run(lambda h, i=i: _enc_layer(
                 _layer(params["enc_layers"], i, cdt, tp, "enc_layers"), h,
-                cfg), e)
+                cfg, tp), e)
         cross_kv = _rms(e, tp.weight(params["enc_norm"], "enc_norm"),
                         cfg.norm_eps)
     windows = layer_windows(cfg)
@@ -425,7 +470,7 @@ def forward_local(params, cfg: ModelConfig, rt: Runtime,
         csl = None if cache is None else {k: c[i] for k, c in cache.items()}
         if cfg.rwkv:
             return _rwkv_layer(blk, h, cfg, cache=csl,
-                               cache_pos=cache_pos), None
+                               cache_pos=cache_pos, tp=tp), None
         h, _, aux = _std_layer(blk, h, cfg, rt, positions=positions,
                                window=int(windows[i]), cache=csl,
                                cache_pos=cache_pos, cross_kv=ckv, tp=tp)

@@ -1141,6 +1141,24 @@ def test_rwkv6_kernel_equals_plain(B, S, H, K, V, chunk, dtype, cuda):
     torch.testing.assert_close(st, want_st, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [16, 8])
+def test_rwkv6_kernel_on_a_model_rank_heads_equals_plain(H, dtype, cuda):
+    """rwkv6-1.6b's prefill scan on one model rank's heads: 16 of its 32
+    under a model axis of 2 (``chip_smoke`` phase 23's), 8 under 4; B 1,
+    S 221, K = V = 64, chunk 16, within 1e-4 atol and rtol, one CTA a (b,
+    h, 16 state columns)."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_ref
+    args = _rwkv_inputs(H, cuda, dtype, 1, 221, H, 64, 64)
+    n0 = ops.launches["rwkv6_chunked"]
+    y, st = ops.rwkv6_chunked(*args)
+    assert ops.launches["rwkv6_chunked"] == n0 + 1
+    assert ops.last_rwkv_grid[:2] == (H, 4)
+    want_y, want_st = rwkv6_chunked_ref(*args)
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(st, want_st, atol=1e-4, rtol=1e-4)
+
+
 def test_rwkv6_kernel_on_two_streams_equals_plain(cuda):
     """Two calls in flight on two streams, each equal to the plain version
     on its own inputs."""
@@ -1616,21 +1634,26 @@ from repro_torch.models import params as P_
 from repro_torch.models.sharding import (ShardingRules, shard_tree,
                                          tree_placements)
 from repro_torch.models.transformer import Runtime, forward, init_cache
-rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+rank, store, out, arch = int(sys.argv[1]), sys.argv[2], sys.argv[3], \
+    sys.argv[4]
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 join(rank, 2, store, backend="gloo", device="cuda", timeout=120)
 try:
     mesh = make_mesh((1, 2), ("data", "model"), "cuda")
-    cfg = get_reduced_config("qwen2.5-14b")
+    cfg = get_reduced_config(arch)
     rt = Runtime(mesh=mesh, rules=ShardingRules())
     params = shard_tree(P_.init_params(cfg, seed=0, device="cuda"),
                         tree_placements(cfg, mesh, rt.rules), mesh)
     toks = torch.from_numpy(np.load(out + ".tokens.npy")).cuda()
+    kw = {}
+    if cfg.arch_kind == "encdec":
+        kw["enc_embeds"] = torch.from_numpy(
+            np.load(out + ".frames.npy")).cuda().to(torch.bfloat16)
     cache = init_cache(cfg, toks.shape[0], toks.shape[1], device="cuda",
                        mesh=mesh, rules=rt.rules)
     logits = forward(params, cfg, rt, toks, mode="prefill", cache=cache,
-                     cache_pos=0)[0]
+                     cache_pos=0, **kw)[0]
     if rank == 0:
         np.save(out + ".logits.npy", logits.float().cpu().numpy())
 finally:
@@ -1638,24 +1661,37 @@ finally:
 """
 
 
-def test_tp_prefill_over_gloo_on_one_card_equals_one_rank(cuda, tmp_path):
-    """Two gloo ranks on one card run reduced qwen2.5-14b's prefill on a
-    (1, 2) mesh (the sharded cache, the kernels on each rank's heads): its
-    logits equal the one-rank run's on the card within 2e-2 of max
-    |logit| (bf16, the kernels' tolerance)."""
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "rwkv6-1.6b", "hymba-1.5b",
+                                  "whisper-medium"])
+def test_tp_prefill_over_gloo_on_one_card_equals_one_rank(cuda, tmp_path,
+                                                          arch):
+    """Two gloo ranks on one card run a reduced configuration's prefill on
+    a (1, 2) mesh (the sharded cache, the kernels on each rank's heads:
+    RWKV6's time mix and state, hymba's SSD heads, whisper's encoder and
+    cross-attention over 24 stub frames): its logits equal the one-rank
+    run's on the card within 2e-2 of max |logit| (bf16, the kernels'
+    tolerance)."""
     import subprocess
     from repro_torch.configs import get_reduced_config
     from repro_torch.models import params as P_
     from repro_torch.models.transformer import Runtime, forward, init_cache
-    cfg = get_reduced_config("qwen2.5-14b")
-    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 37))
+    cfg = get_reduced_config(arch)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 37))
     base = str(tmp_path / "run")
     np.save(base + ".tokens.npy", toks)
+    kw = {}
+    if cfg.arch_kind == "encdec":
+        frames = (0.1 * rng.standard_normal((2, 24, cfg.d_model))).astype(
+            np.float32)
+        np.save(base + ".frames.npy", frames)
+        kw["enc_embeds"] = torch.from_numpy(frames).to(cuda).to(
+            torch.bfloat16)
     root = os.path.join(os.path.dirname(__file__), "..")
     env = dict(os.environ, GLOO_SOCKET_IFNAME="lo",
                PYTHONPATH=os.path.join(root, "src"))
     procs = [subprocess.Popen([sys.executable, "-c", _TP_RANK, str(r),
-                               f"file://{tmp_path}/pg", base], env=env,
+                               f"file://{tmp_path}/pg", base, arch], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for r in (0, 1)]
     for p in procs:
@@ -1666,7 +1702,7 @@ def test_tp_prefill_over_gloo_on_one_card_equals_one_rank(cuda, tmp_path):
     t = torch.from_numpy(toks).to(cuda)
     want = forward(params, cfg, Runtime(), t, mode="prefill",
                    cache=init_cache(cfg, 2, 37, device=cuda),
-                   cache_pos=0)[0].float().cpu()
+                   cache_pos=0, **kw)[0].float().cpu()
     assert float((got - want).abs().max() / want.abs().max()) < 2e-2
 
 

@@ -18,6 +18,7 @@ their axis sizes read (``.shape`` a mapping, as the reference's
 import dataclasses
 import types
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -206,6 +207,62 @@ def test_cache_placements_split_batch_and_kv_heads(arch):
     assert specs.cache_placements(cfg, 3, {"data": 2, "model": 1},
                                   rules)["k"][1] is None
     assert pl["lat"] == (None, ("data",), None, None)
+
+
+STATE_MESHES = [{"data": 2, "model": 4}, {"data": 1, "model": 2},
+                {"data": 4, "model": 64}, PRODUCTION["single"],
+                PRODUCTION["multi"]]
+
+
+@pytest.mark.parametrize("mesh", range(len(STATE_MESHES)))
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_recurrent_state_placements_equal_cache_specs(arch, mesh):
+    """RWKV6's and the SSD's recurrent states (and RWKV6's token shifts)
+    are placed as the reference's ``cache_specs`` places them for every
+    serving shape: on the heads where ``n_heads`` divides the model axis
+    (rwkv6-1.6b's 32 heads at 2, 4 and 16, not at 64; hymba-1.5b's 25 at
+    none), the batch over the data axes where it divides."""
+    sizes = STATE_MESHES[mesh]
+    multi = "pod" in sizes
+    cfg, ref_cfg = get_config(arch), ref_get_config(arch)
+    names = ("state", "shift_a", "shift_f") if cfg.rwkv else ("ssm",)
+    for shape in shapes_for(arch):
+        if SHAPES[shape].is_train:
+            continue
+        rules = specs.make_rules(cfg, SHAPES[shape], multi)
+        _, want = ref_specs.cache_specs(
+            ref_cfg, REF_SHAPES[shape], _ref_mesh(sizes), rules.data_axes,
+            jnp.float32)
+        got = specs.cache_placements(cfg, SHAPES[shape].global_batch, sizes,
+                                     rules)
+        for name in names:   # a tuple of one axis is that axis, as in P
+            assert tuple(a[0] if isinstance(a, tuple) and len(a) == 1
+                         else a for a in got[name]) == tuple(want[name]), \
+                (shape, name)
+    heads = got[names[0]][2]
+    assert heads == ("model" if cfg.n_heads % sizes["model"] == 0
+                     else None)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_a_leaf_name_is_placed_alike_in_every_stack(arch):
+    """``TensorParallel.kept`` keys the layer leaves by name alone: a name
+    in two stacks (whisper's encoder and decoder attention and MLP,
+    deepseek's dense and MoE layers) has one placement and one set of
+    logical axes, layer dim aside, on every small and production mesh."""
+    cfg = get_config(arch)
+    axes = sharding.P_.logical_axes(cfg)
+    stacks = [k for k, v in axes.items() if isinstance(v, dict)]
+    for sizes in [{"data": d, "model": m} for d, m in SMALL] + \
+            list(PRODUCTION.values()):
+        for fsdp in (False, True):
+            pl = sharding.tree_placements(
+                cfg, sizes, sharding.ShardingRules(fsdp=fsdp))
+            for i, a in enumerate(stacks):
+                for b in stacks[i + 1:]:
+                    for name in set(axes[a]) & set(axes[b]):
+                        assert axes[a][name] == axes[b][name], name
+                        assert pl[a][name][1:] == pl[b][name][1:], name
 
 
 def test_local_shape_and_slices_of_a_placement():

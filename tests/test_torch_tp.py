@@ -17,14 +17,20 @@ configurations in fp32.  Limits:
   0's (1e-6 relative); the dispatch tables' token ids equal and their
   combine weights within 1e-6;
 - the train step: the loss within 1e-6 relative, the other metrics within
-  1e-5, every gradient leaf within 1e-4 of its max |g|, the updated
-  parameters within 2e-5 (the JAX package's own limit,
-  ``tests/test_train.py``) where the gradient is above that 1e-4 (below
-  it, Adam's first step ``g / (|g| + eps)`` divides the gradients'
-  difference by their size); fp32 moments within 1e-5 of their max, int8
-  moments' values within 1 and their scales 1e-5 relative (a row of the
-  embedding's m, scale 1.4e-6, sums its few gradient terms in another
-  order and reads 1.1e-6);
+  1e-5, every gradient leaf within 1e-4 of its max |g| of the same step's
+  on one rank with no mesh (the port's own: only the sharding differs)
+  and of the reference's, the updated parameters within 2e-5 (the JAX
+  package's own limit, ``tests/test_train.py``) where the gradient is
+  above that 1e-4 (below it, Adam's first step ``g / (|g| + eps)``
+  divides the gradients' difference by their size); fp32 moments within
+  1e-5 of their max, int8 moments' values within 1 and their scales 1e-5
+  relative (a row of the embedding's m, scale 1.4e-6, sums its few
+  gradient terms in another order and reads 1.1e-6); rwkv6-1.6b's fp32
+  moments within 1e-4, its logits' limit: the first step's m is 0.1 g,
+  and its one-rank gradient is itself ~2e-5 of max |g| from the
+  reference's (the scan's sums in another order; ``tp_cases.SPREAD``
+  draws its bonus wide enough that no head's first position amplifies
+  that further);
 - ``compress_allreduce`` over "pod": bit for bit;
 - ``launch.train`` on a (1, 2) mesh: the losses of a one-rank run within
   1e-2 relative (the configuration's bf16 compute,
@@ -33,7 +39,6 @@ configurations in fp32.  Limits:
 import os
 import subprocess
 import sys
-import types
 
 import numpy as np
 import pytest
@@ -41,7 +46,6 @@ import pytest
 import tp_cases as C
 from repro_torch.configs import get_reduced_config
 from repro_torch.launch import train as launch_train
-from repro_torch.models.transformer import Runtime, forward
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "..", "src")
@@ -116,9 +120,8 @@ def _rel(got, want):
 
 
 FORWARD_KEYS = [(name, what) for name in C.FORWARD
-                for what in (("train",) if name in C.TRAIN_MODE_ONLY else
-                             ("train", "prefill") +
-                             tuple(f"decode{i}" for i in range(C.STEPS)))]
+                for what in ("train", "prefill") +
+                tuple(f"decode{i}" for i in range(C.STEPS))]
 
 
 @pytest.mark.parametrize("name,what", FORWARD_KEYS)
@@ -131,7 +134,11 @@ def test_sharded_logits_equal_the_reference(runs, name, what):
     sequence parallelism; gemma3-12b's windows, minitron-8b,
     granite-moe-3b-a800m's experts, pixtral-12b's patch prefix and
     deepseek-v2-lite-16b's MLA, absorbed and not, at (1, 2);
-    whisper-medium, rwkv6-1.6b and hymba-1.5b at (2, 1)."""
+    whisper-medium's encoder and cross-attention at (1, 2); rwkv6-1.6b's
+    time mix and recurrent state at (1, 2), at (1, 4) (a head a rank) and
+    at (1, 2) with sequence parallelism (each token shift across the ranks'
+    slices); hymba-1.5b at (1, 2), its SSD heads split, and with 5 heads,
+    which do not split in 2 (attention and SSD whole on each rank)."""
     ref, port = runs
     key = f"{name}/{what}"
     assert port[key].shape == ref[key].shape
@@ -181,9 +188,11 @@ def test_sharded_dense_mode_equals_the_mesh_free_reference(runs, name):
 
 @pytest.mark.parametrize("name", list(C.TRAIN))
 def test_sharded_train_step_equals_the_reference(runs, name):
-    """qwen2.5-14b's train step at (2, 2) with FSDP and 2 microbatches,
-    fp32 and int8 moments: the metrics, every gradient leaf (gathered from
-    the shards), the updated parameters and moments."""
+    """The train step with 2 microbatches: qwen2.5-14b's at (2, 2) with
+    FSDP, fp32 and int8 moments; rwkv6-1.6b's at (1, 2), hymba-1.5b's at
+    (2, 2) and whisper-medium's (its encoder frames split over data) at (1,
+    2), fp32 moments.  The metrics, every gradient leaf (gathered from the
+    shards), the updated parameters and moments."""
     ref, port = runs
     p = f"{name}/metric/"
     metrics = [k[len(p):] for k in ref if k.startswith(p)]
@@ -194,12 +203,13 @@ def test_sharded_train_step_equals_the_reference(runs, name):
     for k in metrics:
         assert float(port[p + k]) == pytest.approx(float(ref[p + k]),
                                                    rel=METRIC_REL, abs=1e-7)
-    for kind, tol in (("grad", GRAD_TOL),):
-        keys = [k for k in ref if k.startswith(f"{name}/{kind}/")]
-        assert keys and set(keys) == {k for k in port
-                                      if k.startswith(f"{name}/{kind}/")}
-        for k in keys:
-            assert _rel(port[k], ref[k]) <= tol, k
+    keys = [k for k in ref if k.startswith(f"{name}/grad/")]
+    assert keys and set(keys) == {k for k in port
+                                  if k.startswith(f"{name}/grad/")}
+    for k in keys:
+        assert _rel(port[k], ref[k]) <= GRAD_TOL, k
+        assert _rel(port[k], port[k.replace("/grad/", "/one_rank/")]) <= \
+            GRAD_TOL, k
     for k in (k for k in ref if k.startswith(f"{name}/param/")):
         g = np.abs(ref[k.replace("/param/", "/grad/")])
         sure = g > GRAD_TOL * g.max()
@@ -215,7 +225,8 @@ def test_sharded_train_step_equals_the_reference(runs, name):
                 np.testing.assert_allclose(port[k], ref[k], rtol=1e-5,
                                            err_msg=k)
             else:
-                assert _rel(port[k], ref[k]) <= 1e-5, k
+                assert _rel(port[k], ref[k]) <= (
+                    RWKV_TOL if name.startswith("rwkv6") else 1e-5), k
 
 
 def test_compress_allreduce_reduces_over_pods_only(runs):
@@ -252,30 +263,17 @@ def test_meshes_of_one_rank(tmp_path):
     assert (M.SINGLE_POD, M.MULTI_POD) == ((16, 16), (2, 16, 16))
 
 
-@pytest.mark.parametrize("arch", ["whisper-medium", "rwkv6-1.6b",
-                                  "hymba-1.5b"])
-def test_model_axis_refused_where_the_blocks_have_none(arch):
-    """Under a mesh whose model axis is 2 these architectures raise, naming
-    the ROADMAP item that ports them (a duck-typed mesh: the check comes
-    before any collective)."""
-    import torch
-    mesh = types.SimpleNamespace(shape={"data": 1, "model": 2},
-                                 get_local_rank=lambda a: 0)
-    cfg = get_reduced_config(arch)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 9"):
-        forward({}, cfg, Runtime(mesh=mesh), torch.zeros((1, 4), dtype=
-                                                           torch.long))
-
-
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "rwkv6-1.6b"])
 def test_launch_train_on_a_model_axis_follows_one_rank(monkeypatch,
-                                                      tmp_path):
+                                                      tmp_path, arch):
     """``launch.train.main(["--mesh", "1x2", "--device", "cpu", ...])``
     spawns two gloo ranks and logs the losses of a one-rank run (``--mesh
     1x1``, in this process) within 1e-2 relative: 2 steps that end in a
     checkpoint (gathered, written by rank 0), then a run of 3 that resumes
-    from it (each rank reads its shards) and logs step 2."""
+    from it (each rank reads its shards) and logs step 2.  qwen2.5-14b and
+    rwkv6-1.6b (its time mix on each rank's heads)."""
     monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")
-    args = ["--arch", "qwen2.5-14b", "--reduced", "--batch", "4", "--seq",
+    args = ["--arch", arch, "--reduced", "--batch", "4", "--seq",
             "32", "--log-every", "1", "--device", "cpu"]
     one = launch_train.main(args + ["--steps", "3", "--mesh", "1x1"])
     ck = ["--mesh", "1x2", "--ckpt", str(tmp_path / "ck")]

@@ -55,8 +55,8 @@ def keystr(tree, prefix=""):
 
 
 def run_forward(name, out):
-    arch, shape, rules, absorb = C.FORWARD[name]
-    cfg = config(arch)
+    arch, shape, rules, absorb, over = C.FORWARD[name]
+    cfg = config(arch, **over)
     mesh = mesh_of(shape)
     rules = ShardingRules(**rules)
     rt = Runtime(mesh=mesh, rules=rules, mla_absorb=absorb)
@@ -69,8 +69,6 @@ def run_forward(name, out):
     with torch.no_grad():
         out[f"{name}/train"] = forward(params, cfg, rt, toks, mode="train",
                                        **extras)[0].numpy()
-        if name in C.TRAIN_MODE_ONLY:
-            return
         n_front = cfg.n_frontend_tokens if "frontend_embeds" in x else 0
         cache = init_cache(cfg, C.B, C.S + n_front + C.STEPS,
                            dtype=torch.float32, device="cpu", mesh=mesh,
@@ -120,17 +118,24 @@ def run_moe(name, out):
 
 
 def run_train(name, out):
-    cfg = config("qwen2.5-14b")
-    mesh = mesh_of((2, 2))
-    rules = ShardingRules(fsdp=True)
+    arch, shape, rules, state_dtype = C.TRAIN[name]
+    cfg = config(arch)
+    mesh = mesh_of(shape)
+    rules = ShardingRules(**rules)
     rt = Runtime(mesh=mesh, rules=rules)
-    opt = opt_.OptConfig(state_dtype=C.TRAIN[name], **C.OPT)
+    opt = opt_.OptConfig(state_dtype=state_dtype, **C.OPT)
     pl = tree_placements(cfg, mesh, rules)
-    params = shard_tree(full_params(cfg), pl, mesh)
+    full = full_params(cfg)
+    params = shard_tree(full, pl, mesh)
     batch = {k: torch.from_numpy(v) for k, v in C.train_batch(cfg).items()}
     grads, _, _ = ts.make_grad_step(cfg, rt, C.MICRO)(params, batch)
     for k, v in keystr(gather_tree(grads, pl, mesh)):
         out[f"{name}/grad/{k}"] = v.float().numpy()
+    if dist.get_rank() == 0:     # the same step on one rank, no mesh
+        one, _, _ = ts.make_grad_step(cfg, Runtime(), C.MICRO)(full, batch)
+        for k, v in keystr(one):
+            out[f"{name}/one_rank/{k}"] = v.float().numpy()
+    del full
     state = opt_.init_opt_state(params, opt)
     step = ts.make_train_step(cfg, rt, opt, microbatches=C.MICRO)
     params, state, metrics = step(params, state, batch)
@@ -171,15 +176,16 @@ def main(rank, world, init, path):
     join(rank, world, init, device="cpu")
     out = {}
     try:
-        for name, (_, shape, _, _) in C.FORWARD.items():
+        for name, (_, shape, _, _, _) in C.FORWARD.items():
             if C.world(shape) == world:
                 run_forward(name, out)
         for name, (shape, _) in C.MOE.items():
             if C.world(shape) == world:
                 run_moe(name, out)
-        if world == 4:
-            for name in C.TRAIN:
+        for name, (_, shape, _, _) in C.TRAIN.items():
+            if C.world(shape) == world:
                 run_train(name, out)
+        if world == 4:
             run_compress(rank, out)
         dist.barrier()
     finally:

@@ -44,8 +44,8 @@ def config(arch, **over):
 
 
 def run_forward(name, out):
-    arch, shape, rules, absorb = C.FORWARD[name]
-    cfg = config(arch)
+    arch, shape, rules, absorb, over = C.FORWARD[name]
+    cfg = config(arch, **over)
     mesh = mesh_of(shape)
     rt = Runtime(mesh=mesh, rules=ShardingRules(**rules), mla_absorb=absorb)
     params = jax.tree.map(jnp.asarray, params_of(cfg))
@@ -57,8 +57,6 @@ def run_forward(name, out):
         train = jax.jit(lambda p, t, e: forward(p, cfg, rt, t, mode="train",
                                                 **e)[0])
         out[f"{name}/train"] = np.asarray(train(params, toks, extras))
-        if name in C.TRAIN_MODE_ONLY:
-            return
         n_front = cfg.n_frontend_tokens if "frontend_embeds" in x else 0
         cache = init_cache(cfg, C.B, C.S + n_front + C.STEPS,
                            dtype=jnp.float32)
@@ -110,10 +108,10 @@ def run_moe(name, out):
 
 
 def run_train(name, out):
-    state_dtype = C.TRAIN[name]
-    cfg = config("qwen2.5-14b")
-    mesh = mesh_of((2, 2))
-    rt = Runtime(mesh=mesh, rules=ShardingRules(fsdp=True))
+    arch, shape, rules, state_dtype = C.TRAIN[name]
+    cfg = config(arch)
+    mesh = mesh_of(shape)
+    rt = Runtime(mesh=mesh, rules=ShardingRules(**rules))
     opt = opt_.OptConfig(state_dtype=state_dtype, **C.OPT)
     params = jax.tree.map(jnp.asarray, params_of(cfg))
     batch = {k: jnp.asarray(v) for k, v in C.train_batch(cfg).items()}
